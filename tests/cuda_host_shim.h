@@ -1,0 +1,157 @@
+// Host emulation of the CUDA subset that csrc/tblock.cu uses, so that the
+// kernel source itself can be compiled with g++ and run on the CPU in the
+// tests.  Each CUDA block runs as blockDim.x std::threads that meet at real
+// barriers (__syncthreads, warp shuffles); blocks run one after the other,
+// so one static buffer serves as the block's dynamic shared memory.  The
+// buffer is filled with NaN bit patterns before every block, so a kernel
+// that reads shared memory it never wrote shows up in the results.
+#pragma once
+#include <math.h>
+#include <stdint.h>
+#include <string.h>
+
+#include <barrier>
+#include <cstddef>
+#include <memory>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__
+#define __align__(x)
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
+
+inline std::barrier<>* g_block_barrier = nullptr;
+inline std::vector<std::unique_ptr<std::barrier<>>> g_warp_barriers;
+inline float g_shuffle[1024];
+
+inline void __syncthreads() { g_block_barrier->arrive_and_wait(); }
+
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  const int t = threadIdx.x, w = t / 32;
+  g_shuffle[t] = v;
+  g_warp_barriers[w]->arrive_and_wait();
+  const float r = g_shuffle[w * 32 + ((t % 32) ^ lane_mask)];
+  g_warp_barriers[w]->arrive_and_wait();
+  return r;
+}
+
+struct __nv_bfloat16 {
+  uint16_t bits;
+};
+inline float __bfloat162float(__nv_bfloat16 v) {
+  const uint32_t u = (uint32_t)v.bits << 16;
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+inline __nv_bfloat16 __float2bfloat16(float f) {  // round to nearest even
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u)
+    return __nv_bfloat16{(uint16_t)((u >> 16) | 0x40)};
+  return __nv_bfloat16{(uint16_t)((u + 0x7fffu + ((u >> 16) & 1u)) >> 16)};
+}
+
+// The warp-level tensor-core product mma.sync.m16n8k16 (bf16 in, f32
+// sums), with the PTX ISA's fragment layout: each lane deposits its
+// fragments, and every lane then computes its four outputs from the whole
+// warp's.  The kernel source calls this in place of its inline PTX when
+// TBLOCK_HOST_BUILD is defined.
+#define TBLOCK_HOST_BUILD 1
+inline uint32_t g_mma_a[1024][4];
+inline uint32_t g_mma_b[1024][2];
+
+inline float bf16_half(uint32_t word, int high) {
+  return __bfloat162float(
+      __nv_bfloat16{(uint16_t)(high ? word >> 16 : word & 0xffffu)});
+}
+
+inline void host_mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                           const uint32_t (&b)[2]) {
+  const int t = threadIdx.x, w = t / 32, lane = t % 32, base = w * 32;
+  for (int i = 0; i < 4; ++i) g_mma_a[t][i] = a[i];
+  for (int i = 0; i < 2; ++i) g_mma_b[t][i] = b[i];
+  g_warp_barriers[w]->arrive_and_wait();
+  // A (16 x 16, row-major): lane g*4 + tig holds rows g and g+8, columns
+  // tig*2, tig*2+1 and those + 8; B (16 x 8, column-major): lane g*4 + tig
+  // holds column g, rows tig*2, tig*2+1 and those + 8
+  auto A = [&](int row, int k) {
+    const int src = base + (row % 8) * 4 + (k % 8) / 2;
+    return bf16_half(g_mma_a[src][(row >= 8 ? 1 : 0) + (k >= 8 ? 2 : 0)],
+                     k & 1);
+  };
+  auto B = [&](int k, int col) {
+    const int src = base + col * 4 + (k % 8) / 2;
+    return bf16_half(g_mma_b[src][k >= 8 ? 1 : 0], k & 1);
+  };
+  const int g = lane >> 2, tig = lane & 3;
+  float out[4];
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + (i >= 2 ? 8 : 0), col = tig * 2 + (i & 1);
+    float s = d[i];
+    for (int k = 0; k < 16; ++k) s += A(row, k) * B(k, col);
+    out[i] = s;
+  }
+  g_warp_barriers[w]->arrive_and_wait();
+  for (int i = 0; i < 4; ++i) d[i] = out[i];
+}
+
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+constexpr int kShimSharedBytes = 232448;  // H100 per-block maximum
+
+template <typename F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
+  return bytes <= kShimSharedBytes ? cudaSuccess : cudaErrorInvalidValue;
+}
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t e) {
+  return e == cudaSuccess ? "no error" : "invalid argument";
+}
+
+// Found by the kernels' block-scope `extern __shared__ ... smem_raw[]`,
+// which the macros above turn into a plain extern declaration in the
+// anonymous namespace of the kernel source.
+namespace {
+alignas(16) unsigned char smem_raw[kShimSharedBytes];
+}
+
+// Stands in for `kernel<<<grid, block, smem, stream>>>(args...)`.
+template <typename K, typename... A>
+void shim_launch(dim3 grid, int block, size_t, cudaStream_t, K kernel,
+                 A... args) {
+  blockDim = dim3(block);
+  gridDim = grid;
+  std::barrier<> bar(block);
+  g_block_barrier = &bar;
+  g_warp_barriers.clear();
+  for (int w = 0; w < (block + 31) / 32; ++w)
+    g_warp_barriers.push_back(std::make_unique<std::barrier<>>(32));
+  std::vector<std::thread> threads;
+  for (int t = 0; t < block; ++t)
+    threads.emplace_back([&, t] {
+      threadIdx = dim3(t);
+      for (unsigned z = 0; z < grid.z; ++z)
+        for (unsigned y = 0; y < grid.y; ++y)
+          for (unsigned x = 0; x < grid.x; ++x) {
+            if (t == 0) memset(smem_raw, 0xff, sizeof(smem_raw));
+            bar.arrive_and_wait();
+            blockIdx = dim3(x, y, z);
+            kernel(args...);
+            bar.arrive_and_wait();
+          }
+    });
+  for (auto& th : threads) th.join();
+}

@@ -1,0 +1,187 @@
+"""Evaluation CLI of the port: per-task network table and PSNR/SSIM loop.
+
+Counterpart of textualdegremoval_tpu/cli/evaluate.py for the Restormer
+family:
+
+    python -m textualdegremoval_tpu_torch.cli.evaluate \\
+        --task restormer_deblur --hqroot ... --refroot ... --lqroot ... \\
+        --checkpoint_path net_g.pth [--dtype bfloat16] [--device cuda]
+
+Denoise tasks synthesise the noise with the JAX CLI's deterministic
+protocol (np.random.RandomState(0), sigma/255 on HQ); paired tasks read lq
+from --lqroot.  PSNR/SSIM with crop_border=0.  Without a checkpoint the
+weights are the module initialisation under seed 0.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from textualdegremoval_tpu_torch.convert import load_reference_checkpoint
+from textualdegremoval_tpu_torch.data import imread_f32, scan_images
+from textualdegremoval_tpu_torch.metrics import calculate_psnr, calculate_ssim
+from textualdegremoval_tpu_torch.models import define_network
+
+# The Restormer-family entries of the JAX CLI's table (same hparams).
+TASK_TABLE = {
+    # tiny config for CI smoke runs
+    "tiny_smoke": {
+        "type": "RestormerRefFusion", "dim": 8, "num_blocks": [1, 1, 1, 1],
+        "num_refinement_blocks": 1, "heads": [1, 1, 2, 2], "bias": False,
+        "LayerNorm_type": "WithBias", "nf": 8, "ext_n_blocks": [1, 1, 1, 1],
+        "reffusion_n_blocks": [1, 1, 1, 1], "lr_block_size": 4,
+    },
+    "restormer_color_denoise": {
+        "type": "RestormerRefFusion", "dim": 48, "num_blocks": [4, 6, 6, 8],
+        "num_refinement_blocks": 4, "heads": [1, 2, 4, 8],
+        "ffn_expansion_factor": 2.66, "bias": False,
+        "LayerNorm_type": "BiasFree", "nf": 48,
+        "ext_n_blocks": [4, 4, 4, 4], "reffusion_n_blocks": [2, 2, 2, 2],
+        "lr_block_size": 8,
+    },
+    "restormer_gray_denoise": {
+        "type": "RestormerRefFusion", "inp_channels": 1, "out_channels": 1,
+        "dim": 48, "num_blocks": [4, 6, 6, 8], "num_refinement_blocks": 4,
+        "heads": [1, 2, 4, 8], "ffn_expansion_factor": 2.66, "bias": False,
+        "LayerNorm_type": "BiasFree", "nf": 48,
+        "ext_n_blocks": [4, 4, 4, 4], "reffusion_n_blocks": [2, 2, 2, 2],
+        "lr_block_size": 8,
+    },
+    "restormer_deblur": {
+        "type": "RestormerRefFusion", "dim": 48, "num_blocks": [4, 6, 6, 8],
+        "num_refinement_blocks": 4, "heads": [1, 2, 4, 8],
+        "ffn_expansion_factor": 2.66, "bias": False,
+        "LayerNorm_type": "WithBias", "nf": 48,
+        "ext_n_blocks": [4, 4, 4, 4], "reffusion_n_blocks": [2, 2, 2, 2],
+        "lr_block_size": 8,
+    },
+    # dual-pixel defocus deblur: 6-channel lqL+lqR 16-bit input
+    "restormer_dual_pixel_defocus": {
+        "type": "RestormerRefFusion", "inp_channels": 6, "out_channels": 3,
+        "dim": 48, "num_blocks": [4, 6, 6, 8], "num_refinement_blocks": 4,
+        "heads": [1, 2, 4, 8], "ffn_expansion_factor": 2.66, "bias": False,
+        "LayerNorm_type": "WithBias", "dual_pixel_task": True, "nf": 48,
+        "ext_n_blocks": [4, 4, 4, 4], "reffusion_n_blocks": [2, 2, 2, 2],
+        "lr_block_size": 8,
+    },
+}
+
+# keys rewritten by --tiny_debug: same constructor path at toy widths
+_SHRINK_SCALARS = {"dim": 8, "nf": 8, "num_refinement_blocks": 1,
+                   "lr_block_size": 4}
+_SHRINK_LISTS = ("num_blocks", "ext_n_blocks", "reffusion_n_blocks")
+
+
+def shrink_for_smoke(opt: dict) -> dict:
+    o = dict(opt)
+    for k, v in _SHRINK_SCALARS.items():
+        if k in o:
+            o[k] = v
+    for k in _SHRINK_LISTS:
+        if k in o:
+            o[k] = [1] * len(o[k])
+    if "heads" in o:
+        o["heads"] = [1, 1, 2, 2][: len(o["heads"])]
+    return o
+
+
+def restore_and_score(model: torch.nn.Module, lq: np.ndarray, hq: np.ndarray,
+                      ref: np.ndarray):
+    """Restore one (lq, ref) pair of HWC float32 arrays in [0, 1] and score
+    it against hq.  Returns (prediction clipped to [0, 1], PSNR, SSIM)."""
+    w = next(model.parameters())
+    with torch.inference_mode():
+        out = model(torch.from_numpy(lq)[None].to(w.device, w.dtype),
+                    torch.from_numpy(ref)[None].to(w.device, w.dtype))
+    pred = np.clip(out[0].float().cpu().numpy(), 0, 1)
+    return (pred, calculate_psnr(pred * 255, hq * 255),
+            calculate_ssim(pred * 255, hq * 255))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--task", required=True, choices=sorted(TASK_TABLE))
+    ap.add_argument("--hqroot", required=True)
+    ap.add_argument("--refroot", required=True)
+    ap.add_argument("--lqroot", default=None)
+    ap.add_argument("--lqlroot", default=None,
+                    help="dual-pixel tasks: left-view 16-bit inputs")
+    ap.add_argument("--lqrroot", default=None,
+                    help="dual-pixel tasks: right-view 16-bit inputs")
+    ap.add_argument("--checkpoint_path", default=None)
+    ap.add_argument("--sigma", type=float, default=15)
+    ap.add_argument("--max_images", type=int, default=None)
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"],
+                    help="bfloat16 runs the kernel's tensor-core products; "
+                         "float32 (the JAX CLI's default) runs its f32 FMA "
+                         "loops, several times slower on CUDA")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cuda' requires a CUDA device")
+    ap.add_argument("--tiny_debug", action="store_true",
+                    help="shrink the task's network to toy widths")
+    ap.add_argument("--spatial_shard", type=int, default=0,
+                    help="not ported yet (comes with the sharding work)")
+    args = ap.parse_args(argv)
+
+    if args.spatial_shard:
+        raise SystemExit("--spatial_shard is not ported yet")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available")
+
+    opt = dict(TASK_TABLE[args.task])
+    if args.tiny_debug:
+        opt = shrink_for_smoke(opt)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = define_network(opt)
+    if args.checkpoint_path and os.path.exists(args.checkpoint_path):
+        load_reference_checkpoint(model, args.checkpoint_path)
+    model = model.to(device=device, dtype=getattr(torch, args.dtype))
+
+    hq_paths = scan_images(args.hqroot)
+    ref_paths = scan_images(args.refroot)
+    lq_paths = (scan_images(args.lqroot) if args.lqroot
+                else [None] * len(hq_paths))
+    if args.max_images:
+        hq_paths = hq_paths[: args.max_images]
+    gray = opt.get("inp_channels", 3) == 1
+    dual_pixel = bool(opt.get("dual_pixel_task"))
+    lql_paths = scan_images(args.lqlroot) if args.lqlroot else None
+    lqr_paths = scan_images(args.lqrroot) if args.lqrroot else None
+
+    psnrs, ssims = [], []
+    for i, hq_path in enumerate(hq_paths):
+        hq = imread_f32(hq_path, bit16=dual_pixel)
+        ref = imread_f32(ref_paths[min(i, len(ref_paths) - 1)])
+        if gray:
+            import cv2
+
+            hq = cv2.cvtColor(hq, cv2.COLOR_RGB2GRAY)[..., None]
+            ref = cv2.cvtColor(ref, cv2.COLOR_RGB2GRAY)[..., None]
+        if dual_pixel:
+            lq = np.concatenate([imread_f32(lql_paths[i], bit16=True),
+                                 imread_f32(lqr_paths[i], bit16=True)],
+                                axis=-1)
+        elif lq_paths[i] is None:
+            rng = np.random.RandomState(0)  # deterministic eval protocol
+            lq = hq + rng.randn(*hq.shape).astype(np.float32) * (
+                args.sigma / 255.0)
+        else:
+            lq = imread_f32(lq_paths[i])
+        _, psnr, ssim = restore_and_score(model, lq, hq, ref)
+        psnrs.append(psnr)
+        ssims.append(ssim)
+        print(f"[{i + 1}/{len(hq_paths)}] psnr {psnr:.4f} ssim {ssim:.4f}")
+
+    print(f"mean PSNR: {np.mean(psnrs):.4f}  mean SSIM: {np.mean(ssims):.4f}")
+    return float(np.mean(psnrs)), float(np.mean(ssims))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,60 @@
+"""Network registry of the port.
+
+`define_network(opt)` mirrors textualdegremoval_tpu/models/__init__.py:
+`opt['type']` selects the class and the remaining keys that name
+constructor arguments become its arguments, so the reference's network_g
+option dicts port as they are.  This slice ports the Restormer family; the
+other families of the JAX registry come with later slices of the port.
+"""
+
+from __future__ import annotations
+
+import inspect
+
+import torch
+
+from textualdegremoval_tpu_torch.models.restormer import (
+    Restormer, RestormerRefFusion,
+)
+
+_REGISTRY = {"Restormer": Restormer, "RestormerRefFusion": RestormerRefFusion}
+
+# Families of the JAX registry that later slices of the port bring over, by
+# their item in ROADMAP.md queue A.
+_LATER = {
+    **dict.fromkeys(("NAFNet", "NAFNetRefFusion", "NAFNetLocal",
+                     "NAFNetLocal_RefFusion"), "A4"),
+    **dict.fromkeys(("NAFNetDynamicFusion", "NAFNetLocalDynamic", "DRSformer",
+                     "DRSformerRefFusion", "DRSformer200L_SPA_RefFusion",
+                     "PromptIR", "PromptIRRefFusion", "SFNet",
+                     "SFNetRefFusion"), "A6"),
+}
+
+_KEY_ALIASES = {"LayerNorm_type": "ln_type"}
+
+
+def network_names() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def define_network(opt: dict,
+                   dtype: torch.dtype = torch.float32) -> torch.nn.Module:
+    """Instantiate a network from a reference-style network_g dict, with
+    its parameters in `dtype`, in eval mode."""
+    opt = dict(opt)
+    name = opt.pop("type")
+    if name in _LATER:
+        raise NotImplementedError(
+            f"{name} is not ported yet: this slice of the PyTorch port covers "
+            f"{network_names()}; {name} follows with item {_LATER[name]} of "
+            f"ROADMAP.md queue A")
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown network type {name!r}")
+    cls = _REGISTRY[name]
+    params = inspect.signature(cls.__init__).parameters
+    kwargs = {}
+    for k, v in opt.items():
+        k = _KEY_ALIASES.get(k, k)
+        if k in params:
+            kwargs[k] = tuple(v) if isinstance(v, list) else v
+    return cls(**kwargs).to(dtype=dtype).eval()

@@ -1,0 +1,172 @@
+"""Restormer and RestormerRefFusion as torch modules (NHWC in and out).
+
+Counterpart of textualdegremoval_tpu/models/restormer.py, with the same
+fixed MASA pyramid (4 levels, deepest stride 8, warp scales x1..x8 taken
+from pyramid positions).  Every TransformerBlock and
+TransformerResFusionBlock runs through `tblock_fused`.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+
+from textualdegremoval_tpu_torch.models.layers import (
+    Downsample,
+    MASAEncoder,
+    OverlapPatchEmbed,
+    TransformerResFusionBlock,
+    Upsample,
+    conv_nhwc,
+    masa_encode_pair,
+    tblock_stage,
+)
+from textualdegremoval_tpu_torch.ops import masa_match_and_warp, pad_to_multiple
+
+
+class _RestormerTrunk(nn.Module):
+    """Encoder/decoder stages shared by Restormer and RestormerRefFusion."""
+
+    def __init__(self, inp_channels, out_channels, dim, num_blocks,
+                 num_refinement_blocks, heads, ffn_expansion_factor, bias,
+                 ln_type, dual_pixel_task):
+        super().__init__()
+        d = dim
+        self.dual_pixel_task = dual_pixel_task
+
+        def stage(ch, h, n):
+            return tblock_stage(ch, h, n, ffn_expansion_factor, bias, ln_type)
+
+        self.patch_embed = OverlapPatchEmbed(inp_channels, d, bias)
+        self.encoder_level1 = stage(d, heads[0], num_blocks[0])
+        self.down1_2 = Downsample(d)
+        self.encoder_level2 = stage(d * 2, heads[1], num_blocks[1])
+        self.down2_3 = Downsample(d * 2)
+        self.encoder_level3 = stage(d * 4, heads[2], num_blocks[2])
+        self.down3_4 = Downsample(d * 4)
+        self.latent = stage(d * 8, heads[3], num_blocks[3])
+        self.up4_3 = Upsample(d * 8)
+        self.reduce_chan_level3 = nn.Conv2d(d * 8, d * 4, 1, bias=bias)
+        self.decoder_level3 = stage(d * 4, heads[2], num_blocks[2])
+        self.up3_2 = Upsample(d * 4)
+        self.reduce_chan_level2 = nn.Conv2d(d * 4, d * 2, 1, bias=bias)
+        self.decoder_level2 = stage(d * 2, heads[1], num_blocks[1])
+        self.up2_1 = Upsample(d * 2)
+        self.decoder_level1 = stage(d * 2, heads[0], num_blocks[0])
+        self.refinement = stage(d * 2, heads[0], num_refinement_blocks)
+        if dual_pixel_task:
+            self.skip_conv = nn.Conv2d(d, d * 2, 1, bias=bias)
+        self.output = nn.Conv2d(d * 2, out_channels, 3, padding=1, bias=bias)
+
+    def _decode(self, latent, out_enc1, out_enc2, out_enc3, inp_enc1):
+        x = conv_nhwc(self.reduce_chan_level3,
+                      torch.cat([self.up4_3(latent), out_enc3], dim=-1))
+        x = self.decoder_level3(x)
+        x = conv_nhwc(self.reduce_chan_level2,
+                      torch.cat([self.up3_2(x), out_enc2], dim=-1))
+        x = self.decoder_level2(x)
+        x = torch.cat([self.up2_1(x), out_enc1], dim=-1)
+        x = self.refinement(self.decoder_level1(x))
+        if self.dual_pixel_task:
+            x = x + conv_nhwc(self.skip_conv, inp_enc1)
+        return conv_nhwc(self.output, x)
+
+
+class Restormer(_RestormerTrunk):
+    """4-level U-shaped transformer with MDTA + GDFN blocks."""
+
+    def __init__(self, inp_channels: int = 3, out_channels: int = 3,
+                 dim: int = 48, num_blocks: Sequence[int] = (4, 6, 6, 8),
+                 num_refinement_blocks: int = 4,
+                 heads: Sequence[int] = (1, 2, 4, 8),
+                 ffn_expansion_factor: float = 2.66, bias: bool = False,
+                 ln_type: str = "WithBias", dual_pixel_task: bool = False):
+        super().__init__(inp_channels, out_channels, dim, num_blocks,
+                         num_refinement_blocks, heads, ffn_expansion_factor,
+                         bias, ln_type, dual_pixel_task)
+
+    def forward(self, inp_img):
+        """inp_img: (B, H, W, C_in).  Returns (B, H, W, C_out)."""
+        _, h0, w0, _ = inp_img.shape
+        x = pad_to_multiple(inp_img.to(self.output.weight.dtype), 8)
+        inp_enc1 = self.patch_embed(x)
+        out_enc1 = self.encoder_level1(inp_enc1)
+        out_enc2 = self.encoder_level2(self.down1_2(out_enc1))
+        out_enc3 = self.encoder_level3(self.down2_3(out_enc2))
+        latent = self.latent(self.down3_4(out_enc3))
+        out = self._decode(latent, out_enc1, out_enc2, out_enc3, inp_enc1)
+        if not self.dual_pixel_task:
+            out = out + x
+        return out[:, :h0, :w0]
+
+
+class RestormerRefFusion(_RestormerTrunk):
+    """Restormer trunk with the MASA warp pyramid fused in at every encoder
+    level through TransformerResFusionBlocks."""
+
+    def __init__(self, inp_channels: int = 3, out_channels: int = 3,
+                 dim: int = 48, num_blocks: Sequence[int] = (4, 6, 6, 8),
+                 num_refinement_blocks: int = 4,
+                 heads: Sequence[int] = (1, 2, 4, 8),
+                 ffn_expansion_factor: float = 2.66, bias: bool = False,
+                 ln_type: str = "WithBias", dual_pixel_task: bool = False,
+                 nf: int = 48, ext_n_blocks: Sequence[int] = (4, 4, 4, 4),
+                 reffusion_n_blocks: Sequence[int] = (2, 2, 2, 2),
+                 reffusion_n_blocks_middle: int = 1, num_nbr: int = 1,
+                 psize: int = 3, lr_block_size: int = 8,
+                 ref_down_block_size: float = 1.5,
+                 dilations: Sequence[int] = (1, 2, 3)):
+        super().__init__(inp_channels, out_channels, dim, num_blocks,
+                         num_refinement_blocks, heads, ffn_expansion_factor,
+                         bias, ln_type, dual_pixel_task)
+        self.lr_block_size = lr_block_size
+        self.ref_down_block_size = ref_down_block_size
+        self.psize = psize
+        self.dilations = tuple(dilations)
+        self.masa_enc = MASAEncoder(inp_channels, nf, ext_n_blocks, 4)
+        for level in range(4):
+            ch = dim * 2 ** (level + 1)
+            setattr(self, f"masa_blk_enc_level{level + 1}", nn.Sequential(*[
+                TransformerResFusionBlock(ch, heads[level],
+                                          ffn_expansion_factor, bias, ln_type)
+                for _ in range(reffusion_n_blocks[level])]))
+
+    @staticmethod
+    def _fuse(x, warp_l, blocks):
+        cat = torch.cat([x, warp_l.to(x.dtype)], dim=-1)
+        return blocks(cat)[..., : cat.shape[-1] // 2]
+
+    def forward(self, inp_img, ref_img):
+        """inp_img: (B, H, W, C_in); ref_img: (B, Hr, Wr, 3 or C_in).
+        Returns (B, H, W, C_out)."""
+        _, h0, w0, _ = inp_img.shape
+        dt = self.output.weight.dtype
+        pad = 8 * self.lr_block_size
+        inp = pad_to_multiple(inp_img.to(dt), pad)
+        ref = pad_to_multiple(ref_img.to(dt), pad)
+
+        feat_lq, feat_ref = masa_encode_pair(self.masa_enc, inp, ref)
+        warp = masa_match_and_warp(
+            feat_lq[-1], feat_ref, lr_block_size=self.lr_block_size,
+            ref_down_block_size=self.ref_down_block_size, psize=self.psize,
+            dilations=self.dilations)
+
+        x = self._fuse(self.patch_embed(inp), warp[0],
+                       self.masa_blk_enc_level1)
+        inp_enc1 = x
+        out_enc1 = self.encoder_level1(x)
+        x = self._fuse(self.down1_2(out_enc1), warp[1],
+                       self.masa_blk_enc_level2)
+        out_enc2 = self.encoder_level2(x)
+        x = self._fuse(self.down2_3(out_enc2), warp[2],
+                       self.masa_blk_enc_level3)
+        out_enc3 = self.encoder_level3(x)
+        x = self._fuse(self.down3_4(out_enc3), warp[3],
+                       self.masa_blk_enc_level4)
+        latent = self.latent(x)
+        out = self._decode(latent, out_enc1, out_enc2, out_enc3, inp_enc1)
+        if not self.dual_pixel_task:
+            out = out + inp
+        return out[:, :h0, :w0]

@@ -1,0 +1,90 @@
+"""Build the port's CUDA sources with nvcc and load them through ctypes.
+
+At first use, every `csrc/*.cu` of this package is compiled by one nvcc call
+into a shared library under `<repo>/build/torch_kernels/`, named by a hash
+of the sources and flags, so an edited source is rebuilt and an unchanged
+one is loaded as it is.  The library has a plain C interface: pointers and
+the stream pass as `c_void_p`, ints as `c_int`.  ptxas's report (registers,
+shared memory, spills) is kept beside the library as `<name>.log`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "tblock_smem_bytes": ([_I] * 6, ctypes.c_longlong),
+    "tblock_hidden_chunk": ([], _I),
+    "tblock_max_cph": ([], _I),
+    "tblock_error_string": ([_I], ctypes.c_char_p),
+    "tblock_stats": ([_P] * 9 + [_I] * 10 + [_P], _I),
+    "tblock_apply": ([_P] * 13 + [_I] * 10 + [_P], _I),
+}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libtdr_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the sources unless a library of the same hash exists.
+    Returns (library path, seconds spent compiling)."""
+    so = library_path()
+    if so.exists():
+        return so, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    so.with_suffix(".log").write_text(res.stdout + res.stderr)
+    os.replace(tmp, so)
+    return so, seconds
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built at first use and loaded once per process."""
+    so, _ = build()
+    lib = ctypes.CDLL(str(so))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
