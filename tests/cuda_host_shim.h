@@ -1,19 +1,25 @@
-// Host emulation of the CUDA subset that csrc/tblock.cu uses, so that the
-// kernel source itself can be compiled with g++ and run on the CPU in the
-// tests.  Each CUDA block runs as blockDim.x std::threads that meet at real
-// barriers (__syncthreads, warp shuffles); blocks run one after the other,
-// so one static buffer serves as the block's dynamic shared memory.  The
-// buffer is filled with NaN bit patterns before every block, so a kernel
-// that reads shared memory it never wrote shows up in the results.
+// Host emulation of the CUDA subset that csrc/*.cu use, so that the kernel
+// sources themselves can be compiled with g++ and run on the CPU in the
+// tests.  Each CUDA block runs as blockDim.x fibers (ucontext) on the
+// calling OS thread, which meet at barriers (__syncthreads, and per warp
+// for shuffles and mma): a fiber runs until it reaches a barrier, and a
+// round-robin scheduler resumes it once every member has arrived.  One OS
+// thread keeps a launch cheap and its result independent of how busy the
+// host is.  Blocks run one after the other, so one static buffer serves as
+// the block's dynamic shared memory.  The buffer is filled with NaN bit
+// patterns before every block, so a kernel that reads shared memory it
+// never wrote shows up in the results.
 #pragma once
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
 #include <string.h>
+#include <ucontext.h>
 
-#include <barrier>
 #include <cstddef>
+#include <functional>
 #include <memory>
-#include <thread>
 #include <vector>
 
 #define __global__
@@ -28,21 +34,47 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-inline thread_local dim3 threadIdx, blockIdx;
+// set by the scheduler before it resumes a fiber
+inline dim3 threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
 
-inline std::barrier<>* g_block_barrier = nullptr;
-inline std::vector<std::unique_ptr<std::barrier<>>> g_warp_barriers;
+struct ShimBarrier {
+  int size = 0, arrived = 0;
+  unsigned gen = 0;  // completed rounds
+  void arrive_and_wait();
+};
+struct ShimFiber {
+  ucontext_t ctx;
+  const ShimBarrier* bar = nullptr;  // waited on, until bar->gen != gen
+  unsigned gen = 0;
+  bool done = false;
+};
+inline std::vector<ShimFiber> g_fibers;
+inline ucontext_t g_scheduler;
+inline int g_current = 0;
+inline ShimBarrier g_block_barrier;
+inline std::vector<ShimBarrier> g_warp_barriers;
 inline float g_shuffle[1024];
 
-inline void __syncthreads() { g_block_barrier->arrive_and_wait(); }
+inline void ShimBarrier::arrive_and_wait() {
+  ShimFiber& f = g_fibers[g_current];
+  f.bar = this;
+  f.gen = gen;
+  if (++arrived == size) {
+    arrived = 0;
+    ++gen;
+  }
+  swapcontext(&f.ctx, &g_scheduler);
+}
+
+inline void __syncthreads() { g_block_barrier.arrive_and_wait(); }
 
 inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   const int t = threadIdx.x, w = t / 32;
   g_shuffle[t] = v;
-  g_warp_barriers[w]->arrive_and_wait();
+  g_warp_barriers[w].arrive_and_wait();
   const float r = g_shuffle[w * 32 + ((t % 32) ^ lane_mask)];
-  g_warp_barriers[w]->arrive_and_wait();
+  g_warp_barriers[w].arrive_and_wait();
   return r;
 }
 
@@ -82,7 +114,7 @@ inline void host_mma_16816(float (&d)[4], const uint32_t (&a)[4],
   const int t = threadIdx.x, w = t / 32, lane = t % 32, base = w * 32;
   for (int i = 0; i < 4; ++i) g_mma_a[t][i] = a[i];
   for (int i = 0; i < 2; ++i) g_mma_b[t][i] = b[i];
-  g_warp_barriers[w]->arrive_and_wait();
+  g_warp_barriers[w].arrive_and_wait();
   // A (16 x 16, row-major): lane g*4 + tig holds rows g and g+8, columns
   // tig*2, tig*2+1 and those + 8; B (16 x 8, column-major): lane g*4 + tig
   // holds column g, rows tig*2, tig*2+1 and those + 8
@@ -103,7 +135,7 @@ inline void host_mma_16816(float (&d)[4], const uint32_t (&a)[4],
     for (int k = 0; k < 16; ++k) s += A(row, k) * B(k, col);
     out[i] = s;
   }
-  g_warp_barriers[w]->arrive_and_wait();
+  g_warp_barriers[w].arrive_and_wait();
   for (int i = 0; i < 4; ++i) d[i] = out[i];
 }
 
@@ -128,30 +160,66 @@ namespace {
 alignas(16) unsigned char smem_raw[kShimSharedBytes];
 }
 
+inline std::function<void(int)> g_fiber_body;
+
+inline void shim_fiber_entry() {
+  const int t = g_current;
+  g_fiber_body(t);
+  g_fibers[t].done = true;  // uc_link returns to the scheduler
+}
+
 // Stands in for `kernel<<<grid, block, smem, stream>>>(args...)`.
 template <typename K, typename... A>
 void shim_launch(dim3 grid, int block, size_t, cudaStream_t, K kernel,
                  A... args) {
+  // 256 KiB per fiber, far above the kernels' frames; left uninitialised,
+  // so the pages a fiber never touches are never committed
+  constexpr size_t kStack = 256 << 10;
+  static std::unique_ptr<char[]> stacks;
+  static int n_stacks = 0;
+  if (n_stacks < block) {
+    stacks.reset(new char[kStack * block]);
+    n_stacks = block;
+  }
   blockDim = dim3(block);
   gridDim = grid;
-  std::barrier<> bar(block);
-  g_block_barrier = &bar;
-  g_warp_barriers.clear();
-  for (int w = 0; w < (block + 31) / 32; ++w)
-    g_warp_barriers.push_back(std::make_unique<std::barrier<>>(32));
-  std::vector<std::thread> threads;
-  for (int t = 0; t < block; ++t)
-    threads.emplace_back([&, t] {
+  g_block_barrier = ShimBarrier{block};
+  g_warp_barriers.assign((block + 31) / 32, ShimBarrier{32});
+  g_fibers.assign(block, ShimFiber{});
+  g_fiber_body = [&](int t) {
+    for (unsigned z = 0; z < grid.z; ++z)
+      for (unsigned y = 0; y < grid.y; ++y)
+        for (unsigned x = 0; x < grid.x; ++x) {
+          if (t == 0) memset(smem_raw, 0xff, sizeof(smem_raw));
+          g_block_barrier.arrive_and_wait();
+          blockIdx = dim3(x, y, z);
+          kernel(args...);
+          g_block_barrier.arrive_and_wait();
+        }
+  };
+  for (int t = 0; t < block; ++t) {
+    ShimFiber& f = g_fibers[t];
+    getcontext(&f.ctx);
+    f.ctx.uc_stack.ss_sp = stacks.get() + kStack * t;
+    f.ctx.uc_stack.ss_size = kStack;
+    f.ctx.uc_link = &g_scheduler;
+    makecontext(&f.ctx, shim_fiber_entry, 0);
+  }
+  for (int left = block; left > 0;) {
+    bool ran = false;
+    for (int t = 0; t < block; ++t) {
+      ShimFiber& f = g_fibers[t];
+      if (f.done || (f.bar != nullptr && f.bar->gen == f.gen)) continue;
+      f.bar = nullptr;
+      g_current = t;
       threadIdx = dim3(t);
-      for (unsigned z = 0; z < grid.z; ++z)
-        for (unsigned y = 0; y < grid.y; ++y)
-          for (unsigned x = 0; x < grid.x; ++x) {
-            if (t == 0) memset(smem_raw, 0xff, sizeof(smem_raw));
-            bar.arrive_and_wait();
-            blockIdx = dim3(x, y, z);
-            kernel(args...);
-            bar.arrive_and_wait();
-          }
-    });
-  for (auto& th : threads) th.join();
+      swapcontext(&g_scheduler, &f.ctx);
+      ran = true;
+      left -= f.done;
+    }
+    if (!ran) {
+      fprintf(stderr, "cuda_host_shim: every thread waits at a barrier\n");
+      abort();
+    }
+  }
 }

@@ -123,7 +123,9 @@ def test_define_network():
     m = define_network(opt, dtype=torch.bfloat16)
     assert isinstance(m, RestormerRefFusion) and not m.training
     assert m.encoder_level1[0].ln_type == "BiasFree"
-    assert {p.dtype for p in m.parameters()} == {torch.bfloat16}
+    # parameters stay f32 (JAX param_dtype); bf16 is the compute dtype
+    assert m.dtype == torch.bfloat16
+    assert {p.dtype for p in m.parameters()} == {torch.float32}
     with pytest.raises(NotImplementedError, match="A4"):
         define_network({"type": "NAFNetRefFusion", "width": 8})
 
@@ -170,3 +172,30 @@ def test_evaluate_cli_refuses_what_is_not_ported(eval_dirs):
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="CUDA"):
             main(argv[:-2] + ["--device", "cuda"])
+
+
+def test_ref_fusion_bf16_matches_jax_on_f32_weights():
+    """Compute dtype bf16 over f32 parameters on both sides (JAX
+    `dtype=jnp.bfloat16`, `param_dtype=float32`): the port casts each weight
+    at use and keeps LN affine, temperatures and gates in f32.  The two
+    frameworks sum in other orders and may round a conv's bias add
+    differently, so an output of magnitude <= 4 may differ by about one
+    bf16 ulp there (2^-6): bound 0.02 absolute and 1e-3 relative in L2
+    (measured: 3.9e-3 and 1.2e-4)."""
+    m = _port_ref_fusion(seed=8)
+    m.dtype = torch.bfloat16
+    rng = np.random.default_rng(9)
+    lq = randn(rng, 1, 32, 32, 3)
+    ref = randn(rng, 1, 32, 32, 3)
+    params = {"params": convert_state_dict(m.state_dict())}
+    want = jax.jit(JRestormerRefFusion(**TINY_REF, dtype=jnp.bfloat16).apply)(
+        params, jnp.asarray(lq), jnp.asarray(ref))
+    assert want.dtype == jnp.bfloat16
+    with torch.no_grad():
+        got = m(t(lq), t(ref))
+    assert got.dtype == torch.bfloat16
+    assert {p.dtype for p in m.parameters()} == {torch.float32}
+    want = np.asarray(want.astype(jnp.float32))
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, want, atol=0.02, rtol=0)
+    assert np.linalg.norm(got - want) <= 1e-3 * np.linalg.norm(want)

@@ -12,12 +12,6 @@ Chain of custody on the CPU, f32:
 The on-card checks are in tests/test_torch_tblock_cuda.py.
 """
 
-import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -33,12 +27,10 @@ import textualdegremoval_tpu_torch.ops.pallas.tblock as tb
 from textualdegremoval_tpu_torch.models.layers import (
     TransformerBlock, TransformerResFusionBlock,
 )
-from textualdegremoval_tpu_torch.ops._build import _SIGNATURES
 
-from torch_port_util import randn, t, randomize, jax_tree, assert_close
-
-TESTS = Path(__file__).resolve().parent
-CSRC = TESTS.parent / "textualdegremoval_tpu_torch" / "csrc"
+from torch_port_util import (
+    randn, t, randomize, jax_tree, assert_close, build_host_library,
+)
 
 # bf16 kernel vs plain: the kernel rounds the GDFN gate once in f32, the
 # plain path rounds the dwconv output and the gelu product in bf16, so the
@@ -130,29 +122,8 @@ def test_cpu_tensor_takes_plain_path_without_launching():
 @pytest.fixture(scope="module")
 def host_kernel_lib(tmp_path_factory):
     """csrc/tblock.cu compiled for the CPU against tests/cuda_host_shim.h."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ not found; the host build of the CUDA source needs it")
-    src = (CSRC / "tblock.cu").read_text()
-    src = re.sub(r"#include <cuda_(runtime|bf16)\.h>", "", src)
-    src, n = re.subn(r"(\w+<\w+>)<<<(.*?)>>>\(", r"shim_launch(\2, \1, ", src,
-                     flags=re.S)
-    assert n == 2, "expected the two kernel launches in csrc/tblock.cu"
-    out = tmp_path_factory.mktemp("host_kernel")
-    cpp = out / "tblock_host.cpp"
-    cpp.write_text('#include "cuda_host_shim.h"\n' + src)
-    so = out / "libtblock_host.so"
-    res = subprocess.run(
-        [gxx, "-O2", "-std=c++20", "-shared", "-fPIC", "-pthread",
-         "-fno-strict-aliasing",
-         f"-I{TESTS}", "-o", str(so), str(cpp)],
-        capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr
-    lib = ctypes.CDLL(str(so))
-    for name, (argtypes, restype) in _SIGNATURES.items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = restype
-    return lib
+    return build_host_library(tmp_path_factory.mktemp("host_kernel"),
+                              ("tblock.cu",))
 
 
 _HOST_CASES = [
@@ -178,21 +149,30 @@ def test_cuda_source_on_host_matches_ref(host_kernel_lib, shape, heads,
     p = _torch_params(_params(shape[-1], heads, ln_type, seed=shape[2]))
     x = t(randn(np.random.default_rng(shape[1]), *shape)).to(dtype)
     kw = tb.prepare_tblock_weights(p, dtype, ln_type)
-    got = tb._launch(host_kernel_lib, x, kw, heads, ln_type, stats_tile,
-                     apply_tile, nsplit, 0)
+    got, x1, stats = tb._launch(host_kernel_lib, x, kw, heads, ln_type,
+                                stats_tile, apply_tile, nsplit, 0,
+                                want_x1=True)
     want = tb.tblock_ref(x, p, heads, ln_type)
+    want_x1 = tb._tblock_attn_part(x, p, heads, ln_type)
     if dtype == torch.float32:
         assert_close(got, want)
+        assert_close(x1, want_x1)
     else:
         assert_close(got.float(), want.float(), atol=BF16_ATOL,
                      rtol=BF16_RTOL)
+        assert_close(x1.float(), want_x1.float(), atol=BF16_ATOL,
+                     rtol=BF16_RTOL)
+    # the saved statistics: per-head gram and q/k square sums, f32
+    assert stats[0].shape == (shape[0], heads, shape[-1] // heads,
+                              shape[-1] // heads)
+    assert stats[1].shape == stats[2].shape == (shape[0], shape[-1])
 
 
 def test_host_kernel_reports_bad_shapes(host_kernel_lib):
-    rc = host_kernel_lib.tblock_apply(*([None] * 13), 1, 4, 4, 8, 3, 32, 0, 0,
+    rc = host_kernel_lib.tblock_apply(*([None] * 14), 1, 4, 4, 8, 3, 32, 0, 0,
                                       2, 2, None)
     assert rc != 0  # C not divisible by heads
-    rc = host_kernel_lib.tblock_apply(*([None] * 13), 1, 4, 4, 8, 2, 30, 0, 0,
+    rc = host_kernel_lib.tblock_apply(*([None] * 14), 1, 4, 4, 8, 2, 30, 0, 0,
                                       2, 2, None)
     assert rc != 0  # hidden not padded to the chunk
 

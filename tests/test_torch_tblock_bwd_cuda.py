@@ -1,0 +1,115 @@
+"""On-card checks of the TransformerBlock backward kernels and the training
+step (marked `cuda`; each skips without a CUDA device).  The file imports
+neither jax nor the test helpers that do, so the card's machine runs it
+without JAX:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda \\
+        tests/test_torch_tblock_bwd_cuda.py
+"""
+
+import pytest
+import torch
+
+import textualdegremoval_tpu_torch.ops.pallas.tblock as tb
+import textualdegremoval_tpu_torch.ops.pallas.tblock_attn_bwd as ab
+import textualdegremoval_tpu_torch.ops.pallas.tblock_bwd as gb
+from textualdegremoval_tpu_torch.losses import l1_loss
+from textualdegremoval_tpu_torch.models.layers import TransformerBlock
+from textualdegremoval_tpu_torch.models.restormer import RestormerRefFusion
+
+# kernel vs plain autograd: ||k - p|| <= bound ||p|| per gradient, the
+# bounds of chip_smoke.py phase 6 and the reasons given there
+from chip_smoke import grad_l2_bound, randomize_block
+
+TINY_REF = dict(dim=16, num_blocks=(1, 1, 1, 1), num_refinement_blocks=1,
+                heads=(1, 2, 2, 4), nf=16, ext_n_blocks=(1, 1, 1, 1),
+                reffusion_n_blocks=(1, 1, 1, 1), lr_block_size=4)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _setup(shape, heads, ln_type, dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    blk = TransformerBlock(shape[-1], heads, ln_type=ln_type)
+    randomize_block(blk, gen)
+    p = {k: v.detach().cuda() for k, v in blk.block_params().items()}
+    x = torch.randn(*shape, generator=gen).to("cuda", dtype)
+    g = torch.randn(*shape, generator=gen).to("cuda", dtype)
+    kw = tb.prepare_tblock_weights(p, dtype, ln_type)
+    with torch.no_grad():
+        _, x1, stats = tb._forward_kernel(x, kw, heads, ln_type, want_x1=True)
+    return p, x, g, x1, stats, kw
+
+
+def _kernel_grads(p, x, g, x1, stats, kw, heads, ln_type):
+    dx1, gg = gb.gdfn_half_bwd(x1, g, p, ln_type, kw)
+    dx, ga = ab.attn_half_bwd(x, dx1, p, heads, ln_type, stats, kw)
+    return {"dx1": dx1, "dx": dx, **gg, **ga}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,heads,ln_type", [
+    ((2, 37, 53, 96), 2, "WithBias"),    # ragged tiles in H and W
+    ((2, 24, 40, 48), 1, "BiasFree"),
+    ((1, 16, 24, 384), 4, "WithBias"),   # a wide block: small tiles
+])
+def test_backward_kernels_match_plain(shape, heads, ln_type, dtype):
+    _cuda()
+    p, x, g, x1, stats, kw = _setup(shape, heads, ln_type, dtype, seed=0)
+    got = _kernel_grads(p, x, g, x1, stats, kw, heads, ln_type)
+    want_dx1, want_gg = gb.gdfn_half_bwd_ref(x1, g, p, ln_type)
+    want_dx, want_ga = ab.attn_half_bwd_ref(x, got["dx1"], p, heads, ln_type)
+    want = {"dx1": want_dx1, "dx": want_dx, **want_gg, **want_ga}
+    assert set(got) == set(want)
+    for k, w in want.items():
+        err = (got[k].float() - w.float()).norm() / w.float().norm()
+        assert torch.isfinite(got[k]).all(), k
+        assert err <= grad_l2_bound(k, dtype), (k, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_weight_gradients_are_bitwise_repeatable(dtype):
+    """Per-CTA partials and split-K partials are summed in a fixed order;
+    no float atomics, so two runs give the same bits."""
+    _cuda()
+    p, x, g, x1, stats, kw = _setup((4, 48, 64, 96), 2, "WithBias", dtype, 1)
+    a = _kernel_grads(p, x, g, x1, stats, kw, 2, "WithBias")
+    b = _kernel_grads(p, x, g, x1, stats, kw, 2, "WithBias")
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_parameter_gets_a_gradient_on_cuda(dtype):
+    """Through the kernels' backward, every parameter of a RestormerRefFusion
+    gets a finite gradient, those upstream of the first block included:
+    none is lost, none comes from plain autograd."""
+    _cuda()
+    torch.manual_seed(0)
+    model = RestormerRefFusion(**TINY_REF, dtype=dtype).cuda().train()
+    with torch.no_grad():
+        for n, q in model.named_parameters():
+            if n.endswith("alpha"):
+                q.fill_(0.5)
+    gen = torch.Generator().manual_seed(1)
+    lq, ref, gt = (torch.rand(2, 32, 32, 3, generator=gen).cuda()
+                   for _ in range(3))
+    counts = (tb.tblock_fused.launches, gb.gdfn_half_bwd.launches,
+              ab.attn_half_bwd.launches)
+    l1_loss(model(lq, ref), gt).backward()
+    blocks = sum(isinstance(m, TransformerBlock) for m in model.modules())
+    assert (tb.tblock_fused.launches - counts[0],
+            gb.gdfn_half_bwd.launches - counts[1],
+            ab.attn_half_bwd.launches - counts[2]) == (blocks,) * 3
+    missing = [n for n, q in model.named_parameters()
+               if q.grad is None or not torch.isfinite(q.grad).all()]
+    assert not missing, missing
+    assert {q.dtype for q in model.parameters()} == {torch.float32}

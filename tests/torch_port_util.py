@@ -8,10 +8,33 @@ with `model.init` (slow un-jitted on CPU).
 
 from __future__ import annotations
 
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
 import numpy as np
+import pytest
 import torch
 
-from textualdegremoval_tpu.convert import convert_state_dict
+
+
+@pytest.fixture
+def torch_share_of_cores():
+    """torch's intra-op threads cut to this process's share of the cores
+    for a test that runs torch alone, then restored.  The suite runs
+    several test processes at once (pytest-xdist), and torch's default of
+    one thread per core in each oversubscribes the host, slowing small ops
+    many times over.  Never around JAX work: XLA's CPU convolutions share
+    the OpenMP thread count, and at one thread they lost f32 accuracy
+    (2e-4 relative on a tiny train step's loss)."""
+    before = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(before)
 
 
 def randn(rng, *shape, scale=1.0):
@@ -35,6 +58,8 @@ def randomize(module: torch.nn.Module, seed: int, scale: float = 0.05):
 def jax_tree(module: torch.nn.Module, name: str) -> dict:
     """The JAX parameter tree of `module` when it sits at attribute `name`
     of a reference network (the key rewrite depends on that name)."""
+    from textualdegremoval_tpu.convert import convert_state_dict
+
     holder = torch.nn.Module()
     setattr(holder, name, module)
     return convert_state_dict(holder.state_dict())[name]
@@ -44,3 +69,53 @@ def assert_close(got, want, atol=1e-5, rtol=1e-5):
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                atol=atol, rtol=rtol)
+
+
+TESTS = Path(__file__).resolve().parent
+CSRC = TESTS.parent / "textualdegremoval_tpu_torch" / "csrc"
+
+
+def build_host_library(out_dir: Path,
+                       sources: tuple[str, ...] | None = None) -> ctypes.CDLL:
+    """The csrc/*.cu `sources` (default: all) compiled for the CPU against
+    tests/cuda_host_shim.h (one std::thread per CUDA thread; blocks run one
+    after the other) and linked into one library with the C signatures of
+    the CUDA build that it defines.  Skips the calling test when g++ is
+    missing."""
+    from textualdegremoval_tpu_torch.ops._build import _SIGNATURES
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not found; the host build of the CUDA sources "
+                    "needs it")
+    procs, objs = [], []
+    for cu in sorted(CSRC.glob("*.cu")):
+        if sources is not None and cu.name not in sources:
+            continue
+        src = cu.read_text()
+        src, n = re.subn(r"(\w+<\w+>)<<<(.*?)>>>\(", r"shim_launch(\2, \1, ",
+                         src, flags=re.S)
+        assert n >= 1, f"no kernel launch found in {cu.name}"
+        cpp = out_dir / f"{cu.stem}_host.cpp"
+        cpp.write_text('#include "cuda_host_shim.h"\n' + src)
+        obj = out_dir / f"{cu.stem}_host.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [gxx, "-O2", "-std=c++20", "-fPIC", "-pthread",
+             "-fno-strict-aliasing", f"-I{TESTS}", f"-I{CSRC}", "-c", "-o",
+             str(obj), str(cpp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for proc in procs:
+        out, _ = proc.communicate(timeout=600)
+        assert proc.returncode == 0, out
+    so = out_dir / "libtblock_host.so"
+    res = subprocess.run([gxx, "-shared", "-pthread", "-o", str(so),
+                          *map(str, objs)], capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    lib = ctypes.CDLL(str(so))
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = restype
+    return lib

@@ -93,10 +93,10 @@ def restore_and_score(model: torch.nn.Module, lq: np.ndarray, hq: np.ndarray,
                       ref: np.ndarray):
     """Restore one (lq, ref) pair of HWC float32 arrays in [0, 1] and score
     it against hq.  Returns (prediction clipped to [0, 1], PSNR, SSIM)."""
-    w = next(model.parameters())
+    dev = next(model.parameters()).device
     with torch.inference_mode():
-        out = model(torch.from_numpy(lq)[None].to(w.device, w.dtype),
-                    torch.from_numpy(ref)[None].to(w.device, w.dtype))
+        out = model(torch.from_numpy(lq)[None].to(dev),
+                    torch.from_numpy(ref)[None].to(dev))
     pred = np.clip(out[0].float().cpu().numpy(), 0, 1)
     return (pred, calculate_psnr(pred * 255, hq * 255),
             calculate_ssim(pred * 255, hq * 255))
@@ -139,10 +139,10 @@ def main(argv=None):
         opt = shrink_for_smoke(opt)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
-        model = define_network(opt)
+        model = define_network(opt, dtype=getattr(torch, args.dtype))
     if args.checkpoint_path and os.path.exists(args.checkpoint_path):
         load_reference_checkpoint(model, args.checkpoint_path)
-    model = model.to(device=device, dtype=getattr(torch, args.dtype))
+    model = model.to(device)
 
     hq_paths = scan_images(args.hqroot)
     ref_paths = scan_images(args.refroot)

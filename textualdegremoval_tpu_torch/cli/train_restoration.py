@@ -1,0 +1,316 @@
+"""Guided-restoration training CLI of the PyTorch port.
+
+    python -m textualdegremoval_tpu_torch.cli.train_restoration --opt <yml>
+        [--max_iters N] [--mixed_precision bf16] [--remat]
+        [--device cuda|cpu]
+
+Counterpart of textualdegremoval_tpu/cli/train_restoration.py (reference
+scripts/train/main_train_restoration_with_ref_input.py), on one device.
+The loop (reference :225-303): the progressive (gt_size, batch) schedule of
+the YAML `iters` / `gt_sizes` / `mini_batch_sizes`, a random sub-batch and
+sub-crop per step, the reference crop, optional mixup, one call of the
+step function (`train.trainer.make_train_step`; a structurally frozen step
+while the masa group is frozen), logging, checkpoints, validation and
+auto-resume from the latest state.
+
+The device is CUDA unless `--device cpu` is asked for.  On CUDA every
+TransformerBlock runs as the hand-written kernels, forward and backward;
+a YAML `train.fused_kernels: off` (plain blocks) is refused there, since
+the plain blocks are not a route of the main path.
+
+Not ported yet: the DINO reference-crop matcher (ROADMAP A6; a
+`path.pretrain_dino` naming an existing file raises, none takes the JAX
+CLI's centre-crop path), the LHER visual dumps of `logger.check_freq`, and
+multi-device / FSDP training.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from textualdegremoval_tpu_torch.convert import load_reference_checkpoint
+from textualdegremoval_tpu_torch.data.loader import (
+    create_dataloader, create_dataset,
+)
+from textualdegremoval_tpu_torch.losses import build_loss
+from textualdegremoval_tpu_torch.metrics import calculate_psnr, calculate_ssim
+from textualdegremoval_tpu_torch.models import define_network
+from textualdegremoval_tpu_torch.train.checkpoint import CheckpointManager
+from textualdegremoval_tpu_torch.train.mixing import mixing_augment
+from textualdegremoval_tpu_torch.train.schedules import (
+    build_schedule, warmup_wrap,
+)
+from textualdegremoval_tpu_torch.train.trainer import (
+    build_optimizer, create_train_state, make_eval_step, make_train_step,
+)
+from textualdegremoval_tpu_torch.utils.options import parse
+
+
+def progressive_buckets(ds_opt):
+    """(cumulative iters, gt_sizes, batches) of the YAML progressive
+    schedule (reference :240-271)."""
+    iters = ds_opt.get("iters", [10 ** 9])
+    gt_sizes = ds_opt.get("gt_sizes", [ds_opt.get("gt_size", 128)])
+    batches = ds_opt.get("mini_batch_sizes",
+                         [ds_opt.get("batch_size_per_gpu", 1)])
+    return np.cumsum(iters), gt_sizes, batches
+
+
+def pick_bucket(current_iter, groups, gt_sizes, batches):
+    j = min(int(np.searchsorted(groups, current_iter, side="left")),
+            len(gt_sizes) - 1)
+    return gt_sizes[j], batches[min(j, len(batches) - 1)]
+
+
+def crop_batch(batch, gt_size, mini_batch, rng):
+    """Random sub-batch and random sub-crop to the bucket's shape (numpy
+    arrays or tensors, batch first)."""
+    full = batch["lq"].shape[0]
+    idx = rng.choice(full, size=min(mini_batch, full), replace=False)
+    h, w = batch["lq"].shape[1:3]
+    top = rng.integers(0, max(h - gt_size, 0) + 1)
+    left = rng.integers(0, max(w - gt_size, 0) + 1)
+    out = dict(batch)
+    for k in ("lq", "gt"):
+        out[k] = batch[k][idx, top: top + gt_size, left: left + gt_size]
+    out["ref"] = batch["ref"][idx]
+    return out
+
+
+def center_crop_ref(ref, gt_size):
+    """The JAX CLI's reference crop without the DINO matcher: the centre
+    gt_size x gt_size window (:286-292)."""
+    rh, rw = ref.shape[1:3]
+    top, left = max((rh - gt_size) // 2, 0), max((rw - gt_size) // 2, 0)
+    return ref[:, top: top + gt_size, left: left + gt_size]
+
+
+def resolve_network(opt, mixed_precision=None, remat=None, device="cuda"):
+    """Build the network with CLI flag > YAML `train:` key > default:
+    train.mixed_precision fp32|bf16 (compute dtype; parameters stay f32),
+    train.remat (the blocks' memory-lean bwd_mode='remat': the backward
+    recomputes x1 and the statistics with the forward kernel).  A
+    train.fused_kernels of off is refused on CUDA.  Returns (model, remat,
+    dtype)."""
+    topt = opt.get("train", {}) or {}
+    mp = mixed_precision or topt.get("mixed_precision", "fp32")
+    if remat is None:
+        remat = bool(topt.get("remat", False))
+    if topt.get("fused_kernels", "auto") in (False, "off") \
+            and torch.device(device).type == "cuda":
+        raise ValueError("fused kernels off: the plain blocks are not a "
+                         "route of the CUDA main path")
+    dtype = torch.bfloat16 if str(mp) == "bf16" else torch.float32
+    net_opt = dict(opt["network_g"])
+    if remat:
+        net_opt.setdefault("bwd_mode", "remat")
+    return define_network(net_opt, dtype=dtype), remat, dtype
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--opt", required=True)
+    ap.add_argument("--max_iters", type=int, default=None,
+                    help="override total_iter (smoke runs)")
+    ap.add_argument("--mixed_precision", choices=["fp32", "bf16"],
+                    default=None, help="override train.mixed_precision")
+    ap.add_argument("--remat", action=argparse.BooleanOptionalAction,
+                    default=None, help="override train.remat")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cuda' requires a CUDA device, the "
+                         "CPU runs only when asked for")
+    return ap
+
+
+def _logger(log_dir: str) -> logging.Logger:
+    os.makedirs(log_dir, exist_ok=True)
+    logger = logging.getLogger("textualdegremoval_tpu_torch.train")
+    logger.setLevel(logging.INFO)
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+        h.close()
+    fmt = logging.Formatter("%(asctime)s %(levelname)s: %(message)s")
+    for h in (logging.StreamHandler(),
+              logging.FileHandler(os.path.join(log_dir, "train.log"))):
+        h.setFormatter(fmt)
+        logger.addHandler(h)
+    return logger
+
+
+def main(argv=None):
+    args = build_argparser().parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available")
+
+    opt = parse(args.opt, is_train=True)
+    logger = _logger(opt["path"]["log"])
+    seed = opt.get("manual_seed", 0)
+    ds_opt = dict(opt["datasets"]["train"])
+    train_loader = create_dataloader(create_dataset(ds_opt), ds_opt,
+                                     device=device)
+    val_loader = None
+    if "val" in opt.get("datasets", {}):
+        try:
+            val_loader = create_dataloader(
+                create_dataset(opt["datasets"]["val"]), opt["datasets"]["val"],
+                device=device)
+        except (FileNotFoundError, ValueError, KeyError) as e:
+            logger.warning(f"no val data: {e}")  # optional in smoke runs
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model, remat, dtype = resolve_network(
+            opt, args.mixed_precision, args.remat, device)
+    logger.info(f"device {device}, compute dtype {dtype}, remat {remat}")
+
+    topt = opt["train"]
+    ema_decay = float(topt.get("ema_decay", 0) or 0)
+    ema_params = None
+    load_path = opt["path"].get("pretrain_network_g")
+    if load_path and os.path.exists(str(load_path)):
+        load_reference_checkpoint(model, load_path)
+        logger.info(f"loaded pretrained params from {load_path}")
+        if ema_decay > 0:
+            ck = torch.load(load_path, map_location="cpu", weights_only=True)
+            ema_params = ck.get("params_ema") if isinstance(ck, dict) else None
+    dino_path = opt["path"].get("pretrain_dino")
+    if dino_path and os.path.exists(str(dino_path)):
+        raise NotImplementedError(
+            "the DINO reference-crop matcher is not ported yet (ROADMAP A6); "
+            "unset path.pretrain_dino to train with the centre crop")
+    model.to(device)
+
+    lr = topt["optim_g"]["lr"]
+    ref_lr = topt["optim_g"].get("ref_lr", lr)
+    warm = topt.get("warmup_iter", -1)
+    sched = warmup_wrap(build_schedule(lr, topt["scheduler"]), warm, lr)
+    ref_sched = warmup_wrap(build_schedule(ref_lr, topt["scheduler"]), warm,
+                            ref_lr)
+    fix_iters = int(topt.get("param_fix_iterations", 0) or 0)
+    opt_g = build_optimizer(
+        model, sched, ref_sched,
+        weight_decay=topt["optim_g"].get("weight_decay", 1e-4),
+        betas=tuple(topt["optim_g"].get("betas", (0.9, 0.999))),
+        grad_clip=0.01 if topt.get("use_grad_clip", True) else None,
+        param_fix_iterations=fix_iters)
+    state = create_train_state(model, opt_g, ema_decay, ema_params)
+    loss_fn = build_loss(topt["pixel_opt"])
+    step_fn = make_train_step(loss_fn, ema_decay)
+    # while the masa group is frozen, a step that prunes its backward
+    frozen_step_fn = (make_train_step(loss_fn, ema_decay, masa_frozen=True)
+                      if fix_iters > 0 else None)
+
+    ckpt = CheckpointManager(opt["path"]["training_states"],
+                             opt["path"]["models"])
+    if ckpt.restore_state(state) is not None:
+        logger.info(f"auto-resumed from iter {state.step}")
+    start_iter = current_iter = state.step
+
+    total_iters = args.max_iters or int(topt["total_iter"])
+    groups, gt_sizes, batches = progressive_buckets(ds_opt)
+    rng = np.random.default_rng(seed)
+    mix_gen = torch.Generator().manual_seed(seed + 1)
+    mixing_cfg = topt.get("mixing_augs") or {}
+    log_freq = int(opt.get("logger", {}).get("print_freq", 100))
+    save_freq = int(opt.get("logger", {}).get("save_checkpoint_freq", 5000))
+    val_freq = int(opt.get("val", {}).get("val_freq", 5000))
+
+    epoch = 0
+    t_data = t_iter = time.time()
+    while current_iter < total_iters:
+        train_loader.sampler.set_epoch(epoch)
+        for batch in train_loader:
+            if current_iter >= total_iters:
+                break
+            current_iter += 1
+            gt_size, mini = pick_bucket(current_iter, groups, gt_sizes,
+                                        batches)
+            batch = crop_batch(batch, gt_size, mini, rng)
+            gt, lq = batch["gt"], batch["lq"]
+            if mixing_cfg.get("mixup"):
+                gt, lq = mixing_augment(mix_gen, gt, lq,
+                                        mixing_cfg.get("mixup_beta", 1.2),
+                                        mixing_cfg.get("use_identity", True))
+            step_batch = {
+                "lq": lq.to(device, non_blocking=True),
+                "gt": gt.to(device, non_blocking=True),
+                "ref": center_crop_ref(batch["ref"], gt_size).to(
+                    device, non_blocking=True),
+            }
+            data_time = time.time() - t_data
+            fn = (frozen_step_fn if frozen_step_fn is not None
+                  and current_iter < fix_iters else step_fn)
+            state, metrics = fn(state, step_batch)
+            if current_iter % log_freq == 0:
+                lrs = opt_g.lrs(current_iter)
+                logger.info(
+                    f"[epoch {epoch} iter {current_iter}] lr ({lrs[0]:.3e}, "
+                    f"{lrs[1]:.3e}) " + " ".join(
+                        f"{k} {float(v):.4e}" for k, v in metrics.items())
+                    + f" time {time.time() - t_iter:.3f}s data "
+                    f"{data_time:.3f}s")
+            if current_iter % save_freq == 0:
+                ckpt.save_state(state, current_iter)
+                ckpt.save_network(state, current_iter)
+            if val_loader is not None and current_iter % val_freq == 0:
+                validate(state, val_loader, opt, logger, current_iter,
+                         use_ema=ema_decay > 0, device=device)
+            t_data = t_iter = time.time()
+        epoch += 1
+
+    if current_iter > start_iter:
+        ckpt.save_state(state, current_iter)
+        ckpt.save_network(state, current_iter)
+    logger.info("training done")
+    return state
+
+
+def validate(state, val_loader, opt, logger, current_iter, use_ema=False,
+             device="cuda"):
+    """Whole-image validation (reference image_restoration_ref_model.py:
+    286-298, 325-409): the whole val set unless val.max_minibatch caps it;
+    with val.window_size, the pad test (lq reflect-padded right/bottom to a
+    multiple of it, the output cropped back); the EMA network when EMA is
+    on.  Returns (mean PSNR, mean SSIM) or None."""
+    eval_step = make_eval_step(use_ema=use_ema)
+    val_opt = opt.get("val", {}) or {}
+    max_n = val_opt.get("max_minibatch")
+    window = int(val_opt.get("window_size", 0) or 0)
+    scale = int(opt.get("scale", 1))
+    psnrs, ssims = [], []
+    for i, batch in enumerate(val_loader):
+        if max_n is not None and i >= int(max_n):
+            break
+        lq = batch["lq"].numpy()
+        pad_h = pad_w = 0
+        if window:
+            pad_h, pad_w = -lq.shape[1] % window, -lq.shape[2] % window
+            if pad_h or pad_w:
+                lq = np.pad(lq, ((0, 0), (0, pad_h), (0, pad_w), (0, 0)),
+                            "reflect")
+        out = eval_step(state, {"lq": torch.from_numpy(lq).to(device),
+                                "ref": batch["ref"].to(device)})
+        out = out.float().cpu().numpy()
+        out = out[:, : out.shape[1] - pad_h * scale,
+                  : out.shape[2] - pad_w * scale]
+        pred = np.clip(out[0], 0, 1)
+        gt = batch["gt"][0].numpy()
+        psnrs.append(calculate_psnr(pred * 255, gt * 255))
+        ssims.append(calculate_ssim(pred * 255, gt * 255))
+    if not psnrs:
+        return None
+    logger.info(f"val @ {current_iter}: psnr {np.mean(psnrs):.4f} ssim "
+                f"{np.mean(ssims):.4f} ({len(psnrs)} images"
+                f"{', ema' if use_ema else ''})")
+    return float(np.mean(psnrs)), float(np.mean(ssims))
+
+
+if __name__ == "__main__":
+    main()

@@ -24,7 +24,10 @@
 // o = v . A_head^T per head, project_out and the first residual (x1), LN2,
 // the GDFN in 32-wide hidden chunks (1x1 to both halves, zero outside the
 // image, 3x3 depthwise, gelu_erf(h1) * h2, 1x1 back accumulated in f32),
-// and the second residual.  Only the C-wide output is written to memory.
+// and the second residual.  Only the C-wide output is written to memory,
+// and x1 as well when the training step's backward asks for it (JAX
+// `want_x1`).  Helpers shared with the backward kernels are in
+// tblock_common.cuh.
 //
 // Rounding points mirror the JAX kernel: the 1x1 outputs are cast to the
 // input dtype before the dwconv; the qkv dwconv sums in f32 and is cast; o
@@ -59,227 +62,9 @@
 // an order measured on the card.  wgmma, TMA and weights staged in shared
 // memory are left for later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-
-#include <stdint.h>
-
-#include <type_traits>
+#include "tblock_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kVC = 32;             // v output-channel chunk (pass B)
-constexpr int kHC = 32;             // GDFN hidden chunk; hpad % kHC == 0
-constexpr int kRP = 4;              // pixel rows per thread, FMA products
-constexpr int kRowPad = 16;         // smem GEMM operands hold rows to x16
-constexpr int kMaxCph = 96;         // channels per head
-constexpr int kAccPad = 4;          // f32 GDFN accumulator row padding
-constexpr float kEps = 1e-5f;
-
-__host__ __device__ inline int round_up(int a, int m) {
-  return (a + m - 1) / m * m;
-}
-
-// Leading dimension of a [rows][n] bf16/f32 GEMM operand in shared memory:
-// 8 elements of padding put the 8 rows of an mma fragment load in
-// different banks.
-__host__ __device__ inline int smem_ld(int n) { return round_up(n, 8) + 8; }
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16(v);
-}
-// value rounded to T and widened back to f32
-template <typename T> __device__ __forceinline__ float rnd(float v) {
-  return to_f(from_f<T>(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float gelu_erf(float v) {
-  return v * 0.5f * (1.0f + erff(v * 0.70710678118654752f));
-}
-
-// two adjacent bf16 as one 32-bit word (the address is 4-byte aligned)
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a . b on the tensor cores: one m16n8k16 bf16 product, f32 sums.
-// Fragments as in the PTX ISA (mma.m16n8k16, .bf16).  The host build of
-// this file used by the tests supplies its own warp-level product.
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-#ifdef TBLOCK_HOST_BUILD
-  host_mma_16816(d, a, b);
-#else
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-#endif
-}
-
-// LayerNorm of one C-wide pixel by one warp, one-pass moments clamped at 0
-// (ops/norm.py), result rounded to T.
-template <typename T>
-__device__ void ln_pixel(const T* src, T* dst, int C, const float* w,
-                         const float* b, bool bias_free, int lane) {
-  float s = 0.f, s2 = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float v = to_f(src[c]);
-    s += v;
-    s2 += v * v;
-  }
-  s = warp_sum(s);
-  s2 = warp_sum(s2);
-  const float mu = s / C;
-  const float var = fmaxf(s2 / C - mu * mu, 0.f);
-  const float den = sqrtf(var + kEps);
-  for (int c = lane; c < C; c += 32) {
-    const float v = to_f(src[c]);
-    dst[c] = from_f<T>(bias_free ? v / den * w[c]
-                                 : (v - mu) / den * w[c] + b[c]);
-  }
-}
-
-// LN of the rh x rw pixels whose top-left is image pixel (gy0, gx0); pixels
-// outside the image are written as zeros.  dst is [rh*rw][ldd].
-template <typename T>
-__device__ void ln_region(const T* xb, int H, int W, int C, int gy0, int gx0,
-                          int rh, int rw, const float* w, const float* b,
-                          bool bias_free, T* dst, int ldd) {
-  const int lane = threadIdx.x & 31;
-  for (int p = threadIdx.x >> 5; p < rh * rw; p += blockDim.x >> 5) {
-    const int gy = gy0 + p / rw, gx = gx0 + p % rw;
-    T* d = dst + (size_t)p * ldd;
-    if (gy < 0 || gy >= H || gx < 0 || gx >= W) {
-      for (int c = lane; c < C; c += 32) d[c] = from_f<T>(0.f);
-    } else {
-      ln_pixel(xb + ((size_t)gy * W + gx) * C, d, C, w, b, bias_free, lane);
-    }
-  }
-}
-
-// The right operand of a product: element (k, n) at p[k * sk + n * sn].
-template <typename T>
-struct MatB {
-  const T* p;
-  int sk, sn;
-};
-
-// Rows [n0, ...) of outputs and [k0, ...) of inputs of a weight matrix with
-// n_total outputs and k_total inputs.  bf16 weights are n-major (each
-// output's inputs contiguous, as the tensor-core fragments read them); f32
-// weights are k-major (threads on adjacent outputs read adjacent words).
-template <typename T>
-__device__ MatB<T> weights(const T* w, int n_total, int k_total, int n0,
-                           int k0) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    return {w + (size_t)n0 * k_total + k0, 1, k_total};
-  else
-    return {w + (size_t)k0 * n_total + n0, n_total, 1};
-}
-
-// The tensor-core part of `gemm`.  A warp item is a (16 MB) x 8 output
-// tile: each B fragment, read from global memory, feeds MB products, so a
-// CTA reads the weights through L2 once per 16 MB pixel rows, not per 16.
-template <int MB, typename T, typename Store>
-__device__ void mma_gemm(const T* A, int lda, int P, int K, MatB<T> B, int N,
-                         Store store) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-  const int mt = (P + 16 * MB - 1) / (16 * MB), nt = (N + 7) / 8;
-  for (int tile = threadIdx.x >> 5; tile < mt * nt; tile += kWarps) {
-    const int m0 = (tile / nt) * 16 * MB, n0 = (tile % nt) * 8;
-    // columns past N read the last real column; their sums are dropped
-    const int n = n0 + g < N ? n0 + g : N - 1;
-    const T* b0 = B.p + (size_t)n * B.sn + tig * 2;
-    const T* a0 = A + (size_t)(m0 + g) * lda + tig * 2;
-    float d[MB][4];
-#pragma unroll
-    for (int i = 0; i < MB; ++i) d[i][0] = d[i][1] = d[i][2] = d[i][3] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      const uint32_t b[2] = {ld_pair(b0 + k0), ld_pair(b0 + k0 + 8)};
-#pragma unroll
-      for (int i = 0; i < MB; ++i) {
-        if (m0 + 16 * i >= P) break;  // warp-uniform: rows past P unread
-        const T* ai = a0 + (size_t)16 * i * lda;
-        const uint32_t a[4] = {ld_pair(ai + k0), ld_pair(ai + 8 * lda + k0),
-                               ld_pair(ai + k0 + 8),
-                               ld_pair(ai + 8 * lda + k0 + 8)};
-        mma_16816(d[i], a, b);
-      }
-    }
-    const int c = n0 + tig * 2;
-#pragma unroll
-    for (int i = 0; i < MB; ++i) {
-      const int r = m0 + 16 * i + g;
-      if (r < P && c < N) store(r, c, d[i][0]);
-      if (r < P && c + 1 < N) store(r, c + 1, d[i][1]);
-      if (r + 8 < P && c < N) store(r + 8, c, d[i][2]);
-      if (r + 8 < P && c + 1 < N) store(r + 8, c + 1, d[i][3]);
-    }
-  }
-}
-
-// store(p, n, sum_k A[p*lda + k] * B(k, n)) for p < P, n < N, with f32 sums.
-// A lives in shared memory with round_up(P, kRowPad) readable rows; results
-// of the padding rows are dropped.  Each (p, n) is owned by exactly one
-// thread in a call.
-//
-// bf16 with K % 16 == 0 and B n-major runs on the tensor cores
-// (`mma_gemm`): each warp takes (16 MB) x 8 output tiles and issues MB
-// mma.m16n8k16 per 16 of K.  Otherwise each thread holds kRP rows of one
-// output column in f32 FMA loops.
-template <typename T, typename Store>
-__device__ void gemm(const T* A, int lda, int P, int K, MatB<T> B, int N,
-                     Store store) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (K % 16 == 0 && B.sk == 1) {
-      // the tallest warp tile that still gives every warp an item
-      const int mt = (P + 15) / 16, nt = (N + 7) / 8;
-      if ((mt + 3) / 4 * nt >= kWarps)
-        mma_gemm<4>(A, lda, P, K, B, N, store);
-      else if ((mt + 1) / 2 * nt >= kWarps)
-        mma_gemm<2>(A, lda, P, K, B, N, store);
-      else
-        mma_gemm<1>(A, lda, P, K, B, N, store);
-      return;
-    }
-  }
-  const int groups = (P + kRP - 1) / kRP;
-  for (int idx = threadIdx.x; idx < groups * N; idx += blockDim.x) {
-    const int n = idx % N, p0 = (idx / N) * kRP;
-    float acc[kRP];
-#pragma unroll
-    for (int r = 0; r < kRP; ++r) acc[r] = 0.f;
-    const T* a = A + (size_t)p0 * lda;
-    const T* bcol = B.p + (size_t)n * B.sn;
-    for (int k = 0; k < K; ++k) {
-      const float wv = to_f(bcol[(size_t)k * B.sk]);
-#pragma unroll
-      for (int r = 0; r < kRP; ++r) acc[r] += to_f(a[r * lda + k]) * wv;
-    }
-#pragma unroll
-    for (int r = 0; r < kRP; ++r)
-      if (p0 + r < P) store(p0 + r, n, acc[r]);
-  }
-}
 
 size_t stats_smem_bytes(int C, int cph, int th, int tw, int eb) {
   const int p1 = (th + 2) * (tw + 2), tp = th * tw;
@@ -356,11 +141,8 @@ __global__ void __launch_bounds__(kThreads) tblock_stats_kernel(
       for (int idx = threadIdx.x; idx < tp * cph; idx += blockDim.x) {
         const int p = idx / cph, n = idx % cph;
         const int py = p / tw, px = p % tw;
-        float acc = 0.f;
-        for (int dy = 0; dy < 3; ++dy)
-          for (int dx = 0; dx < 3; ++dx)
-            acc += to_f(lin[((py + dy) * hw + px + dx) * cph + n]) *
-                   taps[(dy * 3 + dx) * C + n];
+        const float acc =
+            stencil3x3(lin + n, hw, cph, py, px, taps + n, C, false);
         // pixels of the tile outside the image add nothing to the sums
         const bool in = oy + py < H && ox + px < W;
         dst[n * ldp + p] = from_f<T>(in ? acc : 0.f);
@@ -403,8 +185,8 @@ __global__ void __launch_bounds__(kThreads, 4) tblock_apply_kernel(
     const T* __restrict__ wproj, const float* __restrict__ ln2w,
     const float* __restrict__ ln2b, const T* __restrict__ w1,
     const float* __restrict__ dwg, const T* __restrict__ w2,
-    T* __restrict__ out, int H, int W, int C, int heads, int hpad,
-    int bias_free, int th, int tw) {
+    T* __restrict__ out, T* __restrict__ x1out, int H, int W, int C,
+    int heads, int hpad, int bias_free, int th, int tw) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int cph = C / heads;
   const int b = blockIdx.z, oy = blockIdx.y * th, ox = blockIdx.x * tw;
@@ -445,11 +227,8 @@ __global__ void __launch_bounds__(kThreads, 4) tblock_apply_kernel(
     for (int idx = threadIdx.x; idx < p1 * nc; idx += blockDim.x) {
       const int q = idx / nc, n = idx % nc;
       const int qy = q / w1w, qx = q % w1w;
-      float a = 0.f;
-      for (int dy = 0; dy < 3; ++dy)
-        for (int dx = 0; dx < 3; ++dx)
-          a += to_f(chunk[((qy + dy) * w2w + qx + dx) * kVC + n]) *
-               dwv[(dy * 3 + dx) * C + n0 + n];
+      const float a = stencil3x3(chunk + n, w2w, kVC, qy, qx, dwv + n0 + n, C,
+                                 false);
       bufB[(size_t)q * ldc + n0 + n] = from_f<T>(a);
     }
     __syncthreads();
@@ -504,14 +283,10 @@ __global__ void __launch_bounds__(kThreads, 4) tblock_apply_kernel(
     for (int idx = threadIdx.x; idx < tp * kHC; idx += blockDim.x) {
       const int p = idx / kHC, j = idx % kHC;
       const int py = p / tw, px = p % tw;
-      float d1 = 0.f, d2 = 0.f;
-      for (int dy = 0; dy < 3; ++dy)
-        for (int dx = 0; dx < 3; ++dx) {
-          const int s = ((py + dy) * w1w + px + dx) * kHC + j;
-          const int tap = dy * 3 + dx;
-          d1 += to_f(h1[s]) * dwg[tap * hpad + c0 + j];
-          d2 += to_f(h2[s]) * dwg[(9 + tap) * hpad + c0 + j];
-        }
+      const float d1 = stencil3x3(h1 + j, w1w, kHC, py, px, dwg + c0 + j,
+                                  hpad, false);
+      const float d2 = stencil3x3(h2 + j, w1w, kHC, py, px,
+                                  dwg + 9 * hpad + c0 + j, hpad, false);
       gate[p * ldg + j] = from_f<T>(gelu_erf(d1) * d2);
     }
     __syncthreads();
@@ -520,15 +295,17 @@ __global__ void __launch_bounds__(kThreads, 4) tblock_apply_kernel(
     __syncthreads();
   }
 
-  // 7. out = x1 + acc on the tile
+  // 7. out = x1 + acc on the tile; x1 itself too when asked for (the
+  //    attention-residual boundary that the backward starts from)
   for (int idx = threadIdx.x; idx < tp * C; idx += blockDim.x) {
     const int p = idx / C, n = idx % C;
     const int py = p / tw, px = p % tw;
     const int gy = oy + py, gx = ox + px;
     if (gy < H && gx < W) {
-      const float x1 = to_f(bufB[((size_t)(py + 1) * w1w + px + 1) * ldc + n]);
-      out[(((size_t)b * H + gy) * W + gx) * C + n] =
-          from_f<T>(x1 + rnd<T>(acc[p * lda_acc + n]));
+      const T x1 = bufB[((size_t)(py + 1) * w1w + px + 1) * ldc + n];
+      const size_t o = (((size_t)b * H + gy) * W + gx) * C + n;
+      out[o] = from_f<T>(to_f(x1) + rnd<T>(acc[p * lda_acc + n]));
+      if (x1out != nullptr) x1out[o] = x1;
     }
   }
 }
@@ -556,8 +333,9 @@ int launch_apply(const void* x, const void* ln1w, const void* ln1b,
                  const void* wv, const void* dwv, const void* attn,
                  const void* wproj, const void* ln2w, const void* ln2b,
                  const void* w1, const void* dwg, const void* w2, void* out,
-                 int B, int H, int W, int C, int heads, int hpad,
-                 int bias_free, int th, int tw, cudaStream_t stream) {
+                 void* x1out, int B, int H, int W, int C, int heads,
+                 int hpad, int bias_free, int th, int tw,
+                 cudaStream_t stream) {
   const size_t smem = apply_smem_bytes(C, th, tw, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
       tblock_apply_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -568,7 +346,7 @@ int launch_apply(const void* x, const void* ln1w, const void* ln1b,
       (const T*)x, (const float*)ln1w, (const float*)ln1b, (const T*)wv,
       (const float*)dwv, (const T*)attn, (const T*)wproj, (const float*)ln2w,
       (const float*)ln2b, (const T*)w1, (const float*)dwg, (const T*)w2,
-      (T*)out, H, W, C, heads, hpad, bias_free, th, tw);
+      (T*)out, (T*)x1out, H, W, C, heads, hpad, bias_free, th, tw);
   return (int)cudaGetLastError();
 }
 
@@ -623,24 +401,25 @@ int tblock_stats(const void* x, const void* lnw, const void* lnb,
 
 // attn: (B, heads, cph, cph) in x's dtype, [c][d] per head; wv, wproj:
 // (C, C); dwv: (9, C) f32; w1: (2 hpad, C), per hidden chunk of kHC its h1
-// rows, then its h2 rows; dwg: (18, hpad) f32; w2: (C, hpad).  Returns a
+// rows, then its h2 rows; dwg: (18, hpad) f32; w2: (C, hpad); x1out: null,
+// or (B, H, W, C) to receive x1 = x + proj(attention).  Returns a
 // cudaError_t.
 int tblock_apply(const void* x, const void* ln1w, const void* ln1b,
                  const void* wv, const void* dwv, const void* attn,
                  const void* wproj, const void* ln2w, const void* ln2b,
                  const void* w1, const void* dwg, const void* w2, void* out,
-                 int B, int H, int W, int C, int heads, int hpad, int is_bf16,
-                 int bias_free, int th, int tw, void* stream) {
+                 void* x1out, int B, int H, int W, int C, int heads, int hpad,
+                 int is_bf16, int bias_free, int th, int tw, void* stream) {
   if (!shape_ok(C, heads, th, tw) || hpad <= 0 || hpad % kHC)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
     return launch_apply<__nv_bfloat16>(x, ln1w, ln1b, wv, dwv, attn, wproj,
-                                       ln2w, ln2b, w1, dwg, w2, out, B, H,
-                                       W, C, heads, hpad, bias_free, th, tw,
-                                       s);
+                                       ln2w, ln2b, w1, dwg, w2, out, x1out,
+                                       B, H, W, C, heads, hpad, bias_free,
+                                       th, tw, s);
   return launch_apply<float>(x, ln1w, ln1b, wv, dwv, attn, wproj, ln2w, ln2b,
-                             w1, dwg, w2, out, B, H, W, C, heads, hpad,
+                             w1, dwg, w2, out, x1out, B, H, W, C, heads, hpad,
                              bias_free, th, tw, s);
 }
 

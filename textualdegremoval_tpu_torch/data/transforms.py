@@ -1,0 +1,88 @@
+"""Paired crops and geometric augmentations (host-side numpy, HWC).
+
+Counterpart of textualdegremoval_tpu/data/transforms.py (reference
+data/transforms.py:5-275): reflect padding to the crop size, the paired
+random crop, hflip/vflip/rot90 and the 8 dihedral modes of
+random_augmentation.  `rng` is a `random.Random` (the module's when None).
+"""
+
+from __future__ import annotations
+
+import random
+
+import numpy as np
+
+
+def mod_crop(img: np.ndarray, scale: int) -> np.ndarray:
+    h, w = img.shape[:2]
+    return img[: h - h % scale, : w - w % scale, ...]
+
+
+def reflect_pad_to(img: np.ndarray, size: int) -> np.ndarray:
+    """Reflect-pad bottom/right so both dims are >= size (reference
+    utils_image.padding)."""
+    h, w = img.shape[:2]
+    ph, pw = max(0, size - h), max(0, size - w)
+    if ph == 0 and pw == 0:
+        return img
+    return np.pad(img, ((0, ph), (0, pw), (0, 0)), mode="reflect")
+
+
+def paired_random_crop(img_gts, img_lqs, gt_patch_size, scale=1, rng=None):
+    """Random crop of lq (patch // scale) and the matching gt patch.
+    Takes single arrays or lists and returns the same structure."""
+    rng = rng or random
+    single_gt = not isinstance(img_gts, list)
+    single_lq = not isinstance(img_lqs, list)
+    gts = [img_gts] if single_gt else img_gts
+    lqs = [img_lqs] if single_lq else img_lqs
+
+    lq_patch = gt_patch_size // scale
+    h_lq, w_lq = lqs[0].shape[:2]
+    if h_lq < lq_patch or w_lq < lq_patch:
+        raise ValueError(
+            f"LQ ({h_lq}x{w_lq}) smaller than patch {lq_patch}; pad first")
+    top = rng.randint(0, h_lq - lq_patch)
+    left = rng.randint(0, w_lq - lq_patch)
+    lqs = [v[top: top + lq_patch, left: left + lq_patch, ...] for v in lqs]
+    top_gt, left_gt = top * scale, left * scale
+    gts = [v[top_gt: top_gt + gt_patch_size,
+             left_gt: left_gt + gt_patch_size, ...] for v in gts]
+    return (gts[0] if single_gt else gts), (lqs[0] if single_lq else lqs)
+
+
+def augment(imgs, hflip=True, rotation=True, rng=None):
+    """Random hflip/vflip/rot90 applied consistently to all images."""
+    rng = rng or random
+    do_h = hflip and rng.random() < 0.5
+    do_v = rotation and rng.random() < 0.5
+    do_r = rotation and rng.random() < 0.5
+
+    def _aug(img):
+        if do_h:
+            img = img[:, ::-1, ...]
+        if do_v:
+            img = img[::-1, :, ...]
+        if do_r:
+            img = img.transpose(1, 0, 2) if img.ndim == 3 else img.T
+        return np.ascontiguousarray(img)
+
+    single = not isinstance(imgs, list)
+    out = [_aug(v) for v in ([imgs] if single else imgs)]
+    return out[0] if single else out
+
+
+def _aug_mode(img: np.ndarray, mode: int) -> np.ndarray:
+    """The 8 dihedral modes of reference random_augmentation."""
+    if mode not in range(8):
+        raise ValueError(mode)
+    out = np.rot90(img, k=mode // 2) if mode >= 2 else img
+    if mode % 2:
+        out = np.flipud(out)
+    return np.ascontiguousarray(out)
+
+
+def random_augmentation(*imgs, rng=None):
+    rng = rng or random
+    mode = rng.randint(0, 7)
+    return [_aug_mode(img, mode) for img in imgs]

@@ -39,8 +39,9 @@ def network_names() -> list[str]:
 
 def define_network(opt: dict,
                    dtype: torch.dtype = torch.float32) -> torch.nn.Module:
-    """Instantiate a network from a reference-style network_g dict, with
-    its parameters in `dtype`, in eval mode."""
+    """Instantiate a network from a reference-style network_g dict, in eval
+    mode, with float32 parameters and `dtype` as its compute dtype (JAX
+    `define_network(opt, dtype)`); `bwd_mode` may come with the dict."""
     opt = dict(opt)
     name = opt.pop("type")
     if name in _LATER:
@@ -57,4 +58,5 @@ def define_network(opt: dict,
         k = _KEY_ALIASES.get(k, k)
         if k in params:
             kwargs[k] = tuple(v) if isinstance(v, list) else v
-    return cls(**kwargs).to(dtype=dtype).eval()
+    kwargs["dtype"] = dtype
+    return cls(**kwargs).eval()

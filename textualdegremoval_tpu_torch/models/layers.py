@@ -7,8 +7,12 @@ names (as in tests/torch_oracles.py), so a reference checkpoint loads with
 of this package onto the JAX parameter tree.
 
 Modules take and return (B, H, W, C) tensors; convolutions run on the
-NCHW channels_last view of the same memory.  A model's compute dtype is the
-dtype of its parameters (`model.to(torch.bfloat16)`).
+NCHW channels_last view of the same memory.  Parameters stay float32, as in
+the JAX package (`param_dtype=jnp.float32`); the compute dtype is that of
+the activations, which the model casts its input to (`define_network(opt,
+dtype=...)`), and every weight is cast to it at use (convs, the block
+kernels' prepared weights, MASA).  LayerNorm affine, temperatures and the
+fusion gates enter the block kernels in float32.
 """
 
 from __future__ import annotations
@@ -33,8 +37,12 @@ from textualdegremoval_tpu_torch.ops.pallas.tblock import (
 
 
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """Apply an NCHW conv module to an NHWC tensor, returning NHWC."""
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    """Apply an NCHW conv module to an NHWC tensor, returning NHWC, with
+    the conv's weight and bias cast to x's dtype at use."""
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), bias,
+                 conv.stride, conv.padding, conv.dilation, conv.groups)
+    return y.permute(0, 2, 3, 1)
 
 
 def _hwio(w: torch.Tensor) -> torch.Tensor:
@@ -107,19 +115,25 @@ class TransformerBlock(nn.Module):
     """Restormer block: x + MDTA(LN1(x)), then + GDFN(LN2(.)).
 
     The forward always runs as `tblock_fused` (the whole-block CUDA kernel
-    for CUDA tensors, its plain version `tblock_ref` for CPU tensors).  The
-    `attn`/`ffn` submodules hold the parameters in the reference layout;
-    `module_forward` runs them op by op and serves as a parity target."""
+    for CUDA tensors, with its hand-written backward; its plain version
+    `tblock_ref` for CPU tensors), in the dtype of its input.  bwd_mode
+    ('save' | 'remat', JAX TransformerBlock.bwd_mode) picks what the
+    kernel's backward keeps from the forward.  The `attn`/`ffn` submodules
+    hold the parameters in the reference layout; `module_forward` runs them
+    op by op and serves as a parity target."""
 
     def __init__(self, dim: int, num_heads: int,
                  ffn_expansion_factor: float = 2.66, bias: bool = False,
-                 ln_type: str = "WithBias"):
+                 ln_type: str = "WithBias", bwd_mode: str = "save"):
         super().__init__()
         if bias:
             raise ValueError("TransformerBlock: conv biases are not supported "
                              "by the whole-block kernel")
+        if bwd_mode not in ("save", "remat"):
+            raise ValueError(f"TransformerBlock: unknown bwd_mode {bwd_mode!r}")
         self.num_heads = num_heads
         self.ln_type = ln_type
+        self.bwd_mode = bwd_mode
         self.norm1 = ChannelLayerNorm(dim, ln_type)
         self.attn = MDTAAttention(dim, num_heads, bias)
         self.norm2 = ChannelLayerNorm(dim, ln_type)
@@ -146,7 +160,8 @@ class TransformerBlock(nn.Module):
 
     def _kernel_weights(self, p: dict, x: torch.Tensor):
         """Kernel-layout weights, rebuilt only when a parameter, the dtype
-        or the device changes (in-place updates bump `_version`)."""
+        or the device changes: an optimizer's in-place update bumps
+        `_version`, so the cache is rebuilt after every step."""
         if x.device.type != "cuda":
             return None
         key = (x.dtype, x.device,
@@ -163,7 +178,7 @@ class TransformerBlock(nn.Module):
         x = x.contiguous()
         p = self.block_params()
         return tblock_fused(x, p, self.num_heads, self.ln_type,
-                            self._kernel_weights(p, x))
+                            self._kernel_weights(p, x), self.bwd_mode)
 
     def module_forward(self, x):
         x = x + self.attn(self.norm1(x))
@@ -188,10 +203,12 @@ class TransformerResFusionBlock(TransformerBlock):
 
 def tblock_stage(dim: int, num_heads: int, n: int,
                  ffn_expansion_factor: float = 2.66, bias: bool = False,
-                 ln_type: str = "WithBias") -> nn.Sequential:
+                 ln_type: str = "WithBias",
+                 bwd_mode: str = "save") -> nn.Sequential:
     """n TransformerBlocks run one after the other (keys `{stage}.{i}.`)."""
     return nn.Sequential(*[
-        TransformerBlock(dim, num_heads, ffn_expansion_factor, bias, ln_type)
+        TransformerBlock(dim, num_heads, ffn_expansion_factor, bias, ln_type,
+                         bwd_mode)
         for _ in range(n)])
 
 

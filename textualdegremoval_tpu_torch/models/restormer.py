@@ -3,7 +3,10 @@
 Counterpart of textualdegremoval_tpu/models/restormer.py, with the same
 fixed MASA pyramid (4 levels, deepest stride 8, warp scales x1..x8 taken
 from pyramid positions).  Every TransformerBlock and
-TransformerResFusionBlock runs through `tblock_fused`.
+TransformerResFusionBlock runs through `tblock_fused`.  `dtype` is the
+compute dtype (the JAX modules' `dtype`): the input is cast to it and every
+weight at use, while the parameters stay float32.  `bwd_mode` is threaded
+to every block (JAX `bwd_mode`).
 """
 
 from __future__ import annotations
@@ -31,13 +34,15 @@ class _RestormerTrunk(nn.Module):
 
     def __init__(self, inp_channels, out_channels, dim, num_blocks,
                  num_refinement_blocks, heads, ffn_expansion_factor, bias,
-                 ln_type, dual_pixel_task):
+                 ln_type, dual_pixel_task, dtype, bwd_mode):
         super().__init__()
         d = dim
         self.dual_pixel_task = dual_pixel_task
+        self.dtype = dtype
 
         def stage(ch, h, n):
-            return tblock_stage(ch, h, n, ffn_expansion_factor, bias, ln_type)
+            return tblock_stage(ch, h, n, ffn_expansion_factor, bias, ln_type,
+                                bwd_mode)
 
         self.patch_embed = OverlapPatchEmbed(inp_channels, d, bias)
         self.encoder_level1 = stage(d, heads[0], num_blocks[0])
@@ -82,15 +87,16 @@ class Restormer(_RestormerTrunk):
                  num_refinement_blocks: int = 4,
                  heads: Sequence[int] = (1, 2, 4, 8),
                  ffn_expansion_factor: float = 2.66, bias: bool = False,
-                 ln_type: str = "WithBias", dual_pixel_task: bool = False):
+                 ln_type: str = "WithBias", dual_pixel_task: bool = False,
+                 dtype: torch.dtype = torch.float32, bwd_mode: str = "save"):
         super().__init__(inp_channels, out_channels, dim, num_blocks,
                          num_refinement_blocks, heads, ffn_expansion_factor,
-                         bias, ln_type, dual_pixel_task)
+                         bias, ln_type, dual_pixel_task, dtype, bwd_mode)
 
     def forward(self, inp_img):
         """inp_img: (B, H, W, C_in).  Returns (B, H, W, C_out)."""
         _, h0, w0, _ = inp_img.shape
-        x = pad_to_multiple(inp_img.to(self.output.weight.dtype), 8)
+        x = pad_to_multiple(inp_img.to(self.dtype), 8)
         inp_enc1 = self.patch_embed(x)
         out_enc1 = self.encoder_level1(inp_enc1)
         out_enc2 = self.encoder_level2(self.down1_2(out_enc1))
@@ -117,10 +123,11 @@ class RestormerRefFusion(_RestormerTrunk):
                  reffusion_n_blocks_middle: int = 1, num_nbr: int = 1,
                  psize: int = 3, lr_block_size: int = 8,
                  ref_down_block_size: float = 1.5,
-                 dilations: Sequence[int] = (1, 2, 3)):
+                 dilations: Sequence[int] = (1, 2, 3),
+                 dtype: torch.dtype = torch.float32, bwd_mode: str = "save"):
         super().__init__(inp_channels, out_channels, dim, num_blocks,
                          num_refinement_blocks, heads, ffn_expansion_factor,
-                         bias, ln_type, dual_pixel_task)
+                         bias, ln_type, dual_pixel_task, dtype, bwd_mode)
         self.lr_block_size = lr_block_size
         self.ref_down_block_size = ref_down_block_size
         self.psize = psize
@@ -130,7 +137,8 @@ class RestormerRefFusion(_RestormerTrunk):
             ch = dim * 2 ** (level + 1)
             setattr(self, f"masa_blk_enc_level{level + 1}", nn.Sequential(*[
                 TransformerResFusionBlock(ch, heads[level],
-                                          ffn_expansion_factor, bias, ln_type)
+                                          ffn_expansion_factor, bias, ln_type,
+                                          bwd_mode)
                 for _ in range(reffusion_n_blocks[level])]))
 
     @staticmethod
@@ -142,7 +150,7 @@ class RestormerRefFusion(_RestormerTrunk):
         """inp_img: (B, H, W, C_in); ref_img: (B, Hr, Wr, 3 or C_in).
         Returns (B, H, W, C_out)."""
         _, h0, w0, _ = inp_img.shape
-        dt = self.output.weight.dtype
+        dt = self.dtype
         pad = 8 * self.lr_block_size
         inp = pad_to_multiple(inp_img.to(dt), pad)
         ref = pad_to_multiple(ref_img.to(dt), pad)

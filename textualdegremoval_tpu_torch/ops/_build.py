@@ -1,11 +1,13 @@
 """Build the port's CUDA sources with nvcc and load them through ctypes.
 
-At first use, every `csrc/*.cu` of this package is compiled by one nvcc call
-into a shared library under `<repo>/build/torch_kernels/`, named by a hash
-of the sources and flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is.  The library has a plain C interface: pointers and
-the stream pass as `c_void_p`, ints as `c_int`.  ptxas's report (registers,
-shared memory, spills) is kept beside the library as `<name>.log`.
+At first use, every `csrc/*.cu` of this package is compiled by its own
+nvcc process, all started together, and the objects are linked into one
+shared library under `<repo>/build/torch_kernels/`, named by a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is.  The library has a plain C interface: pointers and the
+stream pass as `c_void_p`, ints as `c_int`, 64-bit strides as
+`c_longlong`.  ptxas's report (registers, shared memory, spills) is kept
+beside the library as `<name>.log`.
 """
 
 from __future__ import annotations
@@ -22,16 +24,23 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "tblock_smem_bytes": ([_I] * 6, ctypes.c_longlong),
+    "tblock_smem_bytes": ([_I] * 6, _L),
     "tblock_hidden_chunk": ([], _I),
     "tblock_max_cph": ([], _I),
     "tblock_error_string": ([_I], ctypes.c_char_p),
     "tblock_stats": ([_P] * 9 + [_I] * 10 + [_P], _I),
-    "tblock_apply": ([_P] * 13 + [_I] * 10 + [_P], _I),
+    "tblock_apply": ([_P] * 14 + [_I] * 10 + [_P], _I),
+    "tblock_gdfn_bwd_smem_bytes": ([_I] * 4, _L),
+    "tblock_gdfn_bwd": ([_P] * 14 + [_I] * 10 + [_P], _I),
+    "tblock_attn_bwd_smem_bytes": ([_I] * 6, _L),
+    "tblock_attn_bwd_stats": ([_P] * 11 + [_I] * 9 + [_P], _I),
+    "tblock_attn_bwd_apply": ([_P] * 22 + [_I] * 10 + [_P], _I),
+    "tblock_wgrad": ([_P, _I, _L, _L, _P, _I, _L, _L, _P] + [_I] * 7 + [_P],
+                     _I),
 }
 
 
@@ -59,21 +68,43 @@ def library_path() -> Path:
 
 
 def build() -> tuple[Path, float]:
-    """Compile the sources unless a library of the same hash exists.
-    Returns (library path, seconds spent compiling)."""
+    """Compile the sources unless a library of the same hash exists: one
+    nvcc per source, all at once, then one link.  Returns (library path,
+    seconds spent compiling and linking)."""
     so = library_path()
     if so.exists():
         return so, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
+    jobs = []
+    for src in _sources():
+        if src.suffix != ".cu":
+            continue
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        jobs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+    tmp = so.with_name(f"{tag}.tmp.so")
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                          *[str(obj) for _, obj, _ in jobs]],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
+    seconds = time.perf_counter() - t0
+    for _, obj, _ in jobs:
+        obj.unlink()
+    so.with_suffix(".log").write_text("\n".join(log))
     os.replace(tmp, so)
     return so, seconds
 

@@ -12,14 +12,24 @@ in csrc/tblock.cu, which replaces the TPU kernels `_make_stats_kernel`
 * the glue `_attn_matrix` (norms, temperature, f32 softmax; O(C * cph)) is
   plain torch, as it was plain XLA in the JAX package;
 * pass B applies the attention, project_out, both residuals, LN2 and the
-  GDFN, and writes only the C-wide output.
+  GDFN, and writes the C-wide output (and, for the backward, x1 = the
+  attention-residual boundary).
 
 What bounds the kernel on the card and what its design does about it is
 noted at the top of csrc/tblock.cu.
 
-A CPU tensor goes through `tblock_ref`; a CUDA tensor launches the kernel
-or raises.  `tblock_fused.launches` counts kernel launches (one per block
-call), never plain-version calls.
+`tblock_fused` is differentiable (JAX's `custom_vjp` of the same name): on
+CUDA, when an input needs a gradient, it runs as `_TBlockFunction`, whose
+backward is the two hand-written backward kernels, `gdfn_half_bwd`
+(ops/pallas/tblock_bwd.py) then `attn_half_bwd`
+(ops/pallas/tblock_attn_bwd.py).  `bwd_mode='save'` keeps (x, x1, stats)
+from the forward; `'remat'` keeps only x and recomputes x1 and the
+statistics with the forward kernel inside the backward.
+
+A CPU tensor goes through `tblock_ref` (plain autograd); a CUDA tensor
+launches the kernels or raises.  `tblock_fused.launches` counts forward
+kernel launches (one per block call, the backward's recompute under
+'remat' included), never plain-version calls.
 """
 
 from __future__ import annotations
@@ -98,8 +108,10 @@ def prepare_tblock_weights(p, dtype: torch.dtype, ln_type: str) -> dict:
     """Kernel-layout weights of one block (JAX `_prep_block_weights`): split
     q/k/v, taps stacked per pass, the GDFN hidden zero-padded to a multiple
     of HIDDEN_CHUNK.  Matrices in `dtype` (bf16 ones transposed to
-    (outputs, inputs)), LN parameters and taps in f32.  Callers cache the result per
-    module."""
+    (outputs, inputs)), LN parameters, taps and temperatures in f32 whatever
+    `dtype` is.  Also the transposed matrices that the backward kernels'
+    products read (the 1x1s run backwards) and the 27 attention taps in one
+    (27, C) array.  Callers cache the result per module."""
     f32 = torch.float32
     c = p["norm1_w"].shape[0]
     qkv = p["qkv"].reshape(c, 3 * c).to(f32)
@@ -134,16 +146,22 @@ def prepare_tblock_weights(p, dtype: torch.dtype, ln_type: str) -> dict:
         as the tensor-core fragments read it; f32 unchanged."""
         return (t.T if dtype == torch.bfloat16 else t).to(dtype).contiguous()
 
+    proj = p["proj"].reshape(c, c).to(f32)
+    wq, wk, wv = qkv[:, :c], qkv[:, c:2 * c], qkv[:, 2 * c:]
+    # the 27 attention taps: rows 0-8 q, 9-17 k (pass A), 18-26 v (pass B)
+    dwall = torch.cat([dwqkv[:, :c], dwqkv[:, c:2 * c], dwqkv[:, 2 * c:]],
+                      0).contiguous()
     return dict(
         ln1w=p["norm1_w"].to(f32).contiguous(), ln1b=vec("norm1_b"),
         ln2w=p["norm2_w"].to(f32).contiguous(), ln2b=vec("norm2_b"),
-        wq=mat(qkv[:, :c]), wk=mat(qkv[:, c:2 * c]), wv=mat(qkv[:, 2 * c:]),
-        dwqk=torch.cat([dwqkv[:, :c], dwqkv[:, c:2 * c]], 0).contiguous(),
-        dwv=dwqkv[:, 2 * c:].contiguous(),
-        wproj=mat(p["proj"].reshape(c, c)),
+        wq=mat(wq), wk=mat(wk), wv=mat(wv), dwall=dwall, dwqk=dwall[:18],
+        dwv=dwall[18:], wproj=mat(proj),
         w1=mat(w1s), dwg=dwg, w2=mat(w2s), hpad=hpad,
         temperature=p["temperature"].to(f32).reshape(-1).contiguous(),
         dtype=dtype,
+        # the backward's products run the 1x1s the other way
+        wqt=mat(wq.T), wkt=mat(wk.T), wvt=mat(wv.T), wprojt=mat(proj.T),
+        w1t=mat(w1s.T), w2t=mat(w2s.T),
     )
 
 
@@ -161,12 +179,13 @@ def _attn_matrix(gram, qssq, kssq, temperature, heads, dtype):
     return g.to(dtype).contiguous()
 
 
-def _pick_tile(lib, tiles, pass_id, c, heads, elem_bytes):
+def _first_fit(tiles, smem_bytes, what: str):
+    """The first tile (rows, cols) whose shared memory, smem_bytes(tile),
+    fits one block."""
     for t in tiles:
-        if lib.tblock_smem_bytes(pass_id, c, heads, t[0], t[1],
-                                 elem_bytes) <= _SMEM_BLOCK_LIMIT:
+        if smem_bytes(t) <= _SMEM_BLOCK_LIMIT:
             return t
-    raise ValueError(f"no tile fits shared memory for C={c}")
+    raise ValueError(f"{what}: no tile fits shared memory")
 
 
 def _check(rc: int, lib, what: str):
@@ -180,10 +199,13 @@ def _ptr(t: torch.Tensor):
 
 
 def _launch(lib, x, kw, heads, ln_type, stats_tile, apply_tile, nsplit,
-            stream) -> torch.Tensor:
+            stream, want_x1: bool = False):
     """Pass A, the glue and pass B on already validated inputs.  Outputs and
     partials are allocated on x's device; `stream` is a cudaStream_t as an
-    int (0 for the default stream)."""
+    int (0 for the default stream).  Returns out, or with `want_x1`
+    (out, x1, (gram, qssq, kssq)): the attention-residual boundary and the
+    pass-A statistics (per-head gram (B, heads, cph, cph), square sums
+    (B, C), f32) that the backward starts from."""
     b, hgt, wdt, c = x.shape
     cph = c // heads
     f32 = torch.float32
@@ -201,44 +223,52 @@ def _launch(lib, x, kw, heads, ln_type, stats_tile, apply_tile, nsplit,
         _ptr(ks_part), b, hgt, wdt, c, heads, is_bf16, bias_free,
         stats_tile[0], stats_tile[1], nsplit, stream), lib, "tblock_stats")
 
-    attn = _attn_matrix(gram_part.sum(1), qs_part.sum(1), ks_part.sum(1),
-                        kw["temperature"], heads, x.dtype)
+    stats = (gram_part.sum(1), qs_part.sum(1), ks_part.sum(1))
+    attn = _attn_matrix(*stats, kw["temperature"], heads, x.dtype)
 
     out = torch.empty_like(x)
+    x1 = torch.empty_like(x) if want_x1 else None
     _check(lib.tblock_apply(
         _ptr(x), _ptr(kw["ln1w"]), _ptr(kw["ln1b"]), _ptr(kw["wv"]),
         _ptr(kw["dwv"]), _ptr(attn), _ptr(kw["wproj"]), _ptr(kw["ln2w"]),
         _ptr(kw["ln2b"]), _ptr(kw["w1"]), _ptr(kw["dwg"]), _ptr(kw["w2"]),
-        _ptr(out), b, hgt, wdt, c, heads, kw["hpad"], is_bf16, bias_free,
-        apply_tile[0], apply_tile[1], stream), lib, "tblock_apply")
-    return out
+        _ptr(out), None if x1 is None else _ptr(x1), b, hgt, wdt, c, heads,
+        kw["hpad"], is_bf16, bias_free, apply_tile[0], apply_tile[1],
+        stream), lib, "tblock_apply")
+    return (out, x1, stats) if want_x1 else out
 
 
-def tblock_fused(x: torch.Tensor, p, heads: int, ln_type: str = "WithBias",
-                 kw: dict | None = None) -> torch.Tensor:
-    """Whole TransformerBlock.  x: (B, H, W, C) float32 or bfloat16; p: the
-    natural-shape parameter dict of `tblock_ref`; kw: its
-    `prepare_tblock_weights` output, built once by the caller and required
-    on CUDA (TransformerBlock caches it per module).
-
-    CPU tensors take `tblock_ref`.  CUDA tensors launch the kernel; any
-    input it cannot take raises."""
-    if x.device.type == "cpu":
-        return tblock_ref(x, p, heads, ln_type)
+def _validate(x: torch.Tensor, heads: int, ln_type: str, what: str) -> None:
+    """Raise on a CUDA input that the block kernels do not take."""
     if x.device.type != "cuda":
-        raise ValueError(f"tblock_fused: unsupported device {x.device}")
+        raise ValueError(f"{what}: unsupported device {x.device}")
     if x.dim() != 4:
-        raise ValueError(f"tblock_fused: x must be (B, H, W, C), got "
+        raise ValueError(f"{what}: x must be (B, H, W, C), got "
                          f"{tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"tblock_fused: unsupported dtype {x.dtype}")
+        raise ValueError(f"{what}: unsupported dtype {x.dtype}")
     if not x.is_contiguous():
-        raise ValueError("tblock_fused: x must be contiguous (NHWC)")
+        raise ValueError(f"{what}: x must be contiguous (NHWC)")
     if ln_type not in ("WithBias", "BiasFree"):
-        raise ValueError(f"tblock_fused: unknown ln_type {ln_type!r}")
-    b, hgt, wdt, c = x.shape
+        raise ValueError(f"{what}: unknown ln_type {ln_type!r}")
+    c = x.shape[-1]
     if c % heads:
-        raise ValueError(f"tblock_fused: C={c} not divisible by heads={heads}")
+        raise ValueError(f"{what}: C={c} not divisible by heads={heads}")
+
+
+def _check_weights(kw, x: torch.Tensor, what: str):
+    if kw is None:
+        raise ValueError(f"{what}: a CUDA tensor needs the block's weights "
+                         "from prepare_tblock_weights (kw)")
+    if kw["dtype"] != x.dtype or kw["wv"].device != x.device \
+            or kw["wv"].shape[0] != x.shape[-1]:
+        raise ValueError(f"{what}: prepared weights do not match x")
+
+
+def _forward_kernel(x, kw, heads, ln_type, want_x1=False):
+    """Validated launch of the forward kernel pair on a CUDA tensor."""
+    _validate(x, heads, ln_type, "tblock_fused")
+    b, hgt, wdt, c = x.shape
     cph = c // heads
 
     from textualdegremoval_tpu_torch.ops._build import load_library
@@ -249,23 +279,89 @@ def tblock_fused(x: torch.Tensor, p, heads: int, ln_type: str = "WithBias",
                          f"{lib.tblock_max_cph()}")
     if lib.tblock_hidden_chunk() != HIDDEN_CHUNK:
         raise RuntimeError("tblock_fused: hidden chunk differs from the kernel")
-    if kw is None:
-        raise ValueError("tblock_fused: a CUDA tensor needs the block's "
-                         "weights from prepare_tblock_weights (kw)")
-    if kw["dtype"] != x.dtype or kw["wv"].device != x.device \
-            or kw["wv"].shape[0] != c:
-        raise ValueError("tblock_fused: prepared weights do not match x")
+    _check_weights(kw, x, "tblock_fused")
 
     eb = x.element_size()
-    th, tw = _pick_tile(lib, _STATS_TILES, 0, c, heads, eb)
+
+    def pick(tiles, pass_id):
+        return _first_fit(tiles, lambda t: lib.tblock_smem_bytes(
+            pass_id, c, heads, t[0], t[1], eb), "tblock_fused")
+
+    th, tw = pick(_STATS_TILES, 0)
     ntiles = (-(-hgt // th)) * (-(-wdt // tw))
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     nsplit = max(1, min(ntiles, -(-2 * sms // (b * heads))))
-    out = _launch(lib, x, kw, heads, ln_type, (th, tw),
-                  _pick_tile(lib, _APPLY_TILES, 1, c, heads, eb), nsplit,
-                  torch.cuda.current_stream(x.device).cuda_stream)
+    res = _launch(lib, x, kw, heads, ln_type, (th, tw),
+                  pick(_APPLY_TILES, 1), nsplit,
+                  torch.cuda.current_stream(x.device).cuda_stream, want_x1)
     tblock_fused.launches += 1
-    return out
+    return res
+
+
+class _TBlockFunction(torch.autograd.Function):
+    """The block on CUDA with its hand-written backward (JAX `_fwd`/`_bwd`
+    of the `custom_vjp`).  Gradients come back in the natural shapes of
+    the parameter views it was given, so they land on the module's
+    parameters."""
+
+    @staticmethod
+    def forward(ctx, x, kw, heads, ln_type, bwd_mode, keys, *values):
+        if bwd_mode == "remat":
+            out = _forward_kernel(x, kw, heads, ln_type)
+            ctx.save_for_backward(x, *values)
+        else:
+            out, x1, stats = _forward_kernel(x, kw, heads, ln_type,
+                                             want_x1=True)
+            ctx.save_for_backward(x, *values, x1, *stats)
+        ctx.kw, ctx.heads, ctx.ln_type = kw, heads, ln_type
+        ctx.bwd_mode, ctx.keys = bwd_mode, keys
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from textualdegremoval_tpu_torch.ops.pallas.tblock_attn_bwd import (
+            attn_half_bwd)
+        from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import (
+            gdfn_half_bwd)
+
+        saved = ctx.saved_tensors
+        n = len(ctx.keys)
+        x, p = saved[0], dict(zip(ctx.keys, saved[1:1 + n]))
+        if ctx.bwd_mode == "remat":
+            _, x1, stats = _forward_kernel(x, ctx.kw, ctx.heads, ctx.ln_type,
+                                           want_x1=True)
+        else:
+            x1, stats = saved[1 + n], tuple(saved[2 + n:])
+        dx1, gg = gdfn_half_bwd(x1, g.contiguous(), p, ctx.ln_type, ctx.kw)
+        dx, ga = attn_half_bwd(x, dx1, p, ctx.heads, ctx.ln_type, stats,
+                               ctx.kw)
+        grads = {**gg, **ga}
+        return (dx, None, None, None, None, None,
+                *(grads[k] for k in ctx.keys))
+
+
+def tblock_fused(x: torch.Tensor, p, heads: int, ln_type: str = "WithBias",
+                 kw: dict | None = None, bwd_mode: str = "save"):
+    """Whole TransformerBlock.  x: (B, H, W, C) float32 or bfloat16; p: the
+    natural-shape parameter dict of `tblock_ref`; kw: its
+    `prepare_tblock_weights` output, built once by the caller and required
+    on CUDA (TransformerBlock caches it per module).  bwd_mode: 'save' or
+    'remat' (see the module docstring).
+
+    CPU tensors take `tblock_ref`.  CUDA tensors launch the kernels; any
+    input they cannot take raises, and so does a gradient that the kernels
+    cannot give: no gradient is ever silently dropped."""
+    if x.device.type == "cpu":
+        return tblock_ref(x, p, heads, ln_type)
+    if bwd_mode not in ("save", "remat"):
+        raise ValueError(f"tblock_fused: unknown bwd_mode {bwd_mode!r}")
+    needs_grad = torch.is_grad_enabled() and (
+        x.requires_grad or any(v.requires_grad for v in p.values()))
+    if not needs_grad:
+        return _forward_kernel(x, kw, heads, ln_type)
+    keys = tuple(p)
+    return _TBlockFunction.apply(x, kw, heads, ln_type, bwd_mode, keys,
+                                 *(p[k] for k in keys))
 
 
 tblock_fused.launches = 0

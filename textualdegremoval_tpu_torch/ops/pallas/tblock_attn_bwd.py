@@ -1,0 +1,184 @@
+"""Backward of the attention half of the TransformerBlock: plain PyTorch
+version, glue and CUDA kernels.
+
+Counterpart of textualdegremoval_tpu/ops/pallas/tblock_attn_bwd.py.  The
+half is
+
+    x1 = x + proj(MDTA(dw3x3(LN1(x) . Wqkv)))
+
+and `attn_half_bwd(x, dx1, p, heads, ln_type, stats, kw)` returns dx and
+the gradients of norm1_w, norm1_b (WithBias), qkv, qkv_dw, temperature and
+proj in their natural shapes.  A CPU tensor takes the plain version,
+`attn_half_bwd_ref` (torch.autograd through `_tblock_attn_part`); a CUDA
+tensor launches the hand-written kernels of csrc/tblock_attn_bwd.cu, which
+replace the TPU kernels `_make_attn_bwd_stats_kernel` (pass 1) and
+`_make_attn_bwd_apply_kernel` (pass 2), and the weight-gradient products
+of csrc/wgrad.cu, or raises.  `attn_half_bwd.launches` counts kernel calls.
+
+Between the passes, `_attn_bwd_glue` (softmax, temperature and L2-norm
+backward, O(C * cph) per image) is plain torch, as it was plain XLA.  It
+works on the forward's per-head statistics, (B, heads, cph, cph) grams and
+(B, C) square sums, not on JAX's full C x C gram.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from textualdegremoval_tpu_torch.ops.pallas.tblock import (
+    _attn_matrix, _check, _check_weights, _first_fit, _ptr, _tblock_attn_part,
+    _validate,
+)
+from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import (
+    _BWD_TILES, _half_bwd_ref, _nsplit, _wgrad,
+)
+
+_ATTN_KEYS = ("norm1_w", "norm1_b", "qkv", "qkv_dw", "temperature", "proj")
+
+
+def attn_half_bwd_ref(x, dx1, p, heads, ln_type):
+    """Plain version: torch.autograd through `_tblock_attn_part`."""
+    return _half_bwd_ref(
+        lambda a, q: _tblock_attn_part(a, q, heads, ln_type), x, dx1, p,
+        _ATTN_KEYS)
+
+
+def _attn_bwd_glue(da, gram, qssq, kssq, temperature, heads):
+    """Softmax + temperature + L2-norm backward on the per-head statistics.
+
+    da, gram: (B, heads, cph, cph) f32, the gradient of the softmax output A
+    and the forward's q.k gram; qssq, kssq: (B, C) f32 square sums;
+    temperature: (heads, 1, 1).  Returns (m, dqd, dkd, dtemp): m
+    (B, heads, cph, cph) f32 with dq = k . m^T + q * dqd and
+    dk = q . m + k * dkd per head; dqd, dkd: (B, C) f32; dtemp in
+    temperature's shape and dtype."""
+    b, _, cph, _ = gram.shape
+    c = heads * cph
+    qn = torch.rsqrt(torch.clamp_min(qssq, 1e-24)).reshape(b, heads, cph)
+    kn = torch.rsqrt(torch.clamp_min(kssq, 1e-24)).reshape(b, heads, cph)
+    nrm = qn[..., :, None] * kn[..., None, :]
+    ghat = gram * nrm
+    tau = temperature.float().reshape(1, heads, 1, 1)
+    a = torch.softmax(ghat * tau, dim=-1)
+    dz = a * (da - (da * a).sum(-1, keepdim=True))
+    dtemp = (dz * ghat).sum((0, 2, 3))
+    m = nrm * (tau * dz)
+    mg = m * gram
+    # the norm path differentiates only where the square sum is above the
+    # clamp floor
+    dqd = torch.where(qssq > 1e-24, -(qn ** 2 * mg.sum(3)).reshape(b, c), 0.0)
+    dkd = torch.where(kssq > 1e-24, -(kn ** 2 * mg.sum(2)).reshape(b, c), 0.0)
+    return (m, dqd.contiguous(), dkd.contiguous(),
+            dtemp.reshape(temperature.shape).to(temperature.dtype))
+
+
+def _launch_attn_bwd(lib, x, dx1, kw, heads, ln_type, stats, stats_tile,
+                     apply_tile, nsplit, sms, stream):
+    """Pass 1, its products, the glue, pass 2 and its products on validated
+    inputs.  Returns (dx, dwqkv (C, 3C), dtap (27, C), dwproj (C, C),
+    dln (2, C), dtemp (heads,))."""
+    b, hgt, wdt, c = x.shape
+    cph = c // heads
+    hw, npix = hgt * wdt, b * hgt * wdt
+    dev, dt, f32 = x.device, x.dtype, torch.float32
+    is_bf16, bias_free = int(dt == torch.bfloat16), int(ln_type == "BiasFree")
+    gram, qssq, kssq = stats
+
+    attn = _attn_matrix(gram, qssq, kssq, kw["temperature"], heads, dt)
+    vs, os_, dos = (torch.empty((npix, c), dtype=dt, device=dev)
+                    for _ in range(3))
+    _check(lib.tblock_attn_bwd_stats(
+        _ptr(x), _ptr(dx1), _ptr(kw["ln1w"]), _ptr(kw["ln1b"]),
+        _ptr(kw["wv"]), _ptr(kw["dwv"]), _ptr(attn), _ptr(kw["wprojt"]),
+        _ptr(vs), _ptr(os_), _ptr(dos), b, hgt, wdt, c, heads, is_bf16,
+        bias_free, stats_tile[0], stats_tile[1], stream), lib,
+        "tblock_attn_bwd_stats")
+    # dA per (image, head) = do_h^T v_h; dWproj = o^T dx1
+    da = _wgrad(lib, dos, c, (hw * c, cph), vs, c, (hw * c, cph), hw, cph,
+                cph, (b, heads), sms, stream)
+    dwproj = _wgrad(lib, os_, c, (0, 0), dx1, c, (0, 0), npix, c, c, (1, 1),
+                    sms, stream)[0, 0]
+    del vs, os_, dos
+
+    m, dqd, dkd, dtemp = _attn_bwd_glue(da, gram, qssq, kssq,
+                                        kw["temperature"], heads)
+    m = m.to(dt)
+    mt = m.transpose(-1, -2).contiguous()
+    at = attn.transpose(-1, -2).contiguous()
+    dx = torch.empty_like(x)
+    ys = torch.empty((npix, c), dtype=dt, device=dev)
+    dlins = torch.empty((npix, 3 * c), dtype=dt, device=dev)
+    dtap_part = torch.empty((b * nsplit, 27, c), dtype=f32, device=dev)
+    dln_part = torch.empty((b * nsplit, 2, c), dtype=f32, device=dev)
+    _check(lib.tblock_attn_bwd_apply(
+        _ptr(x), _ptr(dx1), _ptr(kw["ln1w"]), _ptr(kw["ln1b"]),
+        _ptr(kw["wq"]), _ptr(kw["wk"]), _ptr(kw["wv"]), _ptr(kw["wqt"]),
+        _ptr(kw["wkt"]), _ptr(kw["wvt"]), _ptr(kw["dwall"]),
+        _ptr(kw["wprojt"]), _ptr(m), _ptr(mt), _ptr(at),
+        _ptr(dqd), _ptr(dkd), _ptr(dx), _ptr(ys),
+        _ptr(dlins), _ptr(dtap_part), _ptr(dln_part), b, hgt, wdt, c, heads,
+        is_bf16, bias_free, apply_tile[0], apply_tile[1], nsplit, stream),
+        lib, "tblock_attn_bwd_apply")
+    dwqkv = _wgrad(lib, ys, c, (0, 0), dlins, 3 * c, (0, 0), npix, c, 3 * c,
+                   (1, 1), sms, stream)[0, 0]
+    return dx, dwqkv, dtap_part.sum(0), dwproj, dln_part.sum(0), dtemp
+
+
+def _natural_attn_grads(p, dwqkv, dtap, dwproj, dln, dtemp, ln_type):
+    """Kernel-layout gradients -> the natural shapes of p."""
+    grads = {
+        "qkv": dwqkv,
+        "qkv_dw": torch.cat([dtap[0:9], dtap[9:18], dtap[18:27]], 1),
+        "proj": dwproj,
+        "temperature": dtemp,
+        "norm1_w": dln[0],
+    }
+    if ln_type != "BiasFree":
+        grads["norm1_b"] = dln[1]
+    return {k: v.reshape(p[k].shape).to(p[k].dtype) for k, v in grads.items()}
+
+
+def attn_half_bwd(x, dx1, p, heads, ln_type, stats=None, kw=None):
+    """Backward of the attention half.  x, dx1: (B, H, W, C), the block
+    input and the gradient at the attention-residual boundary x1; p:
+    natural-shape parameter dict (tblock_ref keys); stats: the forward's
+    (gram (B, heads, cph, cph), qssq (B, C), kssq (B, C)) and kw the block's
+    `prepare_tblock_weights` output, both required on CUDA.  Returns (dx in
+    x's dtype, grads in natural shapes and p's dtypes)."""
+    if x.device.type == "cpu":
+        return attn_half_bwd_ref(x, dx1, p, heads, ln_type)
+    _validate(x, heads, ln_type, "attn_half_bwd")
+    if dx1.shape != x.shape or dx1.dtype != x.dtype \
+            or not dx1.is_contiguous():
+        raise ValueError("attn_half_bwd: dx1 must match x (contiguous)")
+    if stats is None:
+        raise ValueError("attn_half_bwd: a CUDA tensor needs the forward's "
+                         "statistics (stats)")
+    _check_weights(kw, x, "attn_half_bwd")
+
+    from textualdegremoval_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    b, hgt, wdt, c = x.shape
+    if c // heads > lib.tblock_max_cph():
+        raise ValueError(f"attn_half_bwd: {c // heads} channels per head "
+                         f"exceeds {lib.tblock_max_cph()}")
+    eb = x.element_size()
+
+    def pick(pass_id):
+        return _first_fit(_BWD_TILES, lambda t: lib.tblock_attn_bwd_smem_bytes(
+            pass_id, c, heads, t[0], t[1], eb), "attn_half_bwd")
+
+    apply_tile = pick(1)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    ntiles = -(-hgt // apply_tile[0]) * -(-wdt // apply_tile[1])
+    dx, dwqkv, dtap, dwproj, dln, dtemp = _launch_attn_bwd(
+        lib, x, dx1, kw, heads, ln_type, stats, pick(0),
+        apply_tile, _nsplit(b, ntiles, sms), sms,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    attn_half_bwd.launches += 1
+    return dx, _natural_attn_grads(p, dwqkv, dtap, dwproj, dln, dtemp,
+                                   ln_type)
+
+
+attn_half_bwd.launches = 0
