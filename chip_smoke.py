@@ -32,17 +32,38 @@ Phases, each of which raises on failure:
    step under bwd_mode 'remat' (52 more forward launches), the step timed
    against the same step through plain-autograd blocks in alternating
    turns, peak memory; and one f32 step at 128 px, batch 1, on the card
-   against the same step on the CPU.
+   against the same step on the CPU;
+8. the whole-NAFBlock kernel `nafblock_fused` against its plain version
+   `nafblock_ref` at every block shape of a 512 px nafnet_deblur forward,
+   one ragged shape and the two largest shapes of a 384 px batch-8
+   training step, float32 and bfloat16, with weights at a trained block's
+   scale (beta, gamma and the SCA scale non-zero), the tiles and the CTAs
+   per SM of each pass, and the median time of both (CUDA events);
+9. the NAFNetRefFusion evaluation path: the full-width nafnet_deblur network
+   on the card against the same network on the CPU in float32 on a small
+   input, then `restore_and_score` on synthetic 512 x 512 triples in
+   bfloat16, one warm-up and two timed, 45 kernel launches per forward,
+   and a profiled forward;
+10. the NAFNetRefFusion training path: the training CLI's step function
+   with the options of options/train_restoration/nafnet_motion_deblur.yml
+   (PSNR loss) and param_fix_iterations 2, on seeded synthetic 384 px
+   batch-8 triples in bf16: a warm-up, two frozen and two released steps
+   (45 launches each; after the first released step every parameter has a
+   finite gradient), the kernel against plain at every training block
+   shape in bf16, and the step timed against the same step through plain
+   blocks in alternating turns, with the peak memory of each.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is nvidia-smi's, and before that a JSON summary of each kernel.  Without
 CUDA the script exits non-zero and prints no result.
 
-    python3 chip_smoke.py --plant dv_uses_a|dq_drops_diag
+    python3 chip_smoke.py --plant FAULT
 
 builds a copy of the kernel sources with one fault planted, under a
-temporary directory, runs phase 6 in bfloat16 at a few shapes and exits
-0 only if the check catches the fault (the strength of phase 6's bound).
+temporary directory, runs the phase that should catch it in bfloat16 at a
+few shapes and exits 0 only if its check catches the fault (the strength
+of the phase's bound): dv_uses_a and dq_drops_diag (phase 6, the attention
+backward), sca_skipped and halo_kept (phase 8, the NAFBlock forward).
 """
 
 from __future__ import annotations
@@ -68,8 +89,11 @@ from textualdegremoval_tpu_torch.cli.train_restoration import resolve_network
 from textualdegremoval_tpu_torch.losses import build_loss
 from textualdegremoval_tpu_torch.models import define_network
 from textualdegremoval_tpu_torch.models import layers
-from textualdegremoval_tpu_torch.models.layers import TransformerBlock
+from textualdegremoval_tpu_torch.models.layers import (
+    NAFBlock, TransformerBlock,
+)
 from textualdegremoval_tpu_torch.ops import _build
+from textualdegremoval_tpu_torch.ops.pallas import nafblock as nb
 from textualdegremoval_tpu_torch.ops.pallas import tblock as tb
 from textualdegremoval_tpu_torch.ops.pallas import tblock_attn_bwd as ab
 from textualdegremoval_tpu_torch.ops.pallas import tblock_bwd as gb
@@ -210,45 +234,53 @@ def kernel_vs_plain(gen: torch.Generator, timed: bool = True):
     return main_rows
 
 
-def build_network(seed: int, dtype, device) -> torch.nn.Module:
-    """restormer_deblur at full width with seeded random weights; the
-    zero-initialised fusion gates and unit temperatures are set to non-zero
-    random values so every block's output reaches the result."""
+def build_network(seed: int, dtype, device, task=TASK) -> torch.nn.Module:
+    """A task's network at full width with seeded random weights; the
+    zero-initialised fusion gates and residual scales and the unit
+    temperatures are set to non-zero random values so every block's output
+    reaches the result."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = define_network(TASK_TABLE[TASK], dtype=dtype)
+        model = define_network(TASK_TABLE[task], dtype=dtype)
     return gate_and_temperatures(model, seed).to(device)
 
 
 def gate_and_temperatures(model, seed):
-    """Non-zero fusion gates and non-unit temperatures, drawn from a seed,
-    so that every block's output reaches the result."""
+    """Non-zero fusion gates and NAFBlock residual scales (beta, gamma),
+    and non-unit temperatures, drawn from a seed, so that every block's
+    output reaches the result."""
     gen = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith("alpha"):
+            if name.endswith(("alpha", "beta", "gamma")):
                 p.copy_(0.25 + 0.5 * torch.rand(p.shape, generator=gen))
             elif name.endswith("temperature"):
                 p.copy_(0.5 + torch.rand(p.shape, generator=gen))
     return model
 
 
-def network_vs_cpu(seed: int):
-    """Phase 4: the network on the card (kernel) vs on the CPU (plain)."""
-    model_cpu = build_network(seed, torch.float32, "cpu")
+def network_vs_cpu(seed: int, task=TASK, kernel=tb.tblock_fused,
+                   blocks=52):
+    """Phases 4 and 9: the task's network on the card (`blocks` launches of
+    the forward kernel `kernel`) vs on the CPU (plain), float32."""
+    model_cpu = build_network(seed, torch.float32, "cpu", task)
     model_gpu = copy.deepcopy(model_cpu).to("cuda")
     rng = np.random.default_rng(seed + 2)
     lq = rng.random((1, 128, 128, 3), dtype=np.float32)
     ref = rng.random((1, 128, 128, 3), dtype=np.float32)
+    kernel.launches = 0
     with torch.inference_mode():
         want = model_cpu(torch.from_numpy(lq), torch.from_numpy(ref))
         got = model_gpu(torch.from_numpy(lq).cuda(),
                         torch.from_numpy(ref).cuda()).cpu()
     err = (got - want).abs().max().item()
-    log(f"network f32 128x128, card (kernel) vs CPU (plain): max_abs {err:.3e}"
-        f" (atol {NET_ATOL}), max|out| {want.abs().max().item():.3f}")
-    if not torch.isfinite(got).all() or err > NET_ATOL:
-        raise RuntimeError(f"network on the card disagrees with the CPU: {err}")
+    log(f"{task} f32 128x128, card ({kernel.launches} kernel launches) vs "
+        f"CPU (plain): max_abs {err:.3e} (atol {NET_ATOL}), max|out| "
+        f"{want.abs().max().item():.3f}")
+    if not torch.isfinite(got).all() or err > NET_ATOL \
+            or kernel.launches != blocks:
+        raise RuntimeError(f"{task} on the card disagrees with the CPU: "
+                           f"{err}, {kernel.launches} launches")
 
 
 def synthetic_triple(rng, size=512):
@@ -263,16 +295,18 @@ def synthetic_triple(rng, size=512):
     return lq, hq, ref
 
 
-def main_path(seed: int):
-    """Phase 5, the evaluation path.  Returns its tblock_fused launches."""
-    model = build_network(seed, torch.bfloat16, "cuda")
+def main_path(seed: int, task=TASK, kernel=tb.tblock_fused, blocks=52):
+    """Phases 5 and 9, the evaluation path of `task`, whose every forward
+    launches its forward kernel `kernel` `blocks` times.  Returns (the
+    launches, forward ms)."""
+    model = build_network(seed, torch.bfloat16, "cuda", task)
     rng = np.random.default_rng(seed + 3)
     triples = [synthetic_triple(rng) for _ in range(2)]
-    tb.tblock_fused.launches = 0
+    kernel.launches = 0
     forwards = 0
     _, psnr, ssim = restore_and_score(model, *triples[0])
     forwards += 1
-    log(f"warm-up psnr {psnr:.4f} ssim {ssim:.4f}")
+    log(f"{task} warm-up psnr {psnr:.4f} ssim {ssim:.4f}")
     for i, (lq, hq, ref) in enumerate(triples):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -281,13 +315,14 @@ def main_path(seed: int):
         forwards += 1
         if pred.shape != hq.shape or not np.isfinite(pred).all() \
                 or not np.isfinite(psnr) or not np.isfinite(ssim):
-            raise RuntimeError(f"image {i}: bad output {pred.shape}")
-        log(f"image {i}: {ms:.1f} ms (restore + score), psnr {psnr:.4f} "
-            f"ssim {ssim:.4f}")
-    launches = tb.tblock_fused.launches
-    log(f"tblock_fused launches {launches} over {forwards} forwards")
-    if launches != 52 * forwards:
-        raise RuntimeError(f"expected {52 * forwards} kernel launches, "
+            raise RuntimeError(f"{task} image {i}: bad output {pred.shape}")
+        log(f"{task} image {i}: {ms:.1f} ms (restore + score), psnr "
+            f"{psnr:.4f} ssim {ssim:.4f}")
+    launches = kernel.launches
+    log(f"{task}: {kernel.__name__} launches {launches} over {forwards} "
+        f"forwards")
+    if launches != blocks * forwards:
+        raise RuntimeError(f"expected {blocks * forwards} kernel launches, "
                            f"got {launches}")
 
     lq, _, ref = triples[0]
@@ -296,9 +331,13 @@ def main_path(seed: int):
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
         fwd_ms = median_ms(lambda: model(*args), reps=3)
-    log(f"forward 512x512 bf16: {fwd_ms:.2f} ms ({1e3 / fwd_ms:.3f} images/s)"
-        f", peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return launches
+        log(f"{task} forward 512x512 bf16: {fwd_ms:.2f} ms "
+            f"({1e3 / fwd_ms:.3f} images/s), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        profile_device(lambda: model(*args), f"{task} forward")
+    del model
+    torch.cuda.empty_cache()
+    return launches, fwd_ms
 
 
 # ---------------------------------------------------------------------------
@@ -332,13 +371,24 @@ TRAIN_SHAPES = [
 GRAD_L2 = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 GRAD_L2_TEMPERATURE = {torch.float32: 1e-3, torch.bfloat16: 1e-1}
 GRAD_ELEM = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (1e-1, 1e-1)}
+# fault -> (source, text, replacement, the phase that must catch it)
 FAULTS = {
     # dv = do . A^T in place of do . A in pass 2 of the attention half
     "dv_uses_a": ("tblock_attn_bwd.cu", "MatB<T>{at + mo, 1, cph}",
-                  "MatB<T>{at + mo, cph, 1}"),
+                  "MatB<T>{at + mo, cph, 1}", 6),
     # the norm-backward diagonal term q Dq dropped from dq
     "dq_drops_diag": ("tblock_attn_bwd.cu",
-                      "a + qv * dqd[(size_t)b * C + hd * cph + n]", "a"),
+                      "a + qv * dqd[(size_t)b * C + hd * cph + n]", "a", 6),
+    # the gate not multiplied by the SCA scale s in pass B
+    "sca_skipped": ("nafblock.cu",
+                    "gate_at<T>(hab, rw, p / tw, p % tw, j, j0, taps, dwb, "
+                    "cpad) * sv)",
+                    "gate_at<T>(hab, rw, p / tw, p % tw, j, j0, taps, dwb, "
+                    "cpad))", 8),
+    # conv1's output (bias included) kept outside the image: the dwconv's
+    # zero padding lost, in both passes
+    "halo_kept": ("nafblock.cu", "from_f<T>(in ? rnd<T>(a) + bias : 0.f)",
+                  "from_f<T>(rnd<T>(a) + bias)", 8),
 }
 
 
@@ -463,7 +513,7 @@ def remat_vs_save(gen):
 
 def plant_fault(fault: str) -> None:
     """Point the build at a temporary copy of csrc/ with `fault` planted."""
-    src, old, new = FAULTS[fault]
+    src, old, new, _ = FAULTS[fault]
     tmp = Path(tempfile.mkdtemp(prefix="planted_"))
     shutil.copytree(_build._CSRC, tmp / "csrc")
     path = tmp / "csrc" / src
@@ -520,21 +570,10 @@ def _trainer(model, topt):
             make_train_step(loss_fn, masa_frozen=True))
 
 
-def _launch_counts():
-    return (tb.tblock_fused.launches, gb.gdfn_half_bwd.launches,
-            ab.attn_half_bwd.launches)
-
-
-def _zero_counts():
-    tb.tblock_fused.launches = 0
-    gb.gdfn_half_bwd.launches = 0
-    ab.attn_half_bwd.launches = 0
-
-
 def _plain_blocks(x, p, heads, ln_type="WithBias", kw=None,
                   bwd_mode="save"):
-    """The plain-autograd route of the comparison turns (never the main
-    path): tblock_ref, checkpointed per block, since autograd's saved
+    """The plain-autograd route of phase 7's comparison turns (never the
+    main path): tblock_ref, checkpointed per block, since autograd's saved
     tensors of 52 plain blocks at 384 px batch 8 would not fit the card."""
     from torch.utils.checkpoint import checkpoint
 
@@ -542,12 +581,21 @@ def _plain_blocks(x, p, heads, ln_type="WithBias", kw=None,
                       use_reentrant=False)
 
 
-def train_main_path(seed: int):
-    """Phase 7.  Returns ({kernel: launches over the counted steps},
-    kernel step ms, plain step ms, peak GiB)."""
+def train_main_path(seed: int, opt=TRAIN_OPT, kernels=None, per_step=None,
+                    plain=("tblock_fused", _plain_blocks)):
+    """Phases 7 and 10, the training path of `opt` in bf16 at 384 px batch
+    8: every step launches each of `kernels` per_step times; the
+    comparison turns put plain = (name in models.layers, plain route) in
+    place of the kernel route.  Returns (launches of each kernel over the
+    counted steps, kernel step ms, plain step ms, kernel peak GiB, plain
+    peak GiB)."""
+    kernels = kernels or (tb.tblock_fused, gb.gdfn_half_bwd,
+                          ab.attn_half_bwd)
+    per_step = per_step or (52, 52, 52)
+    name = opt["network_g"]["type"]
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model, _, _ = resolve_network(TRAIN_OPT, mixed_precision="bf16",
+        model, _, _ = resolve_network(opt, mixed_precision="bf16",
                                       device="cuda")
     model = gate_and_temperatures(model, seed).cuda()
     init = {k: v.clone() for k, v in model.state_dict().items()}
@@ -556,31 +604,42 @@ def train_main_path(seed: int):
     batch = {k: torch.from_numpy(np.stack([t[i] for t in trip])).cuda()
              for i, k in enumerate(("lq", "gt", "ref"))}
 
+    def counted_step(fn):
+        for k in kernels:
+            k.launches = 0
+        state_m = fn(state, batch)
+        return state_m, tuple(k.launches for k in kernels)
+
     # warm-up: one frozen and one released step, then back to the start
-    state, step_fn, frozen_fn = _trainer(model, TRAIN_OPT["train"])
+    state, step_fn, frozen_fn = _trainer(model, opt["train"])
     state, _ = frozen_fn(state, batch)
     state, _ = step_fn(state, batch)
     model.load_state_dict(init)
-    state, step_fn, frozen_fn = _trainer(model, TRAIN_OPT["train"])
+    state, step_fn, frozen_fn = _trainer(model, opt["train"])
     torch.cuda.synchronize()
 
-    totals = [0, 0, 0]
+    totals = [0] * len(kernels)
     names = [n for n, _ in model.named_parameters()]
     for i in range(4):
         frozen = state.opt.count < state.opt.fix
-        _zero_counts()
+        seen, update = {}, state.opt.step
+        if i == 2:  # the first released step: every gradient as handed on
+            def capture(gs, update=update, seen=seen):
+                seen.update(zip(names, gs))
+                update(gs)
+            state.opt.step = capture
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = (frozen_fn if frozen else step_fn)(state, batch)
+        (state, m), counts = counted_step(frozen_fn if frozen else step_fn)
         loss = float(m["l_pix"])
         ms = (time.perf_counter() - t0) * 1e3
-        counts = _launch_counts()
+        state.opt.step = update
         totals = [a + b for a, b in zip(totals, counts)]
-        log(f"train step {i + 1} ({'frozen' if frozen else 'released'}): "
-            f"{ms:.1f} ms, l_pix {loss:.5f}, grad_norm "
-            f"{float(m['grad_norm']):.4e}, launches fwd/gdfn_bwd/attn_bwd "
-            f"{counts}")
-        if counts != (52, 52, 52) or not np.isfinite(loss):
+        log(f"{name} train step {i + 1} "
+            f"({'frozen' if frozen else 'released'}): {ms:.1f} ms, l_pix "
+            f"{loss:.5f}, grad_norm {float(m['grad_norm']):.4e}, launches "
+            f"{'/'.join(k.__name__ for k in kernels)} {counts}")
+        if counts != per_step or not np.isfinite(loss):
             raise RuntimeError(f"step {i + 1}: launches {counts}, loss {loss}")
         if i == 1:
             sd = model.state_dict()
@@ -589,6 +648,14 @@ def train_main_path(seed: int):
             if moved:
                 raise RuntimeError(f"masa parameters moved while frozen: "
                                    f"{moved[:3]}")
+        if i == 2:
+            bad = [n for n in names if seen.get(n) is None
+                   or not torch.isfinite(seen[n]).all()]
+            log(f"first released step: {len(names) - len(bad)} of "
+                f"{len(names)} parameters have a finite gradient")
+            if bad:
+                raise RuntimeError(f"parameters without a finite gradient: "
+                                   f"{bad[:5]}")
     sd = model.state_dict()
     still = [n for n in names if "masa" not in n
              and torch.equal(sd[n], init[n])]
@@ -599,28 +666,28 @@ def train_main_path(seed: int):
     if still:
         raise RuntimeError(f"trunk parameters did not move: {still[:3]}")
 
-    # one step with the memory-lean backward: 52 more forward launches
-    for mod in model.modules():
-        if isinstance(mod, TransformerBlock):
+    # one step with the memory-lean backward of the TransformerBlocks: one
+    # more forward launch per block
+    blocks = [m for m in model.modules() if isinstance(m, TransformerBlock)]
+    if blocks:
+        for mod in blocks:
             mod.bwd_mode = "remat"
-    _zero_counts()
-    state, m = step_fn(state, batch)
-    counts = _launch_counts()
-    log(f"remat step: launches fwd/gdfn_bwd/attn_bwd {counts}, l_pix "
-        f"{float(m['l_pix']):.5f}")
-    if counts != (104, 52, 52):
-        raise RuntimeError(f"remat step launches {counts}")
-    for mod in model.modules():
-        if isinstance(mod, TransformerBlock):
+        (state, m), counts = counted_step(step_fn)
+        log(f"remat step: launches {counts}, l_pix {float(m['l_pix']):.5f}")
+        if counts != (2 * per_step[0],) + per_step[1:]:
+            raise RuntimeError(f"remat step launches {counts}")
+        for mod in blocks:
             mod.bwd_mode = "save"
 
     # the step through the kernels vs through plain-autograd blocks, in
     # alternating turns; peak memory of each
     turns = {"kernel": [], "plain": []}
     peak = {}
+    route_name, plain_fn = plain
+    kernel_fn = getattr(layers, route_name)
     for route in ("kernel", "plain", "plain", "kernel", "kernel", "plain"):
         if route == "plain":
-            layers.tblock_fused = _plain_blocks
+            setattr(layers, route_name, plain_fn)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -629,32 +696,31 @@ def train_main_path(seed: int):
         torch.cuda.synchronize()
         turns[route].append((time.perf_counter() - t0) * 1e3)
         peak[route] = torch.cuda.max_memory_allocated() / 2 ** 30
-        layers.tblock_fused = tb.tblock_fused
+        setattr(layers, route_name, kernel_fn)
     k_ms = statistics.median(turns["kernel"])
     p_ms = statistics.median(turns["plain"])
-    profile_step(step_fn, state, batch)
-    log(f"train step 384 px batch 8 bf16, alternating turns: kernel "
+    profile_device(lambda: float(step_fn(state, batch)[1]["l_pix"]),
+                   f"{name} step")
+    log(f"{name} train step 384 px batch 8 bf16, alternating turns: kernel "
         f"{[round(v, 2) for v in turns['kernel']]} ms, plain blocks "
         f"{[round(v, 2) for v in turns['plain']]} ms; medians {k_ms:.2f} vs "
         f"{p_ms:.2f} ms; peak memory {peak['kernel']:.2f} vs "
         f"{peak['plain']:.2f} GiB")
     del state, model, batch
     torch.cuda.empty_cache()
-    return totals, k_ms, p_ms, peak["kernel"]
+    return totals, k_ms, p_ms, peak["kernel"], peak["plain"]
 
 
-def profile_step(step_fn, state, batch):
-    """Device time of one kernel-path step by kernel (torch.profiler), the
-    share of the block kernels, and the device's idle share of the step's
-    wall time."""
+def profile_device(fn, what: str):
+    """Device time of one call of fn by kernel (torch.profiler), the share
+    of the block kernels, and the device's idle share of its wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, m = step_fn(state, batch)
-        float(m["l_pix"])
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -664,9 +730,9 @@ def profile_step(step_fn, state, batch):
     if busy <= 0:
         log("profiler: no device time recorded")
         return
-    ours = ("tblock_", "gdfn_bwd", "attn_bwd", "wgrad")
+    ours = ("tblock_", "gdfn_bwd", "attn_bwd", "wgrad", "nafblock_")
     mine = sum(t for k, t, _ in kernels if any(o in k for o in ours))
-    log(f"profiled step: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
+    log(f"profiled {what}: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
         f"idle share {1 - busy / wall:.4f}; the block kernels {mine:.1f} ms "
         f"({mine / busy:.3f} of device time)")
     for k, t, n in sorted(kernels, key=lambda r: -r[1])[:14]:
@@ -725,6 +791,166 @@ def train_step_vs_cpu(seed: int):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: the whole-NAFBlock kernel against its plain version
+# ---------------------------------------------------------------------------
+
+NAF_TASK = "nafnet_deblur"
+NAF_BLOCKS = 45  # NAFBlocks of one nafnet_deblur forward, each one launch
+# (B, H, W, C, blocks of that shape in one 512 px nafnet_deblur forward)
+NAF_SHAPES = [
+    (1, 512, 512, 128, 2),   # fusion, level 0
+    (1, 512, 512, 64, 2),    # encoder 0, decoder 3
+    (1, 256, 256, 256, 2),   # fusion, level 1
+    (1, 256, 256, 128, 2),   # encoder 1, decoder 2
+    (1, 128, 128, 512, 2),   # fusion, level 2
+    (1, 128, 128, 256, 2),   # encoder 2, decoder 1
+    (1, 64, 64, 1024, 2),    # fusion, level 3
+    (1, 64, 64, 512, 29),    # encoder 3 (28), decoder 0
+    (1, 32, 32, 2048, 1),    # middle fusion
+    (1, 32, 32, 1024, 1),    # middle block
+    (2, 37, 53, 96, 0),      # ragged: no tile divides H or W
+]
+# (B, H, W, C, blocks of that shape in one 384 px batch-8 step of
+# nafnet_motion_deblur); the first two are the largest tensors
+NAF_TRAIN_SHAPES = [
+    (8, 384, 384, 128, 2), (8, 384, 384, 64, 2), (8, 192, 192, 256, 2),
+    (8, 192, 192, 128, 2), (8, 96, 96, 512, 2), (8, 96, 96, 256, 2),
+    (8, 48, 48, 1024, 2), (8, 48, 48, 512, 29), (8, 24, 24, 2048, 1),
+    (8, 24, 24, 1024, 1),
+]
+# NAFBlock kernel vs plain: pass when |k - p| <= a max|p| + r |p| at every
+# element and ||k - p|| <= branch ||p - x|| over the output.  float32: sums
+# in other orders.  bfloat16: the kernel rounds the dwconv once with f32
+# taps where the plain path casts the taps to bf16 and rounds the conv and
+# its bias add; a differing ulp of the gate, then of y1, goes on through
+# LN2 and the FFN, so an element may differ by several ulps of the block's
+# larger intermediate values even where the output itself is near zero:
+# hence an absolute term in units of max|p| (5e-2 is 6 to 13 bf16 ulps of
+# it).  On an H100 the kernel's bf16 branch error read 8.4e-3 at every
+# shape.  Both residual branches count: beta, gamma and the SCA scale are
+# O(1), so a fault in either half shows in ||k - p|| against ||p - x||.
+NAF_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (5e-2, 5e-2)}
+
+
+def randomize_nafblock(blk: NAFBlock, gen: torch.Generator):
+    """Weights at the scale of a trained block, so that both residual
+    branches add O(1): conv weights ~ N(0, 1/fan_in), LayerNorm weights
+    near 1 and biases near 0; conv biases ~ N(0, 0.5^2), so that conv1's
+    bias outside the image (a lost zero padding of the dwconv) shows; the
+    SCA conv's bias and beta and gamma ~ U(0.5, 1.5), so that the SCA scale
+    is O(1) and away from 1 (a skipped scale shows) and neither branch
+    vanishes (at their zero init beta and gamma hide both)."""
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            if name in ("beta", "gamma", "sca.1.bias"):
+                p.copy_(0.5 + torch.rand(p.shape, generator=gen))
+            elif p.dim() == 4:
+                p.copy_(torch.randn(p.shape, generator=gen)
+                        * p[0].numel() ** -0.5)
+            elif name.startswith("norm"):
+                p.copy_((1.0 if name.endswith("weight") else 0.0)
+                        + 0.1 * torch.randn(p.shape, generator=gen))
+            else:
+                p.copy_(0.5 * torch.randn(p.shape, generator=gen))
+
+
+def nafblock_occupancy(c: int, dtype) -> str:
+    """The tiles of both passes and how many CTAs of each one SM holds."""
+    lib = _build.load_library()
+    eb = torch.finfo(dtype).bits // 8
+    is_bf16 = int(dtype == torch.bfloat16)
+    tiles = nb.pick_tiles(lib, c, eb)
+    return " ".join(
+        f"{'AB'[i]} {t[0]}x{t[1]} "
+        f"{lib.nafblock_smem_bytes(i, c, t[0], t[1], eb) / 1024:.0f}KB "
+        f"{lib.nafblock_ctas_per_sm(i, c, t[0], t[1], is_bf16)}/SM"
+        for i, t in enumerate(tiles))
+
+
+def nafblock_vs_plain(gen, shapes, dtypes=(torch.float32, torch.bfloat16),
+                      timed=True):
+    """Phases 8 and 10.  Returns the bf16 rows as (blocks of that shape,
+    max_abs, kernel ms, plain ms, shape); untimed, the ms are NaN.  Raises
+    after printing if any row fails."""
+    log("nafblock kernel vs plain: |k-p| <= a*max|p| + r*|p| and ||k-p|| <= "
+        f"branch * ||p-x||; f32 a/r/branch {NAF_TOL[torch.float32]}/"
+        f"{BRANCH_TOL[torch.float32]}, bf16 {NAF_TOL[torch.bfloat16]}/"
+        f"{BRANCH_TOL[torch.bfloat16]}; tiles of pass A/B and CTAs per SM")
+    log(f"{'B,H,W,C':>16} {'dtype':>8} {'max|p|':>8} {'max_abs':>10} "
+        f"{'tol_use':>8} {'branch':>10} {'kernel_ms':>10} {'plain_ms':>10}  "
+        f"occupancy")
+    rows, failures = [], []
+    for b, h, w, c, nblk in shapes:
+        blk = NAFBlock(c)
+        randomize_nafblock(blk, gen)
+        blk = blk.cuda()
+        x32 = torch.randn(b, h, w, c, generator=gen)
+        for dtype in dtypes:
+            x = x32.to("cuda", dtype)
+            params = blk.block_params()
+            with torch.inference_mode():
+                got = blk(x).float()
+                want = nb.nafblock_ref(x, params).float()
+                torch.cuda.synchronize()
+                a, r = NAF_TOL[dtype]
+                diff = (got - want).abs()
+                max_abs = diff.max().item()
+                peak = want.abs().max().item()
+                tol_use = (diff / (a * peak + r * want.abs())).max().item()
+                branch = (diff.norm() / (want - x.float()).norm()
+                          .clamp_min(1e-30)).item()
+                finite = bool(torch.isfinite(got).all())
+                del got, want, diff
+                k_ms = p_ms = float("nan")
+                if timed:
+                    k_ms = median_ms(lambda: blk(x))
+                    p_ms = median_ms(lambda: nb.nafblock_ref(x, params))
+            name = str(dtype).split(".")[-1]
+            log(f"{f'{b},{h},{w},{c}':>16} {name:>8} {peak:8.3f} "
+                f"{max_abs:10.3e} {tol_use:8.3f} {branch:10.3e} "
+                f"{k_ms:10.4f} {p_ms:10.4f}  {nafblock_occupancy(c, dtype)}")
+            if not finite or tol_use > 1.0 or branch > BRANCH_TOL[dtype]:
+                failures.append((b, h, w, c, name))
+            if dtype == torch.bfloat16:
+                rows.append((nblk, max_abs, k_ms, p_ms, (b, h, w, c)))
+            del x
+        del blk
+        torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError(f"nafblock kernel disagrees with plain at "
+                           f"{failures}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phases 9 and 10: the NAFNetRefFusion evaluation and training paths, run
+# by the functions of phases 4, 5 and 7
+# ---------------------------------------------------------------------------
+
+# options/train_restoration/nafnet_motion_deblur.yml as a dict (no YAML on
+# the card's machine), param_fix_iterations cut to 2
+NAF_TRAIN_OPT = {
+    "network_g": {
+        "type": "NAFNetRefFusion", "img_channel": 3, "width": 64,
+        "middle_blk_num": 1, "enc_blk_nums": [1, 1, 1, 28],
+        "dec_blk_nums": [1, 1, 1, 1], "nf": 64, "ext_n_blocks": [4, 4, 4, 4],
+        "reffusion_n_blocks": [2, 2, 2, 2], "reffusion_n_blocks_middle": 1,
+        "num_nbr": 1, "psize": 3, "lr_block_size": 8,
+        "ref_down_block_size": 1.5, "dilations": [1, 2, 3]},
+    "train": {**TRAIN_OPT["train"],
+              "pixel_opt": {"type": "PSNRLoss", "loss_weight": 1,
+                            "reduction": "mean"}},
+}
+
+
+def _plain_nafblocks(x, p, kw=None):
+    """The plain-autograd route of phase 10's comparison turns (never the
+    main path): nafblock_ref, with autograd keeping its intermediates (45
+    plain blocks at 384 px batch 8 fit the card)."""
+    return nb.nafblock_ref(x, p)
+
+
+# ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for the same work
 # ---------------------------------------------------------------------------
 
@@ -744,7 +970,9 @@ def bound_ms(kernel: str, b, h, w, c, heads, eb=2):
     (x1, dout in; dx1 out; W_in, W_out): hid 4Ch, dgate 2Ch, dz 4Ch, dW1
     4Ch, dW2 2Ch.  Attention half backward (x, dx1 in; dx out; W_qkv,
     W_proj): q, k, v 6C^2, do 2C^2, dy 6C^2, dWqkv 6C^2, dWproj 2C^2, and
-    per head o, dA, dv, dq, dk 10 C cph."""
+    per head o, dA, dv, dq, dk 10 C cph.  NAFBlock forward (x in, out
+    out; its 1x1s, SCA, taps, biases and scales, 7 C^2 + 33 C values): conv1
+    4C^2, conv3 2C^2, conv4 4C^2, conv5 2C^2 (heads ignored)."""
     npix = b * h * w
     hid = int(c * 2.66)
     cph = c // heads
@@ -755,9 +983,12 @@ def bound_ms(kernel: str, b, h, w, c, heads, eb=2):
     elif kernel == "gdfn_half_bwd":
         flops = npix * 16 * c * hid
         nbytes = 3 * npix * c * eb + 2 * gdfn_w
-    else:
+    elif kernel == "attn_half_bwd":
         flops = npix * (22 * c * c + 10 * c * cph)
         nbytes = 3 * npix * c * eb + 2 * attn_w
+    else:
+        flops = npix * 12 * c * c
+        nbytes = 2 * npix * c * eb + (7 * c * c + 33 * c) * 4
     t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -791,24 +1022,49 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(args.seed)
     if args.plant:
         try:
-            backward_vs_plain(gen, [TRAIN_SHAPES[i] for i in (0, 4, 7, 8)],
-                              dtypes=(torch.bfloat16,), timed=False)
+            if FAULTS[args.plant][3] == 6:
+                backward_vs_plain(gen, [TRAIN_SHAPES[i] for i in (0, 4, 7, 8)],
+                                  dtypes=(torch.bfloat16,), timed=False)
+            else:
+                nafblock_vs_plain(gen, [NAF_SHAPES[i] for i in (7, 8, 10)],
+                                  dtypes=(torch.bfloat16,), timed=False)
         except RuntimeError as e:
             log(f"planted fault {args.plant} caught: {e}")
             return 0
         log(f"planted fault {args.plant} NOT caught")
         return 1
 
+    t_start = time.perf_counter()
     rows = kernel_vs_plain(gen)
     network_vs_cpu(args.seed)
-    eval_launches = main_path(args.seed)
+    eval_launches, _ = main_path(args.seed)
     bwd_rows = backward_vs_plain(gen)
     remat_vs_save(gen)
-    launches, step_ms, plain_step_ms, peak = train_main_path(args.seed)
+    launches, step_ms, plain_step_ms, peak, _ = train_main_path(args.seed)
     train_step_vs_cpu(args.seed)
     log(f"launches: evaluation path tblock_fused {eval_launches}; training "
         f"main path (4 steps) tblock_fused/gdfn_half_bwd/attn_half_bwd "
         f"{launches}")
+
+    naf_rows = nafblock_vs_plain(gen, NAF_SHAPES + NAF_TRAIN_SHAPES[:2])
+    network_vs_cpu(args.seed, NAF_TASK, nb.nafblock_fused, NAF_BLOCKS)
+    naf_launches, naf_fwd_ms = main_path(args.seed, NAF_TASK,
+                                         nb.nafblock_fused, NAF_BLOCKS)
+    naf_train_rows = nafblock_vs_plain(gen, NAF_TRAIN_SHAPES,
+                                       dtypes=(torch.bfloat16,))
+    (naf_train_launches, naf_step_ms, naf_plain_step_ms, naf_peak,
+     naf_plain_peak) = train_main_path(
+        args.seed, NAF_TRAIN_OPT, (nb.nafblock_fused,), (NAF_BLOCKS,),
+        ("nafblock_fused", _plain_nafblocks))
+    naf_main = [r for r in naf_rows if r[4][0] == 1 and r[0]]
+    log(f"nafblock_fused per 512 px forward (bf16, per-shape medians times "
+        f"blocks): kernel {sum(n * k for n, _, k, _, _ in naf_main):.3f} ms, "
+        f"plain {sum(n * p for n, _, _, p, _ in naf_main):.3f} ms; per 384 px "
+        f"batch-8 step: kernel "
+        f"{sum(n * k for n, _, k, _, _ in naf_train_rows):.3f} ms, plain "
+        f"{sum(n * p for n, _, _, p, _ in naf_train_rows):.3f} ms")
+    log(f"launches: nafnet evaluation path nafblock_fused {naf_launches}; "
+        f"training path (4 steps) {naf_train_launches}")
 
     # per-step kernel time: each training shape's median time times the
     # number of blocks of that shape in one step (bf16, WithBias); the
@@ -821,6 +1077,9 @@ def main(argv=None) -> int:
                 max(per, key=lambda r: r[0] * r[1])[2])
 
     fwd_bound, fwd_by = bounds("tblock_fused", SHAPES)
+    naf_bound, naf_by = bounds("nafblock_fused",
+                               [(b, h, w, c, 1, n) for b, h, w, c, n in
+                                NAF_SHAPES])
     g_bound, g_by = bounds("gdfn_half_bwd", TRAIN_SHAPES)
     a_bound, a_by = bounds("attn_half_bwd", TRAIN_SHAPES)
     src = "textualdegremoval_tpu_torch/csrc/"
@@ -848,10 +1107,25 @@ def main(argv=None) -> int:
          "ms": sum(r[0] * r[5] for r in bwd_rows),
          "plain_ms": sum(r[0] * r[7] for r in bwd_rows),
          "bound_ms": a_bound, "bound_by": a_by, "library_ms": None},
+        {"name": "nafblock_fused", "route": "cuda",
+         "source": src + "nafblock.cu",
+         "replaces": "textualdegremoval_tpu/ops/pallas/nafblock.py:246",
+         "launches": naf_launches,
+         "max_abs_err": max(r[1] for r in naf_main),
+         "ms": sum(n * k for n, _, k, _, _ in naf_main),
+         "plain_ms": sum(n * p for n, _, _, p, _ in naf_main),
+         "bound_ms": naf_bound, "bound_by": naf_by, "library_ms": None},
     ]}
     log(f"train step 384 px batch 8 bf16: {step_ms:.2f} ms through the "
         f"kernels vs {plain_step_ms:.2f} ms through plain blocks, peak "
         f"{peak:.2f} GiB")
+    log(f"nafnet: forward 512 px bf16 {naf_fwd_ms:.2f} ms "
+        f"({1e3 / naf_fwd_ms:.3f} images/s); train step 384 px batch 8 bf16 "
+        f"{naf_step_ms:.2f} ms through the kernel vs {naf_plain_step_ms:.2f} "
+        f"ms through plain blocks, peak {naf_peak:.2f} vs "
+        f"{naf_plain_peak:.2f} GiB")
+    log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s after "
+        f"the build")
     log(json.dumps(summary))
     log(gpu_line())
     log(json.dumps({"ok": True, "device": {

@@ -148,6 +148,13 @@ template <typename F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int bytes) {
   return bytes <= kShimSharedBytes ? cudaSuccess : cudaErrorInvalidValue;
 }
+// one block at a time, as the shim runs them
+template <typename F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
+                                                          size_t smem) {
+  *n = smem <= (size_t)kShimSharedBytes ? 1 : 0;
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t e) {
   return e == cudaSuccess ? "no error" : "invalid argument";

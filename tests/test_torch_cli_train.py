@@ -135,6 +135,40 @@ def test_validation_and_refusals(workspace, monkeypatch):
         main(["--opt", str(cfg3), "--max_iters", "1", "--device", "cpu"])
 
 
+def test_nafnet_motion_deblur_yaml_trains(workspace, monkeypatch):
+    """options/train_restoration/nafnet_motion_deblur.yml as it is, with its
+    network cut to toy widths (the evaluation CLI's --tiny_debug rule) and
+    its data pointed at the synthesised folders: NAFNetRefFusion through
+    resolve_network, the masa/trunk split of every masa_* parameter, the
+    PSNR loss, a frozen and a released step."""
+    import yaml
+
+    from textualdegremoval_tpu_torch.cli.evaluate import shrink_for_smoke
+
+    root, cfg = workspace
+    monkeypatch.chdir(root)
+    base = yaml.safe_load(open(cfg))
+    opt = yaml.safe_load(open(os.path.join(
+        os.path.dirname(__file__), "..", "options", "train_restoration",
+        "nafnet_motion_deblur.yml")))
+    opt["datasets"] = base["datasets"]
+    opt["network_g"] = shrink_for_smoke(opt["network_g"])
+    opt["path"]["pretrain_dino"] = None
+    opt["train"]["param_fix_iterations"] = 1
+    opt["logger"]["print_freq"] = 1
+    cfg2 = root / "opt_nafnet.yml"
+    cfg2.write_text(yaml.dump(opt))
+    state = main(["--opt", str(cfg2), "--max_iters", "2", "--device", "cpu"])
+    assert state.step == 2 and state.opt.count == 2
+    assert type(state.model).__name__ == "NAFNetRefFusion"
+    masa = {n.split(".")[0] for n, m in zip(state.opt.names, state.opt.masa)
+            if m}
+    assert masa == {"masa_enc", "masa_blk_enc", "masa_blk_middle"}
+    log = (root / "experiments" / "nafnet_motion_deblur" /
+           "train.log").read_text()
+    assert log.count("l_pix") == 2
+
+
 def test_loader_workers_draw_their_own_crops(tmp_path):
     """Two spawned workers each reseed the dataset's augmentation RNG: over
     four copies of one image, without the reseed each worker's first crop

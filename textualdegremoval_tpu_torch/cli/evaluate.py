@@ -1,7 +1,7 @@
 """Evaluation CLI of the port: per-task network table and PSNR/SSIM loop.
 
 Counterpart of textualdegremoval_tpu/cli/evaluate.py for the Restormer
-family:
+and NAFNet families:
 
     python -m textualdegremoval_tpu_torch.cli.evaluate \\
         --task restormer_deblur --hqroot ... --refroot ... --lqroot ... \\
@@ -26,7 +26,8 @@ from textualdegremoval_tpu_torch.data import imread_f32, scan_images
 from textualdegremoval_tpu_torch.metrics import calculate_psnr, calculate_ssim
 from textualdegremoval_tpu_torch.models import define_network
 
-# The Restormer-family entries of the JAX CLI's table (same hparams).
+# The Restormer- and NAFNet-family entries of the JAX CLI's table (same
+# hparams).
 TASK_TABLE = {
     # tiny config for CI smoke runs
     "tiny_smoke": {
@@ -59,6 +60,12 @@ TASK_TABLE = {
         "ext_n_blocks": [4, 4, 4, 4], "reffusion_n_blocks": [2, 2, 2, 2],
         "lr_block_size": 8,
     },
+    "nafnet_deblur": {
+        "type": "NAFNetRefFusion", "width": 64, "middle_blk_num": 1,
+        "enc_blk_nums": [1, 1, 1, 28], "dec_blk_nums": [1, 1, 1, 1],
+        "nf": 64, "ext_n_blocks": [4, 4, 4, 4],
+        "reffusion_n_blocks": [2, 2, 2, 2], "lr_block_size": 8,
+    },
     # dual-pixel defocus deblur: 6-channel lqL+lqR 16-bit input
     "restormer_dual_pixel_defocus": {
         "type": "RestormerRefFusion", "inp_channels": 6, "out_channels": 3,
@@ -71,9 +78,10 @@ TASK_TABLE = {
 }
 
 # keys rewritten by --tiny_debug: same constructor path at toy widths
-_SHRINK_SCALARS = {"dim": 8, "nf": 8, "num_refinement_blocks": 1,
-                   "lr_block_size": 4}
-_SHRINK_LISTS = ("num_blocks", "ext_n_blocks", "reffusion_n_blocks")
+_SHRINK_SCALARS = {"dim": 8, "nf": 8, "width": 8, "middle_blk_num": 1,
+                   "num_refinement_blocks": 1, "lr_block_size": 4}
+_SHRINK_LISTS = ("num_blocks", "enc_blk_nums", "dec_blk_nums",
+                 "ext_n_blocks", "reffusion_n_blocks")
 
 
 def shrink_for_smoke(opt: dict) -> dict:

@@ -9,8 +9,10 @@ checkpoint (`{'params': state_dict}`) loads into a port model with
 tree as nested dicts of numpy arrays and loads it into a port model.  The
 key rewrite is textualdegremoval_tpu/convert/torch_to_jax.py's, restricted
 to the keys of the ported modules (`norm*.body.` flattening, the
-Down/Upsample `body.0` conv, the merge of sequential indices into the
-preceding name), and 4-D conv weights move between HWIO and OIHW.
+Down/Upsample `body.0` conv, NAFNet's `sca.1.` -> `sca.conv.` and
+`ups.N.0.` -> `ups_N`, the merge of sequential indices into the preceding
+name), 4-D conv weights move between HWIO and OIHW, and NAFNet's beta and
+gamma between (1,1,1,C) and (1,C,1,1).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ _REWRITES = [
     (re.compile(r"^module\."), ""),
     (re.compile(r"\.body\.0\.(weight|bias)$"), r".conv.\1"),  # Down/Upsample
     (re.compile(r"(norm\d?)\.body\."), r"\1."),  # Restormer LN wrapper
+    (re.compile(r"\.sca\.1\."), ".sca.conv."),  # NAFNet SCA sequential
+    (re.compile(r"(^|\.)ups\.(\d+)\.0\."), r"\1ups.\2."),  # NAFNet up conv
 ]
 
 
@@ -70,7 +74,9 @@ def load_jax_params(model: torch.nn.Module,
                                f"(-> {'/'.join(path)})")
             node = node[seg]
         arr = np.asarray(node)
-        if t.ndim == 4:
+        if path[-1] in ("beta", "gamma") and t.ndim == 4:
+            arr = arr.transpose(0, 3, 1, 2)  # (1,1,1,C) -> (1,C,1,1)
+        elif t.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         if arr.shape != tuple(t.shape):
             raise ValueError(f"shape mismatch for {key}: JAX {arr.shape} vs "

@@ -1,6 +1,7 @@
 // Helpers shared by the TransformerBlock kernels (tblock.cu forward,
 // tblock_bwd.cu GDFN-half backward, tblock_attn_bwd.cu attention-half
-// backward, wgrad.cu weight-gradient products): rounding to the model dtype,
+// backward, wgrad.cu weight-gradient products) and the NAFBlock kernel
+// (nafblock.cu): rounding to the model dtype,
 // the per-pixel LayerNorm rows, the masked 3x3 depthwise stencil, and the
 // block-level products on the tensor cores (bf16, mma.sync m16n8k16) or in
 // f32 FMA loops.
@@ -30,7 +31,7 @@ constexpr int kRP = 4;              // pixel rows per thread, FMA products
 constexpr int kRowPad = 16;         // smem GEMM operands hold rows to x16
 constexpr int kMaxCph = 96;         // channels per head
 constexpr int kAccPad = 4;          // f32 accumulator row padding
-constexpr float kEps = 1e-5f;
+constexpr float kEps = 1e-5f;       // Restormer LN; NAFNet's passes 1e-6
 
 __host__ __device__ inline int round_up(int a, int m) {
   return (a + m - 1) / m * m;
@@ -117,7 +118,8 @@ __device__ void ln_moments(const T* src, int C, int lane, float& mu,
 // LayerNorm of one C-wide pixel by one warp, result rounded to T.
 template <typename T>
 __device__ void ln_pixel(const T* src, T* dst, int C, const float* w,
-                         const float* b, bool bias_free, int lane) {
+                         const float* b, bool bias_free, int lane,
+                         float eps = kEps) {
   float s = 0.f, s2 = 0.f;
   for (int c = lane; c < C; c += 32) {
     const float v = to_f(src[c]);
@@ -128,7 +130,7 @@ __device__ void ln_pixel(const T* src, T* dst, int C, const float* w,
   s2 = warp_sum(s2);
   const float mu = s / C;
   const float var = fmaxf(s2 / C - mu * mu, 0.f);
-  const float den = sqrtf(var + kEps);
+  const float den = sqrtf(var + eps);
   for (int c = lane; c < C; c += 32) {
     const float v = to_f(src[c]);
     dst[c] = from_f<T>(bias_free ? v / den * w[c]
@@ -141,7 +143,7 @@ __device__ void ln_pixel(const T* src, T* dst, int C, const float* w,
 template <typename T>
 __device__ void ln_region(const T* xb, int H, int W, int C, int gy0, int gx0,
                           int rh, int rw, const float* w, const float* b,
-                          bool bias_free, T* dst, int ldd) {
+                          bool bias_free, T* dst, int ldd, float eps = kEps) {
   const int lane = threadIdx.x & 31;
   for (int p = threadIdx.x >> 5; p < rh * rw; p += blockDim.x >> 5) {
     const int gy = gy0 + p / rw, gx = gx0 + p % rw;
@@ -149,7 +151,8 @@ __device__ void ln_region(const T* xb, int H, int W, int C, int gy0, int gx0,
     if (gy < 0 || gy >= H || gx < 0 || gx >= W) {
       for (int c = lane; c < C; c += 32) d[c] = from_f<T>(0.f);
     } else {
-      ln_pixel(xb + ((size_t)gy * W + gx) * C, d, C, w, b, bias_free, lane);
+      ln_pixel(xb + ((size_t)gy * W + gx) * C, d, C, w, b, bias_free, lane,
+               eps);
     }
   }
 }

@@ -3,8 +3,9 @@
 `define_network(opt)` mirrors textualdegremoval_tpu/models/__init__.py:
 `opt['type']` selects the class and the remaining keys that name
 constructor arguments become its arguments, so the reference's network_g
-option dicts port as they are.  This slice ports the Restormer family; the
-other families of the JAX registry come with later slices of the port.
+option dicts port as they are.  This port covers the Restormer and NAFNet
+families; the other families of the JAX registry come with later slices of
+the port.
 """
 
 from __future__ import annotations
@@ -13,22 +14,23 @@ import inspect
 
 import torch
 
+from textualdegremoval_tpu_torch.models.nafnet import NAFNet, NAFNetRefFusion
 from textualdegremoval_tpu_torch.models.restormer import (
     Restormer, RestormerRefFusion,
 )
 
-_REGISTRY = {"Restormer": Restormer, "RestormerRefFusion": RestormerRefFusion}
+_REGISTRY = {"Restormer": Restormer, "RestormerRefFusion": RestormerRefFusion,
+             "NAFNet": NAFNet, "NAFNetRefFusion": NAFNetRefFusion,
+             # the reference's Local (TLC) variants: the same modules with
+             # tlc_train_size taken from the option dict's train_size
+             "NAFNetLocal": NAFNet, "NAFNetLocal_RefFusion": NAFNetRefFusion}
 
 # Families of the JAX registry that later slices of the port bring over, by
 # their item in ROADMAP.md queue A.
-_LATER = {
-    **dict.fromkeys(("NAFNet", "NAFNetRefFusion", "NAFNetLocal",
-                     "NAFNetLocal_RefFusion"), "A4"),
-    **dict.fromkeys(("NAFNetDynamicFusion", "NAFNetLocalDynamic", "DRSformer",
-                     "DRSformerRefFusion", "DRSformer200L_SPA_RefFusion",
-                     "PromptIR", "PromptIRRefFusion", "SFNet",
-                     "SFNetRefFusion"), "A6"),
-}
+_LATER = dict.fromkeys(
+    ("NAFNetDynamicFusion", "NAFNetLocalDynamic", "DRSformer",
+     "DRSformerRefFusion", "DRSformer200L_SPA_RefFusion", "PromptIR",
+     "PromptIRRefFusion", "SFNet", "SFNetRefFusion"), "A6")
 
 _KEY_ALIASES = {"LayerNorm_type": "ln_type"}
 
@@ -59,4 +61,7 @@ def define_network(opt: dict,
         if k in params:
             kwargs[k] = tuple(v) if isinstance(v, list) else v
     kwargs["dtype"] = dtype
+    if name.startswith("NAFNetLocal"):
+        ts = opt.get("train_size", (1, 3, 256, 256))
+        kwargs.setdefault("tlc_train_size", (ts[-2], ts[-1]))
     return cls(**kwargs).eval()

@@ -1,10 +1,12 @@
-"""Shared layers of the Restormer family, as torch modules on NHWC tensors.
+"""Shared layers of the Restormer and NAFNet families, as torch modules on
+NHWC tensors.
 
 Counterpart of the slice of textualdegremoval_tpu/models/layers.py that the
-Restormer models use.  Module and parameter names are the reference's torch
-names (as in tests/torch_oracles.py), so a reference checkpoint loads with
-`strict=True` and the JAX package's `convert_state_dict` maps a state dict
-of this package onto the JAX parameter tree.
+Restormer and NAFNet models use.  Module and parameter names are the
+reference's torch names (as in tests/torch_oracles.py), so a reference
+checkpoint loads with `strict=True` and the JAX package's
+`convert_state_dict` maps a state dict of this package onto the JAX
+parameter tree.
 
 Modules take and return (B, H, W, C) tensors; convolutions run on the
 NCHW channels_last view of the same memory.  Parameters stay float32, as in
@@ -25,15 +27,23 @@ import torch.nn.functional as F
 
 from textualdegremoval_tpu_torch.ops import (
     bias_free_layer_norm,
+    dwconv,
+    layer_norm_2d,
     with_bias_layer_norm,
     mdta_attention_nhwc,
     pixel_shuffle,
     pixel_unshuffle,
+    simple_gate,
+)
+from textualdegremoval_tpu_torch.ops.pallas.nafblock import (
+    nafblock_fused,
+    prepare_nafblock_weights,
 )
 from textualdegremoval_tpu_torch.ops.pallas.tblock import (
     prepare_tblock_weights,
     tblock_fused,
 )
+from textualdegremoval_tpu_torch.ops.tlc import local_avg_pool
 
 
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -48,6 +58,23 @@ def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 def _hwio(w: torch.Tensor) -> torch.Tensor:
     """torch OIHW conv weight -> the JAX package's HWIO layout (a view)."""
     return w.permute(2, 3, 1, 0)
+
+
+def _cached_kernel_weights(block: nn.Module, p: dict, x: torch.Tensor,
+                           prepare):
+    """A block's kernel-layout weights (`prepare()`), rebuilt only when a
+    parameter, the dtype or the device changes: an optimizer's in-place
+    update bumps `_version`, so the cache is rebuilt after every step.
+    None off CUDA, where the blocks take their plain versions."""
+    if x.device.type != "cuda":
+        return None
+    key = (x.dtype, x.device,
+           tuple((t.data_ptr(), t._version) for t in p.values()))
+    if key != block._kw_key:
+        with torch.no_grad():
+            block._kw = prepare()
+        block._kw_key = key
+    return block._kw
 
 
 class _LNBody(nn.Module):
@@ -159,18 +186,9 @@ class TransformerBlock(nn.Module):
         return p
 
     def _kernel_weights(self, p: dict, x: torch.Tensor):
-        """Kernel-layout weights, rebuilt only when a parameter, the dtype
-        or the device changes: an optimizer's in-place update bumps
-        `_version`, so the cache is rebuilt after every step."""
-        if x.device.type != "cuda":
-            return None
-        key = (x.dtype, x.device,
-               tuple((t.data_ptr(), t._version) for t in p.values()))
-        if key != self._kw_key:
-            with torch.no_grad():
-                self._kw = prepare_tblock_weights(p, x.dtype, self.ln_type)
-            self._kw_key = key
-        return self._kw
+        return _cached_kernel_weights(
+            self, p, x, lambda: prepare_tblock_weights(p, x.dtype,
+                                                       self.ln_type))
 
     def forward(self, x):
         # the kernel takes dense NHWC; channel slices (fusion outputs) and
@@ -306,3 +324,106 @@ def masa_encode_pair(enc: MASAEncoder, inp: torch.Tensor, ref: torch.Tensor):
         b = inp.shape[0]
         return [f[:b] for f in feats], [f[b:] for f in feats]
     return enc(inp), enc(ref)
+
+
+# ---------------------------------------------------------------------------
+# NAFNet blocks
+# ---------------------------------------------------------------------------
+
+
+class LayerNorm2d(nn.Module):
+    """NAFNet LayerNorm2d over the channel axis, eps 1e-6."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        return layer_norm_2d(x, self.weight, self.bias)
+
+
+class _AvgPool(nn.Module):
+    """The SCA pool: the global mean, or with a TLC kernel the local box
+    average."""
+
+    def forward(self, x, tlc_kernel=None):
+        if tlc_kernel is None:
+            return x.mean(dim=(1, 2), keepdim=True)
+        return local_avg_pool(x, tlc_kernel)
+
+
+class SCA(nn.Sequential):
+    """Simplified channel attention, x * conv1x1(pool(x)); index 0 is the
+    pool and index 1 the conv, as in the reference's Sequential."""
+
+    def __init__(self, dim: int):
+        super().__init__(_AvgPool(), nn.Conv2d(dim, dim, 1))
+
+    def forward(self, x, tlc_kernel=None):
+        return x * conv_nhwc(self[1], self[0](x, tlc_kernel))
+
+
+class NAFBlock(nn.Module):
+    """NAFNet block: y = x + conv3(SCA(gate(dw(conv1(LN1(x)))))) * beta,
+    then y + conv5(gate(conv4(LN2(y)))) * gamma.
+
+    With the global-pool SCA and both expansions 2 (JAX's routing), the
+    forward runs as `nafblock_fused` (the whole-block CUDA kernel pair for
+    CUDA tensors, whose backward recomputes through the plain version; the
+    plain `nafblock_ref` for CPU tensors), in the dtype of its input.  A
+    TLC local pool or another expansion runs `module_forward`, op by op.
+    The TLC kernel is the constructor's, or the call's: the Local networks
+    derive it from the input's size at each call."""
+
+    def __init__(self, c: int, dw_expand: int = 2, ffn_expand: int = 2,
+                 tlc_kernel: tuple[int, int] | None = None):
+        super().__init__()
+        dw = c * dw_expand
+        self.dw_expand, self.ffn_expand = dw_expand, ffn_expand
+        self.tlc_kernel = tlc_kernel
+        self.conv1 = nn.Conv2d(c, dw, 1)
+        self.conv2 = nn.Conv2d(dw, dw, 3, padding=1, groups=dw)
+        self.conv3 = nn.Conv2d(dw // 2, c, 1)
+        self.sca = SCA(dw // 2)
+        self.conv4 = nn.Conv2d(c, ffn_expand * c, 1)
+        self.conv5 = nn.Conv2d(ffn_expand * c // 2, c, 1)
+        self.norm1 = LayerNorm2d(c)
+        self.norm2 = LayerNorm2d(c)
+        self.beta = nn.Parameter(torch.zeros(1, c, 1, 1))
+        self.gamma = nn.Parameter(torch.zeros(1, c, 1, 1))
+        self._kw = None
+        self._kw_key = None
+
+    def block_params(self) -> dict:
+        """The natural-shape parameter dict of `nafblock_ref` (views)."""
+        return dict(
+            norm1_w=self.norm1.weight, norm1_b=self.norm1.bias,
+            w1=_hwio(self.conv1.weight), b1=self.conv1.bias,
+            dw=_hwio(self.conv2.weight), dwb=self.conv2.bias,
+            sca_w=_hwio(self.sca[1].weight), sca_b=self.sca[1].bias,
+            w3=_hwio(self.conv3.weight), b3=self.conv3.bias,
+            beta=self.beta.permute(0, 2, 3, 1),
+            norm2_w=self.norm2.weight, norm2_b=self.norm2.bias,
+            w4=_hwio(self.conv4.weight), b4=self.conv4.bias,
+            w5=_hwio(self.conv5.weight), b5=self.conv5.bias,
+            gamma=self.gamma.permute(0, 2, 3, 1))
+
+    def forward(self, x, tlc_kernel=None):
+        tk = self.tlc_kernel if tlc_kernel is None else tlc_kernel
+        if tk is not None or self.dw_expand != 2 or self.ffn_expand != 2:
+            return self.module_forward(x, tk)
+        # the kernel takes dense NHWC; the fusion blocks' cat is dense
+        x = x.contiguous()
+        p = self.block_params()
+        return nafblock_fused(x, p, _cached_kernel_weights(
+            self, p, x, lambda: prepare_nafblock_weights(p, x.dtype)))
+
+    def module_forward(self, inp, tlc_kernel=None):
+        x = conv_nhwc(self.conv1, self.norm1(inp))
+        x = dwconv(x, _hwio(self.conv2.weight)) + self.conv2.bias.to(x.dtype)
+        x = conv_nhwc(self.conv3, self.sca(simple_gate(x), tlc_kernel))
+        y = inp + x * self.beta.permute(0, 2, 3, 1).to(x.dtype)
+        x = conv_nhwc(self.conv4, self.norm2(y))
+        x = conv_nhwc(self.conv5, simple_gate(x))
+        return y + x * self.gamma.permute(0, 2, 3, 1).to(x.dtype)

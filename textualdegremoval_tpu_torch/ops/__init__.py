@@ -2,8 +2,10 @@
 
 from textualdegremoval_tpu_torch.ops.norm import (
     bias_free_layer_norm,
+    layer_norm_2d,
     with_bias_layer_norm,
 )
+from textualdegremoval_tpu_torch.ops.ffn import simple_gate
 from textualdegremoval_tpu_torch.ops.resize import (
     pixel_shuffle,
     pixel_unshuffle,
@@ -22,7 +24,9 @@ from textualdegremoval_tpu_torch.ops.masa import (
 
 __all__ = [
     "bias_free_layer_norm",
+    "layer_norm_2d",
     "with_bias_layer_norm",
+    "simple_gate",
     "pixel_shuffle",
     "pixel_unshuffle",
     "pad_to_multiple",

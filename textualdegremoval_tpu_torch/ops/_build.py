@@ -41,6 +41,11 @@ _SIGNATURES = {
     "tblock_attn_bwd_apply": ([_P] * 22 + [_I] * 10 + [_P], _I),
     "tblock_wgrad": ([_P, _I, _L, _L, _P, _I, _L, _L, _P] + [_I] * 7 + [_P],
                      _I),
+    "nafblock_smem_bytes": ([_I] * 5, _L),
+    "nafblock_gate_chunk": ([], _I),
+    "nafblock_ctas_per_sm": ([_I] * 5, _I),
+    "nafblock_sum": ([_P] * 8 + [_I] * 9 + [_P], _I),
+    "nafblock_apply": ([_P] * 16 + [_I] * 8 + [_P], _I),
 }
 
 

@@ -30,3 +30,9 @@ def with_bias_layer_norm(x: torch.Tensor, weight: torch.Tensor,
     mu, var = _moments(xf)
     y = (xf - mu) / torch.sqrt(var + eps)
     return (y * weight.float() + bias.float()).to(x.dtype)
+
+
+def layer_norm_2d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """NAFNet's LayerNorm2d: plain LN over the channel axis, eps 1e-6."""
+    return with_bias_layer_norm(x, weight, bias, eps=eps)

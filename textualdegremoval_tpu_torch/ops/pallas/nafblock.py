@@ -1,0 +1,294 @@
+"""Whole NAFBlock: plain PyTorch version and CUDA kernel.
+
+Counterpart of textualdegremoval_tpu/ops/pallas/nafblock.py.  `nafblock_ref`
+is the plain version (the JAX `nafblock_ref`, identical math to the module
+path).  `nafblock_fused` runs the block as the hand-written Hopper kernel
+pair in csrc/nafblock.cu, which replaces the TPU kernels `_make_sum_kernel`
+(pass A) and `_make_apply_kernel` (pass B) of `_nafblock_impl`:
+
+* pass A writes per-CTA partial per-channel pixel sums of the gate; they
+  are added over the partial axis here in a fixed order, so the result is
+  bitwise repeatable;
+* the SCA glue (pooled = sum / (H W) in the compute dtype, then
+  s = pooled @ sca_w + sca_b; O(C^2) per image) is plain torch, as it was
+  plain XLA in the JAX package;
+* pass B recomputes the gate, applies s, conv3 and the beta residual, LN2,
+  the pointwise gated FFN and the gamma residual, and writes the output.
+
+What bounds the kernel on the card and what its design does about it is
+noted at the top of csrc/nafblock.cu.
+
+`nafblock_fused` is differentiable (JAX's `custom_vjp` of the same name):
+on CUDA, when an input needs a gradient, it runs as `_NAFBlockFunction`,
+whose backward recomputes through `nafblock_ref` one half at a time, as the
+JAX `_nafblock_ref_remat` does: the JAX kernel has no backward kernel.
+Nothing but the inputs is kept from the forward.
+
+A CPU tensor goes through `nafblock_ref` (plain autograd); a CUDA tensor
+launches the kernels or raises.  `nafblock_fused.launches` counts kernel
+pair launches, never plain-version calls.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from textualdegremoval_tpu_torch.ops.dwconv import dwconv
+from textualdegremoval_tpu_torch.ops.norm import layer_norm_2d
+from textualdegremoval_tpu_torch.ops.pallas.tblock import (
+    _check, _first_fit, _ptr,
+)
+
+# The kernel's gate-channel chunk (kGC in csrc/nafblock.cu); the gate width
+# is zero-padded to a multiple of it.
+GATE_CHUNK = 32
+
+# Tiles (rows, cols) in order of preference; the first whose shared memory
+# fits one block is taken.  Both passes hold LN1 of the tile and its 1-pixel
+# halo at full width, so wide blocks get small tiles.
+_TILES = ((4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))
+
+# the parameters of each half (the backward differentiates one at a time)
+_CONV_KEYS = ("norm1_w", "norm1_b", "w1", "b1", "dw", "dwb", "sca_w", "sca_b",
+              "w3", "b3", "beta")
+_FFN_KEYS = ("norm2_w", "norm2_b", "w4", "b4", "w5", "b5", "gamma")
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+
+def _lin(v, w, b, cin, cout):
+    return v @ w.reshape(cin, cout).to(v.dtype) + b.to(v.dtype)
+
+
+def _nafblock_conv_part(x, p):
+    c = x.shape[-1]
+    dt = x.dtype
+    y = layer_norm_2d(x, p["norm1_w"], p["norm1_b"])
+    h = _lin(y, p["w1"], p["b1"], c, 2 * c)
+    h = dwconv(h, p["dw"]) + p["dwb"].to(dt)
+    g = h[..., :c] * h[..., c:]
+    pooled = g.mean(dim=(1, 2), keepdim=True)
+    s = _lin(pooled, p["sca_w"], p["sca_b"], c, c)
+    o = _lin(g * s, p["w3"], p["b3"], c, c)
+    return x + o * p["beta"].reshape(1, 1, 1, c).to(dt)
+
+
+def _nafblock_ffn_part(y1, p):
+    c = y1.shape[-1]
+    z = layer_norm_2d(y1, p["norm2_w"], p["norm2_b"])
+    h2 = _lin(z, p["w4"], p["b4"], c, 2 * c)
+    o2 = _lin(h2[..., :c] * h2[..., c:], p["w5"], p["b5"], c, c)
+    return y1 + o2 * p["gamma"].reshape(1, 1, 1, c).to(y1.dtype)
+
+
+def nafblock_ref(x, p):
+    """Whole NAFBlock, plain torch.  x: (B, H, W, C).  p keys (JAX natural
+    shapes): norm1_w/b (C,), w1 (1,1,C,2C), b1 (2C,), dw (3,3,1,2C),
+    dwb (2C,), sca_w (1,1,C,C), sca_b (C,), w3 (1,1,C,C), b3 (C,),
+    beta (1,1,1,C), norm2_w/b, w4 (1,1,C,2C), b4 (2C,), w5 (1,1,C,C),
+    b5 (C,), gamma (1,1,1,C)."""
+    return _nafblock_ffn_part(_nafblock_conv_part(x, p), p)
+
+
+# ---------------------------------------------------------------------------
+# Kernel
+# ---------------------------------------------------------------------------
+
+
+def prepare_nafblock_weights(p, dtype: torch.dtype) -> dict:
+    """Kernel-layout weights of one block (JAX `_nafblock_impl` :266-289):
+    w1 and w4 split into their two C-wide halves, interleaved per gate
+    chunk so that one product makes both halves of a chunk; the (18, cpad)
+    dwconv taps, f32; conv biases, beta and gamma as f32 arrays holding
+    `dtype` values (the JAX kernel's b1 and bg rows); LN affine f32.  The
+    gate width is zero-padded to cpad, a multiple of GATE_CHUNK.  Matrices
+    in `dtype`, bf16 ones transposed to (outputs, inputs).  Also the SCA
+    1x1 for the glue.  Callers cache the result per module."""
+    f32 = torch.float32
+    c = p["norm1_w"].shape[0]
+    cpad = -(-c // GATE_CHUNK) * GATE_CHUNK
+    dev = p["norm1_w"].device
+
+    def rounded(v):
+        return v.reshape(-1).to(dtype).to(f32)
+
+    def halves(w):
+        """(1,1,C,2C) -> (C, 2 cpad): per gate chunk, its first-half
+        columns, then its second-half columns."""
+        w = w.reshape(c, 2 * c).to(f32)
+        ws = torch.zeros((c, 2, cpad), dtype=f32, device=dev)
+        ws[:, 0, :c] = w[:, :c]
+        ws[:, 1, :c] = w[:, c:]
+        return (ws.reshape(c, 2, cpad // GATE_CHUNK, GATE_CHUNK)
+                .transpose(1, 2).reshape(c, 2 * cpad))
+
+    def pair(v):
+        """(2C,) -> (2, cpad): the two halves' rows."""
+        out = torch.zeros((2, cpad), dtype=f32, device=dev)
+        out[0, :c], out[1, :c] = v[:c], v[c:]
+        return out
+
+    def gate_rows(w):
+        """(1,1,C,C) with the gate as input -> (cpad, C)."""
+        out = torch.zeros((cpad, c), dtype=f32, device=dev)
+        out[:c] = w.reshape(c, c).to(f32)
+        return out
+
+    def mat(t):
+        """(inputs, outputs) -> the kernel's layout: bf16 (outputs,
+        inputs), as the tensor-core fragments read it; f32 unchanged."""
+        return (t.T if dtype == torch.bfloat16 else t).to(dtype).contiguous()
+
+    dwf = p["dw"].reshape(9, 2 * c).to(f32)
+    taps = torch.zeros((18, cpad), dtype=f32, device=dev)
+    taps[:9, :c], taps[9:, :c] = dwf[:, :c], dwf[:, c:]
+    return dict(
+        ln1w=p["norm1_w"].to(f32).contiguous(),
+        ln1b=p["norm1_b"].to(f32).contiguous(),
+        ln2w=p["norm2_w"].to(f32).contiguous(),
+        ln2b=p["norm2_b"].to(f32).contiguous(),
+        w1=mat(halves(p["w1"])), b1=pair(rounded(p["b1"])), taps=taps,
+        dwb=pair(rounded(p["dwb"])), w3=mat(gate_rows(p["w3"])),
+        w4=mat(halves(p["w4"])), b4=pair(rounded(p["b4"])),
+        w5=mat(gate_rows(p["w5"])),
+        bg=torch.stack([rounded(p["b3"]), rounded(p["beta"]),
+                        rounded(p["b5"]), rounded(p["gamma"])]).contiguous(),
+        sca_w=p["sca_w"].reshape(c, c).to(dtype).contiguous(),
+        sca_b=p["sca_b"].to(dtype).contiguous(),
+        cpad=cpad, dtype=dtype)
+
+
+def _launch(lib, x, kw, sum_tile, apply_tile, nsplit, stream):
+    """Pass A, the SCA glue and pass B on already validated inputs.  Outputs
+    and partials are allocated on x's device; `stream` is a cudaStream_t as
+    an int (0 for the default stream)."""
+    b, hgt, wdt, c = x.shape
+    cpad = kw["cpad"]
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    part = torch.empty((b, nsplit, cpad), dtype=torch.float32,
+                       device=x.device)
+    _check(lib.nafblock_sum(
+        _ptr(x), _ptr(kw["ln1w"]), _ptr(kw["ln1b"]), _ptr(kw["w1"]),
+        _ptr(kw["b1"]), _ptr(kw["taps"]), _ptr(kw["dwb"]), _ptr(part), b, hgt,
+        wdt, c, cpad, is_bf16, sum_tile[0], sum_tile[1], nsplit, stream),
+        lib, "nafblock_sum")
+
+    # SCA glue: global mean -> 1x1 (JAX :315-319)
+    pooled = (part.sum(1)[:, :c] / (hgt * wdt)).to(x.dtype)
+    s = (pooled @ kw["sca_w"] + kw["sca_b"]).contiguous()
+
+    out = torch.empty_like(x)
+    _check(lib.nafblock_apply(
+        _ptr(x), _ptr(kw["ln1w"]), _ptr(kw["ln1b"]), _ptr(kw["w1"]),
+        _ptr(kw["b1"]), _ptr(kw["taps"]), _ptr(kw["dwb"]), _ptr(s),
+        _ptr(kw["w3"]), _ptr(kw["ln2w"]), _ptr(kw["ln2b"]), _ptr(kw["w4"]),
+        _ptr(kw["b4"]), _ptr(kw["w5"]), _ptr(kw["bg"]), _ptr(out), b, hgt,
+        wdt, c, cpad, is_bf16, apply_tile[0], apply_tile[1], stream),
+        lib, "nafblock_apply")
+    return out
+
+
+def pick_tiles(lib, c: int, elem_bytes: int):
+    """The (pass A, pass B) tiles for channel width c: the first of
+    _TILES whose shared memory fits one block."""
+    return tuple(_first_fit(_TILES, lambda t, pass_id=pass_id:
+                            lib.nafblock_smem_bytes(pass_id, c, t[0], t[1],
+                                                    elem_bytes),
+                            "nafblock_fused")
+                 for pass_id in (0, 1))
+
+
+def _forward_kernel(x, kw):
+    """Validated launch of the kernel pair on a CUDA tensor."""
+    if x.device.type != "cuda":
+        raise ValueError(f"nafblock_fused: unsupported device {x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"nafblock_fused: x must be (B, H, W, C), got "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"nafblock_fused: unsupported dtype {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("nafblock_fused: x must be contiguous (NHWC)")
+    if kw is None:
+        raise ValueError("nafblock_fused: a CUDA tensor needs the block's "
+                         "weights from prepare_nafblock_weights (kw)")
+    if kw["dtype"] != x.dtype or kw["w3"].device != x.device \
+            or kw["ln1w"].shape[0] != x.shape[-1]:
+        raise ValueError("nafblock_fused: prepared weights do not match x")
+
+    from textualdegremoval_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    if lib.nafblock_gate_chunk() != GATE_CHUNK:
+        raise RuntimeError("nafblock_fused: gate chunk differs from the "
+                           "kernel")
+    b, hgt, wdt, c = x.shape
+    sum_tile, apply_tile = pick_tiles(lib, c, x.element_size())
+    ntiles = (-(-hgt // sum_tile[0])) * (-(-wdt // sum_tile[1]))
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nsplit = max(1, min(ntiles, -(-2 * sms // b)))
+    out = _launch(lib, x, kw, sum_tile, apply_tile, nsplit,
+                  torch.cuda.current_stream(x.device).cuda_stream)
+    nafblock_fused.launches += 1
+    return out
+
+
+class _NAFBlockFunction(torch.autograd.Function):
+    """The block on CUDA (JAX `_fwd`/`_bwd` of the `custom_vjp`): the
+    forward is the kernel pair; the backward recomputes through
+    `nafblock_ref` one half at a time (the FFN half from y1 recomputed
+    without a graph, then the conv half), so only one half's 2C-wide
+    intermediates are alive at once.  Gradients come back in the natural
+    shapes of the parameter views it was given, so they land on the
+    module's parameters."""
+
+    @staticmethod
+    def forward(ctx, x, kw, keys, *values):
+        out = _forward_kernel(x, kw)
+        ctx.save_for_backward(x, *values)
+        ctx.keys = keys
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *values = ctx.saved_tensors
+        p = {k: v.detach().requires_grad_(True)
+             for k, v in zip(ctx.keys, values)}
+        x = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            with torch.no_grad():
+                y1 = _nafblock_conv_part(x, p)
+            y1.requires_grad_(True)
+            ffn = [k for k in ctx.keys if k in _FFN_KEYS]
+            dy1, *gf = torch.autograd.grad(
+                _nafblock_ffn_part(y1, p), [y1] + [p[k] for k in ffn], g)
+            del y1
+            conv = [k for k in ctx.keys if k in _CONV_KEYS]
+            dx, *gc = torch.autograd.grad(
+                _nafblock_conv_part(x, p), [x] + [p[k] for k in conv], dy1)
+        grads = {**dict(zip(ffn, gf)), **dict(zip(conv, gc))}
+        return (dx, None, None, *(grads[k] for k in ctx.keys))
+
+
+def nafblock_fused(x: torch.Tensor, p, kw: dict | None = None):
+    """Whole NAFBlock.  x: (B, H, W, C) float32 or bfloat16; p: the
+    natural-shape parameter dict of `nafblock_ref`; kw: its
+    `prepare_nafblock_weights` output, built once by the caller and
+    required on CUDA (NAFBlock caches it per module).
+
+    CPU tensors take `nafblock_ref`.  CUDA tensors launch the kernels at
+    every shape; any input they cannot take raises."""
+    if x.device.type == "cpu":
+        return nafblock_ref(x, p)
+    needs_grad = torch.is_grad_enabled() and (
+        x.requires_grad or any(v.requires_grad for v in p.values()))
+    if not needs_grad:
+        return _forward_kernel(x, kw)
+    keys = tuple(p)
+    return _NAFBlockFunction.apply(x, kw, keys, *(p[k] for k in keys))
+
+
+nafblock_fused.launches = 0
