@@ -51,7 +51,27 @@ Phases, each of which raises on failure:
    (45 launches each; after the first released step every parameter has a
    finite gradient), the kernel against plain at every training block
    shape in bf16, and the step timed against the same step through plain
-   blocks in alternating turns, with the peak memory of each.
+   blocks in alternating turns, with the peak memory of each;
+11. the flash self-attention kernel `flash_attention` against its plain
+   version `attention_ref` at the 512 px UNet's flash shape (2, 4096, 5, 64),
+   at head_dim 128, at the shortest routed sequence and at a ragged one,
+   float32 and bfloat16, with q and k scaled so that the logits have a
+   standard deviation of 3 (peaked rows move the running max): elementwise
+   and L2 bounds, two calls bitwise equal, the median time of the kernel,
+   the plain version and `F.scaled_dot_product_attention` (the library
+   yardstick, never called by the port), and a backward that raises;
+12. pipeline A's towers at full SD 2.1 width (seeded random weights,
+   `random_init`), float32 with cuDNN's TF32 off: the UNet at the 512 px
+   latent through the kernel (5 launches) against the same weights with
+   attn_impl='plain' on the card; the text tower with injected words, the
+   vision tower, both mappers, the VAE decoder and a UNet at a 32 x 64
+   latent (N = 2048, so the kernel runs) on the card against the CPU on
+   small inputs;
+13. the generation path: the generation CLI's `generate_one` on synthetic
+   images at 512 px, 100 DDIM steps, guidance 5, in bf16 (f32 parameters;
+   one warm-up and two timed) and in f32 (one timed), 500 kernel launches
+   per image, the output (512, 512, 3) uint8 from finite values; the time
+   of one DDIM step, a profiled step, and peak memory.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is nvidia-smi's, and before that a JSON summary of each kernel.  Without
@@ -63,7 +83,8 @@ builds a copy of the kernel sources with one fault planted, under a
 temporary directory, runs the phase that should catch it in bfloat16 at a
 few shapes and exits 0 only if its check catches the fault (the strength
 of the phase's bound): dv_uses_a and dq_drops_diag (phase 6, the attention
-backward), sca_skipped and halo_kept (phase 8, the NAFBlock forward).
+backward), sca_skipped and halo_kept (phase 8, the NAFBlock forward),
+no_rescale (phase 11, the flash kernel).
 """
 
 from __future__ import annotations
@@ -81,10 +102,16 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from textualdegremoval_tpu_torch.cli.evaluate import (
     TASK_TABLE, restore_and_score,
 )
+from textualdegremoval_tpu_torch.cli.generate_reference import (
+    PROMPT_TEMPLATE, generate_one, random_init,
+)
+from textualdegremoval_tpu_torch.diffusion.pipeline import GuidanceModules
+from textualdegremoval_tpu_torch.diffusion.tokenizer import tokenize_template
 from textualdegremoval_tpu_torch.cli.train_restoration import resolve_network
 from textualdegremoval_tpu_torch.losses import build_loss
 from textualdegremoval_tpu_torch.models import define_network
@@ -92,7 +119,9 @@ from textualdegremoval_tpu_torch.models import layers
 from textualdegremoval_tpu_torch.models.layers import (
     NAFBlock, TransformerBlock,
 )
+from textualdegremoval_tpu_torch.models.unet import UNet2DCondition
 from textualdegremoval_tpu_torch.ops import _build
+from textualdegremoval_tpu_torch.ops import flash_attn as fa
 from textualdegremoval_tpu_torch.ops.pallas import nafblock as nb
 from textualdegremoval_tpu_torch.ops.pallas import tblock as tb
 from textualdegremoval_tpu_torch.ops.pallas import tblock_attn_bwd as ab
@@ -389,6 +418,11 @@ FAULTS = {
     # zero padding lost, in both passes
     "halo_kept": ("nafblock.cu", "from_f<T>(in ? rnd<T>(a) + bias : 0.f)",
                   "from_f<T>(rnd<T>(a) + bias)", 8),
+    # the flash kernel's accumulator not rescaled by exp(m_old - m_new)
+    # when a row's running max grows (bf16 path)
+    "no_rescale": ("flash_attn.cu",
+                   "acc[j][0] *= al0; acc[j][1] *= al0; acc[j][2] *= al1; "
+                   "acc[j][3] *= al1;", "", 11),
 }
 
 
@@ -711,9 +745,22 @@ def train_main_path(seed: int, opt=TRAIN_OPT, kernels=None, per_step=None,
     return totals, k_ms, p_ms, peak["kernel"], peak["plain"]
 
 
+def _union_ms(spans) -> float:
+    """Length of the union of (start, end) intervals in us, in ms."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
 def profile_device(fn, what: str):
     """Device time of one call of fn by kernel (torch.profiler), the share
-    of the block kernels, and the device's idle share of its wall time."""
+    of the port's kernels, and the device's idle share of its wall time.
+    Busy is the union of the device events' intervals, so events that
+    overlap (another stream) are not counted twice; the per-kernel sums
+    can exceed it."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -723,18 +770,23 @@ def profile_device(fn, what: str):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(t for _, t, _ in kernels)
+               for e in prof.key_averages() if e.device_type == cuda]
+    summed = sum(t for _, t, _ in kernels)
+    spans = [(e.time_range.start, e.time_range.end)
+             for e in prof.events() if e.device_type == cuda]
+    busy = _union_ms(spans)
     if busy <= 0:
         log("profiler: no device time recorded")
         return
-    ours = ("tblock_", "gdfn_bwd", "attn_bwd", "wgrad", "nafblock_")
+    ours = ("tblock_", "gdfn_bwd", "attn_bwd", "wgrad", "nafblock_",
+            "flash_")
     mine = sum(t for k, t, _ in kernels if any(o in k for o in ours))
-    log(f"profiled {what}: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
-        f"idle share {1 - busy / wall:.4f}; the block kernels {mine:.1f} ms "
-        f"({mine / busy:.3f} of device time)")
+    log(f"profiled {what}: wall {wall:.1f} ms, {len(spans)} device events, "
+        f"device busy {busy:.1f} ms (summed {summed:.1f} ms), idle share "
+        f"{1 - busy / wall:.4f}; the port's kernels {mine:.1f} ms "
+        f"({mine / summed:.3f} of the summed device time)")
     for k, t, n in sorted(kernels, key=lambda r: -r[1])[:14]:
         log(f"    {t:9.2f} ms {n:6d}x  {k[:90]}")
 
@@ -951,10 +1003,292 @@ def _plain_nafblocks(x, p, kw=None):
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the flash self-attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# (B, N, H, D, launches of that shape in one 512 px UNet forward)
+FLASH_SHAPES = [
+    (2, 4096, 5, 64, 5),   # the 64 x 64 latent under CFG: down_0, up_3
+    (1, 4096, 5, 128, 0),  # head_dim 128
+    (2, 2048, 10, 64, 0),  # the shortest sequence flash_applies routes
+    (2, 1000, 3, 64, 0),   # ragged: no 64-row tile divides N
+]
+FLASH_PEAK = 3.0  # standard deviation of the logits q.k / sqrt(D)
+# flash kernel vs attention_ref: pass when |k - p| <= a max|p| + r |p| at
+# every element and ||k - p|| <= l2 ||p||, (a, r, l2) below.  float32: the
+# same f32 math, sums in other orders and exp2 of prescaled logits.
+# bfloat16: the kernel rounds the unnormalised probabilities to bf16 for
+# the PV product and divides by the f32 row sum at the end, the plain
+# version rounds the normalised probabilities; both round the output, so
+# they differ by about one bf16 ulp (2^-8 relative) of the output.
+FLASH_TOL = {torch.float32: (1e-5, 1e-4, 1e-5),
+             torch.bfloat16: (1e-2, 1e-2, 1e-2)}
+
+
+def flash_vs_plain(gen, shapes=FLASH_SHAPES,
+                   dtypes=(torch.float32, torch.bfloat16), timed=True):
+    """Phase 11.  Returns the bf16 rows as (launches of that shape per UNet
+    forward, max_abs, kernel ms, plain ms, SDPA ms, shape); untimed, the ms
+    are NaN.  Raises after printing if any row fails."""
+    log("flash kernel vs attention_ref: |k-p| <= a*max|p| + r*|p| and "
+        "||k-p|| <= l2*||p||; a/r/l2 f32 "
+        f"{FLASH_TOL[torch.float32]}, bf16 {FLASH_TOL[torch.bfloat16]}; "
+        f"logits std {FLASH_PEAK}; SDPA is the library yardstick only")
+    log(f"{'B,N,H,D':>16} {'dtype':>8} {'max|p|':>7} {'max_abs':>10} "
+        f"{'tol_use':>8} {'l2':>10} {'repeat':>7} {'kernel_ms':>10} "
+        f"{'plain_ms':>10} {'sdpa_ms':>10} {'bound_ms':>9}")
+    rows, failures = [], []
+    s = FLASH_PEAK ** 0.5
+    for b, n, h, d, per_fwd in shapes:
+        q32, k32, v32 = (torch.randn(b, n, h, d, generator=gen) * sc
+                         for sc in (s, s, 1.0))
+        for dtype in dtypes:
+            q, k, v = (x.to("cuda", dtype) for x in (q32, k32, v32))
+            with torch.inference_mode():
+                got = fa.flash_attention(q, k, v)
+                again = fa.flash_attention(q, k, v)
+                want = fa.attention_ref(q, k, v)
+                torch.cuda.synchronize()
+            same = torch.equal(got, again)
+            g, w = got.float(), want.float()
+            diff = (g - w).abs()
+            a, r, l2_bound = FLASH_TOL[dtype]
+            peak = w.abs().max().item()
+            use = (diff / (a * peak + r * w.abs())).max().item()
+            l2 = (diff.norm() / w.norm()).item()
+            max_abs = diff.max().item()
+            finite = bool(torch.isfinite(g).all())
+            del got, again, want, g, w, diff
+            k_ms = p_ms = l_ms = float("nan")
+            if timed:
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                with torch.inference_mode():
+                    k_ms = median_ms(lambda: fa.flash_attention(q, k, v),
+                                     reps=10)
+                    p_ms = median_ms(lambda: fa.attention_ref(q, k, v))
+                    l_ms = median_ms(
+                        lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                        reps=10)
+            name = str(dtype).split(".")[-1]
+            bound = flash_bound_ms(b, n, h, d, torch.finfo(dtype).bits // 8)
+            log(f"{f'{b},{n},{h},{d}':>16} {name:>8} {peak:7.3f} "
+                f"{max_abs:10.3e} {use:8.3f} {l2:10.3e} {str(same):>7} "
+                f"{k_ms:10.4f} {p_ms:10.4f} {l_ms:10.4f} {bound[0]:9.4f}")
+            if not finite or use > 1.0 or l2 > l2_bound or not same:
+                failures.append((b, n, h, d, name))
+            if dtype == torch.bfloat16:
+                rows.append((per_fwd, max_abs, k_ms, p_ms, l_ms,
+                             (b, n, h, d)))
+            del q, k, v
+        torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError(f"flash kernel disagrees with plain at {failures}")
+    return rows
+
+
+def flash_backward_raises():
+    """Phase 11: a backward through the kernel raises (its backward kernel
+    comes with pipeline A's training), it does not drop the gradient."""
+    q = torch.randn(1, 128, 1, 64, device="cuda", requires_grad=True)
+    out = fa.flash_attention(q, q.detach(), q.detach())
+    try:
+        out.sum().backward()
+    except NotImplementedError as e:
+        log(f"backward through flash_attention raises: {e}")
+        return
+    raise RuntimeError("backward through flash_attention did not raise")
+
+
+# ---------------------------------------------------------------------------
+# Phases 12 and 13: pipeline A's towers and the generation path
+# ---------------------------------------------------------------------------
+
+# per flash launch shape at 512 px under CFG: 5 per UNet forward, 100 steps
+FLASH_PER_IMAGE = 500
+# tower on the card vs on the CPU (or the UNet through the kernel vs with
+# attn_impl='plain'), float32: |card - cpu| <= TOWER_TOL max|cpu| at every
+# element; cuBLAS/cuDNN and the CPU's f32 products sum in other orders
+# through up to 32 layers
+TOWER_TOL = 1e-3
+
+
+def build_guidance(seed: int, dtype) -> GuidanceModules:
+    """sd21_config towers on the card with the generation CLI's seeded
+    random weights (`random_init`)."""
+    with torch.device("cuda"):
+        mods = GuidanceModules.sd21_config(num_words=20, dtype=dtype)
+    return random_init(mods, torch.Generator("cuda").manual_seed(seed))
+
+
+def _compare(what: str, got: torch.Tensor, want: torch.Tensor, extra=""):
+    got, want = got.float().cpu(), want.float().cpu()
+    err = (got - want).abs().max().item()
+    peak = want.abs().max().item()
+    l2 = ((got - want).norm() / want.norm()).item()
+    log(f"{what}: max_abs {err:.3e} at max|ref| {peak:.3f} (bound "
+        f"{TOWER_TOL:g} max|ref|), L2 {l2:.3e}{extra}")
+    if not torch.isfinite(got).all() or err > TOWER_TOL * peak:
+        raise RuntimeError(f"{what}: the card disagrees ({err})")
+
+
+def towers_vs_reference(seed: int):
+    """Phase 12."""
+    log(f"phase 12 float32, torch.backends.cudnn.allow_tf32 = "
+        f"{torch.backends.cudnn.allow_tf32}, cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    mods = build_guidance(seed, torch.float32)
+    gen = torch.Generator("cuda").manual_seed(seed + 1)
+    unet = mods.unet
+    with torch.device("cuda"):
+        plain = UNet2DCondition(attn_impl="plain")
+    plain.load_state_dict(unet.state_dict())
+    lat = torch.randn(2, 64, 64, 4, generator=gen, device="cuda")
+    ctx = torch.randn(2, 77, 1024, generator=gen, device="cuda")
+    ts = torch.tensor([981, 981], device="cuda")
+    with torch.inference_mode():
+        fa.flash_attention.launches = 0
+        got = unet(lat, ts, ctx, use_global_kv=True)
+        n_kernel = fa.flash_attention.launches
+        want = plain(lat, ts, ctx, use_global_kv=True)
+        n_plain = fa.flash_attention.launches - n_kernel
+    _compare("UNet f32 2x64x64 (512 px), kernel vs attn_impl='plain' on the "
+             "card", got, want, f"; launches {n_kernel} vs {n_plain}")
+    if n_kernel != 5 or n_plain != 0:
+        raise RuntimeError(f"UNet launches {n_kernel} / {n_plain}")
+    del plain, got, want
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(seed + 5)
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy(
+            (rng.standard_normal(shape) * scale).astype(np.float32))
+
+    ids, _, inj = tokenize_template(PROMPT_TEMPLATE)
+    ids = torch.from_numpy(ids)
+    words = arr(1, 20, 1024, scale=1024 ** -0.5)
+    inj = torch.tensor([inj])
+    pixels = arr(1, 224, 224, 3)
+    z = arr(1, 16, 16, 4)
+    lat = arr(1, 32, 64, 4)
+    ctx = arr(1, 77, 1024)
+    ts = torch.tensor([501])
+    with torch.inference_mode():
+        for what, mod, args, kw in (
+                ("text tower with 20 injected words", mods.text_encoder,
+                 (ids,), dict(inj_embedding=words, inj_index=inj)),
+                ("vision tower 224 px", mods.image_encoder, (pixels,), {}),
+                ("VAE decoder 16x16 latent", mods.vae, (z,), {}),
+                ("UNet 1x32x64 latent (N = 2048)", mods.unet,
+                 (lat, ts, ctx), dict(use_global_kv=True))):
+            cpu = copy.deepcopy(mod).cpu()
+            fn = (lambda m: m.decode) if mod is mods.vae else (lambda m: m)
+            t0 = time.perf_counter()
+            want = fn(cpu)(*args, **kw)
+            cpu_s = time.perf_counter() - t0
+            fa.flash_attention.launches = 0
+            got = fn(mod)(*(a.cuda() for a in args), **{
+                k: v.cuda() if torch.is_tensor(v) else v
+                for k, v in kw.items()})
+            if isinstance(want, tuple):
+                got, want = got[0], want[0]
+            _compare(f"{what}, card vs CPU", got, want,
+                     f"; flash launches {fa.flash_attention.launches}; CPU "
+                     f"{cpu_s:.1f} s")
+            if what.startswith("vision"):
+                embs = want
+            del cpu
+        for what, mod in (("I2T mapper", mods.mapper),
+                          ("clean mapper", mods.clean_mapper)):
+            cpu = copy.deepcopy(mod).cpu()
+            want = cpu(embs)
+            got = mod(embs.cuda())
+            _compare(f"{what}, card vs CPU", got, want)
+            embs = want
+            del cpu
+    del mods
+    torch.cuda.empty_cache()
+
+
+def synthetic_image(rng, h=600, w=480):
+    """A smooth HWC float32 image in [0, 1] (not square: the CLI crops)."""
+    low = rng.random((h // 24 + 1, w // 24 + 1, 3)).astype(np.float32)
+    img = np.kron(low, np.ones((24, 24, 1), np.float32))[:h, :w]
+    return np.clip(img + 0.03 * rng.standard_normal(img.shape), 0, 1).astype(
+        np.float32)
+
+
+def generation_path(seed: int):
+    """Phase 13.  Returns {dtype name: (seconds per image, DDIM step ms,
+    peak GiB, flash launches over the images)}."""
+    log(f"phase 13, cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}, "
+        f"cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
+    rng = np.random.default_rng(seed + 6)
+    images = [synthetic_image(rng) for _ in range(3)]
+    ids, uids, inj = tokenize_template(PROMPT_TEMPLATE)
+    ids = torch.from_numpy(ids).cuda()
+    uids = torch.from_numpy(uids).cuda()
+    inj = torch.tensor([inj], dtype=torch.int32, device="cuda")
+    out = {}
+    for dtype, n_images in ((torch.bfloat16, 3), (torch.float32, 1)):
+        name = str(dtype).split(".")[-1]
+        mods = build_guidance(seed, dtype)
+        gen = torch.Generator("cuda").manual_seed(seed)
+        secs, launches = [], 0
+        for i in range(n_images):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.flash_attention.launches = 0
+            t0 = time.perf_counter()
+            img = generate_one(mods, images[i], ids, uids, inj, gen)
+            secs.append(time.perf_counter() - t0)
+            n = fa.flash_attention.launches
+            launches += n
+            log(f"generate_one {name} image {i} "
+                f"({'warm-up' if n_images > 1 and i == 0 else 'timed'}): "
+                f"{secs[-1]:.3f} s, flash launches {n}, output {img.shape} "
+                f"{img.dtype}, mean {img.mean():.2f}")
+            if n != FLASH_PER_IMAGE or img.shape != (512, 512, 3) \
+                    or img.dtype != np.uint8:
+                raise RuntimeError(f"generation: {n} launches, {img.shape}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # one DDIM step at 512 px: the batch-2 UNet call, the guidance and
+        # the scheduler update
+        with torch.inference_mode():
+            cond, _ = mods.text_encoder(ids)
+            uncond, _ = mods.text_encoder(uids)
+            ctx = torch.cat([uncond, cond])
+            lat = torch.randn(1, 64, 64, 4, device="cuda", generator=gen)
+            ts = torch.full((2,), 981, dtype=torch.int32, device="cuda")
+
+            def step():
+                o = mods.unet(torch.cat([lat, lat]), ts, ctx,
+                              use_global_kv=True)
+                o_u, o_c = o.chunk(2)
+                return mods.scheduler.step(o_u + 5.0 * (o_c - o_u), 981, 971,
+                                           lat)
+
+            step_ms = median_ms(step, reps=5)
+            profile_device(step, f"DDIM step 512 px {name}")
+        timed = secs[1:] if n_images > 1 else secs
+        per_image = statistics.median(timed)
+        log(f"generation {name} 512 px, 100 steps, CFG 5: "
+            f"{[round(v, 3) for v in secs]} s per image (median of the timed "
+            f"{per_image:.3f} s, {1 / per_image:.4f} images/s), DDIM step "
+            f"{step_ms:.2f} ms, peak memory {peak:.2f} GiB")
+        out[name] = (per_image, step_ms, peak, launches)
+        del mods
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for the same work
 # ---------------------------------------------------------------------------
 
 PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s, H100 SXM
+PEAK_F32 = 67e12  # float32 FLOP/s outside the tensor cores, H100 SXM
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s, H100 SXM
 
 
@@ -994,6 +1328,16 @@ def bound_ms(kernel: str, b, h, w, c, heads, eb=2):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def flash_bound_ms(b, n, h, d, eb=2):
+    """(ms, 'bytes' or 'operations') of one call: 4 B H N^2 D operations
+    (q k^T and P v) at the peak of the element type (bf16 tensor cores, or
+    float32 outside them), q, k, v read and o written once."""
+    t_ops = 4 * b * h * n * n * d / (PEAK_BF16 if eb == 2 else PEAK_F32)
+    t_bytes = 4 * b * n * h * d * eb / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1025,6 +1369,8 @@ def main(argv=None) -> int:
             if FAULTS[args.plant][3] == 6:
                 backward_vs_plain(gen, [TRAIN_SHAPES[i] for i in (0, 4, 7, 8)],
                                   dtypes=(torch.bfloat16,), timed=False)
+            elif FAULTS[args.plant][3] == 11:
+                flash_vs_plain(gen, dtypes=(torch.bfloat16,), timed=False)
             else:
                 nafblock_vs_plain(gen, [NAF_SHAPES[i] for i in (7, 8, 10)],
                                   dtypes=(torch.bfloat16,), timed=False)
@@ -1065,6 +1411,15 @@ def main(argv=None) -> int:
         f"{sum(n * p for n, _, _, p, _ in naf_train_rows):.3f} ms")
     log(f"launches: nafnet evaluation path nafblock_fused {naf_launches}; "
         f"training path (4 steps) {naf_train_launches}")
+
+    flash_rows = flash_vs_plain(gen)
+    flash_backward_raises()
+    towers_vs_reference(args.seed)
+    gen_out = generation_path(args.seed)
+    flash_main = [r for r in flash_rows if r[0]]
+    flash_launches = sum(v[3] for v in gen_out.values())
+    log(f"launches: generation path flash_attention {flash_launches} "
+        f"({', '.join(f'{k} {v[3]}' for k, v in gen_out.items())})")
 
     # per-step kernel time: each training shape's median time times the
     # number of blocks of that shape in one step (bf16, WithBias); the
@@ -1115,6 +1470,17 @@ def main(argv=None) -> int:
          "ms": sum(n * k for n, _, k, _, _ in naf_main),
          "plain_ms": sum(n * p for n, _, _, p, _ in naf_main),
          "bound_ms": naf_bound, "bound_by": naf_by, "library_ms": None},
+        # per 512 px UNet forward (5 launches at (2, 4096, 5, 64), bf16)
+        {"name": "flash_attention", "route": "cuda",
+         "source": src + "flash_attn.cu",
+         "replaces": "textualdegremoval_tpu/ops/flash_attn.py:53",
+         "launches": flash_launches,
+         "max_abs_err": max(r[1] for r in flash_main),
+         "ms": sum(r[0] * r[2] for r in flash_main),
+         "plain_ms": sum(r[0] * r[3] for r in flash_main),
+         "bound_ms": sum(r[0] * flash_bound_ms(*r[5])[0] for r in flash_main),
+         "bound_by": flash_bound_ms(*flash_main[0][5])[1],
+         "library_ms": sum(r[0] * r[4] for r in flash_main)},
     ]}
     log(f"train step 384 px batch 8 bf16: {step_ms:.2f} ms through the "
         f"kernels vs {plain_step_ms:.2f} ms through plain blocks, peak "
@@ -1124,6 +1490,10 @@ def main(argv=None) -> int:
         f"{naf_step_ms:.2f} ms through the kernel vs {naf_plain_step_ms:.2f} "
         f"ms through plain blocks, peak {naf_peak:.2f} vs "
         f"{naf_plain_peak:.2f} GiB")
+    for name, (per_image, step_ms, peak_gib, _) in gen_out.items():
+        log(f"pipeline A {name}: {per_image:.3f} s per 512 px image "
+            f"({1 / per_image:.4f} images/s), DDIM step {step_ms:.2f} ms, "
+            f"peak {peak_gib:.2f} GiB")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s after "
         f"the build")
     log(json.dumps(summary))

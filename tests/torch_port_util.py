@@ -119,3 +119,77 @@ def build_host_library(out_dir: Path,
             getattr(lib, name).argtypes = argtypes
             getattr(lib, name).restype = restype
     return lib
+
+
+def jax_tower_tree(module: torch.nn.Module, tower: str) -> dict:
+    """The JAX parameter tree of a pipeline A tower of the port, made by the
+    JAX package's own tower_maps converters from the port module's
+    reference-format state dict (the UNet's global K/V passed as the
+    mapper artifact carries them)."""
+    from textualdegremoval_tpu.convert import tower_maps as tm
+    from textualdegremoval_tpu_torch.convert import (
+        mapper_reference_state_dict,
+    )
+
+    sd = module.state_dict()
+    if tower == "text_encoder":
+        return tm.convert_clip_text(sd)
+    if tower == "image_encoder":
+        return tm.convert_clip_vision(sd)
+    if tower == "vae":
+        enc = module.encoder.down_blocks
+        return tm.convert_vae(sd, n_down=len(enc),
+                              layers_per_block=len(enc[0].resnets))
+    if tower == "unet":
+        plain = {k: v for k, v in sd.items() if "_global" not in k}
+        artifact = {re.sub(r"\.to_([kv])_global\.weight$", r"_to_\1.weight",
+                           k): v for k, v in sd.items() if "_global" in k}
+        return tm.convert_unet(
+            plain, n_blocks=len(module.down_blocks),
+            layers_per_block=len(module.down_blocks[0].resnets),
+            global_kv=tm.extract_global_kv(artifact))
+    return tm.convert_mapper(mapper_reference_state_dict(module),
+                             module.num_words,
+                             with_patch=hasattr(module, "mapping_patch"))
+
+
+def tiny_guidance_modules(seed: int = 0, num_words: int = 4,
+                          dtype: torch.dtype = torch.float32):
+    """The port's small_test_config towers with seeded weights at a
+    working scale (every tensor non-zero, so that each reaches the output)
+    and the JAX package's modules of the same config with the same
+    parameters: (port GuidanceModules, JAX GuidanceModules, JAX params)."""
+    from textualdegremoval_tpu.diffusion.pipeline import (
+        GuidanceModules as JaxGuidanceModules,
+    )
+    from textualdegremoval_tpu_torch.diffusion.pipeline import GuidanceModules
+
+    mods = GuidanceModules.small_test_config(num_words=num_words, dtype=dtype)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for mod in mods.towers().values():
+            for name, p in mod.named_parameters():
+                leaf = name.rsplit(".", 1)[-1]
+                if leaf.endswith("_kernel"):  # stacked (W, in, out)
+                    p.copy_(t(randn(rng, *p.shape, scale=p.shape[1] ** -0.5)))
+                elif leaf == "weight" and p.dim() >= 2:  # N(0, 1/fan_in)
+                    p.copy_(t(randn(rng, *p.shape,
+                                    scale=p[0].numel() ** -0.5)))
+                elif leaf.endswith("weight"):  # norm scales near 1
+                    p.copy_(t(1 + randn(rng, *p.shape, scale=0.1)))
+                else:  # biases, the class embedding
+                    p.copy_(t(randn(rng, *p.shape, scale=0.1)))
+            mod.eval()
+    jmods = JaxGuidanceModules.small_test_config(num_words=num_words)
+    if dtype != torch.float32:
+        import dataclasses
+
+        import jax.numpy as jnp
+
+        jdt = {torch.bfloat16: jnp.bfloat16}[dtype]
+        jmods = dataclasses.replace(jmods, **{
+            name: getattr(jmods, name).clone(dtype=jdt)
+            for name in ("text_encoder", "image_encoder", "unet", "vae")})
+    params = {name: jax_tower_tree(mod, name)
+              for name, mod in mods.towers().items()}
+    return mods, jmods, params
