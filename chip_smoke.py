@@ -59,7 +59,7 @@ Phases, each of which raises on failure:
    standard deviation of 3 (peaked rows move the running max): elementwise
    and L2 bounds, two calls bitwise equal, the median time of the kernel,
    the plain version and `F.scaled_dot_product_attention` (the library
-   yardstick, never called by the port), and a backward that raises;
+   yardstick, never called by the port);
 12. pipeline A's towers at full SD 2.1 width (seeded random weights,
    `random_init`), float32 with cuDNN's TF32 off: the UNet at the 512 px
    latent through the kernel (5 launches) against the same weights with
@@ -71,7 +71,30 @@ Phases, each of which raises on failure:
    images at 512 px, 100 DDIM steps, guidance 5, in bf16 (f32 parameters;
    one warm-up and two timed) and in f32 (one timed), 500 kernel launches
    per image, the output (512, 512, 3) uint8 from finite values; the time
-   of one DDIM step, a profiled step, and peak memory.
+   of one DDIM step, a profiled step, and peak memory;
+14. the flash backward kernels (`_backward_kernel`: dkv, then dq) against
+   the plain backward `attention_bwd_ref` and against autograd through
+   `attention_ref`, on the forward kernel's own o and lse, at the training
+   shape (4, 4096, 5, 64), the CFG shape, head_dim 128, the shortest
+   routed sequence and a ragged one, float32 and bfloat16, logits of
+   standard deviation 3: dq, dk, dv elementwise and in L2, the lse against
+   logsumexp, two calls bitwise equal, and the median time of the kernel
+   pair, of the plain autograd backward and of SDPA's backward (the
+   yardstick);
+15. pipeline A's training path: the I2T training CLI's step function
+   (`train_i2t.build_towers` / `build_step`) at full SD 2.1 width on
+   seeded random towers, 512 px numpy-made images, batch 4,
+   --mixed_precision bf16, accumulation 4: a warm-up (every trainable
+   parameter gets a finite non-zero gradient), 8 micro-steps with 5
+   forward and 4 backward flash launches each (the first self-attention
+   precedes every trainable parameter), the trainables moving only at
+   micro-steps 4 and 8, the frozen towers bitwise unchanged; remat (10
+   forward launches) bitwise equal to no remat; the micro-step timed
+   against attn_impl='plain' in alternating turns (CUDA events) with the
+   peak memory of each, and a profiled micro-step; one f32 micro-step at
+   batch 1 through the kernels against plain (loss 1e-5 relative, each
+   trainable gradient 1e-3 in L2); one TR-stage update, after which only
+   the clean mapper has moved.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is nvidia-smi's, and before that a JSON summary of each kernel.  Without
@@ -84,7 +107,8 @@ temporary directory, runs the phase that should catch it in bfloat16 at a
 few shapes and exits 0 only if its check catches the fault (the strength
 of the phase's bound): dv_uses_a and dq_drops_diag (phase 6, the attention
 backward), sca_skipped and halo_kept (phase 8, the NAFBlock forward),
-no_rescale (phase 11, the flash kernel).
+no_rescale (phase 11, the flash kernel), no_di, dk_unscaled and lse_log2
+(phase 14, the flash backward and the forward's lse).
 """
 
 from __future__ import annotations
@@ -110,6 +134,9 @@ from textualdegremoval_tpu_torch.cli.evaluate import (
 from textualdegremoval_tpu_torch.cli.generate_reference import (
     PROMPT_TEMPLATE, generate_one, random_init,
 )
+from textualdegremoval_tpu_torch.cli import train_i2t as train_cli
+from textualdegremoval_tpu_torch.data import guidance as guidance_data
+from textualdegremoval_tpu_torch.diffusion import pipeline
 from textualdegremoval_tpu_torch.diffusion.pipeline import GuidanceModules
 from textualdegremoval_tpu_torch.diffusion.tokenizer import tokenize_template
 from textualdegremoval_tpu_torch.cli.train_restoration import resolve_network
@@ -173,6 +200,13 @@ def gpu_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+def log_held(after: str):
+    """The device memory still allocated after a phase (a tensor that
+    outlives its phase inflates every later phase's peak)."""
+    gib = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"held after {after}: {gib:.2f} GiB")
 
 
 def median_ms(fn, reps=5) -> float:
@@ -423,6 +457,19 @@ FAULTS = {
     "no_rescale": ("flash_attn.cu",
                    "acc[j][0] *= al0; acc[j][1] *= al0; acc[j][2] *= al1; "
                    "acc[j][3] *= al1;", "", 11),
+    # the flash backward's dS = P (dP - di) without di (dkv kernel, bf16)
+    "no_di": ("flash_attn_bwd.cu",
+              "dpt[nt][i] = p * (dpt[nt][i] - dis[qi]);",
+              "dpt[nt][i] = p * dpt[nt][i];", 14),
+    # dK not multiplied by the softmax scale (bf16)
+    "dk_unscaled": ("flash_attn_bwd.cu",
+                    "store_rows<D>(dk + off, dka, r0, N, H, scale);",
+                    "store_rows<D>(dk + off, dka, r0, N, H, 1.f);", 14),
+    # the forward's lse left in log2 units (bf16): every recomputed P is
+    # off by a factor
+    "lse_log2": ("flash_attn.cu",
+                 "if (r0 < N) lb[r0] = (m0 + log2f(l0)) * kLn2;",
+                 "if (r0 < N) lb[r0] = m0 + log2f(l0);", 14),
 }
 
 
@@ -656,9 +703,9 @@ def train_main_path(seed: int, opt=TRAIN_OPT, kernels=None, per_step=None,
     names = [n for n, _ in model.named_parameters()]
     for i in range(4):
         frozen = state.opt.count < state.opt.fix
-        seen, update = {}, state.opt.step
+        seen = {}
         if i == 2:  # the first released step: every gradient as handed on
-            def capture(gs, update=update, seen=seen):
+            def capture(gs, update=state.opt.step, seen=seen):
                 seen.update(zip(names, gs))
                 update(gs)
             state.opt.step = capture
@@ -667,7 +714,10 @@ def train_main_path(seed: int, opt=TRAIN_OPT, kernels=None, per_step=None,
         (state, m), counts = counted_step(frozen_fn if frozen else step_fn)
         loss = float(m["l_pix"])
         ms = (time.perf_counter() - t0) * 1e3
-        state.opt.step = update
+        # back to the class's step: an instance attribute holding a bound
+        # method of its own object is a reference cycle, which would keep
+        # the model and optimizer on the card until the next full collection
+        state.opt.__dict__.pop("step", None)
         totals = [a + b for a, b in zip(totals, counts)]
         log(f"{name} train step {i + 1} "
             f"({'frozen' if frozen else 'released'}): {ms:.1f} ms, l_pix "
@@ -822,6 +872,7 @@ def train_step_vs_cpu(seed: int):
 
         state.opt.step = capture
         state, m = step_fn(state, {k: v.to(dev) for k, v in batch.items()})
+        del state.opt.step  # no cycle through the capture's bound method
         losses.append(float(m["l_pix"]))
         grads.append(seen)
         after.append({k: v.detach().cpu() for k, v in
@@ -1086,19 +1137,6 @@ def flash_vs_plain(gen, shapes=FLASH_SHAPES,
     return rows
 
 
-def flash_backward_raises():
-    """Phase 11: a backward through the kernel raises (its backward kernel
-    comes with pipeline A's training), it does not drop the gradient."""
-    q = torch.randn(1, 128, 1, 64, device="cuda", requires_grad=True)
-    out = fa.flash_attention(q, q.detach(), q.detach())
-    try:
-        out.sum().backward()
-    except NotImplementedError as e:
-        log(f"backward through flash_attention raises: {e}")
-        return
-    raise RuntimeError("backward through flash_attention did not raise")
-
-
 # ---------------------------------------------------------------------------
 # Phases 12 and 13: pipeline A's towers and the generation path
 # ---------------------------------------------------------------------------
@@ -1233,6 +1271,9 @@ def generation_path(seed: int):
     for dtype, n_images in ((torch.bfloat16, 3), (torch.float32, 1)):
         name = str(dtype).split(".")[-1]
         mods = build_guidance(seed, dtype)
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        log(f"{name} towers built: {held:.2f} GiB allocated before the "
+            f"first image")
         gen = torch.Generator("cuda").manual_seed(seed)
         secs, launches = [], 0
         for i in range(n_images):
@@ -1281,6 +1322,364 @@ def generation_path(seed: int):
         del mods
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the flash backward kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# (B, N, H, D, backward launches of that shape per I2T micro-step at 512
+# px, batch 4: the five 64 x 64 self-attentions but the first, which comes
+# before every trainable parameter and so gets no gradient)
+FLASH_BWD_PER_STEP = 4
+FLASH_BWD_SHAPES = [
+    (4, 4096, 5, 64, FLASH_BWD_PER_STEP),  # the training micro-step
+    (2, 4096, 5, 64, 0),    # the CFG shape of generation
+    (1, 4096, 5, 128, 0),   # head_dim 128
+    (2, 2048, 10, 64, 0),   # the shortest sequence flash_applies routes
+    (2, 1000, 3, 64, 0),    # ragged: no 64-row tile divides N
+]
+# backward kernels vs attention_bwd_ref and vs autograd through
+# attention_ref, per gradient: |k - p| <= a max|p| + r |p| and
+# ||k - p|| <= l2 ||p||.  float32: the same f32 math in other orders; dS =
+# P (dP - di) cancels where dP is near di, which raises the sums' relative
+# error on the gradients (the host build: L2 7e-7).  bfloat16: the kernel
+# rounds P and dS to bf16 as product operands, the plain backward keeps
+# them f32 and plain autograd rounds P and dP to bf16; each rounds the
+# gradient once: about one bf16 ulp apart (the host build: L2 2.8e-3 vs
+# the plain backward, 3.3e-3 vs autograd), while no_di and dk_unscaled
+# read L2 above 1.
+FLASH_BWD_TOL = {torch.float32: (1e-4, 1e-3, 1e-4),
+                 torch.bfloat16: (2e-2, 2e-2, 1e-2)}
+LSE_ATOL = 1e-4  # the forward's lse vs logsumexp of the f32 logits
+
+
+def _grad_err(got, want, tol):
+    """(max abs error, use of the elementwise bound, L2 relative error,
+    within the bounds)."""
+    a, r, l2_bound = tol
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    use = (diff / (a * w.abs().max() + r * w.abs())).max().item()
+    l2 = (diff.norm() / w.norm()).item()
+    ok = bool(torch.isfinite(g).all()) and use <= 1.0 and l2 <= l2_bound
+    return diff.max().item(), use, l2, ok
+
+
+def flash_bwd_vs_plain(gen, shapes=FLASH_BWD_SHAPES,
+                       dtypes=(torch.float32, torch.bfloat16), timed=True):
+    """Phase 14.  Returns the bf16 rows as (backward launches of that shape
+    per training micro-step, max_abs vs the plain backward, kernel-pair ms,
+    plain autograd backward ms, SDPA backward ms, shape); untimed, the ms
+    are NaN.  Raises after printing if any row fails."""
+    log("flash backward kernels vs attention_bwd_ref and autograd through "
+        "attention_ref, per gradient: |k-p| <= a*max|p| + r*|p| and "
+        "||k-p|| <= l2*||p||; a/r/l2 f32 "
+        f"{FLASH_BWD_TOL[torch.float32]}, bf16 "
+        f"{FLASH_BWD_TOL[torch.bfloat16]}; lse vs logsumexp to {LSE_ATOL}; "
+        f"logits std {FLASH_PEAK}; SDPA's backward is the yardstick only")
+    log(f"{'B,N,H,D':>16} {'dtype':>8} {'grad':>4} {'max_abs':>10} "
+        f"{'use':>6} {'l2':>10} {'ag_use':>6} {'ag_l2':>10}")
+    from textualdegremoval_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    rows, failures = [], []
+    s = FLASH_PEAK ** 0.5
+    for b, n, h, d, per_step in shapes:
+        q32, k32, v32, do32 = (torch.randn(b, n, h, d, generator=gen) * sc
+                               for sc in (s, s, 1.0, 1.0))
+        for dtype in dtypes:
+            name = str(dtype).split(".")[-1]
+            q, k, v, do = (x.to("cuda", dtype) for x in (q32, k32, v32,
+                                                          do32))
+            o, lse = fa._forward_kernel(q, k, v, want_lse=True)
+            got = fa._backward_kernel(q, k, v, o, lse, do)
+            again = fa._backward_kernel(q, k, v, o, lse, do)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            lse_err = (lse - fa.lse_ref(q, k)).abs().max().item()
+            ok = same and lse_err <= LSE_ATOL
+            plain = fa.attention_bwd_ref(q, k, v, o, lse, do)
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            auto = torch.autograd.grad(fa.attention_ref(*leaves), leaves, do)
+            errs = []
+            for gname, x, p, ag in zip(("dq", "dk", "dv"), got, plain, auto):
+                m_abs, use, l2, ok_p = _grad_err(x, p, FLASH_BWD_TOL[dtype])
+                _, ag_use, ag_l2, ok_a = _grad_err(x, ag, FLASH_BWD_TOL[dtype])
+                ok = ok and ok_p and ok_a
+                errs.append(m_abs)
+                log(f"{f'{b},{n},{h},{d}':>16} {name:>8} {gname:>4} "
+                    f"{m_abs:10.3e} {use:6.3f} {l2:10.3e} {ag_use:6.3f} "
+                    f"{ag_l2:10.3e}")
+            del again, plain, auto, leaves
+            k_ms = p_ms = l_ms = float("nan")
+            if timed:
+                stream = torch.cuda.current_stream().cuda_stream
+                k_ms = median_ms(lambda: fa._launch_bwd(lib, q, k, v, o, lse,
+                                                        do, stream), reps=10)
+                leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+                out = fa.attention_ref(*leaves)
+                p_ms = median_ms(lambda: torch.autograd.grad(
+                    out, leaves, do, retain_graph=True))
+                del out
+                tl = [x.transpose(1, 2).detach().clone().requires_grad_(True)
+                      for x in (q, k, v)]
+                out = F.scaled_dot_product_attention(*tl)
+                dot = do.transpose(1, 2)
+                l_ms = median_ms(lambda: torch.autograd.grad(
+                    out, tl, dot, retain_graph=True), reps=10)
+                del out, tl, leaves
+            bound = flash_bwd_bound_ms(b, n, h, d,
+                                       torch.finfo(dtype).bits // 8)
+            log(f"{f'{b},{n},{h},{d}':>16} {name:>8} lse max_abs "
+                f"{lse_err:.3e}, repeat {same}; kernel pair {k_ms:.4f} ms, "
+                f"plain autograd backward {p_ms:.4f} ms, SDPA backward "
+                f"{l_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+            if not ok:
+                failures.append((b, n, h, d, name))
+            if dtype == torch.bfloat16:
+                rows.append((per_step, max(errs), k_ms, p_ms, l_ms,
+                             (b, n, h, d)))
+            del q, k, v, do, o, lse, got
+            torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError(f"flash backward disagrees with plain at "
+                           f"{failures}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: pipeline A's training path
+# ---------------------------------------------------------------------------
+
+# training flash launches per micro-step: forward, forward under remat,
+# backward
+FLASH_FWD_PER_STEP, FLASH_FWD_PER_REMAT_STEP = 5, 10
+I2T_ACCUM = 4  # the CLI's default gradient_accumulation_steps
+STEP_LOSS_RTOL, STEP_GRAD_L2 = 1e-5, 1e-3  # f32, kernel vs plain
+
+
+def _train_args(**kw):
+    """The training CLI's options for a run on seeded random towers."""
+    argv = ["--train_data_dir", "unused", "--output_dir", "unused",
+            "--random_init"]
+    for k, v in kw.items():
+        argv += [f"--{k}"] + ([] if v is True else [str(v)])
+    return train_cli.parse_args("i2t", argv)
+
+
+def guidance_batch(args, mods, rng, b):
+    """The CLI's device batch of b numpy-made images at args.resolution
+    (SD view in [-1, 1], the CLIP view: 224 px for ViT-H/14)."""
+    size = args.resolution
+    imgs = [synthetic_image(rng, size + 40, size + 24)[:size, :size]
+            for _ in range(b)]
+    ids, _, inj = train_cli.prompt_ids(args, mods)
+    host = {"pixel_values": torch.from_numpy(np.stack(imgs) * 2 - 1),
+            "pixel_values_clip": torch.from_numpy(np.stack([
+                guidance_data.clip_view(im, mods.image_encoder.image_size)
+                for im in imgs])),
+            "index": [inj] * b}
+    return train_cli.device_batch(host, ids, mods.device)
+
+
+def set_flash(mods, on: bool):
+    """Route the UNet's self-attentions through the kernels (True) or
+    attention_ref (attn_impl='plain')."""
+    for m in mods.unet.modules():
+        if hasattr(m, "use_flash"):
+            m.use_flash = on
+
+
+def _draws(mods, batch, gen):
+    """Fixed noise, t and VAE eps for a batch (one generator draw)."""
+    with torch.no_grad():
+        mean, _ = mods.vae.encode_moments(batch["pixel_values"])
+    return {"vae_eps": torch.randn(mean.shape, generator=gen,
+                                   device=mean.device, dtype=mean.dtype),
+            "noise": torch.randn(mean.shape, generator=gen,
+                                 device=mean.device, dtype=mean.dtype),
+            "t": torch.randint(0, 1000, (mean.shape[0],), generator=gen,
+                               device=mean.device)}
+
+
+def _counts():
+    return fa.flash_attention.launches, fa.flash_attention.launches_bwd
+
+
+def _reset_counts():
+    fa.flash_attention.launches = fa.flash_attention.launches_bwd = 0
+
+
+def training_path(seed: int):
+    """Phase 15.  Returns (backward launches over the counted micro-steps,
+    kernel micro-step ms, plain micro-step ms, kernel peak GiB, plain peak
+    GiB, backward launches per micro-step)."""
+    args = _train_args(mixed_precision="bf16")
+    log(f"phase 15: train_i2t at {args.resolution} px, batch "
+        f"{args.train_batch_size}, --mixed_precision bf16, accumulation "
+        f"{args.gradient_accumulation_steps}, seeded random towers")
+    mods = train_cli.build_towers(args, "i2t")
+    _, step_fn, lr = train_cli.build_step(args, mods, "i2t")
+    train, frozen = pipeline.partition(mods, "i2t")
+    if {p.dtype for _, p in frozen} != {torch.bfloat16} or \
+            {p.dtype for _, p in train} != {torch.float32}:
+        raise RuntimeError("mixed precision: frozen towers not bf16 or "
+                           "trainables not f32")
+    rng = np.random.default_rng(seed + 7)
+    batch = guidance_batch(args, mods, rng, args.train_batch_size)
+    gen = torch.Generator(mods.device).manual_seed(seed)
+
+    # warm-up: the loss and gradients outside the optimizer; every
+    # trainable parameter gets a finite, non-zero gradient
+    loss, grads = pipeline.guidance_loss_and_grads(mods, batch, "i2t", gen)
+    bad = [n for n, g in grads.items()
+           if not torch.isfinite(g).all() or not g.abs().max() > 0]
+    log(f"warm-up micro-step: loss {float(loss):.5f}; {len(grads) - len(bad)}"
+        f" of {len(grads)} trainable parameters with a finite non-zero "
+        f"gradient")
+    if bad or not np.isfinite(float(loss)):
+        raise RuntimeError(f"gradients missing or not finite: {bad[:4]}")
+    del grads
+
+    frozen_before = [p.detach().clone() for _, p in frozen]
+    train_prev = [p.detach().clone() for _, p in train]
+    _reset_counts()
+    moved_at = []
+    for i in range(2 * I2T_ACCUM):
+        before = _counts()
+        loss = float(step_fn(batch, gen))
+        fwd, bwd = (a - b for a, b in zip(_counts(), before))
+        moved = [not torch.equal(p, q) for (_, p), q in zip(train,
+                                                             train_prev)]
+        if any(moved):
+            moved_at.append(i + 1)
+            train_prev = [p.detach().clone() for _, p in train]
+        log(f"micro-step {i + 1}: loss {loss:.5f}, flash launches forward "
+            f"{fwd} backward {bwd}, trainables moved {sum(moved)} of "
+            f"{len(moved)}")
+        if (fwd, bwd) != (FLASH_FWD_PER_STEP, FLASH_BWD_PER_STEP) or \
+                not np.isfinite(loss) or any(moved) != all(moved):
+            raise RuntimeError(f"micro-step {i + 1}: launches {fwd}/{bwd}, "
+                               f"loss {loss}, moved {sum(moved)}")
+    launches_fwd, launches_bwd = _counts()
+    still = sum(torch.equal(p, q) for (_, p), q in zip(frozen,
+                                                        frozen_before))
+    log(f"8 micro-steps: flash launches forward {launches_fwd} backward "
+        f"{launches_bwd}; trainables moved at micro-steps {moved_at}; "
+        f"{still} of {len(frozen)} frozen parameters bitwise unchanged")
+    if moved_at != [I2T_ACCUM, 2 * I2T_ACCUM] or still != len(frozen):
+        raise RuntimeError("the accumulation or the frozen towers are wrong")
+    del frozen_before, train_prev
+
+    # remat: 5 more forward launches, loss and gradients bitwise equal to
+    # the no-remat call's, as a second no-remat call is (cuDNN's
+    # deterministic algorithms for this comparison only)
+    draws = _draws(mods, batch, gen)
+    torch.backends.cudnn.deterministic = True
+    out = []
+    for remat in (False, False, True):
+        before = _counts()
+        loss, grads = pipeline.guidance_loss_and_grads(
+            mods, batch, "i2t", remat=remat, **draws)
+        out.append((loss, grads,
+                    tuple(a - b for a, b in zip(_counts(), before))))
+    torch.backends.cudnn.deterministic = False
+
+    def equal(x, y):
+        return torch.equal(x[0], y[0]) and all(
+            torch.equal(g, y[1][n]) for n, g in x[1].items())
+
+    repeat, same = equal(out[1], out[0]), equal(out[2], out[0])
+    log(f"no remat twice: bitwise equal {repeat}, launches {out[0][2]}; "
+        f"remat: loss {float(out[2][0]):.6f}, launches {out[2][2]}, bitwise "
+        f"equal to no remat {same}")
+    if not (repeat and same) or out[0][2] != (
+            FLASH_FWD_PER_STEP, FLASH_BWD_PER_STEP) or out[2][2] != (
+            FLASH_FWD_PER_REMAT_STEP, FLASH_BWD_PER_STEP):
+        raise RuntimeError("remat: launches or gradients differ")
+    del out, grads
+
+    # the micro-step through the kernels vs through attention_ref
+    # (attn_impl='plain'), in alternating turns (CUDA events); peak memory
+    turns = {"kernel": [], "plain": []}
+    peak = {}
+    for route in ("kernel", "plain", "plain", "kernel", "kernel", "plain"):
+        set_flash(mods, route == "kernel")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        step_fn(batch, gen)
+        e.record()
+        torch.cuda.synchronize()
+        turns[route].append(s.elapsed_time(e))
+        peak[route] = torch.cuda.max_memory_allocated() / 2 ** 30
+    set_flash(mods, True)
+    k_ms = statistics.median(turns["kernel"])
+    p_ms = statistics.median(turns["plain"])
+    log(f"I2T micro-step {args.resolution} px batch "
+        f"{args.train_batch_size} bf16, alternating turns: kernels "
+        f"{[round(v, 2) for v in turns['kernel']]} ms, plain "
+        f"{[round(v, 2) for v in turns['plain']]} ms; medians {k_ms:.2f} vs "
+        f"{p_ms:.2f} ms; peak memory {peak['kernel']:.2f} vs "
+        f"{peak['plain']:.2f} GiB; lr {lr:g}")
+    profile_device(lambda: step_fn(batch, gen),
+                   f"I2T micro-step {args.resolution} px bf16")
+    del mods, batch, step_fn, train, frozen
+    torch.cuda.empty_cache()
+
+    f32_step_vs_plain(seed)
+    return launches_bwd, k_ms, p_ms, peak["kernel"], peak["plain"]
+
+
+def f32_step_vs_plain(seed: int):
+    """Phase 15: one f32 I2T micro-step at batch 1 through the kernels
+    against attn_impl='plain' on the card (TF32 off), the same draws: loss
+    to 1e-5 relative, each trainable gradient to 1e-3 in L2; then one
+    TR-stage update, after which only the clean mapper has moved."""
+    args = _train_args(train_batch_size=1)
+    mods = train_cli.build_towers(args, "i2t")
+    batch = guidance_batch(args, mods, np.random.default_rng(seed + 8), 1)
+    draws = _draws(mods, batch,
+                   torch.Generator(mods.device).manual_seed(seed))
+    res = {}
+    for on in (True, False):
+        set_flash(mods, on)
+        _reset_counts()
+        res[on] = pipeline.guidance_loss_and_grads(mods, batch, "i2t",
+                                                   **draws)
+        res[on] += (_counts(),)
+    set_flash(mods, True)
+    (lk, gk, ck), (lp, gp, cp) = res[True], res[False]
+    rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    l2 = {n: ((gk[n] - gp[n]).norm() / gp[n].norm()).item() for n in gk}
+    worst = max(l2, key=l2.get)
+    log(f"f32 I2T micro-step batch 1, kernels vs plain: loss {float(lk):.7f} "
+        f"vs {float(lp):.7f} (rel {rel:.2e}, bound {STEP_LOSS_RTOL:g}); "
+        f"gradients L2 median {statistics.median(l2.values()):.2e}, largest "
+        f"{l2[worst]:.2e} ({worst}; bound {STEP_GRAD_L2:g}); launches "
+        f"{ck} vs {cp}")
+    if rel > STEP_LOSS_RTOL or l2[worst] > STEP_GRAD_L2 or \
+            ck != (FLASH_FWD_PER_STEP, FLASH_BWD_PER_STEP) or cp != (0, 0):
+        raise RuntimeError("f32 micro-step: kernels disagree with plain")
+    del res, gk, gp
+
+    opt = pipeline.make_guidance_optimizer(mods, "tr", lr=1e-5)
+    step = pipeline.make_guidance_train_step(mods, opt, "tr")
+    named = pipeline.partition(mods, "tr")
+    before = {n: p.detach().clone() for part in named for n, p in part}
+    loss = float(step(batch, **draws))
+    moved = {n for part in named for n, p in part
+             if not torch.equal(p, before[n])}
+    want = {n for n, _ in named[0]}
+    log(f"TR update: loss {loss:.5f}; {len(moved)} parameters moved, "
+        f"{len(want)} clean_mapper parameters")
+    if moved != want or not all(n.startswith("clean_mapper.") for n in want):
+        raise RuntimeError(f"TR update moved {sorted(moved ^ want)[:4]}")
+    del mods, before
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1338,12 +1737,23 @@ def flash_bound_ms(b, n, h, d, eb=2):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def flash_bwd_bound_ms(b, n, h, d, eb=2):
+    """(ms, 'bytes' or 'operations') of one backward (the dkv and dq pair):
+    10 B H N^2 D operations (the recomputed S, dP, dV, dK and dQ, each
+    counted once however many times the kernels recompute it) at the peak
+    of the element type, q, k, v, o, do read and dq, dk, dv written once."""
+    t_ops = 10 * b * h * n * n * d / (PEAK_BF16 if eb == 2 else PEAK_F32)
+    t_bytes = 8 * b * n * h * d * eb / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--plant", choices=sorted(FAULTS), default=None,
                     help="plant a fault in a copy of the sources and show "
-                         "that phase 6 catches it")
+                         "that its phase catches it")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1371,6 +1781,10 @@ def main(argv=None) -> int:
                                   dtypes=(torch.bfloat16,), timed=False)
             elif FAULTS[args.plant][3] == 11:
                 flash_vs_plain(gen, dtypes=(torch.bfloat16,), timed=False)
+            elif FAULTS[args.plant][3] == 14:
+                flash_bwd_vs_plain(gen, [FLASH_BWD_SHAPES[i]
+                                         for i in (1, 2, 4)],
+                                   dtypes=(torch.bfloat16,), timed=False)
             else:
                 nafblock_vs_plain(gen, [NAF_SHAPES[i] for i in (7, 8, 10)],
                                   dtypes=(torch.bfloat16,), timed=False)
@@ -1391,6 +1805,7 @@ def main(argv=None) -> int:
     log(f"launches: evaluation path tblock_fused {eval_launches}; training "
         f"main path (4 steps) tblock_fused/gdfn_half_bwd/attn_half_bwd "
         f"{launches}")
+    log_held("phases 3-7")
 
     naf_rows = nafblock_vs_plain(gen, NAF_SHAPES + NAF_TRAIN_SHAPES[:2])
     network_vs_cpu(args.seed, NAF_TASK, nb.nafblock_fused, NAF_BLOCKS)
@@ -1411,15 +1826,24 @@ def main(argv=None) -> int:
         f"{sum(n * p for n, _, _, p, _ in naf_train_rows):.3f} ms")
     log(f"launches: nafnet evaluation path nafblock_fused {naf_launches}; "
         f"training path (4 steps) {naf_train_launches}")
+    log_held("phases 8-10")
 
     flash_rows = flash_vs_plain(gen)
-    flash_backward_raises()
+    log_held("phase 11")
     towers_vs_reference(args.seed)
+    log_held("phase 12")
     gen_out = generation_path(args.seed)
     flash_main = [r for r in flash_rows if r[0]]
     flash_launches = sum(v[3] for v in gen_out.values())
     log(f"launches: generation path flash_attention {flash_launches} "
         f"({', '.join(f'{k} {v[3]}' for k, v in gen_out.items())})")
+
+    bwd_flash_rows = flash_bwd_vs_plain(gen)
+    (bwd_launches, i2t_ms, i2t_plain_ms, i2t_peak,
+     i2t_plain_peak) = training_path(args.seed)
+    log(f"launches: training path flash_attention_bwd {bwd_launches} over "
+        f"{2 * I2T_ACCUM} micro-steps")
+    bwd_main = [r for r in bwd_flash_rows if r[0]]
 
     # per-step kernel time: each training shape's median time times the
     # number of blocks of that shape in one step (bf16, WithBias); the
@@ -1481,6 +1905,21 @@ def main(argv=None) -> int:
          "bound_ms": sum(r[0] * flash_bound_ms(*r[5])[0] for r in flash_main),
          "bound_by": flash_bound_ms(*flash_main[0][5])[1],
          "library_ms": sum(r[0] * r[4] for r in flash_main)},
+        # per I2T micro-step at 512 px, batch 4 (4 pairs at (4, 4096, 5,
+        # 64), bf16)
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": src + "flash_attn_bwd.cu",
+         "replaces": "textualdegremoval_tpu/ops/flash_attn.py:59 (stock "
+                     "_flash_attention_bwd: _flash_attention_bwd_dkv, "
+                     "_flash_attention_bwd_dq)",
+         "launches": bwd_launches,
+         "max_abs_err": max(r[1] for r in bwd_flash_rows),
+         "ms": sum(r[0] * r[2] for r in bwd_main),
+         "plain_ms": sum(r[0] * r[3] for r in bwd_main),
+         "bound_ms": sum(r[0] * flash_bwd_bound_ms(*r[5])[0]
+                         for r in bwd_main),
+         "bound_by": flash_bwd_bound_ms(*bwd_main[0][5])[1],
+         "library_ms": sum(r[0] * r[4] for r in bwd_main)},
     ]}
     log(f"train step 384 px batch 8 bf16: {step_ms:.2f} ms through the "
         f"kernels vs {plain_step_ms:.2f} ms through plain blocks, peak "
@@ -1494,6 +1933,10 @@ def main(argv=None) -> int:
         log(f"pipeline A {name}: {per_image:.3f} s per 512 px image "
             f"({1 / per_image:.4f} images/s), DDIM step {step_ms:.2f} ms, "
             f"peak {peak_gib:.2f} GiB")
+    log(f"pipeline A training: I2T micro-step 512 px batch 4 bf16 "
+        f"{i2t_ms:.2f} ms through the kernels vs {i2t_plain_ms:.2f} ms "
+        f"through attention_ref, peak {i2t_peak:.2f} vs {i2t_plain_peak:.2f} "
+        f"GiB")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s after "
         f"the build")
     log(json.dumps(summary))

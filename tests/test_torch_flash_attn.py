@@ -10,9 +10,11 @@ On the CPU, f32 unless stated:
   tests/cuda_host_shim.h, against `attention_ref` through the launch code
   the CUDA path uses: head_dim 64 and 128, ragged N, peaked logits, bf16
   and f32, strided projection layouts, bitwise repeatability;
-* `_FlashAttention` with the host build standing in for the card: its
-  backward raises instead of losing the gradient.
-The on-card checks are in tests/test_torch_flash_attn_cuda.py.
+* `_FlashAttention` with the host build standing in for the card: the
+  gradients of q, k and v through the forward and backward kernels equal
+  autograd's through `attention_ref`.
+The backward's own checks are in tests/test_torch_flash_attn_bwd.py, the
+on-card checks in tests/test_torch_flash_attn_cuda.py.
 """
 
 import itertools
@@ -93,9 +95,10 @@ def test_cpu_tensor_takes_plain_path_without_launching():
 
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
-    """csrc/flash_attn.cu compiled for the CPU against tests/cuda_host_shim.h."""
+    """csrc/flash_attn.cu and csrc/flash_attn_bwd.cu compiled for the CPU
+    against tests/cuda_host_shim.h."""
     return build_host_library(tmp_path_factory.mktemp("host_flash"),
-                              ("flash_attn.cu",))
+                              ("flash_attn.cu", "flash_attn_bwd.cu"))
 
 
 # bf16 kernel vs plain: the kernel rounds the unnormalised probabilities
@@ -150,7 +153,7 @@ def test_host_kernel_is_bitwise_repeatable(host_lib):
 
 
 def test_host_kernel_rejects_bad_head_dim(host_lib):
-    rc = host_lib.flash_attn_fwd(*([None] * 4), 1, 64, 1, 32, *([0] * 9),
+    rc = host_lib.flash_attn_fwd(*([None] * 5), 1, 64, 1, 32, *([0] * 9),
                                  0.125, 1, None)
     assert rc != 0
 
@@ -166,13 +169,28 @@ def test_validate_rejects_what_the_kernel_does_not_take():
         fa._validate(q64, q64, q64)
 
 
-def test_backward_raises_instead_of_losing_gradients(host_lib, monkeypatch):
-    """The autograd.Function of the CUDA path, with the host build standing
-    in for the card: forward runs the kernel, backward raises."""
-    monkeypatch.setattr(fa, "_forward_kernel",
-                        lambda q, k, v: fa._launch(host_lib, q, k, v, 0))
-    q, k, v = (t(a).requires_grad_(True) for a in _qkv((1, 64, 1, 64), 9))
-    out = fa._FlashAttention.apply(q, k, v)
-    assert out.requires_grad
-    with pytest.raises(NotImplementedError, match="A7"):
-        out.sum().backward()
+@pytest.mark.usefixtures("torch_share_of_cores")
+def test_gradient_through_host_kernels_matches_attention_ref(host_lib,
+                                                             monkeypatch):
+    """The autograd.Function of the CUDA path, with the host build of both
+    sources standing in for the card: the forward saves o and lse, the
+    backward launches dkv and dq on the incoming gradient, and q, k, v get
+    autograd's gradients through `attention_ref`."""
+    import textualdegremoval_tpu_torch.ops._build as build
+
+    monkeypatch.setattr(build, "load_library", lambda: host_lib)
+    monkeypatch.setattr(fa, "_validate", lambda q, k, v: None)
+    monkeypatch.setattr(fa, "_stream", lambda t: 0)
+    q, k, v = (t(a) for a in _qkv((1, 70, 2, 64), 9, peak=3.0))
+    w = t(randn(np.random.default_rng(10), 1, 70, 2, 64))
+    qa, ka, va = (a.clone().requires_grad_(True) for a in (q, k, v))
+    before = fa.flash_attention.launches_bwd
+    out = fa._FlashAttention.apply(qa, ka, va)
+    (out * w).sum().backward()
+    assert fa.flash_attention.launches_bwd == before + 1
+    qr, kr, vr = (a.clone().requires_grad_(True) for a in (q, k, v))
+    (fa.attention_ref(qr, kr, vr) * w).sum().backward()
+    assert_close(out.detach(), fa.attention_ref(q, k, v))
+    for got, want in ((qa, qr), (ka, kr), (va, vr)):
+        assert_close(got.grad, want.grad, atol=1e-5, rtol=1e-4)
+

@@ -1,6 +1,7 @@
-"""On-card checks of the flash self-attention CUDA kernel (marked `cuda`;
-each skips without a CUDA device).  The file imports neither jax nor the
-test helpers that do, so the card's machine runs it without JAX:
+"""On-card checks of the flash self-attention CUDA kernels, forward and
+backward (marked `cuda`; each skips without a CUDA device).  The file
+imports neither jax nor the test helpers that do, so the card's machine
+runs it without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_flash_attn_cuda.py
@@ -14,7 +15,9 @@ from textualdegremoval_tpu_torch.models.unet import UNet2DCondition
 
 # kernel vs plain: |k - p| <= a max|p| + r |p| elementwise and
 # ||k - p|| <= l2 ||p||, chip_smoke.py's bounds and the reasons given there
-from chip_smoke import FLASH_PEAK, FLASH_TOL, TOWER_TOL
+from chip_smoke import (
+    FLASH_BWD_TOL, FLASH_PEAK, FLASH_TOL, LSE_ATOL, TOWER_TOL,
+)
 
 
 def _cuda():
@@ -31,8 +34,8 @@ def _qkv(shape, dtype, seed):
                  for sc in (s, s, 1.0))
 
 
-def _check(got, want, dtype):
-    a, r, l2 = FLASH_TOL[dtype]
+def _check(got, want, dtype, tol=FLASH_TOL):
+    a, r, l2 = tol[dtype]
     g, w = got.float(), want.float()
     assert torch.isfinite(g).all()
     assert ((g - w).abs() <= a * w.abs().max() + r * w.abs()).all(), \
@@ -81,12 +84,61 @@ def test_kernel_is_bitwise_repeatable():
 
 
 @pytest.mark.cuda
-def test_backward_raises_instead_of_losing_gradients():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 512, 5, 64), (1, 300, 2, 128)])
+def test_backward_kernels_match_plain(shape, dtype):
+    """dkv and dq on the forward kernel's own o and lse against the plain
+    backward and against autograd through attention_ref; the lse against
+    logsumexp."""
     _cuda()
-    q = torch.randn(1, 128, 2, 64, device="cuda", requires_grad=True)
-    out = fa.flash_attention(q, q.detach(), q.detach())
-    with pytest.raises(NotImplementedError, match="A7"):
-        out.sum().backward()
+    q, k, v = _qkv(shape, dtype, seed=shape[1] + 1)
+    do = torch.randn(*shape, generator=torch.Generator().manual_seed(2)).to(
+        "cuda", dtype)
+    o, lse = fa._forward_kernel(q, k, v, want_lse=True)
+    assert (lse - fa.lse_ref(q, k)).abs().max() <= LSE_ATOL
+    before = fa.flash_attention.launches_bwd
+    got = fa._backward_kernel(q, k, v, o, lse, do)
+    assert fa.flash_attention.launches_bwd == before + 1
+    plain = fa.attention_bwd_ref(q, k, v, o, lse, do)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    auto = torch.autograd.grad(fa.attention_ref(*leaves), leaves, do)
+    for g, p, a, x in zip(got, plain, auto, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape
+        _check(g, p, dtype, FLASH_BWD_TOL)
+        _check(g, a, dtype, FLASH_BWD_TOL)
+
+
+@pytest.mark.cuda
+def test_backward_is_bitwise_repeatable():
+    _cuda()
+    q, k, v = _qkv((2, 2048, 5, 64), torch.bfloat16, seed=6)
+    do = torch.randn_like(q)
+    o, lse = fa._forward_kernel(q, k, v, want_lse=True)
+    first = fa._backward_kernel(q, k, v, o, lse, do)
+    again = fa._backward_kernel(q, k, v, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_autograd_launches_the_backward_kernels():
+    """flash_attention with inputs that need a gradient: the forward saves
+    o and lse, backward() launches the pair once; without a gradient no
+    lse is kept and nothing is saved."""
+    _cuda()
+    q, k, v = (x.requires_grad_(True)
+               for x in _qkv((1, 2048, 2, 64), torch.float32, seed=7))
+    before = (fa.flash_attention.launches, fa.flash_attention.launches_bwd)
+    out = fa.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    assert (fa.flash_attention.launches, fa.flash_attention.launches_bwd) \
+        == (before[0] + 1, before[1] + 1)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    fa.attention_ref(*leaves).square().sum().backward()
+    for x, ref in zip((q, k, v), leaves):
+        _check(x.grad, ref.grad, torch.float32, FLASH_BWD_TOL)
+    with torch.no_grad():
+        assert fa.flash_attention(q, k, v).grad_fn is None
 
 
 @pytest.mark.cuda
@@ -133,3 +185,40 @@ def test_unet_self_attentions_go_through_the_kernel():
         want = plain(lat, ts, ctx, use_global_kv=True)
     assert launches == 3  # down_0_attn_0, up_1_attn_{0,1}
     assert (got - want).abs().max() <= TOWER_TOL * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_full_width_unet_backward_through_the_kernels():
+    """The SD 2.1 UNet at full width, batch 1, 64 x 64 latent, float32
+    (TF32 off): the gradients of the text states and of down_blocks.0's
+    global K/V through the five flash self-attentions (forward and four
+    backward launches: the first precedes every gradient) against
+    attn_impl='plain', to chip_smoke.py's training bound (1e-3 in L2)."""
+    _cuda()
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        net = UNet2DCondition()
+        plain = UNet2DCondition(attn_impl="plain")
+    plain.load_state_dict(net.state_dict())
+    gen = torch.Generator("cuda").manual_seed(1)
+    lat = torch.randn(1, 64, 64, 4, device="cuda", generator=gen)
+    ctx = torch.randn(1, 77, 1024, device="cuda", generator=gen)
+    w = torch.randn(1, 64, 64, 4, device="cuda", generator=gen)
+    ts = torch.tensor([500], device="cuda")
+    grads, counts = [], []
+    for model in (net, plain):
+        for p in model.parameters():
+            p.requires_grad_(False)
+        kv = model.down_blocks[0].attentions[0].transformer_blocks[0].attn2
+        leaves = [ctx.clone().requires_grad_(True),
+                  kv.to_k_global.weight.requires_grad_(True)]
+        before = (fa.flash_attention.launches,
+                  fa.flash_attention.launches_bwd)
+        out = model(lat, ts, leaves[0], use_global_kv=True)
+        grads.append(torch.autograd.grad((out * w).sum(), leaves))
+        counts.append((fa.flash_attention.launches - before[0],
+                       fa.flash_attention.launches_bwd - before[1]))
+    assert counts == [(5, 4), (0, 0)]
+    for g, p in zip(*grads):
+        assert torch.isfinite(g).all()
+        assert (g - p).norm() <= 1e-3 * p.norm()

@@ -28,10 +28,12 @@ import os
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from textualdegremoval_tpu_torch.convert import load_reference_towers
 from textualdegremoval_tpu_torch.data import imread_f32, scan_images
+from textualdegremoval_tpu_torch.data.guidance import (  # noqa: F401
+    CLIP_MEAN, CLIP_STD, resize_bilinear,
+)
 from textualdegremoval_tpu_torch.diffusion.pipeline import (
     GuidanceModules, generate_reference,
 )
@@ -39,8 +41,6 @@ from textualdegremoval_tpu_torch.diffusion.tokenizer import tokenize_template
 from textualdegremoval_tpu_torch.models.mappers import WordMLPs
 from textualdegremoval_tpu_torch.utils.image import imwrite, tensor2img
 
-CLIP_MEAN = np.asarray([0.48145466, 0.4578275, 0.40821073], np.float32)
-CLIP_STD = np.asarray([0.26862954, 0.26130258, 0.27577711], np.float32)
 PROMPT_TEMPLATE = "a photo of a S"
 
 
@@ -49,16 +49,6 @@ def center_crop_square(img: np.ndarray) -> np.ndarray:
     s = min(h, w)
     top, left = (h - s) // 2, (w - s) // 2
     return img[top: top + s, left: left + s]
-
-
-def resize_bilinear(img: torch.Tensor, size: int) -> torch.Tensor:
-    """HWC float32 -> (size, size, C): bilinear with half-pixel centres and
-    no antialiasing, the arithmetic of cv2.resize's INTER_LINEAR (the JAX
-    CLI's resize), on img's device."""
-    x = img.float().permute(2, 0, 1)[None]
-    x = F.interpolate(x, size=(size, size), mode="bilinear",
-                      align_corners=False, antialias=False)
-    return x[0].permute(1, 2, 0)
 
 
 def clip_view(img: np.ndarray, size: int, device) -> torch.Tensor:

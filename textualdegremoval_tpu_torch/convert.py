@@ -20,7 +20,9 @@ imports flax): `load_jax_tower_params` loads a JAX tower tree, the inverse
 of tower_maps' `convert_*`; `load_reference_tower` loads the reference's
 own formats (HF CLIP, diffusers UNet and VAE, the per-word mapper
 artifact) with `strict=True`, and `load_reference_towers` a directory of
-them.
+them; `save_trained_towers` writes what a training stage trained (the I2T
+artifact with the UNet's global K/V, or the clean mapper) in those
+formats.
 """
 
 from __future__ import annotations
@@ -267,6 +269,27 @@ def mapper_reference_state_dict(module: torch.nn.Module) -> dict:
                     else w[i]
                 out[f"{branch}_{i}.{seq}.bias"] = b[i]
     return out
+
+
+def save_trained_towers(mods, stage: str, directory: str) -> str:
+    """Write what a pipeline A training stage trains, in the reference
+    format that `load_reference_towers` reads, as a bare float32 state
+    dict: `<directory>/mapper.pt` for 'i2t' (the mapper's per-word keys
+    plus each UNet attn2's global K/V as `<attn2 path>_to_k.weight` /
+    `_to_v.weight`), `<directory>/clean_mapper.pt` for 'tr'.  Copied into
+    a towers directory it replaces the stage's trained part for the
+    generation CLI.  Returns the path."""
+    name = "clean_mapper" if stage == "tr" else "mapper"
+    sd = mapper_reference_state_dict(getattr(mods, name))
+    if stage != "tr":
+        for key, v in mods.unet.state_dict().items():
+            m = re.match(r"(.+)\.to_([kv])_global\.weight$", key)
+            if m:
+                sd[f"{m.group(1)}_to_{m.group(2)}.weight"] = v
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, name + ".pt")
+    torch.save({k: v.float().cpu().clone() for k, v in sd.items()}, path)
+    return path
 
 
 def reference_tower_state_dict(module: torch.nn.Module,

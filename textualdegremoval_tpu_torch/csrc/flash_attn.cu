@@ -33,66 +33,21 @@
 //
 // q, k and v are read in place from the (B, N, H*D) projection layout:
 // element (b, n, h, d) of each is at b*sb + n*sn + h*sh + d, with strides
-// given per tensor.  o is written contiguous (B, N, H, D).
+// given per tensor.  o is written contiguous (B, N, H, D).  Where the
+// caller asks for it (training), each row's log-sum-exp is written too, in
+// natural-log units (m + log2 l, times ln 2): the backward of
+// flash_attn_bwd.cu recomputes P = exp(S - lse) from it.
 //
 // Later work, not here: wgmma, TMA loads, warp specialisation, a pipelined
-// K/V ring, a backward kernel.
+// K/V ring.
 
-#include "tblock_common.cuh"
+#include "flash_common.cuh"
 
 #ifndef TBLOCK_HOST_BUILD
 #include <math.h>
 #endif
 
 namespace {
-
-constexpr int kFaThreads = 128;  // 4 warps
-constexpr int kFaRows = 64;      // query rows per CTA, 16 per warp
-constexpr int kFaKeys = 64;      // keys per staged tile
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 16 bytes moved as one (a 128-bit load or store on the card)
-struct alignas(16) Vec16 {
-  uint32_t w[4];
-};
-
-__device__ __forceinline__ uint32_t bits16(__nv_bfloat16 v) {
-  return *reinterpret_cast<const unsigned short*>(&v);
-}
-
-// two bf16 at unrelated addresses as one mma fragment word (lo in bits 0-15)
-__device__ __forceinline__ uint32_t pack_pair(const __nv_bfloat16* lo,
-                                              const __nv_bfloat16* hi) {
-  return bits16(*lo) | (bits16(*hi) << 16);
-}
-
-// two f32 rounded to bf16 as one mma fragment word
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  return bits16(__float2bfloat16(lo)) | (bits16(__float2bfloat16(hi)) << 16);
-}
-
-// Stage rows [row0, row0 + 64) of one head (D wide) into dst[64][ldd],
-// rows at or past N as zeros.  16-byte loads from global memory; the
-// stores are 16-byte too when ldd keeps rows 16-byte aligned (kVecStore).
-template <typename T, int D, bool kVecStore>
-__device__ void stage_rows(T* dst, int ldd, const T* src, long long sn,
-                           int row0, int N) {
-  constexpr int kPer = 16 / sizeof(T);
-  constexpr int kVecs = D / kPer;
-  for (int idx = threadIdx.x; idx < kFaRows * kVecs; idx += kFaThreads) {
-    const int r = idx / kVecs, c = (idx % kVecs) * kPer;
-    Vec16 val = {{0u, 0u, 0u, 0u}};
-    if (row0 + r < N)
-      val = *reinterpret_cast<const Vec16*>(src + (row0 + r) * sn + c);
-    if constexpr (kVecStore) {
-      *reinterpret_cast<Vec16*>(dst + (size_t)r * ldd + c) = val;
-    } else {
-      const T* e = reinterpret_cast<const T*>(&val);
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) dst[(size_t)r * ldd + c + i] = e[i];
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor-core products
@@ -102,7 +57,7 @@ template <int D>
 __global__ void __launch_bounds__(kFaThreads) flash_bf16_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    int N, int H, long long q_sb, long long q_sn, long long q_sh,
+    float* __restrict__ lse, int N, int H, long long q_sb, long long q_sn, long long q_sh,
     long long k_sb, long long k_sn, long long k_sh, long long v_sb,
     long long v_sn, long long v_sh, float scale_log2) {
   constexpr int LD = D + 8;  // rows of an mma fragment load in other banks
@@ -228,6 +183,11 @@ __global__ void __launch_bounds__(kFaThreads) flash_bf16_kernel(
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   const int r0 = row0 + warp * 16 + g, r1 = r0 + 8;
+  if (lse != nullptr && tig == 0) {  // natural-log units, as exp() reads it
+    float* lb = lse + ((long long)b * H + h) * N;
+    if (r0 < N) lb[r0] = (m0 + log2f(l0)) * kLn2;
+    if (r1 < N) lb[r1] = (m1 + log2f(l1)) * kLn2;
+  }
   const long long o_sn = (long long)H * D;
   __nv_bfloat16* ob = o + ((long long)b * N * H + h) * D + tig * 2;
 #pragma unroll
@@ -248,7 +208,8 @@ __global__ void __launch_bounds__(kFaThreads) flash_bf16_kernel(
 template <int D>
 __global__ void __launch_bounds__(kFaThreads) flash_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int N, int H,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, int N, int H,
     long long q_sb, long long q_sn, long long q_sh, long long k_sb,
     long long k_sn, long long k_sh, long long v_sb, long long v_sn,
     long long v_sh, float scale_log2) {
@@ -324,6 +285,8 @@ __global__ void __launch_bounds__(kFaThreads) flash_f32_kernel(
 
   l += __shfl_xor_sync(0xffffffffu, l, 1);
   const float inv = 1.f / l;
+  if (lse != nullptr && half == 0 && row0 + r < N)
+    lse[((long long)b * H + h) * N + row0 + r] = (m + log2f(l)) * kLn2;
   if (row0 + r < N) {
     float* orow = o + (((long long)b * N + row0 + r) * H + h) * D + half;
 #pragma unroll
@@ -338,8 +301,8 @@ size_t smem_bytes(int D, bool bf16) {
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int N, int H, const long long* st, float scale, int is_bf16,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int N, int H, const long long* st, float scale, int is_bf16,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(D, is_bf16 != 0);
   const dim3 grid((N + kFaRows - 1) / kFaRows, H, B);
@@ -351,16 +314,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     if (err != cudaSuccess) return (int)err;
     flash_bf16_kernel<D><<<grid, kFaThreads, smem, stream>>>(
         (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (__nv_bfloat16*)o, N, H, st[0], st[1], st[2],
-        st[3], st[4], st[5], st[6], st[7], st[8], sl2);
+        (const __nv_bfloat16*)v, (__nv_bfloat16*)o, lse, N, H, st[0], st[1],
+        st[2], st[3], st[4], st[5], st[6], st[7], st[8], sl2);
   } else {
     cudaError_t err = cudaFuncSetAttribute(
         flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     flash_f32_kernel<D><<<grid, kFaThreads, smem, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, N, H,
-        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], sl2);
+        (const float*)q, (const float*)k, (const float*)v, (float*)o, lse,
+        N, H, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+        sl2);
   }
   return (int)cudaGetLastError();
 }
@@ -376,9 +340,11 @@ const char* flash_attn_error_string(int err) {
 // q, k, v: (B, N, H, D) of one dtype (bf16 when is_bf16, else f32), element
 // (b, n, h, d) of q at q + b*q_sb + n*q_sn + h*q_sh + d (strides in
 // elements, each a multiple of 16 bytes, as the base pointers are); o:
-// contiguous (B, N, H, D).  D is 64 or 128.  Returns a cudaError_t.
+// contiguous (B, N, H, D); lse: null, or a contiguous f32 (B, H, N) that
+// gets each row's log-sum-exp of q k^T * scale (natural log), for the
+// backward.  D is 64 or 128.  Returns a cudaError_t.
 int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                   int B, int N, int H, int D, long long q_sb, long long q_sn,
+                   float* lse, int B, int N, int H, int D, long long q_sb, long long q_sn,
                    long long q_sh, long long k_sb, long long k_sn,
                    long long k_sh, long long v_sb, long long v_sn,
                    long long v_sh, float scale, int is_bf16, void* stream) {
@@ -387,9 +353,10 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
   const long long st[9] = {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
                            v_sb, v_sn, v_sh};
   cudaStream_t s = (cudaStream_t)stream;
-  if (D == 64) return launch<64>(q, k, v, o, B, N, H, st, scale, is_bf16, s);
+  if (D == 64)
+    return launch<64>(q, k, v, o, lse, B, N, H, st, scale, is_bf16, s);
   if (D == 128)
-    return launch<128>(q, k, v, o, B, N, H, st, scale, is_bf16, s);
+    return launch<128>(q, k, v, o, lse, B, N, H, st, scale, is_bf16, s);
   return (int)cudaErrorInvalidValue;
 }
 

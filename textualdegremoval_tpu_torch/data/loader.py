@@ -42,9 +42,14 @@ def collate(samples: list[dict]) -> dict:
     return out
 
 
-def _seed_worker(worker_id: int) -> None:
+def seed_worker(worker_id: int) -> None:
+    """DataLoader worker_init_fn: each worker reseeds its copy of the
+    dataset's generators (`rng`, and `np_rng` where it has one), so that
+    workers do not repeat each other's crops and noise."""
     info = torch.utils.data.get_worker_info()
     info.dataset.rng.seed(info.seed)
+    if hasattr(info.dataset, "np_rng"):
+        info.dataset.np_rng = np.random.default_rng(info.seed)
 
 
 def create_dataloader(dataset, opt: dict, num_replicas: int = 1,
@@ -65,6 +70,6 @@ def create_dataloader(dataset, opt: dict, num_replicas: int = 1,
     return DataLoader(dataset, batch_size=batch, sampler=sampler,
                       num_workers=workers, collate_fn=collate,
                       drop_last=True, pin_memory=pin,
-                      worker_init_fn=_seed_worker,
+                      worker_init_fn=seed_worker,
                       multiprocessing_context="spawn" if workers else None,
                       persistent_workers=workers > 0)

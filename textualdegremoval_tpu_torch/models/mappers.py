@@ -47,15 +47,17 @@ class WordMLPs(nn.Module):
         else:
             h = h[:, :, None, :].expand(-1, -1, self.num_words, -1)
             eq = "btwi,wio->btwo"
+        def p(name):  # float32 even where stored bf16 (a frozen mapper)
+            return getattr(self, name).float()
+
         for li in range(4):
-            h = torch.einsum(eq, h, getattr(self, f"linear{li}_kernel")) \
-                + getattr(self, f"linear{li}_bias")
+            h = torch.einsum(eq, h, p(f"linear{li}_kernel")) \
+                + p(f"linear{li}_bias")
             if li < 3:
                 mu = h.mean(dim=-1, keepdim=True)
                 var = h.var(dim=-1, unbiased=False, keepdim=True)
                 h = (h - mu) / torch.sqrt(var + 1e-5)
-                h = h * getattr(self, f"ln{li}_weight") \
-                    + getattr(self, f"ln{li}_bias")
+                h = h * p(f"ln{li}_weight") + p(f"ln{li}_bias")
                 h = F.leaky_relu(h, negative_slope=0.01)
         return h
 

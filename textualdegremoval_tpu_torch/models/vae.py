@@ -179,11 +179,17 @@ class AutoencoderKL(nn.Module):
         mean, logvar = m.chunk(2, dim=-1)
         return mean, logvar.clamp(-30.0, 20.0)
 
-    def encode_sample(self, x, generator: torch.Generator | None = None):
+    def encode_sample(self, x, generator: torch.Generator | None = None,
+                      eps: torch.Tensor | None = None):
+        """A latent drawn from the posterior: mean + std * eps, eps a
+        standard normal of the latent's shape and dtype, drawn from
+        `generator` unless given."""
         mean, logvar = self.encode_moments(x)
         std = torch.exp(0.5 * logvar)
-        return mean + std * torch.randn(mean.shape, generator=generator,
-                                        device=mean.device, dtype=mean.dtype)
+        if eps is None:
+            eps = torch.randn(mean.shape, generator=generator,
+                              device=mean.device, dtype=mean.dtype)
+        return mean + std * eps.to(mean.device, mean.dtype)
 
     def decode(self, z):
         """(B, h, w, 4) latents -> (B, 8h, 8w, 3)."""

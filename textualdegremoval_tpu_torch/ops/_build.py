@@ -47,8 +47,12 @@ _SIGNATURES = {
     "nafblock_sum": ([_P] * 8 + [_I] * 9 + [_P], _I),
     "nafblock_apply": ([_P] * 16 + [_I] * 8 + [_P], _I),
     "flash_attn_error_string": ([_I], ctypes.c_char_p),
-    "flash_attn_fwd": ([_P] * 4 + [_I] * 4 + [_L] * 9
+    "flash_attn_fwd": ([_P] * 5 + [_I] * 4 + [_L] * 9
                        + [ctypes.c_float, _I, _P], _I),
+    "flash_attn_bwd_dkv": ([_P] * 8 + [_I] * 4 + [_L] * 12
+                           + [ctypes.c_float, _I, _P], _I),
+    "flash_attn_bwd_dq": ([_P] * 7 + [_I] * 4 + [_L] * 12
+                          + [ctypes.c_float, _I, _P], _I),
 }
 
 

@@ -129,6 +129,33 @@ class AdamW:
             self.nu[i].copy_(sd["nu"][n])
 
 
+class MultiSteps:
+    """optax.MultiSteps(opt, k) (use_grad_mean): each call folds its
+    gradients into a running mean, acc + (g - acc) / (n + 1), and every
+    k-th call hands the mean to the inner optimizer and starts again, so
+    the parameters change only then."""
+
+    def __init__(self, opt: AdamW, k: int):
+        self.opt = opt
+        self.k = int(k)
+        self.names = opt.names
+        self.mini_step = 0
+        self.acc = [torch.zeros_like(p) for p in opt.params]
+
+    @torch.no_grad()
+    def step(self, grads) -> bool:
+        """Fold in one micro-step's gradients (aligned with the inner
+        optimizer's parameters); True where the inner optimizer stepped."""
+        for a, g in zip(self.acc, grads):
+            a.add_((g.to(a.dtype) - a) / (self.mini_step + 1))
+        emit = self.mini_step == self.k - 1
+        if emit:
+            self.opt.step(self.acc)
+            self.acc = [torch.zeros_like(a) for a in self.acc]
+        self.mini_step = (self.mini_step + 1) % self.k
+        return emit
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element, f32 (optax
     global_norm)."""
