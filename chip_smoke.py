@@ -94,7 +94,30 @@ Phases, each of which raises on failure:
    peak memory of each, and a profiled micro-step; one f32 micro-step at
    batch 1 through the kernels against plain (loss 1e-5 relative, each
    trainable gradient 1e-3 in L2); one TR-stage update, after which only
-   the clean mapper has moved.
+   the clean mapper has moved;
+16. the whole-block kernel at PromptIR's noise-block widths, C = 704 / 320
+   / 160 with 4 heads (176 / 80 / 40 channels per head) at the 512 px
+   forward's sizes plus a ragged shape, against `tblock_ref` with phase
+   3's weights, bounds and columns, and the tiles picked;
+17. the cross-block chain kernel (csrc/tblock_chain.cu, through
+   `TBlockStage` with chain=True) at every stage shape of a 512 px
+   promptir_all_in_one forward plus a ragged batch-2 shape, WithBias and
+   BiasFree, float32 and bfloat16: against the plain chain
+   `tblock_chain_ref` and against the whole-block kernel run block by
+   block, elementwise and in L2 over what the stage adds (phase 3's
+   bounds times sqrt(n) for n blocks), two calls bitwise equal, the chain calls and kernel launches
+   counted, the median time of the chain, of the blocks one by one and of
+   the plain chain; and the gradient of `_TBlockChainFunction` at a 384 px
+   batch-8 training shape (f32) against plain autograd;
+18. the PromptIRRefFusion evaluation path: the full-width
+   promptir_all_in_one network (seeded random weights, non-zero fusion
+   gates) on the card against the CPU in float32 on a small input, block
+   by block (55 block-kernel launches) and with every stage through the
+   chain (11 block-kernel launches, 8 chain calls, 36 chain kernel
+   launches); then `restore_and_score` on synthetic 512 x 512 triples in
+   bfloat16 through both routes, one warm-up and two timed each, with
+   those launch counts per forward, images/s, peak memory and a profiled
+   forward.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is nvidia-smi's, and before that a JSON summary of each kernel.  Without
@@ -103,12 +126,13 @@ CUDA the script exits non-zero and prints no result.
     python3 chip_smoke.py --plant FAULT
 
 builds a copy of the kernel sources with one fault planted, under a
-temporary directory, runs the phase that should catch it in bfloat16 at a
-few shapes and exits 0 only if its check catches the fault (the strength
-of the phase's bound): dv_uses_a and dq_drops_diag (phase 6, the attention
+temporary directory, runs the phase that should catch it in bfloat16 (phase
+17: float32 and bfloat16) at a few shapes and exits 0 only if its check
+catches the fault (the strength of the phase's bound): dv_uses_a and dq_drops_diag (phase 6, the attention
 backward), sca_skipped and halo_kept (phase 8, the NAFBlock forward),
 no_rescale (phase 11, the flash kernel), no_di, dk_unscaled and lse_log2
-(phase 14, the flash backward and the forward's lse).
+(phase 14, the flash backward and the forward's lse), chain_ring_zeroed
+(phase 17, the chain kernel's statistics without the tile's ring).
 """
 
 from __future__ import annotations
@@ -243,20 +267,21 @@ def randomize_block(blk: TransformerBlock, gen: torch.Generator):
                         + 0.1 * torch.randn(p.shape, generator=gen))
 
 
-def kernel_vs_plain(gen: torch.Generator, timed: bool = True):
-    """Phase 3.  Returns the bf16 WithBias rows at the main-path shapes as
-    (blocks per forward, max_abs, kernel ms, plain ms); untimed, the ms are
-    NaN."""
+def kernel_vs_plain(gen: torch.Generator, timed: bool = True,
+                    shapes=SHAPES):
+    """Phases 3 and 16.  Returns the bf16 WithBias rows at the main-path
+    shapes as (blocks per forward, max_abs, kernel ms, plain ms); untimed,
+    the ms are NaN.  Logs the tiles picked (pass A's, pass B's)."""
     log("kernel vs plain: |k-p| <= atol + rtol*|p| and ||k-p|| <= branch * "
         f"||p-x||; f32 atol/rtol/branch {TOL[torch.float32]}/"
         f"{BRANCH_TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]}/"
         f"{BRANCH_TOL[torch.bfloat16]}")
     log(f"{'B,H,W,C,heads':>22} {'LN':>8} {'dtype':>8} {'max_abs':>10} "
         f"{'max_rel':>10} {'tol_use':>8} {'branch':>10} {'kernel_ms':>10} "
-        f"{'plain_ms':>10}")
+        f"{'plain_ms':>10}  tiles")
     main_rows = []
     failures = []
-    for b, h, w, c, heads, nblk in SHAPES:
+    for b, h, w, c, heads, nblk in shapes:
         for ln_type in ("WithBias", "BiasFree"):
             blk = TransformerBlock(c, heads, ln_type=ln_type)
             randomize_block(blk, gen)
@@ -283,9 +308,10 @@ def kernel_vs_plain(gen: torch.Generator, timed: bool = True):
                         p_ms = median_ms(
                             lambda: tb.tblock_ref(x, params, heads, ln_type))
                 name = str(dtype).split(".")[-1]
+                tiles = tb._block_tiles(_build.load_library(), x, heads)[:2]
                 log(f"{f'{b},{h},{w},{c},{heads}':>22} {ln_type:>8} {name:>8} "
                     f"{max_abs:10.3e} {max_rel:10.3e} {tol_use:8.3f} "
-                    f"{branch:10.3e} {k_ms:10.4f} {p_ms:10.4f}")
+                    f"{branch:10.3e} {k_ms:10.4f} {p_ms:10.4f}  {tiles}")
                 if not finite or tol_use > 1.0 or branch > BRANCH_TOL[dtype]:
                     failures.append((b, h, w, c, heads, ln_type, name))
                 if dtype == torch.bfloat16 and ln_type == "WithBias" and nblk:
@@ -322,28 +348,56 @@ def gate_and_temperatures(model, seed):
     return model
 
 
+def set_chain(model, on: bool):
+    """Route every Restormer stage of `model` through the cross-block chain
+    (on) or block by block (off): the `chain` option of its stages."""
+    for m in model.modules():
+        if isinstance(m, layers.TBlockStage):
+            m.chain = on
+    return model
+
+
+def _reset_chain_counts():
+    tb.tblock_chain_fused.calls = tb.tblock_chain_fused.launches = 0
+
+
+def _chain_counts():
+    return tb.tblock_chain_fused.calls, tb.tblock_chain_fused.launches
+
+
 def network_vs_cpu(seed: int, task=TASK, kernel=tb.tblock_fused,
-                   blocks=52):
-    """Phases 4 and 9: the task's network on the card (`blocks` launches of
-    the forward kernel `kernel`) vs on the CPU (plain), float32."""
+                   routes=((52, None),)):
+    """Phases 4, 9 and 18: the task's network on the card vs on the CPU
+    (plain), float32, through each route (blocks, chain): `blocks`
+    launches of the forward kernel `kernel` and, with chain = (calls,
+    launches), that many chain calls and chain kernel launches, every
+    stage routed through the chain."""
     model_cpu = build_network(seed, torch.float32, "cpu", task)
     model_gpu = copy.deepcopy(model_cpu).to("cuda")
     rng = np.random.default_rng(seed + 2)
     lq = rng.random((1, 128, 128, 3), dtype=np.float32)
     ref = rng.random((1, 128, 128, 3), dtype=np.float32)
-    kernel.launches = 0
     with torch.inference_mode():
         want = model_cpu(torch.from_numpy(lq), torch.from_numpy(ref))
-        got = model_gpu(torch.from_numpy(lq).cuda(),
-                        torch.from_numpy(ref).cuda()).cpu()
-    err = (got - want).abs().max().item()
-    log(f"{task} f32 128x128, card ({kernel.launches} kernel launches) vs "
-        f"CPU (plain): max_abs {err:.3e} (atol {NET_ATOL}), max|out| "
-        f"{want.abs().max().item():.3f}")
-    if not torch.isfinite(got).all() or err > NET_ATOL \
-            or kernel.launches != blocks:
-        raise RuntimeError(f"{task} on the card disagrees with the CPU: "
-                           f"{err}, {kernel.launches} launches")
+    for blocks, chain in routes:
+        set_chain(model_gpu, chain is not None)
+        kernel.launches = 0
+        _reset_chain_counts()
+        with torch.inference_mode():
+            got = model_gpu(torch.from_numpy(lq).cuda(),
+                            torch.from_numpy(ref).cuda()).cpu()
+        err = (got - want).abs().max().item()
+        route = "" if chain is None else (
+            f", chain calls/launches {_chain_counts()}")
+        log(f"{task} f32 128x128, card ({kernel.launches} kernel launches"
+            f"{route}) vs CPU (plain): max_abs {err:.3e} (atol "
+            f"{NET_ATOL}), max|out| {want.abs().max().item():.3f}")
+        if not torch.isfinite(got).all() or err > NET_ATOL \
+                or kernel.launches != blocks \
+                or _chain_counts() != (chain or (0, 0)):
+            raise RuntimeError(f"{task} on the card disagrees with the "
+                               f"CPU: {err}, {kernel.launches} launches, "
+                               f"chain {_chain_counts()}")
 
 
 def synthetic_triple(rng, size=512):
@@ -358,14 +412,20 @@ def synthetic_triple(rng, size=512):
     return lq, hq, ref
 
 
-def main_path(seed: int, task=TASK, kernel=tb.tblock_fused, blocks=52):
-    """Phases 5 and 9, the evaluation path of `task`, whose every forward
-    launches its forward kernel `kernel` `blocks` times.  Returns (the
-    launches, forward ms)."""
-    model = build_network(seed, torch.bfloat16, "cuda", task)
+def main_path(seed: int, task=TASK, kernel=tb.tblock_fused, blocks=52,
+              chain=None):
+    """Phases 5, 9 and 18, the evaluation path of `task`, whose every
+    forward launches its forward kernel `kernel` `blocks` times and, with
+    `chain` = (calls, launches) per forward, makes that many chain calls
+    and chain kernel launches, every stage routed through the chain.
+    Returns (the launches of `kernel`, forward ms, the chain calls and
+    launches)."""
+    model = set_chain(build_network(seed, torch.bfloat16, "cuda", task),
+                      chain is not None)
     rng = np.random.default_rng(seed + 3)
     triples = [synthetic_triple(rng) for _ in range(2)]
     kernel.launches = 0
+    _reset_chain_counts()
     forwards = 0
     _, psnr, ssim = restore_and_score(model, *triples[0])
     forwards += 1
@@ -381,26 +441,29 @@ def main_path(seed: int, task=TASK, kernel=tb.tblock_fused, blocks=52):
             raise RuntimeError(f"{task} image {i}: bad output {pred.shape}")
         log(f"{task} image {i}: {ms:.1f} ms (restore + score), psnr "
             f"{psnr:.4f} ssim {ssim:.4f}")
-    launches = kernel.launches
+    launches, chain_counts = kernel.launches, _chain_counts()
     log(f"{task}: {kernel.__name__} launches {launches} over {forwards} "
-        f"forwards")
-    if launches != blocks * forwards:
-        raise RuntimeError(f"expected {blocks * forwards} kernel launches, "
-                           f"got {launches}")
+        f"forwards; chain calls/launches {chain_counts}")
+    want = tuple(forwards * n for n in chain or (0, 0))
+    if launches != blocks * forwards or chain_counts != want:
+        raise RuntimeError(f"expected {blocks * forwards} kernel launches "
+                           f"and chain calls/launches {want}, got "
+                           f"{launches}, {chain_counts}")
 
     lq, _, ref = triples[0]
     args = [torch.from_numpy(a)[None].to("cuda", torch.bfloat16)
             for a in (lq, ref)]
     torch.cuda.reset_peak_memory_stats()
+    route = "" if chain is None else " (chain)"
     with torch.inference_mode():
         fwd_ms = median_ms(lambda: model(*args), reps=3)
-        log(f"{task} forward 512x512 bf16: {fwd_ms:.2f} ms "
+        log(f"{task}{route} forward 512x512 bf16: {fwd_ms:.2f} ms "
             f"({1e3 / fwd_ms:.3f} images/s), peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        profile_device(lambda: model(*args), f"{task} forward")
+        profile_device(lambda: model(*args), f"{task}{route} forward")
     del model
     torch.cuda.empty_cache()
-    return launches, fwd_ms
+    return launches, fwd_ms, chain_counts
 
 
 # ---------------------------------------------------------------------------
@@ -470,6 +533,13 @@ FAULTS = {
     "lse_log2": ("flash_attn.cu",
                  "if (r0 < N) lb[r0] = (m0 + log2f(l0)) * kLn2;",
                  "if (r0 < N) lb[r0] = m0 + log2f(l0);", 14),
+    # the chain kernel takes block i+1's statistics with the tile's 1-pixel
+    # ring of block i's output zeroed, as if it lay outside the image: the
+    # q/k stencils at the tile's edges lose their neighbours
+    "chain_ring_zeroed": (
+        "tblock_chain.cu", "if (gy < 0 || gy >= H || gx < 0 || gx >= W) {",
+        "if (gy < oy || gy >= oy + th || gy >= H || gx < ox || "
+        "gx >= ox + tw || gx >= W) {", 17),
 }
 
 
@@ -1683,6 +1753,186 @@ def f32_step_vs_plain(seed: int):
 
 
 # ---------------------------------------------------------------------------
+# Phases 16-18: PromptIR's widths, the cross-block chain, PromptIRRefFusion
+# ---------------------------------------------------------------------------
+
+PROMPTIR_TASK = "promptir_all_in_one"
+# one 512 px promptir_all_in_one forward: 44 blocks in 8 stages of two or
+# more, 8 fusion blocks and 3 noise blocks; chain off, every block is one
+# launch of the whole-block kernel; chain on, 11 such launches, 8 chain
+# calls and 36 chain kernel launches (one per block but the last of a
+# stage)
+PROMPTIR_BLOCKS = 55
+PROMPTIR_CHAIN_BLOCKS = 11
+PROMPTIR_CHAIN = (8, 36)
+# (B, H, W, C, heads, blocks of that shape in one forward): the noise
+# blocks of the 512 px forward, 4 heads each, and a ragged shape
+NOISE_SHAPES = [
+    (1, 64, 64, 704, 4, 1),     # noise_level3, 176 channels per head
+    (1, 128, 128, 320, 4, 1),   # noise_level2, 80
+    (1, 256, 256, 160, 4, 1),   # noise_level1, 40
+    (1, 45, 61, 704, 4, 0),     # ragged: no tile divides H or W
+]
+# (B, H, W, C, heads, blocks in the stage, stages of that shape in one
+# 512 px forward)
+CHAIN_SHAPES = [
+    (1, 512, 512, 48, 1, 4, 1),    # encoder level 1
+    (1, 256, 256, 96, 2, 6, 2),    # encoder / decoder level 2
+    (1, 128, 128, 192, 4, 6, 2),   # encoder / decoder level 3
+    (1, 64, 64, 384, 8, 8, 1),     # latent
+    (1, 512, 512, 96, 1, 4, 2),    # decoder level 1, refinement
+    (2, 37, 53, 96, 2, 3, 0),      # ragged, batch 2
+]
+
+
+def _errors(got, want, x, dtype, depth=1):
+    """(max_abs, tol_use, branch use) of got against want: the elementwise
+    error over phase 3's atol + rtol |want| and the L2 error over what the
+    blocks add to x, over phase 3's branch bound, both bounds times
+    sqrt(depth).  Each is within its bound when at most 1."""
+    atol, rtol = TOL[dtype]
+    scale = depth ** 0.5
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    added = (want - x.float()).norm().clamp_min(1e-30)
+    return (diff.max().item(),
+            (diff / (scale * (atol + rtol * want.abs()))).max().item(),
+            (diff.norm() / added).item() / (scale * BRANCH_TOL[dtype]))
+
+
+def chain_vs_plain(gen, shapes=CHAIN_SHAPES,
+                   dtypes=(torch.float32, torch.bfloat16), timed=True):
+    """Phase 17: a stage of n blocks through the chain kernel
+    (`TBlockStage` with chain=True) against the whole-block kernel run
+    block by block and against the plain chain `tblock_chain_ref`, with
+    phase 3's weights and its bounds times sqrt(n): rounding differences
+    add up block after block.  On an H100 the whole-block kernel run
+    block by block differed from the plain chain as much as the chain did
+    (1.3 times phase 3's per-block bound at n = 8 in bf16), and the two
+    kernel routes, whose statistics sum the same f32 products in other
+    groupings, were bitwise equal in bf16 wherever no attention entry's
+    rounding flipped, up to 1.15 times that bound where flips compounded
+    over 8 blocks.  Two calls bitwise equal; the median time of the three
+    routes.  Returns the bf16 WithBias rows of the main path as (stages
+    per forward, max_abs against the plain chain, chain ms, plain ms,
+    block-by-block ms, shape)."""
+    log("chain vs the plain chain and vs the block kernel block by block, "
+        "phase 3's bounds times sqrt(n); tol_use and branch_use are the "
+        "errors over their bounds")
+    log(f"{'B,H,W,C,heads,n':>24} {'LN':>8} {'dtype':>8} {'max_abs':>10} "
+        f"{'tol_use':>8} {'branch_use':>10} {'blk_tol':>8} {'blk_branch':>10} "
+        f"{'chain_ms':>10} {'blocks_ms':>10} {'plain_ms':>10}  tile")
+    lib = _build.load_library()
+    rows, failures = [], []
+    for b, h, w, c, heads, n, stages in shapes:
+        for ln_type in ("WithBias", "BiasFree"):
+            stage = layers.TBlockStage(c, heads, n, ln_type=ln_type,
+                                       chain=True)
+            for blk in stage:
+                randomize_block(blk, gen)
+            x32 = torch.randn(b, h, w, c, generator=gen)
+            for dtype in dtypes:
+                st = stage.to(device="cuda", dtype=dtype)
+                x = x32.to(device="cuda", dtype=dtype)
+                ps = [blk.block_params() for blk in st]
+
+                def blocks():
+                    y = x
+                    for blk in st:
+                        y = blk(y)
+                    return y
+
+                with torch.inference_mode():
+                    _reset_chain_counts()
+                    got = st(x)
+                    same = torch.equal(got, st(x))
+                    counts = _chain_counts()
+                    want = tb.tblock_chain_ref(x, ps, heads, ln_type)
+                    max_abs, tol_use, branch = _errors(got, want, x, dtype,
+                                                       n)
+                    _, tol_b, branch_b = _errors(got, blocks(), x, dtype,
+                                                 n)
+                    finite = bool(torch.isfinite(got).all())
+                    c_ms = b_ms = p_ms = float("nan")
+                    if timed:
+                        c_ms = median_ms(lambda: st(x))
+                        b_ms = median_ms(blocks)
+                        p_ms = median_ms(lambda: tb.tblock_chain_ref(
+                            x, ps, heads, ln_type))
+                name = str(dtype).split(".")[-1]
+                tile = tb._chain_tile(lib, c, heads, x.element_size())
+                log(f"{f'{b},{h},{w},{c},{heads},{n}':>24} {ln_type:>8} "
+                    f"{name:>8} {max_abs:10.3e} {tol_use:8.3f} "
+                    f"{branch:10.3f} {tol_b:8.3f} {branch_b:10.3f} "
+                    f"{c_ms:10.4f} {b_ms:10.4f} {p_ms:10.4f}  {tile}"
+                    f"{'' if same else '  NOT REPEATABLE'}")
+                if not finite or not same or counts != (2, 2 * (n - 1)) \
+                        or max(tol_use, branch, tol_b, branch_b) > 1.0:
+                    failures.append((b, h, w, c, heads, n, ln_type, name,
+                                     counts))
+                if dtype == torch.bfloat16 and ln_type == "WithBias" \
+                        and stages:
+                    rows.append((stages, max_abs, c_ms, p_ms, b_ms,
+                                 (b, h, w, c, heads, n)))
+                del got, want
+            stage.cpu().float()
+    if failures:
+        raise RuntimeError(f"chain kernel disagrees at {failures}")
+    return rows
+
+
+def chain_grad_vs_autograd(gen, shape=(8, 96, 96, 192, 4, 2)):
+    """Phase 17, the gradient: `_TBlockChainFunction` (the chain forward,
+    the backward through the plain chain block by block) against plain
+    autograd through `tblock_chain_ref`, f32, at a 384 px batch-8 training
+    shape: x and every parameter in L2 against its own norm (phase 6's
+    f32 bound)."""
+    b, h, w, c, heads, n = shape
+    stage = layers.TBlockStage(c, heads, n, chain=True)
+    for blk in stage:
+        randomize_block(blk, gen)
+    stage = stage.to("cuda")
+    x = torch.randn(b, h, w, c, generator=gen).cuda().requires_grad_(True)
+    g = torch.randn(b, h, w, c, generator=gen).cuda()
+    names = ["x", *(k for k, _ in stage.named_parameters())]
+    params = list(stage.parameters())
+    _reset_chain_counts()
+    got = torch.autograd.grad(stage(x), [x, *params], g)
+    counts = _chain_counts()
+    ps = [blk.block_params() for blk in stage]
+    want = torch.autograd.grad(tb.tblock_chain_ref(x, ps, heads),
+                               [x, *params], g)
+    errs = [((a - r).norm() / r.norm().clamp_min(1e-30)).item()
+            for a, r in zip(got, want)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    log(f"chain gradient at {shape} f32 vs plain autograd: largest L2 "
+        f"{errs[worst]:.3e} ({names[worst]}, bound "
+        f"{GRAD_L2[torch.float32]}), chain calls/launches {counts}")
+    if errs[worst] > GRAD_L2[torch.float32] or counts != (1, n - 1):
+        raise RuntimeError(f"chain gradient disagrees: {errs[worst]} at "
+                           f"{names[worst]}, counts {counts}")
+    del stage, x, g, got, want
+    torch.cuda.empty_cache()
+
+
+def promptir_path(seed: int):
+    """Phase 18: the full-width promptir_all_in_one network on the card
+    against the CPU (f32, chain off and on), then the evaluation path at
+    512 px in bf16 through both routes.  Returns the chain-off and
+    chain-on results of `main_path`."""
+    network_vs_cpu(seed, PROMPTIR_TASK, tb.tblock_fused,
+                   ((PROMPTIR_BLOCKS, None),
+                    (PROMPTIR_CHAIN_BLOCKS, PROMPTIR_CHAIN)))
+    off = main_path(seed, PROMPTIR_TASK, tb.tblock_fused, PROMPTIR_BLOCKS)
+    on = main_path(seed, PROMPTIR_TASK, tb.tblock_fused,
+                   PROMPTIR_CHAIN_BLOCKS, PROMPTIR_CHAIN)
+    log(f"{PROMPTIR_TASK} forward 512 px bf16: chain off {off[1]:.2f} ms "
+        f"({1e3 / off[1]:.3f} images/s), chain on {on[1]:.2f} ms "
+        f"({1e3 / on[1]:.3f} images/s)")
+    return off, on
+
+
+# ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for the same work
 # ---------------------------------------------------------------------------
 
@@ -1691,7 +1941,7 @@ PEAK_F32 = 67e12  # float32 FLOP/s outside the tensor cores, H100 SXM
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s, H100 SXM
 
 
-def bound_ms(kernel: str, b, h, w, c, heads, eb=2):
+def bound_ms(kernel: str, b, h, w, c, heads, eb=2, n=1):
     """(ms, 'bytes' or 'operations') for one call at a shape, in bf16.
     Operations: the products of the block or its backward per pixel (the
     stencils, LayerNorms and softmax are below 3% and left out); bytes:
@@ -1699,7 +1949,10 @@ def bound_ms(kernel: str, b, h, w, c, heads, eb=2):
     function's own f32 weights read once (and their gradients written once
     in a backward).  Each product is counted once, however many passes of
     the kernel recompute it.  Forward: qkv 6C^2, proj 2C^2, GDFN in 4Ch,
-    out 2Ch (h = int(2.66 C)), gram and o 4 C cph.  GDFN half backward
+    out 2Ch (h = int(2.66 C)), gram and o 4 C cph.  A chain of n blocks
+    (tblock_chain_fused): n times the forward's operations, x read and the
+    last output written once, every block's weights read once.  GDFN half
+    backward
     (x1, dout in; dx1 out; W_in, W_out): hid 4Ch, dgate 2Ch, dz 4Ch, dW1
     4Ch, dW2 2Ch.  Attention half backward (x, dx1 in; dx out; W_qkv,
     W_proj): q, k, v 6C^2, do 2C^2, dy 6C^2, dWqkv 6C^2, dWproj 2C^2, and
@@ -1710,9 +1963,9 @@ def bound_ms(kernel: str, b, h, w, c, heads, eb=2):
     hid = int(c * 2.66)
     cph = c // heads
     attn_w, gdfn_w = 4 * c * c * 4, 3 * c * hid * 4
-    if kernel == "tblock_fused":
-        flops = npix * (8 * c * c + 6 * c * hid + 4 * c * cph)
-        nbytes = 2 * npix * c * eb + attn_w + gdfn_w
+    if kernel in ("tblock_fused", "tblock_chain_fused"):
+        flops = n * npix * (8 * c * c + 6 * c * hid + 4 * c * cph)
+        nbytes = 2 * npix * c * eb + n * (attn_w + gdfn_w)
     elif kernel == "gdfn_half_bwd":
         flops = npix * 16 * c * hid
         nbytes = 3 * npix * c * eb + 2 * gdfn_w
@@ -1785,6 +2038,9 @@ def main(argv=None) -> int:
                 flash_bwd_vs_plain(gen, [FLASH_BWD_SHAPES[i]
                                          for i in (1, 2, 4)],
                                    dtypes=(torch.bfloat16,), timed=False)
+            elif FAULTS[args.plant][3] == 17:
+                chain_vs_plain(gen, [CHAIN_SHAPES[i] for i in (1, 3, 5)],
+                               timed=False)
             else:
                 nafblock_vs_plain(gen, [NAF_SHAPES[i] for i in (7, 8, 10)],
                                   dtypes=(torch.bfloat16,), timed=False)
@@ -1797,7 +2053,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     rows = kernel_vs_plain(gen)
     network_vs_cpu(args.seed)
-    eval_launches, _ = main_path(args.seed)
+    eval_launches, _, _ = main_path(args.seed)
     bwd_rows = backward_vs_plain(gen)
     remat_vs_save(gen)
     launches, step_ms, plain_step_ms, peak, _ = train_main_path(args.seed)
@@ -1808,9 +2064,10 @@ def main(argv=None) -> int:
     log_held("phases 3-7")
 
     naf_rows = nafblock_vs_plain(gen, NAF_SHAPES + NAF_TRAIN_SHAPES[:2])
-    network_vs_cpu(args.seed, NAF_TASK, nb.nafblock_fused, NAF_BLOCKS)
-    naf_launches, naf_fwd_ms = main_path(args.seed, NAF_TASK,
-                                         nb.nafblock_fused, NAF_BLOCKS)
+    network_vs_cpu(args.seed, NAF_TASK, nb.nafblock_fused,
+                   ((NAF_BLOCKS, None),))
+    naf_launches, naf_fwd_ms, _ = main_path(args.seed, NAF_TASK,
+                                            nb.nafblock_fused, NAF_BLOCKS)
     naf_train_rows = nafblock_vs_plain(gen, NAF_TRAIN_SHAPES,
                                        dtypes=(torch.bfloat16,))
     (naf_train_launches, naf_step_ms, naf_plain_step_ms, naf_peak,
@@ -1844,6 +2101,20 @@ def main(argv=None) -> int:
     log(f"launches: training path flash_attention_bwd {bwd_launches} over "
         f"{2 * I2T_ACCUM} micro-steps")
     bwd_main = [r for r in bwd_flash_rows if r[0]]
+    log_held("phases 14-15")
+
+    noise_rows = kernel_vs_plain(gen, shapes=NOISE_SHAPES)
+    log(f"tblock_fused at PromptIR's noise blocks (bf16, 512 px forward): "
+        f"kernel {sum(n * k for n, _, k, _ in noise_rows):.3f} ms, plain "
+        f"{sum(n * p for n, _, _, p in noise_rows):.3f} ms")
+    chain_rows = chain_vs_plain(gen)
+    chain_grad_vs_autograd(gen)
+    (pir_launches, pir_ms, _), (pir_chain_launches, pir_chain_ms,
+                                pir_chain_counts) = promptir_path(args.seed)
+    log(f"launches: promptir evaluation path, chain off: tblock_fused "
+        f"{pir_launches}; chain on: tblock_fused {pir_chain_launches}, "
+        f"chain calls/launches {pir_chain_counts}")
+    log_held("phases 16-18")
 
     # per-step kernel time: each training shape's median time times the
     # number of blocks of that shape in one step (bf16, WithBias); the
@@ -1861,6 +2132,8 @@ def main(argv=None) -> int:
                                 NAF_SHAPES])
     g_bound, g_by = bounds("gdfn_half_bwd", TRAIN_SHAPES)
     a_bound, a_by = bounds("attn_half_bwd", TRAIN_SHAPES)
+    chain_per = [(n, *bound_ms("tblock_chain_fused", *shape[:5], n=shape[5]))
+                 for n, *_, shape in chain_rows]
     src = "textualdegremoval_tpu_torch/csrc/"
     summary = {"kernels": [
         {"name": "tblock_fused", "route": "cuda", "source": src + "tblock.cu",
@@ -1920,6 +2193,19 @@ def main(argv=None) -> int:
                          for r in bwd_main),
          "bound_by": flash_bwd_bound_ms(*bwd_main[0][5])[1],
          "library_ms": sum(r[0] * r[4] for r in bwd_main)},
+        # per 512 px promptir_all_in_one forward with chain on (its 8
+        # stages, bf16); launches: phase 18's chain-on evaluation path
+        {"name": "tblock_chain_fused", "route": "cuda",
+         "source": src + "tblock_chain.cu",
+         "replaces": "textualdegremoval_tpu/ops/pallas/tblock.py:829 "
+                     "(_tblock_chain_impl; _make_apply_stats_kernel :314)",
+         "launches": pir_chain_counts[1],
+         "max_abs_err": max(r[1] for r in chain_rows),
+         "ms": sum(r[0] * r[2] for r in chain_rows),
+         "plain_ms": sum(r[0] * r[3] for r in chain_rows),
+         "bound_ms": sum(n * ms for n, ms, _ in chain_per),
+         "bound_by": max(chain_per, key=lambda r: r[0] * r[1])[2],
+         "library_ms": None},
     ]}
     log(f"train step 384 px batch 8 bf16: {step_ms:.2f} ms through the "
         f"kernels vs {plain_step_ms:.2f} ms through plain blocks, peak "
@@ -1937,6 +2223,12 @@ def main(argv=None) -> int:
         f"{i2t_ms:.2f} ms through the kernels vs {i2t_plain_ms:.2f} ms "
         f"through attention_ref, peak {i2t_peak:.2f} vs {i2t_plain_peak:.2f} "
         f"GiB")
+    log(f"promptir_all_in_one: forward 512 px bf16 {pir_ms:.2f} ms "
+        f"({1e3 / pir_ms:.3f} images/s) block by block, {pir_chain_ms:.2f} ms "
+        f"({1e3 / pir_chain_ms:.3f} images/s) with the chain; per forward "
+        f"the chain kernels {sum(r[0] * r[2] for r in chain_rows):.3f} ms "
+        f"against {sum(r[0] * r[4] for r in chain_rows):.3f} ms block by "
+        f"block and {sum(r[0] * r[3] for r in chain_rows):.3f} ms plain")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s after "
         f"the build")
     log(json.dumps(summary))

@@ -1,11 +1,16 @@
 """Evaluation CLI of the port: per-task network table and PSNR/SSIM loop.
 
-Counterpart of textualdegremoval_tpu/cli/evaluate.py for the Restormer
-and NAFNet families:
+Counterpart of textualdegremoval_tpu/cli/evaluate.py for the Restormer,
+NAFNet and PromptIR families:
 
     python -m textualdegremoval_tpu_torch.cli.evaluate \\
         --task restormer_deblur --hqroot ... --refroot ... --lqroot ... \\
-        --checkpoint_path net_g.pth [--dtype bfloat16] [--device cuda]
+        --checkpoint_path net_g.pth [--dtype bfloat16] [--device cuda] \\
+        [--chain]
+
+--chain runs every Restormer stage of two or more blocks as the
+cross-block chain kernel (the JAX CLI's TDR_FUSED_TBLOCK_CHAIN=1); it is
+off by default, as there.
 
 Denoise tasks synthesise the noise with the JAX CLI's deterministic
 protocol (np.random.RandomState(0), sigma/255 on HQ); paired tasks read lq
@@ -26,8 +31,8 @@ from textualdegremoval_tpu_torch.data import imread_f32, scan_images
 from textualdegremoval_tpu_torch.metrics import calculate_psnr, calculate_ssim
 from textualdegremoval_tpu_torch.models import define_network
 
-# The Restormer- and NAFNet-family entries of the JAX CLI's table (same
-# hparams).
+# The Restormer-, NAFNet- and PromptIR-family entries of the JAX CLI's
+# table (same hparams).
 TASK_TABLE = {
     # tiny config for CI smoke runs
     "tiny_smoke": {
@@ -64,6 +69,12 @@ TASK_TABLE = {
         "type": "NAFNetRefFusion", "width": 64, "middle_blk_num": 1,
         "enc_blk_nums": [1, 1, 1, 28], "dec_blk_nums": [1, 1, 1, 1],
         "nf": 64, "ext_n_blocks": [4, 4, 4, 4],
+        "reffusion_n_blocks": [2, 2, 2, 2], "lr_block_size": 8,
+    },
+    "promptir_all_in_one": {
+        "type": "PromptIRRefFusion", "dim": 48, "num_blocks": [4, 6, 6, 8],
+        "num_refinement_blocks": 4, "heads": [1, 2, 4, 8], "decoder": True,
+        "nf": 48, "ext_n_blocks": [4, 4, 4, 4],
         "reffusion_n_blocks": [2, 2, 2, 2], "lr_block_size": 8,
     },
     # dual-pixel defocus deblur: 6-channel lqL+lqR 16-bit input
@@ -132,6 +143,9 @@ def main(argv=None):
                     help="torch device; 'cuda' requires a CUDA device")
     ap.add_argument("--tiny_debug", action="store_true",
                     help="shrink the task's network to toy widths")
+    ap.add_argument("--chain", action="store_true",
+                    help="run every Restormer stage of two or more blocks "
+                         "as the cross-block chain kernel")
     ap.add_argument("--spatial_shard", type=int, default=0,
                     help="not ported yet (comes with the sharding work)")
     args = ap.parse_args(argv)
@@ -145,6 +159,12 @@ def main(argv=None):
     opt = dict(TASK_TABLE[args.task])
     if args.tiny_debug:
         opt = shrink_for_smoke(opt)
+    if args.chain:
+        if opt["type"] not in ("Restormer", "RestormerRefFusion", "PromptIR",
+                               "PromptIRRefFusion"):
+            raise SystemExit(f"--chain: {opt['type']} has no Restormer "
+                             "stages")
+        opt["chain"] = True
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         model = define_network(opt, dtype=getattr(torch, args.dtype))

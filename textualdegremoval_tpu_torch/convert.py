@@ -11,8 +11,10 @@ key rewrite is textualdegremoval_tpu/convert/torch_to_jax.py's, restricted
 to the keys of the ported modules (`norm*.body.` flattening, the
 Down/Upsample `body.0` conv, NAFNet's `sca.1.` -> `sca.conv.` and
 `ups.N.0.` -> `ups_N`, the merge of sequential indices into the preceding
-name), 4-D conv weights move between HWIO and OIHW, and NAFNet's beta and
-gamma between (1,1,1,C) and (1,C,1,1).
+name), 4-D conv weights move between HWIO and OIHW, 2-D Dense kernels
+between (in, out) and (out, in), NAFNet's beta and gamma between (1,1,1,C)
+and (1,C,1,1), and PromptIR's prompt_param between (1, L, S, S, D) and
+(1, L, D, S, S).
 
 Pipeline A's towers (text, vision, UNet, VAE, both mappers) have their own
 key tables here (the JAX package's are in convert/tower_maps.py, which
@@ -53,7 +55,7 @@ def torch_key_to_jax_path(key: str, ndim: int) -> tuple[str, ...]:
             path[-1] = f"{path[-1]}_{seg}"
         else:
             path.append(seg)
-    if path[-1] == "weight" and ndim == 4:
+    if path[-1] == "weight" and ndim in (2, 4):  # conv and linear
         path[-1] = "kernel"
     return tuple(path)
 
@@ -108,21 +110,35 @@ def load_jax_params(model: torch.nn.Module,
         path = torch_key_to_jax_path(key, t.ndim)
         if path[-1] in ("beta", "gamma") and t.ndim == 4:
             return path, lambda a: a.transpose(0, 3, 1, 2)  # (1,1,1,C)
+        if path[-1] == "prompt_param":  # (1, L, S, S, D) -> (1, L, D, S, S)
+            return path, lambda a: a.transpose(0, 1, 4, 2, 3)
         if t.ndim == 4:
             return path, lambda a: a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        if t.ndim == 2:
+            return path, lambda a: a.T  # Dense (in, out) -> Linear (out, in)
         return path, lambda a: a
 
     return _load_tree(model, params, locate)
 
 
+# Reference parameters that are built but never used in a forward pass
+# (PromptIR's chnl_reduce1-3 and reduce_noise_channel_1-3, the JAX
+# package's convert/torch_to_jax.py `_DEAD_KEYS`): dropped before the
+# strict load, as the port's networks declare only live parameters.
+_DEAD_KEYS = (re.compile(r"\bchnl_reduce\d\."),
+              re.compile(r"\breduce_noise_channel_\d\."))
+
+
 def load_reference_checkpoint(model: torch.nn.Module, path: str,
                               key: str = "params") -> torch.nn.Module:
     """Load a reference `.pth` (`{'params': state_dict}`, an optional
-    `module.` prefix, or a bare state dict) with strict key matching."""
+    `module.` prefix, or a bare state dict) with strict key matching, after
+    dropping the reference's dead parameters (`_DEAD_KEYS`)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(ckpt, dict) and key in ckpt:
         ckpt = ckpt[key]
-    sd = {re.sub(r"^module\.", "", k): v for k, v in ckpt.items()}
+    sd = {re.sub(r"^module\.", "", k): v for k, v in ckpt.items()
+          if not any(p.search(k) for p in _DEAD_KEYS)}
     model.load_state_dict(sd, strict=True)
     return model
 

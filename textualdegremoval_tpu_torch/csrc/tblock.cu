@@ -27,7 +27,8 @@
 // and the second residual.  Only the C-wide output is written to memory,
 // and x1 as well when the training step's backward asks for it (JAX
 // `want_x1`).  Helpers shared with the backward kernels are in
-// tblock_common.cuh.
+// tblock_common.cuh; the bodies of both passes, which the cross-block chain
+// kernel (tblock_chain.cu) runs too, are in tblock_fwd.cuh.
 //
 // Rounding points mirror the JAX kernel: the 1x1 outputs are cast to the
 // input dtype before the dwconv; the qkv dwconv sums in f32 and is cast; o
@@ -58,31 +59,26 @@
 // * pass B is held to 64 registers so that four CTAs fit on an SM at
 //   C <= 96, where occupancy hides the load latency.
 // float32, and bf16 at other widths, use f32 FMA loops.  The stencils and
-// LayerNorms stay on the CUDA cores.  Tiles are picked by the wrapper from
+// LayerNorms stay on the CUDA cores.
+//
+// Widths: any C with at most kMaxCph = 192 channels per head.  Restormer's
+// blocks have 48 or 96; PromptIR's three noise blocks have C = 704 / 320 /
+// 160 at 4 heads, 176 / 80 / 40 channels per head (its --tiny_debug
+// config 192).  Pass A keeps the head's cph x cph gram in f32 shared
+// memory (124 KB at cph 176), so at C = 704 only a 4 x 4 tile fits in
+// bf16 and a 2 x 2 in f32, one CTA per SM; pass B's shared memory does not
+// depend on cph and takes 4 x 4 (bf16) and 2 x 2 (f32) at C = 704.  At cph
+// 40 the one product with K = cph (o = v A^T) runs the FMA loops in bf16
+// too; the 1x1s (K = C), the gram (K = tile pixels padded to 16) and the
+// GDFN's second product (K = 32) stay on mma.sync.  No register or stack
+// array is sized by cph: each thread keeps at most two of the 2 cph q/k
+// square sums.  Tiles are picked by the wrapper from
 // an order measured on the card.  wgmma, TMA and weights staged in shared
 // memory are left for later work.
 
-#include "tblock_common.cuh"
+#include "tblock_fwd.cuh"
 
 namespace {
-
-size_t stats_smem_bytes(int C, int cph, int th, int tw, int eb) {
-  const int p1 = (th + 2) * (tw + 2), tp = th * tw;
-  return (size_t)4 * cph * cph +
-         (size_t)eb * ((size_t)round_up(p1, kRowPad) * smem_ld(C) +
-                       (size_t)round_up(p1 * cph, 8) +
-                       2 * (size_t)round_up(cph, kRowPad) *
-                           smem_ld(round_up(tp, 16)));
-}
-
-size_t apply_smem_bytes(int C, int th, int tw, int eb) {
-  const int p2 = (th + 4) * (tw + 4), p1 = (th + 2) * (tw + 2), tp = th * tw;
-  const int chunk = p2 * kVC > 2 * p1 * kHC ? p2 * kVC : 2 * p1 * kHC;
-  return (size_t)4 * tp * (C + kAccPad) +
-         (size_t)eb * ((size_t)round_up(p2, kRowPad) * smem_ld(C) +
-                       (size_t)round_up(p1, kRowPad) * smem_ld(C) + chunk +
-                       (size_t)round_up(tp, kRowPad) * smem_ld(kHC));
-}
 
 // ---------------------------------------------------------------------------
 // Pass A: per-head gram and q/k square sums, per-CTA partials
@@ -112,15 +108,17 @@ __global__ void __launch_bounds__(kThreads) tblock_stats_kernel(
   T* qT = lin + round_up(p1 * cph, 8);                   // [cph rows][ldp]
   T* kT = qT + (size_t)round_up(cph, kRowPad) * ldp;     // [cph rows][ldp]
 
-  // q and k are kept transposed (channel-major) so that the gram is a
-  // product with K = pixels; the pixel columns [tp, tp16) stay zero
+  // the pixel columns [tp, tp16) of qT and kT stay zero
   for (int i = threadIdx.x; i < cph * cph; i += blockDim.x) gacc[i] = 0.f;
   for (int i = threadIdx.x; i < cph * (tp16 - tp); i += blockDim.x) {
     const int c = i / (tp16 - tp), p = tp + i % (tp16 - tp);
     qT[c * ldp + p] = from_f<T>(0.f);
     kT[c * ldp + p] = from_f<T>(0.f);
   }
-  float ssq = 0.f;  // threads [0, cph): q channels; [cph, 2 cph): k channels
+  // the square sums of this thread's channels i = threadIdx.x (+ blockDim.x)
+  // of [q | k]: 2 cph <= 2 kThreads
+  static_assert(kMaxCph <= kThreads, "two square sums per thread");
+  float ssq0 = 0.f, ssq1 = 0.f;
 
   const T* xb = x + (size_t)b * H * W * C;
   for (int t = split; t < ntiles; t += nsplit) {
@@ -128,49 +126,18 @@ __global__ void __launch_bounds__(kThreads) tblock_stats_kernel(
     ln_region(xb, H, W, C, oy - 1, ox - 1, th + 2, hw, lnw, lnb,
               bias_free != 0, ys, ldc);
     __syncthreads();
-    for (int which = 0; which < 2; ++which) {
-      gemm(ys, ldc, p1, C, weights(which == 0 ? wq : wk, C, C, hd * cph, 0),
-           cph, [&](int p, int n, float acc) {
-             const int gy = oy - 1 + p / hw, gx = ox - 1 + p % hw;
-             const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-             lin[p * cph + n] = from_f<T>(in ? acc : 0.f);
-           });
-      __syncthreads();
-      T* dst = which == 0 ? qT : kT;
-      const float* taps = dwqk + (size_t)which * 9 * C + hd * cph;
-      for (int idx = threadIdx.x; idx < tp * cph; idx += blockDim.x) {
-        const int p = idx / cph, n = idx % cph;
-        const int py = p / tw, px = p % tw;
-        const float acc =
-            stencil3x3(lin + n, hw, cph, py, px, taps + n, C, false);
-        // pixels of the tile outside the image add nothing to the sums
-        const bool in = oy + py < H && ox + px < W;
-        dst[n * ldp + p] = from_f<T>(in ? acc : 0.f);
-      }
-      __syncthreads();
-    }
-    gemm(qT, ldp, cph, tp16, MatB<T>{kT, 1, ldp}, cph,
-         [&](int c, int d, float v) { gacc[c * cph + d] += v; });
-    if ((int)threadIdx.x < 2 * cph) {
-      const int c = threadIdx.x % cph;
-      const T* src = ((int)threadIdx.x < cph ? qT : kT) + c * ldp;
-      float s = 0.f;
-      for (int p = 0; p < tp; ++p) {
-        const float v = to_f(src[p]);
-        s += v * v;
-      }
-      ssq += s;
-    }
-    __syncthreads();
+    stats_head_tile(ys, ldc, oy, ox, th, tw, H, W, C, cph, hd, wq, wk, dwqk,
+                    lin, qT, kT, ldp, gacc, [&](int j, int, float v) {
+                      if (j == 0) ssq0 += v; else ssq1 += v;
+                    });
   }
 
   const size_t slot = (size_t)b * nsplit + split;
   float* gp = gram_part + (slot * heads + hd) * cph * cph;
   for (int i = threadIdx.x; i < cph * cph; i += blockDim.x) gp[i] = gacc[i];
-  if ((int)threadIdx.x < cph)
-    qs_part[slot * C + hd * cph + threadIdx.x] = ssq;
-  else if ((int)threadIdx.x < 2 * cph)
-    ks_part[slot * C + hd * cph + threadIdx.x - cph] = ssq;
+  for (int i = threadIdx.x, j = 0; i < 2 * cph; i += blockDim.x, ++j)
+    (i < cph ? qs_part : ks_part)[slot * C + hd * cph + i % cph] =
+        j == 0 ? ssq0 : ssq1;
 }
 
 // ---------------------------------------------------------------------------
@@ -190,124 +157,17 @@ __global__ void __launch_bounds__(kThreads, 4) tblock_apply_kernel(
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int cph = C / heads;
   const int b = blockIdx.z, oy = blockIdx.y * th, ox = blockIdx.x * tw;
-  const int w2w = tw + 4, p2 = (th + 4) * w2w;  // 2-pixel halo region
-  const int w1w = tw + 2, p1 = (th + 2) * w1w;  // 1-pixel halo region
-  const int tp = th * tw;
-  const int ldc = smem_ld(C), ldg = smem_ld(kHC);
-  const bool bf = bias_free != 0;
-
-  const int lda_acc = C + kAccPad;
-  float* acc = reinterpret_cast<float*>(smem_raw);  // [tp][lda_acc] f32
-  T* bufA = reinterpret_cast<T*>(acc + (size_t)tp * lda_acc);  // y, o, z
-  T* bufB = bufA + (size_t)round_up(p2, kRowPad) * ldc;   // v, then x1
-  T* chunk = bufB + (size_t)round_up(p1, kRowPad) * ldc;  // v_lin / h1,h2
-  const int chunk_elems = p2 * kVC > 2 * p1 * kHC ? p2 * kVC : 2 * p1 * kHC;
-  T* gate = chunk + chunk_elems;                  // [tp rows][ldg]
-
-  const T* xb = x + (size_t)b * H * W * C;
-  auto in_image = [&](int gy, int gx) {
-    return gy >= 0 && gy < H && gx >= 0 && gx < W;
-  };
-
-  // 1. LN1 on the 2-pixel-halo region
-  ln_region(xb, H, W, C, oy - 2, ox - 2, th + 4, w2w, ln1w, ln1b, bf, bufA,
-            ldc);
-  __syncthreads();
-
-  // 2. v = dw3x3(mask(y . Wv)) on the 1-pixel-halo region, kVC channels at
-  //    a time
-  for (int n0 = 0; n0 < C; n0 += kVC) {
-    const int nc = C - n0 < kVC ? C - n0 : kVC;
-    gemm(bufA, ldc, p2, C, weights(wv, C, C, n0, 0), nc,
-         [&](int p, int n, float a) {
-           const bool in = in_image(oy - 2 + p / w2w, ox - 2 + p % w2w);
-           chunk[p * kVC + n] = from_f<T>(in ? a : 0.f);
-         });
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < p1 * nc; idx += blockDim.x) {
-      const int q = idx / nc, n = idx % nc;
-      const int qy = q / w1w, qx = q % w1w;
-      const float a = stencil3x3(chunk + n, w2w, kVC, qy, qx, dwv + n0 + n, C,
-                                 false);
-      bufB[(size_t)q * ldc + n0 + n] = from_f<T>(a);
-    }
-    __syncthreads();
-  }
-
-  // 3. o = v . A_head^T per head (the block-diagonal attention); attn[h] is
-  //    [c][d], the n-major weight layout of this product
-  const T* ab = attn + (size_t)b * heads * cph * cph;
-  for (int hd = 0; hd < heads; ++hd)
-    gemm(bufB + hd * cph, ldc, p1, cph,
-         MatB<T>{ab + (size_t)hd * cph * cph, 1, cph}, cph,
-         [&](int q, int n, float a) {
-           bufA[(size_t)q * ldc + hd * cph + n] = from_f<T>(a);
-         });
-  __syncthreads();
-
-  // 4. x1 = x + proj(o) on the 1-pixel-halo region (0 outside the image)
-  gemm(bufA, ldc, p1, C, weights(wproj, C, C, 0, 0), C,
-       [&](int q, int n, float a) {
-    const int gy = oy - 1 + q / w1w, gx = ox - 1 + q % w1w;
-    float v = 0.f;
-    if (in_image(gy, gx))
-      v = to_f(xb[((size_t)gy * W + gx) * C + n]) + rnd<T>(a);
-    bufB[(size_t)q * ldc + n] = from_f<T>(v);
-  });
-  __syncthreads();
-
-  // 5. z = LN2(x1); zero the f32 accumulator of the GDFN output
-  {
-    const int lane = threadIdx.x & 31;
-    for (int q = threadIdx.x >> 5; q < p1; q += blockDim.x >> 5)
-      ln_pixel(bufB + (size_t)q * ldc, bufA + (size_t)q * ldc, C, ln2w, ln2b,
-               bf, lane);
-    for (int i = threadIdx.x; i < tp * lda_acc; i += blockDim.x) acc[i] = 0.f;
-  }
-  __syncthreads();
-
-  // 6. GDFN in kHC-wide hidden chunks; w1 rows [2 c0, 2 c0 + kHC) make the
-  //    chunk's h1, the next kHC rows its h2
-  T* h1 = chunk;
-  T* h2 = chunk + (size_t)p1 * kHC;
-  for (int c0 = 0; c0 < hpad; c0 += kHC) {
-    auto masked = [&](int q, float a) {
-      return from_f<T>(in_image(oy - 1 + q / w1w, ox - 1 + q % w1w) ? a
-                                                                    : 0.f);
-    };
-    gemm(bufA, ldc, p1, C, weights(w1, 2 * hpad, C, 2 * c0, 0), 2 * kHC,
-         [&](int q, int n, float a) {
-           (n < kHC ? h1 : h2)[q * kHC + n % kHC] = masked(q, a);
-         });
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < tp * kHC; idx += blockDim.x) {
-      const int p = idx / kHC, j = idx % kHC;
-      const int py = p / tw, px = p % tw;
-      const float d1 = stencil3x3(h1 + j, w1w, kHC, py, px, dwg + c0 + j,
-                                  hpad, false);
-      const float d2 = stencil3x3(h2 + j, w1w, kHC, py, px,
-                                  dwg + 9 * hpad + c0 + j, hpad, false);
-      gate[p * ldg + j] = from_f<T>(gelu_erf(d1) * d2);
-    }
-    __syncthreads();
-    gemm(gate, ldg, tp, kHC, weights(w2, C, hpad, 0, c0), C,
-         [&](int p, int n, float a) { acc[p * lda_acc + n] += a; });
-    __syncthreads();
-  }
-
-  // 7. out = x1 + acc on the tile; x1 itself too when asked for (the
-  //    attention-residual boundary that the backward starts from)
-  for (int idx = threadIdx.x; idx < tp * C; idx += blockDim.x) {
-    const int p = idx / C, n = idx % C;
-    const int py = p / tw, px = p % tw;
-    const int gy = oy + py, gx = ox + px;
-    if (gy < H && gx < W) {
-      const T x1 = bufB[((size_t)(py + 1) * w1w + px + 1) * ldc + n];
-      const size_t o = (((size_t)b * H + gy) * W + gx) * C + n;
-      out[o] = from_f<T>(to_f(x1) + rnd<T>(acc[p * lda_acc + n]));
-      if (x1out != nullptr) x1out[o] = x1;
-    }
-  }
+  const ApplySmem<T> s(smem_raw, C, th, tw);
+  // out = x1 + GDFN on the tile; x1 itself too when asked for (the
+  // attention-residual boundary that the backward starts from)
+  apply_region(x + (size_t)b * H * W * C, H, W, C, heads, hpad,
+               bias_free != 0, oy, ox, th, tw, ln1w, ln1b, wv, dwv,
+               attn + (size_t)b * heads * cph * cph, wproj, ln2w, ln2b, w1,
+               dwg, w2, s, [&](int, int gy, int gx, int n, T x1, T v) {
+                 const size_t o = (((size_t)b * H + gy) * W + gx) * C + n;
+                 out[o] = v;
+                 if (x1out != nullptr) x1out[o] = x1;
+               });
 }
 
 template <typename T>

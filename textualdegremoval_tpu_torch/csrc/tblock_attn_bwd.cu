@@ -31,7 +31,7 @@
 // dy += dlin . W^T in f32.  Last, the LN1 backward writes dx = dx1 +
 // LN1-bwd(dy).  Working per head keeps the shared memory at C = 768 to a
 // 2 x 4 tile in bf16: the head is the unit of the channel attention, and
-// cph <= 96 at every model width.
+// cph <= 96 (kMaxCphBwd) at every width that the training paths reach.
 //
 // The reductions over pixels: the 27 x C tap gradients and the LN1
 // parameter gradients are per-CTA partials summed by the wrapper in a
@@ -395,13 +395,16 @@ int launch_attn_apply(const void* x, const void* dx1, const void* ln1w,
 }
 
 bool attn_shape_ok(int C, int heads, int th, int tw) {
-  return heads > 0 && C % heads == 0 && C / heads <= kMaxCph && th > 0 &&
+  return heads > 0 && C % heads == 0 && C / heads <= kMaxCphBwd && th > 0 &&
          tw > 0;
 }
 
 }  // namespace
 
 extern "C" {
+
+// Channels per head that the attention-half backward takes.
+int tblock_attn_bwd_max_cph() { return kMaxCphBwd; }
 
 // Dynamic shared memory of pass 1 (pass == 0) or pass 2 (pass == 1).
 long long tblock_attn_bwd_smem_bytes(int pass, int C, int heads, int th,

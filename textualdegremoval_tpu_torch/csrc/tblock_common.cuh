@@ -1,5 +1,5 @@
 // Helpers shared by the TransformerBlock kernels (tblock.cu forward,
-// tblock_bwd.cu GDFN-half backward, tblock_attn_bwd.cu attention-half
+// tblock_chain.cu cross-block chain, tblock_bwd.cu GDFN-half backward, tblock_attn_bwd.cu attention-half
 // backward, wgrad.cu weight-gradient products) and the NAFBlock kernel
 // (nafblock.cu): rounding to the model dtype,
 // the per-pixel LayerNorm rows, the masked 3x3 depthwise stencil, and the
@@ -29,7 +29,8 @@ constexpr int kVC = 32;             // v output-channel chunk (pass B)
 constexpr int kHC = 32;             // GDFN hidden chunk; hpad % kHC == 0
 constexpr int kRP = 4;              // pixel rows per thread, FMA products
 constexpr int kRowPad = 16;         // smem GEMM operands hold rows to x16
-constexpr int kMaxCph = 96;         // channels per head
+constexpr int kMaxCph = 192;        // channels per head, forward kernels
+constexpr int kMaxCphBwd = 96;      // channels per head, attention backward
 constexpr int kAccPad = 4;          // f32 accumulator row padding
 constexpr float kEps = 1e-5f;       // Restormer LN; NAFNet's passes 1e-6
 

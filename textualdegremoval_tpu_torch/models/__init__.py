@@ -3,9 +3,10 @@
 `define_network(opt)` mirrors textualdegremoval_tpu/models/__init__.py:
 `opt['type']` selects the class and the remaining keys that name
 constructor arguments become its arguments, so the reference's network_g
-option dicts port as they are.  This port covers the Restormer and NAFNet
-families; the other families of the JAX registry come with later slices of
-the port.
+option dicts port as they are (a `chain` key too: the cross-block chain of
+the Restormer and PromptIR trunks).  This port covers the Restormer, NAFNet
+and PromptIR families; the other families of the JAX registry come with
+later slices of the port.
 """
 
 from __future__ import annotations
@@ -15,12 +16,16 @@ import inspect
 import torch
 
 from textualdegremoval_tpu_torch.models.nafnet import NAFNet, NAFNetRefFusion
+from textualdegremoval_tpu_torch.models.promptir import (
+    PromptIR, PromptIRRefFusion,
+)
 from textualdegremoval_tpu_torch.models.restormer import (
     Restormer, RestormerRefFusion,
 )
 
 _REGISTRY = {"Restormer": Restormer, "RestormerRefFusion": RestormerRefFusion,
              "NAFNet": NAFNet, "NAFNetRefFusion": NAFNetRefFusion,
+             "PromptIR": PromptIR, "PromptIRRefFusion": PromptIRRefFusion,
              # the reference's Local (TLC) variants: the same modules with
              # tlc_train_size taken from the option dict's train_size
              "NAFNetLocal": NAFNet, "NAFNetLocal_RefFusion": NAFNetRefFusion}
@@ -29,8 +34,8 @@ _REGISTRY = {"Restormer": Restormer, "RestormerRefFusion": RestormerRefFusion,
 # their item in ROADMAP.md queue A.
 _LATER = dict.fromkeys(
     ("NAFNetDynamicFusion", "NAFNetLocalDynamic", "DRSformer",
-     "DRSformerRefFusion", "DRSformer200L_SPA_RefFusion", "PromptIR",
-     "PromptIRRefFusion", "SFNet", "SFNetRefFusion"), "A6")
+     "DRSformerRefFusion", "DRSformer200L_SPA_RefFusion", "SFNet",
+     "SFNetRefFusion"), "A6")
 
 _KEY_ALIASES = {"LayerNorm_type": "ln_type"}
 
@@ -43,7 +48,8 @@ def define_network(opt: dict,
                    dtype: torch.dtype = torch.float32) -> torch.nn.Module:
     """Instantiate a network from a reference-style network_g dict, in eval
     mode, with float32 parameters and `dtype` as its compute dtype (JAX
-    `define_network(opt, dtype)`); `bwd_mode` may come with the dict."""
+    `define_network(opt, dtype)`); `bwd_mode` and `chain` may come with the
+    dict."""
     opt = dict(opt)
     name = opt.pop("type")
     if name in _LATER:

@@ -41,6 +41,7 @@ from textualdegremoval_tpu_torch.ops.pallas.nafblock import (
 )
 from textualdegremoval_tpu_torch.ops.pallas.tblock import (
     prepare_tblock_weights,
+    tblock_chain_fused,
     tblock_fused,
 )
 from textualdegremoval_tpu_torch.ops.tlc import local_avg_pool
@@ -219,15 +220,41 @@ class TransformerResFusionBlock(TransformerBlock):
         return super().module_forward(x) * self.alpha + x
 
 
-def tblock_stage(dim: int, num_heads: int, n: int,
+class TBlockStage(nn.Sequential):
+    """n TransformerBlocks run one after the other, with the state-dict
+    keys of a plain sequence (`{stage}.{i}.`), so that reference
+    checkpoints load with strict=True whatever the route (JAX
+    `tblock_stage`).
+
+    chain (a bool, validated): with chain=True a stage of two or more
+    blocks runs as `tblock_chain_fused`: on CUDA the cross-block chain
+    kernel (csrc/tblock_chain.cu: block i applied and block i+1's
+    attention statistics taken in one pass), on the CPU the plain chain.
+    Its backward recomputes through the plain chain, as JAX's does, so
+    the blocks' bwd_mode does not apply to it.  A stage of one block, and
+    every stage with chain=False, runs its blocks' own forwards (the
+    whole-block kernel on CUDA)."""
+
+    def __init__(self, dim: int, num_heads: int, n: int,
                  ffn_expansion_factor: float = 2.66, bias: bool = False,
-                 ln_type: str = "WithBias",
-                 bwd_mode: str = "save") -> nn.Sequential:
-    """n TransformerBlocks run one after the other (keys `{stage}.{i}.`)."""
-    return nn.Sequential(*[
-        TransformerBlock(dim, num_heads, ffn_expansion_factor, bias, ln_type,
-                         bwd_mode)
-        for _ in range(n)])
+                 ln_type: str = "WithBias", bwd_mode: str = "save",
+                 chain: bool = False):
+        if not isinstance(chain, bool):
+            raise ValueError(f"TBlockStage: chain must be a bool, got "
+                             f"{chain!r}")
+        super().__init__(*[
+            TransformerBlock(dim, num_heads, ffn_expansion_factor, bias,
+                             ln_type, bwd_mode)
+            for _ in range(n)])
+        self.num_heads, self.ln_type, self.chain = num_heads, ln_type, chain
+
+    def forward(self, x):
+        if not self.chain or len(self) < 2:
+            return super().forward(x)
+        x = x.contiguous()
+        ps = [blk.block_params() for blk in self]
+        kws = [blk._kernel_weights(p, x) for blk, p in zip(self, ps)]
+        return tblock_chain_fused(x, ps, self.num_heads, self.ln_type, kws)
 
 
 class OverlapPatchEmbed(nn.Module):

@@ -6,7 +6,8 @@ from pyramid positions).  Every TransformerBlock and
 TransformerResFusionBlock runs through `tblock_fused`.  `dtype` is the
 compute dtype (the JAX modules' `dtype`): the input is cast to it and every
 weight at use, while the parameters stay float32.  `bwd_mode` is threaded
-to every block (JAX `bwd_mode`).
+to every block (JAX `bwd_mode`); `chain` (a bool) runs every stage of two
+or more blocks as the cross-block chain (JAX `chain`, see TBlockStage).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from textualdegremoval_tpu_torch.models.layers import (
     Upsample,
     conv_nhwc,
     masa_encode_pair,
-    tblock_stage,
+    TBlockStage,
 )
 from textualdegremoval_tpu_torch.ops import masa_match_and_warp, pad_to_multiple
 
@@ -34,15 +35,15 @@ class _RestormerTrunk(nn.Module):
 
     def __init__(self, inp_channels, out_channels, dim, num_blocks,
                  num_refinement_blocks, heads, ffn_expansion_factor, bias,
-                 ln_type, dual_pixel_task, dtype, bwd_mode):
+                 ln_type, dual_pixel_task, dtype, bwd_mode, chain):
         super().__init__()
         d = dim
         self.dual_pixel_task = dual_pixel_task
         self.dtype = dtype
 
         def stage(ch, h, n):
-            return tblock_stage(ch, h, n, ffn_expansion_factor, bias, ln_type,
-                                bwd_mode)
+            return TBlockStage(ch, h, n, ffn_expansion_factor, bias, ln_type,
+                               bwd_mode, chain)
 
         self.patch_embed = OverlapPatchEmbed(inp_channels, d, bias)
         self.encoder_level1 = stage(d, heads[0], num_blocks[0])
@@ -88,10 +89,12 @@ class Restormer(_RestormerTrunk):
                  heads: Sequence[int] = (1, 2, 4, 8),
                  ffn_expansion_factor: float = 2.66, bias: bool = False,
                  ln_type: str = "WithBias", dual_pixel_task: bool = False,
-                 dtype: torch.dtype = torch.float32, bwd_mode: str = "save"):
+                 dtype: torch.dtype = torch.float32, bwd_mode: str = "save",
+                 chain: bool = False):
         super().__init__(inp_channels, out_channels, dim, num_blocks,
                          num_refinement_blocks, heads, ffn_expansion_factor,
-                         bias, ln_type, dual_pixel_task, dtype, bwd_mode)
+                         bias, ln_type, dual_pixel_task, dtype, bwd_mode,
+                         chain)
 
     def forward(self, inp_img):
         """inp_img: (B, H, W, C_in).  Returns (B, H, W, C_out)."""
@@ -124,10 +127,12 @@ class RestormerRefFusion(_RestormerTrunk):
                  psize: int = 3, lr_block_size: int = 8,
                  ref_down_block_size: float = 1.5,
                  dilations: Sequence[int] = (1, 2, 3),
-                 dtype: torch.dtype = torch.float32, bwd_mode: str = "save"):
+                 dtype: torch.dtype = torch.float32, bwd_mode: str = "save",
+                 chain: bool = False):
         super().__init__(inp_channels, out_channels, dim, num_blocks,
                          num_refinement_blocks, heads, ffn_expansion_factor,
-                         bias, ln_type, dual_pixel_task, dtype, bwd_mode)
+                         bias, ln_type, dual_pixel_task, dtype, bwd_mode,
+                         chain)
         self.lr_block_size = lr_block_size
         self.ref_down_block_size = ref_down_block_size
         self.psize = psize

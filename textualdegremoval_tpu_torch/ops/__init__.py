@@ -7,6 +7,7 @@ from textualdegremoval_tpu_torch.ops.norm import (
 )
 from textualdegremoval_tpu_torch.ops.ffn import simple_gate
 from textualdegremoval_tpu_torch.ops.resize import (
+    bilinear_resize_torch,
     pixel_shuffle,
     pixel_unshuffle,
     pad_to_multiple,
@@ -27,6 +28,7 @@ __all__ = [
     "layer_norm_2d",
     "with_bias_layer_norm",
     "simple_gate",
+    "bilinear_resize_torch",
     "pixel_shuffle",
     "pixel_unshuffle",
     "pad_to_multiple",

@@ -34,8 +34,12 @@ _SIGNATURES = {
     "tblock_error_string": ([_I], ctypes.c_char_p),
     "tblock_stats": ([_P] * 9 + [_I] * 10 + [_P], _I),
     "tblock_apply": ([_P] * 14 + [_I] * 10 + [_P], _I),
+    "tblock_chain_smem_bytes": ([_I] * 6, _L),
+    "tblock_chain_ctas_per_sm": ([_I] * 6, _I),
+    "tblock_chain": ([_P] * 21 + [_I] * 12 + [_P], _I),
     "tblock_gdfn_bwd_smem_bytes": ([_I] * 4, _L),
     "tblock_gdfn_bwd": ([_P] * 14 + [_I] * 10 + [_P], _I),
+    "tblock_attn_bwd_max_cph": ([], _I),
     "tblock_attn_bwd_smem_bytes": ([_I] * 6, _L),
     "tblock_attn_bwd_stats": ([_P] * 11 + [_I] * 9 + [_P], _I),
     "tblock_attn_bwd_apply": ([_P] * 22 + [_I] * 10 + [_P], _I),

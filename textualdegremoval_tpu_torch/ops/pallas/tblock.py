@@ -30,6 +30,15 @@ A CPU tensor goes through `tblock_ref` (plain autograd); a CUDA tensor
 launches the kernels or raises.  `tblock_fused.launches` counts forward
 kernel launches (one per block call, the backward's recompute under
 'remat' included), never plain-version calls.
+
+`tblock_chain_fused` runs n blocks in a row as the cross-block chain (JAX
+`tblock_chain_fused`, replacing `_tblock_chain_impl` and its
+`_make_apply_stats_kernel`): pass A of the first block, then
+csrc/tblock_chain.cu for every block but the last (block i applied and
+block i+1's statistics taken from the output it makes, so each
+intermediate activation is read once), then pass B of the last block.
+`tblock_chain_ref` is its plain version; its backward recomputes through
+that plain chain, as JAX's does.
 """
 
 from __future__ import annotations
@@ -198,21 +207,14 @@ def _ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _launch(lib, x, kw, heads, ln_type, stats_tile, apply_tile, nsplit,
-            stream, want_x1: bool = False):
-    """Pass A, the glue and pass B on already validated inputs.  Outputs and
-    partials are allocated on x's device; `stream` is a cudaStream_t as an
-    int (0 for the default stream).  Returns out, or with `want_x1`
-    (out, x1, (gram, qssq, kssq)): the attention-residual boundary and the
-    pass-A statistics (per-head gram (B, heads, cph, cph), square sums
-    (B, C), f32) that the backward starts from."""
+def _pass_a(lib, x, kw, heads, ln_type, stats_tile, nsplit, stream):
+    """Pass A (tblock_stats) of the block whose weights are kw on x, summed
+    over its partials: (gram (B, heads, cph, cph), qssq (B, C), kssq
+    (B, C)), f32.  `stream` is a cudaStream_t as an int (0 for the default
+    stream)."""
     b, hgt, wdt, c = x.shape
     cph = c // heads
     f32 = torch.float32
-    is_bf16 = int(x.dtype == torch.bfloat16)
-    bias_free = int(ln_type == "BiasFree")
-    stream = ctypes.c_void_p(stream)
-
     gram_part = torch.empty((b, nsplit, heads, cph, cph), dtype=f32,
                             device=x.device)
     qs_part = torch.empty((b, nsplit, c), dtype=f32, device=x.device)
@@ -220,12 +222,17 @@ def _launch(lib, x, kw, heads, ln_type, stats_tile, apply_tile, nsplit,
     _check(lib.tblock_stats(
         _ptr(x), _ptr(kw["ln1w"]), _ptr(kw["ln1b"]), _ptr(kw["wq"]),
         _ptr(kw["wk"]), _ptr(kw["dwqk"]), _ptr(gram_part), _ptr(qs_part),
-        _ptr(ks_part), b, hgt, wdt, c, heads, is_bf16, bias_free,
-        stats_tile[0], stats_tile[1], nsplit, stream), lib, "tblock_stats")
+        _ptr(ks_part), b, hgt, wdt, c, heads, int(x.dtype == torch.bfloat16),
+        int(ln_type == "BiasFree"), stats_tile[0], stats_tile[1], nsplit,
+        ctypes.c_void_p(stream)), lib, "tblock_stats")
+    return gram_part.sum(1), qs_part.sum(1), ks_part.sum(1)
 
-    stats = (gram_part.sum(1), qs_part.sum(1), ks_part.sum(1))
-    attn = _attn_matrix(*stats, kw["temperature"], heads, x.dtype)
 
+def _pass_b(lib, x, kw, attn, heads, ln_type, apply_tile, stream,
+            want_x1=False):
+    """Pass B (tblock_apply) of the block whose weights are kw on x with
+    its softmaxed attention `attn`.  Returns (out, x1 or None)."""
+    b, hgt, wdt, c = x.shape
     out = torch.empty_like(x)
     x1 = torch.empty_like(x) if want_x1 else None
     _check(lib.tblock_apply(
@@ -233,8 +240,23 @@ def _launch(lib, x, kw, heads, ln_type, stats_tile, apply_tile, nsplit,
         _ptr(kw["dwv"]), _ptr(attn), _ptr(kw["wproj"]), _ptr(kw["ln2w"]),
         _ptr(kw["ln2b"]), _ptr(kw["w1"]), _ptr(kw["dwg"]), _ptr(kw["w2"]),
         _ptr(out), None if x1 is None else _ptr(x1), b, hgt, wdt, c, heads,
-        kw["hpad"], is_bf16, bias_free, apply_tile[0], apply_tile[1],
-        stream), lib, "tblock_apply")
+        kw["hpad"], int(x.dtype == torch.bfloat16),
+        int(ln_type == "BiasFree"), apply_tile[0], apply_tile[1],
+        ctypes.c_void_p(stream)), lib, "tblock_apply")
+    return out, x1
+
+
+def _launch(lib, x, kw, heads, ln_type, stats_tile, apply_tile, nsplit,
+            stream, want_x1: bool = False):
+    """Pass A, the glue and pass B on already validated inputs.  Outputs and
+    partials are allocated on x's device.  Returns out, or with `want_x1`
+    (out, x1, (gram, qssq, kssq)): the attention-residual boundary and the
+    pass-A statistics (per-head gram (B, heads, cph, cph), square sums
+    (B, C), f32) that the backward starts from."""
+    stats = _pass_a(lib, x, kw, heads, ln_type, stats_tile, nsplit, stream)
+    attn = _attn_matrix(*stats, kw["temperature"], heads, x.dtype)
+    out, x1 = _pass_b(lib, x, kw, attn, heads, ln_type, apply_tile, stream,
+                      want_x1)
     return (out, x1, stats) if want_x1 else out
 
 
@@ -268,19 +290,35 @@ def _check_weights(kw, x: torch.Tensor, what: str):
 def _forward_kernel(x, kw, heads, ln_type, want_x1=False):
     """Validated launch of the forward kernel pair on a CUDA tensor."""
     _validate(x, heads, ln_type, "tblock_fused")
-    b, hgt, wdt, c = x.shape
-    cph = c // heads
+    c = x.shape[-1]
+    lib = _kernel_library(c // heads, "tblock_fused")
+    _check_weights(kw, x, "tblock_fused")
+    stats_tile, apply_tile, nsplit = _block_tiles(lib, x, heads)
+    res = _launch(lib, x, kw, heads, ln_type, stats_tile, apply_tile, nsplit,
+                  torch.cuda.current_stream(x.device).cuda_stream, want_x1)
+    tblock_fused.launches += 1
+    return res
 
+
+def _kernel_library(cph: int, what: str):
+    """The kernel library, after checking that its forward kernels take
+    `cph` channels per head."""
     from textualdegremoval_tpu_torch.ops._build import load_library
 
     lib = load_library()
     if cph > lib.tblock_max_cph():
-        raise ValueError(f"tblock_fused: {cph} channels per head exceeds "
-                         f"{lib.tblock_max_cph()}")
+        raise ValueError(f"{what}: {cph} channels per head exceeds the "
+                         f"forward kernels' limit of {lib.tblock_max_cph()}")
     if lib.tblock_hidden_chunk() != HIDDEN_CHUNK:
-        raise RuntimeError("tblock_fused: hidden chunk differs from the kernel")
-    _check_weights(kw, x, "tblock_fused")
+        raise RuntimeError(f"{what}: hidden chunk differs from the kernel")
+    return lib
 
+
+def _block_tiles(lib, x, heads):
+    """Pass A's tile, pass B's tile and pass A's number of CTAs per (head,
+    image) for x on the card: the first tiles of the measured orders that
+    fit shared memory, and about two CTAs per SM."""
+    b, hgt, wdt, c = x.shape
     eb = x.element_size()
 
     def pick(tiles, pass_id):
@@ -291,11 +329,7 @@ def _forward_kernel(x, kw, heads, ln_type, want_x1=False):
     ntiles = (-(-hgt // th)) * (-(-wdt // tw))
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     nsplit = max(1, min(ntiles, -(-2 * sms // (b * heads))))
-    res = _launch(lib, x, kw, heads, ln_type, (th, tw),
-                  pick(_APPLY_TILES, 1), nsplit,
-                  torch.cuda.current_stream(x.device).cuda_stream, want_x1)
-    tblock_fused.launches += 1
-    return res
+    return (th, tw), pick(_APPLY_TILES, 1), nsplit
 
 
 class _TBlockFunction(torch.autograd.Function):
@@ -365,3 +399,199 @@ def tblock_fused(x: torch.Tensor, p, heads: int, ln_type: str = "WithBias",
 
 
 tblock_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Cross-block chain: block i applied and block i+1's statistics in one kernel
+# ---------------------------------------------------------------------------
+
+# Tiles of the chain kernel, in order of the work each recomputes on its
+# 1-pixel ring ((th + 2) (tw + 2) / (th tw)); the first that fits shared
+# memory is taken, with the gram accumulators in shared memory before in
+# device memory at the same tile.
+_CHAIN_TILES = ((8, 8), (4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))
+
+
+def tblock_chain_ref(x, ps, heads: int, ln_type: str = "WithBias"):
+    """n TransformerBlocks one after the other, plain torch (JAX
+    `_chain_ref`): `tblock_ref` block by block.  ps: the blocks'
+    natural-shape parameter dicts."""
+    for p in ps:
+        x = tblock_ref(x, p, heads, ln_type)
+    return x
+
+
+def _chain_tile(lib, c, heads, eb):
+    """(tile, gram_in_smem) of the chain kernel at width c: the first of
+    _CHAIN_TILES that fits one block's shared memory, the gram
+    accumulators in shared memory where they fit at that tile."""
+    for th, tw in _CHAIN_TILES:
+        for in_smem in (1, 0):
+            if lib.tblock_chain_smem_bytes(c, heads, th, tw, eb,
+                                           in_smem) <= _SMEM_BLOCK_LIMIT:
+                return (th, tw), in_smem
+    raise ValueError("tblock_chain_fused: no tile fits shared memory")
+
+
+def _chain_launch(lib, x, kws, heads, ln_type, stats_tile, apply_tile,
+                  nsplit_a, chain_tile, gram_in_smem, nsplit, stream):
+    """The chain of len(kws) >= 2 blocks on already validated inputs: pass
+    A of block 0, the chain kernel for each block but the last (block i
+    applied, block i+1's statistics taken), pass B of the last block; the
+    glue `_attn_matrix` between them.  Returns the last block's output."""
+    b, hgt, wdt, c = x.shape
+    cph = c // heads
+    f32 = torch.float32
+    bf16 = int(x.dtype == torch.bfloat16)
+    bias_free = int(ln_type == "BiasFree")
+    stats = _pass_a(lib, x, kws[0], heads, ln_type, stats_tile, nsplit_a,
+                    stream)
+    for kw, kn in zip(kws[:-1], kws[1:]):
+        attn = _attn_matrix(*stats, kw["temperature"], heads, x.dtype)
+        out = torch.empty_like(x)
+        gram_part = torch.empty((b, nsplit, heads, cph, cph), dtype=f32,
+                                device=x.device)
+        qs_part = torch.empty((b, nsplit, c), dtype=f32, device=x.device)
+        ks_part = torch.empty((b, nsplit, c), dtype=f32, device=x.device)
+        _check(lib.tblock_chain(
+            _ptr(x), _ptr(kw["ln1w"]), _ptr(kw["ln1b"]), _ptr(kw["wv"]),
+            _ptr(kw["dwv"]), _ptr(attn), _ptr(kw["wproj"]), _ptr(kw["ln2w"]),
+            _ptr(kw["ln2b"]), _ptr(kw["w1"]), _ptr(kw["dwg"]), _ptr(kw["w2"]),
+            _ptr(kn["ln1w"]), _ptr(kn["ln1b"]), _ptr(kn["wq"]),
+            _ptr(kn["wk"]), _ptr(kn["dwqk"]), _ptr(out), _ptr(gram_part),
+            _ptr(qs_part), _ptr(ks_part), b, hgt, wdt, c, heads, kw["hpad"],
+            bf16, bias_free, chain_tile[0], chain_tile[1], nsplit,
+            gram_in_smem, ctypes.c_void_p(stream)), lib, "tblock_chain")
+        tblock_chain_fused.launches += 1
+        x = out
+        stats = (gram_part.sum(1), qs_part.sum(1), ks_part.sum(1))
+    attn = _attn_matrix(*stats, kws[-1]["temperature"], heads, x.dtype)
+    return _pass_b(lib, x, kws[-1], attn, heads, ln_type, apply_tile,
+                   stream)[0]
+
+
+def _chain_kernel(x, kws, heads, ln_type):
+    """Validated launches of the chain on a CUDA tensor (len(kws) >= 2)."""
+    _validate(x, heads, ln_type, "tblock_chain_fused")
+    b, hgt, wdt, c = x.shape
+    lib = _kernel_library(c // heads, "tblock_chain_fused")
+    for kw in kws:
+        _check_weights(kw, x, "tblock_chain_fused")
+    if len({kw["hpad"] for kw in kws}) != 1:
+        raise ValueError("tblock_chain_fused: the blocks' hidden widths "
+                         "differ")
+    stats_tile, apply_tile, nsplit_a = _block_tiles(lib, x, heads)
+    tile, in_smem = _chain_tile(lib, c, heads, x.element_size())
+    per_sm = lib.tblock_chain_ctas_per_sm(c, heads, tile[0], tile[1],
+                                          int(x.dtype == torch.bfloat16),
+                                          in_smem)
+    if per_sm < 1:
+        raise RuntimeError(f"tblock_chain_fused: no CTA of tile {tile} fits "
+                           f"an SM ({per_sm})")
+    ntiles = (-(-hgt // tile[0])) * (-(-wdt // tile[1]))
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    nsplit = max(1, min(ntiles, -(-per_sm * sms // b)))
+    tblock_chain_fused.calls += 1
+    return _chain_launch(lib, x, kws, heads, ln_type, stats_tile, apply_tile,
+                         nsplit_a, tile, in_smem, nsplit,
+                         torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _chain_forward(x, ps, heads, ln_type, kws):
+    """The chain's forward on a CUDA tensor, without autograd: no block is
+    the identity, one block is the whole-block kernel (JAX
+    `_tblock_chain_impl` delegates likewise), two or more the chain."""
+    if not ps:
+        return x
+    if kws is None or len(kws) != len(ps):
+        raise ValueError("tblock_chain_fused: a CUDA tensor needs every "
+                         "block's weights from prepare_tblock_weights (kws)")
+    if len(ps) == 1:
+        return _forward_kernel(x, kws[0], heads, ln_type)
+    return _chain_kernel(x, kws, heads, ln_type)
+
+
+def _unflatten(keys, values):
+    """The per-block parameter dicts from their keys and the flat values."""
+    ps, at = [], 0
+    for k in keys:
+        ps.append(dict(zip(k, values[at:at + len(k)])))
+        at += len(k)
+    return ps
+
+
+class _TBlockChainFunction(torch.autograd.Function):
+    """The chain on CUDA with the backward of JAX `_chain_bwd`: only x and
+    the parameters are kept, and the backward recomputes through the plain
+    chain block by block (JAX's per-block `_tblock_ref_remat`): the blocks'
+    inputs again without autograd, then from the last block to the first
+    each block's plain forward and its vector-Jacobian product.
+    Gradients come back in the natural shapes of the parameter views it
+    was given."""
+
+    @staticmethod
+    def forward(ctx, x, kws, heads, ln_type, keys, *values):
+        ctx.save_for_backward(x, *values)
+        ctx.heads, ctx.ln_type, ctx.keys = heads, ln_type, keys
+        return _chain_forward(x, _unflatten(keys, values), heads, ln_type,
+                              kws)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *values = ctx.saved_tensors
+        heads, ln_type = ctx.heads, ctx.ln_type
+        ps = _unflatten(ctx.keys, values)
+        with torch.no_grad():
+            inputs = [x]
+            for p in ps[:-1]:
+                inputs.append(tblock_ref(inputs[-1], p, heads, ln_type))
+        grads = []
+        for xi, p in zip(reversed(inputs), reversed(ps)):
+            with torch.enable_grad():
+                xi = xi.detach().requires_grad_(True)
+                leaves = {k: v.detach().requires_grad_(True)
+                          for k, v in p.items()}
+                y = tblock_ref(xi, leaves, heads, ln_type)
+                dx, *dp = torch.autograd.grad(
+                    y, [xi, *leaves.values()], g)
+            grads = dp + grads
+            g = dx
+        return (g, None, None, None, None, *grads)
+
+
+def tblock_chain_fused(x: torch.Tensor, ps, heads: int,
+                       ln_type: str = "WithBias", kws=None):
+    """n TransformerBlocks with cross-block fusion (JAX
+    `tblock_chain_fused`).  x: (B, H, W, C) float32 or bfloat16; ps: the
+    blocks' natural-shape parameter dicts (`tblock_ref`'s); kws: their
+    `prepare_tblock_weights` outputs, required on CUDA (TransformerBlock
+    caches them per module).
+
+    CPU tensors take `tblock_chain_ref`.  CUDA tensors launch the kernels:
+    two or more blocks the chain (tblock.cu's pass A of the first block,
+    csrc/tblock_chain.cu for each block but the last, tblock.cu's pass B
+    of the last), one block the whole-block kernel.  Any input the kernels
+    cannot take raises.  When an input needs a gradient, the call runs as
+    `_TBlockChainFunction`, whose backward recomputes through the plain
+    chain.
+
+    Counters: `tblock_chain_fused.calls` counts chains of two or more
+    blocks run on the card, `tblock_chain_fused.launches` launches of the
+    chain kernel (n - 1 per such call); the first pass A and the last
+    pass B of a chain do not count as `tblock_fused` launches, a chain of
+    one block does."""
+    ps = list(ps)
+    if x.device.type == "cpu":
+        return tblock_chain_ref(x, ps, heads, ln_type)
+    needs_grad = torch.is_grad_enabled() and (
+        x.requires_grad or any(v.requires_grad for p in ps
+                               for v in p.values()))
+    if not needs_grad:
+        return _chain_forward(x, ps, heads, ln_type, kws)
+    keys = tuple(tuple(p) for p in ps)
+    return _TBlockChainFunction.apply(x, kws, heads, ln_type, keys,
+                                      *(p[k] for p in ps for k in p))
+
+
+tblock_chain_fused.calls = 0
+tblock_chain_fused.launches = 0

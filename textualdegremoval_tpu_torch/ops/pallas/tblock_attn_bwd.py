@@ -160,9 +160,9 @@ def attn_half_bwd(x, dx1, p, heads, ln_type, stats=None, kw=None):
 
     lib = load_library()
     b, hgt, wdt, c = x.shape
-    if c // heads > lib.tblock_max_cph():
+    if c // heads > lib.tblock_attn_bwd_max_cph():
         raise ValueError(f"attn_half_bwd: {c // heads} channels per head "
-                         f"exceeds {lib.tblock_max_cph()}")
+                         f"exceeds {lib.tblock_attn_bwd_max_cph()}")
     eb = x.element_size()
 
     def pick(pass_id):

@@ -1,4 +1,4 @@
-"""Pixel (un)shuffle and padding on NHWC tensors.
+"""Pixel (un)shuffle, padding and bilinear resizing on NHWC tensors.
 
 Counterpart of textualdegremoval_tpu/ops/resize.py.  Channel packing is
 PyTorch's (c, i, j): channel index c*r*r + i*r + j, with (i, j) the offset
@@ -34,3 +34,15 @@ def pad_to_multiple(x: torch.Tensor, multiple: int) -> torch.Tensor:
     if ph == 0 and pw == 0:
         return x
     return F.pad(x, (0, 0, 0, pw, 0, ph))
+
+
+def bilinear_resize_torch(x: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, oh, ow, C): bilinear, align_corners=False, no
+    antialiasing, for up- and down-scaling alike (JAX
+    `bilinear_resize_torch`, which reproduces this very call).  Runs
+    F.interpolate on the channels-last NCHW view."""
+    if x.shape[1:3] == (oh, ow):
+        return x
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(oh, ow), mode="bilinear",
+                      align_corners=False, antialias=False)
+    return y.permute(0, 2, 3, 1)
