@@ -117,7 +117,35 @@ Phases, each of which raises on failure:
    launches); then `restore_and_score` on synthetic 512 x 512 triples in
    bfloat16 through both routes, one warm-up and two timed each, with
    those launch counts per forward, images/s, peak memory and a profiled
-   forward.
+   forward;
+19. the standalone GDFN kernel `gdfn_fused` against its plain version
+   `gdfn_ref` at every GDFN shape of a 512 px restormer_deblur forward
+   plus a ragged batch-2 shape, float32 and bfloat16, weights at a
+   trained block's scale, elementwise and L2 bounds over the GDFN's
+   output, two calls bitwise equal, the median time of both; and its
+   gradient (the kernel forward, the backward through `gdfn_ref`) at a
+   384 px batch-8 shape against autograd through `gdfn_ref`;
+20. the MDTA statistics kernel `mdta_stats` against `mdta_stats_ref`, and
+   `mdta_attention` against the module path's `mdta_attention_nhwc`, at
+   every attention shape of that forward, PromptIR's noise blocks (176 /
+   80 / 40 channels per head) and a ragged shape, q and k strided chunks
+   of one qkv tensor, float32 and bfloat16: bounds, two calls bitwise
+   equal, times; and its refusal of a call that needs a gradient;
+21. the module path as an evaluation route: the full-width
+   restormer_deblur network with fused=False, gdfn_fused=True and
+   mdta_pallas=True on the card against the CPU in float32, then
+   `restore_and_score` on synthetic 512 x 512 triples in bfloat16 (one
+   warm-up, two timed; 52 launches of each kernel per forward and none of
+   the whole-block kernel), images/s, peak memory, a profiled forward,
+   and the module path without the two kernels;
+22. the module path as a training route: the training CLI's step function
+   with restormer_motion_deblur.yml's options, fused_kernels off and
+   --gdfn_kernel, at 384 px in bf16 (batch 2: module blocks keep every
+   activation for autograd, and batch 8 would not fit the card), 52 B6
+   launches per step, timed against the same step with every GDFN op by
+   op in alternating turns with the peak memory of each; the peak at
+   batch 1 and 2 on both routes; one f32 step at 128 px on the card
+   against the CPU.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is nvidia-smi's, and before that a JSON summary of each kernel.  Without
@@ -132,7 +160,10 @@ catches the fault (the strength of the phase's bound): dv_uses_a and dq_drops_di
 backward), sca_skipped and halo_kept (phase 8, the NAFBlock forward),
 no_rescale (phase 11, the flash kernel), no_di, dk_unscaled and lse_log2
 (phase 14, the flash backward and the forward's lse), chain_ring_zeroed
-(phase 17, the chain kernel's statistics without the tile's ring).
+(phase 17, the chain kernel's statistics without the tile's ring),
+gdfn_halo_kept (phase 19, the GDFN's hidden not zeroed outside the
+image) and mdta_k_unnormed (phase 20, k's norms dropped from the
+attention).
 """
 
 from __future__ import annotations
@@ -173,6 +204,9 @@ from textualdegremoval_tpu_torch.models.layers import (
 from textualdegremoval_tpu_torch.models.unet import UNet2DCondition
 from textualdegremoval_tpu_torch.ops import _build
 from textualdegremoval_tpu_torch.ops import flash_attn as fa
+from textualdegremoval_tpu_torch.ops.attention import mdta_attention_nhwc
+from textualdegremoval_tpu_torch.ops.pallas import gdfn as gd
+from textualdegremoval_tpu_torch.ops.pallas import mdta as md
 from textualdegremoval_tpu_torch.ops.pallas import nafblock as nb
 from textualdegremoval_tpu_torch.ops.pallas import tblock as tb
 from textualdegremoval_tpu_torch.ops.pallas import tblock_attn_bwd as ab
@@ -323,14 +357,16 @@ def kernel_vs_plain(gen: torch.Generator, timed: bool = True,
     return main_rows
 
 
-def build_network(seed: int, dtype, device, task=TASK) -> torch.nn.Module:
-    """A task's network at full width with seeded random weights; the
-    zero-initialised fusion gates and residual scales and the unit
-    temperatures are set to non-zero random values so every block's output
-    reaches the result."""
+def build_network(seed: int, dtype, device, task=TASK,
+                  extra=None) -> torch.nn.Module:
+    """A task's network at full width with seeded random weights (`extra`:
+    network options over the task's); the zero-initialised fusion gates
+    and residual scales and the unit temperatures are set to non-zero
+    random values so every block's output reaches the result."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = define_network(TASK_TABLE[task], dtype=dtype)
+        model = define_network(dict(TASK_TABLE[task], **(extra or {})),
+                               dtype=dtype)
     return gate_and_temperatures(model, seed).to(device)
 
 
@@ -366,13 +402,14 @@ def _chain_counts():
 
 
 def network_vs_cpu(seed: int, task=TASK, kernel=tb.tblock_fused,
-                   routes=((52, None),)):
-    """Phases 4, 9 and 18: the task's network on the card vs on the CPU
-    (plain), float32, through each route (blocks, chain): `blocks`
-    launches of the forward kernel `kernel` and, with chain = (calls,
-    launches), that many chain calls and chain kernel launches, every
-    stage routed through the chain."""
-    model_cpu = build_network(seed, torch.float32, "cpu", task)
+                   routes=((52, None),), extra=None, more=()):
+    """Phases 4, 9, 18 and 21: the task's network (with the network
+    options `extra`) on the card vs on the CPU (plain), float32, through
+    each route (blocks, chain): `blocks` launches of the forward kernel
+    `kernel`, `n` launches of each other (kernel, n) of `more` and, with
+    chain = (calls, launches), that many chain calls and chain kernel
+    launches, every stage routed through the chain."""
+    model_cpu = build_network(seed, torch.float32, "cpu", task, extra)
     model_gpu = copy.deepcopy(model_cpu).to("cuda")
     rng = np.random.default_rng(seed + 2)
     lq = rng.random((1, 128, 128, 3), dtype=np.float32)
@@ -381,7 +418,8 @@ def network_vs_cpu(seed: int, task=TASK, kernel=tb.tblock_fused,
         want = model_cpu(torch.from_numpy(lq), torch.from_numpy(ref))
     for blocks, chain in routes:
         set_chain(model_gpu, chain is not None)
-        kernel.launches = 0
+        for k in (kernel, *(k for k, _ in more)):
+            k.launches = 0
         _reset_chain_counts()
         with torch.inference_mode():
             got = model_gpu(torch.from_numpy(lq).cuda(),
@@ -389,11 +427,13 @@ def network_vs_cpu(seed: int, task=TASK, kernel=tb.tblock_fused,
         err = (got - want).abs().max().item()
         route = "" if chain is None else (
             f", chain calls/launches {_chain_counts()}")
+        others = "".join(f", {k.__name__} {k.launches}" for k, _ in more)
         log(f"{task} f32 128x128, card ({kernel.launches} kernel launches"
-            f"{route}) vs CPU (plain): max_abs {err:.3e} (atol "
+            f"{others}{route}) vs CPU (plain): max_abs {err:.3e} (atol "
             f"{NET_ATOL}), max|out| {want.abs().max().item():.3f}")
         if not torch.isfinite(got).all() or err > NET_ATOL \
                 or kernel.launches != blocks \
+                or any(k.launches != n for k, n in more) \
                 or _chain_counts() != (chain or (0, 0)):
             raise RuntimeError(f"{task} on the card disagrees with the "
                                f"CPU: {err}, {kernel.launches} launches, "
@@ -413,18 +453,21 @@ def synthetic_triple(rng, size=512):
 
 
 def main_path(seed: int, task=TASK, kernel=tb.tblock_fused, blocks=52,
-              chain=None):
-    """Phases 5, 9 and 18, the evaluation path of `task`, whose every
-    forward launches its forward kernel `kernel` `blocks` times and, with
-    `chain` = (calls, launches) per forward, makes that many chain calls
-    and chain kernel launches, every stage routed through the chain.
-    Returns (the launches of `kernel`, forward ms, the chain calls and
-    launches)."""
-    model = set_chain(build_network(seed, torch.bfloat16, "cuda", task),
-                      chain is not None)
+              chain=None, extra=None, more=()):
+    """Phases 5, 9, 18 and 21, the evaluation path of `task` (with the
+    network options `extra`), whose every forward launches its forward
+    kernel `kernel` `blocks` times and each other (kernel, n) of `more` n
+    times and, with `chain` = (calls, launches) per forward, makes that
+    many chain calls and chain kernel launches, every stage routed through
+    the chain.  Returns (the launches of `kernel`, forward ms, the chain
+    calls and launches, the launches of each kernel of `more`)."""
+    model = set_chain(
+        build_network(seed, torch.bfloat16, "cuda", task, extra),
+        chain is not None)
     rng = np.random.default_rng(seed + 3)
     triples = [synthetic_triple(rng) for _ in range(2)]
-    kernel.launches = 0
+    for k in (kernel, *(k for k, _ in more)):
+        k.launches = 0
     _reset_chain_counts()
     forwards = 0
     _, psnr, ssim = restore_and_score(model, *triples[0])
@@ -442,19 +485,25 @@ def main_path(seed: int, task=TASK, kernel=tb.tblock_fused, blocks=52,
         log(f"{task} image {i}: {ms:.1f} ms (restore + score), psnr "
             f"{psnr:.4f} ssim {ssim:.4f}")
     launches, chain_counts = kernel.launches, _chain_counts()
+    others = tuple(k.launches for k, _ in more)
     log(f"{task}: {kernel.__name__} launches {launches} over {forwards} "
-        f"forwards; chain calls/launches {chain_counts}")
+        f"forwards; chain calls/launches {chain_counts}" + "".join(
+            f"; {k.__name__} launches {k.launches}" for k, _ in more))
     want = tuple(forwards * n for n in chain or (0, 0))
-    if launches != blocks * forwards or chain_counts != want:
-        raise RuntimeError(f"expected {blocks * forwards} kernel launches "
-                           f"and chain calls/launches {want}, got "
-                           f"{launches}, {chain_counts}")
+    if launches != blocks * forwards or chain_counts != want \
+            or others != tuple(forwards * n for _, n in more):
+        raise RuntimeError(f"expected {blocks * forwards} kernel launches, "
+                           f"chain calls/launches {want} and "
+                           f"{[forwards * n for _, n in more]}, got "
+                           f"{launches}, {chain_counts}, {others}")
 
     lq, _, ref = triples[0]
     args = [torch.from_numpy(a)[None].to("cuda", torch.bfloat16)
             for a in (lq, ref)]
     torch.cuda.reset_peak_memory_stats()
     route = "" if chain is None else " (chain)"
+    if extra:
+        route += f" ({', '.join(f'{k}={v}' for k, v in extra.items())})"
     with torch.inference_mode():
         fwd_ms = median_ms(lambda: model(*args), reps=3)
         log(f"{task}{route} forward 512x512 bf16: {fwd_ms:.2f} ms "
@@ -463,7 +512,7 @@ def main_path(seed: int, task=TASK, kernel=tb.tblock_fused, blocks=52,
         profile_device(lambda: model(*args), f"{task}{route} forward")
     del model
     torch.cuda.empty_cache()
-    return launches, fwd_ms, chain_counts
+    return launches, fwd_ms, chain_counts, others
 
 
 # ---------------------------------------------------------------------------
@@ -540,6 +589,17 @@ FAULTS = {
         "tblock_chain.cu", "if (gy < 0 || gy >= H || gx < 0 || gx >= W) {",
         "if (gy < oy || gy >= oy + th || gy >= H || gx < ox || "
         "gx >= ox + tw || gx >= W) {", 17),
+    # the GDFN's hidden kept on the halo outside the image (the 1x1 of x's
+    # clamped edge pixels) instead of zeroed: the depthwise conv's zero
+    # padding lost (the standalone GDFN kernel; the whole-block kernels
+    # share the body but only phase 19 runs)
+    "gdfn_halo_kept": (
+        "tblock_fwd.cuh", "gy >= 0 && gy < H && gx >= 0 && gx < W ? a : 0.f",
+        "a", 19),
+    # k's square sums dropped from the finish: the attention logits lose
+    # their division by |k_d|
+    "mdta_k_unnormed": ("mdta.cu", "rk[d] = 1.f / sqrtf(fmaxf(s, 1e-24f));",
+                        "rk[d] = 1.f;", 20),
 }
 
 
@@ -732,26 +792,39 @@ def _plain_blocks(x, p, heads, ln_type="WithBias", kw=None,
                       use_reentrant=False)
 
 
+def _swap(route_name: str, plain_fn):
+    """A switch of the comparison turns (`train_main_path`'s `plain`):
+    switch(model, True) puts plain_fn in place of models.layers'
+    `route_name`, switch(model, False) puts the kernel route back."""
+    kernel_fn = getattr(layers, route_name)
+
+    def switch(_, on: bool):
+        setattr(layers, route_name, plain_fn if on else kernel_fn)
+    return switch
+
+
 def train_main_path(seed: int, opt=TRAIN_OPT, kernels=None, per_step=None,
-                    plain=("tblock_fused", _plain_blocks)):
-    """Phases 7 and 10, the training path of `opt` in bf16 at 384 px batch
-    8: every step launches each of `kernels` per_step times; the
-    comparison turns put plain = (name in models.layers, plain route) in
-    place of the kernel route.  Returns (launches of each kernel over the
-    counted steps, kernel step ms, plain step ms, kernel peak GiB, plain
-    peak GiB)."""
+                    plain=None, batch_size=8, resolve_kw=None):
+    """Phases 7, 10 and 22, the training path of `opt` (resolve_network
+    with `resolve_kw`) in bf16 at 384 px, batch `batch_size`: every step
+    launches each of `kernels` per_step times; the comparison turns call
+    plain(model, True) before a plain turn and plain(model, False) after
+    it (default: `_plain_blocks` for `tblock_fused`).  Returns (launches
+    of each kernel over the counted steps, kernel step ms, plain step ms,
+    kernel peak GiB, plain peak GiB)."""
     kernels = kernels or (tb.tblock_fused, gb.gdfn_half_bwd,
                           ab.attn_half_bwd)
     per_step = per_step or (52, 52, 52)
+    switch = plain or _swap("tblock_fused", _plain_blocks)
     name = opt["network_g"]["type"]
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model, _, _ = resolve_network(opt, mixed_precision="bf16",
-                                      device="cuda")
+                                      **(resolve_kw or {}))
     model = gate_and_temperatures(model, seed).cuda()
     init = {k: v.clone() for k, v in model.state_dict().items()}
     rng = np.random.default_rng(seed + 4)
-    trip = [synthetic_triple(rng, 384) for _ in range(8)]
+    trip = [synthetic_triple(rng, 384) for _ in range(batch_size)]
     batch = {k: torch.from_numpy(np.stack([t[i] for t in trip])).cuda()
              for i, k in enumerate(("lq", "gt", "ref"))}
 
@@ -820,9 +893,10 @@ def train_main_path(seed: int, opt=TRAIN_OPT, kernels=None, per_step=None,
     if still:
         raise RuntimeError(f"trunk parameters did not move: {still[:3]}")
 
-    # one step with the memory-lean backward of the TransformerBlocks: one
-    # more forward launch per block
-    blocks = [m for m in model.modules() if isinstance(m, TransformerBlock)]
+    # one step with the memory-lean backward of the whole-block kernels:
+    # one more forward launch per block
+    blocks = [m for m in model.modules() if isinstance(m, TransformerBlock)
+              and m.fused]
     if blocks:
         for mod in blocks:
             mod.bwd_mode = "remat"
@@ -837,11 +911,9 @@ def train_main_path(seed: int, opt=TRAIN_OPT, kernels=None, per_step=None,
     # alternating turns; peak memory of each
     turns = {"kernel": [], "plain": []}
     peak = {}
-    route_name, plain_fn = plain
-    kernel_fn = getattr(layers, route_name)
     for route in ("kernel", "plain", "plain", "kernel", "kernel", "plain"):
         if route == "plain":
-            setattr(layers, route_name, plain_fn)
+            switch(model, True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -850,12 +922,13 @@ def train_main_path(seed: int, opt=TRAIN_OPT, kernels=None, per_step=None,
         torch.cuda.synchronize()
         turns[route].append((time.perf_counter() - t0) * 1e3)
         peak[route] = torch.cuda.max_memory_allocated() / 2 ** 30
-        setattr(layers, route_name, kernel_fn)
+        switch(model, False)
     k_ms = statistics.median(turns["kernel"])
     p_ms = statistics.median(turns["plain"])
     profile_device(lambda: float(step_fn(state, batch)[1]["l_pix"]),
                    f"{name} step")
-    log(f"{name} train step 384 px batch 8 bf16, alternating turns: kernel "
+    log(f"{name} train step 384 px batch {batch_size} bf16, alternating "
+        f"turns: kernel "
         f"{[round(v, 2) for v in turns['kernel']]} ms, plain blocks "
         f"{[round(v, 2) for v in turns['plain']]} ms; medians {k_ms:.2f} vs "
         f"{p_ms:.2f} ms; peak memory {peak['kernel']:.2f} vs "
@@ -901,7 +974,7 @@ def profile_device(fn, what: str):
         log("profiler: no device time recorded")
         return
     ours = ("tblock_", "gdfn_bwd", "attn_bwd", "wgrad", "nafblock_",
-            "flash_")
+            "flash_", "gdfn_kernel", "mdta_")
     mine = sum(t for k, t, _ in kernels if any(o in k for o in ours))
     log(f"profiled {what}: wall {wall:.1f} ms, {len(spans)} device events, "
         f"device busy {busy:.1f} ms (summed {summed:.1f} ms), idle share "
@@ -911,18 +984,21 @@ def profile_device(fn, what: str):
         log(f"    {t:9.2f} ms {n:6d}x  {k[:90]}")
 
 
-def train_step_vs_cpu(seed: int):
-    """Phase 7: one f32 step at 128 px, batch 1, on the card (kernels)
-    against the same step on the CPU (plain blocks).  Each parameter's
+def train_step_vs_cpu(seed: int, opt=TRAIN_OPT, resolve_kw=None,
+                      kernels=()):
+    """Phases 7 and 22: one f32 step of `opt` (resolve_network with
+    `resolve_kw`) at 128 px, batch 1, on the card (kernels) against the
+    same step on the CPU (plain blocks); each (kernel, n) of `kernels` is
+    launched n times in the card's step.  Each parameter's
     gradient, as the step hands it to the optimizer, is held to
     ||g_card - g_cpu|| <= 1e-3 ||g_cpu||, so that one small tensor with a
     wrong gradient fails (the first Adam update, about lr * g / |g|, keeps
     only the sign of each element); and every element of the update to
     |d_card - d_cpu| <= 1e-2 lr."""
-    topt = dict(TRAIN_OPT["train"], param_fix_iterations=0)
+    topt = dict(opt["train"], param_fix_iterations=0)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model_cpu, _, _ = resolve_network(TRAIN_OPT, device="cpu")
+        model_cpu, _, _ = resolve_network(opt, **(resolve_kw or {}))
     model_cpu = gate_and_temperatures(model_cpu, seed)
     model_gpu = copy.deepcopy(model_cpu).cuda()
     init = {k: v.clone() for k, v in model_cpu.state_dict().items()}
@@ -931,6 +1007,8 @@ def train_step_vs_cpu(seed: int):
     batch = {k: torch.from_numpy(v)[None] for k, v in
              (("lq", lq), ("gt", gt), ("ref", ref))}
     losses, grads, after = [], [], []
+    for k, _ in kernels:
+        k.launches = 0
     for model, dev in ((model_cpu, "cpu"), (model_gpu, "cuda")):
         state, step_fn, _ = _trainer(model, topt)
         seen = {}
@@ -947,7 +1025,7 @@ def train_step_vs_cpu(seed: int):
         grads.append(seen)
         after.append({k: v.detach().cpu() for k, v in
                       model.state_dict().items()})
-    lr = TRAIN_OPT["train"]["optim_g"]["lr"]
+    lr = opt["train"]["optim_g"]["lr"]
     g_rel = sorted(
         (((grads[1][k] - g).norm() / g.norm().clamp_min(1e-30)).item(), k)
         for k, g in grads[0].items())
@@ -958,8 +1036,10 @@ def train_step_vs_cpu(seed: int):
         f"{losses[0]:.7f} (rel {rel:.2e}); gradient L2 error / norm over "
         f"{len(g_rel)} parameters: median {g_rel[len(g_rel) // 2][0]:.2e}, "
         f"largest " + ", ".join(f"{k} {v:.2e}" for v, k in g_rel[-3:])
-        + f"; update difference max {worst:.3e} (lr {lr})")
-    if not rel <= 1e-4 or not g_rel[-1][0] <= 1e-3 or worst > 1e-2 * lr:
+        + f"; update difference max {worst:.3e} (lr {lr})" + "".join(
+            f"; {k.__name__} launches {k.launches}" for k, _ in kernels))
+    if not rel <= 1e-4 or not g_rel[-1][0] <= 1e-3 or worst > 1e-2 * lr \
+            or any(k.launches != n for k, n in kernels):
         raise RuntimeError("the f32 step on the card disagrees with the CPU")
 
 
@@ -1933,6 +2013,318 @@ def promptir_path(seed: int):
 
 
 # ---------------------------------------------------------------------------
+# Phases 19-22: the module path, its GDFN kernel (B6) and its MDTA
+# statistics kernel (B7)
+# ---------------------------------------------------------------------------
+
+# the module path with both kernels: JAX TransformerBlock(fused=False) with
+# GDFN(fused=True) and MDTAAttention(use_pallas=True); one launch of each
+# kernel per block, none of the whole-block kernel
+MODULE_ROUTE = {"fused": False, "gdfn_fused": True, "mdta_pallas": True}
+MODULE_BLOCKS = 52
+# (B, H, W, C, blocks of that shape in one 512 px restormer_deblur
+# forward): every GDFN of SHAPES, the ragged one included
+GDFN_SHAPES = [(b, h, w, c, n) for b, h, w, c, _, n in SHAPES]
+# B6 vs gdfn_ref: pass when |k - p| <= a max|p| + r |p| at every element
+# and ||k - p|| <= l2 ||p|| (the GDFN's output is all it adds to the
+# block's residual), (a, r, l2).  float32: sum orders only; on an H100 the
+# first version read at most 2.5e-6 of max|p| and 8.4e-7 in L2.
+# bfloat16: the kernel keeps the depthwise sums and the gate in f32 and
+# rounds where JAX's kernel does, the plain version after every op: 0.9%
+# of max|p| and 5.4e-3 in L2 there.
+GDFN_TOL = {torch.float32: (2e-5, 1e-4, 1e-5),
+            torch.bfloat16: (2e-2, 2e-2, 1.5e-2)}
+# (B, H, W, C, heads, blocks of that shape in one forward): every
+# attention of SHAPES and PromptIR's three noise blocks (cph 176 / 80 /
+# 40)
+MDTA_SHAPES = SHAPES + [(b, h, w, c, heads, 0)
+                        for b, h, w, c, heads, _ in NOISE_SHAPES[:3]]
+# B7 vs mdta_stats_ref, (atol, rtol, l2) for attn (f32 in both, entries in
+# [0, 1]; both take the same inputs to f32 and differ in sum order only:
+# the first version read at most 5.5e-6 on an H100) and (a, r, l2) as
+# GDFN_TOL's for attn . v, which casts attn to v's dtype: in bf16 an
+# attention entry whose rounding flips moves the output by up to a bf16
+# ulp of that term.
+MDTA_TOL = {torch.float32: (5e-5, 1e-3, 1e-4),
+            torch.bfloat16: (5e-5, 1e-3, 1e-4)}
+MDTA_OUT_TOL = {torch.float32: (1e-4, 1e-4, 1e-4),
+                torch.bfloat16: (1e-2, 1e-2, 1e-2)}
+# the training protocol's options with fused_kernels off (module blocks)
+MODULE_TRAIN_OPT = {**TRAIN_OPT, "train": {**TRAIN_OPT["train"],
+                                           "fused_kernels": "off"}}
+# phase 22's batch: module blocks save every activation for autograd
+# (about 100 KB per 384 px pixel with B6, 150 KB without, measured by a
+# saved-tensor count on the CPU), so the protocol's batch of 8 would need
+# more than the card's 80 GB on either route; 2 fits both
+MODULE_TRAIN_BATCH = 2
+
+
+def _err_use(got, want, a, r, l2):
+    """(max_abs, elementwise use, L2 use) of got against want under the
+    bound |k - p| <= a max|p| + r |p| and ||k - p|| <= l2 ||p||; each is
+    within its bound when at most 1."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    lim = (a * w.abs().max() + r * w.abs()).clamp_min(1e-30)
+    return (diff.max().item(), (diff / lim).max().item(),
+            (diff.norm() / w.norm().clamp_min(1e-30)).item() / l2)
+
+
+def gdfn_weights(c: int, gen: torch.Generator):
+    """A GDFN's (w1 (C, 2h), dwk (3, 3, 2h), w2 (h, C)) at a trained
+    block's scale (randomize_block's N(0, 1/fan_in))."""
+    hid = int(c * 2.66)
+    return (torch.randn(c, 2 * hid, generator=gen) * c ** -0.5,
+            torch.randn(3, 3, 2 * hid, generator=gen) / 3,
+            torch.randn(hid, c, generator=gen) * hid ** -0.5)
+
+
+def gdfn_vs_plain(gen, shapes=GDFN_SHAPES,
+                  dtypes=(torch.float32, torch.bfloat16), timed=True):
+    """Phase 19: `gdfn_fused` against `gdfn_ref` at every GDFN shape of the
+    512 px forward and a ragged batch-2 shape, float32 and bfloat16, under
+    GDFN_TOL; two calls bitwise equal, one launch per call; the median
+    time of both.  Returns the bf16 rows of the main path as (GDFNs per
+    forward, max_abs, kernel ms, plain ms, shape)."""
+    log("gdfn_fused vs gdfn_ref: |k-p| <= a max|p| + r|p|, ||k-p|| <= l2 "
+        f"||p||; (a, r, l2) f32 {GDFN_TOL[torch.float32]}, bf16 "
+        f"{GDFN_TOL[torch.bfloat16]}; tol_use and l2_use are the errors "
+        "over their bounds")
+    lib = _build.load_library()
+    rows, failures = [], []
+    for b, h, w, c, n in shapes:
+        w1, dwk, w2 = (t.cuda() for t in gdfn_weights(c, gen))
+        x32 = torch.randn(b, h, w, c, generator=gen)
+        for dtype in dtypes:
+            x = x32.to("cuda", dtype)
+            kw = gd.prepare_gdfn_weights(w1, dwk, w2, dtype)
+            with torch.inference_mode():
+                before = gd.gdfn_fused.launches
+                got = gd.gdfn_fused(x, w1, dwk, w2, kw)
+                same = torch.equal(got, gd.gdfn_fused(x, w1, dwk, w2, kw))
+                launched = gd.gdfn_fused.launches - before
+                want = gd.gdfn_ref(x, w1, dwk, w2)
+                max_abs, use, l2_use = _err_use(got, want, *GDFN_TOL[dtype])
+                finite = bool(torch.isfinite(got).all())
+                k_ms = p_ms = float("nan")
+                if timed:
+                    k_ms = median_ms(lambda: gd.gdfn_fused(x, w1, dwk, w2,
+                                                           kw))
+                    p_ms = median_ms(lambda: gd.gdfn_ref(x, w1, dwk, w2))
+            name = str(dtype).split(".")[-1]
+            log(f"{b},{h},{w},{c} {name}: max_abs {max_abs:.3e} (max|p| "
+                f"{want.abs().max().item():.3f}) tol_use {use:.3f} l2_use "
+                f"{l2_use:.3f} kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
+                f"tile {gd.pick_tile(lib, c, x.element_size())}"
+                f"{'' if same else '  NOT REPEATABLE'}")
+            if not finite or not same or launched != 2 \
+                    or max(use, l2_use) > 1.0:
+                failures.append((b, h, w, c, name))
+            if dtype == torch.bfloat16 and n:
+                rows.append((n, max_abs, k_ms, p_ms, (b, h, w, c)))
+            del got, want, x, kw
+    if failures:
+        raise RuntimeError(f"gdfn_fused disagrees with gdfn_ref at "
+                           f"{failures}")
+    return rows
+
+
+def gdfn_grad_vs_autograd(gen, shape=(8, 384, 384, 48)):
+    """Phase 19, the gradient: `gdfn_fused` under autograd (the kernel
+    forward, the backward recomputing through gdfn_ref) against autograd
+    through `gdfn_ref`, f32, at a 384 px batch-8 training shape: x and
+    each weight in L2 against its own norm (phase 6's f32 bound)."""
+    b, h, w, c = shape
+    ws = [t.cuda().requires_grad_(True) for t in gdfn_weights(c, gen)]
+    x = torch.randn(b, h, w, c, generator=gen).cuda().requires_grad_(True)
+    g = torch.randn(b, h, w, c, generator=gen).cuda()
+    before = gd.gdfn_fused.launches
+    got = torch.autograd.grad(gd.gdfn_fused(x, *ws), [x, *ws], g)
+    launched = gd.gdfn_fused.launches - before
+    want = torch.autograd.grad(gd.gdfn_ref(x, *ws), [x, *ws], g)
+    errs = [((a - r).norm() / r.norm().clamp_min(1e-30)).item()
+            for a, r in zip(got, want)]
+    log(f"gdfn_fused gradient at {shape} f32 vs autograd through gdfn_ref: "
+        f"L2 x/w1/dwk/w2 {' '.join(f'{e:.3e}' for e in errs)} (bound "
+        f"{GRAD_L2[torch.float32]}), {launched} launch")
+    if max(errs) > GRAD_L2[torch.float32] or launched != 1:
+        raise RuntimeError(f"gdfn_fused gradient disagrees: {errs}")
+    del x, g, ws, got, want
+    torch.cuda.empty_cache()
+
+
+def mdta_vs_plain(gen, shapes=MDTA_SHAPES,
+                  dtypes=(torch.float32, torch.bfloat16), timed=True):
+    """Phase 20: `mdta_stats` against `mdta_stats_ref` and `mdta_attention`
+    against the module path's `mdta_attention_nhwc`, at every attention
+    shape of the 512 px forward, PromptIR's noise blocks and a ragged
+    batch-2 shape, float32 and bfloat16.  q, k and v are the chunks of one
+    qkv = x . W (W ~ N(0, 1/C), so channel correlations are O(C^-1/2)) with
+    temperatures ~ sqrt(C), so each softmax row is far from uniform; q and
+    k go to the kernel as strided views.  Bounds MDTA_TOL / MDTA_OUT_TOL;
+    two calls bitwise equal; the median time of the kernels and of
+    `mdta_stats_ref`.  Returns the bf16 rows of the main path as (blocks
+    per forward, max_abs of attn, kernel ms, plain ms, shape)."""
+    log("mdta_stats vs mdta_stats_ref (attn: |k-p| <= atol + rtol|p|, "
+        "||k-p|| <= l2 ||p||) and attn.v vs mdta_attention_nhwc (|k-p| <= a "
+        f"max|p| + r|p|, l2); f32 {MDTA_TOL[torch.float32]} / "
+        f"{MDTA_OUT_TOL[torch.float32]}, bf16 {MDTA_TOL[torch.bfloat16]} / "
+        f"{MDTA_OUT_TOL[torch.bfloat16]}")
+    lib = _build.load_library()
+    rows, failures = [], []
+    for b, h, w, c, heads, n in shapes:
+        x = torch.randn(b, h, w, c, generator=gen).cuda()
+        wqkv = (torch.randn(c, 3 * c, generator=gen) * c ** -0.5).cuda()
+        temp = (c ** 0.5 * (0.5 + torch.rand(heads, 1, 1,
+                                              generator=gen))).cuda()
+        for dtype in dtypes:
+            with torch.inference_mode():
+                qkv = (x @ wqkv).to(dtype)
+                q, k, v = torch.chunk(qkv, 3, dim=-1)
+                before = md.mdta_stats.launches
+                got = md.mdta_stats(q, k, temp, heads)
+                same = torch.equal(got, md.mdta_stats(q, k, temp, heads))
+                out = md.mdta_attention(q, k, v, temp, heads)
+                launched = md.mdta_stats.launches - before
+                want = md.mdta_stats_ref(q, k, temp, heads)
+                want_out = mdta_attention_nhwc(q, k, v, temp, heads)
+                atol, rtol, l2 = MDTA_TOL[dtype]
+                diff = (got - want).abs()
+                max_abs = diff.max().item()
+                use = (diff / (atol + rtol * want.abs())).max().item()
+                l2_use = (diff.norm() / want.norm()).item() / l2
+                out_abs, out_use, out_l2 = _err_use(out, want_out,
+                                                    *MDTA_OUT_TOL[dtype])
+                finite = bool(torch.isfinite(got).all()
+                              and torch.isfinite(out).all())
+                k_ms = p_ms = float("nan")
+                if timed:
+                    k_ms = median_ms(lambda: md.mdta_stats(q, k, temp,
+                                                           heads))
+                    p_ms = median_ms(lambda: md.mdta_stats_ref(q, k, temp,
+                                                               heads))
+            name = str(dtype).split(".")[-1]
+            log(f"{b},{h},{w},{c},{heads} {name}: attn max_abs "
+                f"{max_abs:.3e} tol_use {use:.3f} l2_use {l2_use:.3f} "
+                f"(row max {want.max().item():.3f}); attn.v max_abs "
+                f"{out_abs:.3e} tol_use {out_use:.3f} l2_use {out_l2:.3f}; "
+                f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms; chunk, splits "
+                f"{md.plan(lib, q, heads)}"
+                f"{'' if same else '  NOT REPEATABLE'}")
+            if not finite or not same or launched != 3 \
+                    or max(use, l2_use, out_use, out_l2) > 1.0:
+                failures.append((b, h, w, c, heads, name))
+            if dtype == torch.bfloat16 and n:
+                rows.append((n, max_abs, k_ms, p_ms, (b, h, w, c, heads)))
+            del qkv, q, k, v, got, want, out, want_out
+    if failures:
+        raise RuntimeError(f"mdta_stats disagrees with mdta_stats_ref at "
+                           f"{failures}")
+    return rows
+
+
+def mdta_refuses_grad():
+    """Phase 20: the statistics kernel is forward only (as is JAX's): a
+    call that would need a gradient raises, and launches nothing."""
+    q = torch.randn(1, 8, 8, 16, device="cuda", requires_grad=True)
+    before = md.mdta_stats.launches
+    try:
+        md.mdta_attention(q, q.detach(), q.detach(), torch.ones(2, 1, 1,
+                                                                device="cuda"),
+                          2)
+    except RuntimeError as e:
+        if "forward only" in str(e) and md.mdta_stats.launches == before:
+            log(f"mdta_stats under autograd refused: {e}")
+            return
+    raise RuntimeError("mdta_stats did not refuse a call needing a "
+                       "gradient")
+
+
+def module_eval_path(seed: int):
+    """Phase 21: the full-width restormer_deblur network on the module path
+    with both kernels (MODULE_ROUTE) on the card against the CPU in f32,
+    then the evaluation path at 512 px in bf16: 52 launches of each
+    kernel per forward and none of the whole-block kernel; then the module
+    path without the two kernels.  Returns (with, without) as `main_path`
+    returns them."""
+    counted = ((gd.gdfn_fused, MODULE_BLOCKS), (md.mdta_stats,
+                                                MODULE_BLOCKS))
+    network_vs_cpu(seed, TASK, tb.tblock_fused, ((0, None),), MODULE_ROUTE,
+                   counted)
+    on = main_path(seed, TASK, tb.tblock_fused, 0, None, MODULE_ROUTE,
+                   counted)
+    off = main_path(seed, TASK, tb.tblock_fused, 0, None, {"fused": False},
+                    ((gd.gdfn_fused, 0), (md.mdta_stats, 0)))
+    log(f"{TASK} module path forward 512 px bf16: with both kernels "
+        f"{on[1]:.2f} ms ({1e3 / on[1]:.3f} images/s), without "
+        f"{off[1]:.2f} ms ({1e3 / off[1]:.3f} images/s)")
+    return on, off
+
+
+def _module_gdfn(model, plain: bool):
+    """Phase 22's comparison turns: every GDFN of `model` op by op
+    (plain) or through its kernel."""
+    for m in model.modules():
+        if isinstance(m, layers.GDFN):
+            m.fused = not plain
+
+
+def module_train_path(seed: int):
+    """Phase 22: the training CLI's step function with
+    restormer_motion_deblur.yml's options, fused_kernels off and
+    --gdfn_kernel (resolve_network's gdfn_kernel), at 384 px, batch
+    MODULE_TRAIN_BATCH, bf16: 52 B6 launches per step and none of the
+    whole-block kernel, timed against the same step with every GDFN op by
+    op in alternating turns; then one f32 step at 128 px on the card
+    against the CPU.  Returns `train_main_path`'s results."""
+    res = train_main_path(
+        seed, MODULE_TRAIN_OPT, (gd.gdfn_fused, tb.tblock_fused),
+        (MODULE_BLOCKS, 0), _module_gdfn, MODULE_TRAIN_BATCH,
+        {"gdfn_kernel": True})
+    module_step_memory(seed)
+    train_step_vs_cpu(seed, MODULE_TRAIN_OPT, {"gdfn_kernel": True},
+                      ((gd.gdfn_fused, MODULE_BLOCKS),))
+    return res
+
+
+def module_step_memory(seed: int, batches=(1, MODULE_TRAIN_BATCH)):
+    """Phase 22: the peak memory of one module-path step at 384 px, bf16,
+    with and without B6, at two batch sizes, and the peak that the
+    protocol's batch of 8 would need on the line through them."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model, _, _ = resolve_network(MODULE_TRAIN_OPT, mixed_precision="bf16",
+                                      gdfn_kernel=True)
+    model = model.cuda()
+    state, step_fn, _ = _trainer(model, MODULE_TRAIN_OPT["train"])
+    rng = np.random.default_rng(seed + 9)
+    trip = [synthetic_triple(rng, 384) for _ in range(max(batches))]
+    peaks = {}
+    for plain in (False, True):
+        _module_gdfn(model, plain)
+        for n in batches:
+            batch = {k: torch.from_numpy(np.stack([t[i] for t in trip[:n]]))
+                     .cuda() for i, k in enumerate(("lq", "gt", "ref"))}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state, m = step_fn(state, batch)
+            float(m["l_pix"])
+            peaks[plain, n] = torch.cuda.max_memory_allocated() / 2 ** 30
+            del batch
+    _module_gdfn(model, False)
+    (b0, b1), out = batches, []
+    for plain in (False, True):
+        slope = (peaks[plain, b1] - peaks[plain, b0]) / (b1 - b0)
+        out.append(f"{'without' if plain else 'with'} gdfn_fused "
+                   f"{peaks[plain, b0]:.2f} / {peaks[plain, b1]:.2f} GiB "
+                   f"at batch {b0} / {b1}, {slope:.2f} GiB per image, batch "
+                   f"8 about {peaks[plain, b1] + (8 - b1) * slope:.1f} GiB")
+    log("module-path step peak memory, 384 px bf16: " + "; ".join(out))
+    del state, model, step_fn
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for the same work
 # ---------------------------------------------------------------------------
 
@@ -1958,7 +2350,10 @@ def bound_ms(kernel: str, b, h, w, c, heads, eb=2, n=1):
     W_proj): q, k, v 6C^2, do 2C^2, dy 6C^2, dWqkv 6C^2, dWproj 2C^2, and
     per head o, dA, dv, dq, dk 10 C cph.  NAFBlock forward (x in, out
     out; its 1x1s, SCA, taps, biases and scales, 7 C^2 + 33 C values): conv1
-    4C^2, conv3 2C^2, conv4 4C^2, conv5 2C^2 (heads ignored)."""
+    4C^2, conv3 2C^2, conv4 4C^2, conv5 2C^2 (heads ignored).  GDFN
+    (gdfn_fused: x in, out out, W_in, taps, W_out): the 1x1s 6Ch and the
+    stencils 36h (heads ignored).  MDTA statistics (mdta_stats: q and k in
+    once, attn out in f32): the gram 2 C cph and the square sums 4C."""
     npix = b * h * w
     hid = int(c * 2.66)
     cph = c // heads
@@ -1972,6 +2367,12 @@ def bound_ms(kernel: str, b, h, w, c, heads, eb=2, n=1):
     elif kernel == "attn_half_bwd":
         flops = npix * (22 * c * c + 10 * c * cph)
         nbytes = 3 * npix * c * eb + 2 * attn_w
+    elif kernel == "gdfn_fused":
+        flops = npix * (6 * c * hid + 36 * hid)
+        nbytes = 2 * npix * c * eb + (3 * c * hid + 18 * hid) * 4
+    elif kernel == "mdta_stats":
+        flops = npix * (2 * c * cph + 4 * c)
+        nbytes = 2 * npix * c * eb + b * heads * cph * cph * 4
     else:
         flops = npix * 12 * c * c
         nbytes = 2 * npix * c * eb + (7 * c * c + 33 * c) * 4
@@ -2041,6 +2442,12 @@ def main(argv=None) -> int:
             elif FAULTS[args.plant][3] == 17:
                 chain_vs_plain(gen, [CHAIN_SHAPES[i] for i in (1, 3, 5)],
                                timed=False)
+            elif FAULTS[args.plant][3] == 19:
+                gdfn_vs_plain(gen, [GDFN_SHAPES[i] for i in (2, 7, 8)],
+                              dtypes=(torch.bfloat16,), timed=False)
+            elif FAULTS[args.plant][3] == 20:
+                mdta_vs_plain(gen, [MDTA_SHAPES[i] for i in (2, 6, 8)],
+                              dtypes=(torch.bfloat16,), timed=False)
             else:
                 nafblock_vs_plain(gen, [NAF_SHAPES[i] for i in (7, 8, 10)],
                                   dtypes=(torch.bfloat16,), timed=False)
@@ -2053,7 +2460,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     rows = kernel_vs_plain(gen)
     network_vs_cpu(args.seed)
-    eval_launches, _, _ = main_path(args.seed)
+    eval_launches = main_path(args.seed)[0]
     bwd_rows = backward_vs_plain(gen)
     remat_vs_save(gen)
     launches, step_ms, plain_step_ms, peak, _ = train_main_path(args.seed)
@@ -2066,14 +2473,14 @@ def main(argv=None) -> int:
     naf_rows = nafblock_vs_plain(gen, NAF_SHAPES + NAF_TRAIN_SHAPES[:2])
     network_vs_cpu(args.seed, NAF_TASK, nb.nafblock_fused,
                    ((NAF_BLOCKS, None),))
-    naf_launches, naf_fwd_ms, _ = main_path(args.seed, NAF_TASK,
-                                            nb.nafblock_fused, NAF_BLOCKS)
+    naf_launches, naf_fwd_ms = main_path(args.seed, NAF_TASK,
+                                         nb.nafblock_fused, NAF_BLOCKS)[:2]
     naf_train_rows = nafblock_vs_plain(gen, NAF_TRAIN_SHAPES,
                                        dtypes=(torch.bfloat16,))
     (naf_train_launches, naf_step_ms, naf_plain_step_ms, naf_peak,
      naf_plain_peak) = train_main_path(
         args.seed, NAF_TRAIN_OPT, (nb.nafblock_fused,), (NAF_BLOCKS,),
-        ("nafblock_fused", _plain_nafblocks))
+        _swap("nafblock_fused", _plain_nafblocks))
     naf_main = [r for r in naf_rows if r[4][0] == 1 and r[0]]
     log(f"nafblock_fused per 512 px forward (bf16, per-shape medians times "
         f"blocks): kernel {sum(n * k for n, _, k, _, _ in naf_main):.3f} ms, "
@@ -2109,12 +2516,25 @@ def main(argv=None) -> int:
         f"{sum(n * p for n, _, _, p in noise_rows):.3f} ms")
     chain_rows = chain_vs_plain(gen)
     chain_grad_vs_autograd(gen)
-    (pir_launches, pir_ms, _), (pir_chain_launches, pir_chain_ms,
-                                pir_chain_counts) = promptir_path(args.seed)
+    (pir_launches, pir_ms, _, _), (pir_chain_launches, pir_chain_ms,
+                                   pir_chain_counts, _) = promptir_path(
+        args.seed)
     log(f"launches: promptir evaluation path, chain off: tblock_fused "
         f"{pir_launches}; chain on: tblock_fused {pir_chain_launches}, "
         f"chain calls/launches {pir_chain_counts}")
     log_held("phases 16-18")
+
+    gdfn_rows = gdfn_vs_plain(gen)
+    gdfn_grad_vs_autograd(gen)
+    mdta_rows = mdta_vs_plain(gen)
+    mdta_refuses_grad()
+    mod_on, mod_off = module_eval_path(args.seed)
+    (mod_train_launches, mod_step_ms, mod_plain_step_ms, mod_peak,
+     mod_plain_peak) = module_train_path(args.seed)
+    log(f"launches: module-path evaluation path gdfn_fused/mdta_stats "
+        f"{mod_on[3]}, tblock_fused {mod_on[0]}; training path (4 steps) "
+        f"gdfn_fused/tblock_fused {mod_train_launches}")
+    log_held("phases 19-22")
 
     # per-step kernel time: each training shape's median time times the
     # number of blocks of that shape in one step (bf16, WithBias); the
@@ -2134,6 +2554,8 @@ def main(argv=None) -> int:
     a_bound, a_by = bounds("attn_half_bwd", TRAIN_SHAPES)
     chain_per = [(n, *bound_ms("tblock_chain_fused", *shape[:5], n=shape[5]))
                  for n, *_, shape in chain_rows]
+    gdfn_bound, gdfn_by = bounds("gdfn_fused", SHAPES)
+    mdta_bound, mdta_by = bounds("mdta_stats", SHAPES)
     src = "textualdegremoval_tpu_torch/csrc/"
     summary = {"kernels": [
         {"name": "tblock_fused", "route": "cuda", "source": src + "tblock.cu",
@@ -2206,6 +2628,26 @@ def main(argv=None) -> int:
          "bound_ms": sum(n * ms for n, ms, _ in chain_per),
          "bound_by": max(chain_per, key=lambda r: r[0] * r[1])[2],
          "library_ms": None},
+        # per 512 px restormer_deblur forward on the module path (52
+        # GDFNs, bf16); launches: phase 21's evaluation path
+        {"name": "gdfn_fused", "route": "cuda", "source": src + "gdfn.cu",
+         "replaces": "textualdegremoval_tpu/ops/pallas/gdfn.py:215 "
+                     "(_gdfn_fused_impl :156, _make_kernel :71)",
+         "launches": mod_on[3][0],
+         "max_abs_err": max(r[1] for r in gdfn_rows),
+         "ms": sum(r[0] * r[2] for r in gdfn_rows),
+         "plain_ms": sum(r[0] * r[3] for r in gdfn_rows),
+         "bound_ms": gdfn_bound, "bound_by": gdfn_by, "library_ms": None},
+        # per 512 px restormer_deblur forward on the module path (52
+        # attentions, bf16 q and k, f32 attn); launches: phase 21's
+        {"name": "mdta_stats", "route": "cuda", "source": src + "mdta.cu",
+         "replaces": "textualdegremoval_tpu/ops/pallas/mdta.py:60 "
+                     "(mdta_stats_pallas; _make_stats_kernel :24)",
+         "launches": mod_on[3][1],
+         "max_abs_err": max(r[1] for r in mdta_rows),
+         "ms": sum(r[0] * r[2] for r in mdta_rows),
+         "plain_ms": sum(r[0] * r[3] for r in mdta_rows),
+         "bound_ms": mdta_bound, "bound_by": mdta_by, "library_ms": None},
     ]}
     log(f"train step 384 px batch 8 bf16: {step_ms:.2f} ms through the "
         f"kernels vs {plain_step_ms:.2f} ms through plain blocks, peak "
@@ -2229,6 +2671,17 @@ def main(argv=None) -> int:
         f"the chain kernels {sum(r[0] * r[2] for r in chain_rows):.3f} ms "
         f"against {sum(r[0] * r[4] for r in chain_rows):.3f} ms block by "
         f"block and {sum(r[0] * r[3] for r in chain_rows):.3f} ms plain")
+    log(f"restormer_deblur module path: forward 512 px bf16 {mod_on[1]:.2f} "
+        f"ms ({1e3 / mod_on[1]:.3f} images/s) with gdfn_fused and "
+        f"mdta_stats, {mod_off[1]:.2f} ms ({1e3 / mod_off[1]:.3f} images/s) "
+        f"without; per forward gdfn_fused "
+        f"{sum(r[0] * r[2] for r in gdfn_rows):.3f} ms (plain "
+        f"{sum(r[0] * r[3] for r in gdfn_rows):.3f}), mdta_stats "
+        f"{sum(r[0] * r[2] for r in mdta_rows):.3f} ms (plain "
+        f"{sum(r[0] * r[3] for r in mdta_rows):.3f}); train step 384 px "
+        f"batch {MODULE_TRAIN_BATCH} bf16 {mod_step_ms:.2f} ms with "
+        f"gdfn_fused vs {mod_plain_step_ms:.2f} ms without, peak "
+        f"{mod_peak:.2f} vs {mod_plain_peak:.2f} GiB")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s after "
         f"the build")
     log(json.dumps(summary))

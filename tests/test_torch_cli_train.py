@@ -122,10 +122,17 @@ def test_validation_and_refusals(workspace, monkeypatch):
     log = (root / "experiments" / "val_smoke" / "train.log").read_text()
     assert "val @ 1: psnr" in log and "bfloat16" in log
 
-    with pytest.raises(ValueError, match="plain blocks"):
-        resolve_network({**opt, "train": {**opt["train"],
-                                          "fused_kernels": "off"}},
-                        device="cuda")
+    # fused_kernels off builds module-path blocks, a route on every device
+    from textualdegremoval_tpu_torch.models.layers import TransformerBlock
+
+    model, _, _ = resolve_network({**opt, "train": {**opt["train"],
+                                                    "fused_kernels": "off"}})
+    blocks = [m for m in model.modules() if isinstance(m, TransformerBlock)]
+    assert blocks and not any(b.fused for b in blocks)
+    with pytest.raises(ValueError, match="forward only"):
+        resolve_network({**opt, "network_g": {**opt["network_g"],
+                                              "fused": False,
+                                              "mdta_pallas": True}})
     dino = root / "dino.pth"
     dino.write_bytes(b"")
     opt["name"], opt["path"]["pretrain_dino"] = "dino_smoke", str(dino)

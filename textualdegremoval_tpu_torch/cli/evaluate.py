@@ -6,11 +6,16 @@ NAFNet and PromptIR families:
     python -m textualdegremoval_tpu_torch.cli.evaluate \\
         --task restormer_deblur --hqroot ... --refroot ... --lqroot ... \\
         --checkpoint_path net_g.pth [--dtype bfloat16] [--device cuda] \\
-        [--chain]
+        [--chain | --module_blocks [--gdfn_kernel] [--mdta_kernel]]
 
 --chain runs every Restormer stage of two or more blocks as the
 cross-block chain kernel (the JAX CLI's TDR_FUSED_TBLOCK_CHAIN=1); it is
-off by default, as there.
+off by default, as there.  --module_blocks runs every TransformerBlock on
+the module path (the JAX CLI's TDR_FUSED_TBLOCK=0), op by op, and on that
+path --gdfn_kernel takes the GDFN kernel (TDR_FUSED_GDFN=1) and
+--mdta_kernel the MDTA statistics kernel (JAX
+MDTAAttention(use_pallas=True)).  The route is picked by these options,
+never by the environment.
 
 Denoise tasks synthesise the noise with the JAX CLI's deterministic
 protocol (np.random.RandomState(0), sigma/255 on HQ); paired tasks read lq
@@ -29,7 +34,9 @@ import torch
 from textualdegremoval_tpu_torch.convert import load_reference_checkpoint
 from textualdegremoval_tpu_torch.data import imread_f32, scan_images
 from textualdegremoval_tpu_torch.metrics import calculate_psnr, calculate_ssim
-from textualdegremoval_tpu_torch.models import define_network
+from textualdegremoval_tpu_torch.models import (
+    TBLOCK_NETWORKS, define_network,
+)
 
 # The Restormer-, NAFNet- and PromptIR-family entries of the JAX CLI's
 # table (same hparams).
@@ -121,6 +128,29 @@ def restore_and_score(model: torch.nn.Module, lq: np.ndarray, hq: np.ndarray,
             calculate_ssim(pred * 255, hq * 255))
 
 
+def route_options(network: str, args) -> dict:
+    """The network_g routing keys that --chain, --module_blocks,
+    --gdfn_kernel and --mdta_kernel ask for; raises SystemExit on a
+    combination that would leave an option unused."""
+    asked = [f"--{k}" for k in ("chain", "module_blocks", "gdfn_kernel",
+                                "mdta_kernel") if getattr(args, k)]
+    if not asked:
+        return {}
+    if network not in TBLOCK_NETWORKS:
+        raise SystemExit(f"{' '.join(asked)}: {network} has no Restormer "
+                         "stages")
+    if args.chain and len(asked) > 1:
+        raise SystemExit(f"--chain runs the whole-block kernels; it "
+                         f"excludes {' '.join(asked[1:])}")
+    if (args.gdfn_kernel or args.mdta_kernel) and not args.module_blocks:
+        raise SystemExit("--gdfn_kernel and --mdta_kernel pick kernels of "
+                         "the module path; they need --module_blocks")
+    if args.chain:
+        return {"chain": True}
+    return {"fused": False, "gdfn_fused": args.gdfn_kernel,
+            "mdta_pallas": args.mdta_kernel}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", required=True, choices=sorted(TASK_TABLE))
@@ -146,6 +176,14 @@ def main(argv=None):
     ap.add_argument("--chain", action="store_true",
                     help="run every Restormer stage of two or more blocks "
                          "as the cross-block chain kernel")
+    ap.add_argument("--module_blocks", action="store_true",
+                    help="run every TransformerBlock on the module path, "
+                         "op by op, instead of the whole-block kernel")
+    ap.add_argument("--gdfn_kernel", action="store_true",
+                    help="with --module_blocks: the GDFN as its kernel")
+    ap.add_argument("--mdta_kernel", action="store_true",
+                    help="with --module_blocks: the MDTA statistics as "
+                         "their kernel")
     ap.add_argument("--spatial_shard", type=int, default=0,
                     help="not ported yet (comes with the sharding work)")
     args = ap.parse_args(argv)
@@ -159,12 +197,7 @@ def main(argv=None):
     opt = dict(TASK_TABLE[args.task])
     if args.tiny_debug:
         opt = shrink_for_smoke(opt)
-    if args.chain:
-        if opt["type"] not in ("Restormer", "RestormerRefFusion", "PromptIR",
-                               "PromptIRRefFusion"):
-            raise SystemExit(f"--chain: {opt['type']} has no Restormer "
-                             "stages")
-        opt["chain"] = True
+    opt.update(route_options(opt["type"], args))
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         model = define_network(opt, dtype=getattr(torch, args.dtype))

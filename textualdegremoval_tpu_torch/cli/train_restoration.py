@@ -2,7 +2,7 @@
 
     python -m textualdegremoval_tpu_torch.cli.train_restoration --opt <yml>
         [--max_iters N] [--mixed_precision bf16] [--remat]
-        [--device cuda|cpu]
+        [--fused auto|on|off [--gdfn_kernel]] [--device cuda|cpu]
 
 Counterpart of textualdegremoval_tpu/cli/train_restoration.py (reference
 scripts/train/main_train_restoration_with_ref_input.py), on one device.
@@ -14,9 +14,16 @@ while the masa group is frozen), logging, checkpoints, validation and
 auto-resume from the latest state.
 
 The device is CUDA unless `--device cpu` is asked for.  On CUDA every
-TransformerBlock runs as the hand-written kernels, forward and backward;
-a YAML `train.fused_kernels: off` (plain blocks) is refused there, since
-the plain blocks are not a route of the main path.
+TransformerBlock runs as the hand-written whole-block kernels, forward and
+backward, unless `--fused off` (or a YAML `train.fused_kernels: off`, or
+`network_g.fused: false`, as in JAX) puts it on the module path: the
+blocks op by op through autograd, cuDNN's convs, and with `--gdfn_kernel`
+the GDFN as its kernel (csrc/gdfn.cu, whose backward recomputes through
+the plain GDFN).  `--remat` sets only the whole-block kernels' memory-lean
+backward (bwd_mode='remat'); module-path blocks save their activations
+for autograd with or without it, as every block without a kernel
+backward does.  `--mdta_kernel` is refused: the MDTA statistics kernel
+is forward only, as is JAX's.
 
 Not ported yet: the DINO reference-crop matcher (ROADMAP A6; a
 `path.pretrain_dino` naming an existing file raises, none takes the JAX
@@ -40,7 +47,9 @@ from textualdegremoval_tpu_torch.data.loader import (
 )
 from textualdegremoval_tpu_torch.losses import build_loss
 from textualdegremoval_tpu_torch.metrics import calculate_psnr, calculate_ssim
-from textualdegremoval_tpu_torch.models import define_network
+from textualdegremoval_tpu_torch.models import (
+    TBLOCK_NETWORKS, define_network,
+)
 from textualdegremoval_tpu_torch.train.checkpoint import CheckpointManager
 from textualdegremoval_tpu_torch.train.mixing import mixing_augment
 from textualdegremoval_tpu_torch.train.schedules import (
@@ -91,23 +100,41 @@ def center_crop_ref(ref, gt_size):
     return ref[:, top: top + gt_size, left: left + gt_size]
 
 
-def resolve_network(opt, mixed_precision=None, remat=None, device="cuda"):
-    """Build the network with CLI flag > YAML `train:` key > default:
-    train.mixed_precision fp32|bf16 (compute dtype; parameters stay f32),
-    train.remat (the blocks' memory-lean bwd_mode='remat': the backward
-    recomputes x1 and the statistics with the forward kernel).  A
-    train.fused_kernels of off is refused on CUDA.  Returns (model, remat,
-    dtype)."""
+def resolve_network(opt, mixed_precision=None, remat=None, fused=None,
+                    gdfn_kernel=False):
+    """Build the network with CLI flag > YAML `train:` key > default (JAX
+    `resolve_network`): train.mixed_precision fp32|bf16 (compute dtype;
+    parameters stay f32), train.remat (the whole-block kernels'
+    memory-lean bwd_mode='remat': the backward recomputes x1 and the
+    statistics with the forward kernel), train.fused_kernels auto|on|off
+    (a bool too; off sets network_g.fused false: module-path blocks).
+    gdfn_kernel: the module path's GDFN as its kernel, which needs the
+    module path.  A network_g.mdta_pallas is refused: that kernel is
+    forward only.  Returns (model, remat, dtype)."""
     topt = opt.get("train", {}) or {}
     mp = mixed_precision or topt.get("mixed_precision", "fp32")
     if remat is None:
         remat = bool(topt.get("remat", False))
-    if topt.get("fused_kernels", "auto") in (False, "off") \
-            and torch.device(device).type == "cuda":
-        raise ValueError("fused kernels off: the plain blocks are not a "
-                         "route of the CUDA main path")
+    fused_cfg = fused if fused is not None else topt.get("fused_kernels",
+                                                         "auto")
     dtype = torch.bfloat16 if str(mp) == "bf16" else torch.float32
     net_opt = dict(opt["network_g"])
+    if isinstance(fused_cfg, bool):
+        net_opt.setdefault("fused", fused_cfg)
+    elif fused_cfg in ("on", "off"):
+        net_opt.setdefault("fused", fused_cfg == "on")
+    elif fused_cfg != "auto":
+        raise ValueError(f"train.fused_kernels: unknown value {fused_cfg!r}")
+    if net_opt.get("mdta_pallas"):
+        raise ValueError("mdta_pallas: the MDTA statistics kernel is forward "
+                         "only (as is JAX's); it cannot train")
+    if gdfn_kernel:
+        if net_opt.get("fused", True) or net_opt["type"] not in \
+                TBLOCK_NETWORKS:
+            raise ValueError("--gdfn_kernel picks the GDFN kernel of the "
+                             "module path; it needs --fused off and a "
+                             "network of TransformerBlocks")
+        net_opt["gdfn_fused"] = True
     if remat:
         net_opt.setdefault("bwd_mode", "remat")
     return define_network(net_opt, dtype=dtype), remat, dtype
@@ -122,6 +149,14 @@ def build_argparser() -> argparse.ArgumentParser:
                     default=None, help="override train.mixed_precision")
     ap.add_argument("--remat", action=argparse.BooleanOptionalAction,
                     default=None, help="override train.remat")
+    ap.add_argument("--fused", choices=["auto", "on", "off"], default=None,
+                    help="whole-block kernels (on, auto) or module-path "
+                         "blocks (off); override train.fused_kernels")
+    ap.add_argument("--gdfn_kernel", action="store_true",
+                    help="with --fused off: the GDFN as its kernel")
+    ap.add_argument("--mdta_kernel", action="store_true",
+                    help="refused: the MDTA statistics kernel is forward "
+                         "only")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cuda' requires a CUDA device, the "
                          "CPU runs only when asked for")
@@ -145,6 +180,9 @@ def _logger(log_dir: str) -> logging.Logger:
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
+    if args.mdta_kernel:
+        raise SystemExit("--mdta_kernel: the MDTA statistics kernel is "
+                         "forward only (as is JAX's); it cannot train")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
@@ -167,7 +205,8 @@ def main(argv=None):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         model, remat, dtype = resolve_network(
-            opt, args.mixed_precision, args.remat, device)
+            opt, args.mixed_precision, args.remat, args.fused,
+            args.gdfn_kernel)
     logger.info(f"device {device}, compute dtype {dtype}, remat {remat}")
 
     topt = opt["train"]

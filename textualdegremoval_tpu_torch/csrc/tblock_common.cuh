@@ -1,7 +1,8 @@
 // Helpers shared by the TransformerBlock kernels (tblock.cu forward,
-// tblock_chain.cu cross-block chain, tblock_bwd.cu GDFN-half backward, tblock_attn_bwd.cu attention-half
-// backward, wgrad.cu weight-gradient products) and the NAFBlock kernel
-// (nafblock.cu): rounding to the model dtype,
+// tblock_chain.cu cross-block chain, tblock_bwd.cu GDFN-half backward,
+// tblock_attn_bwd.cu attention-half backward, wgrad.cu weight-gradient
+// products), the module-path kernels (gdfn.cu, mdta.cu) and the NAFBlock
+// kernel (nafblock.cu): rounding to the model dtype,
 // the per-pixel LayerNorm rows, the masked 3x3 depthwise stencil, and the
 // block-level products on the tensor cores (bf16, mma.sync m16n8k16) or in
 // f32 FMA loops.

@@ -1,8 +1,9 @@
 // The bodies of the TransformerBlock forward, shared by the per-block
 // kernel pair (tblock.cu) and the cross-block chain kernel
 // (tblock_chain.cu): the shared-memory sizes, the per-head statistics of
-// one tile (pass A's work) and the whole block applied to one region
-// (pass B's work).  What each computes, and its rounding points, is
+// one tile (pass A's work), the GDFN on one region (also the whole of the
+// standalone GDFN kernel, gdfn.cu) and the whole block applied to one
+// region (pass B's work).  What each computes, and its rounding points, is
 // described at the top of tblock.cu.
 #pragma once
 
@@ -108,6 +109,53 @@ __device__ void stats_head_tile(const T* ys, int ldc, int oy, int ox, int th,
   __syncthreads();
 }
 
+// The GDFN on the th x tw region whose top-left is image pixel (oy, ox):
+// z holds its input on the region plus a 1-pixel halo ((th + 2) x (tw + 2)
+// pixels, leading dimension ldz, round_up(p1, kRowPad) readable rows).  In
+// kHC-wide hidden chunks (w1 rows [2 c0, 2 c0 + kHC) make the chunk's h1,
+// the next kHC rows its h2): the 1x1 to both halves, rounded to T and
+// zeroed outside the image (the reference zero-pads the hidden tensor),
+// the 3x3 depthwise stencil in f32, gate = gelu_erf(d1) * d2 rounded to T,
+// and the 1x1 back, added in f32 to acc[p * lda_acc + n] for region pixel
+// p and channel n (the caller zeroes acc).  chunk (2 p1 kHC) and gate
+// ([round_up(tp, kRowPad) rows][smem_ld(kHC)]) are scratch.  w1: (2 hpad,
+// C), dwg: (18, hpad) f32, w2: (C, hpad) in the `weights` layout.  Ends
+// with a barrier.
+template <typename T>
+__device__ void gdfn_region(const T* z, int ldz, int oy, int ox, int th,
+                            int tw, int H, int W, int C, int hpad,
+                            const T* w1, const float* dwg, const T* w2,
+                            T* chunk, T* gate, float* acc, int lda_acc) {
+  const int w1w = tw + 2, p1 = (th + 2) * w1w, tp = th * tw;
+  const int ldg = smem_ld(kHC);
+  T* h1 = chunk;
+  T* h2 = chunk + (size_t)p1 * kHC;
+  for (int c0 = 0; c0 < hpad; c0 += kHC) {
+    auto masked = [&](int q, float a) {
+      const int gy = oy - 1 + q / w1w, gx = ox - 1 + q % w1w;
+      return from_f<T>(gy >= 0 && gy < H && gx >= 0 && gx < W ? a : 0.f);
+    };
+    gemm(z, ldz, p1, C, weights(w1, 2 * hpad, C, 2 * c0, 0), 2 * kHC,
+         [&](int q, int n, float a) {
+           (n < kHC ? h1 : h2)[q * kHC + n % kHC] = masked(q, a);
+         });
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < tp * kHC; idx += blockDim.x) {
+      const int p = idx / kHC, j = idx % kHC;
+      const int py = p / tw, px = p % tw;
+      const float d1 = stencil3x3(h1 + j, w1w, kHC, py, px, dwg + c0 + j,
+                                  hpad, false);
+      const float d2 = stencil3x3(h2 + j, w1w, kHC, py, px,
+                                  dwg + 9 * hpad + c0 + j, hpad, false);
+      gate[p * ldg + j] = from_f<T>(gelu_erf(d1) * d2);
+    }
+    __syncthreads();
+    gemm(gate, ldg, tp, kHC, weights(w2, C, hpad, 0, c0), C,
+         [&](int p, int n, float a) { acc[p * lda_acc + n] += a; });
+    __syncthreads();
+  }
+}
+
 // Pass B's work: the whole block applied on the th x tw output region
 // whose top-left is image pixel (oy, ox) (it may start outside the
 // image).  Reads x on the region plus a 2-pixel halo; every intermediate
@@ -128,7 +176,7 @@ __device__ void apply_region(
   const int w2w = tw + 4, p2 = (th + 4) * w2w;  // 2-pixel halo region
   const int w1w = tw + 2, p1 = (th + 2) * w1w;  // 1-pixel halo region
   const int tp = th * tw;
-  const int ldc = smem_ld(C), ldg = smem_ld(kHC), lda_acc = C + kAccPad;
+  const int ldc = smem_ld(C), lda_acc = C + kAccPad;
   float* acc = s.acc;
   T* bufA = s.bufA;
   T* bufB = s.bufB;
@@ -195,34 +243,9 @@ __device__ void apply_region(
   }
   __syncthreads();
 
-  // 6. GDFN in kHC-wide hidden chunks; w1 rows [2 c0, 2 c0 + kHC) make the
-  //    chunk's h1, the next kHC rows its h2
-  T* h1 = chunk;
-  T* h2 = chunk + (size_t)p1 * kHC;
-  for (int c0 = 0; c0 < hpad; c0 += kHC) {
-    auto masked = [&](int q, float a) {
-      return from_f<T>(in_image(oy - 1 + q / w1w, ox - 1 + q % w1w) ? a
-                                                                    : 0.f);
-    };
-    gemm(bufA, ldc, p1, C, weights(w1, 2 * hpad, C, 2 * c0, 0), 2 * kHC,
-         [&](int q, int n, float a) {
-           (n < kHC ? h1 : h2)[q * kHC + n % kHC] = masked(q, a);
-         });
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < tp * kHC; idx += blockDim.x) {
-      const int p = idx / kHC, j = idx % kHC;
-      const int py = p / tw, px = p % tw;
-      const float d1 = stencil3x3(h1 + j, w1w, kHC, py, px, dwg + c0 + j,
-                                  hpad, false);
-      const float d2 = stencil3x3(h2 + j, w1w, kHC, py, px,
-                                  dwg + 9 * hpad + c0 + j, hpad, false);
-      gate[p * ldg + j] = from_f<T>(gelu_erf(d1) * d2);
-    }
-    __syncthreads();
-    gemm(gate, ldg, tp, kHC, weights(w2, C, hpad, 0, c0), C,
-         [&](int p, int n, float a) { acc[p * lda_acc + n] += a; });
-    __syncthreads();
-  }
+  // 6. the GDFN of z, accumulated into acc
+  gdfn_region(bufA, ldc, oy, ox, th, tw, H, W, C, hpad, w1, dwg, w2, chunk,
+              gate, acc, lda_acc);
 
   // 7. out = x1 + acc on the region
   for (int idx = threadIdx.x; idx < tp * C; idx += blockDim.x) {

@@ -3,8 +3,10 @@
 `define_network(opt)` mirrors textualdegremoval_tpu/models/__init__.py:
 `opt['type']` selects the class and the remaining keys that name
 constructor arguments become its arguments, so the reference's network_g
-option dicts port as they are (a `chain` key too: the cross-block chain of
-the Restormer and PromptIR trunks).  This port covers the Restormer, NAFNet
+option dicts port as they are (with the routing keys of the Restormer and
+PromptIR trunks: `chain`, the cross-block chain; `fused`, false for the
+module path, as in JAX; and on that path `gdfn_fused` and `mdta_pallas`,
+its GDFN and MDTA kernels).  This port covers the Restormer, NAFNet
 and PromptIR families; the other families of the JAX registry come with
 later slices of the port.
 """
@@ -37,6 +39,11 @@ _LATER = dict.fromkeys(
      "DRSformerRefFusion", "DRSformer200L_SPA_RefFusion", "SFNet",
      "SFNetRefFusion"), "A6")
 
+# The families whose blocks are TransformerBlocks, and so take the routing
+# keys `chain`, `fused`, `gdfn_fused` and `mdta_pallas`.
+TBLOCK_NETWORKS = ("Restormer", "RestormerRefFusion", "PromptIR",
+                   "PromptIRRefFusion")
+
 _KEY_ALIASES = {"LayerNorm_type": "ln_type"}
 
 
@@ -48,8 +55,8 @@ def define_network(opt: dict,
                    dtype: torch.dtype = torch.float32) -> torch.nn.Module:
     """Instantiate a network from a reference-style network_g dict, in eval
     mode, with float32 parameters and `dtype` as its compute dtype (JAX
-    `define_network(opt, dtype)`); `bwd_mode` and `chain` may come with the
-    dict."""
+    `define_network(opt, dtype)`); `bwd_mode` and the routing keys may come
+    with the dict."""
     opt = dict(opt)
     name = opt.pop("type")
     if name in _LATER:

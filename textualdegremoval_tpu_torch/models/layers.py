@@ -35,6 +35,11 @@ from textualdegremoval_tpu_torch.ops import (
     pixel_unshuffle,
     simple_gate,
 )
+from textualdegremoval_tpu_torch.ops.pallas.gdfn import (
+    gdfn_fused,
+    prepare_gdfn_weights,
+)
+from textualdegremoval_tpu_torch.ops.pallas.mdta import mdta_attention
 from textualdegremoval_tpu_torch.ops.pallas.nafblock import (
     nafblock_fused,
     prepare_nafblock_weights,
@@ -102,12 +107,26 @@ class ChannelLayerNorm(nn.Module):
         return with_bias_layer_norm(x, self.body.weight, self.body.bias)
 
 
-class MDTAAttention(nn.Module):
-    """MDTA transposed channel attention (module path)."""
+def _flag(value, name: str, owner: str) -> bool:
+    """A routing option, which must be a bool: a string such as 'off'
+    would be truthy and silently pick the other route."""
+    if not isinstance(value, bool):
+        raise ValueError(f"{owner}: {name} must be a bool, got {value!r}")
+    return value
 
-    def __init__(self, dim: int, num_heads: int, bias: bool = False):
+
+class MDTAAttention(nn.Module):
+    """MDTA transposed channel attention (module path).  use_pallas (JAX
+    `MDTAAttention.use_pallas`): the gram / norm / softmax core through
+    the statistics kernel (`mdta_attention`: csrc/mdta.cu on CUDA
+    tensors, its plain version on CPU tensors; forward only, as in JAX);
+    otherwise `mdta_attention_nhwc`."""
+
+    def __init__(self, dim: int, num_heads: int, bias: bool = False,
+                 use_pallas: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.use_pallas = _flag(use_pallas, "use_pallas", "MDTAAttention")
         self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
         self.qkv = nn.Conv2d(dim, dim * 3, 1, bias=bias)
         self.qkv_dwconv = nn.Conv2d(dim * 3, dim * 3, 3, padding=1,
@@ -117,23 +136,41 @@ class MDTAAttention(nn.Module):
     def forward(self, x):
         qkv = conv_nhwc(self.qkv_dwconv, conv_nhwc(self.qkv, x))
         q, k, v = torch.chunk(qkv, 3, dim=-1)
-        out = mdta_attention_nhwc(q, k, v, self.temperature, self.num_heads)
+        attend = mdta_attention if self.use_pallas else mdta_attention_nhwc
+        out = attend(q, k, v, self.temperature, self.num_heads)
         return conv_nhwc(self.project_out, out)
 
 
 class GDFN(nn.Module):
-    """Gated-dconv FFN (module path)."""
+    """Gated-dconv FFN (module path).  fused (JAX `GDFN.fused`): the whole
+    FFN as `gdfn_fused` (csrc/gdfn.cu on CUDA tensors, with its
+    recomputing backward; `gdfn_ref` on CPU tensors), bias-free only;
+    otherwise the convs op by op."""
 
     def __init__(self, dim: int, ffn_expansion_factor: float = 2.66,
-                 bias: bool = False):
+                 bias: bool = False, fused: bool = False):
         super().__init__()
+        self.fused = _flag(fused, "fused", "GDFN")
+        if fused and bias:
+            raise ValueError("GDFN: the fused kernel takes no conv biases")
         hidden = int(dim * ffn_expansion_factor)
         self.project_in = nn.Conv2d(dim, hidden * 2, 1, bias=bias)
         self.dwconv = nn.Conv2d(hidden * 2, hidden * 2, 3, padding=1,
                                 groups=hidden * 2, bias=bias)
         self.project_out = nn.Conv2d(hidden, dim, 1, bias=bias)
+        self._kw = None
+        self._kw_key = None
 
     def forward(self, x):
+        if self.fused:
+            c, h2 = x.shape[-1], self.project_in.weight.shape[0]
+            w1 = _hwio(self.project_in.weight).reshape(c, h2)
+            dwk = _hwio(self.dwconv.weight).reshape(3, 3, h2)
+            w2 = _hwio(self.project_out.weight).reshape(h2 // 2, c)
+            kw = _cached_kernel_weights(
+                self, dict(w1=w1, dwk=dwk, w2=w2), x,
+                lambda: prepare_gdfn_weights(w1, dwk, w2, x.dtype))
+            return gdfn_fused(x.contiguous(), w1, dwk, w2, kw)
         x = conv_nhwc(self.dwconv, conv_nhwc(self.project_in, x))
         x1, x2 = torch.chunk(x, 2, dim=-1)
         return conv_nhwc(self.project_out, F.gelu(x1) * x2)
@@ -142,30 +179,46 @@ class GDFN(nn.Module):
 class TransformerBlock(nn.Module):
     """Restormer block: x + MDTA(LN1(x)), then + GDFN(LN2(.)).
 
-    The forward always runs as `tblock_fused` (the whole-block CUDA kernel
-    for CUDA tensors, with its hand-written backward; its plain version
-    `tblock_ref` for CPU tensors), in the dtype of its input.  bwd_mode
-    ('save' | 'remat', JAX TransformerBlock.bwd_mode) picks what the
-    kernel's backward keeps from the forward.  The `attn`/`ffn` submodules
-    hold the parameters in the reference layout; `module_forward` runs them
-    op by op and serves as a parity target."""
+    fused (JAX TransformerBlock.fused, default True): the forward runs as
+    `tblock_fused` (the whole-block CUDA kernel for CUDA tensors, with its
+    hand-written backward; its plain version `tblock_ref` for CPU
+    tensors), in the dtype of its input; bwd_mode ('save' | 'remat', JAX
+    TransformerBlock.bwd_mode) picks what the kernel's backward keeps
+    from the forward.  With fused=False the forward is the module path,
+    `module_forward`: the `attn`/`ffn` submodules op by op (cuDNN convs),
+    with the standalone kernels where asked: gdfn_fused (JAX GDFN.fused,
+    csrc/gdfn.cu) and mdta_pallas (JAX MDTAAttention.use_pallas,
+    csrc/mdta.cu, forward only).  The three options are bools; the two
+    kernels of the module path with fused=True, and conv biases with
+    fused=True or gdfn_fused=True, raise.  The submodules hold the
+    parameters in the reference layout on every route."""
 
     def __init__(self, dim: int, num_heads: int,
                  ffn_expansion_factor: float = 2.66, bias: bool = False,
-                 ln_type: str = "WithBias", bwd_mode: str = "save"):
+                 ln_type: str = "WithBias", bwd_mode: str = "save",
+                 fused: bool = True, gdfn_fused: bool = False,
+                 mdta_pallas: bool = False):
         super().__init__()
-        if bias:
-            raise ValueError("TransformerBlock: conv biases are not supported "
-                             "by the whole-block kernel")
+        owner = type(self).__name__
+        self.fused = _flag(fused, "fused", owner)
+        _flag(gdfn_fused, "gdfn_fused", owner)
+        _flag(mdta_pallas, "mdta_pallas", owner)
+        if fused and (gdfn_fused or mdta_pallas):
+            raise ValueError(f"{owner}: gdfn_fused and mdta_pallas pick "
+                             "kernels of the module path; they need "
+                             "fused=False")
+        if bias and fused:
+            raise ValueError(f"{owner}: conv biases are not supported by "
+                             "the whole-block kernel")
         if bwd_mode not in ("save", "remat"):
-            raise ValueError(f"TransformerBlock: unknown bwd_mode {bwd_mode!r}")
+            raise ValueError(f"{owner}: unknown bwd_mode {bwd_mode!r}")
         self.num_heads = num_heads
         self.ln_type = ln_type
         self.bwd_mode = bwd_mode
         self.norm1 = ChannelLayerNorm(dim, ln_type)
-        self.attn = MDTAAttention(dim, num_heads, bias)
+        self.attn = MDTAAttention(dim, num_heads, bias, mdta_pallas)
         self.norm2 = ChannelLayerNorm(dim, ln_type)
-        self.ffn = GDFN(dim, ffn_expansion_factor, bias)
+        self.ffn = GDFN(dim, ffn_expansion_factor, bias, gdfn_fused)
         self._kw = None
         self._kw_key = None
 
@@ -191,7 +244,11 @@ class TransformerBlock(nn.Module):
             self, p, x, lambda: prepare_tblock_weights(p, x.dtype,
                                                        self.ln_type))
 
-    def forward(self, x):
+    def _block(self, x):
+        """The block without a fusion gate, on the route its options
+        pick."""
+        if not self.fused:  # the module path without the fusion gate
+            return TransformerBlock.module_forward(self, x)
         # the kernel takes dense NHWC; channel slices (fusion outputs) and
         # permuted conv outputs are copied here
         x = x.contiguous()
@@ -199,7 +256,12 @@ class TransformerBlock(nn.Module):
         return tblock_fused(x, p, self.num_heads, self.ln_type,
                             self._kernel_weights(p, x), self.bwd_mode)
 
+    def forward(self, x):
+        return self._block(x)
+
     def module_forward(self, x):
+        """The module path, whatever `fused` says (also the parity target
+        of the whole-block kernel)."""
         x = x + self.attn(self.norm1(x))
         return x + self.ffn(self.norm2(x))
 
@@ -213,7 +275,7 @@ class TransformerResFusionBlock(TransformerBlock):
         self.alpha = nn.Parameter(torch.zeros(1))
 
     def forward(self, x):
-        y = super().forward(x)
+        y = self._block(x)
         return y * self.alpha.to(y.dtype) + x.to(y.dtype)
 
     def module_forward(self, x):
@@ -233,18 +295,23 @@ class TBlockStage(nn.Sequential):
     Its backward recomputes through the plain chain, as JAX's does, so
     the blocks' bwd_mode does not apply to it.  A stage of one block, and
     every stage with chain=False, runs its blocks' own forwards (the
-    whole-block kernel on CUDA)."""
+    whole-block kernel on CUDA).  fused, gdfn_fused and mdta_pallas are
+    the blocks' options (TransformerBlock); the chain is a route of fused
+    blocks, so chain=True with fused=False raises."""
 
     def __init__(self, dim: int, num_heads: int, n: int,
                  ffn_expansion_factor: float = 2.66, bias: bool = False,
                  ln_type: str = "WithBias", bwd_mode: str = "save",
-                 chain: bool = False):
-        if not isinstance(chain, bool):
-            raise ValueError(f"TBlockStage: chain must be a bool, got "
-                             f"{chain!r}")
+                 chain: bool = False, fused: bool = True,
+                 gdfn_fused: bool = False, mdta_pallas: bool = False):
+        if _flag(chain, "chain", "TBlockStage") \
+                and not _flag(fused, "fused", "TBlockStage"):
+            raise ValueError("TBlockStage: chain=True runs the whole-block "
+                             "kernels; it needs fused=True")
         super().__init__(*[
             TransformerBlock(dim, num_heads, ffn_expansion_factor, bias,
-                             ln_type, bwd_mode)
+                             ln_type, bwd_mode, fused, gdfn_fused,
+                             mdta_pallas)
             for _ in range(n)])
         self.num_heads, self.ln_type, self.chain = num_heads, ln_type, chain
 

@@ -10,7 +10,8 @@ sizes (320/128/64 at 16/32/64) are the reference's hardcoded values,
 shape-consistent with its own layout only at dim=48; they are kept
 verbatim, as in the JAX package, so that checkpoints convert.  Module and
 parameter names are the reference's torch names (tests/torch_oracles.py
-OPromptGen, OPromptIR).  `dtype` is the compute dtype, as in
+OPromptGen, OPromptIR).  `dtype` is the compute dtype, and `fused`,
+`gdfn_fused` and `mdta_pallas` pick every block's route, as in
 models/restormer.py.
 """
 
@@ -73,14 +74,14 @@ class _PromptIRTrunk(nn.Module):
 
     def __init__(self, inp_channels, out_channels, dim, num_blocks,
                  num_refinement_blocks, heads, ffn_expansion_factor, bias,
-                 ln_type, decoder, dtype, bwd_mode, chain,
+                 ln_type, decoder, dtype, bwd_mode, chain, route,
                  reffusion_n_blocks=None):
         super().__init__()
         d = dim
         self.decoder = decoder
         self.dtype = dtype
         blk = dict(ffn_expansion_factor=ffn_expansion_factor, bias=bias,
-                   ln_type=ln_type, bwd_mode=bwd_mode)
+                   ln_type=ln_type, bwd_mode=bwd_mode, **route)
 
         def stage(ch, h, n):
             return TBlockStage(ch, h, n, **blk, chain=chain)
@@ -169,10 +170,13 @@ class PromptIR(_PromptIRTrunk):
                  ffn_expansion_factor: float = 2.66, bias: bool = False,
                  ln_type: str = "WithBias", decoder: bool = True,
                  dtype: torch.dtype = torch.float32, bwd_mode: str = "save",
-                 chain: bool = False):
+                 chain: bool = False, fused: bool = True,
+                 gdfn_fused: bool = False, mdta_pallas: bool = False):
         super().__init__(inp_channels, out_channels, dim, num_blocks,
                          num_refinement_blocks, heads, ffn_expansion_factor,
-                         bias, ln_type, decoder, dtype, bwd_mode, chain)
+                         bias, ln_type, decoder, dtype, bwd_mode, chain,
+                         dict(fused=fused, gdfn_fused=gdfn_fused,
+                              mdta_pallas=mdta_pallas))
 
     def forward(self, inp_img):
         """inp_img: (B, H, W, C_in).  Returns (B, H, W, C_out)."""
@@ -198,11 +202,13 @@ class PromptIRRefFusion(_PromptIRTrunk):
                  ref_down_block_size: float = 1.5,
                  dilations: Sequence[int] = (1, 2, 3),
                  dtype: torch.dtype = torch.float32, bwd_mode: str = "save",
-                 chain: bool = False):
+                 chain: bool = False, fused: bool = True,
+                 gdfn_fused: bool = False, mdta_pallas: bool = False):
         super().__init__(inp_channels, out_channels, dim, num_blocks,
                          num_refinement_blocks, heads, ffn_expansion_factor,
                          bias, ln_type, decoder, dtype, bwd_mode, chain,
-                         reffusion_n_blocks)
+                         dict(fused=fused, gdfn_fused=gdfn_fused,
+                              mdta_pallas=mdta_pallas), reffusion_n_blocks)
         self.lr_block_size = lr_block_size
         self.ref_down_block_size = ref_down_block_size
         self.psize = psize

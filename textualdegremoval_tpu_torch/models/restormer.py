@@ -8,6 +8,9 @@ compute dtype (the JAX modules' `dtype`): the input is cast to it and every
 weight at use, while the parameters stay float32.  `bwd_mode` is threaded
 to every block (JAX `bwd_mode`); `chain` (a bool) runs every stage of two
 or more blocks as the cross-block chain (JAX `chain`, see TBlockStage).
+`fused=False` (JAX `fused`) runs every block on the module path instead,
+with `gdfn_fused` and `mdta_pallas` picking its GDFN and MDTA kernels
+(see TransformerBlock).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ class _RestormerTrunk(nn.Module):
 
     def __init__(self, inp_channels, out_channels, dim, num_blocks,
                  num_refinement_blocks, heads, ffn_expansion_factor, bias,
-                 ln_type, dual_pixel_task, dtype, bwd_mode, chain):
+                 ln_type, dual_pixel_task, dtype, bwd_mode, chain, route):
         super().__init__()
         d = dim
         self.dual_pixel_task = dual_pixel_task
@@ -43,7 +46,7 @@ class _RestormerTrunk(nn.Module):
 
         def stage(ch, h, n):
             return TBlockStage(ch, h, n, ffn_expansion_factor, bias, ln_type,
-                               bwd_mode, chain)
+                               bwd_mode, chain, **route)
 
         self.patch_embed = OverlapPatchEmbed(inp_channels, d, bias)
         self.encoder_level1 = stage(d, heads[0], num_blocks[0])
@@ -90,11 +93,13 @@ class Restormer(_RestormerTrunk):
                  ffn_expansion_factor: float = 2.66, bias: bool = False,
                  ln_type: str = "WithBias", dual_pixel_task: bool = False,
                  dtype: torch.dtype = torch.float32, bwd_mode: str = "save",
-                 chain: bool = False):
+                 chain: bool = False, fused: bool = True,
+                 gdfn_fused: bool = False, mdta_pallas: bool = False):
         super().__init__(inp_channels, out_channels, dim, num_blocks,
                          num_refinement_blocks, heads, ffn_expansion_factor,
                          bias, ln_type, dual_pixel_task, dtype, bwd_mode,
-                         chain)
+                         chain, dict(fused=fused, gdfn_fused=gdfn_fused,
+                                     mdta_pallas=mdta_pallas))
 
     def forward(self, inp_img):
         """inp_img: (B, H, W, C_in).  Returns (B, H, W, C_out)."""
@@ -128,11 +133,14 @@ class RestormerRefFusion(_RestormerTrunk):
                  ref_down_block_size: float = 1.5,
                  dilations: Sequence[int] = (1, 2, 3),
                  dtype: torch.dtype = torch.float32, bwd_mode: str = "save",
-                 chain: bool = False):
+                 chain: bool = False, fused: bool = True,
+                 gdfn_fused: bool = False, mdta_pallas: bool = False):
+        route = dict(fused=fused, gdfn_fused=gdfn_fused,
+                     mdta_pallas=mdta_pallas)
         super().__init__(inp_channels, out_channels, dim, num_blocks,
                          num_refinement_blocks, heads, ffn_expansion_factor,
                          bias, ln_type, dual_pixel_task, dtype, bwd_mode,
-                         chain)
+                         chain, route)
         self.lr_block_size = lr_block_size
         self.ref_down_block_size = ref_down_block_size
         self.psize = psize
@@ -143,7 +151,7 @@ class RestormerRefFusion(_RestormerTrunk):
             setattr(self, f"masa_blk_enc_level{level + 1}", nn.Sequential(*[
                 TransformerResFusionBlock(ch, heads[level],
                                           ffn_expansion_factor, bias, ln_type,
-                                          bwd_mode)
+                                          bwd_mode, **route)
                 for _ in range(reffusion_n_blocks[level])]))
 
     @staticmethod

@@ -50,6 +50,12 @@ _SIGNATURES = {
     "nafblock_ctas_per_sm": ([_I] * 5, _I),
     "nafblock_sum": ([_P] * 8 + [_I] * 9 + [_P], _I),
     "nafblock_apply": ([_P] * 16 + [_I] * 8 + [_P], _I),
+    "gdfn_smem": ([_I] * 4, _L),
+    "gdfn_fwd": ([_P] * 5 + [_I] * 8 + [_P], _I),
+    "mdta_max_cph": ([], _I),
+    "mdta_stats_smem": ([_I] * 3, _L),
+    "mdta_stats": ([_P] * 5 + [_I] * 5 + [_L] * 3 + [_I] * 3 + [_P], _I),
+    "mdta_finish": ([_P] * 5 + [_I] * 4 + [_P], _I),
     "flash_attn_error_string": ([_I], ctypes.c_char_p),
     "flash_attn_fwd": ([_P] * 5 + [_I] * 4 + [_L] * 9
                        + [ctypes.c_float, _I, _P], _I),

@@ -52,11 +52,9 @@ from textualdegremoval_tpu_torch.ops.dwconv import dwconv
 from textualdegremoval_tpu_torch.ops.norm import (
     bias_free_layer_norm, with_bias_layer_norm,
 )
-from textualdegremoval_tpu_torch.ops.pallas.gdfn import gdfn_ref
-
-# The kernel's GDFN hidden chunk (kHC in csrc/tblock.cu); the hidden width
-# is zero-padded to a multiple of it.
-HIDDEN_CHUNK = 32
+from textualdegremoval_tpu_torch.ops.pallas.gdfn import (  # noqa: F401
+    HIDDEN_CHUNK, gdfn_ref, kernel_matrix, pad_gdfn_weights,
+)
 
 # Tiles (rows, cols) in order of preference; the first whose shared memory
 # fits one block is taken.  Measured on an H100 over the main path's block
@@ -126,24 +124,9 @@ def prepare_tblock_weights(p, dtype: torch.dtype, ln_type: str) -> dict:
     qkv = p["qkv"].reshape(c, 3 * c).to(f32)
     dwqkv = p["qkv_dw"].reshape(9, 3 * c).to(f32)
     h2 = p["gd_in"].shape[-1]
-    hidden = h2 // 2
-    hpad = -(-hidden // HIDDEN_CHUNK) * HIDDEN_CHUNK
+    w1s, dwg, w2s, hpad = pad_gdfn_weights(
+        p["gd_in"].reshape(c, h2), p["gd_dw"], p["gd_out"].reshape(-1, c))
     dev = qkv.device
-
-    # w1's outputs per hidden chunk: the chunk's h1 columns, then its h2
-    # columns, so that one product makes both halves of a chunk
-    w1 = p["gd_in"].reshape(c, h2).to(f32)
-    w1s = torch.zeros((c, 2, hpad), dtype=f32, device=dev)
-    w1s[:, 0, :hidden] = w1[:, :hidden]
-    w1s[:, 1, :hidden] = w1[:, hidden:]
-    w1s = (w1s.reshape(c, 2, hpad // HIDDEN_CHUNK, HIDDEN_CHUNK)
-           .transpose(1, 2).reshape(c, 2 * hpad))
-    dwgf = p["gd_dw"].reshape(9, h2).to(f32)
-    dwg = torch.zeros((18, hpad), dtype=f32, device=dev)
-    dwg[:9, :hidden] = dwgf[:, :hidden]
-    dwg[9:, :hidden] = dwgf[:, hidden:]
-    w2s = torch.zeros((hpad, c), dtype=f32, device=dev)
-    w2s[:hidden] = p["gd_out"].reshape(hidden, c).to(f32)
 
     def vec(name):
         if ln_type == "BiasFree" or name not in p:
@@ -151,9 +134,7 @@ def prepare_tblock_weights(p, dtype: torch.dtype, ln_type: str) -> dict:
         return p[name].to(f32).contiguous()
 
     def mat(t):
-        """(inputs, outputs) -> the kernel's layout: bf16 (outputs, inputs),
-        as the tensor-core fragments read it; f32 unchanged."""
-        return (t.T if dtype == torch.bfloat16 else t).to(dtype).contiguous()
+        return kernel_matrix(t, dtype)
 
     proj = p["proj"].reshape(c, c).to(f32)
     wq, wk, wv = qkv[:, :c], qkv[:, c:2 * c], qkv[:, 2 * c:]
