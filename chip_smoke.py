@@ -145,7 +145,20 @@ Phases, each of which raises on failure:
    launches per step, timed against the same step with every GDFN op by
    op in alternating turns with the peak memory of each; the peak at
    batch 1 and 2 on both routes; one f32 step at 128 px on the card
-   against the CPU.
+   against the CPU;
+23. the qkv-form probe kernels `qkv_current` (the 1x1 product, then the
+   depthwise stencil) and `qkv_composed` (one K = 9C product) against
+   their plain versions at the probe tool's four 512 px cases (C -> co
+   48 -> 48, 48 -> 128, 96 -> 96, 96 -> 256), float32 and bfloat16, two
+   calls bitwise equal, and in bf16 the time of each kernel, its plain
+   version and one cuDNN conv of the same function;
+24. the stencil probe kernel `stencil_loop` against `stencil_ref` for its
+   four variants at the tool's shape (t = 8, W = 512, ch = 128, a bf16
+   slab as the tool's) after 1-4 iterations, and the time per step at the
+   tool's 3000 iterations, of the plain version and of one cuDNN depthwise
+   conv step; then both probe tools run
+   once, as `python -m` runs them, with the launches counted (the probe
+   path: the probes are on no path of the model).
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is nvidia-smi's, and before that a JSON summary of each kernel.  Without
@@ -162,8 +175,10 @@ no_rescale (phase 11, the flash kernel), no_di, dk_unscaled and lse_log2
 (phase 14, the flash backward and the forward's lse), chain_ring_zeroed
 (phase 17, the chain kernel's statistics without the tile's ring),
 gdfn_halo_kept (phase 19, the GDFN's hidden not zeroed outside the
-image) and mdta_k_unnormed (phase 20, k's norms dropped from the
-attention).
+image), mdta_k_unnormed (phase 20, k's norms dropped from the
+attention), x9_halo_kept (phase 23, the composed form's X9 not zeroed
+outside the image) and stencil_reads_past_row (phase 24, the stencil's
+right x-shift reading the next row's first pixel).
 """
 
 from __future__ import annotations
@@ -211,6 +226,10 @@ from textualdegremoval_tpu_torch.ops.pallas import nafblock as nb
 from textualdegremoval_tpu_torch.ops.pallas import tblock as tb
 from textualdegremoval_tpu_torch.ops.pallas import tblock_attn_bwd as ab
 from textualdegremoval_tpu_torch.ops.pallas import tblock_bwd as gb
+from textualdegremoval_tpu_torch.ops import probes as pr
+from textualdegremoval_tpu_torch.tools import bench_qkv_form as qkv_tool
+from textualdegremoval_tpu_torch.tools import bench_stencil as stencil_tool
+from textualdegremoval_tpu_torch.tools._card import time_ms
 from textualdegremoval_tpu_torch.train.schedules import (
     build_schedule, warmup_wrap,
 )
@@ -600,6 +619,14 @@ FAULTS = {
     # their division by |k_d|
     "mdta_k_unnormed": ("mdta.cu", "rk[d] = 1.f / sqrtf(fmaxf(s, 1e-24f));",
                         "rk[d] = 1.f;", 20),
+    # the composed form's X9 keeps x's clamped edge pixels outside the
+    # image instead of zeros: the stencil's zero padding lost
+    "x9_halo_kept": ("probe_qkv_form.cu", "in ? v : V{}", "v", 23),
+    # the stencil slab's right zero column filled with the next row's first
+    # pixel: the right x-shift at the row's end reads past it
+    "stencil_reads_past_row": (
+        "probe_stencil.cu", "xc >= 0 && xc < W",
+        "xc >= 0 && (size_t)r * W + xc < (size_t)rows * W", 24),
 }
 
 
@@ -2325,6 +2352,184 @@ def module_step_memory(seed: int, batches=(1, MODULE_TRAIN_BATCH)):
 
 
 # ---------------------------------------------------------------------------
+# Phases 23-24: the probes of the block's linear + depthwise stage (B9)
+# ---------------------------------------------------------------------------
+
+# (px, C, co): the qkv-form tool's cases
+QKV_CASES = [(512, c, co) for c, co in qkv_tool.CASES]
+# qkv form kernel vs its own plain version, (a, r, l2) as GDFN_TOL's.
+# float32: sums in another order only (read at most 0.0037 / 0.0063 on an
+# H100).  bfloat16: the kernel's f32 sums (tensor cores) and the plain
+# product's (cuBLAS) run in other orders, so a value at a rounding
+# boundary rounds the other way: the output by one bf16 ulp (at most 2^-7
+# of max|p|), and in the current form also lin, which moves the output by
+# a tap times an ulp of lin.  The first version read at most 0.27 of a and
+# r (one-ulp flips) and 6.8e-5 in L2, so l2 is 5e-4.  The two forms round
+# at other points (lin against W9) and differ from each other by more
+# than from their own plain versions, so each is held against its own.
+QKV_TOL = {form: {torch.float32: (2e-5, 1e-4, 1e-5),
+                  torch.bfloat16: (1e-2, 1e-2, 5e-4)}
+           for form in ("current", "composed")}
+# the stencil probe at the tool's shape: t = 8 rows of W = 512, ch = 128
+STENCIL_SHAPE = (8, 512, 128)
+STENCIL_ITERS = (1, 2, 3, 4)
+# stencil kernel vs `stencil_ref` on a bf16 slab after 1-4 iterations,
+# (a, r, l2) as above, for every variant.  concat and mulonly sum f32
+# products in the same (dy, dx) order as the plain version, but the card
+# contracts each product and sum into one FMA, so a sum at a rounding
+# boundary rounds the other way (one ulp, at most 2^-7 of max|p|) and feeds
+# the next iteration: the first version's largest elementwise error was
+# 0.18 of this a and r, 8.8e-5 in L2, so l2 is 1e-3.  The bf16 variants
+# round every product and sum once, as the plain version does (bitwise
+# equal in the first version's run), under the same bound.
+STENCIL_TOL = (1e-2, 1e-2, 1e-3)
+
+
+def _probe_time(fn) -> float:
+    """ms per call on the card, the probe tools' timer: the median of 5
+    runs (as `median_ms` takes of 5 calls), each 10 calls back to back
+    behind a spin, since a probe call's host work outlasts its kernel."""
+    return time_ms(fn, torch.device("cuda"), 10, 5)
+
+
+def qkv_form_vs_plain(gen, cases=QKV_CASES,
+                      dtypes=(torch.float32, torch.bfloat16), timed=True):
+    """Phase 23: the qkv-form kernels `qkv_current` and `qkv_composed`
+    against their plain versions at the tool's four cases, float32 and
+    bfloat16, under QKV_TOL; two calls bitwise equal, one launch per call;
+    in bf16 the time of each kernel, its plain version and the cuDNN conv
+    computing the same function.  Returns {form: [(max_abs, kernel ms,
+    plain ms, cudnn ms, (px, C, co)) per case]} of the bf16 rows."""
+    log("qkv probe kernels vs plain: |k-p| <= a max|p| + r|p|, ||k-p|| <= "
+        f"l2 ||p||; (a, r, l2) f32 {QKV_TOL['current'][torch.float32]}, "
+        f"bf16 {QKV_TOL['current'][torch.bfloat16]}")
+    rows = {"current": [], "composed": []}
+    failures = []
+    for px, c, co in cases:
+        x32, w, dw = qkv_tool.case_inputs(px, c, co, gen, "cuda",
+                                          torch.float32)
+        w9 = pr.compose_w9(w, dw)
+        for dtype in dtypes:
+            x = x32.to(dtype)
+            kw = pr.prepare_qkv_weights(w, dw, dtype)
+            wconv = qkv_tool.conv_weight(w9, c, dtype)
+            lib_ms = float("nan")
+            if timed:
+                with torch.inference_mode():
+                    lib_ms = _probe_time(lambda: qkv_tool.cudnn_stage(
+                        x, wconv))
+            plain = {"current": lambda: pr.qkv_current_ref(x, w, dw),
+                     "composed": lambda: pr.qkv_composed_ref(x, w9)}
+            for form, kernel in (("current", pr.qkv_current),
+                                 ("composed", pr.qkv_composed)):
+                with torch.inference_mode():
+                    before = kernel.launches
+                    got = kernel(x, kw)
+                    same = torch.equal(got, kernel(x, kw))
+                    launched = kernel.launches - before
+                    want = plain[form]()
+                    max_abs, use, l2_use = _err_use(got, want,
+                                                    *QKV_TOL[form][dtype])
+                    finite = bool(torch.isfinite(got).all())
+                    k_ms = p_ms = float("nan")
+                    if timed:
+                        k_ms = _probe_time(lambda: kernel(x, kw))
+                        p_ms = _probe_time(plain[form])
+                name = str(dtype).split(".")[-1]
+                tile = pr.pick_tile(_build.load_library(), form, c, co,
+                                    x.element_size())
+                log(f"{px}px {c}->{co} {form:8s} {name}: max_abs "
+                    f"{max_abs:.3e} (max|p| {want.abs().max().item():.3f}) "
+                    f"tol_use {use:.4f} l2_use {l2_use:.4f} kernel "
+                    f"{k_ms:.4f} ms plain {p_ms:.4f} ms cudnn {lib_ms:.4f} "
+                    f"ms tile {tile}{'' if same else '  NOT REPEATABLE'}")
+                if not finite or not same or launched != 2 \
+                        or max(use, l2_use) > 1.0:
+                    failures.append((px, c, co, form, name,
+                                     round(max(use, l2_use), 3)))
+                if dtype == torch.bfloat16:
+                    rows[form].append((max_abs, k_ms, p_ms, lib_ms,
+                                       (px, c, co)))
+                del got, want
+    if failures:
+        raise RuntimeError(f"qkv probe kernels disagree with their plain "
+                           f"versions at (px, C, co, form, dtype, the error "
+                           f"over its bound) {failures}")
+    return rows
+
+
+def stencil_vs_plain(gen, shape=STENCIL_SHAPE, iters_list=STENCIL_ITERS,
+                     timed=True):
+    """Phase 24: `stencil_loop` against `stencil_ref` for every variant on
+    a bf16 slab at the tool's shape after 1-4 iterations (the values grow
+    about 3x a step and overflow long before the tool's 3000), under
+    STENCIL_TOL; two calls bitwise equal, one launch per call.  The time
+    per stencil step of the kernel (at the tool's 3000 iterations in one
+    launch), the plain version (4 iterations) and one cuDNN depthwise conv
+    step.  Returns {variant: (max_abs, kernel ms, plain ms, cudnn ms)} per
+    step."""
+    t, w, ch = shape
+    log(f"stencil probe kernel vs stencil_ref at t={t} W={w} ch={ch} "
+        f"bfloat16, iters {list(iters_list)}: (a, r, l2) {STENCIL_TOL}")
+    x = torch.randn(t + 2, w, ch, generator=gen).to("cuda", torch.bfloat16)
+    taps = torch.randn(9, ch, generator=gen).cuda()
+    rows, failures = {}, []
+    for variant in pr.VARIANTS:
+        max_abs = 0.0
+        with torch.inference_mode():
+            for iters in iters_list:
+                before = pr.stencil_loop.launches
+                got = pr.stencil_loop(x, taps, variant, iters)
+                same = torch.equal(got, pr.stencil_loop(x, taps, variant,
+                                                        iters))
+                launched = pr.stencil_loop.launches - before
+                want = pr.stencil_ref(x, taps, variant, iters)
+                err, use, l2_use = _err_use(got, want, *STENCIL_TOL)
+                max_abs = max(max_abs, err)
+                log(f"{variant:12s} iters {iters}: max_abs {err:.3e} (max|p| "
+                    f"{want.abs().max().item():.1f}) tol_use {use:.4f} "
+                    f"l2_use {l2_use:.4f}{'' if same else '  NOT REPEATABLE'}")
+                if not bool(torch.isfinite(got).all()) or not same \
+                        or launched != 2 or max(use, l2_use) > 1.0:
+                    failures.append((variant, iters,
+                                     round(max(use, l2_use), 3)))
+            if timed:
+                n = stencil_tool.parse_args([]).iters
+                k_ms = _probe_time(lambda: pr.stencil_loop(
+                    x, taps, variant, n)) / n
+                p_ms = _probe_time(lambda: pr.stencil_ref(
+                    x, taps, variant, 4)) / 4
+                wconv = taps.reshape(3, 3, ch).permute(2, 0, 1)[:, None]
+                lib_ms = _probe_time(lambda: stencil_tool.depthwise_step(
+                    x, wconv.to(x.dtype)))
+                log(f"{variant:12s} per step: kernel {k_ms * 1e3:.3f} us "
+                    f"plain {p_ms * 1e3:.3f} us cudnn {lib_ms * 1e3:.3f} us")
+                rows[variant] = (max_abs, k_ms, p_ms, lib_ms)
+    if failures:
+        raise RuntimeError(f"stencil_loop disagrees with stencil_ref at "
+                           f"(variant, iters, the error over its bound) "
+                           f"{failures}")
+    return rows
+
+
+def probe_tool_runs():
+    """The probe path: both port tools as `python -m` runs them, with the
+    kernels' counts set to 0 just before and read just after.  Returns
+    (qkv rows, stencil result, {kernel: launches})."""
+    for k in (pr.qkv_current, pr.qkv_composed, pr.stencil_loop):
+        k.launches = 0
+    qkv_rows = qkv_tool.main([])
+    stencil_res = stencil_tool.main([])
+    counts = {k.__name__: k.launches
+              for k in (pr.qkv_current, pr.qkv_composed, pr.stencil_loop)}
+    log(f"launches: probe tools (one run each) {counts}")
+    if not all(counts.values()):
+        raise RuntimeError(f"a probe kernel was not launched by its tool: "
+                           f"{counts}")
+    return qkv_rows, stencil_res, counts
+
+
+# ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for the same work
 # ---------------------------------------------------------------------------
 
@@ -2448,6 +2653,10 @@ def main(argv=None) -> int:
             elif FAULTS[args.plant][3] == 20:
                 mdta_vs_plain(gen, [MDTA_SHAPES[i] for i in (2, 6, 8)],
                               dtypes=(torch.bfloat16,), timed=False)
+            elif FAULTS[args.plant][3] == 23:
+                qkv_form_vs_plain(gen, dtypes=(torch.bfloat16,), timed=False)
+            elif FAULTS[args.plant][3] == 24:
+                stencil_vs_plain(gen, timed=False)
             else:
                 nafblock_vs_plain(gen, [NAF_SHAPES[i] for i in (7, 8, 10)],
                                   dtypes=(torch.bfloat16,), timed=False)
@@ -2536,6 +2745,11 @@ def main(argv=None) -> int:
         f"gdfn_fused/tblock_fused {mod_train_launches}")
     log_held("phases 19-22")
 
+    qkv_rows = qkv_form_vs_plain(gen)
+    stencil_rows = stencil_vs_plain(gen)
+    _, _, probe_launches = probe_tool_runs()
+    log_held("phases 23-24")
+
     # per-step kernel time: each training shape's median time times the
     # number of blocks of that shape in one step (bf16, WithBias); the
     # forward's from phase 3 at the evaluation shapes, per forward
@@ -2556,6 +2770,13 @@ def main(argv=None) -> int:
                  for n, *_, shape in chain_rows]
     gdfn_bound, gdfn_by = bounds("gdfn_fused", SHAPES)
     mdta_bound, mdta_by = bounds("mdta_stats", SHAPES)
+    qkv_per = [qkv_tool.bound_ms(*case) for case in QKV_CASES]
+    qkv_bound = sum(ms for ms, _ in qkv_per)
+    qkv_by = max(qkv_per)[1]
+    t_st, w_st, ch_st = STENCIL_SHAPE
+    sms, mhz, core_peak = stencil_tool.cuda_core_peak(torch.device("cuda"))
+    stencil_bound = stencil_tool.stencil_flops(t_st, w_st, ch_st) \
+        / core_peak * 1e3
     src = "textualdegremoval_tpu_torch/csrc/"
     summary = {"kernels": [
         {"name": "tblock_fused", "route": "cuda", "source": src + "tblock.cu",
@@ -2648,6 +2869,42 @@ def main(argv=None) -> int:
          "ms": sum(r[0] * r[2] for r in mdta_rows),
          "plain_ms": sum(r[0] * r[3] for r in mdta_rows),
          "bound_ms": mdta_bound, "bound_by": mdta_by, "library_ms": None},
+        # B9, on no path of the model: per qkv tool run (its four 512 px
+        # cases, one call each, bf16); launches: one run of the tool;
+        # library: the dense 3x3 cuDNN conv of the same function
+        {"name": "qkv_current", "route": "cuda",
+         "source": src + "probe_qkv_form.cu",
+         "replaces": "tools/bench_qkv_form.py:109 (_run_pallas with "
+                     "_kernel_current :51)",
+         "launches": probe_launches["qkv_current"],
+         "max_abs_err": max(r[0] for r in qkv_rows["current"]),
+         "ms": sum(r[1] for r in qkv_rows["current"]),
+         "plain_ms": sum(r[2] for r in qkv_rows["current"]),
+         "bound_ms": qkv_bound, "bound_by": qkv_by,
+         "library_ms": sum(r[3] for r in qkv_rows["current"])},
+        {"name": "qkv_composed", "route": "cuda",
+         "source": src + "probe_qkv_form.cu",
+         "replaces": "tools/bench_qkv_form.py:109 (_run_pallas with "
+                     "_kernel_composed :70)",
+         "launches": probe_launches["qkv_composed"],
+         "max_abs_err": max(r[0] for r in qkv_rows["composed"]),
+         "ms": sum(r[1] for r in qkv_rows["composed"]),
+         "plain_ms": sum(r[2] for r in qkv_rows["composed"]),
+         "bound_ms": qkv_bound, "bound_by": qkv_by,
+         "library_ms": sum(r[3] for r in qkv_rows["composed"])},
+        # per stencil step of the concat variant at the tool's shape (bf16,
+        # the kernel looping 3000 steps in one launch); bound: its FMAs at
+        # the CUDA-core rate; launches: one run of the tool (4 variants);
+        # library: one cuDNN depthwise conv step
+        {"name": "stencil_loop", "route": "cuda",
+         "source": src + "probe_stencil.cu",
+         "replaces": "tools/bench_stencil.py:109 (make_kernel :50)",
+         "launches": probe_launches["stencil_loop"],
+         "max_abs_err": stencil_rows["concat"][0],
+         "ms": stencil_rows["concat"][1],
+         "plain_ms": stencil_rows["concat"][2],
+         "bound_ms": stencil_bound, "bound_by": "operations",
+         "library_ms": stencil_rows["concat"][3]},
     ]}
     log(f"train step 384 px batch 8 bf16: {step_ms:.2f} ms through the "
         f"kernels vs {plain_step_ms:.2f} ms through plain blocks, peak "
@@ -2682,6 +2939,22 @@ def main(argv=None) -> int:
         f"batch {MODULE_TRAIN_BATCH} bf16 {mod_step_ms:.2f} ms with "
         f"gdfn_fused vs {mod_plain_step_ms:.2f} ms without, peak "
         f"{mod_peak:.2f} vs {mod_plain_peak:.2f} GiB")
+    log("B9 probes (bf16), per case current / composed / cudnn ms and each "
+        "one's fraction of the bound: " + "; ".join(
+            f"{c}->{co} {cu[1]:.4f} / {cm[1]:.4f} / {cu[3]:.4f} "
+            f"({b / cu[1]:.3f} / {b / cm[1]:.3f} / {b / cu[3]:.3f} of "
+            f"{b:.4f} ms)"
+            for cu, cm, (b, _), (_, c, co) in zip(
+                qkv_rows["current"], qkv_rows["composed"], qkv_per,
+                QKV_CASES)))
+    log(f"B9 stencil per step (bf16, t={t_st} W={w_st} ch={ch_st}; CUDA-core "
+        f"peak {core_peak / 1e12:.3f} TFLOP/s f32 from {sms} SMs at {mhz} "
+        "MHz, packed bf16 twice that): " + "; ".join(
+            f"{v} {r[1] * 1e3:.3f} us "
+            f"({stencil_bound / r[1] / (2 if v in pr.BF16_VARIANTS else 1):.4f}"
+            " of its peak)" for v, r in stencil_rows.items())
+        + f"; plain concat {stencil_rows['concat'][2] * 1e3:.3f} us, cudnn "
+        f"{stencil_rows['concat'][3] * 1e3:.3f} us")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s after "
         f"the build")
     log(json.dumps(summary))

@@ -139,6 +139,26 @@ inline void host_mma_16816(float (&d)[4], const uint32_t (&a)[4],
   for (int i = 0; i < 4; ++i) d[i] = out[i];
 }
 
+// Packed bf16 arithmetic (mul.rn.bf16x2, add.rn.bf16x2): two bf16 in a
+// 32-bit word, each half computed in f32 and rounded to bf16 (a product of
+// two bf16 is exact in f32).  The kernel source calls these in place of
+// its inline PTX when TBLOCK_HOST_BUILD is defined.
+template <typename Op>
+inline uint32_t host_bf16x2(uint32_t a, uint32_t b, Op op) {
+  uint32_t d = 0;
+  for (int h = 0; h < 2; ++h) {
+    const float r = op(bf16_half(a, h), bf16_half(b, h));
+    d |= (uint32_t)__float2bfloat16(r).bits << (16 * h);
+  }
+  return d;
+}
+inline uint32_t host_bf16x2_mul(uint32_t a, uint32_t b) {
+  return host_bf16x2(a, b, [](float u, float v) { return u * v; });
+}
+inline uint32_t host_bf16x2_add(uint32_t a, uint32_t b) {
+  return host_bf16x2(a, b, [](float u, float v) { return u + v; });
+}
+
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
