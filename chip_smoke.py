@@ -59,7 +59,11 @@ Phases, each of which raises on failure:
    standard deviation of 3 (peaked rows move the running max): elementwise
    and L2 bounds, two calls bitwise equal, the median time of the kernel,
    the plain version and `F.scaled_dot_product_attention` (the library
-   yardstick, never called by the port);
+   yardstick, never called by the port), and in bf16 the device time of
+   the kernel and of SDPA (runs behind a spin, `tools/_card.py`
+   `time_ms`), the kernel's TFLOP/s as its bound counts the operations,
+   the host's enqueue time of one call, and SDPA's backend kernel by name
+   (`torch.profiler`);
 12. pipeline A's towers at full SD 2.1 width (seeded random weights,
    `random_init`), float32 with cuDNN's TF32 off: the UNet at the 512 px
    latent through the kernel (5 launches) against the same weights with
@@ -80,7 +84,9 @@ Phases, each of which raises on failure:
    standard deviation 3: dq, dk, dv elementwise and in L2, the lse against
    logsumexp, two calls bitwise equal, and the median time of the kernel
    pair, of the plain autograd backward and of SDPA's backward (the
-   yardstick);
+   yardstick), and in bf16 the device time of the pair and of SDPA's
+   backward, the pair's TFLOP/s as its bound counts the operations, the
+   enqueue time of one pair, and SDPA's backend kernel by name;
 15. pipeline A's training path: the I2T training CLI's step function
    (`train_i2t.build_towers` / `build_step`) at full SD 2.1 width on
    seeded random towers, 512 px numpy-made images, batch 4,
@@ -171,8 +177,9 @@ temporary directory, runs the phase that should catch it in bfloat16 (phase
 17: float32 and bfloat16) at a few shapes and exits 0 only if its check
 catches the fault (the strength of the phase's bound): dv_uses_a and dq_drops_diag (phase 6, the attention
 backward), sca_skipped and halo_kept (phase 8, the NAFBlock forward),
-no_rescale (phase 11, the flash kernel), no_di, dk_unscaled and lse_log2
-(phase 14, the flash backward and the forward's lse), chain_ring_zeroed
+no_rescale and v_kmajor (phase 11, the flash kernel), no_di, dk_unscaled
+and lse_log2 (phase 14, the flash backward and the forward's lse),
+chain_ring_zeroed
 (phase 17, the chain kernel's statistics without the tile's ring),
 gdfn_halo_kept (phase 19, the GDFN's hidden not zeroed outside the
 image), mdta_k_unnormed (phase 20, k's norms dropped from the
@@ -227,9 +234,10 @@ from textualdegremoval_tpu_torch.ops.pallas import tblock as tb
 from textualdegremoval_tpu_torch.ops.pallas import tblock_attn_bwd as ab
 from textualdegremoval_tpu_torch.ops.pallas import tblock_bwd as gb
 from textualdegremoval_tpu_torch.ops import probes as pr
+from textualdegremoval_tpu_torch.tools import bench_flash as flash_tool
 from textualdegremoval_tpu_torch.tools import bench_qkv_form as qkv_tool
 from textualdegremoval_tpu_torch.tools import bench_stencil as stencil_tool
-from textualdegremoval_tpu_torch.tools._card import time_ms
+from textualdegremoval_tpu_torch.tools._card import median_ms, time_ms
 from textualdegremoval_tpu_torch.train.schedules import (
     build_schedule, warmup_wrap,
 )
@@ -284,20 +292,6 @@ def log_held(after: str):
     outlives its phase inflates every later phase's peak)."""
     gib = torch.cuda.memory_allocated() / 2 ** 30
     log(f"held after {after}: {gib:.2f} GiB")
-
-
-def median_ms(fn, reps=5) -> float:
-    fn()
-    times = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        torch.cuda.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
 
 
 def randomize_block(blk: TransformerBlock, gen: torch.Generator):
@@ -586,12 +580,16 @@ FAULTS = {
     # the flash kernel's accumulator not rescaled by exp(m_old - m_new)
     # when a row's running max grows (bf16 path)
     "no_rescale": ("flash_attn.cu",
-                   "acc[j][0] *= al0; acc[j][1] *= al0; acc[j][2] *= al1; "
-                   "acc[j][3] *= al1;", "", 11),
+                   "acc[4 * j] *= al0; acc[4 * j + 1] *= al0;\n"
+                   "      acc[4 * j + 2] *= al1; acc[4 * j + 3] *= al1;", "",
+                   11),
+    # V read K-major by the P V product (the transpose bit cleared): the
+    # wgmma descriptor's likeliest silent fault (bf16 forward)
+    "v_kmajor": ("flash_attn.cu", "wgmma_rs<D, 1>(acc, pa,",
+                 "wgmma_rs<D, 0>(acc, pa,", 11),
     # the flash backward's dS = P (dP - di) without di (dkv kernel, bf16)
-    "no_di": ("flash_attn_bwd.cu",
-              "dpt[nt][i] = p * (dpt[nt][i] - dis[qi]);",
-              "dpt[nt][i] = p * dpt[nt][i];", 14),
+    "no_di": ("flash_attn_bwd.cu", "dpt[e] = p * (dpt[e] - dl);",
+              "dpt[e] = p * dpt[e];", 14),
     # dK not multiplied by the softmax scale (bf16)
     "dk_unscaled": ("flash_attn_bwd.cu",
                     "store_rows<D>(dk + off, dka, r0, N, H, scale);",
@@ -599,8 +597,8 @@ FAULTS = {
     # the forward's lse left in log2 units (bf16): every recomputed P is
     # off by a factor
     "lse_log2": ("flash_attn.cu",
-                 "if (r0 < N) lb[r0] = (m0 + log2f(l0)) * kLn2;",
-                 "if (r0 < N) lb[r0] = m0 + log2f(l0);", 14),
+                 "if (r0 < N) lb[r0] = (m0 * scale_log2 + log2f(l0)) * kLn2;",
+                 "if (r0 < N) lb[r0] = m0 * scale_log2 + log2f(l0);", 14),
     # the chain kernel takes block i+1's statistics with the tile's 1-pixel
     # ring of block i's output zeroed, as if it lay outside the image: the
     # q/k stencils at the tile's edges lose their neighbours
@@ -1256,8 +1254,9 @@ FLASH_TOL = {torch.float32: (1e-5, 1e-4, 1e-5),
 def flash_vs_plain(gen, shapes=FLASH_SHAPES,
                    dtypes=(torch.float32, torch.bfloat16), timed=True):
     """Phase 11.  Returns the bf16 rows as (launches of that shape per UNet
-    forward, max_abs, kernel ms, plain ms, SDPA ms, shape); untimed, the ms
-    are NaN.  Raises after printing if any row fails."""
+    forward, max_abs, kernel ms, plain ms, SDPA ms, shape, kernel device
+    ms, SDPA device ms); untimed, the ms are NaN.  Raises after printing
+    if any row fails."""
     log("flash kernel vs attention_ref: |k-p| <= a*max|p| + r*|p| and "
         "||k-p|| <= l2*||p||; a/r/l2 f32 "
         f"{FLASH_TOL[torch.float32]}, bf16 {FLASH_TOL[torch.bfloat16]}; "
@@ -1287,16 +1286,32 @@ def flash_vs_plain(gen, shapes=FLASH_SHAPES,
             max_abs = diff.max().item()
             finite = bool(torch.isfinite(g).all())
             del got, again, want, g, w, diff
-            k_ms = p_ms = l_ms = float("nan")
+            k_ms = p_ms = l_ms = k_dev = l_dev = float("nan")
             if timed:
                 qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+                def kernel():
+                    return fa.flash_attention(q, k, v)
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(qt, kt, vt)
+
                 with torch.inference_mode():
-                    k_ms = median_ms(lambda: fa.flash_attention(q, k, v),
-                                     reps=10)
+                    k_ms = median_ms(kernel, reps=10)
                     p_ms = median_ms(lambda: fa.attention_ref(q, k, v))
-                    l_ms = median_ms(
-                        lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                        reps=10)
+                    l_ms = median_ms(sdpa, reps=10)
+                    if dtype == torch.bfloat16:
+                        k_dev = time_ms(kernel, q.device, 20, 5)
+                        l_dev = time_ms(sdpa, q.device, 20, 5)
+                        log(f"{f'{b},{n},{h},{d}':>16} bfloat16 device "
+                            f"kernel {k_dev:.4f} ms "
+                            f"({4 * b * h * n * n * d / k_dev / 1e9:.1f} "
+                            f"TFLOP/s as the bound counts), SDPA "
+                            f"{l_dev:.4f} ms; enqueue "
+                            f"{flash_tool.enqueue_us(kernel):.1f} us a call"
+                            + ("; SDPA's kernel "
+                               f"{flash_tool.sdpa_backend(sdpa)}"
+                               if not rows else ""))
             name = str(dtype).split(".")[-1]
             bound = flash_bound_ms(b, n, h, d, torch.finfo(dtype).bits // 8)
             log(f"{f'{b},{n},{h},{d}':>16} {name:>8} {peak:7.3f} "
@@ -1306,7 +1321,7 @@ def flash_vs_plain(gen, shapes=FLASH_SHAPES,
                 failures.append((b, n, h, d, name))
             if dtype == torch.bfloat16:
                 rows.append((per_fwd, max_abs, k_ms, p_ms, l_ms,
-                             (b, n, h, d)))
+                             (b, n, h, d), k_dev, l_dev))
             del q, k, v
         torch.cuda.empty_cache()
     if failures:
@@ -1547,8 +1562,9 @@ def flash_bwd_vs_plain(gen, shapes=FLASH_BWD_SHAPES,
                        dtypes=(torch.float32, torch.bfloat16), timed=True):
     """Phase 14.  Returns the bf16 rows as (backward launches of that shape
     per training micro-step, max_abs vs the plain backward, kernel-pair ms,
-    plain autograd backward ms, SDPA backward ms, shape); untimed, the ms
-    are NaN.  Raises after printing if any row fails."""
+    plain autograd backward ms, SDPA backward ms, shape, pair device ms,
+    SDPA backward device ms); untimed, the ms are NaN.  Raises after
+    printing if any row fails."""
     log("flash backward kernels vs attention_bwd_ref and autograd through "
         "attention_ref, per gradient: |k-p| <= a*max|p| + r*|p| and "
         "||k-p|| <= l2*||p||; a/r/l2 f32 "
@@ -1589,11 +1605,14 @@ def flash_bwd_vs_plain(gen, shapes=FLASH_BWD_SHAPES,
                     f"{m_abs:10.3e} {use:6.3f} {l2:10.3e} {ag_use:6.3f} "
                     f"{ag_l2:10.3e}")
             del again, plain, auto, leaves
-            k_ms = p_ms = l_ms = float("nan")
+            k_ms = p_ms = l_ms = k_dev = l_dev = float("nan")
             if timed:
                 stream = torch.cuda.current_stream().cuda_stream
-                k_ms = median_ms(lambda: fa._launch_bwd(lib, q, k, v, o, lse,
-                                                        do, stream), reps=10)
+
+                def pair():
+                    return fa._launch_bwd(lib, q, k, v, o, lse, do, stream)
+
+                k_ms = median_ms(pair, reps=10)
                 leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
                 out = fa.attention_ref(*leaves)
                 p_ms = median_ms(lambda: torch.autograd.grad(
@@ -1603,8 +1622,23 @@ def flash_bwd_vs_plain(gen, shapes=FLASH_BWD_SHAPES,
                       for x in (q, k, v)]
                 out = F.scaled_dot_product_attention(*tl)
                 dot = do.transpose(1, 2)
-                l_ms = median_ms(lambda: torch.autograd.grad(
-                    out, tl, dot, retain_graph=True), reps=10)
+
+                def sdpa():
+                    return torch.autograd.grad(out, tl, dot,
+                                               retain_graph=True)
+
+                l_ms = median_ms(sdpa, reps=10)
+                if dtype == torch.bfloat16:
+                    k_dev = time_ms(pair, q.device, 20, 5)
+                    l_dev = time_ms(sdpa, q.device, 20, 5)
+                    log(f"{f'{b},{n},{h},{d}':>16} bfloat16 device pair "
+                        f"{k_dev:.4f} ms "
+                        f"({10 * b * h * n * n * d / k_dev / 1e9:.1f} TFLOP/s "
+                        f"as the bound counts), SDPA backward {l_dev:.4f} ms; "
+                        f"enqueue {flash_tool.enqueue_us(pair):.1f} us a pair"
+                        + ("; SDPA's backward kernel "
+                           f"{flash_tool.sdpa_backend(sdpa)}"
+                           if not rows else ""))
                 del out, tl, leaves
             bound = flash_bwd_bound_ms(b, n, h, d,
                                        torch.finfo(dtype).bits // 8)
@@ -1616,7 +1650,7 @@ def flash_bwd_vs_plain(gen, shapes=FLASH_BWD_SHAPES,
                 failures.append((b, n, h, d, name))
             if dtype == torch.bfloat16:
                 rows.append((per_step, max(errs), k_ms, p_ms, l_ms,
-                             (b, n, h, d)))
+                             (b, n, h, d), k_dev, l_dev))
             del q, k, v, do, o, lse, got
             torch.cuda.empty_cache()
     if failures:
@@ -2707,6 +2741,12 @@ def main(argv=None) -> int:
     log_held("phase 12")
     gen_out = generation_path(args.seed)
     flash_main = [r for r in flash_rows if r[0]]
+    log(f"flash_attention per UNet forward (bf16, "
+        f"{sum(r[0] for r in flash_main)} launches): kernel median "
+        f"{sum(r[0] * r[2] for r in flash_main):.4f} ms, device "
+        f"{sum(r[0] * r[6] for r in flash_main):.4f} ms; SDPA median "
+        f"{sum(r[0] * r[4] for r in flash_main):.4f} ms, device "
+        f"{sum(r[0] * r[7] for r in flash_main):.4f} ms")
     flash_launches = sum(v[3] for v in gen_out.values())
     log(f"launches: generation path flash_attention {flash_launches} "
         f"({', '.join(f'{k} {v[3]}' for k, v in gen_out.items())})")
@@ -2717,6 +2757,12 @@ def main(argv=None) -> int:
     log(f"launches: training path flash_attention_bwd {bwd_launches} over "
         f"{2 * I2T_ACCUM} micro-steps")
     bwd_main = [r for r in bwd_flash_rows if r[0]]
+    log(f"flash_attention_bwd per I2T micro-step (bf16, "
+        f"{sum(r[0] for r in bwd_main)} pairs): kernels median "
+        f"{sum(r[0] * r[2] for r in bwd_main):.4f} ms, device "
+        f"{sum(r[0] * r[6] for r in bwd_main):.4f} ms; SDPA backward median "
+        f"{sum(r[0] * r[4] for r in bwd_main):.4f} ms, device "
+        f"{sum(r[0] * r[7] for r in bwd_main):.4f} ms")
     log_held("phases 14-15")
 
     noise_rows = kernel_vs_plain(gen, shapes=NOISE_SHAPES)

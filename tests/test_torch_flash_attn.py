@@ -152,6 +152,21 @@ def test_host_kernel_is_bitwise_repeatable(host_lib):
                        fa._launch(host_lib, q, k, v, 0))
 
 
+@pytest.mark.usefixtures("torch_share_of_cores")
+@pytest.mark.parametrize("n", [64, 65, 200])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_kernel_on_host_at_tile_edges(host_lib, n, d):
+    """The bf16 kernel at its tile edges: N of one 64-row box, one row
+    past it, and a ragged third 64-row box of the second 128-key tile (the
+    TMA loads' zero fill, the last tile's key mask, query rows not
+    written); D = 128 reads two boxes a row."""
+    q, k, v = (t(a).bfloat16() for a in _qkv((1, n, 2, d), seed=n + d,
+                                              peak=3.0))
+    got = fa._launch(host_lib, q, k, v, 0)
+    assert_close(got.float(), fa.attention_ref(q, k, v).float(),
+                 atol=BF16_ATOL, rtol=BF16_RTOL)
+
+
 def test_host_kernel_rejects_bad_head_dim(host_lib):
     rc = host_lib.flash_attn_fwd(*([None] * 5), 1, 64, 1, 32, *([0] * 9),
                                  0.125, 1, None)
@@ -194,3 +209,22 @@ def test_gradient_through_host_kernels_matches_attention_ref(host_lib,
     for got, want in ((qa, qr), (ka, kr), (va, vr)):
         assert_close(got.grad, want.grad, atol=1e-5, rtol=1e-4)
 
+
+
+def test_bench_flash_compares_ptxas_reports_without_paths_or_times():
+    """The B4 tool's ptxas comparison: two builds of the same source from
+    other directories differ only in the anonymous namespace's path hash
+    and the compile time, and compare equal; a changed register count
+    does not."""
+    from textualdegremoval_tpu_torch.tools.bench_flash import ptxas_reports
+
+    def log(ns, ms, regs):
+        return (f"== tblock.cu\nptxas info    : Compiling entry function "
+                f"'_ZN46_GLOBAL__N__{ns}_9_tblock_cu_{ns}12tblock_applyEv' "
+                f"for 'sm_90a'\nptxas info    : Used {regs} registers\n"
+                f"ptxas info    : Compile time = {ms} ms\n")
+
+    a = ptxas_reports(log("98bedfd3", "12.5", 128))
+    assert a == ptxas_reports(log("0449ce15", "40.1", 128))
+    assert "12tblock_apply" in a["tblock.cu"]
+    assert a != ptxas_reports(log("0449ce15", "40.1", 136))

@@ -171,6 +171,41 @@ def test_cuda_source_on_host_matches_ref(host_lib, shape, dtype):
 
 
 @pytest.mark.usefixtures("torch_share_of_cores")
+@pytest.mark.parametrize("n", [64, 65, 200])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bf16_backward_on_host_at_tile_edges(host_lib, n, d):
+    """The bf16 dkv and dq kernels at their tile edges (one 64-row box, one
+    row past it, a ragged 200; D = 128 reads two boxes a row, and dkv walks
+    32-query tiles there): the forward's lse, then dq, dk, dv against the
+    plain backward."""
+    q, k, v, do = (t(a).bfloat16() for a in _inputs((1, n, 2, d),
+                                                    seed=n + d))
+    o, lse = fa._launch(host_lib, q, k, v, 0, want_lse=True)
+    assert_close(lse, fa.lse_ref(q, k), atol=1e-5, rtol=1e-6)
+    got = fa._launch_bwd(host_lib, q, k, v, o, lse, do, 0)
+    for g, w in zip(got, fa.attention_bwd_ref(q, k, v, o, lse, do)):
+        _check(g, w, BF16_TOL)
+
+
+@pytest.mark.usefixtures("torch_share_of_cores")
+def test_bf16_kernels_on_host_at_the_ragged_shape(host_lib):
+    """(2, 1000, 3, 64), the ragged shape of chip_smoke.py phases 11 and 14
+    (no tile divides N): the bf16 forward and backward of the host build
+    against the stock Pallas kernel's plain forward and backward (JAX, f32
+    on the same bf16-rounded inputs)."""
+    q, k, v, do = (t(a).bfloat16() for a in _inputs((2, 1000, 3, 64),
+                                                    seed=1000))
+    o, lse = fa._launch(host_lib, q, k, v, 0, want_lse=True)
+    ref_o, ref_lse, *ref_grads = _stock_bwd(
+        *(x.float().numpy() for x in (q, k, v, do)))
+    _check(o, t(ref_o), BF16_TOL)
+    assert_close(lse, ref_lse, atol=1e-5, rtol=1e-6)
+    got = fa._launch_bwd(host_lib, q, k, v, o, lse, do, 0)
+    for g, w in zip(got, ref_grads):
+        _check(g, t(w), BF16_TOL)
+
+
+@pytest.mark.usefixtures("torch_share_of_cores")
 def test_host_lse_matches_logsumexp_on_peaked_rows(host_lib):
     q, k, _, _ = (t(a) for a in _inputs((1, 130, 2, 64), seed=4, peak=8.0))
     _, lse = fa._launch(host_lib, q, k, k, 0, want_lse=True)

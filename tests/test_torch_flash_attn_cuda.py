@@ -222,3 +222,98 @@ def test_full_width_unet_backward_through_the_kernels():
     for g, p in zip(*grads):
         assert torch.isfinite(g).all()
         assert (g - p).norm() <= 1e-3 * p.norm()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1000, 3, 64), (1, 1000, 2, 128)])
+def test_bf16_kernels_at_a_ragged_n(shape):
+    """N = 1000: no 64-, 128-row box or tile divides it (the TMA loads'
+    zero fill, the last key tile's mask, rows past N not written), at D 64
+    and 128 (two boxes a row): the forward and the backward pair against
+    the plain versions, each bitwise equal on a second call."""
+    _cuda()
+    q, k, v = _qkv(shape, torch.bfloat16, seed=shape[-1])
+    do = torch.randn(*shape, generator=torch.Generator().manual_seed(3)).to(
+        "cuda", torch.bfloat16)
+    o, lse = fa._forward_kernel(q, k, v, want_lse=True)
+    with torch.inference_mode():
+        _check(o, fa.attention_ref(q, k, v), torch.bfloat16)
+        assert torch.equal(o, fa._forward_kernel(q, k, v))
+    assert (lse - fa.lse_ref(q, k)).abs().max() <= LSE_ATOL
+    got = fa._backward_kernel(q, k, v, o, lse, do)
+    for g, p in zip(got, fa.attention_bwd_ref(q, k, v, o, lse, do)):
+        _check(g, p, torch.bfloat16, FLASH_BWD_TOL)
+    again = fa._backward_kernel(q, k, v, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_tensor_maps_read_projection_views(d):
+    """q, k, v as views of one fused (B, N, 3, H, D) projection and do as a
+    view of a (B, N, 2, H, D) tensor: each tensor map reads its strides
+    (n and h apart, h's smaller), and every output equals the call on
+    contiguous copies bitwise."""
+    _cuda()
+    gen = torch.Generator().manual_seed(d)
+    qkv = torch.randn(2, 700, 3, 3, d, generator=gen).to("cuda",
+                                                          torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(2, 700, 2, 3, d, generator=gen).to(
+        "cuda", torch.bfloat16)[:, :, 1]
+    assert not q.is_contiguous() and not do.is_contiguous()
+    cq, ck, cv, cdo = (x.contiguous() for x in (q, k, v, do))
+    o, lse = fa._forward_kernel(q, k, v, want_lse=True)
+    co, clse = fa._forward_kernel(cq, ck, cv, want_lse=True)
+    assert torch.equal(o, co) and torch.equal(lse, clse)
+    got = fa._backward_kernel(q, k, v, o, lse, do)
+    want = fa._backward_kernel(cq, ck, cv, co, clse, cdo)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_a_base_off_16_bytes_is_refused():
+    """q starting 8 bytes past a 16-byte boundary: the wrapper's validation
+    refuses it, and so does the C entry when the validation is skipped
+    (the tensor map's encoding fails: no launch reads it)."""
+    _cuda()
+    from textualdegremoval_tpu_torch.ops._build import load_library
+
+    q, k, v = _qkv((1, 256, 2, 64), torch.bfloat16, seed=8)
+    buf = torch.empty(q.numel() + 4, dtype=torch.bfloat16, device="cuda")
+    off = buf[4:].view(q.shape)
+    off.copy_(q)
+    assert off.data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(off, k, v)
+    stream = torch.cuda.current_stream().cuda_stream
+    with pytest.raises(RuntimeError, match="flash_attention failed"):
+        fa._launch(load_library(), off, k, v, stream)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_full_width_unet_bf16_launch_counts():
+    """The SD 2.1 UNet at full width in bf16, batch 1, 64 x 64 latent: one
+    forward and backward through the bf16 kernels launches the forward 5
+    times and the backward pair 4 times (the first self-attention precedes
+    every gradient), as in each I2T micro-step, with finite gradients."""
+    _cuda()
+    torch.manual_seed(0)
+    with torch.device("cuda"):
+        net = UNet2DCondition(dtype=torch.bfloat16)
+    for p in net.parameters():
+        p.requires_grad_(False)
+    gen = torch.Generator("cuda").manual_seed(1)
+    lat = torch.randn(1, 64, 64, 4, device="cuda", generator=gen)
+    ctx = torch.randn(1, 77, 1024, device="cuda", generator=gen)
+    kv = net.down_blocks[0].attentions[0].transformer_blocks[0].attn2
+    leaves = [ctx.requires_grad_(True),
+              kv.to_k_global.weight.requires_grad_(True)]
+    before = (fa.flash_attention.launches, fa.flash_attention.launches_bwd)
+    out = net(lat, torch.tensor([500], device="cuda"), leaves[0],
+              use_global_kv=True)
+    grads = torch.autograd.grad(out.float().square().sum(), leaves)
+    assert (fa.flash_attention.launches - before[0],
+            fa.flash_attention.launches_bwd - before[1]) == (5, 4)
+    assert all(torch.isfinite(g).all() for g in grads)

@@ -81,34 +81,37 @@ def _nvcc() -> str:
     return found
 
 
-def _sources() -> list[Path]:
-    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+def _sources(csrc: Path) -> list[Path]:
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
-def library_path() -> Path:
+def library_path(csrc: Path, build_dir: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"libtdr_torch_kernels_{h.hexdigest()[:16]}.so"
+    return build_dir / f"libtdr_torch_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, float]:
-    """Compile the sources unless a library of the same hash exists: one
-    nvcc per source, all at once, then one link.  Returns (library path,
-    seconds spent compiling and linking)."""
-    so = library_path()
+def build(csrc: Path | None = None,
+          build_dir: Path | None = None) -> tuple[Path, float]:
+    """Compile the sources of `csrc` (default: this package's) into
+    `build_dir` (default: BUILD_DIR) unless a library of the same hash
+    exists there: one nvcc per source, all at once, then one link.
+    Returns (library path, seconds spent compiling and linking)."""
+    csrc, build_dir = csrc or _CSRC, build_dir or BUILD_DIR
+    so = library_path(csrc, build_dir)
     if so.exists():
         return so, 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{so.stem}.{os.getpid()}"
     t0 = time.perf_counter()
     jobs = []
-    for src in _sources():
+    for src in _sources(csrc):
         if src.suffix != ".cu":
             continue
-        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        obj = build_dir / f"{tag}.{src.stem}.o"
         jobs.append((src, obj, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -135,13 +138,17 @@ def build() -> tuple[Path, float]:
     return so, seconds
 
 
-@functools.cache
-def load_library() -> ctypes.CDLL:
-    """The kernel library, built at first use and loaded once per process."""
-    so, _ = build()
+def open_library(so: Path) -> ctypes.CDLL:
+    """A built kernel library with its C signatures set."""
     lib = ctypes.CDLL(str(so))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built at first use and loaded once per process."""
+    return open_library(build()[0])

@@ -35,10 +35,27 @@ def device_name(device: torch.device) -> str:
             else "cpu")
 
 
+def median_ms(fn, reps: int = 5) -> float:
+    """ms of one call of fn on the card: after one warm-up call, the median
+    of `reps` single calls, each between two CUDA events (what a caller
+    that launches once sees, the launch's own gaps included)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return statistics.median(times)
+
+
 def time_ms(fn, device: torch.device, iters: int, repeats: int) -> float:
     """ms per call of fn: after one warm-up call, the median of `repeats`
-    runs of `iters` calls, each run's mean per call (chip_smoke.py's
-    `median_ms` takes the same statistic of single calls).  On the card,
+    runs of `iters` calls, each run's mean per call (`median_ms` takes the
+    same statistic of single calls).  On the card,
     CUDA events time the device: the stream first spins
     (`torch.cuda._sleep`) for twice as long as the host takes to enqueue
     the run, so that the calls run back to back and a kernel shorter than
