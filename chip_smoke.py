@@ -22,7 +22,9 @@ Phases, each of which raises on failure:
    every block shape of a 384 px, batch-8 training step plus the ragged
    shape, WithBias and BiasFree, float32 and bfloat16: dx and every
    parameter gradient, elementwise and in L2 against the plain gradient's
-   norm, with both times; and bwd_mode 'remat' against 'save';
+   norm, with both times and, in bf16 WithBias, each row's device time
+   split by kernel (`torch.profiler`: the LN passes, the stencils, the
+   GEMM, pass 1, wgrad, the glue); and bwd_mode 'remat' against 'save';
 7. the training main path: the training CLI's step function with the
    options of options/train_restoration/restormer_motion_deblur.yml
    (AdamW 2e-4 / ref 1e-4, wd 1e-4, clip 0.01, cosine restarts, L1) and
@@ -31,8 +33,9 @@ Phases, each of which raises on failure:
    (each launching 52 forward blocks, 52 of each backward kernel), one
    step under bwd_mode 'remat' (52 more forward launches), the step timed
    against the same step through plain-autograd blocks in alternating
-   turns, peak memory; and one f32 step at 128 px, batch 1, on the card
-   against the same step on the CPU;
+   turns, the peak memory and the idle share (`torch.profiler`) of each;
+   and one f32 step at 128 px, batch 1, on the card against the same step
+   on the CPU;
 8. the whole-NAFBlock kernel `nafblock_fused` against its plain version
    `nafblock_ref` at every block shape of a 512 px nafnet_deblur forward,
    one ragged shape and the two largest shapes of a 384 px batch-8
@@ -175,8 +178,11 @@ CUDA the script exits non-zero and prints no result.
 builds a copy of the kernel sources with one fault planted, under a
 temporary directory, runs the phase that should catch it in bfloat16 (phase
 17: float32 and bfloat16) at a few shapes and exits 0 only if its check
-catches the fault (the strength of the phase's bound): dv_uses_a and dq_drops_diag (phase 6, the attention
-backward), sca_skipped and halo_kept (phase 8, the NAFBlock forward),
+catches the fault (the strength of the phase's bound): dv_uses_a and
+dq_drops_diag (phase 6, the attention half's per-head products),
+gdfn_dd_kept_outside (phase 6, the GDFN half's gate gradient kept outside
+the image), dgrad_wt_as_w (phase 6, the input-gradient product reading
+W^T as W), sca_skipped and halo_kept (phase 8, the NAFBlock forward),
 no_rescale and v_kmajor (phase 11, the flash kernel), no_di, dk_unscaled
 and lse_log2 (phase 14, the flash backward and the forward's lse),
 chain_ring_zeroed
@@ -234,6 +240,7 @@ from textualdegremoval_tpu_torch.ops.pallas import tblock as tb
 from textualdegremoval_tpu_torch.ops.pallas import tblock_attn_bwd as ab
 from textualdegremoval_tpu_torch.ops.pallas import tblock_bwd as gb
 from textualdegremoval_tpu_torch.ops import probes as pr
+from textualdegremoval_tpu_torch.tools import bench_block_bwd as block_bwd_tool
 from textualdegremoval_tpu_torch.tools import bench_flash as flash_tool
 from textualdegremoval_tpu_torch.tools import bench_qkv_form as qkv_tool
 from textualdegremoval_tpu_torch.tools import bench_stencil as stencil_tool
@@ -533,18 +540,8 @@ def main_path(seed: int, task=TASK, kernel=tb.tblock_fused, blocks=52,
 # ---------------------------------------------------------------------------
 
 # (B, H, W, C, heads, blocks of that shape in one 384 px batch-8 step of
-# restormer_motion_deblur)
-TRAIN_SHAPES = [
-    (8, 384, 384, 48, 1, 4),    # encoder level 1
-    (8, 384, 384, 96, 1, 10),   # fusion level 1, decoder level 1, refinement
-    (8, 192, 192, 96, 2, 12),   # encoder / decoder level 2
-    (8, 192, 192, 192, 2, 2),   # fusion level 2
-    (8, 96, 96, 192, 4, 12),    # encoder / decoder level 3
-    (8, 96, 96, 384, 4, 2),     # fusion level 3
-    (8, 48, 48, 384, 8, 8),     # latent
-    (8, 48, 48, 768, 8, 2),     # fusion level 4
-    (2, 37, 53, 96, 2, 0),      # ragged: no tile divides H or W
-]
+# restormer_motion_deblur), and a ragged shape with no block in the step
+TRAIN_SHAPES = block_bwd_tool.TRAIN_SHAPES
 # gradient, kernel vs plain autograd on the same inputs: pass when
 # ||k - p|| <= GRAD_L2 ||p|| and |k - p| <= a max|p| + r |p| elementwise.
 # f32: sum order only (measured at most 8.5e-6, temperatures 8.5e-5).
@@ -561,12 +558,24 @@ GRAD_L2_TEMPERATURE = {torch.float32: 1e-3, torch.bfloat16: 1e-1}
 GRAD_ELEM = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (1e-1, 1e-1)}
 # fault -> (source, text, replacement, the phase that must catch it)
 FAULTS = {
-    # dv = do . A^T in place of do . A in pass 2 of the attention half
-    "dv_uses_a": ("tblock_attn_bwd.cu", "MatB<T>{at + mo, 1, cph}",
-                  "MatB<T>{at + mo, cph, 1}", 6),
+    # dv = do . A^T in place of do . A in pass 2 of the attention half (A
+    # read K-major: the transpose bit of its product cleared)
+    "dv_uses_a": ("bwd_gemm.cu", "head_product(dos, C, attn, 1,",
+                  "head_product(dos, C, attn, 0,", 6),
     # the norm-backward diagonal term q Dq dropped from dq
-    "dq_drops_diag": ("tblock_attn_bwd.cu",
-                      "a + qv * dqd[(size_t)b * C + hd * cph + n]", "a", 6),
+    "dq_drops_diag": ("bwd_gemm.cu", "m, 0, qk, 0, dqd,",
+                      "m, 0, nullptr, 0, dqd,", 6),
+    # the GDFN half's dd kept at pixels outside the image: the gate
+    # gradient there taken from the nearest pixel of the image instead of
+    # the zeros that TMA fills in
+    "gdfn_dd_kept_outside": (
+        "bwd_stencil.cu", "const float g = dg[q * kHC + j], ga",
+        "const float g = dg[((min(max(oy - 1 + qy, 0), H - 1) - oy + 1) * "
+        "kW1 + min(max(ox - 1 + qx, 0), W - 1) - ox + 1) * kHC + j], ga", 6),
+    # the input-gradient product reads W^T as W (its B operand K-major
+    # instead of MN-major): dz = dhid . W1 and dy = dlin . Wqkv
+    "dgrad_wt_as_w": ("bwd_gemm.cu", "b_view(w, K, N), K, 1,",
+                      "b_view(w, K, N), K, 0,", 6),
     # the gate not multiplied by the SCA scale s in pass B
     "sca_skipped": ("nafblock.cu",
                     "gate_at<T>(hab, rw, p / tw, p % tw, j, j0, taps, dwb, "
@@ -644,11 +653,53 @@ def _grad_row(name, got, want, dtype):
     return diff.max().item(), float(use), float(l2), ok
 
 
+# the CUDA kernels of the two backward rows, by name, as phase 6 splits
+# their device time (the rest of a row's device time is its glue: torch's
+# sums of partials, the softmax backward, casts)
+BWD_KERNEL_GROUPS = (
+    ("LN passes", ("ln_rows_",)),
+    ("stencils", ("_stencil_kernel",)),
+    ("GEMM", ("bwd_gemm_kernel",)),
+    ("pass 1", ("attn_bwd_stats",)),
+    ("wgrad", ("wgrad_kernel",)),
+)
+
+
+def backward_split(fn, what: str, reps: int = 3) -> None:
+    """Print the device ms of one call of fn by group of CUDA kernels, the
+    mean of `reps` calls in one `torch.profiler` window, beside the call's
+    device time (`time_ms`: calls back to back behind a spin): the trace of
+    a single call has come back short of some kernels, so a split whose
+    total falls below 90% of the device time is marked incomplete."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev_ms = time_ms(fn, torch.device("cuda"), reps, 1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    groups = {name: 0.0 for name, _ in BWD_KERNEL_GROUPS}
+    groups["glue"] = 0.0
+    for e in prof.key_averages():
+        if e.device_type != cuda:
+            continue
+        name = next((n for n, keys in BWD_KERNEL_GROUPS
+                     if any(k in e.key for k in keys)), "glue")
+        groups[name] += e.self_device_time_total / 1e3 / reps
+    total = sum(groups.values())
+    note = "" if total >= 0.9 * dev_ms else " (incomplete trace)"
+    log(f"    {what} device ms: " + ", ".join(
+        f"{n} {ms:.3f}" for n, ms in groups.items() if ms > 0)
+        + f"; total {total:.3f} of {dev_ms:.3f} timed{note}")
+
+
 def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True):
     """Phase 6.  Returns the bf16 WithBias rows at the training shapes as
     (blocks per step, max L2, gdfn max_abs, attn max_abs, gdfn ms, attn ms,
     gdfn plain ms, attn plain ms, shape), and raises after printing if any
-    row fails."""
+    row fails.  Timed, it also splits each bf16 WithBias row's device time
+    by kernel (`backward_split`)."""
     dtypes = dtypes or (torch.float32, torch.bfloat16)
     log(f"backward kernels vs plain autograd: ||k-p|| <= l2 ||p|| and "
         f"|k-p| <= a max|p| + r |p|; f32 l2 {GRAD_L2[torch.float32]} a/r "
@@ -693,15 +744,27 @@ def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True):
                              x, dx1, p, heads, ln_type), reps=3)]
                 name = str(dtype).split(".")[-1]
                 worst = max(v[2] for v in stats_row.values())
+                # the largest reading of a bound: L2 over its bound, or the
+                # elementwise use
+                ratio = max(max(v[2] / grad_l2_bound(k, dtype), v[1])
+                            for k, v in stats_row.items())
                 log(f"{b},{h},{w},{c},{heads} {ln_type} {name}: max L2 "
-                    f"{worst:.3e}; gdfn {t[0]:.3f} ms (plain {t[2]:.3f}), "
-                    f"attn {t[1]:.3f} ms (plain {t[3]:.3f})")
+                    f"{worst:.3e} ({ratio:.3g} of its bound); gdfn "
+                    f"{t[0]:.3f} ms (plain {t[2]:.3f}), attn {t[1]:.3f} ms "
+                    f"(plain {t[3]:.3f})")
                 log("    " + " ".join(
                     f"{k}:{v[0]:.2e}/{v[1]:.3f}/{v[2]:.2e}"
                     for k, v in stats_row.items()))
                 bad = [k for k, v in stats_row.items() if not v[3]]
                 if bad:
                     failures.append((b, h, w, c, heads, ln_type, name, bad))
+                if timed and dtype == torch.bfloat16 \
+                        and ln_type == "WithBias":
+                    backward_split(lambda: gb.gdfn_half_bwd(
+                        x1, g, p, ln_type, kw), "gdfn_half_bwd")
+                    backward_split(lambda: ab.attn_half_bwd(
+                        x, dx1, p, heads, ln_type, stats, kw),
+                        "attn_half_bwd")
                 if dtype == torch.bfloat16 and ln_type == "WithBias" \
                         and nblk:
                     half = {k: k == "dx1" or k.startswith(("gd_", "norm2"))
@@ -952,6 +1015,10 @@ def train_main_path(seed: int, opt=TRAIN_OPT, kernels=None, per_step=None,
     p_ms = statistics.median(turns["plain"])
     profile_device(lambda: float(step_fn(state, batch)[1]["l_pix"]),
                    f"{name} step")
+    switch(model, True)
+    profile_device(lambda: float(step_fn(state, batch)[1]["l_pix"]),
+                   f"{name} step through the plain route")
+    switch(model, False)
     log(f"{name} train step 384 px batch {batch_size} bf16, alternating "
         f"turns: kernel "
         f"{[round(v, 2) for v in turns['kernel']]} ms, plain blocks "
@@ -999,7 +1066,8 @@ def profile_device(fn, what: str):
         log("profiler: no device time recorded")
         return
     ours = ("tblock_", "gdfn_bwd", "attn_bwd", "wgrad", "nafblock_",
-            "flash_", "gdfn_kernel", "mdta_")
+            "flash_", "gdfn_kernel", "mdta_", "bwd_gemm", "_stencil_kernel",
+            "ln_rows_")
     mine = sum(t for k, t, _ in kernels if any(o in k for o in ours))
     log(f"profiled {what}: wall {wall:.1f} ms, {len(spans)} device events, "
         f"device busy {busy:.1f} ms (summed {summed:.1f} ms), idle share "
@@ -2832,17 +2900,31 @@ def main(argv=None) -> int:
          "ms": sum(n * k for n, _, k, _ in rows),
          "plain_ms": sum(n * p for n, _, _, p in rows),
          "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None},
+        # per 384 px batch-8 step (bf16: the passes of bwd_stencil.cu and
+        # the products of bwd_gemm.cu, then wgrad.cu; "sources" names every
+        # source the row runs)
         {"name": "gdfn_half_bwd", "route": "cuda",
-         "source": src + "tblock_bwd.cu",
-         "replaces": "textualdegremoval_tpu/ops/pallas/tblock_bwd.py:253",
+         "source": src + "bwd_stencil.cu",
+         "sources": [src + f for f in ("bwd_stencil.cu", "bwd_gemm.cu",
+                                       "wgrad.cu", "tma_maps.cuh",
+                                       "hopper.cuh", "tblock_common.cuh")],
+         "replaces": "textualdegremoval_tpu/ops/pallas/tblock_bwd.py:253 "
+                     "(gdfn_half_bwd; _make_gdfn_bwd_kernel :101, call "
+                     ":300)",
          "launches": launches[1],
          "max_abs_err": max(r[2] for r in bwd_rows),
          "ms": sum(r[0] * r[4] for r in bwd_rows),
          "plain_ms": sum(r[0] * r[6] for r in bwd_rows),
          "bound_ms": g_bound, "bound_by": g_by, "library_ms": None},
         {"name": "attn_half_bwd", "route": "cuda",
-         "source": src + "tblock_attn_bwd.cu",
-         "replaces": "textualdegremoval_tpu/ops/pallas/tblock_attn_bwd.py:312",
+         "source": src + "bwd_stencil.cu",
+         "sources": [src + f for f in ("tblock_attn_bwd.cu",
+                                       "bwd_stencil.cu", "bwd_gemm.cu",
+                                       "wgrad.cu", "tma_maps.cuh",
+                                       "hopper.cuh", "tblock_common.cuh")],
+         "replaces": "textualdegremoval_tpu/ops/pallas/tblock_attn_bwd.py:312 "
+                     "(attn_half_bwd; _make_attn_bwd_stats_kernel :112, call "
+                     ":365; _make_attn_bwd_apply_kernel :168, call :382)",
          "launches": launches[2],
          "max_abs_err": max(r[3] for r in bwd_rows),
          "ms": sum(r[0] * r[5] for r in bwd_rows),

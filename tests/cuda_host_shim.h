@@ -375,7 +375,10 @@ inline bool host_mbar_try_wait(uint32_t addr, uint32_t parity) {
 typedef uint32_t cuuint32_t;
 typedef uint64_t cuuint64_t;
 enum CUresult { CUDA_SUCCESS = 0, CUDA_ERROR_INVALID_VALUE = 1 };
-enum CUtensorMapDataType { CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9 };
+enum CUtensorMapDataType {
+  CU_TENSOR_MAP_DATA_TYPE_FLOAT32 = 7,
+  CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9
+};
 enum CUtensorMapInterleave { CU_TENSOR_MAP_INTERLEAVE_NONE = 0 };
 enum CUtensorMapSwizzle {
   CU_TENSOR_MAP_SWIZZLE_NONE = 0,
@@ -385,16 +388,17 @@ enum CUtensorMapL2promotion { CU_TENSOR_MAP_L2_PROMOTION_L2_128B = 2 };
 enum CUtensorMapFloatOOBfill { CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE = 0 };
 struct CUtensorMap {
   const unsigned char* base;
-  int rank, swizzle128;
+  int rank, swizzle128, elem_bytes;
   uint64_t dim[5], stride[5];  // stride[i]: bytes per step of dim i
   uint32_t box[5];
 };
 
-// cuTensorMapEncodeTiled for bf16, with the CUDA driver's checks on what the
-// kernels pass: a 16-byte aligned base, strides multiples of 16 bytes,
-// boxes of 1-256 with a 128-byte inner row under the 128-byte swizzle
+// cuTensorMapEncodeTiled for bf16 and f32, with the CUDA driver's checks on
+// what the kernels pass: a 16-byte aligned base, strides multiples of 16
+// bytes, boxes of 1-256 whose inner row is a multiple of 16 bytes and, under
+// the 128-byte swizzle, at most 128 bytes
 inline CUresult shim_encode_tiled(
-    CUtensorMap* m, CUtensorMapDataType, cuuint32_t rank, void* addr,
+    CUtensorMap* m, CUtensorMapDataType type, cuuint32_t rank, void* addr,
     const cuuint64_t* dim, const cuuint64_t* strides, const cuuint32_t* box,
     const cuuint32_t* elem_strides, CUtensorMapInterleave,
     CUtensorMapSwizzle swizzle, CUtensorMapL2promotion,
@@ -404,16 +408,18 @@ inline CUresult shim_encode_tiled(
   m->base = (const unsigned char*)addr;
   m->rank = (int)rank;
   m->swizzle128 = swizzle == CU_TENSOR_MAP_SWIZZLE_128B;
+  m->elem_bytes = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   for (cuuint32_t i = 0; i < rank; ++i) {
     if (dim[i] < 1 || box[i] < 1 || box[i] > 256 || elem_strides[i] != 1)
       return CUDA_ERROR_INVALID_VALUE;
     m->dim[i] = dim[i];
     m->box[i] = box[i];
-    m->stride[i] = i == 0 ? 2 : strides[i - 1];
+    m->stride[i] = i == 0 ? m->elem_bytes : strides[i - 1];
     if (i > 0 && (m->stride[i] % 16 != 0 || m->stride[i] >= (1ull << 40)))
       return CUDA_ERROR_INVALID_VALUE;
   }
-  if (box[0] * 2 % 16 != 0 || (m->swizzle128 && box[0] * 2 > 128))
+  const cuuint32_t row = box[0] * m->elem_bytes;
+  if (row % 16 != 0 || (m->swizzle128 && row > 128))
     return CUDA_ERROR_INVALID_VALUE;
   return CUDA_SUCCESS;
 }
@@ -447,14 +453,15 @@ inline void host_tma_load(uint32_t dst, const CUtensorMap* m, uint32_t bar,
       inside = inside && x >= 0 && (uint64_t)x < m->dim[i];
       off += (uint64_t)x * m->stride[i];
     }
-    uint32_t byte = dst + (uint32_t)e * 2;
+    const int eb = m->elem_bytes;
+    uint32_t byte = dst + (uint32_t)e * eb;
     if (m->swizzle128) byte = shim_swizzle128(byte);
     if (inside)
-      memcpy(smem_raw + byte, m->base + off, 2);
+      memcpy(smem_raw + byte, m->base + off, eb);
     else
-      memset(smem_raw + byte, 0, 2);
+      memset(smem_raw + byte, 0, eb);
   }
-  host_mbar_complete_tx(bar, (uint32_t)total * 2);
+  host_mbar_complete_tx(bar, (uint32_t)total * m->elem_bytes);
 }
 
 }  // namespace

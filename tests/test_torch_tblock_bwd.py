@@ -9,10 +9,13 @@ Chain of custody on the CPU, f32 unless noted:
   for the parameter gradients);
 * the port's glue `_attn_bwd_glue` (per-head statistics) against the JAX
   glue (full C x C statistics);
-* the CUDA sources csrc/tblock_bwd.cu, csrc/tblock_attn_bwd.cu and
-  csrc/wgrad.cu compiled for the host with tests/cuda_host_shim.h, through
-  the launch code the CUDA path uses, against the plain version, in f32
-  and bf16;
+* the CUDA sources csrc/tblock_bwd.cu, csrc/tblock_attn_bwd.cu (f32),
+  csrc/bwd_stencil.cu, csrc/bwd_gemm.cu (bf16) and csrc/wgrad.cu compiled
+  for the host with tests/cuda_host_shim.h, through the launch code the
+  CUDA path uses, against the plain version, in f32 and bf16; and the bf16
+  path's parts alone: its GEMM against torch.matmul, its LayerNorm passes
+  against `_ln_fwd_rows` / `_ln_bwd_rows`, and a TMA halo box against a
+  zero-padded slice;
 * the autograd Function of `tblock_fused` driven by the host build: both
   bwd_modes against autograd of the plain block, and 'remat' against
   'save';
@@ -211,6 +214,106 @@ def test_wgrad_on_host_matches_matmul(host_lib):
         assert_close(want_d, want, atol=0.2, rtol=0.05)
     assert host_lib.tblock_wgrad(None, 1, 0, 0, None, 1, 0, 0, None, 0, 8, 8,
                                  1, 1, 1, 0, None) != 0  # no pixels
+
+
+@pytest.mark.parametrize("m,n,k", [
+    (150, 48, 72),    # K past one 64-wide box, N below one
+    (64, 136, 40),    # K below one box, N past 128 (two column tiles)
+])
+def test_bwd_gemm_on_host_matches_matmul(host_lib, m, n, k):
+    """csrc/bwd_gemm.cu: the forward-direction product (B K-major, f32 and
+    bf16 out), the input gradient (B MN-major) and the per-head products
+    with their diagonal terms, against torch.matmul on the same bf16
+    operands (exact products in f32: only the sum order differs)."""
+    rng = np.random.default_rng(k)
+    bf = torch.bfloat16
+    a, b = t(randn(rng, m, k)).to(bf), t(randn(rng, n, k)).to(bf)
+    want = a.float() @ b.float().T
+    assert_close(gb._gemm(host_lib, a, b, torch.float32, 0), want, 1e-4, 1e-5)
+    assert torch.equal(gb._gemm(host_lib, a, b, bf, 0), want.to(bf))
+    w = b.T.contiguous()
+    assert_close(gb._dgrad(host_lib, a, w, 0), a.float() @ w.float(), 1e-4,
+                 1e-5)
+
+    bsz, hw, heads, cph = 2, m, 2, 16
+    c = heads * cph
+    qk = t(randn(rng, bsz * hw, 2 * c)).to(bf)
+    dos = t(randn(rng, bsz * hw, c)).to(bf)
+    mm, attn = (t(randn(rng, bsz, heads, cph, cph)).to(bf) for _ in range(2))
+    dqd, dkd = t(randn(rng, bsz, c)), t(randn(rng, bsz, c))
+    dth = torch.empty(bsz * hw, 3 * c)
+    assert host_lib.bwd_head_products(
+        gb._ptr(qk), gb._ptr(dos), gb._ptr(mm), gb._ptr(attn), gb._ptr(dqd),
+        gb._ptr(dkd), gb._ptr(dth), bsz, hw, c, heads, None) == 0
+
+    def heads_of(x):  # (B HW, C) -> (B, heads, HW, cph)
+        return x.float().reshape(bsz, hw, heads, cph).transpose(1, 2)
+
+    q, kk, do = heads_of(qk[:, :c]), heads_of(qk[:, c:]), heads_of(dos)
+    diag = lambda v: v.reshape(bsz, heads, 1, cph)  # noqa: E731
+    want = torch.cat([
+        kk @ mm.float().transpose(-1, -2) + q * diag(dqd),
+        q @ mm.float() + kk * diag(dkd),
+        do @ attn.float()], -1)  # (B, heads, HW, 3 cph), thirds outermost
+    got = dth.reshape(bsz, hw, 3, heads, cph).permute(0, 3, 1, 2, 4)
+    assert_close(got.reshape(bsz, heads, hw, 3 * cph),
+                 want.reshape(bsz, heads, hw, 3, cph).reshape(
+                     bsz, heads, hw, 3 * cph), 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("ln_type", ["WithBias", "BiasFree"])
+def test_bwd_ln_rows_on_host_match_reference(host_lib, ln_type):
+    """csrc/bwd_stencil.cu's LayerNorm passes against the TPU kernel's row
+    helpers `_ln_fwd_rows` and `_ln_bwd_rows` (f32 on the same bf16
+    input): y rounded once, dx added to the residual and rounded once, the
+    LN parameter partials summed over pixels."""
+    rng = np.random.default_rng(5)
+    c, npix, bias_free = 40, 37, int(ln_type == "BiasFree")
+    x = t(randn(rng, 1, 1, npix, c, scale=2.0) + 0.5).to(torch.bfloat16)
+    w, bvec = t(1 + randn(rng, c, scale=0.2)), t(randn(rng, c, scale=0.2))
+    bias = bvec if not bias_free else torch.zeros(c)
+    y, mu, inv = gb._ln_rows(host_lib, x, w, bias, bias_free, 0)
+    z, zhat, winv, mu_inv = gb._ln_fwd_rows(x.float().reshape(npix, c), w,
+                                            bvec, ln_type)
+    # one bf16 rounding of f32 values that differ in their last bits
+    assert_close(y.float(), z.to(torch.bfloat16).float(), 1e-6, 8e-3)
+    assert_close(inv, winv[:, 0], 1e-6, 1e-6)
+    assert_close(mu * inv, mu_inv[:, 0], 1e-6, 1e-6)
+
+    dz = t(randn(rng, npix, c))
+    base = t(randn(rng, 1, 1, npix, c)).to(torch.bfloat16)
+    dx, dln = gb._ln_rows_bwd(host_lib, x, dz, w, mu, inv, bias_free, base,
+                              2, 0)
+    want = base.float().reshape(npix, c) + gb._ln_bwd_rows(
+        dz, zhat, winv, mu_inv, w, ln_type)
+    assert_close(dx.float().reshape(npix, c), want, 1e-2, 1e-2)
+    assert_close(dln[0], (dz * zhat).sum(0), 1e-4, 1e-5)
+    assert_close(dln[1], dz.sum(0), 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("tap", [0, 2, 4, 6, 8])
+def test_tma_halo_box_on_host_is_zero_padded_slice(host_lib, tap):
+    """A halo tile of bwd_stencil.cu arrives as one TMA box with zeros
+    outside the image: the q | k stencil with one tap set to 1 is the input
+    shifted by that tap's offset, zero-padded (C = 48: a 64-wide column box
+    spans the q and k thirds; ragged 8 x 16 tiles in both directions)."""
+    rng = np.random.default_rng(tap)
+    bsz, hgt, wdt, c = 2, 11, 21, 48
+    lins = t(randn(rng, bsz, hgt, wdt, 3 * c)).to(torch.bfloat16)
+    dwall = torch.zeros(27, c)
+    dwall[tap] = 1.0          # the q third's tap
+    dwall[9 + 8 - tap] = 1.0  # the k third's, mirrored
+    qk = torch.empty(bsz, hgt, wdt, 2 * c, dtype=torch.bfloat16)
+    assert host_lib.bwd_qk_stencil(gb._ptr(lins), gb._ptr(dwall), gb._ptr(qk),
+                                   bsz, hgt, wdt, c, 3, None) == 0
+    pad = torch.nn.functional.pad(lins[..., :2 * c], (0, 0, 1, 1, 1, 1))
+
+    def shifted(tp, sl):
+        dy, dx = divmod(tp, 3)
+        return pad[:, dy:dy + hgt, dx:dx + wdt, sl]
+
+    assert torch.equal(qk[..., :c], shifted(tap, slice(0, c)))
+    assert torch.equal(qk[..., c:], shifted(8 - tap, slice(c, 2 * c)))
 
 
 def _host_function(monkeypatch, lib, tile, nsplit):

@@ -58,6 +58,10 @@ def _kernel_grads(p, x, g, x1, stats, kw, heads, ln_type):
     ((2, 37, 53, 96), 2, "WithBias"),    # ragged tiles in H and W
     ((2, 24, 40, 48), 1, "BiasFree"),
     ((1, 16, 24, 384), 4, "WithBias"),   # a wide block: small tiles
+    # C = 48 and 768 at ragged shapes: C below one 64-channel box, and
+    # the widest block (hpad 2048, 96 channels per head)
+    ((2, 21, 35, 48), 1, "WithBias"),
+    ((1, 11, 19, 768), 8, "BiasFree"),
 ])
 def test_backward_kernels_match_plain(shape, heads, ln_type, dtype):
     _cuda()
@@ -84,6 +88,42 @@ def test_weight_gradients_are_bitwise_repeatable(dtype):
     b = _kernel_grads(p, x, g, x1, stats, kw, 2, "WithBias")
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+def test_bf16_width_not_a_multiple_of_8_is_refused():
+    """The bf16 kernels read pixel rows through TMA (rows of 16-byte
+    multiples): C = 44 is refused with a message, not run."""
+    _cuda()
+    p, x, g, x1, stats, kw = _setup((1, 8, 8, 44), 1, "WithBias",
+                                    torch.bfloat16, 2)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gb.gdfn_half_bwd(x1, g, p, "WithBias", kw)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ab.attn_half_bwd(x, g, p, 1, "WithBias", stats, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bwd_mode", ["save", "remat"])
+def test_launches_per_step_at_full_width(bwd_mode):
+    """One backward of the full-width RestormerRefFusion (52 blocks) in
+    bf16 launches each backward wrapper 52 times, and the forward 52 times
+    ('save') or 104 ('remat': the backward recomputes x1 and the
+    statistics)."""
+    _cuda()
+    torch.manual_seed(0)
+    model = RestormerRefFusion(dtype=torch.bfloat16,
+                               bwd_mode=bwd_mode).cuda().train()
+    gen = torch.Generator().manual_seed(3)
+    lq, ref, gt = (torch.rand(1, 128, 128, 3, generator=gen).cuda()
+                   for _ in range(3))
+    counts = (tb.tblock_fused.launches, gb.gdfn_half_bwd.launches,
+              ab.attn_half_bwd.launches)
+    l1_loss(model(lq, ref), gt).backward()
+    assert (tb.tblock_fused.launches - counts[0],
+            gb.gdfn_half_bwd.launches - counts[1],
+            ab.attn_half_bwd.launches - counts[2]) == (
+        104 if bwd_mode == "remat" else 52, 52, 52)
 
 
 @pytest.mark.cuda

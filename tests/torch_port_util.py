@@ -93,8 +93,8 @@ def build_host_library(out_dir: Path,
         if sources is not None and cu.name not in sources:
             continue
         src = cu.read_text()
-        src, n = re.subn(r"(\w+<\w+>)<<<(.*?)>>>\(", r"shim_launch(\2, \1, ",
-                         src, flags=re.S)
+        src, n = re.subn(r"(\w+(?:<[^<>]*>)?)<<<(.*?)>>>\(",
+                         r"shim_launch(\2, \1, ", src, flags=re.S)
         assert n >= 1, f"no kernel launch found in {cu.name}"
         cpp = out_dir / f"{cu.stem}_host.cpp"
         cpp.write_text('#include "cuda_host_shim.h"\n' + src)

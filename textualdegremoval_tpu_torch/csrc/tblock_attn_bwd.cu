@@ -19,9 +19,11 @@
 // scratch.  The per-head dA = do^T v and dWproj = o^T dx1 are sums over
 // every pixel; wgrad.cu reduces them.
 //
-// Pass 2 (attn_bwd_apply_kernel): one CTA per (tile split, image) walks a
-// fixed, strided list of tiles.  For each tile: LN1 of x on a 2-pixel halo,
-// dx1 on a 1-pixel halo (zero outside the image), then per head:
+// Pass 2 (attn_bwd_apply_kernel), float32 only (the parity path; bf16 runs
+// the passes of bwd_stencil.cu and bwd_gemm.cu on pass 1's do): one CTA per
+// (tile split, image) walks a fixed, strided list of tiles.  For each
+// tile: LN1 of x on a 2-pixel halo, dx1 on a 1-pixel halo (zero outside
+// the image), then per head:
 //   q, k from their 1x1 (rounded, zero outside the image) and dwconv;
 //   dq = k . M^T + q Dq and dk = q . M + k Dk (M, Dq, Dk from the glue);
 //   dv = do . A with do = dx1 . Wproj^T on the halo;
@@ -29,9 +31,9 @@
 // gradients against its 1x1 output, dlin = the flipped stencil of it
 // rounded to the model dtype (tblock_attn_bwd.py:240-256), and
 // dy += dlin . W^T in f32.  Last, the LN1 backward writes dx = dx1 +
-// LN1-bwd(dy).  Working per head keeps the shared memory at C = 768 to a
-// 2 x 4 tile in bf16: the head is the unit of the channel attention, and
-// cph <= 96 (kMaxCphBwd) at every width that the training paths reach.
+// LN1-bwd(dy).  Working per head bounds the shared memory: the head is
+// the unit of the channel attention, and cph <= 96 (kMaxCphBwd) at every
+// width that the training paths reach.
 //
 // The reductions over pixels: the 27 x C tap gradients and the LN1
 // parameter gradients are per-CTA partials summed by the wrapper in a
@@ -43,7 +45,7 @@
 // q and k thirds of every head read all of y), K = cph products for the
 // attention terms, and the stencils on the CUDA cores; the scratch traffic
 // of y and dlin (4 C values per pixel) is small beside the GDFN half's.
-// bf16 products run on mma.sync, f32 ones on FMA loops.
+// bf16 products (pass 1) run on mma.sync, f32 ones on FMA loops.
 
 #include "tblock_common.cuh"
 
@@ -436,6 +438,7 @@ int tblock_attn_bwd_stats(const void* x, const void* dx1, const void* ln1w,
                                   th, tw, s);
 }
 
+// Pass 2, float32.
 // wq, wk, wv: the forward's thirds; wqt, wkt, wvt: their transposes (the
 // products dlin -> dy); dwall: (27, C) f32 taps, q rows 0-8, k 9-17, v
 // 18-26; m, mt, at: (B, heads, cph, cph) in x's dtype, M, M^T and A^T of
@@ -450,20 +453,14 @@ int tblock_attn_bwd_apply(const void* x, const void* dx1, const void* ln1w,
                           const void* at, const void* dqd, const void* dkd,
                           void* dx, void* ys, void* dlins, void* dtap_part,
                           void* dln_part, int B, int H, int W, int C,
-                          int heads, int is_bf16, int bias_free, int th,
-                          int tw, int nsplit, void* stream) {
+                          int heads, int bias_free, int th, int tw,
+                          int nsplit, void* stream) {
   if (!attn_shape_ok(C, heads, th, tw) || nsplit <= 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return launch_attn_apply<__nv_bfloat16>(
-        x, dx1, ln1w, ln1b, wq, wk, wv, wqt, wkt, wvt, dwall, wprojt, m, mt,
-        at, dqd, dkd, dx, ys, dlins, dtap_part, dln_part, B, H, W, C, heads,
-        bias_free, th, tw, nsplit, s);
   return launch_attn_apply<float>(
       x, dx1, ln1w, ln1b, wq, wk, wv, wqt, wkt, wvt, dwall, wprojt, m, mt, at,
       dqd, dkd, dx, ys, dlins, dtap_part, dln_part, B, H, W, C, heads,
-      bias_free, th, tw, nsplit, s);
+      bias_free, th, tw, nsplit, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 // Backward of the GDFN half of the Restormer TransformerBlock for Hopper
-// (sm_90a):
+// (sm_90a), in float32 (the parity path; bf16 runs the passes of
+// bwd_stencil.cu and bwd_gemm.cu):
 //
 //   out = x1 + W2(gelu(d1) * d2),  (d1, d2) = dw3x3(mask(LN2(x1) . W1))
 //
@@ -40,8 +41,8 @@
 // What bounds it on the card: like the forward's pass B, the products have
 // K = C or 64 and the stencils are load/FMA work on the CUDA cores; the
 // scratch writes of gate and dhid (3 hpad values per pixel) are the bulk
-// of its memory traffic.  bf16 products run on mma.sync (tblock_common.cuh
-// `gemm`), f32 ones on FMA loops.
+// of its memory traffic.  The products run on FMA loops
+// (tblock_common.cuh `gemm`).
 
 #include "tblock_common.cuh"
 
@@ -249,30 +250,26 @@ long long tblock_gdfn_bwd_smem_bytes(int C, int th, int tw, int elem_bytes) {
   return (long long)gdfn_bwd_smem_bytes(C, th, tw, elem_bytes);
 }
 
-// Weight matrices as in tblock.cu: bf16 (outputs, inputs), f32 (inputs,
-// outputs).  x1, dout, dx1: (B, H, W, C); w1: the forward's (2 hpad, C)
-// interleaved per hidden chunk; w1t: its transpose (C, 2 hpad) in the same
-// column order; dwg: (18, hpad) f32; w2t: (hpad, C), the product
-// dout -> dgate.  Outputs: dx1; zs (B H W, C), gates (B H W, hpad), dhids
-// (B H W, 2 hpad: first half, then second) for wgrad; dtap_part
-// (B nsplit, 18, hpad) and dln_part (B nsplit, 2, C) f32 per-CTA partials.
+// float32; weight matrices (inputs, outputs) as in tblock.cu.  x1, dout,
+// dx1: (B, H, W, C); w1: the forward's (C, 2 hpad) interleaved per hidden
+// chunk; w1t: its transpose (2 hpad, C) in the same order; dwg: (18, hpad);
+// w2t: (C, hpad), the product dout -> dgate.  Outputs: dx1; zs (B H W,
+// C), gates (B H W, hpad), dhids (B H W, 2 hpad: first half, then second)
+// for wgrad; dtap_part (B nsplit, 18, hpad) and dln_part (B nsplit, 2, C)
+// per-CTA partials.
 // Returns a cudaError_t.
 int tblock_gdfn_bwd(const void* x1, const void* dout, const void* ln2w,
                     const void* ln2b, const void* w1, const void* w1t,
                     const void* dwg, const void* w2t, void* dx1, void* zs,
                     void* gates, void* dhids, void* dtap_part, void* dln_part,
-                    int B, int H, int W, int C, int hpad, int is_bf16,
-                    int bias_free, int th, int tw, int nsplit, void* stream) {
+                    int B, int H, int W, int C, int hpad, int bias_free,
+                    int th, int tw, int nsplit, void* stream) {
   if (C <= 0 || hpad <= 0 || hpad % kHC || th <= 0 || tw <= 0 || nsplit <= 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return launch_gdfn_bwd<__nv_bfloat16>(
-        x1, dout, ln2w, ln2b, w1, w1t, dwg, w2t, dx1, zs, gates, dhids,
-        dtap_part, dln_part, B, H, W, C, hpad, bias_free, th, tw, nsplit, s);
   return launch_gdfn_bwd<float>(x1, dout, ln2w, ln2b, w1, w1t, dwg, w2t, dx1,
                                 zs, gates, dhids, dtap_part, dln_part, B, H,
-                                W, C, hpad, bias_free, th, tw, nsplit, s);
+                                W, C, hpad, bias_free, th, tw, nsplit,
+                                (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -38,13 +38,22 @@ _SIGNATURES = {
     "tblock_chain_ctas_per_sm": ([_I] * 6, _I),
     "tblock_chain": ([_P] * 21 + [_I] * 12 + [_P], _I),
     "tblock_gdfn_bwd_smem_bytes": ([_I] * 4, _L),
-    "tblock_gdfn_bwd": ([_P] * 14 + [_I] * 10 + [_P], _I),
+    "tblock_gdfn_bwd": ([_P] * 14 + [_I] * 9 + [_P], _I),
     "tblock_attn_bwd_max_cph": ([], _I),
     "tblock_attn_bwd_smem_bytes": ([_I] * 6, _L),
     "tblock_attn_bwd_stats": ([_P] * 11 + [_I] * 9 + [_P], _I),
-    "tblock_attn_bwd_apply": ([_P] * 22 + [_I] * 10 + [_P], _I),
+    "tblock_attn_bwd_apply": ([_P] * 22 + [_I] * 9 + [_P], _I),
     "tblock_wgrad": ([_P, _I, _L, _L, _P, _I, _L, _L, _P] + [_I] * 7 + [_P],
                      _I),
+    "bwd_stencil_tile": ([_I], _I),
+    "bwd_ln_rows": ([_P] * 3 + [_I] + [_P] * 3 + [_I] * 2 + [_P], _I),
+    "bwd_ln_rows_bwd": ([_P] * 5 + [_I] + [_P] * 3 + [_I] * 3 + [_P], _I),
+    "bwd_gdfn_stencil": ([_P] * 6 + [_I] * 5 + [_P], _I),
+    "bwd_qk_stencil": ([_P] * 3 + [_I] * 5 + [_P], _I),
+    "bwd_dlin_stencil": ([_P] * 5 + [_I] * 5 + [_P], _I),
+    "bwd_gemm": ([_P] * 3 + [_I] * 4 + [_P], _I),
+    "bwd_dgrad": ([_P] * 3 + [_I] * 3 + [_P], _I),
+    "bwd_head_products": ([_P] * 7 + [_I] * 4 + [_P], _I),
     "nafblock_smem_bytes": ([_I] * 5, _L),
     "nafblock_gate_chunk": ([], _I),
     "nafblock_ctas_per_sm": ([_I] * 5, _I),

@@ -118,7 +118,8 @@ def prepare_tblock_weights(p, dtype: torch.dtype, ln_type: str) -> dict:
     (outputs, inputs)), LN parameters, taps and temperatures in f32 whatever
     `dtype` is.  Also the transposed matrices that the backward kernels'
     products read (the 1x1s run backwards) and the 27 attention taps in one
-    (27, C) array.  Callers cache the result per module."""
+    (27, C) array, and all of qkv in one matrix ("wqkv") for the bf16
+    backward's products.  Callers cache the result per module."""
     f32 = torch.float32
     c = p["norm1_w"].shape[0]
     qkv = p["qkv"].reshape(c, 3 * c).to(f32)
@@ -151,7 +152,7 @@ def prepare_tblock_weights(p, dtype: torch.dtype, ln_type: str) -> dict:
         dtype=dtype,
         # the backward's products run the 1x1s the other way
         wqt=mat(wq.T), wkt=mat(wk.T), wvt=mat(wv.T), wprojt=mat(proj.T),
-        w1t=mat(w1s.T), w2t=mat(w2s.T),
+        w1t=mat(w1s.T), w2t=mat(w2s.T), wqkv=mat(qkv),
     )
 
 

@@ -10,10 +10,14 @@ and `attn_half_bwd(x, dx1, p, heads, ln_type, stats, kw)` returns dx and
 the gradients of norm1_w, norm1_b (WithBias), qkv, qkv_dw, temperature and
 proj in their natural shapes.  A CPU tensor takes the plain version,
 `attn_half_bwd_ref` (torch.autograd through `_tblock_attn_part`); a CUDA
-tensor launches the hand-written kernels of csrc/tblock_attn_bwd.cu, which
-replace the TPU kernels `_make_attn_bwd_stats_kernel` (pass 1) and
-`_make_attn_bwd_apply_kernel` (pass 2), and the weight-gradient products
-of csrc/wgrad.cu, or raises.  `attn_half_bwd.launches` counts kernel calls.
+tensor launches hand-written kernels, or raises: pass 1 of
+csrc/tblock_attn_bwd.cu, which replaces the TPU kernel
+`_make_attn_bwd_stats_kernel`; in place of `_make_attn_bwd_apply_kernel`
+(pass 2), in bf16 the LayerNorm and stencil passes of csrc/bwd_stencil.cu
+and the products of csrc/bwd_gemm.cu (laid out at the top of
+csrc/bwd_stencil.cu), in float32 pass 2 of csrc/tblock_attn_bwd.cu; and
+the weight-gradient products of csrc/wgrad.cu.  `attn_half_bwd.launches`
+counts calls that launch them.
 
 Between the passes, `_attn_bwd_glue` (softmax, temperature and L2-norm
 backward, O(C * cph) per image) is plain torch, as it was plain XLA.  It
@@ -30,7 +34,8 @@ from textualdegremoval_tpu_torch.ops.pallas.tblock import (
     _validate,
 )
 from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import (
-    _BWD_TILES, _half_bwd_ref, _nsplit, _wgrad,
+    _BWD_TILES, _check_bf16_width, _dgrad, _gemm, _half_bwd_ref, _ln_rows,
+    _ln_rows_bwd, _nsplit, _stencil_nsplit, _wgrad,
 )
 
 _ATTN_KEYS = ("norm1_w", "norm1_b", "qkv", "qkv_dw", "temperature", "proj")
@@ -72,11 +77,47 @@ def _attn_bwd_glue(da, gram, qssq, kssq, temperature, heads):
             dtemp.reshape(temperature.shape).to(temperature.dtype))
 
 
+def _launch_attn_apply_bf16(lib, x, dx1, kw, heads, ln_type, dos, attn, m,
+                            dqd, dkd, sms, stream):
+    """Pass 2 in bf16 (csrc/bwd_stencil.cu, csrc/bwd_gemm.cu) up to its
+    weight-gradient operands: (dx, dln (2, C), ys, dlins, dtap (27, C))."""
+    b, hgt, wdt, c = x.shape
+    npix = b * hgt * wdt
+    dev, f32 = x.device, torch.float32
+    bias_free = int(ln_type == "BiasFree")
+    ys, mu, inv = _ln_rows(lib, x, kw["ln1w"], kw["ln1b"], bias_free, stream)
+    lins = _gemm(lib, ys, kw["wqkv"], x.dtype, stream)
+    # q, k: four 48 KB CTAs per SM; dlin: two 82 KB CTAs per SM
+    qk = torch.empty((npix, 2 * c), dtype=x.dtype, device=dev)
+    _check(lib.bwd_qk_stencil(
+        _ptr(lins), _ptr(kw["dwall"]), _ptr(qk), b, hgt, wdt, c,
+        _stencil_nsplit(lib, b, hgt, wdt, -(-2 * c // 64), 4, sms), stream),
+        lib, "bwd_qk_stencil")
+    dth = torch.empty((npix, 3 * c), dtype=f32, device=dev)
+    _check(lib.bwd_head_products(_ptr(qk), _ptr(dos), _ptr(m), _ptr(attn),
+                                 _ptr(dqd), _ptr(dkd), _ptr(dth), b,
+                                 hgt * wdt, c, heads, stream), lib,
+           "bwd_head_products")
+    del qk
+    dlins = torch.empty((npix, 3 * c), dtype=x.dtype, device=dev)
+    nsplit = _stencil_nsplit(lib, b, hgt, wdt, -(-3 * c // 32), 2, sms)
+    dtap_part = torch.empty((b * nsplit, 27, c), dtype=f32, device=dev)
+    _check(lib.bwd_dlin_stencil(_ptr(dth), _ptr(lins), _ptr(kw["dwall"]),
+                                _ptr(dlins), _ptr(dtap_part), b, hgt, wdt, c,
+                                nsplit, stream), lib, "bwd_dlin_stencil")
+    del dth, lins
+    dy = _dgrad(lib, dlins, kw["wqkv"], stream)
+    dx, dln = _ln_rows_bwd(lib, x, dy, kw["ln1w"], mu, inv, bias_free, dx1,
+                           sms, stream)
+    return dx, dln, ys, dlins, dtap_part.sum(0)
+
+
 def _launch_attn_bwd(lib, x, dx1, kw, heads, ln_type, stats, stats_tile,
                      apply_tile, nsplit, sms, stream):
     """Pass 1, its products, the glue, pass 2 and its products on validated
-    inputs.  Returns (dx, dwqkv (C, 3C), dtap (27, C), dwproj (C, C),
-    dln (2, C), dtemp (heads,))."""
+    inputs; `apply_tile` and `nsplit` are the float32 pass 2's.  Returns
+    (dx, dwqkv (C, 3C), dtap (27, C), dwproj (C, C), dln (2, C),
+    dtemp (heads,))."""
     b, hgt, wdt, c = x.shape
     cph = c // heads
     hw, npix = hgt * wdt, b * hgt * wdt
@@ -98,30 +139,37 @@ def _launch_attn_bwd(lib, x, dx1, kw, heads, ln_type, stats, stats_tile,
                 cph, (b, heads), sms, stream)
     dwproj = _wgrad(lib, os_, c, (0, 0), dx1, c, (0, 0), npix, c, c, (1, 1),
                     sms, stream)[0, 0]
-    del vs, os_, dos
+    del vs, os_
 
     m, dqd, dkd, dtemp = _attn_bwd_glue(da, gram, qssq, kssq,
                                         kw["temperature"], heads)
     m = m.to(dt)
-    mt = m.transpose(-1, -2).contiguous()
-    at = attn.transpose(-1, -2).contiguous()
-    dx = torch.empty_like(x)
-    ys = torch.empty((npix, c), dtype=dt, device=dev)
-    dlins = torch.empty((npix, 3 * c), dtype=dt, device=dev)
-    dtap_part = torch.empty((b * nsplit, 27, c), dtype=f32, device=dev)
-    dln_part = torch.empty((b * nsplit, 2, c), dtype=f32, device=dev)
-    _check(lib.tblock_attn_bwd_apply(
-        _ptr(x), _ptr(dx1), _ptr(kw["ln1w"]), _ptr(kw["ln1b"]),
-        _ptr(kw["wq"]), _ptr(kw["wk"]), _ptr(kw["wv"]), _ptr(kw["wqt"]),
-        _ptr(kw["wkt"]), _ptr(kw["wvt"]), _ptr(kw["dwall"]),
-        _ptr(kw["wprojt"]), _ptr(m), _ptr(mt), _ptr(at),
-        _ptr(dqd), _ptr(dkd), _ptr(dx), _ptr(ys),
-        _ptr(dlins), _ptr(dtap_part), _ptr(dln_part), b, hgt, wdt, c, heads,
-        is_bf16, bias_free, apply_tile[0], apply_tile[1], nsplit, stream),
-        lib, "tblock_attn_bwd_apply")
+    if is_bf16:
+        dx, dln, ys, dlins, dtap = _launch_attn_apply_bf16(
+            lib, x, dx1, kw, heads, ln_type, dos, attn, m, dqd, dkd, sms,
+            stream)
+    else:
+        mt = m.transpose(-1, -2).contiguous()
+        at = attn.transpose(-1, -2).contiguous()
+        dx = torch.empty_like(x)
+        ys = torch.empty((npix, c), dtype=dt, device=dev)
+        dlins = torch.empty((npix, 3 * c), dtype=dt, device=dev)
+        dtap_part = torch.empty((b * nsplit, 27, c), dtype=f32, device=dev)
+        dln_part = torch.empty((b * nsplit, 2, c), dtype=f32, device=dev)
+        _check(lib.tblock_attn_bwd_apply(
+            _ptr(x), _ptr(dx1), _ptr(kw["ln1w"]), _ptr(kw["ln1b"]),
+            _ptr(kw["wq"]), _ptr(kw["wk"]), _ptr(kw["wv"]), _ptr(kw["wqt"]),
+            _ptr(kw["wkt"]), _ptr(kw["wvt"]), _ptr(kw["dwall"]),
+            _ptr(kw["wprojt"]), _ptr(m), _ptr(mt), _ptr(at),
+            _ptr(dqd), _ptr(dkd), _ptr(dx), _ptr(ys),
+            _ptr(dlins), _ptr(dtap_part), _ptr(dln_part), b, hgt, wdt, c,
+            heads, bias_free, apply_tile[0], apply_tile[1], nsplit, stream),
+            lib, "tblock_attn_bwd_apply")
+        dtap, dln = dtap_part.sum(0), dln_part.sum(0)
+    del dos
     dwqkv = _wgrad(lib, ys, c, (0, 0), dlins, 3 * c, (0, 0), npix, c, 3 * c,
                    (1, 1), sms, stream)[0, 0]
-    return dx, dwqkv, dtap_part.sum(0), dwproj, dln_part.sum(0), dtemp
+    return dx, dwqkv, dtap, dwproj, dln, dtemp
 
 
 def _natural_attn_grads(p, dwqkv, dtap, dwproj, dln, dtemp, ln_type):
@@ -158,6 +206,8 @@ def attn_half_bwd(x, dx1, p, heads, ln_type, stats=None, kw=None):
 
     from textualdegremoval_tpu_torch.ops._build import load_library
 
+    _check_bf16_width(x, heads, "attn_half_bwd")
+
     lib = load_library()
     b, hgt, wdt, c = x.shape
     if c // heads > lib.tblock_attn_bwd_max_cph():
@@ -169,13 +219,15 @@ def attn_half_bwd(x, dx1, p, heads, ln_type, stats=None, kw=None):
         return _first_fit(_BWD_TILES, lambda t: lib.tblock_attn_bwd_smem_bytes(
             pass_id, c, heads, t[0], t[1], eb), "attn_half_bwd")
 
-    apply_tile = pick(1)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    ntiles = -(-hgt // apply_tile[0]) * -(-wdt // apply_tile[1])
+    apply_tile, nsplit = None, None
+    if x.dtype == torch.float32:
+        apply_tile = pick(1)
+        nsplit = _nsplit(
+            b, -(-hgt // apply_tile[0]) * -(-wdt // apply_tile[1]), sms)
     dx, dwqkv, dtap, dwproj, dln, dtemp = _launch_attn_bwd(
-        lib, x, dx1, kw, heads, ln_type, stats, pick(0),
-        apply_tile, _nsplit(b, ntiles, sms), sms,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        lib, x, dx1, kw, heads, ln_type, stats, pick(0), apply_tile, nsplit,
+        sms, torch.cuda.current_stream(x.device).cuda_stream)
     attn_half_bwd.launches += 1
     return dx, _natural_attn_grads(p, dwqkv, dtap, dwproj, dln, dtemp,
                                    ln_type)

@@ -9,9 +9,12 @@ and `gdfn_half_bwd(x1, dout, p, ln_type, kw)` returns dx1 and the gradients
 of norm2_w, norm2_b (WithBias), gd_in, gd_dw and gd_out in their natural
 shapes.  A CPU tensor takes the plain version, `gdfn_half_bwd_ref`
 (torch.autograd through `_tblock_gdfn_part`); a CUDA tensor launches the
-hand-written kernel csrc/tblock_bwd.cu, which replaces the TPU kernel
-`_make_gdfn_bwd_kernel`, and the weight-gradient products of
-csrc/wgrad.cu, or raises.  `gdfn_half_bwd.launches` counts kernel calls.
+hand-written kernels that replace the TPU kernel `_make_gdfn_bwd_kernel`,
+or raises: in bf16 the LayerNorm and stencil passes of
+csrc/bwd_stencil.cu and the products of csrc/bwd_gemm.cu (the sequence is
+laid out at the top of csrc/bwd_stencil.cu), in float32 the streaming
+kernel csrc/tblock_bwd.cu; then the weight-gradient products of
+csrc/wgrad.cu.  `gdfn_half_bwd.launches` counts calls that launch them.
 
 `_ln_fwd_rows`, `_ln_bwd_rows` and `_gelu_grad` are the TPU kernel's row
 helpers (f32); the CUDA kernel does the same arithmetic per pixel.
@@ -87,6 +90,16 @@ def gdfn_half_bwd_ref(x1, dout, p, ln_type):
                          dout, p, _GDFN_KEYS)
 
 
+def _check_bf16_width(x, heads, what):
+    """The bf16 kernels read pixel rows and heads through TMA, whose rows
+    are multiples of 16 bytes: C and C / heads multiples of 8."""
+    c = x.shape[-1]
+    if x.dtype == torch.bfloat16 and (c % 8 or (c // heads) % 8):
+        raise ValueError(f"{what}: the bf16 kernels need C and C / heads "
+                         f"multiples of 8 (TMA rows of 16-byte multiples), "
+                         f"got C={c}, heads={heads}")
+
+
 def _nsplit(b, ntiles, sms):
     """CTAs per image of a persistent pass: about two per SM in all."""
     return max(1, min(ntiles, -(-2 * sms // b)))
@@ -110,32 +123,130 @@ def _wgrad(lib, a, lda, sa, b, ldb, sb, npix, m, n, nb, sms, stream):
     return out.sum(0)
 
 
+def _stencil_nsplit(lib, b, hgt, wdt, nbox, per_sm, sms):
+    """CTAs per image of a bwd_stencil.cu pass over `nbox` column boxes per
+    tile, `per_sm` of whose CTAs fit an SM: at most two full waves in all
+    (never a wave with a few CTAs left over: the CTAs walk equal shares of
+    the items, so such a wave costs as much as a full one), at most one per
+    (tile, box) item."""
+    items = (-(-hgt // lib.bwd_stencil_tile(0))
+             * -(-wdt // lib.bwd_stencil_tile(1)) * nbox)
+    return max(1, min(items, 2 * per_sm * sms // b))
+
+
+def _ln_rows(lib, x, w, bias, bias_free, stream):
+    """LN of every pixel of x (bf16, csrc/bwd_stencil.cu): (y (npix, C),
+    mu (npix,), 1 / sqrt(var + eps) (npix,))."""
+    c = x.shape[-1]
+    npix = x.numel() // c
+    y = torch.empty((npix, c), dtype=x.dtype, device=x.device)
+    mu, inv = (torch.empty(npix, dtype=torch.float32, device=x.device)
+               for _ in range(2))
+    _check(lib.bwd_ln_rows(_ptr(x), _ptr(w), _ptr(bias), bias_free, _ptr(y),
+                           _ptr(mu), _ptr(inv), npix, c, stream), lib,
+           "bwd_ln_rows")
+    return y, mu, inv
+
+
+def _ln_rows_bwd(lib, x, dz, w, mu, inv, bias_free, base, sms, stream):
+    """base + LN-backward(dz) in x's shape and dtype, and the LN parameter
+    gradients (2, C) f32: per-CTA partials over consecutive pixels, added
+    in a fixed order."""
+    c = x.shape[-1]
+    npix = mu.shape[0]
+    nct = max(1, min(4 * sms, npix))
+    dst = torch.empty_like(x)
+    part = torch.empty((nct, 2, c), dtype=torch.float32, device=x.device)
+    _check(lib.bwd_ln_rows_bwd(_ptr(x), _ptr(dz), _ptr(w), _ptr(mu),
+                               _ptr(inv), bias_free, _ptr(base), _ptr(dst),
+                               _ptr(part), npix, c, nct, stream), lib,
+           "bwd_ln_rows_bwd")
+    return dst, part.sum(0)
+
+
+def _gemm(lib, a, b, dtype, stream):
+    """a (M, K) . b^T with b (N, K), both bf16 (csrc/bwd_gemm.cu): (M, N)
+    in `dtype` (float32, or bfloat16 rounded once)."""
+    out = torch.empty((a.shape[0], b.shape[0]), dtype=dtype, device=a.device)
+    _check(lib.bwd_gemm(_ptr(a), _ptr(b), _ptr(out), a.shape[0], b.shape[0],
+                        a.shape[1], int(dtype == torch.bfloat16), stream),
+           lib, "bwd_gemm")
+    return out
+
+
+def _dgrad(lib, a, w, stream):
+    """The input gradient a (M, K) . w with w (K, N), the forward's bf16
+    weight (csrc/bwd_gemm.cu): (M, N) f32."""
+    out = torch.empty((a.shape[0], w.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    _check(lib.bwd_dgrad(_ptr(a), _ptr(w), _ptr(out), a.shape[0], w.shape[1],
+                         a.shape[1], stream), lib, "bwd_dgrad")
+    return out
+
+
+def _launch_gdfn_bwd_bf16(lib, x1, dout, kw, ln_type, sms, stream):
+    """The bf16 GDFN-half backward (csrc/bwd_stencil.cu, csrc/bwd_gemm.cu)
+    up to its weight-gradient operands: (dx1, dln (2, C), zs, gates, dhids,
+    dtap (18, hpad)); dhids in w1's interleaved chunk order."""
+    b, hgt, wdt, c = x1.shape
+    hpad = kw["hpad"]
+    npix = b * hgt * wdt
+    dev, bf, f32 = x1.device, torch.bfloat16, torch.float32
+    bias_free = int(ln_type == "BiasFree")
+    zs, mu, inv = _ln_rows(lib, x1, kw["ln2w"], kw["ln2b"], bias_free, stream)
+    hids = _gemm(lib, zs, kw["w1"], bf, stream)
+    dgates = _gemm(lib, dout.view(npix, c), kw["w2t"], f32, stream)
+    # one 174 KB CTA per SM
+    nsplit = _stencil_nsplit(lib, b, hgt, wdt, hpad // HIDDEN_CHUNK, 1, sms)
+    gates = torch.empty((npix, hpad), dtype=bf, device=dev)
+    dhids = torch.empty((npix, 2 * hpad), dtype=bf, device=dev)
+    dtap_part = torch.empty((b * nsplit, 18, hpad), dtype=f32, device=dev)
+    _check(lib.bwd_gdfn_stencil(
+        _ptr(hids), _ptr(dgates), _ptr(kw["dwg"]), _ptr(gates), _ptr(dhids),
+        _ptr(dtap_part), b, hgt, wdt, hpad, nsplit, stream), lib,
+        "bwd_gdfn_stencil")
+    del hids, dgates
+    dz = _dgrad(lib, dhids, kw["w1"], stream)
+    dx1, dln = _ln_rows_bwd(lib, x1, dz, kw["ln2w"], mu, inv, bias_free,
+                            dout, sms, stream)
+    return dx1, dln, zs, gates, dhids, dtap_part.sum(0)
+
+
 def _launch_gdfn_bwd(lib, x1, dout, kw, ln_type, tile, nsplit, sms, stream):
-    """The GDFN-half backward kernel and its weight-gradient products on
-    validated inputs.  Returns (dx1, dw1 (C, 2 hpad), dtap (18, hpad),
-    dw2 (hpad, C), dln (2, C)), the padded f32 gradients."""
+    """The GDFN-half backward kernels and their weight-gradient products on
+    validated inputs; `tile` and `nsplit` are the float32 kernel's.
+    Returns (dx1, dw1 (C, 2 hpad), dtap (18, hpad), dw2 (hpad, C),
+    dln (2, C)), the padded f32 gradients."""
     b, hgt, wdt, c = x1.shape
     hpad = kw["hpad"]
     npix = b * hgt * wdt
     dev, dt, f32 = x1.device, x1.dtype, torch.float32
-    dx1 = torch.empty_like(x1)
-    zs = torch.empty((npix, c), dtype=dt, device=dev)
-    gates = torch.empty((npix, hpad), dtype=dt, device=dev)
-    dhids = torch.empty((npix, 2 * hpad), dtype=dt, device=dev)
-    dtap_part = torch.empty((b * nsplit, 18, hpad), dtype=f32, device=dev)
-    dln_part = torch.empty((b * nsplit, 2, c), dtype=f32, device=dev)
-    _check(lib.tblock_gdfn_bwd(
-        _ptr(x1), _ptr(dout), _ptr(kw["ln2w"]), _ptr(kw["ln2b"]),
-        _ptr(kw["w1"]), _ptr(kw["w1t"]), _ptr(kw["dwg"]), _ptr(kw["w2t"]),
-        _ptr(dx1), _ptr(zs), _ptr(gates), _ptr(dhids), _ptr(dtap_part),
-        _ptr(dln_part), b, hgt, wdt, c, hpad, int(dt == torch.bfloat16),
-        int(ln_type == "BiasFree"), tile[0], tile[1], nsplit, stream),
-        lib, "tblock_gdfn_bwd")
+    if dt == torch.bfloat16:
+        dx1, dln, zs, gates, dhids, dtap = _launch_gdfn_bwd_bf16(
+            lib, x1, dout, kw, ln_type, sms, stream)
+    else:
+        dx1 = torch.empty_like(x1)
+        zs = torch.empty((npix, c), dtype=dt, device=dev)
+        gates = torch.empty((npix, hpad), dtype=dt, device=dev)
+        dhids = torch.empty((npix, 2 * hpad), dtype=dt, device=dev)
+        dtap_part = torch.empty((b * nsplit, 18, hpad), dtype=f32, device=dev)
+        dln_part = torch.empty((b * nsplit, 2, c), dtype=f32, device=dev)
+        _check(lib.tblock_gdfn_bwd(
+            _ptr(x1), _ptr(dout), _ptr(kw["ln2w"]), _ptr(kw["ln2b"]),
+            _ptr(kw["w1"]), _ptr(kw["w1t"]), _ptr(kw["dwg"]), _ptr(kw["w2t"]),
+            _ptr(dx1), _ptr(zs), _ptr(gates), _ptr(dhids), _ptr(dtap_part),
+            _ptr(dln_part), b, hgt, wdt, c, hpad, int(ln_type == "BiasFree"),
+            tile[0], tile[1], nsplit, stream), lib, "tblock_gdfn_bwd")
+        dtap, dln = dtap_part.sum(0), dln_part.sum(0)
     dw1 = _wgrad(lib, zs, c, (0, 0), dhids, 2 * hpad, (0, 0), npix, c,
                  2 * hpad, (1, 1), sms, stream)[0, 0]
     dw2 = _wgrad(lib, gates, hpad, (0, 0), dout, c, (0, 0), npix, hpad, c,
                  (1, 1), sms, stream)[0, 0]
-    return dx1, dw1, dtap_part.sum(0), dw2, dln_part.sum(0)
+    if dt == torch.bfloat16:
+        # each chunk's h1 then h2 columns -> all h1 columns, then all h2
+        dw1 = (dw1.view(c, hpad // HIDDEN_CHUNK, 2, HIDDEN_CHUNK)
+               .transpose(1, 2).reshape(c, 2 * hpad))
+    return dx1, dw1, dtap, dw2, dln
 
 
 def _natural_gdfn_grads(p, dw1, dtap, dw2, dln, ln_type):
@@ -168,18 +279,22 @@ def gdfn_half_bwd(x1, dout, p, ln_type, kw=None):
 
     from textualdegremoval_tpu_torch.ops._build import load_library
 
+    b, hgt, wdt, c = x1.shape
+    _check_bf16_width(x1, 1, "gdfn_half_bwd")
+
     lib = load_library()
     if lib.tblock_hidden_chunk() != HIDDEN_CHUNK:
         raise RuntimeError("gdfn_half_bwd: hidden chunk differs from the "
                            "kernel")
-    b, hgt, wdt, c = x1.shape
-    eb = x1.element_size()
-    tile = _first_fit(_BWD_TILES, lambda t: lib.tblock_gdfn_bwd_smem_bytes(
-        c, t[0], t[1], eb), "gdfn_half_bwd")
     sms = torch.cuda.get_device_properties(x1.device).multi_processor_count
-    ntiles = -(-hgt // tile[0]) * -(-wdt // tile[1])
+    tile, nsplit = None, None
+    if x1.dtype == torch.float32:
+        tile = _first_fit(_BWD_TILES, lambda t: (
+            lib.tblock_gdfn_bwd_smem_bytes(c, t[0], t[1], 4)),
+            "gdfn_half_bwd")
+        nsplit = _nsplit(b, -(-hgt // tile[0]) * -(-wdt // tile[1]), sms)
     dx1, dw1, dtap, dw2, dln = _launch_gdfn_bwd(
-        lib, x1, dout, kw, ln_type, tile, _nsplit(b, ntiles, sms), sms,
+        lib, x1, dout, kw, ln_type, tile, nsplit, sms,
         torch.cuda.current_stream(x1.device).cuda_stream)
     gdfn_half_bwd.launches += 1
     return dx1, _natural_gdfn_grads(p, dw1, dtap, dw2, dln, ln_type)
