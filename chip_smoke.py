@@ -5,18 +5,21 @@
 Phases, each of which raises on failure:
 1. versions and the card (`nvidia-smi` name and power limit);
 2. build of the CUDA kernels from textualdegremoval_tpu_torch/csrc;
-3. the whole-block kernel `tblock_fused` against its plain PyTorch version
-   `tblock_ref` at every block shape of a 512 px restormer_deblur forward
-   plus one ragged shape, WithBias and BiasFree, float32 and bfloat16, with
-   weights at a trained block's scale (both halves of the block add O(1)
-   to the residual) and the median time of both (CUDA events);
+3. the whole-block kernels `tblock_fused` against their plain PyTorch
+   version `tblock_ref` at every block shape of a 512 px restormer_deblur
+   forward plus one ragged shape, WithBias and BiasFree, float32 (the
+   csrc/tblock.cu pair) and bfloat16 (every call through the pipeline
+   `tblock_pipeline`, two calls bitwise equal), with weights at a trained
+   block's scale (both halves of the block add O(1) to the residual) and
+   the median time of both (CUDA events);
 4. the full-width restormer_deblur network (seeded random weights) on the
    card against the same network on the CPU, whose blocks take the plain
-   path, on a small input in float32;
+   path, on a small input in float32 (no pipeline call);
 5. the evaluation path: `restore_and_score` of the evaluation CLI on
    synthetic 512 x 512 (lq, hq, ref) triples in bfloat16 (f32 parameters),
    one warm-up and two timed, counting kernel launches (52 blocks per
-   forward);
+   forward, each through the pipeline), peak memory and a profiled
+   forward (device time by kernel, idle share);
 6. the backward kernels `gdfn_half_bwd` and `attn_half_bwd` against plain
    autograd through the two halves of the block, on the same inputs, at
    every block shape of a 384 px, batch-8 training step plus the ragged
@@ -24,14 +27,17 @@ Phases, each of which raises on failure:
    parameter gradient, elementwise and in L2 against the plain gradient's
    norm, with both times and, in bf16 WithBias, each row's device time
    split by kernel (`torch.profiler`: the LN passes, the stencils, the
-   GEMM, pass 1, wgrad, the glue); and bwd_mode 'remat' against 'save';
+   GEMM, pass 1, wgrad, the glue) and the time of the block's forward
+   (the pipeline) and of its plain version at that shape; and bwd_mode
+   'remat' against 'save';
 7. the training main path: the training CLI's step function with the
    options of options/train_restoration/restormer_motion_deblur.yml
    (AdamW 2e-4 / ref 1e-4, wd 1e-4, clip 0.01, cosine restarts, L1) and
    param_fix_iterations 2, on seeded synthetic 384 px batch-8 triples in
    bf16 with f32 parameters: a warm-up, two frozen and two released steps
-   (each launching 52 forward blocks, 52 of each backward kernel), one
-   step under bwd_mode 'remat' (52 more forward launches), the step timed
+   (each launching 52 forward blocks, all through the pipeline, 52 of
+   each backward kernel), one step under bwd_mode 'remat' (52 more forward
+   launches), the step timed
    against the same step through plain-autograd blocks in alternating
    turns, the peak memory and the idle share (`torch.profiler`) of each;
    and one f32 step at 128 px, batch 1, on the card against the same step
@@ -104,10 +110,10 @@ Phases, each of which raises on failure:
    batch 1 through the kernels against plain (loss 1e-5 relative, each
    trainable gradient 1e-3 in L2); one TR-stage update, after which only
    the clean mapper has moved;
-16. the whole-block kernel at PromptIR's noise-block widths, C = 704 / 320
-   / 160 with 4 heads (176 / 80 / 40 channels per head) at the 512 px
+16. the whole-block kernels at PromptIR's noise-block widths, C = 704 /
+   320 / 160 with 4 heads (176 / 80 / 40 channels per head) at the 512 px
    forward's sizes plus a ragged shape, against `tblock_ref` with phase
-   3's weights, bounds and columns, and the tiles picked;
+   3's weights, bounds, route checks and columns;
 17. the cross-block chain kernel (csrc/tblock_chain.cu, through
    `TBlockStage` with chain=True) at every stage shape of a 512 px
    promptir_all_in_one forward plus a ragged batch-2 shape, WithBias and
@@ -125,8 +131,8 @@ Phases, each of which raises on failure:
    chain (11 block-kernel launches, 8 chain calls, 36 chain kernel
    launches); then `restore_and_score` on synthetic 512 x 512 triples in
    bfloat16 through both routes, one warm-up and two timed each, with
-   those launch counts per forward, images/s, peak memory and a profiled
-   forward;
+   those launch counts per forward (every block-kernel call through the
+   pipeline), images/s, peak memory and a profiled forward;
 19. the standalone GDFN kernel `gdfn_fused` against its plain version
    `gdfn_ref` at every GDFN shape of a 512 px restormer_deblur forward
    plus a ragged batch-2 shape, float32 and bfloat16, weights at a
@@ -178,8 +184,11 @@ CUDA the script exits non-zero and prints no result.
 builds a copy of the kernel sources with one fault planted, under a
 temporary directory, runs the phase that should catch it in bfloat16 (phase
 17: float32 and bfloat16) at a few shapes and exits 0 only if its check
-catches the fault (the strength of the phase's bound): dv_uses_a and
-dq_drops_diag (phase 6, the attention half's per-head products),
+catches the fault (the strength of the phase's bound): o_uses_a,
+gate_tap_dropped and proj_residual_dropped (phase 3, the bf16 pipeline:
+o = v . A in place of v . A^T, the gate stencil without h1's centre tap,
+x1 without its residual), dv_uses_a and dq_drops_diag (phase 6, the
+attention half's per-head products),
 gdfn_dd_kept_outside (phase 6, the GDFN half's gate gradient kept outside
 the image), dgrad_wt_as_w (phase 6, the input-gradient product reading
 W^T as W), sca_skipped and halo_kept (phase 8, the NAFBlock forward),
@@ -241,6 +250,7 @@ from textualdegremoval_tpu_torch.ops.pallas import tblock_attn_bwd as ab
 from textualdegremoval_tpu_torch.ops.pallas import tblock_bwd as gb
 from textualdegremoval_tpu_torch.ops import probes as pr
 from textualdegremoval_tpu_torch.tools import bench_block_bwd as block_bwd_tool
+from textualdegremoval_tpu_torch.tools import bench_block_fwd as block_fwd_tool
 from textualdegremoval_tpu_torch.tools import bench_flash as flash_tool
 from textualdegremoval_tpu_torch.tools import bench_qkv_form as qkv_tool
 from textualdegremoval_tpu_torch.tools import bench_stencil as stencil_tool
@@ -267,18 +277,8 @@ BRANCH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 NET_ATOL = 2e-3
 
 # (B, H, W, C, heads, blocks of that shape in one 512 px restormer_deblur
-# forward)
-SHAPES = [
-    (1, 512, 512, 48, 1, 4),    # encoder level 1
-    (1, 512, 512, 96, 1, 10),   # fusion level 1, decoder level 1, refinement
-    (1, 256, 256, 96, 2, 12),   # encoder / decoder level 2
-    (1, 256, 256, 192, 2, 2),   # fusion level 2
-    (1, 128, 128, 192, 4, 12),  # encoder / decoder level 3
-    (1, 128, 128, 384, 4, 2),   # fusion level 3
-    (1, 64, 64, 384, 8, 8),     # latent
-    (1, 64, 64, 768, 8, 2),     # fusion level 4
-    (2, 37, 53, 96, 2, 0),      # ragged: no tile divides H or W
-]
+# forward), and a ragged shape with no block in the forward
+SHAPES = block_fwd_tool.EVAL_SHAPES
 TASK = "restormer_deblur"
 
 
@@ -322,17 +322,20 @@ def randomize_block(blk: TransformerBlock, gen: torch.Generator):
 
 
 def kernel_vs_plain(gen: torch.Generator, timed: bool = True,
-                    shapes=SHAPES):
+                    shapes=SHAPES, dtypes=(torch.float32, torch.bfloat16)):
     """Phases 3 and 16.  Returns the bf16 WithBias rows at the main-path
     shapes as (blocks per forward, max_abs, kernel ms, plain ms); untimed,
-    the ms are NaN.  Logs the tiles picked (pass A's, pass B's)."""
+    the ms are NaN.  Every bf16 call must run the pipeline
+    (`tblock_pipeline`, the route rule of tblock.py at these widths) and
+    two calls must be bitwise equal; float32 runs csrc/tblock.cu's pair,
+    whose tiles (pass A's, pass B's) are logged."""
     log("kernel vs plain: |k-p| <= atol + rtol*|p| and ||k-p|| <= branch * "
         f"||p-x||; f32 atol/rtol/branch {TOL[torch.float32]}/"
         f"{BRANCH_TOL[torch.float32]}, bf16 {TOL[torch.bfloat16]}/"
         f"{BRANCH_TOL[torch.bfloat16]}")
     log(f"{'B,H,W,C,heads':>22} {'LN':>8} {'dtype':>8} {'max_abs':>10} "
         f"{'max_rel':>10} {'tol_use':>8} {'branch':>10} {'kernel_ms':>10} "
-        f"{'plain_ms':>10}  tiles")
+        f"{'plain_ms':>10}  route")
     main_rows = []
     failures = []
     for b, h, w, c, heads, nblk in shapes:
@@ -340,12 +343,17 @@ def kernel_vs_plain(gen: torch.Generator, timed: bool = True,
             blk = TransformerBlock(c, heads, ln_type=ln_type)
             randomize_block(blk, gen)
             x32 = torch.randn(b, h, w, c, generator=gen)
-            for dtype in (torch.float32, torch.bfloat16):
+            for dtype in dtypes:
                 blk_d = blk.to(device="cuda", dtype=dtype)
                 x = x32.to(device="cuda", dtype=dtype)
                 params = blk_d.block_params()
+                pipeline = dtype == torch.bfloat16
                 with torch.inference_mode():
-                    got = blk_d(x).float()
+                    calls = tb.tblock_pipeline.launches
+                    got_d = blk_d(x)
+                    routed = tb.tblock_pipeline.launches - calls == pipeline
+                    same = not pipeline or torch.equal(got_d, blk_d(x))
+                    got = got_d.float()
                     want = tb.tblock_ref(x, params, heads, ln_type).float()
                     torch.cuda.synchronize()
                     atol, rtol = TOL[dtype]
@@ -362,15 +370,19 @@ def kernel_vs_plain(gen: torch.Generator, timed: bool = True,
                         p_ms = median_ms(
                             lambda: tb.tblock_ref(x, params, heads, ln_type))
                 name = str(dtype).split(".")[-1]
-                tiles = tb._block_tiles(_build.load_library(), x, heads)[:2]
+                route = ("pipeline" if pipeline else
+                         tb._block_tiles(_build.load_library(), x, heads)[:2])
                 log(f"{f'{b},{h},{w},{c},{heads}':>22} {ln_type:>8} {name:>8} "
                     f"{max_abs:10.3e} {max_rel:10.3e} {tol_use:8.3f} "
-                    f"{branch:10.3e} {k_ms:10.4f} {p_ms:10.4f}  {tiles}")
-                if not finite or tol_use > 1.0 or branch > BRANCH_TOL[dtype]:
+                    f"{branch:10.3e} {k_ms:10.4f} {p_ms:10.4f}  {route}"
+                    f"{'' if routed else '  NOT ROUTED AS RULED'}"
+                    f"{'' if same else '  NOT REPEATABLE'}")
+                if not finite or tol_use > 1.0 or branch > BRANCH_TOL[dtype] \
+                        or not routed or not same:
                     failures.append((b, h, w, c, heads, ln_type, name))
                 if dtype == torch.bfloat16 and ln_type == "WithBias" and nblk:
                     main_rows.append((nblk, max_abs, k_ms, p_ms))
-                del got, want
+                del got, got_d, want
             blk.cpu().float()
     if failures:
         raise RuntimeError(f"kernel disagrees with plain at {failures}")
@@ -558,6 +570,18 @@ GRAD_L2_TEMPERATURE = {torch.float32: 1e-3, torch.bfloat16: 1e-1}
 GRAD_ELEM = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (1e-1, 1e-1)}
 # fault -> (source, text, replacement, the phase that must catch it)
 FAULTS = {
+    # the bf16 forward's o = v . A in place of v . A^T (A read MN-major:
+    # the transpose bit of its product set)
+    "o_uses_a": ("bwd_gemm.cu", "run_gemm(vv, av, cph, 0, g, B, s)",
+                 "run_gemm(vv, av, cph, 1, g, B, s)", 3),
+    # the bf16 forward's gate stencil without h1's centre tap
+    "gate_tap_dropped": (
+        "fwd_stencil.cu", "d1 += w1[r][c] * t1[r * 3 + c];",
+        "d1 += (r * 3 + c == 4 ? 0.f : w1[r][c]) * t1[r * 3 + c];", 3),
+    # the bf16 forward's x1 = rnd(o . Wproj): the attention half's
+    # residual dropped
+    "proj_residual_dropped": ("bwd_gemm.cu", "residual_gemm(o, wproj, x, x1,",
+                              "residual_gemm(o, wproj, nullptr, x1,", 3),
     # dv = do . A^T in place of do . A in pass 2 of the attention half (A
     # read K-major: the transpose bit of its product cleared)
     "dv_uses_a": ("bwd_gemm.cu", "head_product(dos, C, attn, 1,",
@@ -697,9 +721,12 @@ def backward_split(fn, what: str, reps: int = 3) -> None:
 def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True):
     """Phase 6.  Returns the bf16 WithBias rows at the training shapes as
     (blocks per step, max L2, gdfn max_abs, attn max_abs, gdfn ms, attn ms,
-    gdfn plain ms, attn plain ms, shape), and raises after printing if any
-    row fails.  Timed, it also splits each bf16 WithBias row's device time
-    by kernel (`backward_split`)."""
+    gdfn plain ms, attn plain ms, forward ms, forward plain ms, shape),
+    and raises after printing if any row fails.  The forward (x1 and the
+    statistics the halves start from) is the kernels' own, the bf16
+    pipeline at these widths, and is timed beside them.  Timed, it also
+    splits each bf16 WithBias row's device time by kernel
+    (`backward_split`)."""
     dtypes = dtypes or (torch.float32, torch.bfloat16)
     log(f"backward kernels vs plain autograd: ||k-p|| <= l2 ||p|| and "
         f"|k-p| <= a max|p| + r |p|; f32 l2 {GRAD_L2[torch.float32]} a/r "
@@ -732,7 +759,7 @@ def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True):
                 stats_row = {k: _grad_row(k, got[k], want[k], dtype)
                              for k in want}
                 del got, want, pdx1, pgg, pdx, pga
-                t = [float("nan")] * 4
+                t = [float("nan")] * 6
                 if timed:
                     t = [median_ms(lambda: gb.gdfn_half_bwd(
                              x1, g, p, ln_type, kw), reps=3),
@@ -742,6 +769,11 @@ def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True):
                              x1, g, p, ln_type), reps=3),
                          median_ms(lambda: ab.attn_half_bwd_ref(
                              x, dx1, p, heads, ln_type), reps=3)]
+                    with torch.no_grad():  # the step's forward of the block
+                        t += [median_ms(lambda: tb._forward_kernel(
+                                  x, kw, heads, ln_type), reps=3),
+                              median_ms(lambda: tb.tblock_ref(
+                                  x, p, heads, ln_type), reps=3)]
                 name = str(dtype).split(".")[-1]
                 worst = max(v[2] for v in stats_row.values())
                 # the largest reading of a bound: L2 over its bound, or the
@@ -751,7 +783,8 @@ def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True):
                 log(f"{b},{h},{w},{c},{heads} {ln_type} {name}: max L2 "
                     f"{worst:.3e} ({ratio:.3g} of its bound); gdfn "
                     f"{t[0]:.3f} ms (plain {t[2]:.3f}), attn {t[1]:.3f} ms "
-                    f"(plain {t[3]:.3f})")
+                    f"(plain {t[3]:.3f}); forward {t[4]:.3f} ms (plain "
+                    f"{t[5]:.3f})")
                 log("    " + " ".join(
                     f"{k}:{v[0]:.2e}/{v[1]:.3f}/{v[2]:.2e}"
                     for k, v in stats_row.items()))
@@ -897,12 +930,14 @@ def train_main_path(seed: int, opt=TRAIN_OPT, kernels=None, per_step=None,
     with `resolve_kw`) in bf16 at 384 px, batch `batch_size`: every step
     launches each of `kernels` per_step times; the comparison turns call
     plain(model, True) before a plain turn and plain(model, False) after
-    it (default: `_plain_blocks` for `tblock_fused`).  Returns (launches
-    of each kernel over the counted steps, kernel step ms, plain step ms,
-    kernel peak GiB, plain peak GiB)."""
+    it (default: `_plain_blocks` for `tblock_fused`).  Default kernels:
+    `tblock_fused`, the two backward rows and `tblock_pipeline`'s block
+    calls, 52 each (under 'remat' the forward counts double).  Returns
+    (launches of each kernel over the counted steps, kernel step ms, plain
+    step ms, kernel peak GiB, plain peak GiB)."""
     kernels = kernels or (tb.tblock_fused, gb.gdfn_half_bwd,
-                          ab.attn_half_bwd)
-    per_step = per_step or (52, 52, 52)
+                          ab.attn_half_bwd, tb.tblock_pipeline)
+    per_step = per_step or (52, 52, 52, 52)
     switch = plain or _swap("tblock_fused", _plain_blocks)
     name = opt["network_g"]["type"]
     with torch.random.fork_rng(devices=[]):
@@ -990,7 +1025,9 @@ def train_main_path(seed: int, opt=TRAIN_OPT, kernels=None, per_step=None,
             mod.bwd_mode = "remat"
         (state, m), counts = counted_step(step_fn)
         log(f"remat step: launches {counts}, l_pix {float(m['l_pix']):.5f}")
-        if counts != (2 * per_step[0],) + per_step[1:]:
+        forward = (tb.tblock_fused, tb.tblock_pipeline)
+        if counts != tuple(2 * n if k in forward else n
+                           for k, n in zip(kernels, per_step)):
             raise RuntimeError(f"remat step launches {counts}")
         for mod in blocks:
             mod.bwd_mode = "save"
@@ -1976,12 +2013,7 @@ PROMPTIR_CHAIN_BLOCKS = 11
 PROMPTIR_CHAIN = (8, 36)
 # (B, H, W, C, heads, blocks of that shape in one forward): the noise
 # blocks of the 512 px forward, 4 heads each, and a ragged shape
-NOISE_SHAPES = [
-    (1, 64, 64, 704, 4, 1),     # noise_level3, 176 channels per head
-    (1, 128, 128, 320, 4, 1),   # noise_level2, 80
-    (1, 256, 256, 160, 4, 1),   # noise_level1, 40
-    (1, 45, 61, 704, 4, 0),     # ragged: no tile divides H or W
-]
+NOISE_SHAPES = block_fwd_tool.NOISE_SHAPES
 # (B, H, W, C, heads, blocks in the stage, stages of that shape in one
 # 512 px forward)
 CHAIN_SHAPES = [
@@ -2126,15 +2158,20 @@ def chain_grad_vs_autograd(gen, shape=(8, 96, 96, 192, 4, 2)):
 
 def promptir_path(seed: int):
     """Phase 18: the full-width promptir_all_in_one network on the card
-    against the CPU (f32, chain off and on), then the evaluation path at
-    512 px in bf16 through both routes.  Returns the chain-off and
-    chain-on results of `main_path`."""
+    against the CPU (f32, chain off and on: csrc/tblock.cu's pair, no
+    pipeline call), then the evaluation path at 512 px in bf16 through
+    both routes (every whole-block call through the pipeline; the chain's
+    first pass A and last pass B are csrc/tblock.cu's).  Returns the
+    chain-off and chain-on results of `main_path`."""
     network_vs_cpu(seed, PROMPTIR_TASK, tb.tblock_fused,
                    ((PROMPTIR_BLOCKS, None),
-                    (PROMPTIR_CHAIN_BLOCKS, PROMPTIR_CHAIN)))
-    off = main_path(seed, PROMPTIR_TASK, tb.tblock_fused, PROMPTIR_BLOCKS)
+                    (PROMPTIR_CHAIN_BLOCKS, PROMPTIR_CHAIN)),
+                   more=((tb.tblock_pipeline, 0),))
+    off = main_path(seed, PROMPTIR_TASK, tb.tblock_fused, PROMPTIR_BLOCKS,
+                    more=((tb.tblock_pipeline, PROMPTIR_BLOCKS),))
     on = main_path(seed, PROMPTIR_TASK, tb.tblock_fused,
-                   PROMPTIR_CHAIN_BLOCKS, PROMPTIR_CHAIN)
+                   PROMPTIR_CHAIN_BLOCKS, PROMPTIR_CHAIN,
+                   more=((tb.tblock_pipeline, PROMPTIR_CHAIN_BLOCKS),))
     log(f"{PROMPTIR_TASK} forward 512 px bf16: chain off {off[1]:.2f} ms "
         f"({1e3 / off[1]:.3f} images/s), chain on {on[1]:.2f} ms "
         f"({1e3 / on[1]:.3f} images/s)")
@@ -2737,7 +2774,10 @@ def main(argv=None) -> int:
     gen = torch.Generator().manual_seed(args.seed)
     if args.plant:
         try:
-            if FAULTS[args.plant][3] == 6:
+            if FAULTS[args.plant][3] == 3:
+                kernel_vs_plain(gen, False, [SHAPES[i] for i in (2, 6, 8)]
+                                + NOISE_SHAPES[3:], (torch.bfloat16,))
+            elif FAULTS[args.plant][3] == 6:
                 backward_vs_plain(gen, [TRAIN_SHAPES[i] for i in (0, 4, 7, 8)],
                                   dtypes=(torch.bfloat16,), timed=False)
             elif FAULTS[args.plant][3] == 11:
@@ -2770,14 +2810,16 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     rows = kernel_vs_plain(gen)
-    network_vs_cpu(args.seed)
-    eval_launches = main_path(args.seed)[0]
+    network_vs_cpu(args.seed, more=((tb.tblock_pipeline, 0),))
+    eval_launches, _, _, (eval_pipeline,) = main_path(
+        args.seed, more=((tb.tblock_pipeline, 52),))
     bwd_rows = backward_vs_plain(gen)
     remat_vs_save(gen)
     launches, step_ms, plain_step_ms, peak, _ = train_main_path(args.seed)
     train_step_vs_cpu(args.seed)
-    log(f"launches: evaluation path tblock_fused {eval_launches}; training "
-        f"main path (4 steps) tblock_fused/gdfn_half_bwd/attn_half_bwd "
+    log(f"launches: evaluation path tblock_fused {eval_launches} "
+        f"(tblock_pipeline {eval_pipeline}); training main path (4 steps) "
+        f"tblock_fused/gdfn_half_bwd/attn_half_bwd/tblock_pipeline "
         f"{launches}")
     log_held("phases 3-7")
 
@@ -2892,14 +2934,35 @@ def main(argv=None) -> int:
     stencil_bound = stencil_tool.stencil_flops(t_st, w_st, ch_st) \
         / core_peak * 1e3
     src = "textualdegremoval_tpu_torch/csrc/"
+    step_bound, step_by = bounds("tblock_fused", TRAIN_SHAPES)
     summary = {"kernels": [
-        {"name": "tblock_fused", "route": "cuda", "source": src + "tblock.cu",
-         "replaces": "textualdegremoval_tpu/ops/pallas/tblock.py:557",
-         "launches": launches[0],
+        # per 512 px restormer_deblur forward (bf16: the pipeline of
+        # fwd_stencil.cu, the products of bwd_gemm.cu, bwd_stencil.cu's LN
+        # rows and wgrad.cu's gram; float32 and other bf16 widths run
+        # tblock.cu's pair); step_*: per 384 px batch-8 step's 52 forward
+        # calls (phase 6's times); launches: phase 7's 4 steps, of which
+        # pipeline_launches through the pipeline
+        {"name": "tblock_fused", "route": "cuda",
+         "source": src + "fwd_stencil.cu",
+         "sources": [src + f for f in ("fwd_stencil.cu", "bwd_gemm.cu",
+                                       "bwd_stencil.cu", "wgrad.cu",
+                                       "halo_tiles.cuh", "tma_maps.cuh",
+                                       "hopper.cuh", "tblock_common.cuh",
+                                       "tblock.cu", "tblock_fwd.cuh")],
+         "replaces": "textualdegremoval_tpu/ops/pallas/tblock.py:557 "
+                     "(_tblock_impl; _make_stats_kernel :170, call :627; "
+                     "_make_apply_kernel :220, call :652)",
+         "launches": launches[0], "pipeline_launches": launches[3],
+         "eval_launches": eval_launches,
          "max_abs_err": max(r[1] for r in rows),
          "ms": sum(n * k for n, _, k, _ in rows),
          "plain_ms": sum(n * p for n, _, _, p in rows),
-         "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None},
+         "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None,
+         "step_ms": sum(r[0] * r[8] for r in bwd_rows),
+         "step_plain_ms": sum(r[0] * r[9] for r in bwd_rows),
+         "step_bound_ms": step_bound, "step_bound_by": step_by,
+         "noise_ms_per_launch": [r[2] for r in noise_rows],
+         "noise_plain_ms_per_launch": [r[3] for r in noise_rows]},
         # per 384 px batch-8 step (bf16: the passes of bwd_stencil.cu and
         # the products of bwd_gemm.cu, then wgrad.cu; "sources" names every
         # source the row runs)

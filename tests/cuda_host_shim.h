@@ -97,6 +97,15 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   g_warp_barriers[w].arrive_and_wait();
   return r;
 }
+inline unsigned __shfl_xor_sync(unsigned, unsigned v, int lane_mask) {
+  const int t = threadIdx.x, w = t / 32;
+  memcpy(&g_shuffle[t], &v, 4);
+  g_warp_barriers[w].arrive_and_wait();
+  unsigned r;
+  memcpy(&r, &g_shuffle[w * 32 + ((t % 32) ^ lane_mask)], 4);
+  g_warp_barriers[w].arrive_and_wait();
+  return r;
+}
 
 struct __nv_bfloat16 {
   uint16_t bits;

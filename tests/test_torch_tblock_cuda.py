@@ -1,6 +1,8 @@
-"""On-card checks of the whole-TransformerBlock CUDA kernel (marked `cuda`;
-each skips without a CUDA device).  The file imports neither jax nor the
-test helpers that do, so the card's machine runs it without JAX:
+"""On-card checks of the whole-TransformerBlock CUDA kernels (marked `cuda`;
+each skips without a CUDA device): the bf16 pipeline (`tblock_pipeline`)
+and csrc/tblock.cu's pair, which the route rule picks.  The file imports
+neither jax nor the test helpers that do, so the card's machine runs it
+without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_tblock_cuda.py
@@ -25,14 +27,26 @@ def _cuda():
     torch.backends.cudnn.allow_tf32 = False
 
 
-def _block(c, heads, ln_type, dtype, seed):
+def _block(c, heads, ln_type, dtype, seed, shape=(2, 37, 53)):
     """A block with weights at a trained block's scale (chip_smoke.py's
     `randomize_block`) and an input on the card."""
     gen = torch.Generator().manual_seed(seed)
     blk = TransformerBlock(c, heads, ln_type=ln_type)
     randomize_block(blk, gen)
-    x = torch.randn(2, 37, 53, c, generator=gen)
+    x = torch.randn(*shape, c, generator=gen)
     return blk.to("cuda", dtype), x.to("cuda", dtype)
+
+
+def _assert_close_to_plain(blk, x, heads, ln_type, dtype):
+    with torch.inference_mode():
+        got = blk(x).float()
+        want = tb.tblock_ref(x, blk.block_params(), heads, ln_type).float()
+    atol, rtol = TOL[dtype]
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= atol + rtol * want.abs()).all(), \
+        (got - want).abs().max().item()
+    branch = (got - want).norm() / (want - x.float()).norm()
+    assert branch <= BRANCH_TOL[dtype], branch.item()
 
 
 @pytest.mark.cuda
@@ -45,17 +59,29 @@ def _block(c, heads, ln_type, dtype, seed):
 def test_kernel_matches_plain(c, heads, ln_type, dtype):
     _cuda()
     blk, x = _block(c, heads, ln_type, dtype, seed=c)
-    before = tb.tblock_fused.launches
+    before = tb.tblock_fused.launches, tb.tblock_pipeline.launches
+    _assert_close_to_plain(blk, x, heads, ln_type, dtype)
+    # the bf16 pipeline where C and C / heads are multiples of 8
+    pipeline = dtype == torch.bfloat16 and c % 8 == 0 and (c // heads) % 8 == 0
+    assert (tb.tblock_fused.launches, tb.tblock_pipeline.launches) == (
+        before[0] + 1, before[1] + int(pipeline))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,c,heads,ln_type", [
+    ((1, 64, 64), 768, 8, "WithBias"),   # Restormer's widest block
+    ((1, 45, 61), 704, 4, "BiasFree"),   # PromptIR's noise block, ragged
+    ((1, 64, 64), 160, 4, "WithBias"),   # 40 channels per head
+    ((2, 37, 53), 48, 1, "BiasFree"),    # C below one 64-channel box
+])
+def test_pipeline_matches_plain_at_full_width(shape, c, heads, ln_type):
+    _cuda()
+    blk, x = _block(c, heads, ln_type, torch.bfloat16, seed=c, shape=shape)
+    before = tb.tblock_pipeline.launches
+    _assert_close_to_plain(blk, x, heads, ln_type, torch.bfloat16)
+    assert tb.tblock_pipeline.launches == before + 1
     with torch.inference_mode():
-        got = blk(x).float()
-        want = tb.tblock_ref(x, blk.block_params(), heads, ln_type).float()
-    assert tb.tblock_fused.launches == before + 1
-    atol, rtol = TOL[dtype]
-    assert torch.isfinite(got).all()
-    assert ((got - want).abs() <= atol + rtol * want.abs()).all(), \
-        (got - want).abs().max().item()
-    branch = (got - want).norm() / (want - x.float()).norm()
-    assert branch <= BRANCH_TOL[dtype], branch.item()
+        assert torch.equal(blk(x), blk(x))
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
-// The products of the Restormer TransformerBlock backward in bf16 for
-// Hopper (sm_90a): one GEMM kernel, TMA-fed and on wgmma, for every
-// product of the two halves that the TPU kernels computed in their bodies.
+// The products of the Restormer TransformerBlock in bf16 for Hopper
+// (sm_90a), backward and forward: one GEMM kernel, TMA-fed and on wgmma,
+// for every product of the two halves that the TPU kernels computed in
+// their bodies.
 //
 // Replaces the in-body products of the TPU kernels `_make_gdfn_bwd_kernel`
 // (textualdegremoval_tpu/ops/pallas/tblock_bwd.py) and
@@ -9,9 +10,16 @@
 //   attention half: lin = y . Wqkv, and per (image, head)
 //                   dq = k . M^T + q Dq, dk = q . M + k Dk, dv = do . A,
 //                   dy = dlin . Wqkv^T.
-// Between them run the CUDA-core passes of bwd_stencil.cu (LayerNorms, the
-// depthwise stencils, gelu, the tap gradients).  The weight gradients (sums
-// over pixels) stay in wgrad.cu.
+// and of the forward kernels `_make_stats_kernel` and `_make_apply_kernel`
+// (ops/pallas/tblock.py:170, :220): lin = y . Wqkv, hid = z . W1 (the
+// backward's own entries), per (image, head) o = v . A^T, and the two
+// products that end in a residual, x1 = x + rnd(o . Wproj) and
+// out = x1 + rnd(gate . W2) (the sequence is laid out at the top of
+// fwd_stencil.cu).
+// Between them run the CUDA-core passes of bwd_stencil.cu and
+// fwd_stencil.cu (LayerNorms, the depthwise stencils, gelu, the tap
+// gradients).  The weight gradients (sums over pixels) and the forward's
+// gram stay in wgrad.cu.
 //
 // What bounds them on the card: each is a skinny product, M = every pixel
 // of the batch (1.18 M at the 384 px batch-8 step), N and K = C, cph or
@@ -37,9 +45,13 @@
 // transposed copy).  K and N need not be multiples of 64: the boxes past
 // them arrive as zeros and the epilogue drops the columns.  The epilogue
 // writes f32 (dgate, dz, dy, the attention terms) or rounds to bf16 (hid,
-// lin, where the TPU kernel rounds them), and for dq / dk adds the L2
-// norm's diagonal term from the stencil's q / k in f32.  No atomics: a
-// repeated call is bitwise equal.
+// lin, o, where the TPU kernel rounds them), for dq / dk adds the L2
+// norm's diagonal term from the stencil's q / k in f32, and for the
+// forward's residual products rounds the product to bf16, adds the bf16
+// residual in f32 and rounds the sum (the TPU kernel's x + rnd(proj)).
+// Its stores were what bounded the skinny products: each lane now stores
+// whole 16-byte runs of a row, the quad's lanes trading values through
+// shuffles first.  No atomics: a repeated call is bitwise equal.
 
 #include "tma_maps.cuh"
 #include "tblock_common.cuh"
@@ -65,7 +77,8 @@ struct GemmSmem {
 // col0 + z2 * N + n (z2, z3: the batch indices, heads and images for the
 // per-head products), f32 into out_f or rounded to bf16 into out_h.
 // Where aux is set, the f32 value aux[row][aux_col0 + z2 N + n] *
-// vec[z3 vec_ld + z2 N + n] is added first.
+// vec[z3 vec_ld + z2 N + n] is added first; where res is set, the product
+// is rounded to bf16 and res[row][col0 + z2 N + n] added in f32.
 struct GemmOut {
   int rows, N, nz2, nk;  // nk: steps of 64 along K
   float* out_f;
@@ -77,10 +90,8 @@ struct GemmOut {
   int aux_col0;
   const float* vec;
   int vec_ld;
-};
-
-struct alignas(8) F32Pair {
-  float lo, hi;
+  const __nv_bfloat16* res;
+  long long ld_res;
 };
 
 // two f32 rounded to bf16 as one word (lo in bits 0-15)
@@ -89,6 +100,26 @@ __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
   const __nv_bfloat16 b = from_f<__nv_bfloat16>(hi);
   return (uint32_t)*reinterpret_cast<const unsigned short*>(&a) |
          ((uint32_t)*reinterpret_cast<const unsigned short*>(&b) << 16);
+}
+
+// 16 bytes of an output row, loaded and stored as one word
+struct alignas(16) Run16 {
+  uint32_t w[4];
+};
+
+__device__ __forceinline__ float f32_of(uint32_t bits) {
+  float v;
+  memcpy(&v, &bits, 4);
+  return v;
+}
+__device__ __forceinline__ uint32_t bits_of(float v) {
+  uint32_t bits;
+  memcpy(&bits, &v, 4);
+  return bits;
+}
+// value e of a run of 8 bf16 as f32 (a bf16 is the upper half of its f32)
+__device__ __forceinline__ float bf16_at(const Run16& q, int e) {
+  return f32_of(e & 1 ? q.w[e / 2] & 0xffff0000u : q.w[e / 2] << 16);
 }
 
 template <int BN, int kTransB>
@@ -160,36 +191,89 @@ __global__ void __launch_bounds__(kGemmThreads, 2) bwd_gemm_kernel(
     if (lane == 0) mbar_arrive(empty + s);  // this warp read the stage
   }
 
-  // entry 4 j + 2 h + c: row 16 warp + gq + 8 h, column 8 j + 2 tig + c;
-  // the two columns of a pair are stored as one 8- or 4-byte word
+  // entry 4 j + 2 h + c: row 16 warp + gq + 8 h, column 8 j + 2 tig + c.
+  // A quad's 4 lanes hold 8 columns of a row per j: they trade values so
+  // that each lane stores whole 16-byte runs (a run of a row per lane and
+  // store, 64 bytes of a row per quad), where a pair per lane and store
+  // (16 or 32 bytes of a row per quad) took up to 1.6 times as long.
+  // bf16: the lanes transpose their words of 4 j; f32: lane pairs trade
+  // pairs of 2 j.  Rows past the tile's last are computed but not stored
+  // (every lane takes part in the shuffles).  run_gemm admits N, ldo and
+  // col0 multiples of 8 only, aux with f32 out, res with bf16 out.
+  const int r_of[2] = {row0 + wg * 64 + warp * 16 + gq,
+                       row0 + wg * 64 + warp * 16 + gq + 8};
+  if (g.out_h != nullptr) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row0 + wg * 64 + warp * 16 + gq + 8 * h;
-    if (r >= g.rows) continue;
-    const size_t row = (size_t)z3 * g.rows + r;
+    for (int h = 0; h < 2; ++h) {
+      const int r = r_of[h];
+      const size_t row = (size_t)z3 * g.rows + (r < g.rows ? r : 0);
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int n = n0 + 8 * j + 2 * tig;
-      if (n >= g.N) continue;
-      const int col = z2 * g.N + n;
-      const bool two = n + 1 < g.N;
-      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-      if (g.aux != nullptr) {
-        const __nv_bfloat16* ap = g.aux + row * g.ld_aux + g.aux_col0 + col;
-        const float* vp = g.vec + (size_t)z3 * g.vec_ld + col;
-        v0 += to_f(ap[0]) * vp[0];
-        if (two) v1 += to_f(ap[1]) * vp[1];
+      for (int j4 = 0; j4 < BN / 32; ++j4) {
+        // wv[t]: this lane's word of j = 4 j4 + t; tw[s]: lane s's word
+        // of j = 4 j4 + tig
+        uint32_t wv[4], tw[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          wv[t] = bf16_pair(acc[4 * (4 * j4 + t) + 2 * h],
+                            acc[4 * (4 * j4 + t) + 2 * h + 1]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int s = tig ^ k;
+          const uint32_t got = __shfl_xor_sync(
+              0xffffffffu, s == 0 ? wv[0] : s == 1 ? wv[1] : s == 2 ? wv[2]
+                                                                : wv[3],
+              k);
+          if (s == 0) tw[0] = got;
+          else if (s == 1) tw[1] = got;
+          else if (s == 2) tw[2] = got;
+          else tw[3] = got;
+        }
+        const int n = n0 + 8 * (4 * j4 + tig);
+        if (r >= g.rows || n >= g.N) continue;
+        const size_t col = (size_t)g.col0 + z2 * g.N + n;
+        Run16 out = {{tw[0], tw[1], tw[2], tw[3]}};
+        if (g.res != nullptr) {
+          const Run16 rq =
+              *reinterpret_cast<const Run16*>(g.res + row * g.ld_res + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            out.w[e] = bf16_pair(bf16_at(rq, 2 * e) + bf16_at(out, 2 * e),
+                                 bf16_at(rq, 2 * e + 1) +
+                                     bf16_at(out, 2 * e + 1));
+        }
+        *reinterpret_cast<Run16*>(g.out_h + row * g.ldo + col) = out;
       }
-      const size_t o = row * g.ldo + g.col0 + col;
-      if (g.out_h != nullptr) {
-        if (two)
-          *reinterpret_cast<uint32_t*>(g.out_h + o) = bf16_pair(v0, v1);
-        else
-          g.out_h[o] = from_f<__nv_bfloat16>(v0);
-      } else if (two) {
-        *reinterpret_cast<F32Pair*>(g.out_f + o) = F32Pair{v0, v1};
-      } else {
-        g.out_f[o] = v0;
+    }
+  } else {
+    const bool odd = tig & 1;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r_of[h];
+      const size_t row = (size_t)z3 * g.rows + (r < g.rows ? r : 0);
+#pragma unroll
+      for (int j2 = 0; j2 < BN / 16; ++j2) {
+        // even lanes keep j = 2 j2 and take their partner's pair of it,
+        // odd lanes keep j = 2 j2 + 1
+        const float a0 = acc[8 * j2 + 2 * h], a1 = acc[8 * j2 + 2 * h + 1];
+        const float b0 = acc[8 * j2 + 4 + 2 * h];
+        const float b1 = acc[8 * j2 + 4 + 2 * h + 1];
+        const float g0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : b0, 1);
+        const float g1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : b1, 1);
+        const int n = n0 + 8 * (2 * j2 + (odd ? 1 : 0)) + 2 * (tig & 2);
+        if (r >= g.rows || n >= g.N) continue;
+        float v[4] = {odd ? g0 : a0, odd ? g1 : a1, odd ? b0 : g0,
+                      odd ? b1 : g1};
+        const size_t col = (size_t)z2 * g.N + n;
+        if (g.aux != nullptr) {
+          const __nv_bfloat16* ap = g.aux + row * g.ld_aux + g.aux_col0 + col;
+          const float* vp = g.vec + (size_t)z3 * g.vec_ld + col;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] += to_f(ap[e]) * vp[e];
+        }
+        const Run16 out = {{bits_of(v[0]), bits_of(v[1]), bits_of(v[2]),
+                            bits_of(v[3])}};
+        *reinterpret_cast<Run16*>(g.out_f + row * g.ldo + g.col0 + col) =
+            out;
       }
     }
   }
@@ -216,7 +300,9 @@ int launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb,
 int run_gemm(View4 a, View4 b, int K, int trans_b, GemmOut g, int nz3,
              cudaStream_t stream) {
   if (g.rows <= 0 || g.N <= 0 || K <= 0 || g.nz2 <= 0 || nz3 <= 0 ||
-      (g.rows + kGemmRows - 1) / kGemmRows > 65535 || g.nz2 * nz3 > 65535)
+      (g.rows + kGemmRows - 1) / kGemmRows > 65535 || g.nz2 * nz3 > 65535 ||
+      g.N % 8 || g.ldo % 8 || g.col0 % 8 || (g.out_h && g.aux) ||
+      (g.out_f && g.res))
     return (int)cudaErrorInvalidValue;
   const int bn = g.N <= 64 ? 64 : 128;
   g.nk = (K + 63) / 64;
@@ -274,6 +360,15 @@ int head_product(const void* a, int lda, const void* b, int trans_b,
   return run_gemm(av, bv, cph, trans_b, g, B, stream);
 }
 
+// out (M, N) bf16 = res + rnd(a (M, K) . b^T) with b (N, K); res (M, N)
+// bf16, or no residual where it is null
+int residual_gemm(const void* a, const void* b, const void* res, void* out,
+                  int M, int N, int K, cudaStream_t stream) {
+  GemmOut g = plain_out(M, N, out, 1);
+  g.res = (const __nv_bfloat16*)res, g.ld_res = N;
+  return run_gemm(a_view(a, M, K), b_view(b, N, K), K, 0, g, 1, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -323,6 +418,40 @@ int bwd_head_products(const void* qk, const void* dos, const void* m,
                           B, HW, C, heads, s)))
     return err;
   return 0;
+}
+
+// The forward's residual product: out (M, N) bf16 = res + rnd(a . b^T),
+// a (M, K), b (N, K) (W2 in the kernels' (outputs, inputs) layout), res
+// (M, N), all contiguous bf16: out = x1 + rnd(gate . W2).  Returns a
+// cudaError_t.
+int fwd_gemm_residual(const void* a, const void* b, const void* res,
+                      void* out, int M, int N, int K, void* stream) {
+  return residual_gemm(a, b, res, out, M, N, K, (cudaStream_t)stream);
+}
+
+// The forward's attention output: per (image, head) o = v . A_h^T rounded
+// to bf16 (A read K-major: B(k, n) = A[n][k]), then x1 = x + rnd(o .
+// Wproj).  qkv: (B HW, 3 C) bf16 after the stencils, v its last third;
+// attn: (B, heads, cph, cph) bf16, the softmax output; wproj (C, C) bf16
+// in the (outputs, inputs) layout; x: (B HW, C) bf16.  Outputs: o (scratch)
+// and x1, (B HW, C) bf16.  cph % 8 == 0.  Returns a cudaError_t.
+int fwd_attn_out(const void* qkv, const void* attn, const void* wproj,
+                 const void* x, void* o, void* x1, int B, int HW, int C,
+                 int heads, void* stream) {
+  if (heads <= 0 || C % heads || (C / heads) % 8)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int cph = C / heads;
+  const long long hw = HW, sq = (long long)cph * cph, ld = 3LL * C;
+  const View4 vv = {(const __nv_bfloat16*)qkv + 2 * C,
+                    {cph, heads, HW, B}, {cph, ld, ld * hw}, {}};
+  const View4 av = {attn, {cph, cph, heads, B}, {cph, sq, sq * heads}, {}};
+  GemmOut g = {};
+  g.rows = HW, g.N = cph, g.nz2 = heads;
+  g.out_h = (__nv_bfloat16*)o, g.ldo = C;
+  int err;
+  if ((err = run_gemm(vv, av, cph, 0, g, B, s))) return err;
+  return residual_gemm(o, wproj, x, x1, B * HW, C, C, s);
 }
 
 }  // extern "C"

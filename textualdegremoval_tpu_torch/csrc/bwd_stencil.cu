@@ -50,53 +50,87 @@
 // item order), summed by the wrapper in a fixed order: no atomics, a
 // repeated call is bitwise equal.
 
-#include "tma_maps.cuh"
-#include "tblock_common.cuh"
+#include "halo_tiles.cuh"
 
 namespace {
 
-constexpr int kTH = 8, kTW = 16;                             // body tile
-constexpr int kW1 = kTW + 2, kH1 = kTH + 2, kP1 = kW1 * kH1;  // 1-pixel halo
-constexpr int kW2 = kTW + 4, kH2 = kTH + 4, kP2 = kW2 * kH2;  // 2-pixel halo
 constexpr int kRowThreads = 256;
-
-constexpr int round1k(int bytes) { return (bytes + 1023) / 1024 * 1024; }
-
-__device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
-  return p + (1024 - smem_addr(p) % 1024) % 1024;
-}
 
 // ---------------------------------------------------------------------------
 // LayerNorm rows
 // ---------------------------------------------------------------------------
 
-// y = LN(x) of every pixel by one warp each (ops/norm.py: var = E[x^2] -
-// E[x]^2 clamped at 0), rounded to bf16, with the pixel's mu and
-// 1 / sqrt(var + eps) for the backward
+// 8 bf16 channels, loaded and stored as one 16-byte word
+struct alignas(16) Bf16x8 {
+  uint32_t w[4];
+};
+
+// channel e of a word as f32 (a bf16 value is the upper half of its f32)
+__device__ __forceinline__ float word_at(const Bf16x8& q, int e) {
+  const uint32_t bits = e & 1 ? q.w[e / 2] & 0xffff0000u : q.w[e / 2] << 16;
+  float v;
+  memcpy(&v, &bits, 4);
+  return v;
+}
+
+// y = LN(x) of every pixel (ops/norm.py: var = E[x^2] - E[x]^2 clamped at
+// 0), rounded to bf16, with the pixel's mu and 1 / sqrt(var + eps) for the
+// backward.  A pixel is a group of G lanes (the power of two at or above
+// C / 8, at most 32), each reading 8 channels at a time as one 16-byte
+// word, so that a warp takes 32 / G pixels and a row of 48-192 channels
+// keeps its lanes busy; the group's sums meet through shuffles.  C % 8 == 0
+// and the rows 16-byte aligned.
 __global__ void __launch_bounds__(kRowThreads) ln_rows_fwd_kernel(
     const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ b, int bias_free, __nv_bfloat16* __restrict__ y,
-    float* __restrict__ mu, float* __restrict__ inv, int npix, int C) {
-  const int lane = threadIdx.x & 31;
-  const int p = blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5);
-  if (p >= npix) return;
-  const __nv_bfloat16* src = x + (size_t)p * C;
+    float* __restrict__ mu, float* __restrict__ inv, int npix, int C,
+    int G) {
+  const int lane = threadIdx.x & 31, gl = lane & (G - 1);
+  const int p = (blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5)) *
+                    (32 / G) + lane / G;
+  const bool valid = p < npix;
+  const int words = C / 8;
+  const Bf16x8* src =
+      reinterpret_cast<const Bf16x8*>(x + (size_t)(valid ? p : 0) * C);
   float s = 0.f, s2 = 0.f;
-  for (int c = lane; c < C; c += 32) {
-    const float v = to_f(src[c]);
-    s += v;
-    s2 += v * v;
+  for (int i = gl; valid && i < words; i += G) {
+    const Bf16x8 q = src[i];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float v = word_at(q, e);
+      s += v;
+      s2 += v * v;
+    }
   }
-  s = warp_sum(s);
-  s2 = warp_sum(s2);
+  for (int off = G / 2; off > 0; off >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+  }
+  if (!valid) return;
   const float m = s / C;
   const float den = sqrtf(fmaxf(s2 / C - m * m, 0.f) + kEps);
-  for (int c = lane; c < C; c += 32) {
-    const float v = to_f(src[c]);
-    y[(size_t)p * C + c] = from_f<__nv_bfloat16>(
-        bias_free ? v / den * w[c] : (v - m) / den * w[c] + b[c]);
+  Bf16x8* dst = reinterpret_cast<Bf16x8*>(y + (size_t)p * C);
+  for (int i = gl; i < words; i += G) {
+    const Bf16x8 q = src[i];
+    float o[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int c = 8 * i + e;
+      const float v = word_at(q, e);
+      o[e] = bias_free ? v / den * w[c] : (v - m) / den * w[c] + b[c];
+    }
+    Bf16x8 out;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat16 lo = from_f<__nv_bfloat16>(o[2 * e]);
+      const __nv_bfloat16 hi = from_f<__nv_bfloat16>(o[2 * e + 1]);
+      out.w[e] = (uint32_t)*reinterpret_cast<const unsigned short*>(&lo) |
+                 ((uint32_t)*reinterpret_cast<const unsigned short*>(&hi)
+                  << 16);
+    }
+    dst[i] = out;
   }
-  if (lane == 0) {
+  if (gl == 0) {
     mu[p] = m;
     inv[p] = 1.f / den;
   }
@@ -159,59 +193,6 @@ __global__ void __launch_bounds__(kRowThreads) ln_rows_bwd_kernel(
 // ---------------------------------------------------------------------------
 // Stencils on halo tiles
 // ---------------------------------------------------------------------------
-
-// The items of one CTA: of the (tile, column box) pairs of image
-// blockIdx.y, box fastest, those at split, split + nsplit, ...
-struct Items {
-  int ntx, nbox, split, nsplit, n;
-  __device__ Items(int H, int W, int nbox_, int split_, int nsplit_)
-      : ntx((W + kTW - 1) / kTW), nbox(nbox_), split(split_),
-        nsplit(nsplit_) {
-    const int total = ((H + kTH - 1) / kTH) * ntx * nbox;
-    n = total > split ? (total - split + nsplit - 1) / nsplit : 0;
-  }
-  // the CTA's item i: its tile's top-left image pixel (oy, ox) and its box
-  __device__ void at(int i, int& oy, int& ox, int& box) const {
-    const int pair = split + i * nsplit, t = pair / nbox;
-    box = pair % nbox;
-    oy = (t / ntx) * kTH;
-    ox = (t % ntx) * kTW;
-  }
-};
-
-// Item i's boxes go to stage i % 2 (load(i, stage) by thread 0, which
-// arrives on full[stage] expecting their bytes), item i + 1's are in
-// flight while body(i, stage) runs; after each body a __syncthreads frees
-// the stage and the body's shared buffers.
-template <typename Load, typename Body>
-__device__ void item_loop(uint64_t* full, int n, Load load, Body body) {
-  if (threadIdx.x == 0 && n > 0) load(0, 0);
-  for (int i = 0; i < n; ++i) {
-    const int s = i & 1;
-    if (threadIdx.x == 0 && i + 1 < n) load(i + 1, s ^ 1);
-    mbar_wait(full + s, (i >> 1) & 1);
-    body(i, s);
-    __syncthreads();
-  }
-}
-
-__device__ void init_stage_bars(uint64_t* full) {
-  if (threadIdx.x == 0) {
-    mbar_init(full, 1);
-    mbar_init(full + 1, 1);
-    mbar_init_fence();
-  }
-  __syncthreads();
-}
-
-// The 9 taps of column ch of a third (`third` 0-2 of a (27, C) tap array)
-__device__ __forceinline__ void load_taps(float (&t)[9], const float* taps,
-                                          int ld, int row0, int ch,
-                                          bool valid) {
-#pragma unroll
-  for (int i = 0; i < 9; ++i)
-    t[i] = valid ? taps[(size_t)(row0 + i) * ld + ch] : 0.f;
-}
 
 // --- GDFN half: hid and dgate -> gates, dhid, tap partials -----------------
 
@@ -563,16 +544,6 @@ __global__ void __launch_bounds__(kDlinThreads) dlin_stencil_kernel(
       });
 }
 
-template <typename K>
-int prepare(K kernel, int smem) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-}
-
-bool bad_grid(int B, int H, int W, int nsplit) {
-  return B <= 0 || H <= 0 || W <= 0 || nsplit <= 0 || B > 65535;
-}
-
 }  // namespace
 
 extern "C" {
@@ -580,16 +551,20 @@ extern "C" {
 // The stencil kernels' tile: rows (dim 0) or columns (dim 1).
 int bwd_stencil_tile(int dim) { return dim == 0 ? kTH : kTW; }
 
-// y (npix, C) bf16 = LN(x), mu and inv (npix) f32.  Returns a cudaError_t.
+// y (npix, C) bf16 = LN(x), mu and inv (npix) f32; C % 8 == 0, x and y
+// 16-byte aligned.  Returns a cudaError_t.
 int bwd_ln_rows(const void* x, const float* w, const float* b, int bias_free,
                 void* y, float* mu, float* inv, int npix, int C,
                 void* stream) {
-  if (npix <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  const int per = kRowThreads / 32;
+  if (npix <= 0 || C <= 0 || C % 8 || (uintptr_t)x % 16 || (uintptr_t)y % 16)
+    return (int)cudaErrorInvalidValue;
+  int G = 1;
+  while (G < 32 && G < C / 8) G *= 2;
+  const int per = kRowThreads / 32 * (32 / G);  // pixels a CTA
   ln_rows_fwd_kernel<<<(npix + per - 1) / per, kRowThreads, 0,
                        (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, w, b, bias_free, (__nv_bfloat16*)y, mu, inv,
-      npix, C);
+      npix, C, G);
   return (int)cudaGetLastError();
 }
 

@@ -54,6 +54,11 @@ _SIGNATURES = {
     "bwd_gemm": ([_P] * 3 + [_I] * 4 + [_P], _I),
     "bwd_dgrad": ([_P] * 3 + [_I] * 3 + [_P], _I),
     "bwd_head_products": ([_P] * 7 + [_I] * 4 + [_P], _I),
+    "fwd_qkv_stencil": ([_P] * 4 + [_I] * 5 + [_P], _I),
+    "fwd_gate_stencil": ([_P] * 3 + [_I] * 5 + [_P], _I),
+    "fwd_gemm_residual": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "fwd_attn_out": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "fwd_attn_glue": ([_P] * 6 + [_I] * 3 + [_P], _I),
     "nafblock_smem_bytes": ([_I] * 5, _L),
     "nafblock_gate_chunk": ([], _I),
     "nafblock_ctas_per_sm": ([_I] * 5, _I),

@@ -2,9 +2,18 @@
 
 Counterpart of textualdegremoval_tpu/ops/pallas/tblock.py.  `tblock_ref` is
 the plain version (the JAX `tblock_ref`, identical math to the module
-path).  `tblock_fused` runs the block as the hand-written Hopper kernel pair
-in csrc/tblock.cu, which replaces the TPU kernels `_make_stats_kernel`
-(pass A) and `_make_apply_kernel` (pass B):
+path).  `tblock_fused` runs the block as hand-written Hopper kernels that
+replace the TPU kernels `_make_stats_kernel` (pass A) and
+`_make_apply_kernel` (pass B).  One rule picks them (`_takes_pipeline`):
+
+* a bfloat16 x whose C and C / heads are multiples of 8 (every shipped
+  configuration) runs `tblock_pipeline`, a sequence of TMA + wgmma
+  products and TMA-fed stencils: csrc/fwd_stencil.cu with csrc/bwd_gemm.cu,
+  csrc/bwd_stencil.cu's LayerNorm rows and csrc/wgrad.cu's gram (laid out
+  at the top of csrc/fwd_stencil.cu), the glue as one kernel of
+  csrc/fwd_stencil.cu that computes what `_attn_matrix` computes;
+* float32 (the parity path), and a bfloat16 width the pipeline's TMA rows
+  cannot take, run the kernel pair in csrc/tblock.cu:
 
 * pass A writes per-CTA partial per-head grams and q/k square sums; they
   are added over the partial axis here in a fixed order, so the result is
@@ -15,8 +24,8 @@ in csrc/tblock.cu, which replaces the TPU kernels `_make_stats_kernel`
   GDFN, and writes the C-wide output (and, for the backward, x1 = the
   attention-residual boundary).
 
-What bounds the kernel on the card and what its design does about it is
-noted at the top of csrc/tblock.cu.
+What bounds each on the card and what its design does about it is noted
+at the top of csrc/fwd_stencil.cu and csrc/tblock.cu.
 
 `tblock_fused` is differentiable (JAX's `custom_vjp` of the same name): on
 CUDA, when an input needs a gradient, it runs as `_TBlockFunction`, whose
@@ -28,8 +37,9 @@ statistics with the forward kernel inside the backward.
 
 A CPU tensor goes through `tblock_ref` (plain autograd); a CUDA tensor
 launches the kernels or raises.  `tblock_fused.launches` counts forward
-kernel launches (one per block call, the backward's recompute under
-'remat' included), never plain-version calls.
+block calls on the card (one per block call, the backward's recompute
+under 'remat' included), never plain-version calls;
+`tblock_pipeline.launches` counts those that ran the pipeline.
 
 `tblock_chain_fused` runs n blocks in a row as the cross-block chain (JAX
 `tblock_chain_fused`, replacing `_tblock_chain_impl` and its
@@ -230,16 +240,92 @@ def _pass_b(lib, x, kw, attn, heads, ln_type, apply_tile, stream,
 
 def _launch(lib, x, kw, heads, ln_type, stats_tile, apply_tile, nsplit,
             stream, want_x1: bool = False):
-    """Pass A, the glue and pass B on already validated inputs.  Outputs and
-    partials are allocated on x's device.  Returns out, or with `want_x1`
-    (out, x1, (gram, qssq, kssq)): the attention-residual boundary and the
-    pass-A statistics (per-head gram (B, heads, cph, cph), square sums
-    (B, C), f32) that the backward starts from."""
+    """csrc/tblock.cu: pass A, the glue and pass B on already validated
+    inputs.  Outputs and partials are allocated on x's device.  Returns
+    out, or with `want_x1` (out, x1, (gram, qssq, kssq)): the
+    attention-residual boundary and the pass-A statistics (per-head gram
+    (B, heads, cph, cph), square sums (B, C), f32) that the backward
+    starts from."""
     stats = _pass_a(lib, x, kw, heads, ln_type, stats_tile, nsplit, stream)
     attn = _attn_matrix(*stats, kw["temperature"], heads, x.dtype)
     out, x1 = _pass_b(lib, x, kw, attn, heads, ln_type, apply_tile, stream,
                       want_x1)
     return (out, x1, stats) if want_x1 else out
+
+
+def tblock_pipeline(lib, x, kw, heads, ln_type, sms, stream,
+                    want_x1: bool = False):
+    """The bf16 block forward as the Hopper pipeline laid out at the top of
+    csrc/fwd_stencil.cu, on validated inputs that `_takes_pipeline`
+    admits.  `sms` (the card's SMs) sets the stencils' and the gram's
+    splits; `stream` is a cudaStream_t as an int.  Scratch is allocated on
+    x's device and dropped as the block goes.  Returns what `_launch`
+    returns.  `tblock_pipeline.launches` counts its block calls."""
+    from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import (
+        _gemm, _ln_rows, _stencil_nsplit, _wgrad,
+    )
+
+    b, hgt, wdt, c = x.shape
+    cph, hw, hpad = c // heads, hgt * wdt, kw["hpad"]
+    npix = b * hw
+    dev, bf, f32 = x.device, torch.bfloat16, torch.float32
+    bias_free = int(ln_type == "BiasFree")
+    ys = _ln_rows(lib, x, kw["ln1w"], kw["ln1b"], bias_free, stream)[0]
+    lins = _gemm(lib, ys, kw["wqkv"], bf, stream)
+    del ys
+    # q | k | v and the square sums: four 48 KB CTAs per SM
+    nsplit = _stencil_nsplit(lib, b, hgt, wdt, -(-3 * c // 64), 4, sms)
+    qkv = torch.empty((npix, 3 * c), dtype=bf, device=dev)
+    ssq_part = torch.empty((b, nsplit, 2 * c), dtype=f32, device=dev)
+    _check(lib.fwd_qkv_stencil(_ptr(lins), _ptr(kw["dwall"]), _ptr(qkv),
+                               _ptr(ssq_part), b, hgt, wdt, c, nsplit,
+                               stream), lib, "fwd_qkv_stencil")
+    del lins
+    # gram = q_h^T k_h per (image, head), partials over pixel splits summed
+    # in a fixed order; the glue kernel makes the attention
+    gram = _wgrad(lib, qkv, 3 * c, (hw * 3 * c, cph), qkv[:, c:], 3 * c,
+                  (hw * 3 * c, cph), hw, cph, cph, (b, heads), sms, stream)
+    ssq = ssq_part.sum(1)
+    stats = (gram, torch.empty((b, c), dtype=f32, device=dev),
+             torch.empty((b, c), dtype=f32, device=dev))
+    attn = torch.empty((b, heads, cph, cph), dtype=bf, device=dev)
+    _check(lib.fwd_attn_glue(_ptr(gram), _ptr(ssq), _ptr(kw["temperature"]),
+                             _ptr(stats[1]), _ptr(stats[2]), _ptr(attn), b, c,
+                             heads, stream), lib, "fwd_attn_glue")
+    del ssq_part, ssq
+    o = torch.empty((npix, c), dtype=bf, device=dev)
+    x1 = torch.empty_like(x)
+    _check(lib.fwd_attn_out(_ptr(qkv), _ptr(attn), _ptr(kw["wproj"]),
+                            _ptr(x), _ptr(o), _ptr(x1), b, hw, c, heads,
+                            stream), lib, "fwd_attn_out")
+    del qkv, attn, o
+    zs = _ln_rows(lib, x1, kw["ln2w"], kw["ln2b"], bias_free, stream)[0]
+    hids = _gemm(lib, zs, kw["w1"], bf, stream)
+    del zs
+    gates = torch.empty((npix, hpad), dtype=bf, device=dev)
+    _check(lib.fwd_gate_stencil(
+        _ptr(hids), _ptr(kw["dwg"]), _ptr(gates), b, hgt, wdt, hpad,
+        _stencil_nsplit(lib, b, hgt, wdt, hpad // HIDDEN_CHUNK, 4, sms),
+        stream), lib, "fwd_gate_stencil")
+    del hids
+    out = torch.empty_like(x)
+    _check(lib.fwd_gemm_residual(_ptr(gates), _ptr(kw["w2"]), _ptr(x1),
+                                 _ptr(out), npix, c, hpad, stream), lib,
+           "fwd_gemm_residual")
+    tblock_pipeline.launches += 1
+    return (out, x1, stats) if want_x1 else out
+
+
+tblock_pipeline.launches = 0
+
+
+def _takes_pipeline(x: torch.Tensor, heads: int) -> bool:
+    """The forward's route rule: `tblock_pipeline` takes a bfloat16 x whose
+    C and C / heads are multiples of 8 (it reads pixel rows and heads
+    through TMA, whose rows are multiples of 16 bytes); float32 and any
+    other bfloat16 width run csrc/tblock.cu's pair."""
+    c = x.shape[-1]
+    return x.dtype == torch.bfloat16 and c % 8 == 0 and (c // heads) % 8 == 0
 
 
 def _validate(x: torch.Tensor, heads: int, ln_type: str, what: str) -> None:
@@ -270,21 +356,27 @@ def _check_weights(kw, x: torch.Tensor, what: str):
 
 
 def _forward_kernel(x, kw, heads, ln_type, want_x1=False):
-    """Validated launch of the forward kernel pair on a CUDA tensor."""
+    """Validated launch of the forward kernels on a CUDA tensor: the
+    pipeline or the pair, as `_takes_pipeline` rules."""
     _validate(x, heads, ln_type, "tblock_fused")
-    c = x.shape[-1]
-    lib = _kernel_library(c // heads, "tblock_fused")
     _check_weights(kw, x, "tblock_fused")
-    stats_tile, apply_tile, nsplit = _block_tiles(lib, x, heads)
-    res = _launch(lib, x, kw, heads, ln_type, stats_tile, apply_tile, nsplit,
-                  torch.cuda.current_stream(x.device).cuda_stream, want_x1)
+    stream, sms = _card(x.device)
+    if _takes_pipeline(x, heads):
+        res = tblock_pipeline(_kernel_library(x.shape[-1] // heads,
+                                              "tblock_fused"), x, kw, heads,
+                              ln_type, sms, stream, want_x1)
+    else:
+        lib = _kernel_library(x.shape[-1] // heads, "tblock_fused")
+        stats_tile, apply_tile, nsplit = _block_tiles(lib, x, heads, sms)
+        res = _launch(lib, x, kw, heads, ln_type, stats_tile, apply_tile,
+                      nsplit, stream, want_x1)
     tblock_fused.launches += 1
     return res
 
 
 def _kernel_library(cph: int, what: str):
-    """The kernel library, after checking that its forward kernels take
-    `cph` channels per head."""
+    """The kernel library, after checking that the forward kernels (both
+    routes) take `cph` channels per head."""
     from textualdegremoval_tpu_torch.ops._build import load_library
 
     lib = load_library()
@@ -296,12 +388,22 @@ def _kernel_library(cph: int, what: str):
     return lib
 
 
-def _block_tiles(lib, x, heads):
+def _card(device):
+    """(the current stream as a cudaStream_t int, the number of SMs) of a
+    CUDA device."""
+    return (torch.cuda.current_stream(device).cuda_stream,
+            torch.cuda.get_device_properties(device).multi_processor_count)
+
+
+def _block_tiles(lib, x, heads, sms=None):
     """Pass A's tile, pass B's tile and pass A's number of CTAs per (head,
-    image) for x on the card: the first tiles of the measured orders that
-    fit shared memory, and about two CTAs per SM."""
+    image) for x on a card of `sms` SMs (default: x's): the first tiles of
+    the measured orders that fit shared memory, and about two CTAs per
+    SM."""
     b, hgt, wdt, c = x.shape
     eb = x.element_size()
+    if sms is None:
+        sms = _card(x.device)[1]
 
     def pick(tiles, pass_id):
         return _first_fit(tiles, lambda t: lib.tblock_smem_bytes(
@@ -309,7 +411,6 @@ def _block_tiles(lib, x, heads):
 
     th, tw = pick(_STATS_TILES, 0)
     ntiles = (-(-hgt // th)) * (-(-wdt // tw))
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     nsplit = max(1, min(ntiles, -(-2 * sms // (b * heads))))
     return (th, tw), pick(_APPLY_TILES, 1), nsplit
 
@@ -364,9 +465,10 @@ def tblock_fused(x: torch.Tensor, p, heads: int, ln_type: str = "WithBias",
     on CUDA (TransformerBlock caches it per module).  bwd_mode: 'save' or
     'remat' (see the module docstring).
 
-    CPU tensors take `tblock_ref`.  CUDA tensors launch the kernels; any
-    input they cannot take raises, and so does a gradient that the kernels
-    cannot give: no gradient is ever silently dropped."""
+    CPU tensors take `tblock_ref`.  CUDA tensors launch the kernels (the
+    bf16 pipeline or csrc/tblock.cu's pair, as `_takes_pipeline` rules);
+    any input they cannot take raises, and so does a gradient that the
+    kernels cannot give: no gradient is ever silently dropped."""
     if x.device.type == "cpu":
         return tblock_ref(x, p, heads, ln_type)
     if bwd_mode not in ("save", "remat"):

@@ -1,0 +1,354 @@
+"""The bf16 Restormer block forward (`tblock_fused`) at every block shape of
+a 512 px restormer_deblur forward, of a 384 px batch-8 training step and of
+PromptIR's noise blocks, this version against another version of the
+port, on the card; or, with --reckon, this design's reckoning of those
+shapes (no card).
+
+    python -m textualdegremoval_tpu_torch.tools.bench_block_fwd \\
+        [--other ROOT] [--reckon] [--split]
+
+--other ROOT is the root of another checkout of the repository (a `git
+archive` of the parent under build/, say).  Its csrc/ is built into a
+library of its own, and its own ops/pallas/tblock.py drives that library
+(`_forward_kernel`, with its `_kernel_library` pointed at it), so each
+version runs its own launch code on the same inputs.  The tool prints, for
+each source of the other version, whether ptxas's report is the same as
+this version's (path hashes and compile times taken out), then per shape
+one JSON line for the plain version (`tblock_ref`) and one per version in
+turns other, this, this, other:
+
+  - ms: `tools/_card.py` `time_ms` of one block call (validated inputs,
+    the glue included), the median of runs of calls behind a spin of the
+    stream;
+  - branch: ||version - plain|| over ||plain - x||, the bound of
+    chip_smoke.py phase 3;
+  - enqueue_ms: the host's time to enqueue one call (`bench_flash.py`
+    `enqueue_us`, the median of single calls, the card synchronised
+    between them): where it exceeds ms, the device waits for the host;
+
+and last, per version, the sums over one forward's and one step's blocks
+(the median of the version's turns at each shape, times the blocks of
+that shape) and the noise blocks' ms per launch.  --reckon prints, per
+shape and per kernel of this design, the model that PERF.md's reckoning
+uses: CTAs and waves, products as run (GFLOP), CUDA-core instructions
+(G), bytes moved (GB) and the predicted ms, and the predicted sums.
+--split prints instead, per shape, this version's device ms of one block
+call kernel by kernel in launch order (`torch.profiler`, the mean of 3
+calls; torch's own kernels in a row, the glue and the sums of partials,
+as one entry).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+from pathlib import Path
+
+import torch
+
+from textualdegremoval_tpu_torch.models.layers import TransformerBlock
+from textualdegremoval_tpu_torch.ops import _build
+from textualdegremoval_tpu_torch.ops.pallas import tblock as tb
+from textualdegremoval_tpu_torch.tools._card import (
+    device_line, median_ms, time_ms,
+)
+from textualdegremoval_tpu_torch.tools.bench_block_bwd import (
+    CORE_RATE, EFF_BYTES, EFF_CORES, EFF_TC, PEAK_BF16, PEAK_BYTES, SMS,
+    TRAIN_SHAPES, _gemm, _load, _up,
+)
+from textualdegremoval_tpu_torch.tools.bench_flash import (
+    enqueue_us, ptxas_reports,
+)
+
+# (B, H, W, C, heads, blocks of that shape in one 512 px restormer_deblur
+# forward)
+EVAL_SHAPES = [
+    (1, 512, 512, 48, 1, 4),    # encoder level 1
+    (1, 512, 512, 96, 1, 10),   # fusion level 1, decoder level 1, refinement
+    (1, 256, 256, 96, 2, 12),   # encoder / decoder level 2
+    (1, 256, 256, 192, 2, 2),   # fusion level 2
+    (1, 128, 128, 192, 4, 12),  # encoder / decoder level 3
+    (1, 128, 128, 384, 4, 2),   # fusion level 3
+    (1, 64, 64, 384, 8, 8),     # latent
+    (1, 64, 64, 768, 8, 2),     # fusion level 4
+    (2, 37, 53, 96, 2, 0),      # ragged: no tile divides H or W
+]
+# (B, H, W, C, heads, blocks of that shape in one forward): the noise
+# blocks of a 512 px promptir_all_in_one forward, 4 heads each, and a
+# ragged shape
+NOISE_SHAPES = [
+    (1, 64, 64, 704, 4, 1),     # noise_level3, 176 channels per head
+    (1, 128, 128, 320, 4, 1),   # noise_level2, 80
+    (1, 256, 256, 160, 4, 1),   # noise_level1, 40
+    (1, 45, 61, 704, 4, 0),     # ragged: no tile divides H or W
+]
+ITERS = 3
+REPEATS = 3
+# the host's work per block call: about 11 ctypes launches and 15 torch
+# calls (allocations, the sums of partials, the glue), ~10 us each
+HOST_MS = 0.25
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", type=Path, default=None,
+                    help="root of another checkout, built and timed beside "
+                         "this one")
+    ap.add_argument("--reckon", action="store_true",
+                    help="print the design's reckoning and exit (no card)")
+    ap.add_argument("--split", action="store_true",
+                    help="per shape, the device time of one call by kernel")
+    return ap.parse_args(argv)
+
+
+# ---------------------------------------------------------------------------
+# The reckoning: a model of this design's kernels, from their shapes
+# ---------------------------------------------------------------------------
+
+
+def reckon(b, h, w, c, heads):
+    """{kernel: (CTAs, waves, GFLOP as run, G instructions, GB, predicted
+    ms)} of the pipeline's kernels at one shape: each the largest of its
+    products at EFF_TC of the bf16 peak, its CUDA-core instructions at
+    EFF_CORES of the lanes' rate and its bytes at EFF_BYTES of the memory
+    rate, plus a launch floor of 4 us."""
+    npix, cph, hw = b * h * w, c // heads, h * w
+    hpad = _up(int(c * 2.66), 32)
+    tiles = -(-h // 8) * -(-w // 16) * b
+    rows = {}
+
+    def add(name, ctas, waves, gflop, ginstr, gb_):
+        ms = max(gflop * 1e9 / (PEAK_BF16 * EFF_TC),
+                 ginstr * 1e9 / (CORE_RATE * EFF_CORES),
+                 gb_ * 1e9 / (PEAK_BYTES * EFF_BYTES)) * 1e3 + 0.004
+        rows[name] = (ctas, waves, gflop, ginstr, gb_, ms)
+
+    def gemm(name, k, n, extra_gb=0.0, rows_=npix, batches=1):
+        gf, gbytes, ctas = _gemm(rows_, k, n, 2, 2)
+        ctas *= batches
+        add(name, ctas, ctas / (2 * SMS), gf * batches, 0.0,
+            gbytes * batches + extra_gb)
+
+    ln_gb = npix * (4 * c + 8) / 1e9
+    add("ln_rows LN1", -(-npix // 8), 0.0, 0.0, 0.0, ln_gb)
+    gemm("gemm lin = y.Wqkv", c, 3 * c)
+    items = tiles * -(-3 * c // 64)
+    ctas = min(items, 8 * SMS)
+    # per item 256 threads x 2 rows x 16 px x ~22 instructions (9 taps, 3
+    # window loads, the shift, the square sum); lin read once (its halo
+    # again from L2), q | k | v written once
+    add("qkv_stencil", ctas, ctas / (4 * SMS), 0.0,
+        items * 256 * 2 * 16 * 22 / 1e9, npix * 3 * c * 4 / 1e9)
+    # the gram on wgrad.cu's mma.sync tiles (64 x 64 per head): its
+    # products at a quarter of the wgmma model's rate; q and k read once
+    gf = 2 * npix * _up(cph, 64) ** 2 * heads / 1e9
+    add("wgrad gram", b * heads * -(-cph // 64) ** 2, 0.0, gf * 4, 0.0,
+        npix * 2 * c * 2 / 1e9)
+    gemm("attn_out o = v.A^T", cph, cph, rows_=hw, batches=b * heads)
+    gemm("attn_out x1 = x + o.Wproj", c, c, extra_gb=npix * c * 2 / 1e9)
+    add("ln_rows LN2", -(-npix // 8), 0.0, 0.0, 0.0, ln_gb)
+    gemm("gemm hid = z.W1", c, 2 * hpad)
+    items = tiles * (hpad // 32)
+    ctas = min(items, 8 * SMS)
+    # per item 256 threads x 16 px x ~50 instructions (18 taps, 6 window
+    # loads, the shifts, erf and the product); hid read once, gate written
+    add("gate_stencil", ctas, ctas / (4 * SMS), 0.0,
+        items * 256 * 16 * 50 / 1e9, npix * 3 * hpad * 2 / 1e9)
+    gemm("gemm out = x1 + gate.W2", hpad, c, extra_gb=npix * c * 2 / 1e9)
+    return rows
+
+
+def predicted_ms(rows) -> float:
+    """A block call: its kernels' predicted device time, or the host's
+    work where that is longer (the device then waits)."""
+    return max(sum(r[-1] for r in rows.values()), HOST_MS)
+
+
+def print_reckoning():
+    sums = {}
+    for what, shapes in (("forward", EVAL_SHAPES), ("step", TRAIN_SHAPES),
+                         ("noise", NOISE_SHAPES)):
+        total = 0.0
+        for b, h, w, c, heads, n in shapes:
+            rows = reckon(b, h, w, c, heads)
+            for name, (ctas, waves, gf, gi, gbytes, ms) in rows.items():
+                print(json.dumps({
+                    "shape": [b, h, w, c, heads], "kernel": name,
+                    "ctas": ctas, "waves": round(waves, 2),
+                    "gflop_as_run": round(gf, 3),
+                    "g_instructions": round(gi, 3), "gb": round(gbytes, 4),
+                    "predicted_ms": round(ms, 4)}))
+            block = predicted_ms(rows)
+            print(json.dumps({"shape": [b, h, w, c, heads], "blocks": n,
+                              "predicted_block_ms": round(block, 4)}))
+            total += n * block
+        sums[what] = round(total, 2)
+    print(json.dumps({"predicted_ms": {
+        "per 512 px forward": sums["forward"],
+        "per 384 px batch-8 step (52 forward calls)": sums["step"],
+        "noise blocks per forward": sums["noise"]}}))
+
+
+# ---------------------------------------------------------------------------
+# On the card: this version against another
+# ---------------------------------------------------------------------------
+
+
+class Version:
+    """One version of the sources: its tblock.py, which drives its
+    library."""
+
+    def __init__(self, name, mod):
+        self.name, self.mod = name, mod
+
+    @classmethod
+    def other(cls, root):
+        pkg = root / "textualdegremoval_tpu_torch"
+        build = _load(pkg / "ops" / "_build.py", "other_build")
+        so, secs = build.build()
+        print(f"built the other version's {so.name} in {secs:.1f} s",
+              flush=True)
+        lib = build.open_library(so)
+        mod = _load(pkg / "ops" / "pallas" / "tblock.py", "other_tblock")
+        mod._kernel_library = lambda cph, what: lib
+        return cls("other", mod), so
+
+    def call(self, p, x, heads):
+        kw = self.mod.prepare_tblock_weights(p, x.dtype, "WithBias")
+        return lambda: self.mod._forward_kernel(x, kw, heads, "WithBias")
+
+
+def _branch(got, want, x):
+    return ((got.float() - want.float()).norm()
+            / (want.float() - x.float()).norm()).item()
+
+
+def shape_rows(versions, order, shape, dev):
+    b, h, w, c, heads, _ = shape
+    gen = torch.Generator().manual_seed(c + h)
+    blk = TransformerBlock(c, heads)
+    with torch.no_grad():
+        for name, q in blk.named_parameters():
+            if name.endswith("temperature"):
+                q.fill_(c ** 0.5)
+            elif q.dim() == 4:
+                q.copy_(torch.randn(q.shape, generator=gen)
+                        * q[0].numel() ** -0.5)
+    p = {k: v.detach().cuda() for k, v in blk.block_params().items()}
+    x = torch.randn(b, h, w, c, generator=gen).to("cuda", torch.bfloat16)
+    out = []
+    with torch.no_grad():
+        want = tb.tblock_ref(x, p, heads, "WithBias")
+        row = {"version": "plain", "shape": list(shape[:5]),
+               "ms": median_ms(lambda: tb.tblock_ref(x, p, heads,
+                                                     "WithBias"), reps=3)}
+        print(json.dumps(row), flush=True)
+        out.append(row)
+        for name in order:
+            fn = versions[name].call(p, x, heads)
+            row = {"version": name, "shape": list(shape[:5]),
+                   "branch": _branch(fn(), want, x),
+                   "ms": time_ms(fn, dev, ITERS, REPEATS),
+                   "enqueue_ms": enqueue_us(fn, 20) / 1e3}
+            print(json.dumps(row), flush=True)
+            out.append(row)
+    del x, want, p
+    torch.cuda.empty_cache()
+    return out
+
+
+def split(shape, reps=3):
+    """[(kernel, device ms)] of one block call of this version at a shape,
+    in launch order (the mean over `reps` calls): the port's kernels by
+    name, torch's (the glue, the sums of partials) as "torch"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    b, h, w, c, heads, _ = shape
+    p = {k: v.detach().cuda()
+         for k, v in TransformerBlock(c, heads).block_params().items()}
+    x = torch.randn(b, h, w, c, device="cuda", dtype=torch.bfloat16)
+    kw = tb.prepare_tblock_weights(p, x.dtype, "WithBias")
+    with torch.no_grad():
+        tb._forward_kernel(x, kw, heads, "WithBias")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                tb._forward_kernel(x, kw, heads, "WithBias")
+            torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = sorted((e for e in prof.events() if e.device_type == cuda),
+                    key=lambda e: e.time_range.start)
+    per = len(events) // reps
+    rows = []
+    for i in range(per):
+        key = events[i].name.removeprefix("void ")
+        name = (key.removeprefix("(anonymous namespace)::").split("(")[0]
+                if key.startswith("(anonymous namespace)::") else "torch")
+        ms = sum(events[i + r * per].time_range.elapsed_us()
+                 for r in range(reps)) / reps / 1e3
+        if rows and rows[-1][0] == name == "torch":
+            rows[-1][1] += ms
+        else:
+            rows.append([name, ms])
+    return [(n, round(ms, 4)) for n, ms in rows]
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    if args.reckon:
+        print_reckoning()
+        return 0
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_block_fwd: no CUDA device")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(device_line(dev), flush=True)
+    so, secs = _build.build()
+    _build.load_library()
+    print(f"built {so.name} in {secs:.1f} s", flush=True)
+    if args.split:
+        for shape in EVAL_SHAPES + TRAIN_SHAPES + NOISE_SHAPES:
+            rows = split(shape)
+            print(json.dumps({"shape": list(shape[:5]), "device_ms": rows,
+                              "total": round(sum(r[1] for r in rows), 4)}),
+                  flush=True)
+        return 0
+    versions = {"this": Version("this", tb)}
+    mine = ptxas_reports(so.with_suffix(".log").read_text())
+    for name in ("fwd_stencil.cu", "bwd_gemm.cu"):
+        print(f"ptxas {name}:\n{mine.get(name)}", flush=True)
+    if args.other is not None:
+        versions["other"], other_so = Version.other(args.other.resolve())
+        theirs = ptxas_reports(other_so.with_suffix(".log").read_text())
+        for name in sorted(set(mine) | set(theirs)):
+            state = ("same" if mine.get(name) == theirs.get(name) else
+                     "differs" if name in mine and name in theirs else
+                     "only in this version" if name in mine else
+                     "only in the other version")
+            print(f"ptxas report of {name}: {state}", flush=True)
+    order = ["other", "this", "this", "other"] if "other" in versions \
+        else ["this"]
+    sums = {}
+    for what, shapes in (("per_forward_ms", EVAL_SHAPES),
+                         ("per_step_ms", TRAIN_SHAPES),
+                         ("noise_per_launch_ms", NOISE_SHAPES)):
+        for shape in shapes:
+            rows = shape_rows(versions, order, shape, dev)
+            for name in ["plain", *versions]:
+                ms = statistics.median(r["ms"] for r in rows
+                                       if r["version"] == name)
+                s = sums.setdefault(name, {})
+                if what == "noise_per_launch_ms":
+                    if shape[5]:
+                        s.setdefault(what, []).append(ms)
+                else:
+                    s[what] = s.get(what, 0.0) + shape[5] * ms
+    for name, s in sums.items():
+        print(json.dumps({"version": name, **s}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
