@@ -42,25 +42,30 @@ Phases, each of which raises on failure:
    turns, the peak memory and the idle share (`torch.profiler`) of each;
    and one f32 step at 128 px, batch 1, on the card against the same step
    on the CPU;
-8. the whole-NAFBlock kernel `nafblock_fused` against its plain version
-   `nafblock_ref` at every block shape of a 512 px nafnet_deblur forward,
-   one ragged shape and the two largest shapes of a 384 px batch-8
-   training step, float32 and bfloat16, with weights at a trained block's
-   scale (beta, gamma and the SCA scale non-zero), the tiles and the CTAs
-   per SM of each pass, and the median time of both (CUDA events);
+8. the whole-NAFBlock kernels `nafblock_fused` against their plain
+   version `nafblock_ref` at every block shape of a 512 px nafnet_deblur
+   forward, one ragged shape and the two largest shapes of a 384 px
+   batch-8 training step, float32 (the csrc/nafblock.cu pair, its tiles
+   and CTAs per SM printed) and bfloat16 (every call through the pipeline
+   `naf_pipeline`, two calls bitwise equal, each row's device time split
+   by kernel), with weights at a trained block's scale (beta, gamma and
+   the SCA scale non-zero), and the median time of both and, in bf16, of
+   the pair (CUDA events);
 9. the NAFNetRefFusion evaluation path: the full-width nafnet_deblur network
    on the card against the same network on the CPU in float32 on a small
-   input, then `restore_and_score` on synthetic 512 x 512 triples in
-   bfloat16, one warm-up and two timed, 45 kernel launches per forward,
-   and a profiled forward;
+   input (no pipeline call), then `restore_and_score` on synthetic
+   512 x 512 triples in bfloat16, one warm-up and two timed, 45 kernel
+   launches per forward, each through the pipeline, and a profiled
+   forward;
 10. the NAFNetRefFusion training path: the training CLI's step function
    with the options of options/train_restoration/nafnet_motion_deblur.yml
    (PSNR loss) and param_fix_iterations 2, on seeded synthetic 384 px
    batch-8 triples in bf16: a warm-up, two frozen and two released steps
-   (45 launches each; after the first released step every parameter has a
-   finite gradient), the kernel against plain at every training block
-   shape in bf16, and the step timed against the same step through plain
-   blocks in alternating turns, with the peak memory of each;
+   (45 launches each, all through the pipeline; after the first released
+   step every parameter has a finite gradient), phase 8's rows at every
+   training block shape in bf16, and the step timed against the same step
+   through plain blocks in alternating turns, with the peak memory of
+   each;
 11. the flash self-attention kernel `flash_attention` against its plain
    version `attention_ref` at the 512 px UNet's flash shape (2, 4096, 5, 64),
    at head_dim 128, at the shortest routed sequence and at a ragged one,
@@ -183,15 +188,21 @@ CUDA the script exits non-zero and prints no result.
 
 builds a copy of the kernel sources with one fault planted, under a
 temporary directory, runs the phase that should catch it in bfloat16 (phase
-17: float32 and bfloat16) at a few shapes and exits 0 only if its check
-catches the fault (the strength of the phase's bound): o_uses_a,
-gate_tap_dropped and proj_residual_dropped (phase 3, the bf16 pipeline:
+17: float32 and bfloat16; the NAFBlock pair's: float32) at a few shapes
+and exits 0 only if its check catches the fault (the strength of the
+phase's bound): o_uses_a, gate_tap_dropped and proj_residual_dropped
+(phase 3, the bf16 pipeline:
 o = v . A in place of v . A^T, the gate stencil without h1's centre tap,
 x1 without its residual), dv_uses_a and dq_drops_diag (phase 6, the
 attention half's per-head products),
 gdfn_dd_kept_outside (phase 6, the GDFN half's gate gradient kept outside
 the image), dgrad_wt_as_w (phase 6, the input-gradient product reading
-W^T as W), sca_skipped and halo_kept (phase 8, the NAFBlock forward),
+W^T as W), sca_skipped and halo_kept (phase 8, the NAFBlock pair, run in
+float32), naf_sca_unapplied, naf_sums_past_edge, naf_gate_pair_shifted
+and naf_scale_dropped (phase 8, the bf16 NAFBlock pipeline: the gate
+written without the SCA scale, the sums taking a ragged tile's pixels
+past the image, the gate epilogue's halves paired a chunk apart, beta and
+gamma dropped),
 no_rescale and v_kmajor (phase 11, the flash kernel), no_di, dk_unscaled
 and lse_log2 (phase 14, the flash backward and the forward's lse),
 chain_ring_zeroed
@@ -252,6 +263,7 @@ from textualdegremoval_tpu_torch.ops import probes as pr
 from textualdegremoval_tpu_torch.tools import bench_block_bwd as block_bwd_tool
 from textualdegremoval_tpu_torch.tools import bench_block_fwd as block_fwd_tool
 from textualdegremoval_tpu_torch.tools import bench_flash as flash_tool
+from textualdegremoval_tpu_torch.tools import bench_nafblock as naf_tool
 from textualdegremoval_tpu_torch.tools import bench_qkv_form as qkv_tool
 from textualdegremoval_tpu_torch.tools import bench_stencil as stencil_tool
 from textualdegremoval_tpu_torch.tools._card import median_ms, time_ms
@@ -600,16 +612,34 @@ FAULTS = {
     # instead of MN-major): dz = dhid . W1 and dy = dlin . Wqkv
     "dgrad_wt_as_w": ("bwd_gemm.cu", "b_view(w, K, N), K, 1,",
                       "b_view(w, K, N), K, 0,", 6),
-    # the gate not multiplied by the SCA scale s in pass B
+    # the pair's gate not multiplied by the SCA scale s in pass B (the
+    # pair serves float32, so phase 8 runs it in float32)
     "sca_skipped": ("nafblock.cu",
                     "gate_at<T>(hab, rw, p / tw, p % tw, j, j0, taps, dwb, "
                     "cpad) * sv)",
                     "gate_at<T>(hab, rw, p / tw, p % tw, j, j0, taps, dwb, "
                     "cpad))", 8),
-    # conv1's output (bias included) kept outside the image: the dwconv's
-    # zero padding lost, in both passes
+    # the pair's conv1 output (bias included) kept outside the image: the
+    # dwconv's zero padding lost, in both passes (float32)
     "halo_kept": ("nafblock.cu", "from_f<T>(in ? rnd<T>(a) + bias : 0.f)",
                   "from_f<T>(rnd<T>(a) + bias)", 8),
+    # the bf16 pipeline's APPLY pass writes the gate without the SCA scale
+    "naf_sca_unapplied": ("naf_stencil.cu",
+                          "from_f<__nv_bfloat16>(g * sv);",
+                          "from_f<__nv_bfloat16>(g);", 8),
+    # the SUM pass adds the gate of a ragged tile's body pixels past H and
+    # W (zeros of h there, so g = rnd(dwb_a) rnd(dwb_b)) into the sums
+    "naf_sums_past_edge": ("naf_stencil.cu",
+                           "} else if (in) {\n            sum += g;",
+                           "} else {\n            sum += g;", 8),
+    # the gate epilogue pairs a chunk's first half with the next chunk's
+    # second half (64 product columns on, in the 128-column tile)
+    "naf_gate_pair_shifted": ("bwd_gemm.cu", "acc[4 * (j + 4) + 2 * h + c]",
+                              "acc[4 * ((j + 12) % (BN / 8)) + 2 * h + c]",
+                              8),
+    # the bias-scale-residual epilogue drops its scale: beta and gamma
+    "naf_scale_dropped": ("bwd_gemm.cu",
+                          "a * (n < g.N ? g.scale[n] : 0.f)", "a", 8),
     # the flash kernel's accumulator not rescaled by exp(m_old - m_new)
     # when a row's running max grows (bf16 path)
     "no_rescale": ("flash_attn.cu",
@@ -687,11 +717,21 @@ BWD_KERNEL_GROUPS = (
     ("pass 1", ("attn_bwd_stats",)),
     ("wgrad", ("wgrad_kernel",)),
 )
+# the CUDA kernels of the bf16 NAFBlock pipeline, as phases 8 and 10 split
+# a row's device time (the rest is torch's: none on this route)
+NAF_KERNEL_GROUPS = (
+    ("LN rows", ("ln_rows_",)),
+    ("GEMMs", ("bwd_gemm_kernel",)),
+    ("gate stencil", ("naf_gate_kernel",)),
+    ("SCA glue", ("naf_sca_kernel",)),
+)
 
 
-def backward_split(fn, what: str, reps: int = 3) -> None:
-    """Print the device ms of one call of fn by group of CUDA kernels, the
-    mean of `reps` calls in one `torch.profiler` window, beside the call's
+def split_by_group(fn, what: str, reps: int = 3,
+                   kernel_groups=BWD_KERNEL_GROUPS) -> None:
+    """Print the device ms of one call of fn by group of CUDA kernels
+    (`kernel_groups`: (name, parts of the kernels' names)), the mean of
+    `reps` calls in one `torch.profiler` window, beside the call's
     device time (`time_ms`: calls back to back behind a spin): the trace of
     a single call has come back short of some kernels, so a split whose
     total falls below 90% of the device time is marked incomplete."""
@@ -703,12 +743,12 @@ def backward_split(fn, what: str, reps: int = 3) -> None:
             fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    groups = {name: 0.0 for name, _ in BWD_KERNEL_GROUPS}
+    groups = {name: 0.0 for name, _ in kernel_groups}
     groups["glue"] = 0.0
     for e in prof.key_averages():
         if e.device_type != cuda:
             continue
-        name = next((n for n, keys in BWD_KERNEL_GROUPS
+        name = next((n for n, keys in kernel_groups
                      if any(k in e.key for k in keys)), "glue")
         groups[name] += e.self_device_time_total / 1e3 / reps
     total = sum(groups.values())
@@ -726,7 +766,7 @@ def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True):
     statistics the halves start from) is the kernels' own, the bf16
     pipeline at these widths, and is timed beside them.  Timed, it also
     splits each bf16 WithBias row's device time by kernel
-    (`backward_split`)."""
+    (`split_by_group`)."""
     dtypes = dtypes or (torch.float32, torch.bfloat16)
     log(f"backward kernels vs plain autograd: ||k-p|| <= l2 ||p|| and "
         f"|k-p| <= a max|p| + r |p|; f32 l2 {GRAD_L2[torch.float32]} a/r "
@@ -793,9 +833,9 @@ def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True):
                     failures.append((b, h, w, c, heads, ln_type, name, bad))
                 if timed and dtype == torch.bfloat16 \
                         and ln_type == "WithBias":
-                    backward_split(lambda: gb.gdfn_half_bwd(
+                    split_by_group(lambda: gb.gdfn_half_bwd(
                         x1, g, p, ln_type, kw), "gdfn_half_bwd")
-                    backward_split(lambda: ab.attn_half_bwd(
+                    split_by_group(lambda: ab.attn_half_bwd(
                         x, dx1, p, heads, ln_type, stats, kw),
                         "attn_half_bwd")
                 if dtype == torch.bfloat16 and ln_type == "WithBias" \
@@ -1102,7 +1142,7 @@ def profile_device(fn, what: str):
     if busy <= 0:
         log("profiler: no device time recorded")
         return
-    ours = ("tblock_", "gdfn_bwd", "attn_bwd", "wgrad", "nafblock_",
+    ours = ("tblock_", "gdfn_bwd", "attn_bwd", "wgrad", "nafblock_", "naf_",
             "flash_", "gdfn_kernel", "mdta_", "bwd_gemm", "_stencil_kernel",
             "ln_rows_")
     mine = sum(t for k, t, _ in kernels if any(o in k for o in ours))
@@ -1179,28 +1219,12 @@ def train_step_vs_cpu(seed: int, opt=TRAIN_OPT, resolve_kw=None,
 
 NAF_TASK = "nafnet_deblur"
 NAF_BLOCKS = 45  # NAFBlocks of one nafnet_deblur forward, each one launch
-# (B, H, W, C, blocks of that shape in one 512 px nafnet_deblur forward)
-NAF_SHAPES = [
-    (1, 512, 512, 128, 2),   # fusion, level 0
-    (1, 512, 512, 64, 2),    # encoder 0, decoder 3
-    (1, 256, 256, 256, 2),   # fusion, level 1
-    (1, 256, 256, 128, 2),   # encoder 1, decoder 2
-    (1, 128, 128, 512, 2),   # fusion, level 2
-    (1, 128, 128, 256, 2),   # encoder 2, decoder 1
-    (1, 64, 64, 1024, 2),    # fusion, level 3
-    (1, 64, 64, 512, 29),    # encoder 3 (28), decoder 0
-    (1, 32, 32, 2048, 1),    # middle fusion
-    (1, 32, 32, 1024, 1),    # middle block
-    (2, 37, 53, 96, 0),      # ragged: no tile divides H or W
-]
+# (B, H, W, C, blocks of that shape in one 512 px nafnet_deblur forward),
+# and a ragged shape with no block in the forward
+NAF_SHAPES = naf_tool.EVAL_SHAPES
 # (B, H, W, C, blocks of that shape in one 384 px batch-8 step of
 # nafnet_motion_deblur); the first two are the largest tensors
-NAF_TRAIN_SHAPES = [
-    (8, 384, 384, 128, 2), (8, 384, 384, 64, 2), (8, 192, 192, 256, 2),
-    (8, 192, 192, 128, 2), (8, 96, 96, 512, 2), (8, 96, 96, 256, 2),
-    (8, 48, 48, 1024, 2), (8, 48, 48, 512, 29), (8, 24, 24, 2048, 1),
-    (8, 24, 24, 1024, 1),
-]
+NAF_TRAIN_SHAPES = naf_tool.TRAIN_SHAPES
 # NAFBlock kernel vs plain: pass when |k - p| <= a max|p| + r |p| at every
 # element and ||k - p|| <= branch ||p - x|| over the output.  float32: sums
 # in other orders.  bfloat16: the kernel rounds the dwconv once with f32
@@ -1209,59 +1233,69 @@ NAF_TRAIN_SHAPES = [
 # LN2 and the FFN, so an element may differ by several ulps of the block's
 # larger intermediate values even where the output itself is near zero:
 # hence an absolute term in units of max|p| (5e-2 is 6 to 13 bf16 ulps of
-# it).  On an H100 the kernel's bf16 branch error read 8.4e-3 at every
-# shape.  Both residual branches count: beta, gamma and the SCA scale are
-# O(1), so a fault in either half shows in ||k - p|| against ||p - x||.
+# it).  On an H100 the pair's bf16 branch error read 8.4e-3 at every
+# shape; the bf16 pipeline rounds where the pair does.  Both residual
+# branches count: beta, gamma and the SCA scale are O(1), so a fault in
+# either half shows in ||k - p|| against ||p - x||.
 NAF_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (5e-2, 5e-2)}
 
 
-def randomize_nafblock(blk: NAFBlock, gen: torch.Generator):
-    """Weights at the scale of a trained block, so that both residual
-    branches add O(1): conv weights ~ N(0, 1/fan_in), LayerNorm weights
-    near 1 and biases near 0; conv biases ~ N(0, 0.5^2), so that conv1's
-    bias outside the image (a lost zero padding of the dwconv) shows; the
-    SCA conv's bias and beta and gamma ~ U(0.5, 1.5), so that the SCA scale
-    is O(1) and away from 1 (a skipped scale shows) and neither branch
-    vanishes (at their zero init beta and gamma hide both)."""
-    with torch.no_grad():
-        for name, p in blk.named_parameters():
-            if name in ("beta", "gamma", "sca.1.bias"):
-                p.copy_(0.5 + torch.rand(p.shape, generator=gen))
-            elif p.dim() == 4:
-                p.copy_(torch.randn(p.shape, generator=gen)
-                        * p[0].numel() ** -0.5)
-            elif name.startswith("norm"):
-                p.copy_((1.0 if name.endswith("weight") else 0.0)
-                        + 0.1 * torch.randn(p.shape, generator=gen))
-            else:
-                p.copy_(0.5 * torch.randn(p.shape, generator=gen))
+# weights at a trained block's scale (the card-only tests import it here)
+randomize_nafblock = naf_tool.randomize_nafblock
 
 
-def nafblock_occupancy(c: int, dtype) -> str:
-    """The tiles of both passes and how many CTAs of each one SM holds."""
+def nafblock_route(x) -> str:
+    """The route of a call at x: the pipeline with its stencil's splits,
+    or the pair's tiles of both passes and how many CTAs of each one SM
+    holds."""
     lib = _build.load_library()
-    eb = torch.finfo(dtype).bits // 8
-    is_bf16 = int(dtype == torch.bfloat16)
+    b, h, w, c = x.shape
+    if nb._takes_naf_pipeline(x):
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        return (f"pipeline, {nb._naf_nsplit(lib, b, h, w, -(-c // 32), sms)}"
+                f" splits")
+    eb = x.element_size()
+    is_bf16 = int(x.dtype == torch.bfloat16)
     tiles = nb.pick_tiles(lib, c, eb)
-    return " ".join(
+    return "pair " + " ".join(
         f"{'AB'[i]} {t[0]}x{t[1]} "
         f"{lib.nafblock_smem_bytes(i, c, t[0], t[1], eb) / 1024:.0f}KB "
         f"{lib.nafblock_ctas_per_sm(i, c, t[0], t[1], is_bf16)}/SM"
         for i, t in enumerate(tiles))
 
 
+def _pair_call(x, kw):
+    """csrc/nafblock.cu's pair on x with `_forward_kernel`'s tiles and
+    splits: the route that bf16 took before the pipeline, timed beside
+    it."""
+    lib = _build.load_library()
+    b, h, w, c = x.shape
+    sum_tile, apply_tile = nb.pick_tiles(lib, c, x.element_size())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    nsplit = max(1, min(-(-h // sum_tile[0]) * -(-w // sum_tile[1]),
+                        -(-2 * sms // b)))
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: nb._launch(lib, x, kw, sum_tile, apply_tile, nsplit,
+                              stream)
+
+
 def nafblock_vs_plain(gen, shapes, dtypes=(torch.float32, torch.bfloat16),
                       timed=True):
-    """Phases 8 and 10.  Returns the bf16 rows as (blocks of that shape,
-    max_abs, kernel ms, plain ms, shape); untimed, the ms are NaN.  Raises
-    after printing if any row fails."""
+    """Phases 8 and 10.  Every bf16 call must run the pipeline
+    (`naf_pipeline`, the route rule of nafblock.py at these widths) and two
+    calls must be bitwise equal; float32 runs csrc/nafblock.cu's pair.
+    Returns the bf16 rows as (blocks of that shape, max_abs, kernel ms,
+    plain ms, shape, pair ms); untimed, the ms are NaN.  Timed, each bf16
+    row's device time is split by kernel (`split_by_group`).  Raises after
+    printing if any row fails."""
     log("nafblock kernel vs plain: |k-p| <= a*max|p| + r*|p| and ||k-p|| <= "
         f"branch * ||p-x||; f32 a/r/branch {NAF_TOL[torch.float32]}/"
         f"{BRANCH_TOL[torch.float32]}, bf16 {NAF_TOL[torch.bfloat16]}/"
-        f"{BRANCH_TOL[torch.bfloat16]}; tiles of pass A/B and CTAs per SM")
+        f"{BRANCH_TOL[torch.bfloat16]}; bf16 beside the pair csrc/"
+        f"nafblock.cu (pair_ms)")
     log(f"{'B,H,W,C':>16} {'dtype':>8} {'max|p|':>8} {'max_abs':>10} "
-        f"{'tol_use':>8} {'branch':>10} {'kernel_ms':>10} {'plain_ms':>10}  "
-        f"occupancy")
+        f"{'tol_use':>8} {'branch':>10} {'kernel_ms':>10} {'plain_ms':>10} "
+        f"{'pair_ms':>10}  route")
     rows, failures = [], []
     for b, h, w, c, nblk in shapes:
         blk = NAFBlock(c)
@@ -1271,8 +1305,13 @@ def nafblock_vs_plain(gen, shapes, dtypes=(torch.float32, torch.bfloat16),
         for dtype in dtypes:
             x = x32.to("cuda", dtype)
             params = blk.block_params()
+            pipeline = nb._takes_naf_pipeline(x)
             with torch.inference_mode():
-                got = blk(x).float()
+                calls = nb.naf_pipeline.launches
+                got_d = blk(x)
+                routed = nb.naf_pipeline.launches - calls == pipeline
+                same = not pipeline or torch.equal(got_d, blk(x))
+                got = got_d.float()
                 want = nb.nafblock_ref(x, params).float()
                 torch.cuda.synchronize()
                 a, r = NAF_TOL[dtype]
@@ -1283,19 +1322,31 @@ def nafblock_vs_plain(gen, shapes, dtypes=(torch.float32, torch.bfloat16),
                 branch = (diff.norm() / (want - x.float()).norm()
                           .clamp_min(1e-30)).item()
                 finite = bool(torch.isfinite(got).all())
-                del got, want, diff
-                k_ms = p_ms = float("nan")
+                del got, got_d, want, diff
+                k_ms = p_ms = pair_ms = float("nan")
                 if timed:
                     k_ms = median_ms(lambda: blk(x))
                     p_ms = median_ms(lambda: nb.nafblock_ref(x, params))
+                    if pipeline:
+                        pair_ms = median_ms(_pair_call(
+                            x, nb.prepare_nafblock_weights(params, dtype)))
             name = str(dtype).split(".")[-1]
             log(f"{f'{b},{h},{w},{c}':>16} {name:>8} {peak:8.3f} "
                 f"{max_abs:10.3e} {tol_use:8.3f} {branch:10.3e} "
-                f"{k_ms:10.4f} {p_ms:10.4f}  {nafblock_occupancy(c, dtype)}")
-            if not finite or tol_use > 1.0 or branch > BRANCH_TOL[dtype]:
+                f"{k_ms:10.4f} {p_ms:10.4f} {pair_ms:10.4f}  "
+                f"{nafblock_route(x)}"
+                f"{'' if routed else '  NOT ROUTED AS RULED'}"
+                f"{'' if same else '  NOT REPEATABLE'}")
+            if timed and pipeline:
+                with torch.inference_mode():
+                    split_by_group(lambda: blk(x), "naf_pipeline",
+                                   kernel_groups=NAF_KERNEL_GROUPS)
+            if not finite or tol_use > 1.0 or branch > BRANCH_TOL[dtype] \
+                    or not routed or not same:
                 failures.append((b, h, w, c, name))
             if dtype == torch.bfloat16:
-                rows.append((nblk, max_abs, k_ms, p_ms, (b, h, w, c)))
+                rows.append((nblk, max_abs, k_ms, p_ms, (b, h, w, c),
+                             pair_ms))
             del x
         del blk
         torch.cuda.empty_cache()
@@ -2799,9 +2850,11 @@ def main(argv=None) -> int:
                 qkv_form_vs_plain(gen, dtypes=(torch.bfloat16,), timed=False)
             elif FAULTS[args.plant][3] == 24:
                 stencil_vs_plain(gen, timed=False)
-            else:
-                nafblock_vs_plain(gen, [NAF_SHAPES[i] for i in (7, 8, 10)],
-                                  dtypes=(torch.bfloat16,), timed=False)
+            else:  # the pair's faults in float32, the pipeline's in bf16
+                nafblock_vs_plain(
+                    gen, [NAF_SHAPES[i] for i in (7, 8, 10)],
+                    dtypes=(torch.float32 if FAULTS[args.plant][0] ==
+                            "nafblock.cu" else torch.bfloat16,), timed=False)
         except RuntimeError as e:
             log(f"planted fault {args.plant} caught: {e}")
             return 0
@@ -2825,24 +2878,31 @@ def main(argv=None) -> int:
 
     naf_rows = nafblock_vs_plain(gen, NAF_SHAPES + NAF_TRAIN_SHAPES[:2])
     network_vs_cpu(args.seed, NAF_TASK, nb.nafblock_fused,
-                   ((NAF_BLOCKS, None),))
-    naf_launches, naf_fwd_ms = main_path(args.seed, NAF_TASK,
-                                         nb.nafblock_fused, NAF_BLOCKS)[:2]
+                   ((NAF_BLOCKS, None),), more=((nb.naf_pipeline, 0),))
+    naf_launches, naf_fwd_ms, _, (naf_eval_pipeline,) = main_path(
+        args.seed, NAF_TASK, nb.nafblock_fused, NAF_BLOCKS,
+        more=((nb.naf_pipeline, NAF_BLOCKS),))
     naf_train_rows = nafblock_vs_plain(gen, NAF_TRAIN_SHAPES,
                                        dtypes=(torch.bfloat16,))
     (naf_train_launches, naf_step_ms, naf_plain_step_ms, naf_peak,
      naf_plain_peak) = train_main_path(
-        args.seed, NAF_TRAIN_OPT, (nb.nafblock_fused,), (NAF_BLOCKS,),
-        _swap("nafblock_fused", _plain_nafblocks))
+        args.seed, NAF_TRAIN_OPT, (nb.nafblock_fused, nb.naf_pipeline),
+        (NAF_BLOCKS, NAF_BLOCKS), _swap("nafblock_fused", _plain_nafblocks))
     naf_main = [r for r in naf_rows if r[4][0] == 1 and r[0]]
+
+    def naf_sum(rows, i):
+        return sum(r[0] * r[i] for r in rows)
+
     log(f"nafblock_fused per 512 px forward (bf16, per-shape medians times "
-        f"blocks): kernel {sum(n * k for n, _, k, _, _ in naf_main):.3f} ms, "
-        f"plain {sum(n * p for n, _, _, p, _ in naf_main):.3f} ms; per 384 px "
-        f"batch-8 step: kernel "
-        f"{sum(n * k for n, _, k, _, _ in naf_train_rows):.3f} ms, plain "
-        f"{sum(n * p for n, _, _, p, _ in naf_train_rows):.3f} ms")
-    log(f"launches: nafnet evaluation path nafblock_fused {naf_launches}; "
-        f"training path (4 steps) {naf_train_launches}")
+        f"blocks): pipeline {naf_sum(naf_main, 2):.3f} ms, pair "
+        f"{naf_sum(naf_main, 5):.3f} ms, plain {naf_sum(naf_main, 3):.3f} ms; "
+        f"per 384 px batch-8 step's 45 forward calls: pipeline "
+        f"{naf_sum(naf_train_rows, 2):.3f} ms, pair "
+        f"{naf_sum(naf_train_rows, 5):.3f} ms, plain "
+        f"{naf_sum(naf_train_rows, 3):.3f} ms")
+    log(f"launches: nafnet evaluation path nafblock_fused {naf_launches} "
+        f"(naf_pipeline {naf_eval_pipeline}); training path (4 steps) "
+        f"nafblock_fused/naf_pipeline {naf_train_launches}")
     log_held("phases 8-10")
 
     flash_rows = flash_vs_plain(gen)
@@ -2920,6 +2980,9 @@ def main(argv=None) -> int:
     naf_bound, naf_by = bounds("nafblock_fused",
                                [(b, h, w, c, 1, n) for b, h, w, c, n in
                                 NAF_SHAPES])
+    naf_step_bound, naf_step_by = bounds(
+        "nafblock_fused", [(b, h, w, c, 1, n) for b, h, w, c, n in
+                           NAF_TRAIN_SHAPES])
     g_bound, g_by = bounds("gdfn_half_bwd", TRAIN_SHAPES)
     a_bound, a_by = bounds("attn_half_bwd", TRAIN_SHAPES)
     chain_per = [(n, *bound_ms("tblock_chain_fused", *shape[:5], n=shape[5]))
@@ -2993,14 +3056,33 @@ def main(argv=None) -> int:
          "ms": sum(r[0] * r[5] for r in bwd_rows),
          "plain_ms": sum(r[0] * r[7] for r in bwd_rows),
          "bound_ms": a_bound, "bound_by": a_by, "library_ms": None},
+        # per 512 px nafnet_deblur forward (bf16: the pipeline of
+        # naf_stencil.cu, bwd_gemm.cu's NAFBlock epilogues and
+        # bwd_stencil.cu's LN rows; float32 and other bf16 widths run
+        # nafblock.cu's pair, timed as pair_ms); step_*: per 384 px
+        # batch-8 step's 45 forward calls (phase 10's times); launches:
+        # phase 10's 4 steps, of which pipeline_launches through the
+        # pipeline
         {"name": "nafblock_fused", "route": "cuda",
-         "source": src + "nafblock.cu",
-         "replaces": "textualdegremoval_tpu/ops/pallas/nafblock.py:246",
-         "launches": naf_launches,
+         "source": src + "naf_stencil.cu",
+         "sources": [src + f for f in ("naf_stencil.cu", "bwd_gemm.cu",
+                                       "bwd_stencil.cu", "halo_tiles.cuh",
+                                       "tma_maps.cuh", "hopper.cuh",
+                                       "tblock_common.cuh", "nafblock.cu")],
+         "replaces": "textualdegremoval_tpu/ops/pallas/nafblock.py:246 "
+                     "(_nafblock_impl; _make_sum_kernel :156, call :303; "
+                     "_make_apply_kernel :180, call :321)",
+         "launches": naf_train_launches[0],
+         "pipeline_launches": naf_train_launches[1],
+         "eval_launches": naf_launches,
          "max_abs_err": max(r[1] for r in naf_main),
-         "ms": sum(n * k for n, _, k, _, _ in naf_main),
-         "plain_ms": sum(n * p for n, _, _, p, _ in naf_main),
-         "bound_ms": naf_bound, "bound_by": naf_by, "library_ms": None},
+         "ms": naf_sum(naf_main, 2), "plain_ms": naf_sum(naf_main, 3),
+         "pair_ms": naf_sum(naf_main, 5),
+         "bound_ms": naf_bound, "bound_by": naf_by, "library_ms": None,
+         "step_ms": naf_sum(naf_train_rows, 2),
+         "step_plain_ms": naf_sum(naf_train_rows, 3),
+         "step_pair_ms": naf_sum(naf_train_rows, 5),
+         "step_bound_ms": naf_step_bound, "step_bound_by": naf_step_by},
         # per 512 px UNet forward (5 launches at (2, 4096, 5, 64), bf16)
         {"name": "flash_attention", "route": "cuda",
          "source": src + "flash_attn.cu",

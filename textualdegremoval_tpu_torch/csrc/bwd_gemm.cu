@@ -15,7 +15,13 @@
 // backward's own entries), per (image, head) o = v . A^T, and the two
 // products that end in a residual, x1 = x + rnd(o . Wproj) and
 // out = x1 + rnd(gate . W2) (the sequence is laid out at the top of
-// fwd_stencil.cu).
+// fwd_stencil.cu).  And the four products of the NAFBlock forward
+// (ops/pallas/nafblock.py:131-218, the TPU kernels `_make_sum_kernel` and
+// `_make_apply_kernel`; the sequence is laid out at the top of
+// naf_stencil.cu): conv1's h = rnd(rnd(y . W1) + b1), the residual
+// products y1 = x + rnd(rnd(rnd(gs . W3) + b3) beta) and
+// out = y1 + rnd(rnd(rnd(g2 . W5) + b5) gamma), and conv4 with its gate,
+// g2 = rnd(h_a h_b) with h_* = rnd(rnd(z . W4_*) + b4_*).
 // Between them run the CUDA-core passes of bwd_stencil.cu and
 // fwd_stencil.cu (LayerNorms, the depthwise stencils, gelu, the tap
 // gradients).  The weight gradients (sums over pixels) and the forward's
@@ -49,6 +55,13 @@
 // norm's diagonal term from the stencil's q / k in f32, and for the
 // forward's residual products rounds the product to bf16, adds the bf16
 // residual in f32 and rounds the sum (the TPU kernel's x + rnd(proj)).
+// The NAFBlock's epilogues (kEpi 1, 2) add a bias after the product's
+// rounding and round again, then scale by beta or gamma and round before
+// the residual, or form the gate: with W4's columns in 32-channel chunks
+// (a chunk's first half, then its second), the two columns of a gate
+// channel lie 32 apart, in the same lane's accumulators (entries of j and
+// j + 4), so the product of the halves is formed in registers and only
+// the gate, half as wide, is stored.
 // Its stores were what bounded the skinny products: each lane now stores
 // whole 16-byte runs of a row, the quad's lanes trading values through
 // shuffles first.  No atomics: a repeated call is bitwise equal.
@@ -78,7 +91,12 @@ struct GemmSmem {
 // per-head products), f32 into out_f or rounded to bf16 into out_h.
 // Where aux is set, the f32 value aux[row][aux_col0 + z2 N + n] *
 // vec[z3 vec_ld + z2 N + n] is added first; where res is set, the product
-// is rounded to bf16 and res[row][col0 + z2 N + n] added in f32.
+// is rounded to bf16 and res[row][col0 + z2 N + n] added in f32.  epi 1
+// and 2 (the NAFBlock's, bf16 out, nz2 = 1): bias[n] added to the rounded
+// product and the sum rounded; epi 1 then times scale[n] and rounded
+// where scale is set, before res; epi 2 stores the rounded product of
+// columns n and n + 32 of each 64-column chunk k (n % 64 < 32) at output
+// column 32 k + n % 64, in an output N / 2 wide (naf_word).
 struct GemmOut {
   int rows, N, nz2, nk;  // nk: steps of 64 along K
   float* out_f;
@@ -92,6 +110,9 @@ struct GemmOut {
   int vec_ld;
   const __nv_bfloat16* res;
   long long ld_res;
+  int epi;
+  const float* bias;
+  const float* scale;
 };
 
 // two f32 rounded to bf16 as one word (lo in bits 0-15)
@@ -122,7 +143,54 @@ __device__ __forceinline__ float bf16_at(const Run16& q, int e) {
   return f32_of(e & 1 ? q.w[e / 2] & 0xffff0000u : q.w[e / 2] << 16);
 }
 
-template <int BN, int kTransB>
+// A quad's 4 lanes trade words: wv[t] is this lane's word of j = 4 j4 + t,
+// tw[s] comes back as lane s's word of j = 4 j4 + tig, so that each lane
+// holds 8 consecutive columns of a row
+__device__ __forceinline__ void quad_transpose(const uint32_t (&wv)[4],
+                                               uint32_t (&tw)[4], int tig) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int s = tig ^ k;
+    const uint32_t got = __shfl_xor_sync(
+        0xffffffffu, s == 0 ? wv[0] : s == 1 ? wv[1] : s == 2 ? wv[2] : wv[3],
+        k);
+    if (s == 0) tw[0] = got;
+    else if (s == 1) tw[1] = got;
+    else if (s == 2) tw[2] = got;
+    else tw[3] = got;
+  }
+}
+
+// rnd(rnd(a) + bias[n]): a product column's value after its bias
+__device__ __forceinline__ float biased(float a, const GemmOut& g, int n) {
+  return rnd<__nv_bfloat16>(rnd<__nv_bfloat16>(a) +
+                            (n < g.N ? g.bias[n] : 0.f));
+}
+
+// The NAFBlock epilogues' word of row half h at the columns n, n + 1
+// (n = n0 + 8 j + 2 tig): epi 1 the biased values, times scale[n] and
+// rounded where scale is set; epi 2 the gate rnd(h_a h_b) of column n of
+// a chunk's first half and column n + 32 of its second (j % 8 < 4).
+template <int BN, int kEpi>
+__device__ __forceinline__ uint32_t naf_word(const float (&acc)[BN / 2],
+                                             const GemmOut& g, int j, int h,
+                                             int n0, int tig) {
+  float v[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int n = n0 + 8 * j + 2 * tig + c;
+    float a = biased(acc[4 * j + 2 * h + c], g, n);
+    if constexpr (kEpi == 2)
+      a = rnd<__nv_bfloat16>(a * biased(acc[4 * (j + 4) + 2 * h + c], g,
+                                        n + 32));
+    else if (g.scale != nullptr)
+      a = rnd<__nv_bfloat16>(a * (n < g.N ? g.scale[n] : 0.f));
+    v[c] = a;
+  }
+  return bf16_pair(v[0], v[1]);
+}
+
+template <int BN, int kTransB, int kEpi>
 __global__ void __launch_bounds__(kGemmThreads, 2) bwd_gemm_kernel(
     const __grid_constant__ CUtensorMap ta,
     const __grid_constant__ CUtensorMap tb, const GemmOut g) {
@@ -199,7 +267,9 @@ __global__ void __launch_bounds__(kGemmThreads, 2) bwd_gemm_kernel(
   // bf16: the lanes transpose their words of 4 j; f32: lane pairs trade
   // pairs of 2 j.  Rows past the tile's last are computed but not stored
   // (every lane takes part in the shuffles).  run_gemm admits N, ldo and
-  // col0 multiples of 8 only, aux with f32 out, res with bf16 out.
+  // col0 multiples of 8 only, aux with f32 out, res with bf16 out.  epi 2
+  // makes a run of 8 gate values from 64 product columns (4 j of each
+  // half of a chunk), so a tile stores BN / 64 runs a row per lane.
   const int r_of[2] = {row0 + wg * 64 + warp * 16 + gq,
                        row0 + wg * 64 + warp * 16 + gq + 8};
   if (g.out_h != nullptr) {
@@ -208,28 +278,23 @@ __global__ void __launch_bounds__(kGemmThreads, 2) bwd_gemm_kernel(
       const int r = r_of[h];
       const size_t row = (size_t)z3 * g.rows + (r < g.rows ? r : 0);
 #pragma unroll
-      for (int j4 = 0; j4 < BN / 32; ++j4) {
-        // wv[t]: this lane's word of j = 4 j4 + t; tw[s]: lane s's word
-        // of j = 4 j4 + tig
+      for (int j4 = 0; j4 < (kEpi == 2 ? BN / 64 : BN / 32); ++j4) {
+        // wv[t]: this lane's word of j = 4 j4 + t (epi 2: of the gate of
+        // j = 8 j4 + t and j + 4); tw[s]: lane s's word of j = 4 j4 + tig
         uint32_t wv[4], tw[4];
 #pragma unroll
-        for (int t = 0; t < 4; ++t)
-          wv[t] = bf16_pair(acc[4 * (4 * j4 + t) + 2 * h],
-                            acc[4 * (4 * j4 + t) + 2 * h + 1]);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int s = tig ^ k;
-          const uint32_t got = __shfl_xor_sync(
-              0xffffffffu, s == 0 ? wv[0] : s == 1 ? wv[1] : s == 2 ? wv[2]
-                                                                : wv[3],
-              k);
-          if (s == 0) tw[0] = got;
-          else if (s == 1) tw[1] = got;
-          else if (s == 2) tw[2] = got;
-          else tw[3] = got;
+        for (int t = 0; t < 4; ++t) {
+          if constexpr (kEpi == 0)
+            wv[t] = bf16_pair(acc[4 * (4 * j4 + t) + 2 * h],
+                              acc[4 * (4 * j4 + t) + 2 * h + 1]);
+          else
+            wv[t] = naf_word<BN, kEpi>(
+                acc, g, kEpi == 2 ? 8 * j4 + t : 4 * j4 + t, h, n0, tig);
         }
-        const int n = n0 + 8 * (4 * j4 + tig);
-        if (r >= g.rows || n >= g.N) continue;
+        quad_transpose(wv, tw, tig);
+        const int n = kEpi == 2 ? n0 / 2 + 32 * j4 + 8 * tig
+                                : n0 + 8 * (4 * j4 + tig);
+        if (r >= g.rows || n >= (kEpi == 2 ? g.N / 2 : g.N)) continue;
         const size_t col = (size_t)g.col0 + z2 * g.N + n;
         Run16 out = {{tw[0], tw[1], tw[2], tw[3]}};
         if (g.res != nullptr) {
@@ -279,18 +344,18 @@ __global__ void __launch_bounds__(kGemmThreads, 2) bwd_gemm_kernel(
   }
 }
 
-template <int BN, int kTransB>
+template <int BN, int kTransB, int kEpi>
 int launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb,
                 const GemmOut& g, int nz3, cudaStream_t stream) {
   using L = GemmSmem<BN>;
   static const int attr = (int)cudaFuncSetAttribute(
-      bwd_gemm_kernel<BN, kTransB>,
+      bwd_gemm_kernel<BN, kTransB, kEpi>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (attr != 0) return attr;
   const dim3 grid((g.N + BN - 1) / BN, (g.rows + kGemmRows - 1) / kGemmRows,
                   g.nz2 * nz3);
-  bwd_gemm_kernel<BN, kTransB><<<grid, kGemmThreads, L::kBytes, stream>>>(
-      ta, tb, g);
+  bwd_gemm_kernel<BN, kTransB, kEpi><<<grid, kGemmThreads, L::kBytes,
+                                       stream>>>(ta, tb, g);
   return (int)cudaGetLastError();
 }
 
@@ -302,7 +367,10 @@ int run_gemm(View4 a, View4 b, int K, int trans_b, GemmOut g, int nz3,
   if (g.rows <= 0 || g.N <= 0 || K <= 0 || g.nz2 <= 0 || nz3 <= 0 ||
       (g.rows + kGemmRows - 1) / kGemmRows > 65535 || g.nz2 * nz3 > 65535 ||
       g.N % 8 || g.ldo % 8 || g.col0 % 8 || (g.out_h && g.aux) ||
-      (g.out_f && g.res))
+      (g.out_f && g.res) ||
+      (g.epi != 0 && (!g.out_h || !g.bias || g.nz2 != 1 || trans_b ||
+                      g.aux)) ||
+      (g.epi == 2 && (g.N % 64 || g.res || g.scale)))
     return (int)cudaErrorInvalidValue;
   const int bn = g.N <= 64 ? 64 : 128;
   g.nk = (K + 63) / 64;
@@ -313,11 +381,18 @@ int run_gemm(View4 a, View4 b, int K, int trans_b, GemmOut g, int nz3,
   if ((err = view_map(&ta, a, false, true)) ||
       (err = view_map(&tb, b, false, true)))
     return err;
+  if (g.epi != 0) {
+    if (bn == 64)
+      return g.epi == 1 ? launch_gemm<64, 0, 1>(ta, tb, g, nz3, stream)
+                        : launch_gemm<64, 0, 2>(ta, tb, g, nz3, stream);
+    return g.epi == 1 ? launch_gemm<128, 0, 1>(ta, tb, g, nz3, stream)
+                      : launch_gemm<128, 0, 2>(ta, tb, g, nz3, stream);
+  }
   if (bn == 64)
-    return trans_b ? launch_gemm<64, 1>(ta, tb, g, nz3, stream)
-                   : launch_gemm<64, 0>(ta, tb, g, nz3, stream);
-  return trans_b ? launch_gemm<128, 1>(ta, tb, g, nz3, stream)
-                 : launch_gemm<128, 0>(ta, tb, g, nz3, stream);
+    return trans_b ? launch_gemm<64, 1, 0>(ta, tb, g, nz3, stream)
+                   : launch_gemm<64, 0, 0>(ta, tb, g, nz3, stream);
+  return trans_b ? launch_gemm<128, 1, 0>(ta, tb, g, nz3, stream)
+                 : launch_gemm<128, 0, 0>(ta, tb, g, nz3, stream);
 }
 
 // a contiguous (rows, cols) matrix as run_gemm's A view (rows in dimension
@@ -365,6 +440,19 @@ int head_product(const void* a, int lda, const void* b, int trans_b,
 int residual_gemm(const void* a, const void* b, const void* res, void* out,
                   int M, int N, int K, cudaStream_t stream) {
   GemmOut g = plain_out(M, N, out, 1);
+  g.res = (const __nv_bfloat16*)res, g.ld_res = N;
+  return run_gemm(a_view(a, M, K), b_view(b, N, K), K, 0, g, 1, stream);
+}
+
+// The NAFBlock's products: out = epilogue(a (M, K) . b^T) with b (N, K),
+// its epilogue epi 1 (bias, then scale and res where set) or 2 (the gate,
+// out (M, N / 2))
+int naf_product(const void* a, const void* b, int epi, const float* bias,
+                const float* scale, const void* res, void* out, int M, int N,
+                int K, cudaStream_t stream) {
+  GemmOut g = plain_out(M, N, out, 1);
+  g.ldo = epi == 2 ? N / 2 : N;
+  g.epi = epi, g.bias = bias, g.scale = scale;
   g.res = (const __nv_bfloat16*)res, g.ld_res = N;
   return run_gemm(a_view(a, M, K), b_view(b, N, K), K, 0, g, 1, stream);
 }
@@ -452,6 +540,31 @@ int fwd_attn_out(const void* qkv, const void* attn, const void* wproj,
   int err;
   if ((err = run_gemm(vv, av, cph, 0, g, B, s))) return err;
   return residual_gemm(o, wproj, x, x1, B * HW, C, C, s);
+}
+
+// The NAFBlock's biased product: out (M, N) bf16 = rnd(rnd(a . b^T) +
+// bias), a (M, K) and b (N, K) contiguous bf16 (b a weight in the kernels'
+// (outputs, inputs) layout), bias (N) f32 holding bf16 values; where scale
+// (N, f32 holding bf16 values) is set, that value times scale, rounded;
+// where res (M, N) bf16 is set, rnd(res + that): conv1's h = rnd(rnd(y .
+// W1) + b1) (no scale, no res), y1 = x + rnd(rnd(rnd(gs . W3) + b3) beta)
+// and out = y1 + rnd(rnd(rnd(g2 . W5) + b5) gamma).  Returns a cudaError_t.
+int naf_gemm_bias(const void* a, const void* b, const float* bias,
+                  const float* scale, const void* res, void* out, int M,
+                  int N, int K, void* stream) {
+  return naf_product(a, b, 1, bias, scale, res, out, M, N, K,
+                     (cudaStream_t)stream);
+}
+
+// The NAFBlock's gated product: with b (N, K) holding the two halves of
+// conv4 in 32-channel chunks (a chunk's first-half outputs, then its
+// second-half outputs; N % 64 == 0) and bias (N) in the same order,
+// out (M, N / 2) bf16 = rnd(h_a h_b), h_* = rnd(rnd(a . b_*^T) + bias_*):
+// g2 of the FFN half.  Returns a cudaError_t.
+int naf_gemm_gate(const void* a, const void* b, const float* bias, void* out,
+                  int M, int N, int K, void* stream) {
+  return naf_product(a, b, 2, bias, nullptr, nullptr, out, M, N, K,
+                     (cudaStream_t)stream);
 }
 
 }  // extern "C"

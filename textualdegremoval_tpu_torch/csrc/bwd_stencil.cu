@@ -74,7 +74,8 @@ __device__ __forceinline__ float word_at(const Bf16x8& q, int e) {
 }
 
 // y = LN(x) of every pixel (ops/norm.py: var = E[x^2] - E[x]^2 clamped at
-// 0), rounded to bf16, with the pixel's mu and 1 / sqrt(var + eps) for the
+// 0; eps 1e-5 for Restormer's LayerNorms, 1e-6 for NAFNet's LayerNorm2d),
+// rounded to bf16, with the pixel's mu and 1 / sqrt(var + eps) for the
 // backward.  A pixel is a group of G lanes (the power of two at or above
 // C / 8, at most 32), each reading 8 channels at a time as one 16-byte
 // word, so that a warp takes 32 / G pixels and a row of 48-192 channels
@@ -82,9 +83,9 @@ __device__ __forceinline__ float word_at(const Bf16x8& q, int e) {
 // and the rows 16-byte aligned.
 __global__ void __launch_bounds__(kRowThreads) ln_rows_fwd_kernel(
     const __nv_bfloat16* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ b, int bias_free, __nv_bfloat16* __restrict__ y,
-    float* __restrict__ mu, float* __restrict__ inv, int npix, int C,
-    int G) {
+    const float* __restrict__ b, int bias_free, float eps,
+    __nv_bfloat16* __restrict__ y, float* __restrict__ mu,
+    float* __restrict__ inv, int npix, int C, int G) {
   const int lane = threadIdx.x & 31, gl = lane & (G - 1);
   const int p = (blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5)) *
                     (32 / G) + lane / G;
@@ -108,7 +109,7 @@ __global__ void __launch_bounds__(kRowThreads) ln_rows_fwd_kernel(
   }
   if (!valid) return;
   const float m = s / C;
-  const float den = sqrtf(fmaxf(s2 / C - m * m, 0.f) + kEps);
+  const float den = sqrtf(fmaxf(s2 / C - m * m, 0.f) + eps);
   Bf16x8* dst = reinterpret_cast<Bf16x8*>(y + (size_t)p * C);
   for (int i = gl; i < words; i += G) {
     const Bf16x8 q = src[i];
@@ -551,10 +552,10 @@ extern "C" {
 // The stencil kernels' tile: rows (dim 0) or columns (dim 1).
 int bwd_stencil_tile(int dim) { return dim == 0 ? kTH : kTW; }
 
-// y (npix, C) bf16 = LN(x), mu and inv (npix) f32; C % 8 == 0, x and y
-// 16-byte aligned.  Returns a cudaError_t.
+// y (npix, C) bf16 = LN(x) with epsilon eps, mu and inv (npix) f32;
+// C % 8 == 0, x and y 16-byte aligned.  Returns a cudaError_t.
 int bwd_ln_rows(const void* x, const float* w, const float* b, int bias_free,
-                void* y, float* mu, float* inv, int npix, int C,
+                float eps, void* y, float* mu, float* inv, int npix, int C,
                 void* stream) {
   if (npix <= 0 || C <= 0 || C % 8 || (uintptr_t)x % 16 || (uintptr_t)y % 16)
     return (int)cudaErrorInvalidValue;
@@ -563,8 +564,8 @@ int bwd_ln_rows(const void* x, const float* w, const float* b, int bias_free,
   const int per = kRowThreads / 32 * (32 / G);  // pixels a CTA
   ln_rows_fwd_kernel<<<(npix + per - 1) / per, kRowThreads, 0,
                        (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, w, b, bias_free, (__nv_bfloat16*)y, mu, inv,
-      npix, C, G);
+      (const __nv_bfloat16*)x, w, b, bias_free, eps, (__nv_bfloat16*)y, mu,
+      inv, npix, C, G);
   return (int)cudaGetLastError();
 }
 

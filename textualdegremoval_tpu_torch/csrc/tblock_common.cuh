@@ -33,7 +33,10 @@ constexpr int kRowPad = 16;         // smem GEMM operands hold rows to x16
 constexpr int kMaxCph = 192;        // channels per head, forward kernels
 constexpr int kMaxCphBwd = 96;      // channels per head, attention backward
 constexpr int kAccPad = 4;          // f32 accumulator row padding
-constexpr float kEps = 1e-5f;       // Restormer LN; NAFNet's passes 1e-6
+// Restormer's LayerNorm epsilon, the default of the helpers below;
+// nafblock.cu passes NAFNet's 1e-6 to them, and bwd_stencil.cu's
+// bwd_ln_rows takes its epsilon from the caller
+constexpr float kEps = 1e-5f;
 
 __host__ __device__ inline int round_up(int a, int m) {
   return (a + m - 1) / m * m;

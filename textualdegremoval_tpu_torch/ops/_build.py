@@ -46,7 +46,8 @@ _SIGNATURES = {
     "tblock_wgrad": ([_P, _I, _L, _L, _P, _I, _L, _L, _P] + [_I] * 7 + [_P],
                      _I),
     "bwd_stencil_tile": ([_I], _I),
-    "bwd_ln_rows": ([_P] * 3 + [_I] + [_P] * 3 + [_I] * 2 + [_P], _I),
+    "bwd_ln_rows": ([_P] * 3 + [_I, ctypes.c_float] + [_P] * 3 + [_I] * 2
+                    + [_P], _I),
     "bwd_ln_rows_bwd": ([_P] * 5 + [_I] + [_P] * 3 + [_I] * 3 + [_P], _I),
     "bwd_gdfn_stencil": ([_P] * 6 + [_I] * 5 + [_P], _I),
     "bwd_qk_stencil": ([_P] * 3 + [_I] * 5 + [_P], _I),
@@ -59,6 +60,11 @@ _SIGNATURES = {
     "fwd_gemm_residual": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "fwd_attn_out": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "fwd_attn_glue": ([_P] * 6 + [_I] * 3 + [_P], _I),
+    "naf_gemm_bias": ([_P] * 6 + [_I] * 3 + [_P], _I),
+    "naf_gemm_gate": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "naf_gate_chunk": ([], _I),
+    "naf_gate_stencil": ([_P] * 6 + [_I] * 6 + [_P], _I),
+    "naf_sca_glue": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "nafblock_smem_bytes": ([_I] * 5, _L),
     "nafblock_gate_chunk": ([], _I),
     "nafblock_ctas_per_sm": ([_I] * 5, _I),

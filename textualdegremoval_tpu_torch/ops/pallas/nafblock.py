@@ -1,10 +1,20 @@
-"""Whole NAFBlock: plain PyTorch version and CUDA kernel.
+"""Whole NAFBlock: plain PyTorch version and CUDA kernels.
 
 Counterpart of textualdegremoval_tpu/ops/pallas/nafblock.py.  `nafblock_ref`
 is the plain version (the JAX `nafblock_ref`, identical math to the module
-path).  `nafblock_fused` runs the block as the hand-written Hopper kernel
-pair in csrc/nafblock.cu, which replaces the TPU kernels `_make_sum_kernel`
-(pass A) and `_make_apply_kernel` (pass B) of `_nafblock_impl`:
+path).  `nafblock_fused` runs the block as hand-written Hopper kernels that
+replace the TPU kernels `_make_sum_kernel` (pass A) and
+`_make_apply_kernel` (pass B) of `_nafblock_impl`.  One rule picks them
+(`_takes_naf_pipeline`):
+
+* a bfloat16 x whose C is a multiple of 8 (every width of the shipped
+  NAFNets) runs `naf_pipeline`, a sequence of TMA + wgmma products and
+  TMA-fed stencils: csrc/naf_stencil.cu (the gate stencil's sum and apply
+  passes, the SCA glue) with csrc/bwd_gemm.cu's NAFBlock epilogues and
+  csrc/bwd_stencil.cu's LayerNorm rows, laid out at the top of
+  csrc/naf_stencil.cu;
+* float32 (the parity path), and a bfloat16 width that the pipeline's TMA
+  rows cannot take, run the kernel pair in csrc/nafblock.cu:
 
 * pass A writes per-CTA partial per-channel pixel sums of the gate; they
   are added over the partial axis here in a fixed order, so the result is
@@ -15,8 +25,8 @@ pair in csrc/nafblock.cu, which replaces the TPU kernels `_make_sum_kernel`
 * pass B recomputes the gate, applies s, conv3 and the beta residual, LN2,
   the pointwise gated FFN and the gamma residual, and writes the output.
 
-What bounds the kernel on the card and what its design does about it is
-noted at the top of csrc/nafblock.cu.
+What bounds each route on the card and what its design does about it is
+noted at the top of csrc/naf_stencil.cu and csrc/nafblock.cu.
 
 `nafblock_fused` is differentiable (JAX's `custom_vjp` of the same name):
 on CUDA, when an input needs a gradient, it runs as `_NAFBlockFunction`,
@@ -25,8 +35,9 @@ JAX `_nafblock_ref_remat` does: the JAX kernel has no backward kernel.
 Nothing but the inputs is kept from the forward.
 
 A CPU tensor goes through `nafblock_ref` (plain autograd); a CUDA tensor
-launches the kernels or raises.  `nafblock_fused.launches` counts kernel
-pair launches, never plain-version calls.
+launches the kernels or raises.  `nafblock_fused.launches` counts block
+calls on the card (either route), never plain-version calls;
+`naf_pipeline.launches` counts those that ran the pipeline.
 """
 
 from __future__ import annotations
@@ -36,8 +47,11 @@ import torch
 from textualdegremoval_tpu_torch.ops.dwconv import dwconv
 from textualdegremoval_tpu_torch.ops.norm import layer_norm_2d
 from textualdegremoval_tpu_torch.ops.pallas.tblock import (
-    _check, _first_fit, _ptr,
+    _card, _check, _first_fit, _ptr,
 )
+
+# NAFNet's LayerNorm2d epsilon (ops/norm.py layer_norm_2d)
+_EPS = 1e-6
 
 # The kernel's gate-channel chunk (kGC in csrc/nafblock.cu); the gate width
 # is zero-padded to a multiple of it.
@@ -103,10 +117,12 @@ def prepare_nafblock_weights(p, dtype: torch.dtype) -> dict:
     w1 and w4 split into their two C-wide halves, interleaved per gate
     chunk so that one product makes both halves of a chunk; the (18, cpad)
     dwconv taps, f32; conv biases, beta and gamma as f32 arrays holding
-    `dtype` values (the JAX kernel's b1 and bg rows); LN affine f32.  The
-    gate width is zero-padded to cpad, a multiple of GATE_CHUNK.  Matrices
-    in `dtype`, bf16 ones transposed to (outputs, inputs).  Also the SCA
-    1x1 for the glue.  Callers cache the result per module."""
+    `dtype` values (the JAX kernel's b1 and bg rows, and b1, b4 also in
+    the interleaved column order of w1 and w4, "b1i" and "b4i", for the
+    pipeline's epilogues); LN affine f32.  The gate width is zero-padded
+    to cpad, a multiple of GATE_CHUNK.  Matrices in `dtype`, bf16 ones
+    transposed to (outputs, inputs).  Also the SCA 1x1 for the glue.
+    Callers cache the result per module."""
     f32 = torch.float32
     c = p["norm1_w"].shape[0]
     cpad = -(-c // GATE_CHUNK) * GATE_CHUNK
@@ -131,6 +147,11 @@ def prepare_nafblock_weights(p, dtype: torch.dtype) -> dict:
         out[0, :c], out[1, :c] = v[:c], v[c:]
         return out
 
+    def interleaved(v):
+        """(2C,) -> (2 cpad,) in `halves`' column order."""
+        return (pair(v).reshape(2, cpad // GATE_CHUNK, GATE_CHUNK)
+                .transpose(0, 1).reshape(2 * cpad).contiguous())
+
     def gate_rows(w):
         """(1,1,C,C) with the gate as input -> (cpad, C)."""
         out = torch.zeros((cpad, c), dtype=f32, device=dev)
@@ -153,6 +174,7 @@ def prepare_nafblock_weights(p, dtype: torch.dtype) -> dict:
         w1=mat(halves(p["w1"])), b1=pair(rounded(p["b1"])), taps=taps,
         dwb=pair(rounded(p["dwb"])), w3=mat(gate_rows(p["w3"])),
         w4=mat(halves(p["w4"])), b4=pair(rounded(p["b4"])),
+        b1i=interleaved(rounded(p["b1"])), b4i=interleaved(rounded(p["b4"])),
         w5=mat(gate_rows(p["w5"])),
         bg=torch.stack([rounded(p["b3"]), rounded(p["beta"]),
                         rounded(p["b5"]), rounded(p["gamma"])]).contiguous(),
@@ -201,8 +223,93 @@ def pick_tiles(lib, c: int, elem_bytes: int):
                  for pass_id in (0, 1))
 
 
-def _forward_kernel(x, kw):
-    """Validated launch of the kernel pair on a CUDA tensor."""
+def _naf_nsplit(lib, b, hgt, wdt, nchunk, sms):
+    """Tile splits per (chunk, image) of the gate stencil: at most two full
+    waves of its 48 KB CTAs, four an SM, in all, at most one per tile."""
+    tiles = (-(-hgt // lib.bwd_stencil_tile(0))
+             * -(-wdt // lib.bwd_stencil_tile(1)))
+    return max(1, min(tiles, 2 * 4 * sms // (b * nchunk)))
+
+
+def naf_pipeline(lib, x, kw, sms, stream):
+    """The bf16 block forward as the Hopper pipeline laid out at the top of
+    csrc/naf_stencil.cu, on validated inputs that `_takes_naf_pipeline`
+    admits.  `sms` (the card's SMs) sets the stencil's splits; `stream` is
+    a cudaStream_t as an int.  Scratch is allocated on x's device and
+    dropped as the block goes.  `naf_pipeline.launches` counts its block
+    calls."""
+    from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import _ln_rows
+
+    b, hgt, wdt, c = x.shape
+    cpad, npix = kw["cpad"], b * hgt * wdt
+    dev, bf, f32 = x.device, torch.bfloat16, torch.float32
+    bg = kw["bg"]  # rows b3, beta, b5, gamma
+    ys = _ln_rows(lib, x, kw["ln1w"], kw["ln1b"], 0, stream, _EPS)[0]
+    hids = torch.empty((npix, 2 * cpad), dtype=bf, device=dev)
+    _check(lib.naf_gemm_bias(_ptr(ys), _ptr(kw["w1"]), _ptr(kw["b1i"]), None,
+                             None, _ptr(hids), npix, 2 * cpad, c, stream),
+           lib, "naf_gemm_bias")
+    del ys
+    nsplit = _naf_nsplit(lib, b, hgt, wdt, cpad // GATE_CHUNK, sms)
+    part = torch.empty((b, nsplit, cpad), dtype=f32, device=dev)
+    _check(lib.naf_gate_stencil(_ptr(hids), _ptr(kw["taps"]), _ptr(kw["dwb"]),
+                                None, None, _ptr(part), b, hgt, wdt, cpad,
+                                nsplit, 0, stream), lib, "naf_gate_stencil")
+    s = torch.empty((b, cpad), dtype=f32, device=dev)
+    _check(lib.naf_sca_glue(_ptr(part), _ptr(kw["sca_w"]), _ptr(kw["sca_b"]),
+                            _ptr(s), b, hgt * wdt, c, cpad, nsplit, stream),
+           lib, "naf_sca_glue")
+    del part
+    gs = torch.empty((npix, cpad), dtype=bf, device=dev)
+    _check(lib.naf_gate_stencil(_ptr(hids), _ptr(kw["taps"]), _ptr(kw["dwb"]),
+                                _ptr(s), _ptr(gs), None, b, hgt, wdt, cpad,
+                                nsplit, 1, stream), lib, "naf_gate_stencil")
+    del hids, s
+    y1 = torch.empty_like(x)
+    _check(lib.naf_gemm_bias(_ptr(gs), _ptr(kw["w3"]), _ptr(bg[0]),
+                             _ptr(bg[1]), _ptr(x), _ptr(y1), npix, c, cpad,
+                             stream), lib, "naf_gemm_bias")
+    del gs
+    zs = _ln_rows(lib, y1, kw["ln2w"], kw["ln2b"], 0, stream, _EPS)[0]
+    g2 = torch.empty((npix, cpad), dtype=bf, device=dev)
+    _check(lib.naf_gemm_gate(_ptr(zs), _ptr(kw["w4"]), _ptr(kw["b4i"]),
+                             _ptr(g2), npix, 2 * cpad, c, stream), lib,
+           "naf_gemm_gate")
+    del zs
+    out = torch.empty_like(x)
+    _check(lib.naf_gemm_bias(_ptr(g2), _ptr(kw["w5"]), _ptr(bg[2]),
+                             _ptr(bg[3]), _ptr(y1), _ptr(out), npix, c, cpad,
+                             stream), lib, "naf_gemm_bias")
+    naf_pipeline.launches += 1
+    return out
+
+
+naf_pipeline.launches = 0
+
+
+def _takes_naf_pipeline(x: torch.Tensor) -> bool:
+    """The forward's route rule: `naf_pipeline` takes a bfloat16 x whose C
+    is a multiple of 8 (it reads pixel rows through TMA, whose rows are
+    multiples of 16 bytes); float32 and any other bfloat16 width run
+    csrc/nafblock.cu's pair."""
+    return x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0
+
+
+def _kernel_library():
+    """The kernel library, after checking the gate chunk of both routes."""
+    from textualdegremoval_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    if lib.nafblock_gate_chunk() != GATE_CHUNK \
+            or lib.naf_gate_chunk() != GATE_CHUNK:
+        raise RuntimeError("nafblock_fused: gate chunk differs from the "
+                           "kernel")
+    return lib
+
+
+def _validate(x, kw):
+    """Raise on a CUDA input, or prepared weights, that the kernels do not
+    take."""
     if x.device.type != "cuda":
         raise ValueError(f"nafblock_fused: unsupported device {x.device}")
     if x.dim() != 4:
@@ -219,26 +326,28 @@ def _forward_kernel(x, kw):
             or kw["ln1w"].shape[0] != x.shape[-1]:
         raise ValueError("nafblock_fused: prepared weights do not match x")
 
-    from textualdegremoval_tpu_torch.ops._build import load_library
 
-    lib = load_library()
-    if lib.nafblock_gate_chunk() != GATE_CHUNK:
-        raise RuntimeError("nafblock_fused: gate chunk differs from the "
-                           "kernel")
-    b, hgt, wdt, c = x.shape
-    sum_tile, apply_tile = pick_tiles(lib, c, x.element_size())
-    ntiles = (-(-hgt // sum_tile[0])) * (-(-wdt // sum_tile[1]))
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    nsplit = max(1, min(ntiles, -(-2 * sms // b)))
-    out = _launch(lib, x, kw, sum_tile, apply_tile, nsplit,
-                  torch.cuda.current_stream(x.device).cuda_stream)
+def _forward_kernel(x, kw):
+    """Validated launch of the forward kernels on a CUDA tensor: the
+    pipeline or the pair, as `_takes_naf_pipeline` rules."""
+    _validate(x, kw)
+    lib = _kernel_library()
+    stream, sms = _card(x.device)
+    if _takes_naf_pipeline(x):
+        out = naf_pipeline(lib, x, kw, sms, stream)
+    else:
+        b, hgt, wdt, c = x.shape
+        sum_tile, apply_tile = pick_tiles(lib, c, x.element_size())
+        ntiles = (-(-hgt // sum_tile[0])) * (-(-wdt // sum_tile[1]))
+        nsplit = max(1, min(ntiles, -(-2 * sms // b)))
+        out = _launch(lib, x, kw, sum_tile, apply_tile, nsplit, stream)
     nafblock_fused.launches += 1
     return out
 
 
 class _NAFBlockFunction(torch.autograd.Function):
     """The block on CUDA (JAX `_fwd`/`_bwd` of the `custom_vjp`): the
-    forward is the kernel pair; the backward recomputes through
+    forward is the kernels (`_forward_kernel`); the backward recomputes through
     `nafblock_ref` one half at a time (the FFN half from y1 recomputed
     without a graph, then the conv half), so only one half's 2C-wide
     intermediates are alive at once.  Gradients come back in the natural
@@ -280,7 +389,8 @@ def nafblock_fused(x: torch.Tensor, p, kw: dict | None = None):
     required on CUDA (NAFBlock caches it per module).
 
     CPU tensors take `nafblock_ref`.  CUDA tensors launch the kernels at
-    every shape; any input they cannot take raises."""
+    every shape (the bf16 pipeline or csrc/nafblock.cu's pair, as
+    `_takes_naf_pipeline` rules); any input they cannot take raises."""
     if x.device.type == "cpu":
         return nafblock_ref(x, p)
     needs_grad = torch.is_grad_enabled() and (

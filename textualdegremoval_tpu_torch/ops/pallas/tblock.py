@@ -262,7 +262,7 @@ def tblock_pipeline(lib, x, kw, heads, ln_type, sms, stream,
     x's device and dropped as the block goes.  Returns what `_launch`
     returns.  `tblock_pipeline.launches` counts its block calls."""
     from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import (
-        _gemm, _ln_rows, _stencil_nsplit, _wgrad,
+        _EPS, _gemm, _ln_rows, _stencil_nsplit, _wgrad,
     )
 
     b, hgt, wdt, c = x.shape
@@ -270,7 +270,8 @@ def tblock_pipeline(lib, x, kw, heads, ln_type, sms, stream,
     npix = b * hw
     dev, bf, f32 = x.device, torch.bfloat16, torch.float32
     bias_free = int(ln_type == "BiasFree")
-    ys = _ln_rows(lib, x, kw["ln1w"], kw["ln1b"], bias_free, stream)[0]
+    ys = _ln_rows(lib, x, kw["ln1w"], kw["ln1b"], bias_free, stream,
+                  _EPS)[0]
     lins = _gemm(lib, ys, kw["wqkv"], bf, stream)
     del ys
     # q | k | v and the square sums: four 48 KB CTAs per SM
@@ -299,7 +300,8 @@ def tblock_pipeline(lib, x, kw, heads, ln_type, sms, stream,
                             _ptr(x), _ptr(o), _ptr(x1), b, hw, c, heads,
                             stream), lib, "fwd_attn_out")
     del qkv, attn, o
-    zs = _ln_rows(lib, x1, kw["ln2w"], kw["ln2b"], bias_free, stream)[0]
+    zs = _ln_rows(lib, x1, kw["ln2w"], kw["ln2b"], bias_free, stream,
+                  _EPS)[0]
     hids = _gemm(lib, zs, kw["w1"], bf, stream)
     del zs
     gates = torch.empty((npix, hpad), dtype=bf, device=dev)

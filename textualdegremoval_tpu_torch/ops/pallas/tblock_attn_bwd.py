@@ -34,8 +34,8 @@ from textualdegremoval_tpu_torch.ops.pallas.tblock import (
     _validate,
 )
 from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import (
-    _BWD_TILES, _check_bf16_width, _dgrad, _gemm, _half_bwd_ref, _ln_rows,
-    _ln_rows_bwd, _nsplit, _stencil_nsplit, _wgrad,
+    _BWD_TILES, _EPS, _check_bf16_width, _dgrad, _gemm, _half_bwd_ref,
+    _ln_rows, _ln_rows_bwd, _nsplit, _stencil_nsplit, _wgrad,
 )
 
 _ATTN_KEYS = ("norm1_w", "norm1_b", "qkv", "qkv_dw", "temperature", "proj")
@@ -85,7 +85,8 @@ def _launch_attn_apply_bf16(lib, x, dx1, kw, heads, ln_type, dos, attn, m,
     npix = b * hgt * wdt
     dev, f32 = x.device, torch.float32
     bias_free = int(ln_type == "BiasFree")
-    ys, mu, inv = _ln_rows(lib, x, kw["ln1w"], kw["ln1b"], bias_free, stream)
+    ys, mu, inv = _ln_rows(lib, x, kw["ln1w"], kw["ln1b"], bias_free, stream,
+                           _EPS)
     lins = _gemm(lib, ys, kw["wqkv"], x.dtype, stream)
     # q, k: four 48 KB CTAs per SM; dlin: two 82 KB CTAs per SM
     qk = torch.empty((npix, 2 * c), dtype=x.dtype, device=dev)

@@ -134,17 +134,18 @@ def _stencil_nsplit(lib, b, hgt, wdt, nbox, per_sm, sms):
     return max(1, min(items, 2 * per_sm * sms // b))
 
 
-def _ln_rows(lib, x, w, bias, bias_free, stream):
-    """LN of every pixel of x (bf16, csrc/bwd_stencil.cu): (y (npix, C),
-    mu (npix,), 1 / sqrt(var + eps) (npix,))."""
+def _ln_rows(lib, x, w, bias, bias_free, stream, eps=_EPS):
+    """LN of every pixel of x (bf16, csrc/bwd_stencil.cu) with epsilon eps
+    (Restormer's 1e-5 unless given): (y (npix, C), mu (npix,),
+    1 / sqrt(var + eps) (npix,))."""
     c = x.shape[-1]
     npix = x.numel() // c
     y = torch.empty((npix, c), dtype=x.dtype, device=x.device)
     mu, inv = (torch.empty(npix, dtype=torch.float32, device=x.device)
                for _ in range(2))
-    _check(lib.bwd_ln_rows(_ptr(x), _ptr(w), _ptr(bias), bias_free, _ptr(y),
-                           _ptr(mu), _ptr(inv), npix, c, stream), lib,
-           "bwd_ln_rows")
+    _check(lib.bwd_ln_rows(_ptr(x), _ptr(w), _ptr(bias), bias_free, eps,
+                           _ptr(y), _ptr(mu), _ptr(inv), npix, c, stream),
+           lib, "bwd_ln_rows")
     return y, mu, inv
 
 
@@ -193,7 +194,8 @@ def _launch_gdfn_bwd_bf16(lib, x1, dout, kw, ln_type, sms, stream):
     npix = b * hgt * wdt
     dev, bf, f32 = x1.device, torch.bfloat16, torch.float32
     bias_free = int(ln_type == "BiasFree")
-    zs, mu, inv = _ln_rows(lib, x1, kw["ln2w"], kw["ln2b"], bias_free, stream)
+    zs, mu, inv = _ln_rows(lib, x1, kw["ln2w"], kw["ln2b"], bias_free, stream,
+                           _EPS)
     hids = _gemm(lib, zs, kw["w1"], bf, stream)
     dgates = _gemm(lib, dout.view(npix, c), kw["w2t"], f32, stream)
     # one 174 KB CTA per SM

@@ -88,3 +88,34 @@ def time_ms(fn, device: torch.device, iters: int, repeats: int) -> float:
             ms = (time.perf_counter() - t0) * 1e3
         times.append(ms / iters)
     return statistics.median(times)
+
+
+def device_split(fn, reps: int = 3):
+    """[(kernel, device ms)] of one call of fn on the card, in launch order
+    (`torch.profiler`, the mean over `reps` calls after a warm-up one): the
+    port's kernels by name, torch's (glue, sums of partials) in a row as
+    one "torch" entry."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = sorted((e for e in prof.events() if e.device_type == cuda),
+                    key=lambda e: e.time_range.start)
+    per = len(events) // reps
+    rows = []
+    for i in range(per):
+        key = events[i].name.removeprefix("void ")
+        name = (key.removeprefix("(anonymous namespace)::").split("(")[0]
+                if key.startswith("(anonymous namespace)::") else "torch")
+        ms = sum(events[i + r * per].time_range.elapsed_us()
+                 for r in range(reps)) / reps / 1e3
+        if rows and rows[-1][0] == name == "torch":
+            rows[-1][1] += ms
+        else:
+            rows.append([name, ms])
+    return [(n, round(ms, 4)) for n, ms in rows]

@@ -51,7 +51,7 @@ from textualdegremoval_tpu_torch.models.layers import TransformerBlock
 from textualdegremoval_tpu_torch.ops import _build
 from textualdegremoval_tpu_torch.ops.pallas import tblock as tb
 from textualdegremoval_tpu_torch.tools._card import (
-    device_line, median_ms, time_ms,
+    device_line, device_split, median_ms, time_ms,
 )
 from textualdegremoval_tpu_torch.tools.bench_block_bwd import (
     CORE_RATE, EFF_BYTES, EFF_CORES, EFF_TC, PEAK_BF16, PEAK_BYTES, SMS,
@@ -260,38 +260,15 @@ def shape_rows(versions, order, shape, dev):
 
 def split(shape, reps=3):
     """[(kernel, device ms)] of one block call of this version at a shape,
-    in launch order (the mean over `reps` calls): the port's kernels by
-    name, torch's (the glue, the sums of partials) as "torch"."""
-    from torch.profiler import ProfilerActivity, profile
-
+    in launch order (`_card.py` `device_split`)."""
     b, h, w, c, heads, _ = shape
     p = {k: v.detach().cuda()
          for k, v in TransformerBlock(c, heads).block_params().items()}
     x = torch.randn(b, h, w, c, device="cuda", dtype=torch.bfloat16)
     kw = tb.prepare_tblock_weights(p, x.dtype, "WithBias")
     with torch.no_grad():
-        tb._forward_kernel(x, kw, heads, "WithBias")
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                tb._forward_kernel(x, kw, heads, "WithBias")
-            torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    events = sorted((e for e in prof.events() if e.device_type == cuda),
-                    key=lambda e: e.time_range.start)
-    per = len(events) // reps
-    rows = []
-    for i in range(per):
-        key = events[i].name.removeprefix("void ")
-        name = (key.removeprefix("(anonymous namespace)::").split("(")[0]
-                if key.startswith("(anonymous namespace)::") else "torch")
-        ms = sum(events[i + r * per].time_range.elapsed_us()
-                 for r in range(reps)) / reps / 1e3
-        if rows and rows[-1][0] == name == "torch":
-            rows[-1][1] += ms
-        else:
-            rows.append([name, ms])
-    return [(n, round(ms, 4)) for n, ms in rows]
+        return device_split(
+            lambda: tb._forward_kernel(x, kw, heads, "WithBias"), reps)
 
 
 def main(argv=None) -> int:
