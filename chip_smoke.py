@@ -11,7 +11,8 @@ Phases, each of which raises on failure:
    csrc/tblock.cu pair) and bfloat16 (every call through the pipeline
    `tblock_pipeline`, two calls bitwise equal), with weights at a trained
    block's scale (both halves of the block add O(1) to the residual) and
-   the median time of both (CUDA events);
+   the median time of both (CUDA events), and in bf16 the forward's gram
+   alone on csrc/wgrad.cu and as torch.matmul (the yardstick);
 4. the full-width restormer_deblur network (seeded random weights) on the
    card against the same network on the CPU, whose blocks take the plain
    path, on a small input in float32 (no pipeline call);
@@ -27,9 +28,13 @@ Phases, each of which raises on failure:
    parameter gradient, elementwise and in L2 against the plain gradient's
    norm, with both times and, in bf16 WithBias, each row's device time
    split by kernel (`torch.profiler`: the LN passes, the stencils, the
-   GEMM, pass 1, wgrad, the glue) and the time of the block's forward
-   (the pipeline) and of its plain version at that shape; and bwd_mode
-   'remat' against 'save';
+   GEMM, pass 1 by its profiler range, wgrad, the glue), each weight-
+   gradient product alone on csrc/wgrad.cu beside one torch.matmul(A^T,
+   B) on the same operands (the yardstick) and its bound, and the time of
+   the block's forward (the pipeline) and of its plain version at that
+   shape; the same in bf16 at PromptIR's noise width (C = 704, 176
+   channels per head, which float32 must refuse); and bwd_mode 'remat'
+   against 'save';
 7. the training main path: the training CLI's step function with the
    options of options/train_restoration/restormer_motion_deblur.yml
    (AdamW 2e-4 / ref 1e-4, wd 1e-4, clip 0.01, cosine restarts, L1) and
@@ -197,7 +202,10 @@ x1 without its residual), dv_uses_a and dq_drops_diag (phase 6, the
 attention half's per-head products),
 gdfn_dd_kept_outside (phase 6, the GDFN half's gate gradient kept outside
 the image), dgrad_wt_as_w (phase 6, the input-gradient product reading
-W^T as W), sca_skipped and halo_kept (phase 8, the NAFBlock pair, run in
+W^T as W), wgrad_last_step_skipped, wgrad_a_kmajor and pass1_v_from_lin
+(phase 6: the weight-gradient products skipping each split's last
+64-pixel step, or reading A with its transpose bit off; pass 1's v taken
+from lin, its stencil skipped), sca_skipped and halo_kept (phase 8, the NAFBlock pair, run in
 float32), naf_sca_unapplied, naf_sums_past_edge, naf_gate_pair_shifted
 and naf_scale_dropped (phase 8, the bf16 NAFBlock pipeline: the gate
 written without the SCA scale, the sums taking a ragged tile's pixels
@@ -336,8 +344,10 @@ def randomize_block(blk: TransformerBlock, gen: torch.Generator):
 def kernel_vs_plain(gen: torch.Generator, timed: bool = True,
                     shapes=SHAPES, dtypes=(torch.float32, torch.bfloat16)):
     """Phases 3 and 16.  Returns the bf16 WithBias rows at the main-path
-    shapes as (blocks per forward, max_abs, kernel ms, plain ms); untimed,
-    the ms are NaN.  Every bf16 call must run the pipeline
+    shapes as (blocks per forward, max_abs, kernel ms, plain ms, gram ms,
+    gram library ms): the last two the forward's gram alone on
+    csrc/wgrad.cu and one torch.matmul on the same operands (the
+    yardstick); untimed, the ms are NaN.  Every bf16 call must run the pipeline
     (`tblock_pipeline`, the route rule of tblock.py at these widths) and
     two calls must be bitwise equal; float32 runs csrc/tblock.cu's pair,
     whose tiles (pass A's, pass B's) are logged."""
@@ -376,11 +386,18 @@ def kernel_vs_plain(gen: torch.Generator, timed: bool = True,
                     added = (want - x.float()).norm().clamp_min(1e-30)
                     branch = (diff.norm() / added).item()
                     finite = bool(torch.isfinite(got).all())
-                    k_ms = p_ms = float("nan")
+                    k_ms = p_ms = g_ms = g_lib = float("nan")
                     if timed:
                         k_ms = median_ms(lambda: blk_d(x))
                         p_ms = median_ms(
                             lambda: tb.tblock_ref(x, params, heads, ln_type))
+                    if timed and pipeline and ln_type == "WithBias":
+                        with block_bwd_tool.captured_wgrad() as calls:
+                            blk_d(x)
+                        (gram,) = block_bwd_tool.product_rows(
+                            calls, ("gram",), torch.device("cuda"))
+                        g_ms, g_lib = gram["ms"], gram["library_ms"]
+                        del calls
                 name = str(dtype).split(".")[-1]
                 route = ("pipeline" if pipeline else
                          tb._block_tiles(_build.load_library(), x, heads)[:2])
@@ -393,7 +410,8 @@ def kernel_vs_plain(gen: torch.Generator, timed: bool = True,
                         or not routed or not same:
                     failures.append((b, h, w, c, heads, ln_type, name))
                 if dtype == torch.bfloat16 and ln_type == "WithBias" and nblk:
-                    main_rows.append((nblk, max_abs, k_ms, p_ms))
+                    main_rows.append((nblk, max_abs, k_ms, p_ms, g_ms,
+                                      g_lib))
                 del got, got_d, want
             blk.cpu().float()
     if failures:
@@ -566,6 +584,9 @@ def main_path(seed: int, task=TASK, kernel=tb.tblock_fused, blocks=52,
 # (B, H, W, C, heads, blocks of that shape in one 384 px batch-8 step of
 # restormer_motion_deblur), and a ragged shape with no block in the step
 TRAIN_SHAPES = block_bwd_tool.TRAIN_SHAPES
+# PromptIR's noise-block width in training (C = 704, 4 heads: 176 channels
+# a head), which only the bf16 attention backward takes
+NOISE_TRAIN_SHAPES = [(2, 64, 64, 704, 4, 0)]
 # gradient, kernel vs plain autograd on the same inputs: pass when
 # ||k - p|| <= GRAD_L2 ||p|| and |k - p| <= a max|p| + r |p| elementwise.
 # f32: sum order only (measured at most 8.5e-6, temperatures 8.5e-5).
@@ -584,8 +605,8 @@ GRAD_ELEM = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (1e-1, 1e-1)}
 FAULTS = {
     # the bf16 forward's o = v . A in place of v . A^T (A read MN-major:
     # the transpose bit of its product set)
-    "o_uses_a": ("bwd_gemm.cu", "run_gemm(vv, av, cph, 0, g, B, s)",
-                 "run_gemm(vv, av, cph, 1, g, B, s)", 3),
+    "o_uses_a": ("bwd_gemm.cu", "run_gemm(vv, av, cph, 0, g, B, stream)",
+                 "run_gemm(vv, av, cph, 1, g, B, stream)", 3),
     # the bf16 forward's gate stencil without h1's centre tap
     "gate_tap_dropped": (
         "fwd_stencil.cu", "d1 += w1[r][c] * t1[r * 3 + c];",
@@ -599,8 +620,23 @@ FAULTS = {
     "dv_uses_a": ("bwd_gemm.cu", "head_product(dos, C, attn, 1,",
                   "head_product(dos, C, attn, 0,", 6),
     # the norm-backward diagonal term q Dq dropped from dq
-    "dq_drops_diag": ("bwd_gemm.cu", "m, 0, qk, 0, dqd,",
+    "dq_drops_diag": ("bwd_gemm.cu", "m, 0, qkv, 0, dqd,",
                       "m, 0, nullptr, 0, dqd,", 6),
+    # the weight-gradient products (and the forward's gram) skip the last
+    # 64-pixel step of each split of the pixel axis
+    "wgrad_last_step_skipped": (
+        "wgrad.cu", "const int nk = k1 > k0 ? k1 - k0 : 0;",
+        "const int nk = k1 > k0 ? k1 - k0 - 1 : 0;", 6),
+    # the weight-gradient products read A with its transpose bit off: the
+    # MN-major tile (rows of pixels) taken as K-major
+    "wgrad_a_kmajor": ("wgrad.cu", "wgmma_ss<BN, 1, 1>(",
+                       "wgmma_ss<BN, 1, 0>(", 6),
+    # bf16 pass 1's v taken from lin (its depthwise stencil skipped) in the
+    # q | k | v stencil that pass 1 runs without square sums
+    "pass1_v_from_lin": (
+        "fwd_stencil.cu", "const float v = rnd<__nv_bfloat16>(a);",
+        "const float v = ssq == nullptr && col >= 2 * C ? at(1, px + 1) "
+        ": rnd<__nv_bfloat16>(a);", 6),
     # the GDFN half's dd kept at pixels outside the image: the gate
     # gradient there taken from the nearest pixel of the image instead of
     # the zeros that TMA fills in
@@ -707,16 +743,10 @@ def _grad_row(name, got, want, dtype):
     return diff.max().item(), float(use), float(l2), ok
 
 
-# the CUDA kernels of the two backward rows, by name, as phase 6 splits
-# their device time (the rest of a row's device time is its glue: torch's
-# sums of partials, the softmax backward, casts)
-BWD_KERNEL_GROUPS = (
-    ("LN passes", ("ln_rows_",)),
-    ("stencils", ("_stencil_kernel",)),
-    ("GEMM", ("bwd_gemm_kernel",)),
-    ("pass 1", ("attn_bwd_stats",)),
-    ("wgrad", ("wgrad_kernel",)),
-)
+# the CUDA kernels of the two backward rows by group, as phase 6 splits
+# their device time (`bench_block_bwd.KERNEL_GROUPS`: "pass 1" also every
+# kernel inside the bf16 pass 1's profiler range)
+BWD_KERNEL_GROUPS = block_bwd_tool.KERNEL_GROUPS
 # the CUDA kernels of the bf16 NAFBlock pipeline, as phases 8 and 10 split
 # a row's device time (the rest is torch's: none on this route)
 NAF_KERNEL_GROUPS = (
@@ -735,22 +765,8 @@ def split_by_group(fn, what: str, reps: int = 3,
     device time (`time_ms`: calls back to back behind a spin): the trace of
     a single call has come back short of some kernels, so a split whose
     total falls below 90% of the device time is marked incomplete."""
-    from torch.profiler import ProfilerActivity, profile
-
     dev_ms = time_ms(fn, torch.device("cuda"), reps, 1)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    groups = {name: 0.0 for name, _ in kernel_groups}
-    groups["glue"] = 0.0
-    for e in prof.key_averages():
-        if e.device_type != cuda:
-            continue
-        name = next((n for n, keys in kernel_groups
-                     if any(k in e.key for k in keys)), "glue")
-        groups[name] += e.self_device_time_total / 1e3 / reps
+    groups = block_bwd_tool.device_groups(fn, reps, kernel_groups)
     total = sum(groups.values())
     note = "" if total >= 0.9 * dev_ms else " (incomplete trace)"
     log(f"    {what} device ms: " + ", ".join(
@@ -761,12 +777,15 @@ def split_by_group(fn, what: str, reps: int = 3,
 def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True):
     """Phase 6.  Returns the bf16 WithBias rows at the training shapes as
     (blocks per step, max L2, gdfn max_abs, attn max_abs, gdfn ms, attn ms,
-    gdfn plain ms, attn plain ms, forward ms, forward plain ms, shape),
-    and raises after printing if any row fails.  The forward (x1 and the
-    statistics the halves start from) is the kernels' own, the bf16
-    pipeline at these widths, and is timed beside them.  Timed, it also
-    splits each bf16 WithBias row's device time by kernel
-    (`split_by_group`)."""
+    gdfn plain ms, attn plain ms, forward ms, forward plain ms, shape,
+    gdfn wgrad ms, gdfn wgrad library ms, attn wgrad ms, attn wgrad
+    library ms), and raises after printing if any row fails.  The forward
+    (x1 and the statistics the halves start from) is the kernels' own, the
+    bf16 pipeline at these widths, and is timed beside them.  Timed, it
+    also splits each bf16 WithBias row's device time by kernel
+    (`split_by_group`) and times each half's weight-gradient products
+    alone on csrc/wgrad.cu and as one torch.matmul(A^T, B) each on the
+    same operands (the yardstick, never called by the port)."""
     dtypes = dtypes or (torch.float32, torch.bfloat16)
     log(f"backward kernels vs plain autograd: ||k-p|| <= l2 ||p|| and "
         f"|k-p| <= a max|p| + r |p|; f32 l2 {GRAD_L2[torch.float32]} a/r "
@@ -831,6 +850,7 @@ def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True):
                 bad = [k for k, v in stats_row.items() if not v[3]]
                 if bad:
                     failures.append((b, h, w, c, heads, ln_type, name, bad))
+                wg = [float("nan")] * 4
                 if timed and dtype == torch.bfloat16 \
                         and ln_type == "WithBias":
                     split_by_group(lambda: gb.gdfn_half_bwd(
@@ -838,6 +858,26 @@ def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True):
                     split_by_group(lambda: ab.attn_half_bwd(
                         x, dx1, p, heads, ln_type, stats, kw),
                         "attn_half_bwd")
+                    wg = []
+                    for half, names, fn in (
+                            ("gdfn_half_bwd", ("dW1", "dW2"),
+                             lambda: gb.gdfn_half_bwd(x1, g, p, ln_type, kw)),
+                            ("attn_half_bwd", ("dA", "dWproj", "dWqkv"),
+                             lambda: ab.attn_half_bwd(
+                                 x, dx1, p, heads, ln_type, stats, kw))):
+                        with block_bwd_tool.captured_wgrad() as calls:
+                            fn()
+                        prods = block_bwd_tool.product_rows(
+                            calls, names, torch.device("cuda"))
+                        del calls
+                        log(f"    {half} weight gradients (wgrad.cu / "
+                            f"torch.matmul / bound ms): " + ", ".join(
+                                f"{r['product']} {r['m']}x{r['n']}"
+                                f"x{r['batches']} {r['ms']:.4f} / "
+                                f"{r['library_ms']:.4f} / "
+                                f"{r['bound_ms']:.4f}" for r in prods))
+                        wg += [sum(r["ms"] for r in prods),
+                               sum(r["library_ms"] for r in prods)]
                 if dtype == torch.bfloat16 and ln_type == "WithBias" \
                         and nblk:
                     half = {k: k == "dx1" or k.startswith(("gd_", "norm2"))
@@ -845,13 +885,35 @@ def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True):
                     rows.append((nblk, worst, *(
                         max(v[0] for k, v in stats_row.items()
                             if half[k] == gdfn) for gdfn in (True, False)),
-                        *t, (b, h, w, c, heads)))
+                        *t, (b, h, w, c, heads), *wg))
                 del x, g, x1, dx1, dx, gg, ga, kw
                 torch.cuda.empty_cache()
     if failures:
         raise RuntimeError(f"backward kernels disagree with plain at "
                            f"{failures}")
     return rows
+
+
+def float32_refuses_wide_heads(gen):
+    """Phase 6: the float32 attention backward holds a head's channels in
+    shared memory (at most 96); at PromptIR's 176 it must refuse, not
+    run."""
+    b, h, w, c, heads, _ = NOISE_TRAIN_SHAPES[0]
+    blk = TransformerBlock(c, heads)
+    randomize_block(blk, gen)
+    p = {k: v.detach().cuda() for k, v in blk.block_params().items()}
+    x = torch.randn(1, 16, 16, c, generator=gen).cuda()
+    kw = tb.prepare_tblock_weights(p, torch.float32, "WithBias")
+    with torch.no_grad():
+        _, _, stats = tb._forward_kernel(x, kw, heads, "WithBias",
+                                         want_x1=True)
+    try:
+        ab.attn_half_bwd(x, x, p, heads, "WithBias", stats, kw)
+    except ValueError as e:
+        log(f"float32 attn_half_bwd at {c // heads} channels per head "
+            f"refused: {e}")
+        return
+    raise RuntimeError("float32 attn_half_bwd ran at 176 channels per head")
 
 
 def remat_vs_save(gen):
@@ -2867,6 +2929,8 @@ def main(argv=None) -> int:
     eval_launches, _, _, (eval_pipeline,) = main_path(
         args.seed, more=((tb.tblock_pipeline, 52),))
     bwd_rows = backward_vs_plain(gen)
+    backward_vs_plain(gen, NOISE_TRAIN_SHAPES, dtypes=(torch.bfloat16,))
+    float32_refuses_wide_heads(gen)
     remat_vs_save(gen)
     launches, step_ms, plain_step_ms, peak, _ = train_main_path(args.seed)
     train_step_vs_cpu(args.seed)
@@ -2937,8 +3001,8 @@ def main(argv=None) -> int:
 
     noise_rows = kernel_vs_plain(gen, shapes=NOISE_SHAPES)
     log(f"tblock_fused at PromptIR's noise blocks (bf16, 512 px forward): "
-        f"kernel {sum(n * k for n, _, k, _ in noise_rows):.3f} ms, plain "
-        f"{sum(n * p for n, _, _, p in noise_rows):.3f} ms")
+        f"kernel {sum(r[0] * r[2] for r in noise_rows):.3f} ms, plain "
+        f"{sum(r[0] * r[3] for r in noise_rows):.3f} ms")
     chain_rows = chain_vs_plain(gen)
     chain_grad_vs_autograd(gen)
     (pir_launches, pir_ms, _, _), (pir_chain_launches, pir_chain_ms,
@@ -3018,17 +3082,23 @@ def main(argv=None) -> int:
          "launches": launches[0], "pipeline_launches": launches[3],
          "eval_launches": eval_launches,
          "max_abs_err": max(r[1] for r in rows),
-         "ms": sum(n * k for n, _, k, _ in rows),
-         "plain_ms": sum(n * p for n, _, _, p in rows),
-         "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None,
+         "ms": sum(r[0] * r[2] for r in rows),
+         "plain_ms": sum(r[0] * r[3] for r in rows),
+         "bound_ms": fwd_bound, "bound_by": fwd_by,
+         "library_ms": sum(r[0] * r[5] for r in rows),
+         "library_of": "the gram: torch.matmul(q_h^T, k_h) per (image, "
+                       "head) on the pipeline's q | k | v",
+         "wgrad_ms": sum(r[0] * r[4] for r in rows),
          "step_ms": sum(r[0] * r[8] for r in bwd_rows),
          "step_plain_ms": sum(r[0] * r[9] for r in bwd_rows),
          "step_bound_ms": step_bound, "step_bound_by": step_by,
          "noise_ms_per_launch": [r[2] for r in noise_rows],
          "noise_plain_ms_per_launch": [r[3] for r in noise_rows]},
         # per 384 px batch-8 step (bf16: the passes of bwd_stencil.cu and
-        # the products of bwd_gemm.cu, then wgrad.cu; "sources" names every
-        # source the row runs)
+        # fwd_stencil.cu, the products of bwd_gemm.cu, then wgrad.cu;
+        # "sources" names every source the row runs; library_ms: one
+        # torch.matmul per weight-gradient product on its operands, beside
+        # wgrad_ms, wgrad.cu's time on the same products)
         {"name": "gdfn_half_bwd", "route": "cuda",
          "source": src + "bwd_stencil.cu",
          "sources": [src + f for f in ("bwd_stencil.cu", "bwd_gemm.cu",
@@ -3041,13 +3111,18 @@ def main(argv=None) -> int:
          "max_abs_err": max(r[2] for r in bwd_rows),
          "ms": sum(r[0] * r[4] for r in bwd_rows),
          "plain_ms": sum(r[0] * r[6] for r in bwd_rows),
-         "bound_ms": g_bound, "bound_by": g_by, "library_ms": None},
+         "bound_ms": g_bound, "bound_by": g_by,
+         "library_ms": sum(r[0] * r[12] for r in bwd_rows),
+         "library_of": "its weight gradients dW1, dW2: torch.matmul(A^T, B) "
+                       "on the same operands",
+         "wgrad_ms": sum(r[0] * r[11] for r in bwd_rows)},
         {"name": "attn_half_bwd", "route": "cuda",
          "source": src + "bwd_stencil.cu",
-         "sources": [src + f for f in ("tblock_attn_bwd.cu",
-                                       "bwd_stencil.cu", "bwd_gemm.cu",
-                                       "wgrad.cu", "tma_maps.cuh",
-                                       "hopper.cuh", "tblock_common.cuh")],
+         "sources": [src + f for f in ("bwd_stencil.cu", "fwd_stencil.cu",
+                                       "bwd_gemm.cu", "wgrad.cu",
+                                       "halo_tiles.cuh", "tma_maps.cuh",
+                                       "hopper.cuh", "tblock_common.cuh",
+                                       "tblock_attn_bwd.cu")],
          "replaces": "textualdegremoval_tpu/ops/pallas/tblock_attn_bwd.py:312 "
                      "(attn_half_bwd; _make_attn_bwd_stats_kernel :112, call "
                      ":365; _make_attn_bwd_apply_kernel :168, call :382)",
@@ -3055,7 +3130,11 @@ def main(argv=None) -> int:
          "max_abs_err": max(r[3] for r in bwd_rows),
          "ms": sum(r[0] * r[5] for r in bwd_rows),
          "plain_ms": sum(r[0] * r[7] for r in bwd_rows),
-         "bound_ms": a_bound, "bound_by": a_by, "library_ms": None},
+         "bound_ms": a_bound, "bound_by": a_by,
+         "library_ms": sum(r[0] * r[14] for r in bwd_rows),
+         "library_of": "its weight gradients dA, dWproj, dWqkv: "
+                       "torch.matmul(A^T, B) on the same operands",
+         "wgrad_ms": sum(r[0] * r[13] for r in bwd_rows)},
         # per 512 px nafnet_deblur forward (bf16: the pipeline of
         # naf_stencil.cu, bwd_gemm.cu's NAFBlock epilogues and
         # bwd_stencil.cu's LN rows; float32 and other bf16 widths run

@@ -285,11 +285,13 @@ inline float shim_operand(const ShimDesc& s, int mn, int k, bool mn_major) {
 }
 
 // wgmma.mma_async m64nNk16 (bf16 in, f32 sums) for the calling thread's
-// accumulator entries; A from the descriptor da (K-major) or, where a is
-// given, from the registers of the thread's warp (m16n8k16 A layout).
+// accumulator entries; A from the descriptor da (K-major, or MN-major
+// where trans_a is set) or, where a is given, from the registers of the
+// thread's warp (m16n8k16 A layout).
 template <int N>
 inline void host_wgmma(float (&d)[N / 2], const uint32_t* a, uint64_t da,
-                       uint64_t db, int scale_d, int trans_b) {
+                       uint64_t db, int scale_d, int trans_b,
+                       int trans_a = 0) {
   const int t = threadIdx.x, w = (t % 128) / 32, lane = t % 32;
   const int g = lane >> 2, tig = lane & 3;
   float arow[2][16];
@@ -307,7 +309,8 @@ inline void host_wgmma(float (&d)[N / 2], const uint32_t* a, uint64_t da,
     const ShimDesc sa = shim_decode(da);
     for (int h = 0; h < 2; ++h)
       for (int k = 0; k < 16; ++k)
-        arow[h][k] = shim_operand(sa, 16 * w + g + 8 * h, k, false);
+        arow[h][k] = shim_operand(sa, 16 * w + g + 8 * h, k,
+                                  trans_a != 0);
   }
   const ShimDesc sb = shim_decode(db);
   for (int j = 0; j < N / 8; ++j)

@@ -1,7 +1,8 @@
 """The host shim's Hopper primitives (tests/cuda_host_shim.h running
 textualdegremoval_tpu_torch/csrc/hopper.cuh on the CPU), against plain
 torch: a warpgroup product (wgmma) fed by TMA tile loads in each form the
-flash kernels use, and one TMA box against the 128-byte swizzle formula.
+flash kernels and the weight-gradient products use, and one TMA box against
+the 128-byte swizzle formula.
 The bf16 flash kernels' host tests (test_torch_flash_attn*.py) rest on
 these: the shim must read operands as the card does, or a host test would
 pass a kernel that the card runs wrong."""
@@ -34,7 +35,7 @@ def shim(tmp_path_factory):
     assert res.returncode == 0, res.stderr
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.hopper_product.argtypes = [p, p, p, i, i, i, i]
+    lib.hopper_product.argtypes = [p, p, p, i, i, i, i, i]
     lib.hopper_box.argtypes = [p, i, i, i, i, p]
     return lib
 
@@ -63,8 +64,28 @@ def test_wgmma_matches_matmul(shim, rs, mn_major, d):
     c = torch.empty(64, n)
     assert shim.hopper_product(_bits(a).data_ptr(), _bits(b).data_ptr(),
                                c.data_ptr(), n, k, int(mn_major),
-                               int(rs)) == 0
+                               int(rs), 0) == 0
     want = a.double() @ (b.double() if mn_major else b.double().T)
+    # bf16 products are exact in f32; the sums differ in order only
+    torch.testing.assert_close(c.double(), want, atol=1e-4, rtol=1e-5)
+
+
+# A MN-major (the transpose bit of A: rows of K holding 64 M values), as
+# the weight-gradient products read both operands (csrc/wgrad.cu: K is the
+# pixel axis of both), alone and with B MN-major, at each wgmma width those
+# products take
+@pytest.mark.parametrize("b_mn_major", [False, True],
+                         ids=["b_kmajor", "b_mnmajor"])
+@pytest.mark.parametrize("n,k", [(64, 128), (128, 64), (256, 64)])
+def test_wgmma_mn_major_a_matches_matmul(shim, b_mn_major, n, k):
+    rng = np.random.default_rng(n + k + b_mn_major)
+    at = _bf16(rng, k, 64)  # A^T: (K, 64)
+    b = _bf16(rng, k, n) if b_mn_major else _bf16(rng, n, k)
+    c = torch.empty(64, n)
+    assert shim.hopper_product(_bits(at).data_ptr(), _bits(b).data_ptr(),
+                               c.data_ptr(), n, k, int(b_mn_major), 0,
+                               1) == 0
+    want = at.double().T @ (b.double() if b_mn_major else b.double().T)
     # bf16 products are exact in f32; the sums differ in order only
     torch.testing.assert_close(c.double(), want, atol=1e-4, rtol=1e-5)
 

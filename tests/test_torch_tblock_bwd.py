@@ -16,12 +16,21 @@ Chain of custody on the CPU, f32 unless noted:
   path's parts alone: its GEMM against torch.matmul, its LayerNorm passes
   against `_ln_fwd_rows` / `_ln_bwd_rows`, and a TMA halo box against a
   zero-padded slice;
+* the bf16 attention half with its pass 1 made of the shared passes
+  (csrc/bwd_stencil.cu's LN rows, the lin product, csrc/fwd_stencil.cu's
+  q | k | v stencil with its square sums off, o per head and do) against
+  JAX `attn_half_bwd` run op by op in bf16 (dA's block diagonal, dWproj,
+  dx, every gradient), at 176 channels per head against plain autograd
+  (float32 refuses it), and the pass-1 stencil bitwise against the plain
+  stencil summed in the kernel's order;
 * the autograd Function of `tblock_fused` driven by the host build: both
   bwd_modes against autograd of the plain block, and 'remat' against
   'save';
 * a differentiable input always gives an output with a grad_fn.
 The on-card checks are in tests/test_torch_tblock_bwd_cuda.py.
 """
+
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -49,6 +58,7 @@ from torch_port_util import randn, t, assert_close, build_host_library
 # every op), so they differ by a few bf16 ulps (2^-7 relative); bounded in
 # L2 relative to the plain gradient's norm
 BF16_REL_L2 = 3e-2
+BF = torch.bfloat16
 
 
 def _rel_l2(got, want):
@@ -237,19 +247,20 @@ def test_bwd_gemm_on_host_matches_matmul(host_lib, m, n, k):
 
     bsz, hw, heads, cph = 2, m, 2, 16
     c = heads * cph
-    qk = t(randn(rng, bsz * hw, 2 * c)).to(bf)
+    qkv = t(randn(rng, bsz * hw, 3 * c)).to(bf)  # pass 1's q | k | v
     dos = t(randn(rng, bsz * hw, c)).to(bf)
     mm, attn = (t(randn(rng, bsz, heads, cph, cph)).to(bf) for _ in range(2))
     dqd, dkd = t(randn(rng, bsz, c)), t(randn(rng, bsz, c))
     dth = torch.empty(bsz * hw, 3 * c)
     assert host_lib.bwd_head_products(
-        gb._ptr(qk), gb._ptr(dos), gb._ptr(mm), gb._ptr(attn), gb._ptr(dqd),
+        gb._ptr(qkv), gb._ptr(dos), gb._ptr(mm), gb._ptr(attn), gb._ptr(dqd),
         gb._ptr(dkd), gb._ptr(dth), bsz, hw, c, heads, None) == 0
 
     def heads_of(x):  # (B HW, C) -> (B, heads, HW, cph)
         return x.float().reshape(bsz, hw, heads, cph).transpose(1, 2)
 
-    q, kk, do = heads_of(qk[:, :c]), heads_of(qk[:, c:]), heads_of(dos)
+    q, kk, do = (heads_of(qkv[:, :c]), heads_of(qkv[:, c:2 * c]),
+                 heads_of(dos))
     diag = lambda v: v.reshape(bsz, heads, 1, cph)  # noqa: E731
     want = torch.cat([
         kk @ mm.float().transpose(-1, -2) + q * diag(dqd),
@@ -293,27 +304,32 @@ def test_bwd_ln_rows_on_host_match_reference(host_lib, ln_type):
 
 @pytest.mark.parametrize("tap", [0, 2, 4, 6, 8])
 def test_tma_halo_box_on_host_is_zero_padded_slice(host_lib, tap):
-    """A halo tile of bwd_stencil.cu arrives as one TMA box with zeros
-    outside the image: the q | k stencil with one tap set to 1 is the input
-    shifted by that tap's offset, zero-padded (C = 48: a 64-wide column box
-    spans the q and k thirds; ragged 8 x 16 tiles in both directions)."""
+    """A halo tile of the stencils arrives as one TMA box with zeros
+    outside the image: pass 1's q | k | v stencil (fwd_stencil.cu with its
+    square sums off) with one tap set to 1 is the input shifted by that
+    tap's offset, zero-padded (C = 48: a 64-wide column box spans two
+    thirds; ragged 8 x 16 tiles in both directions)."""
     rng = np.random.default_rng(tap)
     bsz, hgt, wdt, c = 2, 11, 21, 48
     lins = t(randn(rng, bsz, hgt, wdt, 3 * c)).to(torch.bfloat16)
     dwall = torch.zeros(27, c)
-    dwall[tap] = 1.0          # the q third's tap
-    dwall[9 + 8 - tap] = 1.0  # the k third's, mirrored
-    qk = torch.empty(bsz, hgt, wdt, 2 * c, dtype=torch.bfloat16)
-    assert host_lib.bwd_qk_stencil(gb._ptr(lins), gb._ptr(dwall), gb._ptr(qk),
-                                   bsz, hgt, wdt, c, 3, None) == 0
-    pad = torch.nn.functional.pad(lins[..., :2 * c], (0, 0, 1, 1, 1, 1))
+    dwall[tap] = 1.0           # the q third's tap
+    dwall[9 + 8 - tap] = 1.0   # the k third's, mirrored
+    dwall[18 + (tap + 1) % 9] = 1.0  # the v third's, one on
+    qkv = torch.empty(bsz, hgt, wdt, 3 * c, dtype=torch.bfloat16)
+    assert host_lib.fwd_qkv_stencil(gb._ptr(lins), gb._ptr(dwall),
+                                    gb._ptr(qkv), None, bsz, hgt, wdt, c, 3,
+                                    None) == 0
+    pad = torch.nn.functional.pad(lins, (0, 0, 1, 1, 1, 1))
 
     def shifted(tp, sl):
         dy, dx = divmod(tp, 3)
         return pad[:, dy:dy + hgt, dx:dx + wdt, sl]
 
-    assert torch.equal(qk[..., :c], shifted(tap, slice(0, c)))
-    assert torch.equal(qk[..., c:], shifted(8 - tap, slice(c, 2 * c)))
+    assert torch.equal(qkv[..., :c], shifted(tap, slice(0, c)))
+    assert torch.equal(qkv[..., c:2 * c], shifted(8 - tap, slice(c, 2 * c)))
+    assert torch.equal(qkv[..., 2 * c:],
+                       shifted((tap + 1) % 9, slice(2 * c, 3 * c)))
 
 
 def _host_function(monkeypatch, lib, tile, nsplit):
@@ -387,3 +403,146 @@ def test_cuda_backward_refuses_what_it_cannot_take():
         gb.gdfn_half_bwd(x.to("meta"), x.to("meta"), p, "WithBias", None)
     with pytest.raises(ValueError, match="unsupported device"):
         ab.attn_half_bwd(x.to("meta"), x.to("meta"), p, 2, "WithBias")
+
+
+# ---------------------------------------------------------------------------
+# bf16 pass 1 (the passes laid out at the top of csrc/bwd_stencil.cu)
+# ---------------------------------------------------------------------------
+
+# the bf16 attention half on the host build against the JAX kernels run op
+# by op in bf16: both round at JAX pass 1's points (y, lin, v, o, do) and
+# pass 2's, and differ only in the order of f32 sums, so a bf16 value may
+# flip by one ulp; L2 against each gradient's norm (measured at most
+# 9.8e-5, dx at the BiasFree shape; every other reading below 7e-7)
+JAX_BF16_REL_L2 = 1e-3
+
+
+def _pass1_capture(monkeypatch, module):
+    """Record the dA that `module`'s attention backward hands its glue."""
+    seen = []
+    real = module._attn_bwd_glue
+
+    def glue(da, *rest):
+        seen.append(da)
+        return real(da, *rest)
+
+    monkeypatch.setattr(module, "_attn_bwd_glue", glue)
+    return seen
+
+
+def _per_head_stats(stats, heads):
+    """JAX's (B, C, C) gram and (B, 1, C) square sums -> the port's
+    (B, heads, cph, cph) diagonal blocks and (B, C) sums."""
+    gram, qs, ks = (t(np.asarray(s)) for s in stats)
+    b, c = gram.shape[0], gram.shape[1]
+    cph = c // heads
+    diag = torch.stack([gram[:, h * cph:(h + 1) * cph, h * cph:(h + 1) * cph]
+                        for h in range(heads)], 1)
+    return diag.contiguous(), qs[:, 0].contiguous(), ks[:, 0].contiguous()
+
+
+@pytest.mark.parametrize("shape,heads,tile,ln_type", [
+    ((1, 8, 16, 16), 2, 4, "WithBias"),
+    ((2, 6, 8, 16), 1, 3, "BiasFree"),
+])
+def test_bf16_attn_bwd_on_host_matches_jax_kernels(host_lib, monkeypatch,
+                                                   shape, heads, tile,
+                                                   ln_type):
+    """The bf16 attention half (pass 1 as LN rows, the lin product, the
+    q | k | v stencil, o per head and do; pass 2 on what pass 1 kept)
+    against JAX `attn_half_bwd` with its two Pallas kernels run op by op
+    in bf16: the block diagonal of JAX's (B, C, C) dA against the port's
+    per-head dA, dWproj, dx and every parameter gradient."""
+    from test_torch_tblock_fwd import _eager_pallas_call
+    import textualdegremoval_tpu.ops.pallas.tblock_attn_bwd as jab
+
+    rng = np.random.default_rng(shape[1] + heads)
+    p = _params(shape[-1], heads, ln_type, seed=shape[1] + heads)
+    x = randn(rng, *shape)
+    dx1 = randn(rng, *shape)
+    stats = _jax_stats(x, p, heads, ln_type)
+    j_da = _pass1_capture(monkeypatch, jab)
+    with mock.patch.object(jtb.pl, "pallas_call", _eager_pallas_call):
+        want_dx, want = jab.attn_half_bwd(
+            jnp.asarray(x, jnp.bfloat16), jnp.asarray(dx1, jnp.bfloat16), p,
+            heads, ln_type, tuple(jnp.asarray(s) for s in stats), tile)
+    pt = _torch_params(p)
+    kw = tb.prepare_tblock_weights(pt, BF, ln_type)
+    p_da = _pass1_capture(monkeypatch, ab)
+    got_dx, *r = ab._launch_attn_bwd(
+        host_lib, t(x).to(BF), t(dx1).to(BF), kw, heads, ln_type,
+        _per_head_stats(stats, heads), None, None, None, 2, 0)
+    got = ab._natural_attn_grads(pt, *r, ln_type)
+
+    b, c = shape[0], shape[-1]
+    cph = c // heads
+    jda = t(np.asarray(j_da[0], np.float32))
+    want_da = torch.stack([jda[:, h * cph:(h + 1) * cph,
+                               h * cph:(h + 1) * cph]
+                           for h in range(heads)], 1)
+    assert _rel_l2(p_da[0], want_da) < JAX_BF16_REL_L2
+    assert _rel_l2(got_dx, t(np.asarray(want_dx, np.float32))) \
+        < JAX_BF16_REL_L2
+    assert set(got) == set(want)
+    for k in want:  # proj (dWproj) among them
+        assert _rel_l2(got[k], t(np.asarray(want[k], np.float32))) \
+            < JAX_BF16_REL_L2, k
+
+
+def test_bf16_attn_bwd_on_host_takes_176_channels_per_head(host_lib,
+                                                           monkeypatch):
+    """PromptIR's noise blocks have 176 channels per head: the bf16 half
+    (forward statistics from the pipeline) runs there and matches plain
+    autograd; float32, whose passes hold a head in shared memory, still
+    refuses it."""
+    shape, heads, ln_type = (1, 8, 8, 176), 1, "WithBias"
+    p, x, g = _inputs(shape, heads, ln_type, BF, seed=9)
+    kw = tb.prepare_tblock_weights(p, BF, ln_type)
+    _, x1, stats = tb.tblock_pipeline(host_lib, x, kw, heads, ln_type, 2, 0,
+                                      want_x1=True)
+    dx, *r = ab._launch_attn_bwd(host_lib, x, x1, kw, heads, ln_type, stats,
+                                 None, None, None, 2, 0)
+    got = {"dx": dx, **ab._natural_attn_grads(p, *r, ln_type)}
+    want_dx, want_g = ab.attn_half_bwd_ref(x, x1, p, heads, ln_type)
+    want = {"dx": want_dx, **want_g}
+    assert set(got) == set(want)
+    for k in want:
+        assert _rel_l2(got[k], want[k]) < BF16_REL_L2, k
+
+    import textualdegremoval_tpu_torch.ops._build as build
+    x32 = x.float().to("meta")  # not a CPU tensor: the kernels' route
+    kw32 = tb.prepare_tblock_weights(p, torch.float32, ln_type)
+    monkeypatch.setattr(ab, "_validate", lambda *a: None)
+    monkeypatch.setattr(ab, "_check_weights", lambda *a: None)
+    monkeypatch.setattr(build, "load_library", lambda: host_lib)
+    with pytest.raises(ValueError, match="176 channels per head exceeds 96"):
+        ab.attn_half_bwd(x32, x32, p, heads, ln_type, stats, kw32)
+
+
+@pytest.mark.parametrize("shape", [(2, 11, 21, 48), (1, 9, 17, 96)])
+def test_pass1_stencil_on_host_is_the_plain_stencil_bitwise(host_lib, shape):
+    """Pass 1's q | k | v (fwd_stencil.cu with its square sums off) is
+    bitwise the forward's (square sums on), and each value is the f32 sum
+    of the nine taps in the kernel's order (rows, then columns) over the
+    zero-padded bf16 lin, rounded once: the q and k that pass 2 read
+    from it are bit for bit those its own stencil computed before."""
+    rng = np.random.default_rng(shape[-1])
+    bsz, hgt, wdt, c = shape
+    lins = t(randn(rng, bsz, hgt, wdt, 3 * c)).to(BF)
+    dwall = t(randn(rng, 27, c, scale=1 / 3))
+    qkv, fwd = (torch.empty(bsz, hgt, wdt, 3 * c, dtype=BF) for _ in range(2))
+    part = torch.empty(bsz, 3, 2 * c)
+    assert host_lib.fwd_qkv_stencil(gb._ptr(lins), gb._ptr(dwall),
+                                    gb._ptr(qkv), None, bsz, hgt, wdt, c, 3,
+                                    None) == 0
+    assert host_lib.fwd_qkv_stencil(gb._ptr(lins), gb._ptr(dwall),
+                                    gb._ptr(fwd), gb._ptr(part), bsz, hgt,
+                                    wdt, c, 3, None) == 0
+    assert torch.equal(qkv, fwd)
+    pad = torch.nn.functional.pad(lins.float(), (0, 0, 1, 1, 1, 1))
+    taps = torch.cat([dwall[0:9], dwall[9:18], dwall[18:27]], 1)  # (9, 3C)
+    acc = torch.zeros(bsz, hgt, wdt, 3 * c)
+    for r in range(3):
+        for col in range(3):
+            acc = acc + pad[:, r:r + hgt, col:col + wdt] * taps[3 * r + col]
+    assert torch.equal(qkv, acc.to(BF))

@@ -16,6 +16,7 @@ import textualdegremoval_tpu_torch.ops.pallas.tblock_bwd as gb
 from textualdegremoval_tpu_torch.losses import l1_loss
 from textualdegremoval_tpu_torch.models.layers import TransformerBlock
 from textualdegremoval_tpu_torch.models.restormer import RestormerRefFusion
+from textualdegremoval_tpu_torch.tools.bench_block_bwd import TRAIN_SHAPES
 
 # kernel vs plain autograd: ||k - p|| <= bound ||p|| per gradient, the
 # bounds of chip_smoke.py phase 6 and the reasons given there
@@ -88,6 +89,43 @@ def test_weight_gradients_are_bitwise_repeatable(dtype):
     b = _kernel_grads(p, x, g, x1, stats, kw, 2, "WithBias")
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,heads", [
+    *((s[:4], s[4]) for s in TRAIN_SHAPES),
+    ((2, 64, 64, 704), 4),  # PromptIR's noise blocks: 176 channels a head
+])
+def test_bf16_backward_at_training_shapes(shape, heads):
+    """bf16 at every block shape of the 384 px batch-8 step and at 176
+    channels per head (pass 1 as the shared passes, the weight gradients
+    on the TMA + wgmma products): every gradient within phase 6's bound
+    of plain autograd, and a second call bitwise equal."""
+    _cuda()
+    p, x, g, x1, stats, kw = _setup(shape, heads, "WithBias", torch.bfloat16,
+                                    3)
+    got = _kernel_grads(p, x, g, x1, stats, kw, heads, "WithBias")
+    again = _kernel_grads(p, x, g, x1, stats, kw, heads, "WithBias")
+    want_dx1, want_gg = gb.gdfn_half_bwd_ref(x1, g, p, "WithBias")
+    want_dx, want_ga = ab.attn_half_bwd_ref(x, got["dx1"], p, heads,
+                                            "WithBias")
+    want = {"dx1": want_dx1, "dx": want_dx, **want_gg, **want_ga}
+    for k, w in want.items():
+        err = (got[k].float() - w.float()).norm() / w.float().norm()
+        assert torch.isfinite(got[k]).all(), k
+        assert err <= grad_l2_bound(k, torch.bfloat16), (k, err)
+        assert torch.equal(got[k], again[k]), k
+
+
+@pytest.mark.cuda
+def test_float32_attention_backward_refuses_176_channels_per_head():
+    """The float32 passes hold a head's channels in shared memory (at most
+    96): 176 is refused with a message, not run."""
+    _cuda()
+    p, x, g, x1, stats, kw = _setup((1, 16, 16, 704), 4, "WithBias",
+                                    torch.float32, 4)
+    with pytest.raises(ValueError, match="exceeds 96 in float32"):
+        ab.attn_half_bwd(x, g, p, 4, "WithBias", stats, kw)
 
 
 @pytest.mark.cuda

@@ -16,6 +16,9 @@ CUDA path uses:
   (o = v . A^T, x1 = x + rnd(o . Wproj)), the q | k | v stencil with its
   square sums and the gram over its output, the glue against
   `_attn_matrix`, and the gate stencil against `gdfn_ref`'s gate;
+* the pipeline's saved gram (csrc/wgrad.cu's TMA + wgmma product, several
+  pixel splits, 32 and 176 channels per head) against the gram of q and k
+  formed in torch at the pipeline's rounding points;
 * `_TBlockFunction` ('save' and 'remat') in bf16 with the new forward and
   the bf16 backward, against plain autograd;
 * the route rule of `_forward_kernel`.
@@ -275,7 +278,9 @@ def test_qkv_stencil_on_host_matches_torch(host_lib, shape):
     gram of its output (`_wgrad`, per (image, head)) against torch."""
     rng = np.random.default_rng(shape[2])
     bsz, hgt, wdt, c = shape
-    heads, nsplit = 2, 3
+    # the bf16 gram reads each head through TMA, at 16-byte strides: cph a
+    # multiple of 8, as the pipeline admits (24 and 8 channels per head)
+    heads, nsplit = {48: 2, 40: 5}[c], 3
     lins = t(randn(rng, bsz, hgt, wdt, 3 * c)).to(BF)
     taps = t(randn(rng, 3, 3, 1, 3 * c, scale=1 / 3))
     dwall = taps.reshape(9, 3 * c)
@@ -296,6 +301,50 @@ def test_qkv_stencil_on_host_matches_torch(host_lib, shape):
     q = sq[..., :c].reshape(bsz, hw, heads, cph).transpose(1, 2)
     k = sq[..., c:].reshape(bsz, hw, heads, cph).transpose(1, 2)
     assert_close(gram, q.transpose(-1, -2) @ k, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape,heads,sms", [
+    ((2, 20, 24, 64), 2, 8),    # 32 channels a head, several pixel splits
+    ((1, 12, 10, 176), 1, 2),   # PromptIR's 176: two row tiles of the gram
+])
+def test_pipeline_gram_on_host_matches_plain_gram(host_lib, monkeypatch,
+                                                  shape, heads, sms):
+    """`tblock_pipeline`'s saved gram, from csrc/wgrad.cu's TMA + wgmma
+    product per (image, head), against the float64 gram of q and k formed
+    in torch at the pipeline's rounding points (y, lin, q, k in bf16),
+    within STATS_RTOL; and against the float64 product of the very
+    operands the kernel was handed, within the f32 sum order."""
+    pn, p, kw, x = _block(shape, heads, "WithBias", seed=shape[-1])
+    seen = []
+    real = gb._wgrad
+
+    def wgrad(lib, a, lda, sa, b, ldb, sb, npix, m, n, nb, *rest):
+        seen.append([torch.as_strided(v, (nb[0], nb[1], npix, w),
+                                      (s_[0], s_[1], ld, 1),
+                                      v.storage_offset()).double().clone()
+                     for v, ld, s_, w in ((a, lda, sa, m), (b, ldb, sb, n))])
+        return real(lib, a, lda, sa, b, ldb, sb, npix, m, n, nb, *rest)
+
+    monkeypatch.setattr(gb, "_wgrad", wgrad)
+    _, _, (gram, _, _) = tb.tblock_pipeline(host_lib, x, kw, heads,
+                                            "WithBias", sms, 0, want_x1=True)
+    (qa, kb), = seen
+    assert_close(gram, (qa.transpose(-1, -2) @ kb).float(), atol=1e-4,
+                 rtol=1e-5)
+
+    bsz, hgt, wdt, c = shape
+    cph = c // heads
+    y = tb._ln(x.float(), p["norm1_w"], p.get("norm1_b"), "WithBias").to(BF)
+    lin = (y.float() @ p["qkv"].reshape(c, 3 * c).to(BF).float()).to(BF)
+    qkv = dwconv(lin.float(), p["qkv_dw"]).to(BF).double()
+
+    def heads_of(v):  # (B, H, W, C) -> (B, heads, HW, cph)
+        return v.reshape(bsz, hgt * wdt, heads, cph).transpose(1, 2)
+
+    want = heads_of(qkv[..., :c]).transpose(-1, -2) @ heads_of(
+        qkv[..., c:2 * c])
+    assert_close(gram, want.float(), atol=STATS_RTOL * want.abs().max(),
+                 rtol=STATS_RTOL)
 
 
 @pytest.mark.parametrize("c,heads", [(80, 2), (96, 1), (704, 4)])

@@ -9,7 +9,9 @@
 //   GDFN half:      hid = z . W1, dgate = dout . W2^T, dz = dhid . W1^T;
 //   attention half: lin = y . Wqkv, and per (image, head)
 //                   dq = k . M^T + q Dq, dk = q . M + k Dk, dv = do . A,
-//                   dy = dlin . Wqkv^T.
+//                   dy = dlin . Wqkv^T;
+// and of `_make_attn_bwd_stats_kernel` (its pass 1): per (image, head)
+// o = v . A^T, and do = dx1 . Wproj^T.
 // and of the forward kernels `_make_stats_kernel` and `_make_apply_kernel`
 // (ops/pallas/tblock.py:170, :220): lin = y . Wqkv, hid = z . W1 (the
 // backward's own entries), per (image, head) o = v . A^T, and the two
@@ -418,7 +420,7 @@ GemmOut plain_out(int M, int N, void* out, int out_bf16) {
 // (image, head): dth[:, col0 + hd cph + n] = A_h . B_h (+ aux_h * vec_h).
 // a: the third's (HW B, lda) operand at its head 0; b: (B, heads, cph, cph)
 // read K-major (trans_b 0: B(k, n) = b[n][k]) or MN-major (B(k, n) =
-// b[k][n]).
+// b[k][n]); aux: (HW B, lda) bf16.
 int head_product(const void* a, int lda, const void* b, int trans_b,
                  const void* aux, int aux_col0, const float* vec, float* dth,
                  int col0, int B, int HW, int C, int heads,
@@ -430,9 +432,27 @@ int head_product(const void* a, int lda, const void* b, int trans_b,
   GemmOut g = {};
   g.rows = HW, g.N = cph, g.nz2 = heads;
   g.out_f = dth, g.ldo = 3LL * C, g.col0 = col0;
-  g.aux = (const __nv_bfloat16*)aux, g.ld_aux = 2LL * C, g.aux_col0 = aux_col0;
+  g.aux = (const __nv_bfloat16*)aux, g.ld_aux = lda, g.aux_col0 = aux_col0;
   g.vec = vec, g.vec_ld = C;
   return run_gemm(av, bv, cph, trans_b, g, B, stream);
+}
+
+// o = v . A_h^T per (image, head), rounded to bf16 (A read K-major:
+// B(k, n) = A[n][k]); qkv (B HW, 3 C) bf16 after the stencils, v its last
+// third; attn (B, heads, cph, cph) bf16; o (B HW, C) bf16
+int heads_o(const void* qkv, const void* attn, void* o, int B, int HW, int C,
+            int heads, cudaStream_t stream) {
+  if (heads <= 0 || C % heads || (C / heads) % 8)
+    return (int)cudaErrorInvalidValue;
+  const int cph = C / heads;
+  const long long hw = HW, sq = (long long)cph * cph, ld = 3LL * C;
+  const View4 vv = {(const __nv_bfloat16*)qkv + 2 * C,
+                    {cph, heads, HW, B}, {cph, ld, ld * hw}, {}};
+  const View4 av = {attn, {cph, cph, heads, B}, {cph, sq, sq * heads}, {}};
+  GemmOut g = {};
+  g.rows = HW, g.N = cph, g.nz2 = heads;
+  g.out_h = (__nv_bfloat16*)o, g.ldo = C;
+  return run_gemm(vv, av, cph, 0, g, B, stream);
 }
 
 // out (M, N) bf16 = res + rnd(a (M, K) . b^T) with b (N, K); res (M, N)
@@ -484,23 +504,23 @@ int bwd_dgrad(const void* a, const void* w, float* out, int M, int N, int K,
 
 // The attention terms of the three thirds, into dth (B HW, 3 C) f32:
 //   q third: k . M^T + q Dq;  k third: q . M + k Dk;  v third: do . A
-// per (image, head).  qk: (B HW, 2 C) q | k after their stencil (bf16);
-// dos: (B HW, C) do from pass 1; m, attn: (B, heads, cph, cph) bf16, M of
-// the glue and the softmax output A; dqd, dkd: (B, C) f32.  cph % 8 == 0.
-// Returns a cudaError_t.
-int bwd_head_products(const void* qk, const void* dos, const void* m,
+// per (image, head).  qkv: (B HW, 3 C) q | k | v after their stencil
+// (bf16; pass 1's); dos: (B HW, C) do from pass 1; m, attn: (B, heads,
+// cph, cph) bf16, M of the glue and the softmax output A; dqd, dkd: (B, C)
+// f32.  cph % 8 == 0.  Returns a cudaError_t.
+int bwd_head_products(const void* qkv, const void* dos, const void* m,
                       const void* attn, const float* dqd, const float* dkd,
                       float* dth, int B, int HW, int C, int heads,
                       void* stream) {
   if (heads <= 0 || C % heads || (C / heads) % 8)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const __nv_bfloat16* q = (const __nv_bfloat16*)qk;
+  const __nv_bfloat16* q = (const __nv_bfloat16*)qkv;
   const __nv_bfloat16* k = q + C;
   int err;
-  if ((err = head_product(k, 2 * C, m, 0, qk, 0, dqd, dth, 0, B, HW, C,
+  if ((err = head_product(k, 3 * C, m, 0, qkv, 0, dqd, dth, 0, B, HW, C,
                           heads, s)) ||
-      (err = head_product(q, 2 * C, m, 1, qk, C, dkd, dth, C, B, HW, C,
+      (err = head_product(q, 3 * C, m, 1, qkv, C, dkd, dth, C, B, HW, C,
                           heads, s)) ||
       (err = head_product(dos, C, attn, 1, nullptr, 0, nullptr, dth, 2 * C,
                           B, HW, C, heads, s)))
@@ -526,20 +546,18 @@ int fwd_gemm_residual(const void* a, const void* b, const void* res,
 int fwd_attn_out(const void* qkv, const void* attn, const void* wproj,
                  const void* x, void* o, void* x1, int B, int HW, int C,
                  int heads, void* stream) {
-  if (heads <= 0 || C % heads || (C / heads) % 8)
-    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int cph = C / heads;
-  const long long hw = HW, sq = (long long)cph * cph, ld = 3LL * C;
-  const View4 vv = {(const __nv_bfloat16*)qkv + 2 * C,
-                    {cph, heads, HW, B}, {cph, ld, ld * hw}, {}};
-  const View4 av = {attn, {cph, cph, heads, B}, {cph, sq, sq * heads}, {}};
-  GemmOut g = {};
-  g.rows = HW, g.N = cph, g.nz2 = heads;
-  g.out_h = (__nv_bfloat16*)o, g.ldo = C;
   int err;
-  if ((err = run_gemm(vv, av, cph, 0, g, B, s))) return err;
+  if ((err = heads_o(qkv, attn, o, B, HW, C, heads, s))) return err;
   return residual_gemm(o, wproj, x, x1, B * HW, C, C, s);
+}
+
+// The backward's pass 1 forms o as the forward does: per (image, head)
+// o = v . A_h^T rounded to bf16, qkv, attn and o as fwd_attn_out's.
+// Returns a cudaError_t.
+int attn_heads_o(const void* qkv, const void* attn, void* o, int B, int HW,
+                 int C, int heads, void* stream) {
+  return heads_o(qkv, attn, o, B, HW, C, heads, (cudaStream_t)stream);
 }
 
 // The NAFBlock's biased product: out (M, N) bf16 = rnd(rnd(a . b^T) +

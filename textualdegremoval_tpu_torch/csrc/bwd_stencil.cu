@@ -2,11 +2,12 @@
 // for Hopper (sm_90a): the LayerNorms per pixel, and the depthwise
 // stencils on halo tiles that TMA loads.
 //
-// Together with the products of bwd_gemm.cu they replace the bf16 paths
-// of the TPU kernels `_make_gdfn_bwd_kernel`
+// Together with the products of bwd_gemm.cu and wgrad.cu they replace the
+// bf16 paths of the TPU kernels `_make_gdfn_bwd_kernel`
 // (textualdegremoval_tpu/ops/pallas/tblock_bwd.py, wrapper
-// `gdfn_half_bwd`) and `_make_attn_bwd_apply_kernel`
-// (ops/pallas/tblock_attn_bwd.py, `attn_half_bwd`'s pass 2):
+// `gdfn_half_bwd`), `_make_attn_bwd_stats_kernel` and
+// `_make_attn_bwd_apply_kernel` (ops/pallas/tblock_attn_bwd.py,
+// `attn_half_bwd`'s passes 1 and 2):
 //
 //   GDFN half (x1, dout -> dx1):
 //     bwd_ln_rows       z = LN2(x1) (bf16) and each pixel's moments
@@ -18,20 +19,26 @@
 //                       gradients sum_p shift_t(hid) dd
 //     [bwd_dgrad]       dz = dhid . W1^T (f32)
 //     bwd_ln_rows_bwd   dx1 = dout + LN2-bwd(dz), the LN2 partials
-//   attention half, pass 2 (x, dx1 and pass 1's do -> dx):
-//     bwd_ln_rows       y = LN1(x)
+//   attention half, pass 1 (x, dx1 -> what pass 2 and the weight
+//   gradients read; ops/pallas/tblock_attn_bwd.py `_attn_pass1_bf16`):
+//     bwd_ln_rows       y = LN1(x) (bf16) and each pixel's moments
 //     [bwd_gemm]        lin = y . Wqkv (bf16)
-//     bwd_qk_stencil    q, k = dw3x3(lin) (bf16)
+//     [fwd_qkv_stencil] q | k | v = dw3x3(lin) (bf16; fwd_stencil.cu, its
+//                       square sums off)
+//     [attn_heads_o]    o = v . A_h^T per (image, head) (bf16)
+//     [bwd_gemm]        do = dx1 . Wproj^T (bf16)
+//     [tblock_wgrad]    dA = do_h^T v_h per (image, head), dWproj = o^T dx1
+//   attention half, pass 2 (pass 1's y, lin, q | k | v and do -> dx):
 //     [bwd_head_products]  dth: the three thirds' attention terms (f32)
 //     bwd_dlin_stencil  dlin = dw3x3^T(dth) (bf16), the tap gradients
 //                       sum_p shift_t(lin) dth
 //     [bwd_dgrad]       dy = dlin . Wqkv^T (f32)
 //     bwd_ln_rows_bwd   dx = dx1 + LN1-bwd(dy), the LN1 partials
 //
-// The rounding points are the TPU kernel's: hid, lin, q, k, the gate, dhid
-// and dlin in bf16; dd and dth in f32 for the tap gradients, rounded to
-// bf16 only as the flipped stencil's input (tblock_bwd.py:185-212,
-// tblock_attn_bwd.py:240-256); every sum in f32.
+// The rounding points are the TPU kernels': hid, lin, q, k, v, o, do, the
+// gate, dhid and dlin in bf16; dd and dth in f32 for the tap gradients,
+// rounded to bf16 only as the flipped stencil's input (tblock_bwd.py:
+// 185-212, tblock_attn_bwd.py:112-160 and 240-256); every sum in f32.
 //
 // What bounds them: the stencils are CUDA-core work (per body pixel and
 // hidden channel 2 x 9 forward taps, gelu and its derivative, 18 tap
@@ -370,74 +377,6 @@ __global__ void __launch_bounds__(kGdfnThreads, 1) gdfn_stencil_kernel(
       });
 }
 
-// --- attention half: lin -> q, k ------------------------------------------
-
-constexpr int kQkThreads = 256;
-
-struct QkSmem {
-  static constexpr int kStage = round1k(kP1 * 64 * 2);  // [kP1][64] bf16
-  static constexpr int kBars = 2 * kStage;
-  static constexpr int kBytes = kBars + 16 + 1024;
-};
-
-// item = (tile, 64 of the 2 C q | k columns of lin) on the 1-pixel halo
-__global__ void __launch_bounds__(kQkThreads) qk_stencil_kernel(
-    const __grid_constant__ CUtensorMap tlin, const float* __restrict__ dwall,
-    __nv_bfloat16* __restrict__ qk, int H, int W, int C) {
-  using L = QkSmem;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned char* base = align1k(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
-  init_stage_bars(full);
-  const int b = blockIdx.y;
-  const Items items(H, W, (2 * C + 63) / 64, blockIdx.x, gridDim.x);
-
-  item_loop(
-      full, items.n,
-      [&](int i, int s) {
-        int oy, ox, box;
-        items.at(i, oy, ox, box);
-        mbar_arrive_expect_tx(full + s, kP1 * 64 * 2);
-        tma_load(base + s * L::kStage, &tlin, full + s, 64 * box, ox - 1,
-                 oy - 1, b);
-      },
-      [&](int i, int s) {
-        int oy, ox, box;
-        items.at(i, oy, ox, box);
-        const __nv_bfloat16* lin =
-            reinterpret_cast<const __nv_bfloat16*>(base + s * L::kStage);
-        const int n = threadIdx.x & 63, col = 64 * box + n;
-        const bool valid = col < 2 * C;
-        float tp[9], w[3][3];
-        load_taps(tp, dwall, C, (col / C) * 9, col % C, valid);
-        // one body row of column n left to right, the 3 x 3 window in
-        // registers
-        for (int py = threadIdx.x >> 6; py < kTH; py += kQkThreads / 64) {
-          auto at = [&](int r, int x) {
-            return to_f(lin[((py + r) * kW1 + x) * 64 + n]);
-          };
-#pragma unroll
-          for (int r = 0; r < 3; ++r)
-#pragma unroll
-            for (int c = 1; c < 3; ++c) w[r][c] = at(r, c - 1);
-          const int gy = oy + py;
-          for (int px = 0; px < kTW; ++px) {
-            float a = 0.f;
-#pragma unroll
-            for (int r = 0; r < 3; ++r) {
-              w[r][0] = w[r][1], w[r][1] = w[r][2];
-              w[r][2] = at(r, px + 2);
-#pragma unroll
-              for (int c = 0; c < 3; ++c) a += w[r][c] * tp[r * 3 + c];
-            }
-            if (valid && gy < H && ox + px < W)
-              qk[(((size_t)b * H + gy) * W + ox + px) * 2 * C + col] =
-                  from_f<__nv_bfloat16>(a);
-          }
-        }
-      });
-}
-
 // --- attention half: dth, lin -> dlin, tap partials ------------------------
 
 constexpr int kDlinThreads = 256;
@@ -613,26 +552,8 @@ int bwd_gdfn_stencil(const void* hids, const float* dgates, const float* dwg,
   return (int)cudaGetLastError();
 }
 
-// lins (B H W, 3 C) bf16, the q | k | v 1x1 outputs; dwall (27, C) f32.
-// Output qk (B H W, 2 C) bf16: q | k after their stencils.  Returns a
-// cudaError_t.
-int bwd_qk_stencil(const void* lins, const float* dwall, void* qk, int B,
-                   int H, int W, int C, int nsplit, void* stream) {
-  if (bad_grid(B, H, W, nsplit) || C <= 0) return (int)cudaErrorInvalidValue;
-  CUtensorMap tl;
-  int err;
-  if ((err = view_map(&tl, nhwc_view(lins, B, H, W, 3 * C, 64, kW1, kH1),
-                      false, false)))
-    return err;
-  static const int attr = prepare(qk_stencil_kernel, QkSmem::kBytes);
-  if (attr != 0) return attr;
-  qk_stencil_kernel<<<dim3(nsplit, B), kQkThreads, QkSmem::kBytes,
-                      (cudaStream_t)stream>>>(tl, dwall, (__nv_bfloat16*)qk,
-                                              H, W, C);
-  return (int)cudaGetLastError();
-}
-
-// dth (B H W, 3 C) f32, the thirds' gradients; lins as bwd_qk_stencil's.
+// dth (B H W, 3 C) f32, the thirds' gradients; lins (B H W, 3 C) bf16, the
+// q | k | v 1x1 outputs; dwall (27, C) f32.
 // Outputs: dlins (B H W, 3 C) bf16; dtap_part (B nsplit, 27, C) f32.
 // Returns a cudaError_t.
 int bwd_dlin_stencil(const float* dth, const void* lins, const float* dwall,

@@ -79,8 +79,12 @@ __global__ void __launch_bounds__(kQkvThreads) qkv_stencil_kernel(
   const Items items(H, W, (3 * C + 63) / 64, blockIdx.x, gridDim.x);
   float* red = reinterpret_cast<float*>(base + L::kRed);
   // this CTA's slab of the square-sum partials: q's C channels, then k's
-  float* ssq = ssq_part + ((size_t)b * gridDim.x + blockIdx.x) * 2 * C;
-  for (int i = threadIdx.x; i < 2 * C; i += kQkvThreads) ssq[i] = 0.f;
+  // (none where ssq_part is null: the backward's pass 1)
+  float* ssq = ssq_part == nullptr
+                   ? nullptr
+                   : ssq_part + ((size_t)b * gridDim.x + blockIdx.x) * 2 * C;
+  for (int i = threadIdx.x; ssq != nullptr && i < 2 * C; i += kQkvThreads)
+    ssq[i] = 0.f;
 
   item_loop(
       full, items.n,
@@ -130,6 +134,7 @@ __global__ void __launch_bounds__(kQkvThreads) qkv_stencil_kernel(
         }
         // the item's square sums of the q and k columns, the four row
         // groups added in order
+        if (ssq == nullptr) return;
         red[threadIdx.x] = sq;
         __syncthreads();
         if (threadIdx.x < 64 && col < 2 * C)
@@ -277,7 +282,8 @@ extern "C" {
 // lins (B H W, 3 C) bf16, the q | k | v 1x1 outputs; dwall (27, C) f32
 // taps.  Outputs: qkv (B H W, 3 C) bf16 after the stencils; ssq_part
 // (B nsplit, 2 C) f32, each CTA's square sums of q's and k's rounded
-// values over its pixels.  Returns a cudaError_t.
+// values over its pixels, or null for none (the backward's pass 1).
+// Returns a cudaError_t.
 int fwd_qkv_stencil(const void* lins, const float* dwall, void* qkv,
                     float* ssq_part, int B, int H, int W, int C, int nsplit,
                     void* stream) {

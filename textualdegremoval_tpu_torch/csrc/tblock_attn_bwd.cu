@@ -12,7 +12,9 @@
 // statistics) is plain torch in the wrapper, ops/pallas/tblock_attn_bwd.py,
 // as it was plain XLA.
 //
-// Pass 1 (attn_bwd_stats_kernel): one CTA per output tile.  It recomputes
+// Pass 1 (attn_bwd_stats_kernel), float32 only (the parity path; bf16
+// runs the passes laid out at the top of bwd_stencil.cu, which recompute
+// nothing on a halo and take any cph): one CTA per output tile.  It recomputes
 // LN1 and the v third on the tile plus a 1-pixel halo (zero outside the
 // image), v on the tile, o = v . A^T and do = dx1 . Wproj^T, each rounded
 // to the model dtype as on the TPU, and writes v, o and do of the tile to
@@ -32,8 +34,8 @@
 // rounded to the model dtype (tblock_attn_bwd.py:240-256), and
 // dy += dlin . W^T in f32.  Last, the LN1 backward writes dx = dx1 +
 // LN1-bwd(dy).  Working per head bounds the shared memory: the head is
-// the unit of the channel attention, and cph <= 96 (kMaxCphBwd) at every
-// width that the training paths reach.
+// the unit of the channel attention, and cph <= 96 (kMaxCphBwd), which
+// Restormer's widths keep (PromptIR's cph 176 trains in bf16 only).
 //
 // The reductions over pixels: the 27 x C tap gradients and the LN1
 // parameter gradients are per-CTA partials summed by the wrapper in a
@@ -45,7 +47,7 @@
 // q and k thirds of every head read all of y), K = cph products for the
 // attention terms, and the stencils on the CUDA cores; the scratch traffic
 // of y and dlin (4 C values per pixel) is small beside the GDFN half's.
-// bf16 products (pass 1) run on mma.sync, f32 ones on FMA loops.
+// The products run on FMA loops.
 
 #include "tblock_common.cuh"
 
@@ -416,26 +418,22 @@ long long tblock_attn_bwd_smem_bytes(int pass, int C, int heads, int th,
   return (long long)attn_apply_smem_bytes(C, C / heads, th, tw, elem_bytes);
 }
 
-// Weight matrices as in tblock.cu: bf16 (outputs, inputs), f32 (inputs,
+// Pass 1, float32 (bf16 runs the passes laid out at the top of
+// bwd_stencil.cu).  Weight matrices as in tblock.cu's f32 (inputs,
 // outputs).  x, dx1: (B, H, W, C); wv: the v third's 1x1; dwv: (9, C) f32;
-// attn: (B, heads, cph, cph) A in x's dtype, [c][d]; wprojt: the product
-// dx1 -> do (proj transposed).  Outputs vs, os, dos: (B H W, C) v, o, do.
-// Returns a cudaError_t.
+// attn: (B, heads, cph, cph) A, [c][d]; wprojt: the product dx1 -> do
+// (proj transposed).  Outputs vs, os, dos: (B H W, C) v, o, do.  Returns a
+// cudaError_t.
 int tblock_attn_bwd_stats(const void* x, const void* dx1, const void* ln1w,
                           const void* ln1b, const void* wv, const void* dwv,
                           const void* attn, const void* wprojt, void* vs,
                           void* os, void* dos, int B, int H, int W, int C,
-                          int heads, int is_bf16, int bias_free, int th,
-                          int tw, void* stream) {
+                          int heads, int bias_free, int th, int tw,
+                          void* stream) {
   if (!attn_shape_ok(C, heads, th, tw)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return launch_attn_stats<__nv_bfloat16>(x, dx1, ln1w, ln1b, wv, dwv, attn,
-                                            wprojt, vs, os, dos, B, H, W, C,
-                                            heads, bias_free, th, tw, s);
   return launch_attn_stats<float>(x, dx1, ln1w, ln1b, wv, dwv, attn, wprojt,
                                   vs, os, dos, B, H, W, C, heads, bias_free,
-                                  th, tw, s);
+                                  th, tw, (cudaStream_t)stream);
 }
 
 // Pass 2, float32.

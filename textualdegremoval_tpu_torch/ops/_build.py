@@ -41,16 +41,17 @@ _SIGNATURES = {
     "tblock_gdfn_bwd": ([_P] * 14 + [_I] * 9 + [_P], _I),
     "tblock_attn_bwd_max_cph": ([], _I),
     "tblock_attn_bwd_smem_bytes": ([_I] * 6, _L),
-    "tblock_attn_bwd_stats": ([_P] * 11 + [_I] * 9 + [_P], _I),
+    "tblock_attn_bwd_stats": ([_P] * 11 + [_I] * 8 + [_P], _I),
     "tblock_attn_bwd_apply": ([_P] * 22 + [_I] * 9 + [_P], _I),
     "tblock_wgrad": ([_P, _I, _L, _L, _P, _I, _L, _L, _P] + [_I] * 7 + [_P],
                      _I),
+    "tblock_wgrad_tiles": ([_I] * 2, _I),
+    "tblock_wgrad_ctas_per_sm": ([_I] * 2, _I),
     "bwd_stencil_tile": ([_I], _I),
     "bwd_ln_rows": ([_P] * 3 + [_I, ctypes.c_float] + [_P] * 3 + [_I] * 2
                     + [_P], _I),
     "bwd_ln_rows_bwd": ([_P] * 5 + [_I] + [_P] * 3 + [_I] * 3 + [_P], _I),
     "bwd_gdfn_stencil": ([_P] * 6 + [_I] * 5 + [_P], _I),
-    "bwd_qk_stencil": ([_P] * 3 + [_I] * 5 + [_P], _I),
     "bwd_dlin_stencil": ([_P] * 5 + [_I] * 5 + [_P], _I),
     "bwd_gemm": ([_P] * 3 + [_I] * 4 + [_P], _I),
     "bwd_dgrad": ([_P] * 3 + [_I] * 3 + [_P], _I),
@@ -59,6 +60,7 @@ _SIGNATURES = {
     "fwd_gate_stencil": ([_P] * 3 + [_I] * 5 + [_P], _I),
     "fwd_gemm_residual": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "fwd_attn_out": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "attn_heads_o": ([_P] * 3 + [_I] * 4 + [_P], _I),
     "fwd_attn_glue": ([_P] * 6 + [_I] * 3 + [_P], _I),
     "naf_gemm_bias": ([_P] * 6 + [_I] * 3 + [_P], _I),
     "naf_gemm_gate": ([_P] * 4 + [_I] * 3 + [_P], _I),

@@ -10,13 +10,15 @@ and `attn_half_bwd(x, dx1, p, heads, ln_type, stats, kw)` returns dx and
 the gradients of norm1_w, norm1_b (WithBias), qkv, qkv_dw, temperature and
 proj in their natural shapes.  A CPU tensor takes the plain version,
 `attn_half_bwd_ref` (torch.autograd through `_tblock_attn_part`); a CUDA
-tensor launches hand-written kernels, or raises: pass 1 of
-csrc/tblock_attn_bwd.cu, which replaces the TPU kernel
-`_make_attn_bwd_stats_kernel`; in place of `_make_attn_bwd_apply_kernel`
-(pass 2), in bf16 the LayerNorm and stencil passes of csrc/bwd_stencil.cu
-and the products of csrc/bwd_gemm.cu (laid out at the top of
-csrc/bwd_stencil.cu), in float32 pass 2 of csrc/tblock_attn_bwd.cu; and
-the weight-gradient products of csrc/wgrad.cu.  `attn_half_bwd.launches`
+tensor launches hand-written kernels, or raises.  In place of the TPU
+kernels `_make_attn_bwd_stats_kernel` (pass 1) and
+`_make_attn_bwd_apply_kernel` (pass 2): in bf16 the LayerNorm and stencil
+passes of csrc/bwd_stencil.cu and csrc/fwd_stencil.cu and the products of
+csrc/bwd_gemm.cu (laid out at the top of csrc/bwd_stencil.cu; pass 1
+keeps y, lin and q | k | v for pass 2, which recomputes none of them, and
+takes any number of channels per head), in float32 the two passes of
+csrc/tblock_attn_bwd.cu (at most 96 channels per head); and the
+weight-gradient products of csrc/wgrad.cu.  `attn_half_bwd.launches`
 counts calls that launch them.
 
 Between the passes, `_attn_bwd_glue` (softmax, temperature and L2-norm
@@ -77,67 +79,97 @@ def _attn_bwd_glue(da, gram, qssq, kssq, temperature, heads):
             dtemp.reshape(temperature.shape).to(temperature.dtype))
 
 
-def _launch_attn_apply_bf16(lib, x, dx1, kw, heads, ln_type, dos, attn, m,
-                            dqd, dkd, sms, stream):
-    """Pass 2 in bf16 (csrc/bwd_stencil.cu, csrc/bwd_gemm.cu) up to its
-    weight-gradient operands: (dx, dln (2, C), ys, dlins, dtap (27, C))."""
+# The profiler range around the bf16 pass 1, whose passes share their
+# kernels with pass 2 and the forward: a trace tells them apart by it.
+PASS1_RANGE = "attn_half_bwd pass 1"
+
+
+def _attn_pass1_bf16(lib, x, dx1, kw, ln_type, attn, heads, sms, stream):
+    """Pass 1 in bf16, the passes laid out at the top of csrc/bwd_stencil.cu
+    with JAX pass 1's rounding points (y, lin, v, o and do in bf16): (ys,
+    mu, inv, lins, qkv, os, dos), rows of pixels; pass 2 and the
+    weight-gradient products read them."""
+    b, hgt, wdt, c = x.shape
+    npix = b * hgt * wdt
+    dev, bf = x.device, torch.bfloat16
+    bias_free = int(ln_type == "BiasFree")
+    with torch.profiler.record_function(PASS1_RANGE):
+        ys, mu, inv = _ln_rows(lib, x, kw["ln1w"], kw["ln1b"], bias_free,
+                               stream, _EPS)
+        lins = _gemm(lib, ys, kw["wqkv"], bf, stream)
+        # q | k | v without the forward's square sums: four 48 KB CTAs per
+        # SM
+        qkv = torch.empty((npix, 3 * c), dtype=bf, device=dev)
+        _check(lib.fwd_qkv_stencil(
+            _ptr(lins), _ptr(kw["dwall"]), _ptr(qkv), None, b, hgt, wdt, c,
+            _stencil_nsplit(lib, b, hgt, wdt, -(-3 * c // 64), 4, sms),
+            stream), lib, "fwd_qkv_stencil")
+        os_ = torch.empty((npix, c), dtype=bf, device=dev)
+        _check(lib.attn_heads_o(_ptr(qkv), _ptr(attn), _ptr(os_), b,
+                                hgt * wdt, c, heads, stream), lib,
+               "attn_heads_o")
+        dos = _gemm(lib, dx1.view(npix, c), kw["wprojt"], bf, stream)
+    return ys, mu, inv, lins, qkv, os_, dos
+
+
+def _launch_attn_apply_bf16(lib, x, dx1, kw, heads, ln_type, mu, inv, lins,
+                            qkv, dos, attn, m, dqd, dkd, sms, stream):
+    """Pass 2 in bf16 (csrc/bwd_stencil.cu, csrc/bwd_gemm.cu) on pass 1's
+    LN1 moments, lin, q | k | v and do, up to its weight-gradient operand:
+    (dx, dln (2, C), dlins, dtap (27, C))."""
     b, hgt, wdt, c = x.shape
     npix = b * hgt * wdt
     dev, f32 = x.device, torch.float32
-    bias_free = int(ln_type == "BiasFree")
-    ys, mu, inv = _ln_rows(lib, x, kw["ln1w"], kw["ln1b"], bias_free, stream,
-                           _EPS)
-    lins = _gemm(lib, ys, kw["wqkv"], x.dtype, stream)
-    # q, k: four 48 KB CTAs per SM; dlin: two 82 KB CTAs per SM
-    qk = torch.empty((npix, 2 * c), dtype=x.dtype, device=dev)
-    _check(lib.bwd_qk_stencil(
-        _ptr(lins), _ptr(kw["dwall"]), _ptr(qk), b, hgt, wdt, c,
-        _stencil_nsplit(lib, b, hgt, wdt, -(-2 * c // 64), 4, sms), stream),
-        lib, "bwd_qk_stencil")
     dth = torch.empty((npix, 3 * c), dtype=f32, device=dev)
-    _check(lib.bwd_head_products(_ptr(qk), _ptr(dos), _ptr(m), _ptr(attn),
+    _check(lib.bwd_head_products(_ptr(qkv), _ptr(dos), _ptr(m), _ptr(attn),
                                  _ptr(dqd), _ptr(dkd), _ptr(dth), b,
                                  hgt * wdt, c, heads, stream), lib,
            "bwd_head_products")
-    del qk
+    # two 82 KB CTAs per SM
     dlins = torch.empty((npix, 3 * c), dtype=x.dtype, device=dev)
     nsplit = _stencil_nsplit(lib, b, hgt, wdt, -(-3 * c // 32), 2, sms)
     dtap_part = torch.empty((b * nsplit, 27, c), dtype=f32, device=dev)
     _check(lib.bwd_dlin_stencil(_ptr(dth), _ptr(lins), _ptr(kw["dwall"]),
                                 _ptr(dlins), _ptr(dtap_part), b, hgt, wdt, c,
                                 nsplit, stream), lib, "bwd_dlin_stencil")
-    del dth, lins
+    del dth
     dy = _dgrad(lib, dlins, kw["wqkv"], stream)
-    dx, dln = _ln_rows_bwd(lib, x, dy, kw["ln1w"], mu, inv, bias_free, dx1,
-                           sms, stream)
-    return dx, dln, ys, dlins, dtap_part.sum(0)
+    dx, dln = _ln_rows_bwd(lib, x, dy, kw["ln1w"], mu, inv,
+                           int(ln_type == "BiasFree"), dx1, sms, stream)
+    return dx, dln, dlins, dtap_part.sum(0)
 
 
 def _launch_attn_bwd(lib, x, dx1, kw, heads, ln_type, stats, stats_tile,
                      apply_tile, nsplit, sms, stream):
     """Pass 1, its products, the glue, pass 2 and its products on validated
-    inputs; `apply_tile` and `nsplit` are the float32 pass 2's.  Returns
-    (dx, dwqkv (C, 3C), dtap (27, C), dwproj (C, C), dln (2, C),
-    dtemp (heads,))."""
+    inputs; `stats_tile`, `apply_tile` and `nsplit` are the float32
+    passes' (bf16 takes none).  Returns (dx, dwqkv (C, 3C), dtap (27, C),
+    dwproj (C, C), dln (2, C), dtemp (heads,))."""
     b, hgt, wdt, c = x.shape
     cph = c // heads
     hw, npix = hgt * wdt, b * hgt * wdt
     dev, dt, f32 = x.device, x.dtype, torch.float32
-    is_bf16, bias_free = int(dt == torch.bfloat16), int(ln_type == "BiasFree")
+    is_bf16, bias_free = dt == torch.bfloat16, int(ln_type == "BiasFree")
     gram, qssq, kssq = stats
 
     attn = _attn_matrix(gram, qssq, kssq, kw["temperature"], heads, dt)
-    vs, os_, dos = (torch.empty((npix, c), dtype=dt, device=dev)
-                    for _ in range(3))
-    _check(lib.tblock_attn_bwd_stats(
-        _ptr(x), _ptr(dx1), _ptr(kw["ln1w"]), _ptr(kw["ln1b"]),
-        _ptr(kw["wv"]), _ptr(kw["dwv"]), _ptr(attn), _ptr(kw["wprojt"]),
-        _ptr(vs), _ptr(os_), _ptr(dos), b, hgt, wdt, c, heads, is_bf16,
-        bias_free, stats_tile[0], stats_tile[1], stream), lib,
-        "tblock_attn_bwd_stats")
+    if is_bf16:
+        ys, mu, inv, lins, qkv, os_, dos = _attn_pass1_bf16(
+            lib, x, dx1, kw, ln_type, attn, heads, sms, stream)
+        vs, ldv = qkv[:, 2 * c:], 3 * c
+    else:
+        vs, os_, dos = (torch.empty((npix, c), dtype=dt, device=dev)
+                        for _ in range(3))
+        _check(lib.tblock_attn_bwd_stats(
+            _ptr(x), _ptr(dx1), _ptr(kw["ln1w"]), _ptr(kw["ln1b"]),
+            _ptr(kw["wv"]), _ptr(kw["dwv"]), _ptr(attn), _ptr(kw["wprojt"]),
+            _ptr(vs), _ptr(os_), _ptr(dos), b, hgt, wdt, c, heads,
+            bias_free, stats_tile[0], stats_tile[1], stream), lib,
+            "tblock_attn_bwd_stats")
+        ldv = c
     # dA per (image, head) = do_h^T v_h; dWproj = o^T dx1
-    da = _wgrad(lib, dos, c, (hw * c, cph), vs, c, (hw * c, cph), hw, cph,
-                cph, (b, heads), sms, stream)
+    da = _wgrad(lib, dos, c, (hw * c, cph), vs, ldv, (hw * ldv, cph), hw,
+                cph, cph, (b, heads), sms, stream)
     dwproj = _wgrad(lib, os_, c, (0, 0), dx1, c, (0, 0), npix, c, c, (1, 1),
                     sms, stream)[0, 0]
     del vs, os_
@@ -146,9 +178,10 @@ def _launch_attn_bwd(lib, x, dx1, kw, heads, ln_type, stats, stats_tile,
                                         kw["temperature"], heads)
     m = m.to(dt)
     if is_bf16:
-        dx, dln, ys, dlins, dtap = _launch_attn_apply_bf16(
-            lib, x, dx1, kw, heads, ln_type, dos, attn, m, dqd, dkd, sms,
-            stream)
+        dx, dln, dlins, dtap = _launch_attn_apply_bf16(
+            lib, x, dx1, kw, heads, ln_type, mu, inv, lins, qkv, dos, attn, m,
+            dqd, dkd, sms, stream)
+        del lins, qkv
     else:
         mt = m.transpose(-1, -2).contiguous()
         at = attn.transpose(-1, -2).contiguous()
@@ -211,24 +244,24 @@ def attn_half_bwd(x, dx1, p, heads, ln_type, stats=None, kw=None):
 
     lib = load_library()
     b, hgt, wdt, c = x.shape
-    if c // heads > lib.tblock_attn_bwd_max_cph():
+    # the float32 passes hold a head's channels in shared memory
+    if x.dtype == torch.float32 and c // heads > lib.tblock_attn_bwd_max_cph():
         raise ValueError(f"attn_half_bwd: {c // heads} channels per head "
-                         f"exceeds {lib.tblock_attn_bwd_max_cph()}")
-    eb = x.element_size()
-
-    def pick(pass_id):
-        return _first_fit(_BWD_TILES, lambda t: lib.tblock_attn_bwd_smem_bytes(
-            pass_id, c, heads, t[0], t[1], eb), "attn_half_bwd")
-
+                         f"exceeds {lib.tblock_attn_bwd_max_cph()} in float32")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    apply_tile, nsplit = None, None
+    stats_tile, apply_tile, nsplit = None, None, None
     if x.dtype == torch.float32:
-        apply_tile = pick(1)
+        def pick(pass_id):
+            return _first_fit(_BWD_TILES, lambda t: (
+                lib.tblock_attn_bwd_smem_bytes(pass_id, c, heads, t[0], t[1],
+                                               4)), "attn_half_bwd")
+
+        stats_tile, apply_tile = pick(0), pick(1)
         nsplit = _nsplit(
             b, -(-hgt // apply_tile[0]) * -(-wdt // apply_tile[1]), sms)
     dx, dwqkv, dtap, dwproj, dln, dtemp = _launch_attn_bwd(
-        lib, x, dx1, kw, heads, ln_type, stats, pick(0), apply_tile, nsplit,
-        sms, torch.cuda.current_stream(x.device).cuda_stream)
+        lib, x, dx1, kw, heads, ln_type, stats, stats_tile, apply_tile,
+        nsplit, sms, torch.cuda.current_stream(x.device).cuda_stream)
     attn_half_bwd.launches += 1
     return dx, _natural_attn_grads(p, dwqkv, dtap, dwproj, dln, dtemp,
                                    ln_type)

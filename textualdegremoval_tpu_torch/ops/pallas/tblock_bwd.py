@@ -14,7 +14,8 @@ or raises: in bf16 the LayerNorm and stencil passes of
 csrc/bwd_stencil.cu and the products of csrc/bwd_gemm.cu (the sequence is
 laid out at the top of csrc/bwd_stencil.cu), in float32 the streaming
 kernel csrc/tblock_bwd.cu; then the weight-gradient products of
-csrc/wgrad.cu.  `gdfn_half_bwd.launches` counts calls that launch them.
+csrc/wgrad.cu (in bf16 on TMA and wgmma, in float32 a plain tiled
+kernel).  `gdfn_half_bwd.launches` counts calls that launch them.
 
 `_ln_fwd_rows`, `_ln_bwd_rows` and `_gelu_grad` are the TPU kernel's row
 helpers (f32); the CUDA kernel does the same arithmetic per pixel.
@@ -108,12 +109,20 @@ def _nsplit(b, ntiles, sms):
 def _wgrad(lib, a, lda, sa, b, ldb, sb, npix, m, n, nb, sms, stream):
     """sum over npix pixels of a[p][m] b[p][n] (csrc/wgrad.cu), batched over
     nb = (nb1, nb2) with element strides sa, sb.  Returns
-    (nb1, nb2, m, n) f32.  The pixel axis is split into enough parts to
-    fill the card, within _WGRAD_PARTIAL_BYTES of partials, which are
-    then added in a fixed order."""
-    tiles = -(-m // 64) * -(-n // 64) * nb[0] * nb[1]
-    cap = max(1, _WGRAD_PARTIAL_BYTES // (4 * m * n * nb[0] * nb[1]))
-    nsplit = max(1, min(-(-4 * sms // tiles), -(-npix // 32), cap))
+    (nb1, nb2, m, n) f32.  The pixel axis is split into parts, within
+    _WGRAD_PARTIAL_BYTES of partials, which are then added in a fixed
+    order: in bf16 (the TMA + wgmma kernel) as many as fill the card's CTA
+    slots in one wave, each at least 4 steps of 64 pixels; in float32 about
+    four CTAs an SM."""
+    batches = nb[0] * nb[1]
+    cap = max(1, _WGRAD_PARTIAL_BYTES // (4 * m * n * batches))
+    if a.dtype == torch.bfloat16:
+        tiles = lib.tblock_wgrad_tiles(m, n) * batches
+        slots = lib.tblock_wgrad_ctas_per_sm(m, n) * sms
+        nsplit = max(1, min(slots // tiles, -(-npix // 256), cap))
+    else:
+        tiles = -(-m // 64) * -(-n // 64) * batches
+        nsplit = max(1, min(-(-4 * sms // tiles), -(-npix // 32), cap))
     out = torch.empty((nsplit, nb[0], nb[1], m, n), dtype=torch.float32,
                       device=a.device)
     _check(lib.tblock_wgrad(

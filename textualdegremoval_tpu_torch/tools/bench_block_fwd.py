@@ -54,8 +54,8 @@ from textualdegremoval_tpu_torch.tools._card import (
     device_line, device_split, median_ms, time_ms,
 )
 from textualdegremoval_tpu_torch.tools.bench_block_bwd import (
-    CORE_RATE, EFF_BYTES, EFF_CORES, EFF_TC, PEAK_BF16, PEAK_BYTES, SMS,
-    TRAIN_SHAPES, _gemm, _load, _up,
+    CORE_RATE, EFF_BYTES, EFF_CORES, EFF_TC, EFF_WGRAD, PEAK_BF16,
+    PEAK_BYTES, SMS, TRAIN_SHAPES, _gemm, _load, _up, _wgrad,
 )
 from textualdegremoval_tpu_torch.tools.bench_flash import (
     enqueue_us, ptxas_reports,
@@ -140,11 +140,13 @@ def reckon(b, h, w, c, heads):
     # again from L2), q | k | v written once
     add("qkv_stencil", ctas, ctas / (4 * SMS), 0.0,
         items * 256 * 2 * 16 * 22 / 1e9, npix * 3 * c * 4 / 1e9)
-    # the gram on wgrad.cu's mma.sync tiles (64 x 64 per head): its
-    # products at a quarter of the wgmma model's rate; q and k read once
-    gf = 2 * npix * _up(cph, 64) ** 2 * heads / 1e9
-    add("wgrad gram", b * heads * -(-cph // 64) ** 2, 0.0, gf * 4, 0.0,
-        npix * 2 * c * 2 / 1e9)
+    # the gram on wgrad.cu's TMA ring and wgmma, per (image, head): q and
+    # k read once, at the ring's share of the memory rate
+    gf, gbytes, ctas, per_sm, _ = _wgrad(hw, cph, cph, b * heads)
+    rows["wgrad gram"] = (ctas, ctas / (per_sm * SMS), gf, 0.0, gbytes,
+                          max(gf * 1e9 / (PEAK_BF16 * EFF_TC),
+                              gbytes * 1e9 / (PEAK_BYTES * EFF_WGRAD)) * 1e3
+                          + 0.004)
     gemm("attn_out o = v.A^T", cph, cph, rows_=hw, batches=b * heads)
     gemm("attn_out x1 = x + o.Wproj", c, c, extra_gb=npix * c * 2 / 1e9)
     add("ln_rows LN2", -(-npix // 8), 0.0, 0.0, 0.0, ln_gb)

@@ -67,8 +67,8 @@ def ptxas_reports(log: str) -> dict[str, str]:
     out = {}
     for part in log.split("== ")[1:]:
         name, _, text = part.partition("\n")
-        text = re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_GLOBAL__N_",
-                      text)
+        text = re.sub(r"\d+_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_\w{8}",
+                      "_GLOBAL__N_", text)
         text = re.sub(r"(?m)^.*Compile time.*\n?", "", text)
         out[name.strip()] = text.strip()
     return out
