@@ -124,30 +124,40 @@ Phases, each of which raises on failure:
    320 / 160 with 4 heads (176 / 80 / 40 channels per head) at the 512 px
    forward's sizes plus a ragged shape, against `tblock_ref` with phase
    3's weights, bounds, route checks and columns;
-17. the cross-block chain kernel (csrc/tblock_chain.cu, through
-   `TBlockStage` with chain=True) at every stage shape of a 512 px
+17. the cross-block chain (through `TBlockStage` with chain=True; in
+   bfloat16 `chain_pipeline`, the block pipeline's kernels with
+   csrc/bwd_gemm.cu's chain epilogue at each block boundary, in float32
+   csrc/tblock_chain.cu) at every stage shape of a 512 px
    promptir_all_in_one forward plus a ragged batch-2 shape, WithBias and
    BiasFree, float32 and bfloat16: against the plain chain
-   `tblock_chain_ref` and against the whole-block kernel run block by
+   `tblock_chain_ref` and against the whole-block kernels run block by
    block, elementwise and in L2 over what the stage adds (phase 3's
-   bounds times sqrt(n) for n blocks), two calls bitwise equal, the chain calls and kernel launches
-   counted, the median time of the chain, of the blocks one by one and of
-   the plain chain; and the gradient of `_TBlockChainFunction` at a 384 px
-   batch-8 training shape (f32) against plain autograd;
+   bounds times sqrt(n) for n blocks), two calls bitwise equal, the chain
+   calls and boundary launches counted (in bf16 every boundary through the
+   epilogue), the median time of the chain, of the blocks one by one and
+   of the plain chain, and in bf16 csrc/tblock_chain.cu's route on the
+   same stage beside (its error and time); and the gradient of
+   `_TBlockChainFunction` at a 384 px batch-8 training shape (f32)
+   against plain autograd;
 18. the PromptIRRefFusion evaluation path: the full-width
    promptir_all_in_one network (seeded random weights, non-zero fusion
    gates) on the card against the CPU in float32 on a small input, block
    by block (55 block-kernel launches) and with every stage through the
-   chain (11 block-kernel launches, 8 chain calls, 36 chain kernel
+   chain (11 block-kernel launches, 8 chain calls, 36 chain boundary
    launches); then `restore_and_score` on synthetic 512 x 512 triples in
    bfloat16 through both routes, one warm-up and two timed each, with
    those launch counts per forward (every block-kernel call through the
-   pipeline), images/s, peak memory and a profiled forward;
-19. the standalone GDFN kernel `gdfn_fused` against its plain version
-   `gdfn_ref` at every GDFN shape of a 512 px restormer_deblur forward
-   plus a ragged batch-2 shape, float32 and bfloat16, weights at a
-   trained block's scale, elementwise and L2 bounds over the GDFN's
-   output, two calls bitwise equal, the median time of both; and its
+   pipeline, every chain boundary through the chain epilogue), images/s,
+   the host's enqueue time of one forward, peak memory and a profiled
+   forward;
+19. the standalone GDFN `gdfn_fused` (in bfloat16 `gdfn_pipeline`, the
+   block pipeline's two products and gate stencil; in float32
+   csrc/gdfn.cu) against its plain version `gdfn_ref` at every GDFN shape
+   of a 512 px restormer_deblur forward plus a ragged batch-2 shape,
+   float32 and bfloat16, weights at a trained block's scale, elementwise
+   and L2 bounds over the GDFN's output, two calls bitwise equal, the
+   route counted, the median time of both and in bf16 of csrc/gdfn.cu on
+   the same inputs beside; and its
    gradient (the kernel forward, the backward through `gdfn_ref`) at a
    384 px batch-8 shape against autograd through `gdfn_ref`;
 20. the MDTA statistics kernel `mdta_stats` against `mdta_stats_ref`, and
@@ -160,14 +170,15 @@ Phases, each of which raises on failure:
    restormer_deblur network with fused=False, gdfn_fused=True and
    mdta_pallas=True on the card against the CPU in float32, then
    `restore_and_score` on synthetic 512 x 512 triples in bfloat16 (one
-   warm-up, two timed; 52 launches of each kernel per forward and none of
-   the whole-block kernel), images/s, peak memory, a profiled forward,
+   warm-up, two timed; 52 launches of each kernel per forward, every GDFN
+   through the pipeline, and none of the whole-block kernel), images/s,
+   peak memory, a profiled forward,
    and the module path without the two kernels;
 22. the module path as a training route: the training CLI's step function
    with restormer_motion_deblur.yml's options, fused_kernels off and
    --gdfn_kernel, at 384 px in bf16 (batch 2: module blocks keep every
    activation for autograd, and batch 8 would not fit the card), 52 B6
-   launches per step, timed against the same step with every GDFN op by
+   launches per step through the pipeline, timed against the same step with every GDFN op by
    op in alternating turns with the peak memory of each; the peak at
    batch 1 and 2 on both routes; one f32 step at 128 px on the card
    against the CPU;
@@ -193,7 +204,8 @@ CUDA the script exits non-zero and prints no result.
 
 builds a copy of the kernel sources with one fault planted, under a
 temporary directory, runs the phase that should catch it in bfloat16 (phase
-17: float32 and bfloat16; the NAFBlock pair's: float32) at a few shapes
+17: float32 and bfloat16; the NAFBlock pair's and csrc/gdfn.cu's: float32)
+at a few shapes
 and exits 0 only if its check catches the fault (the strength of the
 phase's bound): o_uses_a, gate_tap_dropped and proj_residual_dropped
 (phase 3, the bf16 pipeline:
@@ -214,9 +226,12 @@ gamma dropped),
 no_rescale and v_kmajor (phase 11, the flash kernel), no_di, dk_unscaled
 and lse_log2 (phase 14, the flash backward and the forward's lse),
 chain_ring_zeroed
-(phase 17, the chain kernel's statistics without the tile's ring),
-gdfn_halo_kept (phase 19, the GDFN's hidden not zeroed outside the
-image), mdta_k_unnormed (phase 20, k's norms dropped from the
+(phase 17, the chain kernel's statistics without the tile's ring, caught
+in f32), chain_ln_mean_dropped (phase 17, the chain epilogue's LayerNorm
+without the row's mean subtracted, caught in bf16), gdfn_halo_kept (phase
+19, csrc/gdfn.cu's hidden not zeroed outside the image, run in f32),
+gdfn_gate_halves_swapped (phase 19, the bf16 pipeline's gate formed as
+gelu(d2) d1), mdta_k_unnormed (phase 20, k's norms dropped from the
 attention), x9_halo_kept (phase 23, the composed form's X9 not zeroed
 outside the image) and stencil_reads_past_row (phase 24, the stencil's
 right x-shift reading the next row's first pixel).
@@ -515,14 +530,16 @@ def synthetic_triple(rng, size=512):
 
 
 def main_path(seed: int, task=TASK, kernel=tb.tblock_fused, blocks=52,
-              chain=None, extra=None, more=()):
+              chain=None, extra=None, more=(), enqueue=False):
     """Phases 5, 9, 18 and 21, the evaluation path of `task` (with the
     network options `extra`), whose every forward launches its forward
     kernel `kernel` `blocks` times and each other (kernel, n) of `more` n
     times and, with `chain` = (calls, launches) per forward, makes that
     many chain calls and chain kernel launches, every stage routed through
     the chain.  Returns (the launches of `kernel`, forward ms, the chain
-    calls and launches, the launches of each kernel of `more`)."""
+    calls and launches, the launches of each kernel of `more`), and with
+    `enqueue` the host's time to enqueue one forward (ms, the median of
+    single forwards, the card synchronised between them)."""
     model = set_chain(
         build_network(seed, torch.bfloat16, "cuda", task, extra),
         chain is not None)
@@ -571,9 +588,15 @@ def main_path(seed: int, task=TASK, kernel=tb.tblock_fused, blocks=52,
         log(f"{task}{route} forward 512x512 bf16: {fwd_ms:.2f} ms "
             f"({1e3 / fwd_ms:.3f} images/s), peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        enqueue_ms = None
+        if enqueue:
+            enqueue_ms = flash_tool.enqueue_us(lambda: model(*args), 5) / 1e3
+            log(f"{task}{route} forward: host enqueue {enqueue_ms:.2f} ms")
         profile_device(lambda: model(*args), f"{task}{route} forward")
     del model
     torch.cuda.empty_cache()
+    if enqueue:
+        return launches, fwd_ms, chain_counts, others, enqueue_ms
     return launches, fwd_ms, chain_counts, others
 
 
@@ -705,13 +728,23 @@ FAULTS = {
         "tblock_chain.cu", "if (gy < 0 || gy >= H || gx < 0 || gx >= W) {",
         "if (gy < oy || gy >= oy + th || gy >= H || gx < ox || "
         "gx >= ox + tw || gx >= W) {", 17),
+    # the chain epilogue's LayerNorm without the row's mean subtracted
+    # (the variance then E[x^2]): block i+1 reads an uncentred y (bf16)
+    "chain_ln_mean_dropped": ("bwd_gemm.cu",
+                              "const float mean = s[h] / g.N;",
+                              "const float mean = 0.f;", 17),
     # the GDFN's hidden kept on the halo outside the image (the 1x1 of x's
     # clamped edge pixels) instead of zeroed: the depthwise conv's zero
-    # padding lost (the standalone GDFN kernel; the whole-block kernels
-    # share the body but only phase 19 runs)
+    # padding lost (csrc/gdfn.cu, which serves float32, so phase 19 runs
+    # it in float32; the whole-block kernels share the body but only phase
+    # 19 runs)
     "gdfn_halo_kept": (
         "tblock_fwd.cuh", "gy >= 0 && gy < H && gx >= 0 && gx < W ? a : 0.f",
         "a", 19),
+    # the bf16 GDFN pipeline's gate stencil (the block pipeline's too)
+    # forms gelu(d2) d1 in place of gelu(d1) d2: the halves swapped
+    "gdfn_gate_halves_swapped": ("fwd_stencil.cu", "gelu_erf(d1) * d2",
+                                 "gelu_erf(d2) * d1", 19),
     # k's square sums dropped from the finish: the attention logits lose
     # their division by |k_d|
     "mdta_k_unnormed": ("mdta.cu", "rk[d] = 1.f / sqrtf(fmaxf(s, 1e-24f));",
@@ -2154,29 +2187,77 @@ def _errors(got, want, x, dtype, depth=1):
             (diff.norm() / added).item() / (scale * BRANCH_TOL[dtype]))
 
 
+def _chain_route(x, heads) -> str:
+    """The route `tblock_chain_fused` takes for x (bf16: the pipeline,
+    its boundaries fused up to C = 384; else csrc/tblock_chain.cu)."""
+    if not tb._takes_pipeline(x, heads):
+        return "tblock_chain.cu"
+    return "pipeline" + ("" if tb._chain_fuses(x.shape[-1]) else
+                         " (unfused)")
+
+
+def chain_epilogue_vs_unfused(lib, x, kws, heads, ln_type, sms, stream):
+    """Phase 17, the chain epilogue's own contract at a stage's first block
+    boundary, on block 0's x1 and gates as the pipeline makes them: out
+    bitwise what `fwd_gemm_residual` writes, and y within one bf16 ulp of
+    `bwd_ln_rows` on that out (|y - y_ref| <= 2^-7 |y_ref| + 1e-6: the
+    moments are summed in another order; on an H100 the two were equal at
+    every shape of the tests).  Returns (out bitwise equal, the largest
+    |y - y_ref| over that bound, the share of y bitwise equal)."""
+    c = x.shape[-1]
+    npix, hpad = x.numel() // c, kws[0]["hpad"]
+    bias_free = int(ln_type == "BiasFree")
+    ys = gb._ln_rows(lib, x, kws[0]["ln1w"], kws[0]["ln1b"], bias_free,
+                     stream)[0]
+    x1, _ = tb._pipeline_attn(lib, x, ys, kws[0], heads, sms, stream)
+    gates = tb._pipeline_gates(lib, x1, kws[0], ln_type, sms, stream)
+    kn, ptr = kws[1], tb._ptr
+    out, y, want = (torch.empty_like(x) for _ in range(3))
+    tb._check(lib.fwd_gemm_residual_ln(
+        ptr(gates), ptr(kws[0]["w2"]), ptr(x1), ptr(kn["ln1w"]),
+        ptr(kn["ln1b"]), bias_free, gb._EPS, ptr(out), ptr(y), npix, c, hpad,
+        stream), lib, "fwd_gemm_residual_ln")
+    tb._check(lib.fwd_gemm_residual(ptr(gates), ptr(kws[0]["w2"]), ptr(x1),
+                                    ptr(want), npix, c, hpad, stream), lib,
+              "fwd_gemm_residual")
+    want_y = gb._ln_rows(lib, want, kn["ln1w"], kn["ln1b"], bias_free,
+                         stream)[0].float()
+    got_y = y.view(npix, c).float()
+    use = ((got_y - want_y).abs() / (2 ** -7 * want_y.abs() + 1e-6)).max()
+    return (torch.equal(out, want), use.item(),
+            (got_y == want_y).float().mean().item())
+
+
 def chain_vs_plain(gen, shapes=CHAIN_SHAPES,
                    dtypes=(torch.float32, torch.bfloat16), timed=True):
-    """Phase 17: a stage of n blocks through the chain kernel
-    (`TBlockStage` with chain=True) against the whole-block kernel run
-    block by block and against the plain chain `tblock_chain_ref`, with
-    phase 3's weights and its bounds times sqrt(n): rounding differences
-    add up block after block.  On an H100 the whole-block kernel run
-    block by block differed from the plain chain as much as the chain did
-    (1.3 times phase 3's per-block bound at n = 8 in bf16), and the two
-    kernel routes, whose statistics sum the same f32 products in other
-    groupings, were bitwise equal in bf16 wherever no attention entry's
-    rounding flipped, up to 1.15 times that bound where flips compounded
-    over 8 blocks.  Two calls bitwise equal; the median time of the three
-    routes.  Returns the bf16 WithBias rows of the main path as (stages
-    per forward, max_abs against the plain chain, chain ms, plain ms,
-    block-by-block ms, shape)."""
-    log("chain vs the plain chain and vs the block kernel block by block, "
+    """Phase 17: a stage of n blocks through the chain (`TBlockStage` with
+    chain=True; bf16 `chain_pipeline`, float32 csrc/tblock_chain.cu)
+    against the whole-block kernels run block by block and against the
+    plain chain `tblock_chain_ref`, with phase 3's weights and its bounds
+    times sqrt(n): rounding differences add up block after block.  On an
+    H100 the whole-block kernel run block by block differed from the
+    plain chain as much as the chain did (1.3 times phase 3's per-block
+    bound at n = 8 in bf16); the bf16 chain is the block pipeline's
+    kernels but at each boundary, where the epilogue's LayerNorm sums the
+    row's moments in another order than `bwd_ln_rows`.  Two calls bitwise
+    equal; in bf16 every boundary a `chain_pipeline` launch and the
+    epilogue's own contract (`chain_epilogue_vs_unfused`: out bitwise,
+    epi_use the y error over one ulp, at most 1); the median time of the
+    three routes, and in bf16 of csrc/tblock_chain.cu's route on the same
+    stage (`chain_kernel_route`, held to the same bounds).
+    Returns the bf16 WithBias rows of the main path as (stages per
+    forward, max_abs against the plain chain, chain ms, plain ms,
+    block-by-block ms, tblock_chain.cu ms, shape)."""
+    log("chain vs the plain chain and vs the block kernels block by block, "
         "phase 3's bounds times sqrt(n); tol_use and branch_use are the "
-        "errors over their bounds")
+        "errors over their bounds; bf16: csrc/tblock_chain.cu's route on "
+        "the same stage beside (kc_*)")
     log(f"{'B,H,W,C,heads,n':>24} {'LN':>8} {'dtype':>8} {'max_abs':>10} "
         f"{'tol_use':>8} {'branch_use':>10} {'blk_tol':>8} {'blk_branch':>10} "
-        f"{'chain_ms':>10} {'blocks_ms':>10} {'plain_ms':>10}  tile")
+        f"{'kc_branch':>10} {'epi_use':>8} {'chain_ms':>10} "
+        f"{'blocks_ms':>10} {'plain_ms':>10} {'kc_ms':>10}  route")
     lib = _build.load_library()
+    stream, sms = tb._card(torch.device("cuda"))
     rows, failures = [], []
     for b, h, w, c, heads, n, stages in shapes:
         for ln_type in ("WithBias", "BiasFree"):
@@ -2189,6 +2270,9 @@ def chain_vs_plain(gen, shapes=CHAIN_SHAPES,
                 st = stage.to(device="cuda", dtype=dtype)
                 x = x32.to(device="cuda", dtype=dtype)
                 ps = [blk.block_params() for blk in st]
+                kws = [blk._kernel_weights(p, x) for blk, p in zip(st, ps)]
+                route = _chain_route(x, heads)
+                pipeline = route.startswith("pipeline")
 
                 def blocks():
                     y = x
@@ -2196,42 +2280,63 @@ def chain_vs_plain(gen, shapes=CHAIN_SHAPES,
                         y = blk(y)
                     return y
 
+                def kernel_route():
+                    return tb.chain_kernel_route(lib, x, kws, heads, ln_type,
+                                                 sms, stream)
+
                 with torch.inference_mode():
                     _reset_chain_counts()
+                    tb.chain_pipeline.launches = 0
                     got = st(x)
                     same = torch.equal(got, st(x))
                     counts = _chain_counts()
+                    piped = tb.chain_pipeline.launches
                     want = tb.tblock_chain_ref(x, ps, heads, ln_type)
                     max_abs, tol_use, branch = _errors(got, want, x, dtype,
                                                        n)
                     _, tol_b, branch_b = _errors(got, blocks(), x, dtype,
                                                  n)
                     finite = bool(torch.isfinite(got).all())
-                    c_ms = b_ms = p_ms = float("nan")
+                    kc_tol = kc_branch = epi_use = 0.0
+                    epi_out, epi_same = True, 1.0
+                    c_ms = b_ms = p_ms = k_ms = float("nan")
+                    if pipeline:
+                        _, kc_tol, kc_branch = _errors(kernel_route(), want,
+                                                       x, dtype, n)
+                    if route == "pipeline":
+                        epi_out, epi_use, epi_same = \
+                            chain_epilogue_vs_unfused(lib, x, kws, heads,
+                                                      ln_type, sms, stream)
                     if timed:
                         c_ms = median_ms(lambda: st(x))
                         b_ms = median_ms(blocks)
                         p_ms = median_ms(lambda: tb.tblock_chain_ref(
                             x, ps, heads, ln_type))
+                        if pipeline:
+                            k_ms = median_ms(kernel_route)
                 name = str(dtype).split(".")[-1]
-                tile = tb._chain_tile(lib, c, heads, x.element_size())
                 log(f"{f'{b},{h},{w},{c},{heads},{n}':>24} {ln_type:>8} "
                     f"{name:>8} {max_abs:10.3e} {tol_use:8.3f} "
                     f"{branch:10.3f} {tol_b:8.3f} {branch_b:10.3f} "
-                    f"{c_ms:10.4f} {b_ms:10.4f} {p_ms:10.4f}  {tile}"
-                    f"{'' if same else '  NOT REPEATABLE'}")
+                    f"{kc_branch:10.3f} {epi_use:8.3f} {c_ms:10.4f} "
+                    f"{b_ms:10.4f} {p_ms:10.4f} {k_ms:10.4f}  {route}"
+                    f"{'' if same else '  NOT REPEATABLE'}"
+                    f"{'' if epi_out else '  EPILOGUE OUT DIFFERS'}")
                 if not finite or not same or counts != (2, 2 * (n - 1)) \
-                        or max(tol_use, branch, tol_b, branch_b) > 1.0:
+                        or piped != 2 * (n - 1) * pipeline \
+                        or not epi_out or epi_same < 0.95 \
+                        or max(tol_use, branch, tol_b, branch_b, kc_tol,
+                               kc_branch, epi_use) > 1.0:
                     failures.append((b, h, w, c, heads, n, ln_type, name,
-                                     counts))
+                                     counts, piped))
                 if dtype == torch.bfloat16 and ln_type == "WithBias" \
                         and stages:
-                    rows.append((stages, max_abs, c_ms, p_ms, b_ms,
+                    rows.append((stages, max_abs, c_ms, p_ms, b_ms, k_ms,
                                  (b, h, w, c, heads, n)))
-                del got, want
+                del got, want, kws
             stage.cpu().float()
     if failures:
-        raise RuntimeError(f"chain kernel disagrees at {failures}")
+        raise RuntimeError(f"chain disagrees at {failures}")
     return rows
 
 
@@ -2271,23 +2376,29 @@ def chain_grad_vs_autograd(gen, shape=(8, 96, 96, 192, 4, 2)):
 
 def promptir_path(seed: int):
     """Phase 18: the full-width promptir_all_in_one network on the card
-    against the CPU (f32, chain off and on: csrc/tblock.cu's pair, no
-    pipeline call), then the evaluation path at 512 px in bf16 through
-    both routes (every whole-block call through the pipeline; the chain's
-    first pass A and last pass B are csrc/tblock.cu's).  Returns the
-    chain-off and chain-on results of `main_path`."""
+    against the CPU (f32, chain off and on: csrc/tblock.cu's pair and
+    csrc/tblock_chain.cu, no pipeline call), then the evaluation path at
+    512 px in bf16 through both routes (every whole-block call through the
+    pipeline, every chain boundary through the chain epilogue of
+    `chain_pipeline`), each forward's host enqueue time beside its time.
+    Returns the chain-off and chain-on results of `main_path` (with
+    enqueue ms)."""
     network_vs_cpu(seed, PROMPTIR_TASK, tb.tblock_fused,
                    ((PROMPTIR_BLOCKS, None),
                     (PROMPTIR_CHAIN_BLOCKS, PROMPTIR_CHAIN)),
-                   more=((tb.tblock_pipeline, 0),))
+                   more=((tb.tblock_pipeline, 0), (tb.chain_pipeline, 0)))
     off = main_path(seed, PROMPTIR_TASK, tb.tblock_fused, PROMPTIR_BLOCKS,
-                    more=((tb.tblock_pipeline, PROMPTIR_BLOCKS),))
+                    more=((tb.tblock_pipeline, PROMPTIR_BLOCKS),
+                          (tb.chain_pipeline, 0)), enqueue=True)
     on = main_path(seed, PROMPTIR_TASK, tb.tblock_fused,
                    PROMPTIR_CHAIN_BLOCKS, PROMPTIR_CHAIN,
-                   more=((tb.tblock_pipeline, PROMPTIR_CHAIN_BLOCKS),))
+                   more=((tb.tblock_pipeline, PROMPTIR_CHAIN_BLOCKS),
+                         (tb.chain_pipeline, PROMPTIR_CHAIN[1])),
+                   enqueue=True)
     log(f"{PROMPTIR_TASK} forward 512 px bf16: chain off {off[1]:.2f} ms "
-        f"({1e3 / off[1]:.3f} images/s), chain on {on[1]:.2f} ms "
-        f"({1e3 / on[1]:.3f} images/s)")
+        f"({1e3 / off[1]:.3f} images/s, enqueue {off[4]:.2f} ms), chain on "
+        f"{on[1]:.2f} ms ({1e3 / on[1]:.3f} images/s, enqueue {on[4]:.2f} "
+        f"ms)")
     return off, on
 
 
@@ -2360,16 +2471,21 @@ def gdfn_weights(c: int, gen: torch.Generator):
 
 def gdfn_vs_plain(gen, shapes=GDFN_SHAPES,
                   dtypes=(torch.float32, torch.bfloat16), timed=True):
-    """Phase 19: `gdfn_fused` against `gdfn_ref` at every GDFN shape of the
-    512 px forward and a ragged batch-2 shape, float32 and bfloat16, under
-    GDFN_TOL; two calls bitwise equal, one launch per call; the median
-    time of both.  Returns the bf16 rows of the main path as (GDFNs per
-    forward, max_abs, kernel ms, plain ms, shape)."""
+    """Phase 19: `gdfn_fused` (bf16 at C % 8 == 0: `gdfn_pipeline`; else
+    csrc/gdfn.cu) against `gdfn_ref` at every GDFN shape of the 512 px
+    forward and a ragged batch-2 shape, float32 and bfloat16, under
+    GDFN_TOL; two calls bitwise equal, one `gdfn_fused` launch per call and
+    one `gdfn_pipeline` call per call on the pipeline's route; the median
+    time of both, and in bf16 of csrc/gdfn.cu on the same inputs (the
+    route the pipeline replaced; `_launch`, held to the same bounds).
+    Returns the bf16 rows of the main path as (GDFNs per forward, max_abs,
+    kernel ms, plain ms, csrc/gdfn.cu ms, shape)."""
     log("gdfn_fused vs gdfn_ref: |k-p| <= a max|p| + r|p|, ||k-p|| <= l2 "
         f"||p||; (a, r, l2) f32 {GDFN_TOL[torch.float32]}, bf16 "
         f"{GDFN_TOL[torch.bfloat16]}; tol_use and l2_use are the errors "
-        "over their bounds")
+        "over their bounds; bf16: csrc/gdfn.cu on the same inputs beside")
     lib = _build.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
     rows, failures = [], []
     for b, h, w, c, n in shapes:
         w1, dwk, w2 = (t.cuda() for t in gdfn_weights(c, gen))
@@ -2377,30 +2493,45 @@ def gdfn_vs_plain(gen, shapes=GDFN_SHAPES,
         for dtype in dtypes:
             x = x32.to("cuda", dtype)
             kw = gd.prepare_gdfn_weights(w1, dwk, w2, dtype)
+            pipeline = gd._takes_gdfn_pipeline(x)
+            tile = gd.pick_tile(lib, c, x.element_size())
+
+            def gdfn_cu():
+                return gd._launch(lib, x, kw, tile, stream)
+
             with torch.inference_mode():
-                before = gd.gdfn_fused.launches
+                before = (gd.gdfn_fused.launches, gd.gdfn_pipeline.launches)
                 got = gd.gdfn_fused(x, w1, dwk, w2, kw)
                 same = torch.equal(got, gd.gdfn_fused(x, w1, dwk, w2, kw))
-                launched = gd.gdfn_fused.launches - before
+                launched = (gd.gdfn_fused.launches - before[0],
+                            gd.gdfn_pipeline.launches - before[1])
                 want = gd.gdfn_ref(x, w1, dwk, w2)
                 max_abs, use, l2_use = _err_use(got, want, *GDFN_TOL[dtype])
+                cu_use = cu_l2 = 0.0
+                if pipeline:
+                    _, cu_use, cu_l2 = _err_use(gdfn_cu(), want,
+                                                *GDFN_TOL[dtype])
                 finite = bool(torch.isfinite(got).all())
-                k_ms = p_ms = float("nan")
+                k_ms = p_ms = cu_ms = float("nan")
                 if timed:
                     k_ms = median_ms(lambda: gd.gdfn_fused(x, w1, dwk, w2,
                                                            kw))
                     p_ms = median_ms(lambda: gd.gdfn_ref(x, w1, dwk, w2))
+                    if pipeline:
+                        cu_ms = median_ms(gdfn_cu)
             name = str(dtype).split(".")[-1]
             log(f"{b},{h},{w},{c} {name}: max_abs {max_abs:.3e} (max|p| "
                 f"{want.abs().max().item():.3f}) tol_use {use:.3f} l2_use "
-                f"{l2_use:.3f} kernel {k_ms:.4f} ms plain {p_ms:.4f} ms "
-                f"tile {gd.pick_tile(lib, c, x.element_size())}"
-                f"{'' if same else '  NOT REPEATABLE'}")
-            if not finite or not same or launched != 2 \
-                    or max(use, l2_use) > 1.0:
-                failures.append((b, h, w, c, name))
+                f"{l2_use:.3f} kernel {k_ms:.4f} ms plain {p_ms:.4f} ms; "
+                f"route {'pipeline' if pipeline else f'gdfn.cu tile {tile}'}"
+                + (f"; gdfn.cu tol_use {cu_use:.3f} l2_use {cu_l2:.3f} "
+                   f"{cu_ms:.4f} ms" if pipeline else "")
+                + ('' if same else '  NOT REPEATABLE'))
+            if not finite or not same or launched != (2, 2 * pipeline) \
+                    or max(use, l2_use, cu_use, cu_l2) > 1.0:
+                failures.append((b, h, w, c, name, launched))
             if dtype == torch.bfloat16 and n:
-                rows.append((n, max_abs, k_ms, p_ms, (b, h, w, c)))
+                rows.append((n, max_abs, k_ms, p_ms, cu_ms, (b, h, w, c)))
             del got, want, x, kw
     if failures:
         raise RuntimeError(f"gdfn_fused disagrees with gdfn_ref at "
@@ -2523,17 +2654,19 @@ def module_eval_path(seed: int):
     """Phase 21: the full-width restormer_deblur network on the module path
     with both kernels (MODULE_ROUTE) on the card against the CPU in f32,
     then the evaluation path at 512 px in bf16: 52 launches of each
-    kernel per forward and none of the whole-block kernel; then the module
-    path without the two kernels.  Returns (with, without) as `main_path`
+    kernel per forward (every bf16 GDFN through `gdfn_pipeline`, none in
+    f32) and none of the whole-block kernel; then the module path without
+    the two kernels.  Returns (with, without) as `main_path`
     returns them."""
     counted = ((gd.gdfn_fused, MODULE_BLOCKS), (md.mdta_stats,
                                                 MODULE_BLOCKS))
     network_vs_cpu(seed, TASK, tb.tblock_fused, ((0, None),), MODULE_ROUTE,
-                   counted)
+                   counted + ((gd.gdfn_pipeline, 0),))
     on = main_path(seed, TASK, tb.tblock_fused, 0, None, MODULE_ROUTE,
-                   counted)
+                   counted + ((gd.gdfn_pipeline, MODULE_BLOCKS),))
     off = main_path(seed, TASK, tb.tblock_fused, 0, None, {"fused": False},
-                    ((gd.gdfn_fused, 0), (md.mdta_stats, 0)))
+                    ((gd.gdfn_fused, 0), (md.mdta_stats, 0),
+                     (gd.gdfn_pipeline, 0)))
     log(f"{TASK} module path forward 512 px bf16: with both kernels "
         f"{on[1]:.2f} ms ({1e3 / on[1]:.3f} images/s), without "
         f"{off[1]:.2f} ms ({1e3 / off[1]:.3f} images/s)")
@@ -2552,17 +2685,19 @@ def module_train_path(seed: int):
     """Phase 22: the training CLI's step function with
     restormer_motion_deblur.yml's options, fused_kernels off and
     --gdfn_kernel (resolve_network's gdfn_kernel), at 384 px, batch
-    MODULE_TRAIN_BATCH, bf16: 52 B6 launches per step and none of the
-    whole-block kernel, timed against the same step with every GDFN op by
+    MODULE_TRAIN_BATCH, bf16: 52 B6 launches per step, all through
+    `gdfn_pipeline`, and none of the whole-block kernel, timed against the same step with every GDFN op by
     op in alternating turns; then one f32 step at 128 px on the card
     against the CPU.  Returns `train_main_path`'s results."""
     res = train_main_path(
-        seed, MODULE_TRAIN_OPT, (gd.gdfn_fused, tb.tblock_fused),
-        (MODULE_BLOCKS, 0), _module_gdfn, MODULE_TRAIN_BATCH,
+        seed, MODULE_TRAIN_OPT,
+        (gd.gdfn_fused, tb.tblock_fused, gd.gdfn_pipeline),
+        (MODULE_BLOCKS, 0, MODULE_BLOCKS), _module_gdfn, MODULE_TRAIN_BATCH,
         {"gdfn_kernel": True})
     module_step_memory(seed)
     train_step_vs_cpu(seed, MODULE_TRAIN_OPT, {"gdfn_kernel": True},
-                      ((gd.gdfn_fused, MODULE_BLOCKS),))
+                      ((gd.gdfn_fused, MODULE_BLOCKS),
+                       (gd.gdfn_pipeline, 0)))
     return res
 
 
@@ -2904,7 +3039,9 @@ def main(argv=None) -> int:
                                timed=False)
             elif FAULTS[args.plant][3] == 19:
                 gdfn_vs_plain(gen, [GDFN_SHAPES[i] for i in (2, 7, 8)],
-                              dtypes=(torch.bfloat16,), timed=False)
+                              dtypes=(torch.float32 if FAULTS[args.plant][0]
+                                      == "tblock_fwd.cuh" else
+                                      torch.bfloat16,), timed=False)
             elif FAULTS[args.plant][3] == 20:
                 mdta_vs_plain(gen, [MDTA_SHAPES[i] for i in (2, 6, 8)],
                               dtypes=(torch.bfloat16,), timed=False)
@@ -3005,12 +3142,13 @@ def main(argv=None) -> int:
         f"{sum(r[0] * r[3] for r in noise_rows):.3f} ms")
     chain_rows = chain_vs_plain(gen)
     chain_grad_vs_autograd(gen)
-    (pir_launches, pir_ms, _, _), (pir_chain_launches, pir_chain_ms,
-                                   pir_chain_counts, _) = promptir_path(
-        args.seed)
+    ((pir_launches, pir_ms, _, _, pir_enqueue),
+     (pir_chain_launches, pir_chain_ms, pir_chain_counts, pir_chain_more,
+      pir_chain_enqueue)) = promptir_path(args.seed)
     log(f"launches: promptir evaluation path, chain off: tblock_fused "
         f"{pir_launches}; chain on: tblock_fused {pir_chain_launches}, "
-        f"chain calls/launches {pir_chain_counts}")
+        f"chain calls/launches {pir_chain_counts}, of them through the "
+        f"chain epilogue {pir_chain_more[1]}")
     log_held("phases 16-18")
 
     gdfn_rows = gdfn_vs_plain(gen)
@@ -3020,9 +3158,9 @@ def main(argv=None) -> int:
     mod_on, mod_off = module_eval_path(args.seed)
     (mod_train_launches, mod_step_ms, mod_plain_step_ms, mod_peak,
      mod_plain_peak) = module_train_path(args.seed)
-    log(f"launches: module-path evaluation path gdfn_fused/mdta_stats "
+    log(f"launches: module-path evaluation path gdfn_fused/mdta_stats/gdfn_pipeline "
         f"{mod_on[3]}, tblock_fused {mod_on[0]}; training path (4 steps) "
-        f"gdfn_fused/tblock_fused {mod_train_launches}")
+        f"gdfn_fused/tblock_fused/gdfn_pipeline {mod_train_launches}")
     log_held("phases 19-22")
 
     qkv_rows = qkv_form_vs_plain(gen)
@@ -3189,27 +3327,50 @@ def main(argv=None) -> int:
          "bound_by": flash_bwd_bound_ms(*bwd_main[0][5])[1],
          "library_ms": sum(r[0] * r[4] for r in bwd_main)},
         # per 512 px promptir_all_in_one forward with chain on (its 8
-        # stages, bf16); launches: phase 18's chain-on evaluation path
+        # stages, bf16: `chain_pipeline`, the block pipeline's kernels with
+        # bwd_gemm.cu's chain epilogue at each boundary; float32 and other
+        # bf16 widths run tblock_chain.cu, timed in bf16 beside as
+        # tblock_chain_cu_ms); launches: phase 18's chain-on evaluation
+        # path's boundaries, epilogue_launches of them through the chain
+        # epilogue; blocks_ms: the stages' blocks one by one
         {"name": "tblock_chain_fused", "route": "cuda",
-         "source": src + "tblock_chain.cu",
+         "source": src + "bwd_gemm.cu",
+         "sources": [src + f for f in ("bwd_gemm.cu", "fwd_stencil.cu",
+                                       "bwd_stencil.cu", "wgrad.cu",
+                                       "halo_tiles.cuh", "tma_maps.cuh",
+                                       "hopper.cuh", "tblock_common.cuh",
+                                       "tblock_chain.cu", "tblock.cu")],
          "replaces": "textualdegremoval_tpu/ops/pallas/tblock.py:829 "
                      "(_tblock_chain_impl; _make_apply_stats_kernel :314)",
          "launches": pir_chain_counts[1],
+         "epilogue_launches": pir_chain_more[1],
          "max_abs_err": max(r[1] for r in chain_rows),
          "ms": sum(r[0] * r[2] for r in chain_rows),
          "plain_ms": sum(r[0] * r[3] for r in chain_rows),
+         "blocks_ms": sum(r[0] * r[4] for r in chain_rows),
+         "tblock_chain_cu_ms": sum(r[0] * r[5] for r in chain_rows),
          "bound_ms": sum(n * ms for n, ms, _ in chain_per),
          "bound_by": max(chain_per, key=lambda r: r[0] * r[1])[2],
          "library_ms": None},
         # per 512 px restormer_deblur forward on the module path (52
-        # GDFNs, bf16); launches: phase 21's evaluation path
-        {"name": "gdfn_fused", "route": "cuda", "source": src + "gdfn.cu",
+        # GDFNs, bf16: `gdfn_pipeline`, bwd_gemm.cu's two products around
+        # fwd_stencil.cu's gate stencil; float32 and other bf16 widths run
+        # gdfn.cu, timed in bf16 beside as gdfn_cu_ms); launches: phase
+        # 21's evaluation path, pipeline_launches of them through the
+        # pipeline
+        {"name": "gdfn_fused", "route": "cuda",
+         "source": src + "bwd_gemm.cu",
+         "sources": [src + f for f in ("bwd_gemm.cu", "fwd_stencil.cu",
+                                       "halo_tiles.cuh", "tma_maps.cuh",
+                                       "hopper.cuh", "tblock_common.cuh",
+                                       "gdfn.cu", "tblock_fwd.cuh")],
          "replaces": "textualdegremoval_tpu/ops/pallas/gdfn.py:215 "
                      "(_gdfn_fused_impl :156, _make_kernel :71)",
-         "launches": mod_on[3][0],
+         "launches": mod_on[3][0], "pipeline_launches": mod_on[3][2],
          "max_abs_err": max(r[1] for r in gdfn_rows),
          "ms": sum(r[0] * r[2] for r in gdfn_rows),
          "plain_ms": sum(r[0] * r[3] for r in gdfn_rows),
+         "gdfn_cu_ms": sum(r[0] * r[4] for r in gdfn_rows),
          "bound_ms": gdfn_bound, "bound_by": gdfn_by, "library_ms": None},
         # per 512 px restormer_deblur forward on the module path (52
         # attentions, bf16 q and k, f32 attn); launches: phase 21's
@@ -3276,15 +3437,19 @@ def main(argv=None) -> int:
         f"GiB")
     log(f"promptir_all_in_one: forward 512 px bf16 {pir_ms:.2f} ms "
         f"({1e3 / pir_ms:.3f} images/s) block by block, {pir_chain_ms:.2f} ms "
-        f"({1e3 / pir_chain_ms:.3f} images/s) with the chain; per forward "
-        f"the chain kernels {sum(r[0] * r[2] for r in chain_rows):.3f} ms "
+        f"({1e3 / pir_chain_ms:.3f} images/s) with the chain; host enqueue "
+        f"{pir_enqueue:.2f} / {pir_chain_enqueue:.2f} ms; per forward "
+        f"the chain {sum(r[0] * r[2] for r in chain_rows):.3f} ms "
         f"against {sum(r[0] * r[4] for r in chain_rows):.3f} ms block by "
-        f"block and {sum(r[0] * r[3] for r in chain_rows):.3f} ms plain")
+        f"block, {sum(r[0] * r[5] for r in chain_rows):.3f} ms on "
+        f"tblock_chain.cu and {sum(r[0] * r[3] for r in chain_rows):.3f} ms "
+        f"plain")
     log(f"restormer_deblur module path: forward 512 px bf16 {mod_on[1]:.2f} "
         f"ms ({1e3 / mod_on[1]:.3f} images/s) with gdfn_fused and "
         f"mdta_stats, {mod_off[1]:.2f} ms ({1e3 / mod_off[1]:.3f} images/s) "
         f"without; per forward gdfn_fused "
-        f"{sum(r[0] * r[2] for r in gdfn_rows):.3f} ms (plain "
+        f"{sum(r[0] * r[2] for r in gdfn_rows):.3f} ms (gdfn.cu "
+        f"{sum(r[0] * r[4] for r in gdfn_rows):.3f}, plain "
         f"{sum(r[0] * r[3] for r in gdfn_rows):.3f}), mdta_stats "
         f"{sum(r[0] * r[2] for r in mdta_rows):.3f} ms (plain "
         f"{sum(r[0] * r[3] for r in mdta_rows):.3f}); train step 384 px "

@@ -9,9 +9,15 @@ Chain of custody on the CPU, f32 unless stated:
   launch code the CUDA path uses, and its gradient route
   (`_GdfnFunction`: the kernel forward, the backward through `gdfn_ref`)
   against autograd through `gdfn_ref`;
+* the bf16 route (`gdfn_pipeline`: csrc/bwd_gemm.cu's products around
+  csrc/fwd_stencil.cu's gate stencil), host build, against JAX's
+  `_gdfn_fused_impl` run op by op in bf16 and against `gdfn_ref` within
+  phase 19's bf16 bound; the route rule of `_forward_kernel`;
 * the GDFN module with fused=True against the JAX module.
 The on-card checks are in tests/test_torch_gdfn_cuda.py.
 """
+
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -24,6 +30,7 @@ from textualdegremoval_tpu.ops.pallas import gdfn as jgd
 import textualdegremoval_tpu_torch.ops.pallas.gdfn as gd
 from textualdegremoval_tpu_torch.models.layers import GDFN
 
+from test_torch_tblock_fwd import _eager_pallas_call, _j
 from torch_port_util import (
     randn, t, randomize, jax_tree, assert_close, build_host_library,
 )
@@ -33,6 +40,10 @@ from torch_port_util import (
 # every op, so the two differ by a few bf16 ulps of the output (2^-8
 # relative); on the host build at these shapes at most 0.6% of max|p|.
 BF16_ATOL, BF16_RTOL = 3e-2, 3e-2
+# chip_smoke.py's GDFN_TOL in bf16, (a, r, l2): |k - p| <= a max|p| +
+# r |p| and ||k - p|| <= l2 ||p|| (the reasons are given there)
+GDFN_TOL_BF16 = (2e-2, 2e-2, 1.5e-2)
+BF = torch.bfloat16
 
 
 def _weights(c, seed):
@@ -166,3 +177,88 @@ def test_fused_module_refuses_biases():
         GDFN(8, bias=True, fused=True)
     with pytest.raises(ValueError, match="bool"):
         GDFN(8, fused="on")
+
+
+# ---------------------------------------------------------------------------
+# The bf16 route: the block pipeline's kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def host_pipe_lib(tmp_path_factory):
+    """The pipeline's GEMM and stencil sources (bwd_stencil.cu for the
+    stencil's tile) and csrc/gdfn.cu compiled for the CPU against
+    tests/cuda_host_shim.h."""
+    return build_host_library(tmp_path_factory.mktemp("host_gdfn_pipe"),
+                              ("bwd_gemm.cu", "bwd_stencil.cu",
+                               "fwd_stencil.cu", "gdfn.cu", "tblock.cu"))
+
+
+def _gdfn_tol(got, want):
+    a, r, l2 = GDFN_TOL_BF16
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    assert (diff <= a * w.abs().max() + r * w.abs()).all(), diff.max()
+    assert diff.norm() <= l2 * w.norm(), (diff.norm() / w.norm()).item()
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 8, 16, 48),   # hidden 127, padded to 128
+    (2, 6, 11, 16),   # batch 2, W ragged against the stencil's 16
+    (1, 9, 10, 96),   # H ragged, hidden 255
+])
+def test_pipeline_on_host_matches_jax_kernel_op_by_op(host_pipe_lib, shape):
+    """`gdfn_pipeline` against JAX's `_gdfn_fused_impl` with its Pallas
+    kernel run op by op in bf16 (tests/test_torch_tblock_fwd.py
+    `_eager_pallas_call`): the same rounding points (hid and the gate in
+    bf16, the W2 sum rounded once), sums in other orders (a flip of the
+    gate's last bit here and there); and against `gdfn_ref`."""
+    ws = _weights(shape[-1], seed=shape[2])
+    x = t(randn(np.random.default_rng(shape[1]), *shape)).to(BF)
+    kw = gd.prepare_gdfn_weights(*map(t, ws), BF)
+    got = gd.gdfn_pipeline(host_pipe_lib, x, kw, 2, 0)
+    assert got.dtype == BF and got.shape == x.shape
+    jx = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+    with mock.patch.object(jgd.pl, "pallas_call", _eager_pallas_call):
+        want = t(_j(jgd._gdfn_fused_impl(jx, *map(jnp.asarray, ws),
+                                         interpret=True)))
+    # one bf16 ulp of the output's scale, L2 well under phase 19's bound
+    diff = (got.float() - want).abs()
+    assert (diff <= 2 ** -7 * want.abs().max()).all(), diff.max()
+    assert diff.norm() <= 2e-3 * want.norm(), (diff.norm() / want.norm())
+    _gdfn_tol(got, gd.gdfn_ref(x, *map(t, ws)))
+    # a repeated call is bitwise equal; the counter counts calls
+    before = gd.gdfn_pipeline.launches
+    assert torch.equal(gd.gdfn_pipeline(host_pipe_lib, x, kw, 2, 0), got)
+    assert gd.gdfn_pipeline.launches == before + 1
+
+
+@pytest.mark.parametrize("c,dtype,pipeline", [
+    (16, BF, True),                # C % 8 == 0: the pipeline
+    (48, BF, True),
+    (12, BF, False),               # C % 8 != 0: csrc/gdfn.cu
+    (16, torch.float32, False),    # float32: csrc/gdfn.cu
+])
+def test_forward_route_rule(host_pipe_lib, monkeypatch, c, dtype, pipeline):
+    """`_forward_kernel` with the library and the card query pointed at the
+    host build: the pipeline for bf16 at C % 8 == 0, csrc/gdfn.cu
+    otherwise; `gdfn_fused.launches` counts every call."""
+    import textualdegremoval_tpu_torch.ops._build as build
+    import textualdegremoval_tpu_torch.ops.pallas.tblock as tb
+
+    monkeypatch.setattr(build, "load_library", lambda: host_pipe_lib)
+    monkeypatch.setattr(tb, "_card", lambda device: (0, 2))
+    assert gd._takes_gdfn_pipeline(torch.empty(1, 1, 1, c,
+                                               dtype=dtype)) is pipeline
+    ws = [t(w) for w in _weights(c, seed=c)]
+    x = t(randn(np.random.default_rng(c), 1, 7, 9, c)).to(dtype)
+    kw = gd.prepare_gdfn_weights(*ws, dtype)
+    before = (gd.gdfn_fused.launches, gd.gdfn_pipeline.launches)
+    got = gd._forward_kernel(x, kw)
+    assert (gd.gdfn_fused.launches - before[0],
+            gd.gdfn_pipeline.launches - before[1]) == (1, int(pipeline))
+    want = gd.gdfn_ref(x, *ws)
+    if dtype == BF:
+        _gdfn_tol(got, want)
+    else:
+        assert_close(got, want)

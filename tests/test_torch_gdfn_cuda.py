@@ -1,5 +1,6 @@
-"""On-card checks of the standalone GDFN kernel (csrc/gdfn.cu; marked
-`cuda`, each skips without a CUDA device).  The file imports neither jax
+"""On-card checks of the standalone GDFN (in bf16 at C % 8 == 0 the
+pipeline's kernels, `gdfn_pipeline`; else csrc/gdfn.cu; marked `cuda`,
+each skips without a CUDA device).  The file imports neither jax
 nor the test helpers that do, so the card's machine runs it without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
@@ -37,16 +38,19 @@ def _inputs(c, shape, seed):
     (48, (2, 37, 53)),    # ragged: no tile divides H or W; hidden 127
     (96, (1, 64, 40)),
     (768, (1, 13, 9)),    # the widest GDFN: a smaller tile
+    (12, (2, 19, 23)),    # C % 8 != 0: csrc/gdfn.cu in bf16 too
 ])
 def test_kernel_matches_plain(c, shape, dtype):
     _cuda()
     ws, x32 = _inputs(c, shape, seed=c)
     x = x32.to(dtype)
-    before = gd.gdfn_fused.launches
+    before = (gd.gdfn_fused.launches, gd.gdfn_pipeline.launches)
     with torch.inference_mode():
         got = gd.gdfn_fused(x, *ws).float()
         want = gd.gdfn_ref(x, *ws).float()
-    assert gd.gdfn_fused.launches == before + 1
+    pipeline = dtype == torch.bfloat16 and c % 8 == 0
+    assert (gd.gdfn_fused.launches, gd.gdfn_pipeline.launches) == (
+        before[0] + 1, before[1] + pipeline)
     a, r, l2 = GDFN_TOL[dtype]
     assert torch.isfinite(got).all()
     diff = (got - want).abs()
@@ -56,9 +60,10 @@ def test_kernel_matches_plain(c, shape, dtype):
 
 
 @pytest.mark.cuda
-def test_kernel_is_bitwise_repeatable():
+@pytest.mark.parametrize("c", [96, 12])
+def test_kernel_is_bitwise_repeatable(c):
     _cuda()
-    ws, x = _inputs(96, (2, 37, 53), seed=1)
+    ws, x = _inputs(c, (2, 37, 53), seed=1)
     x = x.bfloat16()
     with torch.inference_mode():
         assert torch.equal(gd.gdfn_fused(x, *ws), gd.gdfn_fused(x, *ws))

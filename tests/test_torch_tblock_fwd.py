@@ -12,7 +12,9 @@ CUDA path uses:
   by XLA, which may keep f32 where the bodies round), against the port's
   `tblock_ref` and against csrc/tblock.cu's pair, WithBias and BiasFree,
   ragged tiles, 40 channels per head at small C;
-* each new part alone: the residual product, the attention output
+* each new part alone: the residual product, the chain's epilogue (the
+  residual product and the next block's LN rows in one launch, at every
+  width that its whole-row CTAs take), the attention output
   (o = v . A^T, x1 = x + rnd(o . Wproj)), the q | k | v stencil with its
   square sums and the gram over its output, the glue against
   `_attn_matrix`, and the gate stencil against `gdfn_ref`'s gate;
@@ -245,6 +247,51 @@ def test_residual_product_on_host_matches_torch(host_lib):
     prod = (a.float() @ b.float().T).to(BF).float()
     want = (res.float() + prod).to(BF)
     _ulp_close(out, want, res.float().abs() + prod.abs())
+
+
+@pytest.mark.parametrize("m,n,k,ln_type", [
+    (150, 48, 256, "WithBias"),   # BN 64, 16 columns past N
+    (70, 96, 128, "BiasFree"),    # BN 128
+    (130, 192, 512, "WithBias"),  # BN 192: one warpgroup holds a row
+    (90, 384, 1024, "BiasFree"),  # the latent's width: two warpgroups of
+                                  # 192 columns trade a row's moments
+    (33, 376, 96, "WithBias"),    # the split ragged in N, K past one box
+    (257, 160, 64, "BiasFree"),   # ragged M, a row tile and one row
+])
+def test_chain_epilogue_on_host_matches_residual_and_ln_rows(host_lib, m, n,
+                                                             k, ln_type):
+    """`fwd_gemm_residual_ln`: out bitwise what `fwd_gemm_residual` writes,
+    and y within one bf16 ulp of `bwd_ln_rows` on that out (the one-pass
+    moments of the rounded out values, summed in another order), both
+    LayerNorm types, out at a residual stream's scale with a mean per row
+    (a missing mean subtraction shows)."""
+    rng = np.random.default_rng(n + m)
+    a, b = (t(randn(rng, r, k, scale=k ** -0.25)).to(BF) for r in (m, n))
+    res = (t(randn(rng, m, n)) + t(randn(rng, m, 1))).to(BF)
+    w = t(1 + 0.3 * randn(rng, n))
+    bias = t(0.2 * randn(rng, n))
+    bias_free = int(ln_type == "BiasFree")
+    out, y, want_out = (torch.empty(m, n, dtype=BF) for _ in range(3))
+    assert host_lib.fwd_gemm_residual_ln(
+        tb._ptr(a), tb._ptr(b), tb._ptr(res), tb._ptr(w), tb._ptr(bias),
+        bias_free, gb._EPS, tb._ptr(out), tb._ptr(y), m, n, k, None) == 0
+    assert host_lib.fwd_gemm_residual(
+        tb._ptr(a), tb._ptr(b), tb._ptr(res), tb._ptr(want_out), m, n, k,
+        None) == 0
+    assert torch.equal(out, want_out)
+    want_y = gb._ln_rows(host_lib, want_out, w, bias, bias_free, None)[0]
+    _ulp_close(y, want_y)
+    # and the f32 LayerNorm of the same rounded out, rounded once
+    _ulp_close(y, tb._ln(out.float(), w, bias, ln_type).to(BF))
+
+
+def test_chain_epilogue_refuses_what_its_ctas_cannot_hold(host_lib):
+    """Rows wider than the two warpgroups' 384 columns, or not a multiple
+    of 8 columns, are refused (the chain then runs the boundary unfused)."""
+    for n in (392, 44):
+        assert host_lib.fwd_gemm_residual_ln(
+            *([None] * 5), 0, 1e-5, None, None, 8, n, 64, None) != 0
+    assert tb._chain_fuses(384) and not tb._chain_fuses(392)
 
 
 @pytest.mark.parametrize("c,heads", [(32, 2), (80, 2), (96, 1)])

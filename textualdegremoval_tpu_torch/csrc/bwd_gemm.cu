@@ -67,6 +67,22 @@
 // Its stores were what bounded the skinny products: each lane now stores
 // whole 16-byte runs of a row, the quad's lanes trading values through
 // shuffles first.  No atomics: a repeated call is bitwise equal.
+//
+// The cross-block chain's epilogue (kEpi 3, `fwd_gemm_residual_ln`; the TPU
+// kernel `_make_apply_stats_kernel`, ops/pallas/tblock.py:314, which took
+// block i+1's statistics from the output block i made): block i's
+// out = x1 + rnd(gate . W2) as the residual epilogue writes it, and from
+// the same registers block i+1's y = LN1(out), so that block i+1 does not
+// read out again to form it.  LN needs a row's moments over all C
+// columns, so a CTA holds whole rows: up to C = 192 its two warpgroups
+// take 64 rows each of one BN-wide tile (BN 64, 128 or 192), as the other
+// epilogues' CTAs do; up to C = 384 they take the same 64 rows and half
+// the columns each (kWgN 2, BN 192) and trade each row's partial moments
+// through shared memory.  A row's moments are the one-pass sums of
+// bwd_ln_rows (bwd_stencil.cu) over the rounded bf16 out values: each
+// lane adds its runs of the row, the quad's lanes meet through shuffles,
+// the two halves of a split row in warpgroup order; a fixed order, no
+// atomics.  y then rounds where bwd_ln_rows rounds.
 
 #include "tma_maps.cuh"
 #include "tblock_common.cuh"
@@ -78,14 +94,20 @@ constexpr int kGemmRows = 128;     // output rows per CTA, 64 per warpgroup
 constexpr int kGemmStages = 3;
 
 // shared memory, bytes from the 1024-aligned base: per stage an A tile
-// (128 rows x 128 bytes) and a B tile (BN x 64 values), then the
-// mbarriers; plus the slack that aligns the base
-template <int BN>
+// (kRows rows x 128 bytes) and a B tile (kWgN BN x 64 values), then the
+// mbarriers, then (kWgN 2) the rows' partial moments of both warpgroups;
+// plus the slack that aligns the base.  kWgN: the consumer warpgroups
+// along N (1: 64 rows each of one BN-wide tile; 2: the same 64 rows, BN
+// columns each).
+template <int BN, int kWgN = 1>
 struct GemmSmem {
-  static constexpr int kA = kGemmRows * 128;
-  static constexpr int kStage = kA + BN * 128;
+  static constexpr int kRows = kGemmRows / kWgN;
+  static constexpr int kA = kRows * 128;
+  static constexpr int kStage = kA + kWgN * BN * 128;
   static constexpr int kBars = kGemmStages * kStage;
-  static constexpr int kBytes = kBars + 2 * kGemmStages * 8 + 1024;
+  static constexpr int kMoments = kBars + 2 * kGemmStages * 8;
+  static constexpr int kBytes =
+      kMoments + (kWgN == 2 ? 2 * 64 * 2 * 4 : 0) + 1024;
 };
 
 // Where the products go: output row z3 * rows + r, column
@@ -98,7 +120,9 @@ struct GemmSmem {
 // product and the sum rounded; epi 1 then times scale[n] and rounded
 // where scale is set, before res; epi 2 stores the rounded product of
 // columns n and n + 32 of each 64-column chunk k (n % 64 < 32) at output
-// column 32 k + n % 64, in an output N / 2 wide (naf_word).
+// column 32 k + n % 64, in an output N / 2 wide (naf_word).  epi 3 (the
+// chain's, bf16 out, nz2 = 1, res set): out as with res, and out_y =
+// LN(out) per row with ln_w, ln_b (bias_free: ln_b unused) and eps.
 struct GemmOut {
   int rows, N, nz2, nk;  // nk: steps of 64 along K
   float* out_f;
@@ -115,6 +139,11 @@ struct GemmOut {
   int epi;
   const float* bias;
   const float* scale;
+  __nv_bfloat16* out_y;
+  const float* ln_w;
+  const float* ln_b;
+  int bias_free;
+  float eps;
 };
 
 // two f32 rounded to bf16 as one word (lo in bits 0-15)
@@ -192,11 +221,109 @@ __device__ __forceinline__ uint32_t naf_word(const float (&acc)[BN / 2],
   return bf16_pair(v[0], v[1]);
 }
 
-template <int BN, int kTransB, int kEpi>
-__global__ void __launch_bounds__(kGemmThreads, 2) bwd_gemm_kernel(
+// epi 3: out = res + rnd(product) and y = LN(out) of this lane's rows.
+// Rows 16 warp + gq + 8 h of the warpgroup's 64 (rl0: the first), columns
+// nb + 8 (4 j4 + tig) .. + 7 per run: the product's runs as epi 0 forms
+// them, the residual added, the moments of the rounded values summed
+// (runs past N and rows past the last add nothing), then the quad's and
+// (kWgN 2) the other warpgroup's.  moments: [wg][64 rows][s, s2] f32.
+template <int BN, int kWgN>
+__device__ __forceinline__ void ln_epilogue(const float (&acc)[BN / 2],
+                                            const GemmOut& g, float* moments,
+                                            int row0, int rl0, int nb,
+                                            int wg, int tig) {
+  constexpr int kRuns = BN / 32;
+  Run16 runs[2][kRuns];
+  float s[2], s2[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + rl0 + 8 * h;
+    const size_t row = r < g.rows ? r : 0;
+    s[h] = s2[h] = 0.f;
+#pragma unroll
+    for (int j4 = 0; j4 < kRuns; ++j4) {
+      uint32_t wv[4], tw[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        wv[t] = bf16_pair(acc[4 * (4 * j4 + t) + 2 * h],
+                          acc[4 * (4 * j4 + t) + 2 * h + 1]);
+      quad_transpose(wv, tw, tig);
+      const int n = nb + 8 * (4 * j4 + tig);
+      Run16 out = {{tw[0], tw[1], tw[2], tw[3]}};
+      if (r < g.rows && n < g.N) {
+        const Run16 rq =
+            *reinterpret_cast<const Run16*>(g.res + row * g.ld_res + n);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          out.w[e] = bf16_pair(bf16_at(rq, 2 * e) + bf16_at(out, 2 * e),
+                               bf16_at(rq, 2 * e + 1) +
+                                   bf16_at(out, 2 * e + 1));
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float v = bf16_at(out, e);
+          s[h] += v;
+          s2[h] += v * v;
+        }
+      }
+      runs[h][j4] = out;
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      s[h] += __shfl_xor_sync(0xffffffffu, s[h], off);
+      s2[h] += __shfl_xor_sync(0xffffffffu, s2[h], off);
+    }
+  }
+  if constexpr (kWgN == 2) {
+    // the two warpgroups hold the two column halves of the same 64 rows
+    if (tig == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        moments[(wg * 64 + rl0 + 8 * h) * 2] = s[h];
+        moments[(wg * 64 + rl0 + 8 * h) * 2 + 1] = s2[h];
+      }
+    }
+    named_sync(1, 256);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int lr = rl0 + 8 * h;
+      s[h] = moments[lr * 2] + moments[(64 + lr) * 2];
+      s2[h] = moments[lr * 2 + 1] + moments[(64 + lr) * 2 + 1];
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + rl0 + 8 * h;
+    if (r >= g.rows) continue;
+    const size_t row = r;
+    const float mean = s[h] / g.N;
+    const float den = sqrtf(fmaxf(s2[h] / g.N - mean * mean, 0.f) + g.eps);
+#pragma unroll
+    for (int j4 = 0; j4 < kRuns; ++j4) {
+      const int n = nb + 8 * (4 * j4 + tig);
+      if (n >= g.N) continue;
+      const Run16& out = runs[h][j4];
+      *reinterpret_cast<Run16*>(g.out_h + row * g.ldo + n) = out;
+      float v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int c = n + e;
+        const float o = bf16_at(out, e);
+        v[e] = g.bias_free ? o / den * g.ln_w[c]
+                           : (o - mean) / den * g.ln_w[c] + g.ln_b[c];
+      }
+      const Run16 y = {{bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]),
+                        bf16_pair(v[4], v[5]), bf16_pair(v[6], v[7])}};
+      *reinterpret_cast<Run16*>(g.out_y + row * g.ldo + n) = y;
+    }
+  }
+}
+
+template <int BN, int kTransB, int kEpi, int kWgN = 1>
+__global__ void __launch_bounds__(kGemmThreads,
+                                  BN * kWgN > 128 ? 1 : 2) bwd_gemm_kernel(
     const __grid_constant__ CUtensorMap ta,
     const __grid_constant__ CUtensorMap tb, const GemmOut g) {
-  using L = GemmSmem<BN>;
+  using L = GemmSmem<BN, kWgN>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = smem_raw + (1024 - smem_addr(smem_raw) % 1024) % 1024;
   uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBars);
@@ -209,7 +336,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2) bwd_gemm_kernel(
     mbar_init_fence();
   }
   __syncthreads();
-  const int n0 = blockIdx.x * BN, row0 = blockIdx.y * kGemmRows;
+  const int n0 = blockIdx.x * BN * kWgN, row0 = blockIdx.y * L::kRows;
   const int z2 = blockIdx.z % g.nz2, z3 = blockIdx.z / g.nz2;
   const int lane = threadIdx.x & 31;
 
@@ -223,7 +350,9 @@ __global__ void __launch_bounds__(kGemmThreads, 2) bwd_gemm_kernel(
         mbar_arrive_expect_tx(full + s, L::kStage);
         tma_load(st, &ta, full + s, 64 * it, z2, row0, z3);
         if (kTransB == 0) {
-          tma_load(st + L::kA, &tb, full + s, 64 * it, n0, z2, z3);
+          for (int x = 0; x < kWgN; ++x)
+            tma_load(st + L::kA + x * BN * 128, &tb, full + s, 64 * it,
+                     n0 + x * BN, z2, z3);
         } else {
           for (int x = 0; x < BN / 64; ++x)
             tma_load(st + L::kA + x * 8192, &tb, full + s, n0 + 64 * x,
@@ -242,9 +371,11 @@ __global__ void __launch_bounds__(kGemmThreads, 2) bwd_gemm_kernel(
   for (int it = 0; it < g.nk; ++it) {
     const int s = it % kGemmStages;
     mbar_wait(full + s, (it / kGemmStages) & 1);
-    // this warpgroup's 64 rows of the A tile; the B tile
-    const uint32_t at = smem_addr(base + s * L::kStage) + wg * 64 * 128;
-    const uint32_t bt = smem_addr(base + s * L::kStage + L::kA);
+    // this warpgroup's 64 rows of the A tile and columns of the B tile
+    const uint32_t at =
+        smem_addr(base + s * L::kStage) + (kWgN == 1 ? wg * 64 * 128 : 0);
+    const uint32_t bt = smem_addr(base + s * L::kStage + L::kA) +
+                        (kWgN == 2 ? wg * BN * 128 : 0);
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
@@ -261,6 +392,12 @@ __global__ void __launch_bounds__(kGemmThreads, 2) bwd_gemm_kernel(
     if (lane == 0) mbar_arrive(empty + s);  // this warp read the stage
   }
 
+  if constexpr (kEpi == 3) {
+    ln_epilogue<BN, kWgN>(acc, g, reinterpret_cast<float*>(base + L::kMoments),
+                          row0, (kWgN == 1 ? wg * 64 : 0) + warp * 16 + gq,
+                          n0 + (kWgN == 2 ? wg * BN : 0), wg, tig);
+    return;
+  }
   // entry 4 j + 2 h + c: row 16 warp + gq + 8 h, column 8 j + 2 tig + c.
   // A quad's 4 lanes hold 8 columns of a row per j: they trade values so
   // that each lane stores whole 16-byte runs (a run of a row per lane and
@@ -346,19 +483,44 @@ __global__ void __launch_bounds__(kGemmThreads, 2) bwd_gemm_kernel(
   }
 }
 
-template <int BN, int kTransB, int kEpi>
+template <int BN, int kTransB, int kEpi, int kWgN = 1>
 int launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb,
                 const GemmOut& g, int nz3, cudaStream_t stream) {
-  using L = GemmSmem<BN>;
+  using L = GemmSmem<BN, kWgN>;
   static const int attr = (int)cudaFuncSetAttribute(
-      bwd_gemm_kernel<BN, kTransB, kEpi>,
+      bwd_gemm_kernel<BN, kTransB, kEpi, kWgN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (attr != 0) return attr;
-  const dim3 grid((g.N + BN - 1) / BN, (g.rows + kGemmRows - 1) / kGemmRows,
-                  g.nz2 * nz3);
-  bwd_gemm_kernel<BN, kTransB, kEpi><<<grid, kGemmThreads, L::kBytes,
-                                       stream>>>(ta, tb, g);
+  const dim3 grid((g.N + BN * kWgN - 1) / (BN * kWgN),
+                  (g.rows + L::kRows - 1) / L::kRows, g.nz2 * nz3);
+  bwd_gemm_kernel<BN, kTransB, kEpi, kWgN><<<grid, kGemmThreads, L::kBytes,
+                                             stream>>>(ta, tb, g);
   return (int)cudaGetLastError();
+}
+
+// The chain's epilogue (epi 3) on a whole-row CTA: BN 64, 128 or 192 over
+// one tile up to N = 192, two warpgroups of 192 columns up to N = 384.
+// Returns a cudaError_t.
+int run_gemm_ln(View4 a, View4 b, int K, GemmOut g, cudaStream_t stream) {
+  const int bn = g.N <= 64 ? 64 : g.N <= 128 ? 128 : 192;
+  const int wgn = g.N <= 192 ? 1 : 2;
+  if (g.rows <= 0 || g.N <= 0 || K <= 0 || g.N > 384 || g.N % 8 ||
+      g.ldo != g.N || g.ld_res != g.N || g.col0 || g.nz2 != 1 || !g.out_h ||
+      !g.out_y || !g.res || !g.ln_w || (!g.bias_free && !g.ln_b) ||
+      (g.rows + kGemmRows / wgn - 1) / (kGemmRows / wgn) > 65535)
+    return (int)cudaErrorInvalidValue;
+  g.nk = (K + 63) / 64;
+  a.box[0] = 64, a.box[1] = 1, a.box[2] = kGemmRows / wgn, a.box[3] = 1;
+  b.box[0] = 64, b.box[1] = bn, b.box[2] = 1, b.box[3] = 1;
+  CUtensorMap ta, tb;
+  int err;
+  if ((err = view_map(&ta, a, false, true)) ||
+      (err = view_map(&tb, b, false, true)))
+    return err;
+  if (wgn == 2) return launch_gemm<192, 0, 3, 2>(ta, tb, g, 1, stream);
+  return bn == 64    ? launch_gemm<64, 0, 3>(ta, tb, g, 1, stream)
+         : bn == 128 ? launch_gemm<128, 0, 3>(ta, tb, g, 1, stream)
+                     : launch_gemm<192, 0, 3>(ta, tb, g, 1, stream);
 }
 
 // out = A . B over K.  a: the (K, nz2, rows, nz3) view of A; b: the (K, N,
@@ -369,7 +531,7 @@ int run_gemm(View4 a, View4 b, int K, int trans_b, GemmOut g, int nz3,
   if (g.rows <= 0 || g.N <= 0 || K <= 0 || g.nz2 <= 0 || nz3 <= 0 ||
       (g.rows + kGemmRows - 1) / kGemmRows > 65535 || g.nz2 * nz3 > 65535 ||
       g.N % 8 || g.ldo % 8 || g.col0 % 8 || (g.out_h && g.aux) ||
-      (g.out_f && g.res) ||
+      (g.out_f && g.res) || g.epi > 2 ||
       (g.epi != 0 && (!g.out_h || !g.bias || g.nz2 != 1 || trans_b ||
                       g.aux)) ||
       (g.epi == 2 && (g.N % 64 || g.res || g.scale)))
@@ -535,6 +697,24 @@ int bwd_head_products(const void* qkv, const void* dos, const void* m,
 int fwd_gemm_residual(const void* a, const void* b, const void* res,
                       void* out, int M, int N, int K, void* stream) {
   return residual_gemm(a, b, res, out, M, N, K, (cudaStream_t)stream);
+}
+
+// The chain's block boundary: block i's out (M, N) bf16 = res + rnd(a .
+// b^T) as fwd_gemm_residual writes it, and block i+1's y (M, N) bf16 =
+// LN(out) with ln_w, ln_b (N) f32 (bias_free: ln_b unused, may be null)
+// and eps, rounded where bwd_ln_rows rounds, its moments the one-pass sums
+// over the rounded out values.  a (M, K), b (N, K), res (M, N) contiguous
+// bf16; N % 8 == 0 and N <= 384.  Returns a cudaError_t.
+int fwd_gemm_residual_ln(const void* a, const void* b, const void* res,
+                         const float* ln_w, const float* ln_b, int bias_free,
+                         float eps, void* out, void* y, int M, int N, int K,
+                         void* stream) {
+  GemmOut g = plain_out(M, N, out, 1);
+  g.res = (const __nv_bfloat16*)res, g.ld_res = N;
+  g.epi = 3, g.out_y = (__nv_bfloat16*)y;
+  g.ln_w = ln_w, g.ln_b = ln_b, g.bias_free = bias_free, g.eps = eps;
+  return run_gemm_ln(a_view(a, M, K), b_view(b, N, K), K, g,
+                     (cudaStream_t)stream);
 }
 
 // The forward's attention output: per (image, head) o = v . A_h^T rounded

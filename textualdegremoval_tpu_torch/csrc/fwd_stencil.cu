@@ -27,6 +27,14 @@
 //   fwd_gate_stencil     gate = gelu(dw3x3(h1)) dw3x3(h2) (bf16)
 //   [fwd_gemm_residual]  out = x1 + rnd(gate . W2) (bf16)
 //
+// The cross-block chain (`chain_pipeline`, the TPU kernel
+// `_make_apply_stats_kernel`, tblock.py:314) runs this sequence block after
+// block, and at each boundary but the last [fwd_gemm_residual_ln]: out as
+// above and the next block's y = LN1(out) from the same registers, in
+// place of that block's [bwd_ln_rows].  The standalone GDFN (ops/pallas/
+// gdfn.py `gdfn_pipeline`, the TPU kernel of ops/pallas/gdfn.py) is
+// [bwd_gemm] hid = x . W1, fwd_gate_stencil and [bwd_gemm] out = gate . W2.
+//
 // The rounding points are the TPU kernel's (tblock.py:185-205, :242-307):
 // the 1x1 outputs lin and hid before their stencils, q, k and v after the
 // f32 stencil, o, proj before the residual, the gate after its f32

@@ -2,6 +2,11 @@
 //
 //   out = (gelu_erf(dw3x3(x . W1)[:h]) * dw3x3(x . W1)[h:]) . W2
 //
+// It serves float32 (the parity path) and bf16 at C % 8 != 0.  bf16 at
+// C % 8 == 0 runs `gdfn_pipeline` (ops/pallas/gdfn.py): bwd_gemm.cu's
+// TMA + wgmma products around fwd_stencil.cu's gate stencil, with the
+// same rounding points.
+//
 // Replaces the TPU kernel of textualdegremoval_tpu/ops/pallas/gdfn.py:
 // `gdfn_fused` -> `_gdfn_fused_impl` (`_make_kernel`), the GDFN of
 // TransformerBlock's module path (`GDFN(fused=True)`).  No residual and no

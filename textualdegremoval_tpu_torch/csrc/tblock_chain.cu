@@ -1,6 +1,12 @@
 // Cross-block chain of Restormer TransformerBlocks for Hopper (sm_90a):
 // block i applied and block i+1's attention statistics taken in one kernel.
 //
+// It serves float32 (the parity path) and the bf16 widths the pipeline's
+// TMA rows cannot take (C or C / heads not a multiple of 8).  bf16 chains
+// at the other widths run `chain_pipeline` (ops/pallas/tblock.py): the
+// block pipeline's kernels with bwd_gemm.cu's chain epilogue
+// (`fwd_gemm_residual_ln`) at each block boundary.
+//
 // Replaces the TPU kernel `_make_apply_stats_kernel` of
 // textualdegremoval_tpu/ops/pallas/tblock.py (called by
 // `_tblock_chain_impl` / `tblock_chain_fused`).  A chain of n blocks runs

@@ -59,6 +59,8 @@ _SIGNATURES = {
     "fwd_qkv_stencil": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "fwd_gate_stencil": ([_P] * 3 + [_I] * 5 + [_P], _I),
     "fwd_gemm_residual": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "fwd_gemm_residual_ln": ([_P] * 5 + [_I, ctypes.c_float] + [_P] * 2
+                             + [_I] * 3 + [_P], _I),
     "fwd_attn_out": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "attn_heads_o": ([_P] * 3 + [_I] * 4 + [_P], _I),
     "fwd_attn_glue": ([_P] * 6 + [_I] * 3 + [_P], _I),

@@ -2,23 +2,33 @@
 
 Counterpart of textualdegremoval_tpu/ops/pallas/gdfn.py.  `gdfn_ref` is
 the plain version (JAX `gdfn_ref`, the module path's math) and
-`gelu_exact` JAX's `_gelu_exact`.  `gdfn_fused` runs the GDFN as the
-hand-written Hopper kernel in csrc/gdfn.cu, which replaces the TPU kernel
-`_gdfn_fused_impl` (`_make_kernel`): x on a tile plus a 1-pixel halo read
-once, the 2h-wide hidden kept in shared memory, only the C-wide output
-written.  It is the GDFN of TransformerBlock's module path when the block
-asks for it (`gdfn_fused=True`, JAX `GDFN(fused=True)` /
-`$TDR_FUSED_GDFN=1`); the whole-block kernel (ops/pallas/tblock.py)
-carries the same GDFN body inside its pass B.
+`gelu_exact` JAX's `_gelu_exact`.  `gdfn_fused` runs the GDFN as
+hand-written Hopper kernels that replace the TPU kernel `_gdfn_fused_impl`
+(`_make_kernel`), by one rule (`_takes_gdfn_pipeline`):
+
+* a bfloat16 x whose C is a multiple of 8 runs `gdfn_pipeline`, three
+  launches of the block pipeline's kernels (ops/pallas/tblock.py): hid =
+  x . W1 (csrc/bwd_gemm.cu's TMA + wgmma GEMM, rounded to bf16), the gate
+  stencil (csrc/fwd_stencil.cu; TMA's zeros outside the image are the
+  hidden's zero padding) and out = gate . W2 (rounded once): the rounding
+  points of the TPU kernel;
+* float32 (the parity path) and other bf16 widths run csrc/gdfn.cu: x on
+  a tile plus a 1-pixel halo read once, the 2h-wide hidden kept in shared
+  memory, only the C-wide output written (the GDFN body that the
+  whole-block kernel csrc/tblock.cu carries in its pass B).
+
+It is the GDFN of TransformerBlock's module path when the block asks for
+it (`gdfn_fused=True`, JAX `GDFN(fused=True)` / `$TDR_FUSED_GDFN=1`).
 
 Unlike JAX, no shape falls back to `gdfn_ref`: every H and W runs the
 kernel, with masked edge tiles.  The gradient is JAX's `custom_vjp`: the
 backward recomputes through `gdfn_ref` under autograd, so nothing of the
 hidden is kept from the forward.
 
-A CPU tensor takes `gdfn_ref`; a CUDA tensor launches the kernel or
-raises.  `gdfn_fused.launches` counts kernel launches, never plain calls.
-What bounds the kernel on the card is noted at the top of csrc/gdfn.cu.
+A CPU tensor takes `gdfn_ref`; a CUDA tensor launches the kernels or
+raises.  `gdfn_fused.launches` counts GDFN calls on the card, never plain
+calls; `gdfn_pipeline.launches` those that ran the pipeline.  What bounds
+csrc/gdfn.cu on the card is noted at its top.
 """
 
 from __future__ import annotations
@@ -128,9 +138,44 @@ def pick_tile(lib, c: int, elem_bytes: int):
                       "gdfn_fused")
 
 
+def gdfn_pipeline(lib, x, kw, sms, stream):
+    """The bf16 GDFN as three launches of the block pipeline's kernels, on
+    validated inputs that `_takes_gdfn_pipeline` admits: hid = x . W1 with
+    W1 in its interleaved 32-channel chunks, the gate stencil, out =
+    gate . W2.  `sms` (the card's SMs) sets the stencil's split; `stream`
+    is a cudaStream_t as an int.  `gdfn_pipeline.launches` counts its
+    calls."""
+    from textualdegremoval_tpu_torch.ops.pallas.tblock import _gate_stencil
+    from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import _gemm
+
+    b, hgt, wdt, c = x.shape
+    hpad, bf = kw["hpad"], torch.bfloat16
+    hids = _gemm(lib, x.view(-1, c), kw["w1"], bf, stream)
+    gates = torch.empty((hids.shape[0], hpad), dtype=bf, device=x.device)
+    _gate_stencil(lib, hids, kw["dwg"], b, hgt, wdt, hpad, sms, stream,
+                  gates)
+    del hids
+    out = _gemm(lib, gates, kw["w2"], bf, stream)
+    gdfn_pipeline.launches += 1
+    return out.view(x.shape)
+
+
+gdfn_pipeline.launches = 0
+
+
+def _takes_gdfn_pipeline(x: torch.Tensor) -> bool:
+    """The route rule: `gdfn_pipeline` takes a bfloat16 x whose C is a
+    multiple of 8 (its kernels read pixel rows through TMA, whose rows are
+    multiples of 16 bytes); float32 and other bfloat16 widths run
+    csrc/gdfn.cu."""
+    return x.dtype == torch.bfloat16 and x.shape[-1] % 8 == 0
+
+
 def _forward_kernel(x, kw):
-    """Validated launch of the kernel on a CUDA tensor."""
+    """Validated launch of the kernels on a CUDA tensor: the pipeline or
+    csrc/gdfn.cu, as `_takes_gdfn_pipeline` rules."""
     from textualdegremoval_tpu_torch.ops._build import load_library
+    from textualdegremoval_tpu_torch.ops.pallas.tblock import _card
 
     if x.dim() != 4:
         raise ValueError(f"gdfn_fused: x must be (B, H, W, C), got "
@@ -144,14 +189,18 @@ def _forward_kernel(x, kw):
             or kw["w2"].numel() != c * kw["hpad"]:
         raise ValueError("gdfn_fused: prepared weights do not match x")
     lib = load_library()
-    out = _launch(lib, x, kw, pick_tile(lib, c, x.element_size()),
-                  torch.cuda.current_stream(x.device).cuda_stream)
+    stream, sms = _card(x.device)
+    if _takes_gdfn_pipeline(x):
+        out = gdfn_pipeline(lib, x, kw, sms, stream)
+    else:
+        out = _launch(lib, x, kw, pick_tile(lib, c, x.element_size()),
+                      stream)
     gdfn_fused.launches += 1
     return out
 
 
 class _GdfnFunction(torch.autograd.Function):
-    """The kernel on CUDA with JAX's `custom_vjp` backward: only x and the
+    """The kernels on CUDA with JAX's `custom_vjp` backward: only x and the
     weights are kept, and the backward recomputes through `gdfn_ref`.
     Gradients come back in the shapes of the weight views it was given."""
 
@@ -177,8 +226,9 @@ def gdfn_fused(x: torch.Tensor, w1, dwk, w2, kw: dict | None = None):
     (GDFN caches it per module).  Returns (B, H, W, C) in x's dtype, with
     no residual.
 
-    CPU tensors take `gdfn_ref`.  CUDA tensors launch the kernel; an input
-    it cannot take raises.  When an input needs a gradient, the call runs
+    CPU tensors take `gdfn_ref`.  CUDA tensors launch the kernels (the
+    bf16 pipeline or csrc/gdfn.cu, as `_takes_gdfn_pipeline` rules); an
+    input they cannot take raises.  When an input needs a gradient, the call runs
     as `_GdfnFunction`, whose backward recomputes through `gdfn_ref`."""
     if x.device.type == "cpu":
         return gdfn_ref(x, w1, dwk, w2)

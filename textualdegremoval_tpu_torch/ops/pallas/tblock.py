@@ -43,10 +43,18 @@ under 'remat' included), never plain-version calls;
 
 `tblock_chain_fused` runs n blocks in a row as the cross-block chain (JAX
 `tblock_chain_fused`, replacing `_tblock_chain_impl` and its
-`_make_apply_stats_kernel`): pass A of the first block, then
-csrc/tblock_chain.cu for every block but the last (block i applied and
-block i+1's statistics taken from the output it makes, so each
-intermediate activation is read once), then pass B of the last block.
+`_make_apply_stats_kernel`), by the same rule as the block:
+* bfloat16 at C and C / heads multiples of 8 runs `chain_pipeline`: the
+  pipeline's kernels block after block, where each block boundary is one
+  launch of csrc/bwd_gemm.cu's chain epilogue (`fwd_gemm_residual_ln`):
+  block i's output and block i+1's LN1 rows from the same registers, so
+  block i+1 does not read its input again to normalise it (C <= 384,
+  `_chain_fuses`; wider stages run the boundary as block i's last product
+  and block i+1's LN rows);
+* float32 and other bf16 widths run pass A of the first block, then
+  csrc/tblock_chain.cu for every block but the last (block i applied and
+  block i+1's statistics taken from the output it makes), then pass B of
+  the last block.
 `tblock_chain_ref` is its plain version; its backward recomputes through
 that plain chain, as JAX's does.
 """
@@ -253,30 +261,48 @@ def _launch(lib, x, kw, heads, ln_type, stats_tile, apply_tile, nsplit,
     return (out, x1, stats) if want_x1 else out
 
 
-def tblock_pipeline(lib, x, kw, heads, ln_type, sms, stream,
-                    want_x1: bool = False):
-    """The bf16 block forward as the Hopper pipeline laid out at the top of
-    csrc/fwd_stencil.cu, on validated inputs that `_takes_pipeline`
-    admits.  `sms` (the card's SMs) sets the stencils' and the gram's
-    splits; `stream` is a cudaStream_t as an int.  Scratch is allocated on
-    x's device and dropped as the block goes.  Returns what `_launch`
-    returns.  `tblock_pipeline.launches` counts its block calls."""
+def _scratch(buf, name, shape, dtype, device):
+    """A scratch tensor: new where buf is None, else buf[name], made on
+    first use (a chain's blocks share one buf)."""
+    if buf is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    if name not in buf:
+        buf[name] = torch.empty(shape, dtype=dtype, device=device)
+    return buf[name]
+
+
+def _gate_stencil(lib, hids, dwg, b, hgt, wdt, hpad, sms, stream, gates):
+    """csrc/fwd_stencil.cu's gate stencil: gates (npix, hpad) = gelu(dw3x3(
+    h1)) dw3x3(h2) of hids (npix, 2 hpad) in W1's interleaved chunks,
+    rounded once; TMA's zeros outside the image are the zero padding."""
     from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import (
-        _EPS, _gemm, _ln_rows, _stencil_nsplit, _wgrad,
+        _stencil_nsplit)
+
+    _check(lib.fwd_gate_stencil(
+        _ptr(hids), _ptr(dwg), _ptr(gates), b, hgt, wdt, hpad,
+        _stencil_nsplit(lib, b, hgt, wdt, hpad // HIDDEN_CHUNK, 4, sms),
+        stream), lib, "fwd_gate_stencil")
+    return gates
+
+
+def _pipeline_attn(lib, x, ys, kw, heads, sms, stream, buf=None):
+    """The attention half of the pipeline from LN1's rows ys (npix, C):
+    lin = y . Wqkv, the q | k | v stencil with its square sums, the gram
+    (csrc/wgrad.cu), the glue and fwd_attn_out.  Returns (x1, stats);
+    scratch as `_scratch` gives it from buf."""
+    from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import (
+        _gemm, _stencil_nsplit, _wgrad,
     )
 
     b, hgt, wdt, c = x.shape
-    cph, hw, hpad = c // heads, hgt * wdt, kw["hpad"]
+    cph, hw = c // heads, hgt * wdt
     npix = b * hw
     dev, bf, f32 = x.device, torch.bfloat16, torch.float32
-    bias_free = int(ln_type == "BiasFree")
-    ys = _ln_rows(lib, x, kw["ln1w"], kw["ln1b"], bias_free, stream,
-                  _EPS)[0]
-    lins = _gemm(lib, ys, kw["wqkv"], bf, stream)
-    del ys
+    lins = _gemm(lib, ys, kw["wqkv"], bf, stream,
+                 _scratch(buf, "lins", (npix, 3 * c), bf, dev))
     # q | k | v and the square sums: four 48 KB CTAs per SM
     nsplit = _stencil_nsplit(lib, b, hgt, wdt, -(-3 * c // 64), 4, sms)
-    qkv = torch.empty((npix, 3 * c), dtype=bf, device=dev)
+    qkv = _scratch(buf, "qkv", (npix, 3 * c), bf, dev)
     ssq_part = torch.empty((b, nsplit, 2 * c), dtype=f32, device=dev)
     _check(lib.fwd_qkv_stencil(_ptr(lins), _ptr(kw["dwall"]), _ptr(qkv),
                                _ptr(ssq_part), b, hgt, wdt, c, nsplit,
@@ -294,25 +320,54 @@ def tblock_pipeline(lib, x, kw, heads, ln_type, sms, stream,
                              _ptr(stats[1]), _ptr(stats[2]), _ptr(attn), b, c,
                              heads, stream), lib, "fwd_attn_glue")
     del ssq_part, ssq
-    o = torch.empty((npix, c), dtype=bf, device=dev)
-    x1 = torch.empty_like(x)
+    o = _scratch(buf, "o", (npix, c), bf, dev)
+    x1 = _scratch(buf, "x1", x.shape, bf, dev)
     _check(lib.fwd_attn_out(_ptr(qkv), _ptr(attn), _ptr(kw["wproj"]),
                             _ptr(x), _ptr(o), _ptr(x1), b, hw, c, heads,
                             stream), lib, "fwd_attn_out")
-    del qkv, attn, o
-    zs = _ln_rows(lib, x1, kw["ln2w"], kw["ln2b"], bias_free, stream,
-                  _EPS)[0]
-    hids = _gemm(lib, zs, kw["w1"], bf, stream)
+    return x1, stats
+
+
+def _pipeline_gates(lib, x1, kw, ln_type, sms, stream, buf=None):
+    """The GDFN half of the pipeline up to its last product: z = LN2(x1),
+    hid = z . W1, the gate stencil.  Returns gates (npix, hpad)."""
+    from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import (
+        _EPS, _gemm, _ln_rows,
+    )
+
+    b, hgt, wdt, c = x1.shape
+    npix, hpad = b * hgt * wdt, kw["hpad"]
+    dev, bf = x1.device, torch.bfloat16
+    zs = _ln_rows(lib, x1, kw["ln2w"], kw["ln2b"], int(ln_type == "BiasFree"),
+                  stream, _EPS, _scratch(buf, "zs", (npix, c), bf, dev))[0]
+    hids = _gemm(lib, zs, kw["w1"], bf, stream,
+                 _scratch(buf, "hids", (npix, 2 * hpad), bf, dev))
     del zs
-    gates = torch.empty((npix, hpad), dtype=bf, device=dev)
-    _check(lib.fwd_gate_stencil(
-        _ptr(hids), _ptr(kw["dwg"]), _ptr(gates), b, hgt, wdt, hpad,
-        _stencil_nsplit(lib, b, hgt, wdt, hpad // HIDDEN_CHUNK, 4, sms),
-        stream), lib, "fwd_gate_stencil")
-    del hids
+    return _gate_stencil(lib, hids, kw["dwg"], b, hgt, wdt, hpad, sms,
+                         stream, _scratch(buf, "gates", (npix, hpad), bf,
+                                          dev))
+
+
+def tblock_pipeline(lib, x, kw, heads, ln_type, sms, stream,
+                    want_x1: bool = False):
+    """The bf16 block forward as the Hopper pipeline laid out at the top of
+    csrc/fwd_stencil.cu, on validated inputs that `_takes_pipeline`
+    admits.  `sms` (the card's SMs) sets the stencils' and the gram's
+    splits; `stream` is a cudaStream_t as an int.  Scratch is allocated on
+    x's device and dropped as the block goes.  Returns what `_launch`
+    returns.  `tblock_pipeline.launches` counts its block calls."""
+    from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import (
+        _EPS, _ln_rows)
+
+    npix, c = x.numel() // x.shape[-1], x.shape[-1]
+    ys = _ln_rows(lib, x, kw["ln1w"], kw["ln1b"], int(ln_type == "BiasFree"),
+                  stream, _EPS)[0]
+    x1, stats = _pipeline_attn(lib, x, ys, kw, heads, sms, stream)
+    del ys
+    gates = _pipeline_gates(lib, x1, kw, ln_type, sms, stream)
     out = torch.empty_like(x)
     _check(lib.fwd_gemm_residual(_ptr(gates), _ptr(kw["w2"]), _ptr(x1),
-                                 _ptr(out), npix, c, hpad, stream), lib,
+                                 _ptr(out), npix, c, kw["hpad"], stream), lib,
            "fwd_gemm_residual")
     tblock_pipeline.launches += 1
     return (out, x1, stats) if want_x1 else out
@@ -556,17 +611,89 @@ def _chain_launch(lib, x, kws, heads, ln_type, stats_tile, apply_tile,
                    stream)[0]
 
 
+def _chain_fuses(c: int) -> bool:
+    """Whether `chain_pipeline` fuses its block boundaries at width c: the
+    chain epilogue's CTA holds whole rows of out, which its two
+    warpgroups' accumulators cover up to 384 columns (csrc/bwd_gemm.cu
+    `run_gemm_ln`)."""
+    return c <= 384
+
+
+def chain_pipeline(lib, x, kws, heads, ln_type, sms, stream):
+    """The bf16 chain of len(kws) >= 2 blocks on the pipeline's kernels, on
+    validated inputs that `_takes_pipeline` admits: block 0's LN1 rows;
+    then per block the attention half and the GDFN half up to its gates
+    (`_pipeline_attn`, `_pipeline_gates`), and its last product: for every
+    block but the last the chain epilogue `fwd_gemm_residual_ln` (out and
+    the next block's LN1 rows in one launch; at widths `_chain_fuses`
+    refuses, `fwd_gemm_residual` and the next block's LN rows), for the
+    last `fwd_gemm_residual`.  The stage's scratch is allocated once and
+    shared by its blocks; outputs alternate between two buffers.  Returns
+    the last block's output.  Each block boundary counts one
+    `tblock_chain_fused.launches` and one `chain_pipeline.launches`."""
+    from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import (
+        _EPS, _ln_rows)
+
+    c = x.shape[-1]
+    npix, hpad = x.numel() // c, kws[0]["hpad"]
+    bias_free = int(ln_type == "BiasFree")
+    fused = _chain_fuses(c)
+    buf = {}
+    ys = _scratch(buf, "ys", (npix, c), torch.bfloat16, x.device)
+    _ln_rows(lib, x, kws[0]["ln1w"], kws[0]["ln1b"], bias_free, stream, _EPS,
+             ys)
+    outs = (torch.empty_like(x), torch.empty_like(x))
+    for i, kw in enumerate(kws):
+        x1, _ = _pipeline_attn(lib, x, ys, kw, heads, sms, stream, buf)
+        gates = _pipeline_gates(lib, x1, kw, ln_type, sms, stream, buf)
+        out, kn = outs[i % 2], kws[i + 1] if i + 1 < len(kws) else None
+        if kn is not None and fused:
+            _check(lib.fwd_gemm_residual_ln(
+                _ptr(gates), _ptr(kw["w2"]), _ptr(x1), _ptr(kn["ln1w"]),
+                _ptr(kn["ln1b"]), bias_free, _EPS, _ptr(out), _ptr(ys), npix,
+                c, hpad, stream), lib, "fwd_gemm_residual_ln")
+        else:
+            _check(lib.fwd_gemm_residual(_ptr(gates), _ptr(kw["w2"]),
+                                         _ptr(x1), _ptr(out), npix, c, hpad,
+                                         stream), lib, "fwd_gemm_residual")
+            if kn is not None:
+                _ln_rows(lib, out, kn["ln1w"], kn["ln1b"], bias_free, stream,
+                         _EPS, ys)
+        if kn is not None:
+            tblock_chain_fused.launches += 1
+            chain_pipeline.launches += 1
+        x = out
+    return x
+
+
+chain_pipeline.launches = 0
+
+
 def _chain_kernel(x, kws, heads, ln_type):
-    """Validated launches of the chain on a CUDA tensor (len(kws) >= 2)."""
+    """Validated launches of the chain on a CUDA tensor (len(kws) >= 2):
+    `chain_pipeline` or csrc/tblock_chain.cu's route, as `_takes_pipeline`
+    rules."""
     _validate(x, heads, ln_type, "tblock_chain_fused")
-    b, hgt, wdt, c = x.shape
-    lib = _kernel_library(c // heads, "tblock_chain_fused")
+    lib = _kernel_library(x.shape[-1] // heads, "tblock_chain_fused")
     for kw in kws:
         _check_weights(kw, x, "tblock_chain_fused")
     if len({kw["hpad"] for kw in kws}) != 1:
         raise ValueError("tblock_chain_fused: the blocks' hidden widths "
                          "differ")
-    stats_tile, apply_tile, nsplit_a = _block_tiles(lib, x, heads)
+    stream, sms = _card(x.device)
+    tblock_chain_fused.calls += 1
+    if _takes_pipeline(x, heads):
+        return chain_pipeline(lib, x, kws, heads, ln_type, sms, stream)
+    return chain_kernel_route(lib, x, kws, heads, ln_type, sms, stream)
+
+
+def chain_kernel_route(lib, x, kws, heads, ln_type, sms, stream):
+    """csrc/tblock_chain.cu's route (`_chain_launch`) on validated inputs,
+    its tiles and splits picked for a card of `sms` SMs: float32 and the
+    bf16 widths the pipeline cannot take (chip_smoke.py also times bf16
+    stages on it beside the pipeline's chain)."""
+    b, hgt, wdt, c = x.shape
+    stats_tile, apply_tile, nsplit_a = _block_tiles(lib, x, heads, sms)
     tile, in_smem = _chain_tile(lib, c, heads, x.element_size())
     per_sm = lib.tblock_chain_ctas_per_sm(c, heads, tile[0], tile[1],
                                           int(x.dtype == torch.bfloat16),
@@ -575,12 +702,9 @@ def _chain_kernel(x, kws, heads, ln_type):
         raise RuntimeError(f"tblock_chain_fused: no CTA of tile {tile} fits "
                            f"an SM ({per_sm})")
     ntiles = (-(-hgt // tile[0])) * (-(-wdt // tile[1]))
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     nsplit = max(1, min(ntiles, -(-per_sm * sms // b)))
-    tblock_chain_fused.calls += 1
     return _chain_launch(lib, x, kws, heads, ln_type, stats_tile, apply_tile,
-                         nsplit_a, tile, in_smem, nsplit,
-                         torch.cuda.current_stream(x.device).cuda_stream)
+                         nsplit_a, tile, in_smem, nsplit, stream)
 
 
 def _chain_forward(x, ps, heads, ln_type, kws):
@@ -654,7 +778,8 @@ def tblock_chain_fused(x: torch.Tensor, ps, heads: int,
     caches them per module).
 
     CPU tensors take `tblock_chain_ref`.  CUDA tensors launch the kernels:
-    two or more blocks the chain (tblock.cu's pass A of the first block,
+    two or more blocks the chain (in bf16 at C and C / heads multiples of
+    8 `chain_pipeline`, else tblock.cu's pass A of the first block,
     csrc/tblock_chain.cu for each block but the last, tblock.cu's pass B
     of the last), one block the whole-block kernel.  Any input the kernels
     cannot take raises.  When an input needs a gradient, the call runs as
@@ -662,10 +787,11 @@ def tblock_chain_fused(x: torch.Tensor, ps, heads: int,
     chain.
 
     Counters: `tblock_chain_fused.calls` counts chains of two or more
-    blocks run on the card, `tblock_chain_fused.launches` launches of the
-    chain kernel (n - 1 per such call); the first pass A and the last
-    pass B of a chain do not count as `tblock_fused` launches, a chain of
-    one block does."""
+    blocks run on the card, `tblock_chain_fused.launches` their block
+    boundaries (n - 1 per such call, whatever the route;
+    `chain_pipeline.launches` counts those of chains on the pipeline);
+    the blocks of a chain do not count as `tblock_fused` or
+    `tblock_pipeline` launches, a chain of one block does."""
     ps = list(ps)
     if x.device.type == "cpu":
         return tblock_chain_ref(x, ps, heads, ln_type)

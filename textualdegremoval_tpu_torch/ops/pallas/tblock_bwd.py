@@ -143,13 +143,14 @@ def _stencil_nsplit(lib, b, hgt, wdt, nbox, per_sm, sms):
     return max(1, min(items, 2 * per_sm * sms // b))
 
 
-def _ln_rows(lib, x, w, bias, bias_free, stream, eps=_EPS):
+def _ln_rows(lib, x, w, bias, bias_free, stream, eps=_EPS, y=None):
     """LN of every pixel of x (bf16, csrc/bwd_stencil.cu) with epsilon eps
     (Restormer's 1e-5 unless given): (y (npix, C), mu (npix,),
-    1 / sqrt(var + eps) (npix,))."""
+    1 / sqrt(var + eps) (npix,)); y written into `y` where given."""
     c = x.shape[-1]
     npix = x.numel() // c
-    y = torch.empty((npix, c), dtype=x.dtype, device=x.device)
+    if y is None:
+        y = torch.empty((npix, c), dtype=x.dtype, device=x.device)
     mu, inv = (torch.empty(npix, dtype=torch.float32, device=x.device)
                for _ in range(2))
     _check(lib.bwd_ln_rows(_ptr(x), _ptr(w), _ptr(bias), bias_free, eps,
@@ -174,10 +175,13 @@ def _ln_rows_bwd(lib, x, dz, w, mu, inv, bias_free, base, sms, stream):
     return dst, part.sum(0)
 
 
-def _gemm(lib, a, b, dtype, stream):
+def _gemm(lib, a, b, dtype, stream, out=None):
     """a (M, K) . b^T with b (N, K), both bf16 (csrc/bwd_gemm.cu): (M, N)
-    in `dtype` (float32, or bfloat16 rounded once)."""
-    out = torch.empty((a.shape[0], b.shape[0]), dtype=dtype, device=a.device)
+    in `dtype` (float32, or bfloat16 rounded once), written into `out`
+    where given."""
+    if out is None:
+        out = torch.empty((a.shape[0], b.shape[0]), dtype=dtype,
+                          device=a.device)
     _check(lib.bwd_gemm(_ptr(a), _ptr(b), _ptr(out), a.shape[0], b.shape[0],
                         a.shape[1], int(dtype == torch.bfloat16), stream),
            lib, "bwd_gemm")

@@ -2,10 +2,13 @@
 a 512 px restormer_deblur forward, of a 384 px batch-8 training step and of
 PromptIR's noise blocks, this version against another version of the
 port, on the card; or, with --reckon, this design's reckoning of those
-shapes (no card).
+shapes (no card).  With --chain, the cross-block chain
+(`tblock_chain_fused`) at every stage of a 512 px promptir_all_in_one
+forward instead; with --gdfn, the standalone GDFN (`gdfn_fused`) at every
+GDFN of a 512 px restormer_deblur forward on the module path.
 
     python -m textualdegremoval_tpu_torch.tools.bench_block_fwd \\
-        [--other ROOT] [--reckon] [--split]
+        [--other ROOT] [--reckon] [--split] [--chain | --gdfn]
 
 --other ROOT is the root of another checkout of the repository (a `git
 archive` of the parent under build/, say).  Its csrc/ is built into a
@@ -36,6 +39,18 @@ uses: CTAs and waves, products as run (GFLOP), CUDA-core instructions
 call kernel by kernel in launch order (`torch.profiler`, the mean of 3
 calls; torch's own kernels in a row, the glue and the sums of partials,
 as one entry).
+
+--chain and --gdfn time one call per stage or GDFN shape the same way
+(plain: `tblock_chain_ref` / `gdfn_ref`; each version through its own
+route rule, so a parent without the bf16 pipeline runs
+csrc/tblock_chain.cu or csrc/gdfn.cu; --chain also times this version's
+blocks one by one through `tblock_fused`'s route, "blocks", twice after
+the turns), and add to each version's row
+device_ms, its device time by kernel group (`bench_block_bwd.py`
+`device_groups` with FWD_GROUPS, the mean of 3 calls); the sums are per
+PromptIR forward (the stages' calls times their count) or per
+module-path forward (52 GDFNs).  With --reckon they print this design's
+prediction for those sums.
 """
 
 from __future__ import annotations
@@ -83,6 +98,27 @@ NOISE_SHAPES = [
     (1, 256, 256, 160, 4, 1),   # noise_level1, 40
     (1, 45, 61, 704, 4, 0),     # ragged: no tile divides H or W
 ]
+# (B, H, W, C, heads, blocks in the stage, stages of that shape in one
+# 512 px promptir_all_in_one forward)
+CHAIN_SHAPES = [
+    (1, 512, 512, 48, 1, 4, 1),    # encoder level 1
+    (1, 256, 256, 96, 2, 6, 2),    # encoder / decoder level 2
+    (1, 128, 128, 192, 4, 6, 2),   # encoder / decoder level 3
+    (1, 64, 64, 384, 8, 8, 1),     # latent
+    (1, 512, 512, 96, 1, 4, 2),    # decoder level 1, refinement
+]
+# the device time of the forward's kernels by group: the pipeline's
+# (LN rows, stencils and glue, GEMMs, wgrad.cu's gram) and the pair's
+# and the chain's and the GDFN's first kernels
+FWD_GROUPS = (
+    ("LN rows", ("ln_rows_",)),
+    ("stencils", ("_stencil_kernel", "attn_glue")),
+    ("GEMM", ("bwd_gemm_kernel",)),
+    ("wgrad", ("wgrad_",)),
+    ("tblock.cu", ("tblock_stats", "tblock_apply")),
+    ("tblock_chain.cu", ("tblock_chain_kernel",)),
+    ("gdfn.cu", ("gdfn_kernel",)),
+)
 ITERS = 3
 REPEATS = 3
 # the host's work per block call: about 11 ctypes launches and 15 torch
@@ -99,6 +135,11 @@ def parse_args(argv=None):
                     help="print the design's reckoning and exit (no card)")
     ap.add_argument("--split", action="store_true",
                     help="per shape, the device time of one call by kernel")
+    what = ap.add_mutually_exclusive_group()
+    what.add_argument("--chain", action="store_true",
+                      help="the cross-block chain at PromptIR's stages")
+    what.add_argument("--gdfn", action="store_true",
+                      help="the standalone GDFN at the module path's GDFNs")
     return ap.parse_args(argv)
 
 
@@ -167,6 +208,46 @@ def predicted_ms(rows) -> float:
     return max(sum(r[-1] for r in rows.values()), HOST_MS)
 
 
+def reckon_chain(b, h, w, c, heads, n):
+    """Predicted device ms of a bf16 chain of n blocks: n blocks of the
+    pipeline, less the LN1 pass of each block after the first, plus the
+    y that the chain epilogue writes beside out at each boundary."""
+    rows = reckon(b, h, w, c, heads)
+    epi = b * h * w * c * 2 / (PEAK_BYTES * EFF_BYTES) * 1e3
+    return (n * sum(r[-1] for r in rows.values())
+            - (n - 1) * (rows["ln_rows LN1"][-1] - epi))
+
+
+def reckon_gdfn(b, h, w, c):
+    """Predicted device ms of the bf16 GDFN pipeline: the block's hid
+    product, gate stencil and out product, less the residual's read."""
+    rows = reckon(b, h, w, c, 1)
+    res = b * h * w * c * 2 / (PEAK_BYTES * EFF_BYTES) * 1e3
+    return (rows["gemm hid = z.W1"][-1] + rows["gate_stencil"][-1]
+            + rows["gemm out = x1 + gate.W2"][-1] - res)
+
+
+def print_other_reckoning(chain: bool):
+    total = 0.0
+    if chain:
+        for b, h, w, c, heads, n, stages in CHAIN_SHAPES:
+            ms = max(reckon_chain(b, h, w, c, heads, n), n * HOST_MS)
+            print(json.dumps({"shape": [b, h, w, c, heads, n],
+                              "stages": stages,
+                              "predicted_ms": round(ms, 4)}))
+            total += stages * ms
+        print(json.dumps({"predicted_ms": {
+            "chain per 512 px PromptIR forward": round(total, 2)}}))
+        return
+    for b, h, w, c, _, n in EVAL_SHAPES:
+        ms = reckon_gdfn(b, h, w, c)
+        print(json.dumps({"shape": [b, h, w, c], "gdfns": n,
+                          "predicted_ms": round(ms, 4)}))
+        total += n * ms
+    print(json.dumps({"predicted_ms": {
+        "gdfn per 512 px module-path forward": round(total, 2)}}))
+
+
 def print_reckoning():
     sums = {}
     for what, shapes in (("forward", EVAL_SHAPES), ("step", TRAIN_SHAPES),
@@ -214,11 +295,41 @@ class Version:
         lib = build.open_library(so)
         mod = _load(pkg / "ops" / "pallas" / "tblock.py", "other_tblock")
         mod._kernel_library = lambda cph, what: lib
-        return cls("other", mod), so
+        version = cls("other", mod)
+        version.gd = _load(pkg / "ops" / "pallas" / "gdfn.py", "other_gdfn")
+        version.lib = lib
+        return version, so
 
     def call(self, p, x, heads):
         kw = self.mod.prepare_tblock_weights(p, x.dtype, "WithBias")
         return lambda: self.mod._forward_kernel(x, kw, heads, "WithBias")
+
+    def chain_call(self, ps, x, heads):
+        kws = [self.mod.prepare_tblock_weights(p, x.dtype, "WithBias")
+               for p in ps]
+        return lambda: self.mod._chain_kernel(x, kws, heads, "WithBias")
+
+    def blocks_call(self, ps, x, heads):
+        """The stage's blocks one by one through the block forward."""
+        kws = [self.mod.prepare_tblock_weights(p, x.dtype, "WithBias")
+               for p in ps]
+
+        def run():
+            y = x
+            for kw in kws:
+                y = self.mod._forward_kernel(y, kw, heads, "WithBias")
+            return y
+        return run
+
+    def gdfn_call(self, ws, x):
+        """The version's route for x (its gdfn.py's rule, its library)."""
+        mod, lib = self.gd, self.lib
+        kw = mod.prepare_gdfn_weights(*ws, x.dtype)
+        stream, sms = tb._card(x.device)
+        if getattr(mod, "_takes_gdfn_pipeline", lambda _: False)(x):
+            return lambda: mod.gdfn_pipeline(lib, x, kw, sms, stream)
+        tile = mod.pick_tile(lib, x.shape[-1], x.element_size())
+        return lambda: mod._launch(lib, x, kw, tile, stream)
 
 
 def _branch(got, want, x):
@@ -260,6 +371,98 @@ def shape_rows(versions, order, shape, dev):
     return out
 
 
+def _stage_params(c, heads, n, seed):
+    """n blocks' parameters on the card at a trained block's scale."""
+    gen = torch.Generator().manual_seed(seed)
+    ps = []
+    for _ in range(n):
+        blk = TransformerBlock(c, heads)
+        with torch.no_grad():
+            for name, q in blk.named_parameters():
+                if name.endswith("temperature"):
+                    q.fill_(c ** 0.5)
+                elif q.dim() == 4:
+                    q.copy_(torch.randn(q.shape, generator=gen)
+                            * q[0].numel() ** -0.5)
+        ps.append({k: v.detach().cuda()
+                   for k, v in blk.block_params().items()})
+    return ps, gen
+
+
+def _version_row(name, shape, fn, want, x, dev):
+    from textualdegremoval_tpu_torch.tools.bench_block_bwd import (
+        device_groups)
+
+    row = {"version": name, "shape": list(shape),
+           "branch": _branch(fn(), want, x),
+           "ms": time_ms(fn, dev, ITERS, REPEATS),
+           "enqueue_ms": enqueue_us(fn, 20) / 1e3,
+           "device_ms": {k: round(v, 4) for k, v in device_groups(
+               fn, kernel_groups=FWD_GROUPS).items() if v}}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def chain_rows(versions, order, shape, dev):
+    """Rows of one PromptIR stage shape: the plain chain, then each
+    version's chain in turns."""
+    b, h, w, c, heads, n, _ = shape
+    ps, gen = _stage_params(c, heads, n, c + n)
+    x = torch.randn(b, h, w, c, generator=gen).to("cuda", torch.bfloat16)
+    out = []
+    with torch.no_grad():
+        want = tb.tblock_chain_ref(x, ps, heads, "WithBias")
+        row = {"version": "plain", "shape": list(shape[:6]),
+               "ms": median_ms(lambda: tb.tblock_chain_ref(
+                   x, ps, heads, "WithBias"), reps=3)}
+        print(json.dumps(row), flush=True)
+        out.append(row)
+        for name in order:
+            out.append(_version_row(name, shape[:6],
+                                    versions[name].chain_call(ps, x, heads),
+                                    want, x, dev))
+        # this version's blocks one by one, the chain's yardstick
+        for _ in range(2):
+            out.append(_version_row("blocks", shape[:6],
+                                    versions["this"].blocks_call(ps, x,
+                                                                 heads),
+                                    want, x, dev))
+    del x, want, ps
+    torch.cuda.empty_cache()
+    return out
+
+
+def gdfn_rows(versions, order, shape, dev):
+    """Rows of one module-path GDFN shape: `gdfn_ref`, then each version
+    in turns."""
+    from textualdegremoval_tpu_torch.ops.pallas import gdfn as gd
+
+    b, h, w, c, _, _ = shape
+    gen = torch.Generator().manual_seed(c + h)
+    hid = int(c * 2.66)
+    ws = [t.cuda() for t in (
+        torch.randn(c, 2 * hid, generator=gen) * c ** -0.5,
+        torch.randn(3, 3, 2 * hid, generator=gen) / 3,
+        torch.randn(hid, c, generator=gen) * hid ** -0.5)]
+    x = torch.randn(b, h, w, c, generator=gen).to("cuda", torch.bfloat16)
+    out = []
+    with torch.no_grad():
+        want = gd.gdfn_ref(x, *ws)
+        row = {"version": "plain", "shape": [b, h, w, c],
+               "ms": median_ms(lambda: gd.gdfn_ref(x, *ws), reps=3)}
+        print(json.dumps(row), flush=True)
+        out.append(row)
+        zero = torch.zeros_like(x)
+        for name in order:
+            # branch: against ||plain||, as the GDFN adds all it computes
+            out.append(_version_row(name, [b, h, w, c],
+                                    versions[name].gdfn_call(ws, x), want,
+                                    zero, dev))
+    del x, want, ws
+    torch.cuda.empty_cache()
+    return out
+
+
 def split(shape, reps=3):
     """[(kernel, device ms)] of one block call of this version at a shape,
     in launch order (`_card.py` `device_split`)."""
@@ -276,7 +479,10 @@ def split(shape, reps=3):
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.reckon:
-        print_reckoning()
+        if args.chain or args.gdfn:
+            print_other_reckoning(args.chain)
+        else:
+            print_reckoning()
         return 0
     if not torch.cuda.is_available():
         raise SystemExit("bench_block_fwd: no CUDA device")
@@ -294,7 +500,10 @@ def main(argv=None) -> int:
                               "total": round(sum(r[1] for r in rows), 4)}),
                   flush=True)
         return 0
+    from textualdegremoval_tpu_torch.ops.pallas import gdfn as gd
+
     versions = {"this": Version("this", tb)}
+    versions["this"].gd, versions["this"].lib = gd, _build.load_library()
     mine = ptxas_reports(so.with_suffix(".log").read_text())
     for name in ("fwd_stencil.cu", "bwd_gemm.cu"):
         print(f"ptxas {name}:\n{mine.get(name)}", flush=True)
@@ -309,6 +518,8 @@ def main(argv=None) -> int:
             print(f"ptxas report of {name}: {state}", flush=True)
     order = ["other", "this", "this", "other"] if "other" in versions \
         else ["this"]
+    if args.chain or args.gdfn:
+        return other_sums(args.chain, versions, order, dev)
     sums = {}
     for what, shapes in (("per_forward_ms", EVAL_SHAPES),
                          ("per_step_ms", TRAIN_SHAPES),
@@ -326,6 +537,37 @@ def main(argv=None) -> int:
                     s[what] = s.get(what, 0.0) + shape[5] * ms
     for name, s in sums.items():
         print(json.dumps({"version": name, **s}), flush=True)
+    return 0
+
+
+def other_sums(chain, versions, order, dev) -> int:
+    """--chain or --gdfn: the rows of every shape, then per version the
+    sums over one forward (ms, enqueue_ms and device_ms by group, the
+    median of the version's turns at each shape times its count)."""
+    what = ("per_promptir_forward" if chain else
+            "per_module_path_forward")
+    shapes = CHAIN_SHAPES if chain else EVAL_SHAPES
+    sums = {}
+    for shape in shapes:
+        rows = (chain_rows if chain else gdfn_rows)(versions, order, shape,
+                                                    dev)
+        count = shape[6] if chain else shape[5]
+        for name in ["plain", *versions, *(["blocks"] if chain else [])]:
+            mine = [r for r in rows if r["version"] == name]
+            s = sums.setdefault(name, {"ms": 0.0})
+            s["ms"] += count * statistics.median(r["ms"] for r in mine)
+            if name == "plain":
+                continue
+            for key in ("enqueue_ms",):
+                s[key] = s.get(key, 0.0) + count * statistics.median(
+                    r[key] for r in mine)
+            groups = s.setdefault("device_ms", {})
+            for g in {k for r in mine for k in r["device_ms"]}:
+                groups[g] = groups.get(g, 0.0) + count * statistics.median(
+                    r["device_ms"].get(g, 0.0) for r in mine)
+            s["device_total_ms"] = sum(groups.values())
+    for name, s in sums.items():
+        print(json.dumps({"version": name, what: s}), flush=True)
     return 0
 
 
