@@ -185,9 +185,14 @@ Phases, each of which raises on failure:
 23. the qkv-form probe kernels `qkv_current` (the 1x1 product, then the
    depthwise stencil) and `qkv_composed` (one K = 9C product) against
    their plain versions at the probe tool's four 512 px cases (C -> co
-   48 -> 48, 48 -> 128, 96 -> 96, 96 -> 256), float32 and bfloat16, two
-   calls bitwise equal, and in bf16 the time of each kernel, its plain
-   version and one cuDNN conv of the same function;
+   48 -> 48, 48 -> 128, 96 -> 96, 96 -> 256) and five ragged shapes
+   (batch 2, no 8 x 16 tile dividing H or W), float32
+   (csrc/probe_qkv_form.cu) and bfloat16 (the TMA + wgmma kernels of
+   csrc/probe_qkv_tma.cu, counted in `tma_launches`, where C and co are
+   multiples of 8, current at C <= 256; probe_qkv_form.cu at the other
+   widths), two calls bitwise equal, and in bf16 the time of each kernel,
+   its plain version and one cuDNN conv of the same function beside the
+   design model (`bench_qkv_form.reckon`);
 24. the stencil probe kernel `stencil_loop` against `stencil_ref` for its
    four variants at the tool's shape (t = 8, W = 512, ch = 128, a bf16
    slab as the tool's) after 1-4 iterations, and the time per step at the
@@ -232,9 +237,12 @@ without the row's mean subtracted, caught in bf16), gdfn_halo_kept (phase
 19, csrc/gdfn.cu's hidden not zeroed outside the image, run in f32),
 gdfn_gate_halves_swapped (phase 19, the bf16 pipeline's gate formed as
 gelu(d2) d1), mdta_k_unnormed (phase 20, k's norms dropped from the
-attention), x9_halo_kept (phase 23, the composed form's X9 not zeroed
-outside the image) and stencil_reads_past_row (phase 24, the stencil's
-right x-shift reading the next row's first pixel).
+attention), x9_halo_kept (phase 23, the f32 composed form's X9 not
+zeroed outside the image, run in float32), qkv_tma_tap_flipped and
+qkv_tma_lin_ring_zeroed (phase 23, bf16: the composed form's x windows
+shifted the wrong way along x, the current form's lin zeroed on the
+tile's ring inside the image) and stencil_reads_past_row (phase 24, the
+stencil's right x-shift reading the next row's first pixel).
 """
 
 from __future__ import annotations
@@ -751,7 +759,23 @@ FAULTS = {
                         "rk[d] = 1.f;", 20),
     # the composed form's X9 keeps x's clamped edge pixels outside the
     # image instead of zeros: the stencil's zero padding lost
+    # (csrc/probe_qkv_form.cu, which serves float32, so phase 23 runs it in
+    # float32)
     "x9_halo_kept": ("probe_qkv_form.cu", "in ? v : V{}", "v", 23),
+    # the bf16 composed form loads each tap's x window shifted the wrong
+    # way along x: (1 - dx) in place of (dx - 1)
+    "qkv_tma_tap_flipped": ("probe_qkv_tma.cu", "ox + tap % 3 - 1,",
+                            "ox - tap % 3 + 1,", 23),
+    # the bf16 current form's lin zeroed on the tile's 1-pixel ring inside
+    # the image as well as outside: the stencil at the tile's edges loses
+    # its neighbours
+    "qkv_tma_lin_ring_zeroed": (
+        "probe_qkv_tma.cu",
+        "bf16_pair(acc[m][4 * jn + 2 * h], acc[m][4 * jn + 2 * h + 1]);",
+        "(q / kW1 % (kH1 - 1) && q % kW1 % (kW1 - 1)\n"
+        "                     ? bf16_pair(acc[m][4 * jn + 2 * h],\n"
+        "                                 acc[m][4 * jn + 2 * h + 1])\n"
+        "                     : 0u);", 23),
     # the stencil slab's right zero column filled with the next row's first
     # pixel: the right x-shift at the row's end reads past it
     "stencil_reads_past_row": (
@@ -2744,16 +2768,27 @@ def module_step_memory(seed: int, batches=(1, MODULE_TRAIN_BATCH)):
 
 # (px, C, co): the qkv-form tool's cases
 QKV_CASES = [(512, c, co) for c, co in qkv_tool.CASES]
+# (B, H, W, C, co): beside them, shapes no 8 x 16 tile divides, batch 2,
+# and widths off the tool's (checked, not timed): 24 -> 40 on the TMA
+# route; in bf16 12 -> 20 (neither a multiple of 8) on probe_qkv_form.cu
+# in both forms, and 264 -> 8 on it in the current form (C past
+# TMA_CURRENT_MAX_C), the composed form on the TMA route
+QKV_RAGGED = [(2, 37, 53, 96, 256), (1, 19, 7, 24, 40), (2, 45, 70, 48, 128),
+              (1, 19, 7, 12, 20), (1, 9, 13, 264, 8)]
 # qkv form kernel vs its own plain version, (a, r, l2) as GDFN_TOL's.
-# float32: sums in another order only (read at most 0.0037 / 0.0063 on an
-# H100).  bfloat16: the kernel's f32 sums (tensor cores) and the plain
-# product's (cuBLAS) run in other orders, so a value at a rounding
-# boundary rounds the other way: the output by one bf16 ulp (at most 2^-7
-# of max|p|), and in the current form also lin, which moves the output by
-# a tap times an ulp of lin.  The first version read at most 0.27 of a and
-# r (one-ulp flips) and 6.8e-5 in L2, so l2 is 5e-4.  The two forms round
-# at other points (lin against W9) and differ from each other by more
-# than from their own plain versions, so each is held against its own.
+# float32 (csrc/probe_qkv_form.cu): sums in another order only (read at
+# most 0.0037 / 0.0063 on an H100).  bfloat16 (csrc/probe_qkv_tma.cu, and
+# probe_qkv_form.cu at the widths the TMA route does not take, QKV_RAGGED's
+# last two, on which the bound was first read at the tool's cases): the
+# kernel's f32 sums (tensor cores) and the
+# plain product's (cuBLAS) run in other orders, so a value at a
+# rounding boundary rounds the other way: the output by one bf16 ulp (at
+# most 2^-7 of max|p|), and in the current form also lin, which moves the
+# output by a tap times an ulp of lin.  The first version read at most
+# 0.27 of a and r (one-ulp flips) and 6.8e-5 in L2, so l2 is 5e-4.  The
+# two forms round at other points (lin against W9) and differ from each
+# other by more than from their own plain versions, so each is held
+# against its own.
 QKV_TOL = {form: {torch.float32: (2e-5, 1e-4, 1e-5),
                   torch.bfloat16: (1e-2, 1e-2, 5e-4)}
            for form in ("current", "composed")}
@@ -2779,29 +2814,46 @@ def _probe_time(fn) -> float:
     return time_ms(fn, torch.device("cuda"), 10, 5)
 
 
-def qkv_form_vs_plain(gen, cases=QKV_CASES,
+def _ragged_qkv_inputs(b, h, w, c, co, gen):
+    """x (B, H, W, C) f32, w (C, co), dw (9, co) on the card at the tool's
+    scales."""
+    return (torch.randn(b, h, w, c, generator=gen).cuda(),
+            (torch.randn(c, co, generator=gen) / c ** 0.5).cuda(),
+            (torch.randn(9, co, generator=gen) / 3.0).cuda())
+
+
+def qkv_form_vs_plain(gen, cases=QKV_CASES, ragged=QKV_RAGGED,
                       dtypes=(torch.float32, torch.bfloat16), timed=True):
     """Phase 23: the qkv-form kernels `qkv_current` and `qkv_composed`
-    against their plain versions at the tool's four cases, float32 and
-    bfloat16, under QKV_TOL; two calls bitwise equal, one launch per call;
-    in bf16 the time of each kernel, its plain version and the cuDNN conv
-    computing the same function.  Returns {form: [(max_abs, kernel ms,
-    plain ms, cudnn ms, (px, C, co)) per case]} of the bf16 rows."""
+    against their plain versions at the tool's four cases and QKV_RAGGED,
+    float32 and bfloat16, under QKV_TOL; two calls bitwise equal, one
+    launch per call, those the route rule `takes_tma` gives
+    csrc/probe_qkv_tma.cu counted in `tma_launches` and the rest
+    (csrc/probe_qkv_form.cu) not; at the tool's cases in bf16 the time of
+    each kernel, its
+    plain version and the cuDNN conv computing the same function, beside
+    the design model (`bench_qkv_form.reckon`).  Returns {form: [(max_abs,
+    kernel ms, plain ms, cudnn ms, (px, C, co)) per tool case]} of the bf16
+    rows."""
     log("qkv probe kernels vs plain: |k-p| <= a max|p| + r|p|, ||k-p|| <= "
         f"l2 ||p||; (a, r, l2) f32 {QKV_TOL['current'][torch.float32]}, "
         f"bf16 {QKV_TOL['current'][torch.bfloat16]}")
     rows = {"current": [], "composed": []}
     failures = []
-    for px, c, co in cases:
-        x32, w, dw = qkv_tool.case_inputs(px, c, co, gen, "cuda",
-                                          torch.float32)
+    shapes = [((1, px, px, c, co), True) for px, c, co in cases] \
+        + [(shape, False) for shape in ragged]
+    for (b, h, wd, c, co), tool_case in shapes:
+        x32, w, dw = (qkv_tool.case_inputs(h, c, co, gen, "cuda",
+                                           torch.float32) if tool_case
+                      else _ragged_qkv_inputs(b, h, wd, c, co, gen))
         w9 = pr.compose_w9(w, dw)
         for dtype in dtypes:
             x = x32.to(dtype)
             kw = pr.prepare_qkv_weights(w, dw, dtype)
-            wconv = qkv_tool.conv_weight(w9, c, dtype)
+            timed_here = timed and tool_case and dtype == torch.bfloat16
             lib_ms = float("nan")
-            if timed:
+            if timed_here:
+                wconv = qkv_tool.conv_weight(w9, c, dtype)
                 with torch.inference_mode():
                     lib_ms = _probe_time(lambda: qkv_tool.cudnn_stage(
                         x, wconv))
@@ -2809,39 +2861,47 @@ def qkv_form_vs_plain(gen, cases=QKV_CASES,
                      "composed": lambda: pr.qkv_composed_ref(x, w9)}
             for form, kernel in (("current", pr.qkv_current),
                                  ("composed", pr.qkv_composed)):
+                tma = pr.takes_tma(x, kw, form)
                 with torch.inference_mode():
-                    before = kernel.launches
+                    before = (kernel.launches, kernel.tma_launches)
                     got = kernel(x, kw)
                     same = torch.equal(got, kernel(x, kw))
-                    launched = kernel.launches - before
+                    launched = (kernel.launches - before[0],
+                                kernel.tma_launches - before[1])
                     want = plain[form]()
                     max_abs, use, l2_use = _err_use(got, want,
                                                     *QKV_TOL[form][dtype])
                     finite = bool(torch.isfinite(got).all())
-                    k_ms = p_ms = float("nan")
-                    if timed:
+                    k_ms = p_ms = model = float("nan")
+                    if timed_here:
                         k_ms = _probe_time(lambda: kernel(x, kw))
                         p_ms = _probe_time(plain[form])
+                        model = qkv_tool.reckon(c, co, h)[form]["ms"]
                 name = str(dtype).split(".")[-1]
-                tile = pr.pick_tile(_build.load_library(), form, c, co,
-                                    x.element_size())
-                log(f"{px}px {c}->{co} {form:8s} {name}: max_abs "
+                route = "probe_qkv_tma.cu" if tma else (
+                    "probe_qkv_form.cu tile " + str(pr.pick_tile(
+                        _build.load_library(), form, c, co,
+                        x.element_size())))
+                log(f"{b},{h},{wd} {c}->{co} {form:8s} {name}: max_abs "
                     f"{max_abs:.3e} (max|p| {want.abs().max().item():.3f}) "
                     f"tol_use {use:.4f} l2_use {l2_use:.4f} kernel "
-                    f"{k_ms:.4f} ms plain {p_ms:.4f} ms cudnn {lib_ms:.4f} "
-                    f"ms tile {tile}{'' if same else '  NOT REPEATABLE'}")
-                if not finite or not same or launched != 2 \
+                    f"{k_ms:.4f} ms (model {model:.4f}) plain {p_ms:.4f} ms "
+                    f"cudnn {lib_ms:.4f} ms; {route}"
+                    f"{'' if same else '  NOT REPEATABLE'}")
+                if not finite or not same or launched != (2, 2 * tma) \
                         or max(use, l2_use) > 1.0:
-                    failures.append((px, c, co, form, name,
+                    failures.append((b, h, wd, c, co, form, name, launched,
                                      round(max(use, l2_use), 3)))
-                if dtype == torch.bfloat16:
+                if tool_case and dtype == torch.bfloat16:
                     rows[form].append((max_abs, k_ms, p_ms, lib_ms,
-                                       (px, c, co)))
+                                       (h, c, co)))
                 del got, want
     if failures:
         raise RuntimeError(f"qkv probe kernels disagree with their plain "
-                           f"versions at (px, C, co, form, dtype, the error "
-                           f"over its bound) {failures}")
+                           f"versions or their route at (B, H, W, C, co, "
+                           f"form, dtype, launches of the form and of its "
+                           f"TMA kernel, the error over its bound) "
+                           f"{failures}")
     return rows
 
 
@@ -2903,12 +2963,15 @@ def probe_tool_runs():
     """The probe path: both port tools as `python -m` runs them, with the
     kernels' counts set to 0 just before and read just after.  Returns
     (qkv rows, stencil result, {kernel: launches})."""
-    for k in (pr.qkv_current, pr.qkv_composed, pr.stencil_loop):
+    kernels = (pr.qkv_current, pr.qkv_composed, pr.stencil_loop)
+    for k in kernels:
         k.launches = 0
+    pr.qkv_current.tma_launches = pr.qkv_composed.tma_launches = 0
     qkv_rows = qkv_tool.main([])
     stencil_res = stencil_tool.main([])
-    counts = {k.__name__: k.launches
-              for k in (pr.qkv_current, pr.qkv_composed, pr.stencil_loop)}
+    counts = {k.__name__: k.launches for k in kernels}
+    counts |= {k.__name__ + "_tma": k.tma_launches
+               for k in (pr.qkv_current, pr.qkv_composed)}
     log(f"launches: probe tools (one run each) {counts}")
     if not all(counts.values()):
         raise RuntimeError(f"a probe kernel was not launched by its tool: "
@@ -3046,7 +3109,9 @@ def main(argv=None) -> int:
                 mdta_vs_plain(gen, [MDTA_SHAPES[i] for i in (2, 6, 8)],
                               dtypes=(torch.bfloat16,), timed=False)
             elif FAULTS[args.plant][3] == 23:
-                qkv_form_vs_plain(gen, dtypes=(torch.bfloat16,), timed=False)
+                qkv_form_vs_plain(gen, dtypes=(torch.float32 if FAULTS[
+                    args.plant][0] == "probe_qkv_form.cu" else
+                    torch.bfloat16,), timed=False)
             elif FAULTS[args.plant][3] == 24:
                 stencil_vs_plain(gen, timed=False)
             else:  # the pair's faults in float32, the pipeline's in bf16
@@ -3165,7 +3230,7 @@ def main(argv=None) -> int:
 
     qkv_rows = qkv_form_vs_plain(gen)
     stencil_rows = stencil_vs_plain(gen)
-    _, _, probe_launches = probe_tool_runs()
+    tool_qkv, _, probe_launches = probe_tool_runs()
     log_held("phases 23-24")
 
     # per-step kernel time: each training shape's median time times the
@@ -3194,6 +3259,15 @@ def main(argv=None) -> int:
     qkv_per = [qkv_tool.bound_ms(*case) for case in QKV_CASES]
     qkv_bound = sum(ms for ms, _ in qkv_per)
     qkv_by = max(qkv_per)[1]
+    # composed's own bound, as the function's with its K = 9C product's
+    # operations in place of the function's
+    qkv_own_per = [qkv_tool.bound_ms(px, c, co, ops_per_px=2 * 9 * c * co)
+                   for px, c, co in QKV_CASES]
+    qkv_own = sum(ms for ms, _ in qkv_own_per)
+    qkv_own_by = max(qkv_own_per)[1]
+    # the tool's own run, per tool run
+    qkv_tool_ms = {f: sum(r[f + "_ms"] for r in tool_qkv)
+                   for f in ("current", "composed", "cudnn")}
     t_st, w_st, ch_st = STENCIL_SHAPE
     sms, mhz, core_peak = stencil_tool.cuda_core_peak(torch.device("cuda"))
     stencil_bound = stencil_tool.stencil_flops(t_st, w_st, ch_st) \
@@ -3383,28 +3457,31 @@ def main(argv=None) -> int:
          "plain_ms": sum(r[0] * r[3] for r in mdta_rows),
          "bound_ms": mdta_bound, "bound_by": mdta_by, "library_ms": None},
         # B9, on no path of the model: per qkv tool run (its four 512 px
-        # cases, one call each, bf16); launches: one run of the tool;
-        # library: the dense 3x3 cuDNN conv of the same function
-        {"name": "qkv_current", "route": "cuda",
-         "source": src + "probe_qkv_form.cu",
-         "replaces": "tools/bench_qkv_form.py:109 (_run_pallas with "
-                     "_kernel_current :51)",
-         "launches": probe_launches["qkv_current"],
-         "max_abs_err": max(r[0] for r in qkv_rows["current"]),
-         "ms": sum(r[1] for r in qkv_rows["current"]),
-         "plain_ms": sum(r[2] for r in qkv_rows["current"]),
-         "bound_ms": qkv_bound, "bound_by": qkv_by,
-         "library_ms": sum(r[3] for r in qkv_rows["current"])},
-        {"name": "qkv_composed", "route": "cuda",
-         "source": src + "probe_qkv_form.cu",
-         "replaces": "tools/bench_qkv_form.py:109 (_run_pallas with "
-                     "_kernel_composed :70)",
-         "launches": probe_launches["qkv_composed"],
-         "max_abs_err": max(r[0] for r in qkv_rows["composed"]),
-         "ms": sum(r[1] for r in qkv_rows["composed"]),
-         "plain_ms": sum(r[2] for r in qkv_rows["composed"]),
-         "bound_ms": qkv_bound, "bound_by": qkv_by,
-         "library_ms": sum(r[3] for r in qkv_rows["composed"])},
+        # cases, one call each, bf16: csrc/probe_qkv_tma.cu; float32 and
+        # other widths run csrc/probe_qkv_form.cu); ms: phase 23's, tool_ms
+        # the tool's own run; launches: one run of the tool, tma_launches
+        # of them on probe_qkv_tma.cu; library: the dense 3x3 cuDNN conv of
+        # the same function; composed's own_bound_ms: its K = 9C product
+        # or the bytes, per case
+        *({"name": f"qkv_{form}", "route": "cuda",
+           "source": src + "probe_qkv_tma.cu",
+           "sources": [src + f for f in ("probe_qkv_tma.cu", "runs16.cuh",
+                                         "halo_tiles.cuh", "tma_maps.cuh",
+                                         "hopper.cuh", "tblock_common.cuh",
+                                         "probe_qkv_form.cu")],
+           "replaces": "tools/bench_qkv_form.py:109 (_run_pallas with "
+                       f"_kernel_{form} :{line})",
+           "launches": probe_launches[f"qkv_{form}"],
+           "tma_launches": probe_launches[f"qkv_{form}_tma"],
+           "max_abs_err": max(r[0] for r in qkv_rows[form]),
+           "ms": sum(r[1] for r in qkv_rows[form]),
+           "tool_ms": qkv_tool_ms[form],
+           "plain_ms": sum(r[2] for r in qkv_rows[form]),
+           "bound_ms": qkv_bound, "bound_by": qkv_by,
+           **({"own_bound_ms": qkv_own, "own_bound_by": qkv_own_by}
+              if form == "composed" else {}),
+           "library_ms": sum(r[3] for r in qkv_rows[form])}
+          for form, line in (("current", 51), ("composed", 70))),
         # per stencil step of the concat variant at the tool's shape (bf16,
         # the kernel looping 3000 steps in one launch); bound: its FMAs at
         # the CUDA-core rate; launches: one run of the tool (4 variants);
@@ -3456,6 +3533,10 @@ def main(argv=None) -> int:
         f"batch {MODULE_TRAIN_BATCH} bf16 {mod_step_ms:.2f} ms with "
         f"gdfn_fused vs {mod_plain_step_ms:.2f} ms without, peak "
         f"{mod_peak:.2f} vs {mod_plain_peak:.2f} GiB")
+    log(f"B9 qkv per tool run (bf16, the tool's own run): current "
+        f"{qkv_tool_ms['current']:.4f} / composed "
+        f"{qkv_tool_ms['composed']:.4f} / cudnn {qkv_tool_ms['cudnn']:.4f} "
+        f"ms")
     log("B9 probes (bf16), per case current / composed / cudnn ms and each "
         "one's fraction of the bound: " + "; ".join(
             f"{c}->{co} {cu[1]:.4f} / {cm[1]:.4f} / {cu[3]:.4f} "

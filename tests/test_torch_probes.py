@@ -9,9 +9,11 @@ Chain of custody on the CPU:
   `make_kernel`, interpreted (`force_tpu_interpret_mode`).  The tools are
   loaded from their files as they are, inside a patched environment, since
   both set defaults in `os.environ` at import;
-* the CUDA sources csrc/probe_qkv_form.cu and csrc/probe_stencil.cu
-  themselves, compiled for the host with tests/cuda_host_shim.h, against
-  the plain versions, through the launch code the CUDA path uses;
+* the CUDA sources csrc/probe_qkv_form.cu, csrc/probe_qkv_tma.cu (the
+  bf16 TMA + wgmma route) and csrc/probe_stencil.cu themselves, compiled
+  for the host with tests/cuda_host_shim.h, against the plain versions,
+  through the launch code the CUDA path uses, and the route rule between
+  the two qkv sources;
 * the wrappers' refusal of CPU tensors, and the two port tools on the CPU.
 The on-card checks are in tests/test_torch_probes_cuda.py.
 """
@@ -223,12 +225,12 @@ def test_wrappers_refuse_cpu_tensors():
 
 @pytest.fixture(scope="module")
 def host_probe_lib(tmp_path_factory):
-    """csrc/probe_qkv_form.cu and csrc/probe_stencil.cu compiled for the
-    CPU against tests/cuda_host_shim.h (tblock.cu too, for the error
-    strings)."""
+    """csrc/probe_qkv_form.cu, csrc/probe_qkv_tma.cu and
+    csrc/probe_stencil.cu compiled for the CPU against
+    tests/cuda_host_shim.h (tblock.cu too, for the error strings)."""
     return build_host_library(tmp_path_factory.mktemp("host_probes"),
-                              ("probe_qkv_form.cu", "probe_stencil.cu",
-                               "tblock.cu"))
+                              ("probe_qkv_form.cu", "probe_qkv_tma.cu",
+                               "probe_stencil.cu", "tblock.cu"))
 
 
 @pytest.mark.parametrize("form", ["current", "composed"])
@@ -256,6 +258,93 @@ def test_qkv_cuda_source_on_host_matches_ref(host_probe_lib, form, shape, c,
         # by one bf16 ulp, and a flipped lin moves the output by a tap
         # times an ulp of lin
         _assert_bf16_close(got.float(), want.float())
+
+
+@pytest.mark.parametrize("form", ["current", "composed"])
+@pytest.mark.parametrize("shape,c,co,nctas", [
+    ((1, 11, 21), 48, 48, 3),    # ragged tiles; W9 resident (BN 64)
+    ((2, 9, 17), 16, 24, 2),     # batch 2; K padded inside a 64-channel box
+    ((1, 10, 19), 48, 128, 5),   # two slices of W; W9 resident (BN 128)
+    ((1, 9, 18), 96, 136, 2),    # two boxes of C; W9 ringed (BN 192)
+    ((1, 8, 16), 72, 264, 3),    # co past 256: two column blocks of 256
+    ((1, 12, 20), 192, 96, 2),   # three boxes of C: current's 2 stages
+    ((1, 7, 33), 104, 56, 2),    # two boxes, W9 ringed (BN 64)
+    ((1, 30, 40), 16, 16, 1),    # one CTA: 12 tiles around the stages
+])
+def test_qkv_tma_source_on_host_matches_ref(host_probe_lib, form, shape, c,
+                                            co, nctas):
+    """csrc/probe_qkv_tma.cu's kernels (bf16, the TMA + wgmma route) against
+    the plain versions; `nctas` CTAs walk the items (current: per slice
+    and image)."""
+    x, w, dw = (t(a) for a in _qkv_inputs(c, co, shape, seed=c + co))
+    x = x.bfloat16()
+    kw = pr.prepare_qkv_weights(w, dw, torch.bfloat16)
+    assert pr.takes_tma(x, kw, form)
+    got = pr._launch_qkv_tma(host_probe_lib, form, x, kw, nctas, 0)
+    want = _port_qkv(form, x.float().numpy(), w.numpy(), dw.numpy(),
+                     torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == (*shape, co)
+    # as test_qkv_cuda_source_on_host_matches_ref's bf16 bound: the f32
+    # sums run in another order than the plain product's, so lin (current)
+    # or the output may round the other way by one bf16 ulp
+    _assert_bf16_close(got.float(), want.float())
+
+
+@pytest.mark.parametrize("form", ["current", "composed"])
+def test_qkv_tma_source_on_host_matches_jax_pallas_interpret(
+        jqkv, host_probe_lib, form):
+    """csrc/probe_qkv_tma.cu against the TPU tool's own kernel of the form,
+    interpreted, on the same inputs in bf16 (the shape and widths of
+    test_qkv_ref_matches_jax_pallas_interpret, which the TMA route
+    takes)."""
+    x, w, dw = _qkv_inputs(16, 24, (2, 8, 12), seed=40)
+    want = _jax_qkv(jqkv, form, x, w, dw, 4, jnp.bfloat16)
+    xt = t(x).bfloat16()
+    kw = pr.prepare_qkv_weights(t(w), t(dw), torch.bfloat16)
+    assert pr.takes_tma(xt, kw, form)
+    got = pr._launch_qkv_tma(host_probe_lib, form, xt, kw, 2, 0)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 8, 12, 24)
+    # the bound of test_qkv_ref_matches_jax_pallas_interpret's bf16 cases:
+    # the f32 sums run in other orders, so a value may round the other way
+    _assert_bf16_close(got.float(), want)
+
+
+@pytest.mark.parametrize("dtype,c,co,tma", [
+    (torch.bfloat16, 16, 24, (True, True)),
+    (torch.float32, 16, 24, (False, False)),   # probe_qkv_form.cu
+    (torch.bfloat16, 12, 24, (False, False)),  # C not a multiple of 8
+    (torch.bfloat16, 16, 20, (False, False)),  # co not a multiple of 8
+    (torch.bfloat16, 264, 8, (False, True)),   # C past current's 256
+])
+def test_qkv_route_rule(host_probe_lib, dtype, c, co, tma):
+    """`qkv_current` / `qkv_composed` send bf16 at C, co % 8 == 0 (current:
+    C <= 256) to csrc/probe_qkv_tma.cu (counted in `tma_launches`) and the
+    rest to csrc/probe_qkv_form.cu, through the wrappers' own code with the
+    host build as the library (the device check, the library and the
+    card's stream and SMs patched)."""
+    x, w, dw = (t(a) for a in _qkv_inputs(c, co, (1, 9, 13), seed=c * co))
+    x = x.to(dtype)
+    kw = pr.prepare_qkv_weights(w, dw, dtype)
+    for form, wrapper, form_tma in (("current", pr.qkv_current, tma[0]),
+                                    ("composed", pr.qkv_composed, tma[1])):
+        assert pr.takes_tma(x, kw, form) == form_tma
+        before = (wrapper.launches, wrapper.tma_launches)
+        with mock.patch.object(pr, "_require_cuda"), \
+                mock.patch("textualdegremoval_tpu_torch.ops._build."
+                           "load_library", return_value=host_probe_lib), \
+                mock.patch("textualdegremoval_tpu_torch.ops.pallas.tblock."
+                           "_card", return_value=(0, 2)):
+            got = wrapper(x, kw)
+        assert (wrapper.launches, wrapper.tma_launches) == (
+            before[0] + 1, before[1] + int(form_tma))
+        want = _port_qkv(form, x.float().numpy(), w.numpy(), dw.numpy(),
+                         dtype)
+        if dtype == torch.float32:
+            assert_close(got, want.numpy(), atol=1e-5, rtol=1e-5)
+        else:
+            _assert_bf16_close(got.float(), want.float())
+        with pytest.raises(ValueError, match="CUDA"):
+            wrapper(x, kw)
 
 
 @pytest.mark.parametrize("variant,iters,wd", [

@@ -1,4 +1,5 @@
-"""On-card checks of the probe kernels (csrc/probe_qkv_form.cu,
+"""On-card checks of the probe kernels (csrc/probe_qkv_tma.cu for bf16 at
+C and co multiples of 8, csrc/probe_qkv_form.cu for the rest,
 csrc/probe_stencil.cu; marked `cuda`, each skips without a CUDA device).
 The file imports neither jax nor the test helpers that do, so the card's
 machine runs it without JAX:
@@ -43,6 +44,12 @@ def _qkv_inputs(c, co, shape, seed):
     (48, 48, (1, 64, 64)),
     (96, 256, (2, 37, 53)),   # ragged: no tile divides H or W
     (24, 40, (1, 19, 7)),     # co not a multiple of 16
+    (48, 128, (1, 512, 512)),  # two of the qkv tool's cases
+    (96, 96, (1, 512, 512)),
+    (16, 24, (2, 9, 17)),     # K padded inside a 64-channel box
+    (72, 264, (1, 45, 70)),   # two boxes of C, two column blocks of 256
+    (12, 20, (1, 9, 13)),     # widths the bf16 TMA route does not take
+    (264, 8, (1, 9, 13)),     # C past the TMA route's current (256)
 ])
 def test_qkv_kernel_matches_plain(form, dtype, c, co, shape):
     _cuda()
@@ -50,13 +57,17 @@ def test_qkv_kernel_matches_plain(form, dtype, c, co, shape):
     x = x.to(dtype)
     kw = pr.prepare_qkv_weights(w, dw, dtype)
     kernel = pr.qkv_current if form == "current" else pr.qkv_composed
-    before = kernel.launches
+    tma = pr.takes_tma(x, kw, form)
+    assert tma == (dtype == torch.bfloat16 and c % 8 == 0 and co % 8 == 0
+                   and (form == "composed" or c <= 256))
+    before = (kernel.launches, kernel.tma_launches)
     with torch.inference_mode():
         got = kernel(x, kw)
         want = (pr.qkv_current_ref(x, w, dw) if form == "current"
                 else pr.qkv_composed_ref(x, pr.compose_w9(w, dw)))
         assert torch.equal(got, kernel(x, kw))
-    assert kernel.launches == before + 2
+    assert (kernel.launches, kernel.tma_launches) == (before[0] + 2,
+                                                      before[1] + 2 * tma)
     assert got.shape == (*shape, co) and torch.isfinite(got).all()
     _, use, l2_use = _err_use(got, want, *QKV_TOL[form][dtype])
     assert max(use, l2_use) <= 1.0, (use, l2_use)

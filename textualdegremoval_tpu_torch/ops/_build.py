@@ -83,6 +83,9 @@ _SIGNATURES = {
     "probe_qkv_smem": ([_I] * 6, _L),
     "probe_qkv_current": ([_P] * 4 + [_I] * 8 + [_P], _I),
     "probe_qkv_composed": ([_P] * 3 + [_I] * 8 + [_P], _I),
+    "probe_qkv_tma_ctas_per_sm": ([_I] * 3, _I),
+    "probe_qkv_tma_current": ([_P] * 4 + [_I] * 6 + [_P], _I),
+    "probe_qkv_tma_composed": ([_P] * 3 + [_I] * 6 + [_P], _I),
     "probe_stencil": ([_P] * 3 + [_I] * 6 + [_P], _I),
     "flash_attn_error_string": ([_I], ctypes.c_char_p),
     "flash_attn_fwd": ([_P] * 5 + [_I] * 4 + [_L] * 9

@@ -7,10 +7,12 @@ tools/bench_stencil.py (`make_kernel`).  They ask, for the card, what the
 TPU tools asked for the TPU about the whole-block kernel's 1x1 product
 followed by a depthwise 3x3 stencil:
 
-* `qkv_current` / `qkv_composed` (csrc/probe_qkv_form.cu): y =
-  dw3x3(x . W) as a K = C product then the stencil on the CUDA cores (the
-  whole-block kernel's own path), or as one K = 9C product X9 . W9 on the
-  tensor cores;
+* `qkv_current` / `qkv_composed`: y = dw3x3(x . W) as a K = C product
+  then the stencil on the CUDA cores (the whole-block kernel's own path),
+  or as one K = 9C product X9 . W9 on the tensor cores.  A bfloat16 call
+  whose C and co are multiples of 8 (`takes_tma`; current at C <= 256)
+  runs csrc/probe_qkv_tma.cu (TMA and wgmma); float32 and other widths
+  run csrc/probe_qkv_form.cu;
 * `stencil_loop` (csrc/probe_stencil.cu): the row-tile stencil iterated in
   the kernel, in the variants `VARIANTS`.
 
@@ -19,7 +21,9 @@ The plain versions round where the TPU kernels round: `qkv_current_ref`,
 the qkv tool.  The probes are tools, not a route of the model: the kernel
 wrappers take CUDA tensors only and raise on any other, with no fallback
 (the tools call the plain versions when asked to run on the CPU).  Each
-wrapper's `launches` counts its kernel launches.
+wrapper's `launches` counts its kernel launches; `qkv_current` and
+`qkv_composed` count those on csrc/probe_qkv_tma.cu in `tma_launches`
+too.
 """
 
 from __future__ import annotations
@@ -204,10 +208,57 @@ def _launch_qkv(lib, form: str, x, kw, tile, stream):
     return out
 
 
-def _qkv_kernel(form: str, x, kw):
-    from textualdegremoval_tpu_torch.ops._build import load_library
+# the widest C that csrc/probe_qkv_tma.cu's current form takes (2-3
+# stages of an item's halo boxes and W's slice in shared memory)
+TMA_CURRENT_MAX_C = 256
 
-    what = f"qkv_{form}"
+
+def takes_tma(x: torch.Tensor, kw: dict, form: str) -> bool:
+    """The route rule of the form: csrc/probe_qkv_tma.cu takes a bfloat16
+    x whose C and co are multiples of 8 (TMA reads rows of 16-byte
+    multiples, and the epilogues store 16-byte runs), for the current form
+    at C <= TMA_CURRENT_MAX_C; float32 and any other width run
+    csrc/probe_qkv_form.cu.  Reads dtype and shape only."""
+    return x.dtype == torch.bfloat16 and kw["c"] % 8 == 0 \
+        and kw["co"] % 8 == 0 \
+        and (form == "composed" or kw["c"] <= TMA_CURRENT_MAX_C)
+
+
+def tma_ctas(lib, form: str, shape, co: int, sms: int) -> int:
+    """The TMA route's grid for x of `shape` on a card of `sms` SMs, one
+    wave of the CTAs that fit an SM: current's CTAs per (64-column slice,
+    image), at most one per 8 x 16 tile; composed's persistent CTAs (the
+    kernel takes at most one per item)."""
+    b, h, wd, c = shape
+    per_sm = lib.probe_qkv_tma_ctas_per_sm(int(form == "composed"), c, co)
+    if per_sm <= 0:
+        raise ValueError(f"qkv_{form}: no CTA of the TMA route fits an SM "
+                         f"at C = {c}, co = {co}")
+    if form == "composed":
+        return per_sm * sms
+    tiles = -(-h // 8) * -(-wd // 16)
+    return max(1, min(tiles, -(-per_sm * sms // (b * -(-co // 64)))))
+
+
+def _launch_qkv_tma(lib, form: str, x, kw, nctas: int, stream):
+    """One csrc/probe_qkv_tma.cu kernel on validated bf16 inputs (`nctas`
+    as `tma_ctas` sizes it); the output is allocated on x's device."""
+    from textualdegremoval_tpu_torch.ops.pallas.tblock import _check, _ptr
+
+    b, h, wd, c = x.shape
+    out = torch.empty((b, h, wd, kw["co"]), dtype=x.dtype, device=x.device)
+    dims = (b, h, wd, c, kw["co"], nctas, ctypes.c_void_p(stream))
+    if form == "current":
+        rc = lib.probe_qkv_tma_current(_ptr(x), _ptr(kw["w"]),
+                                       _ptr(kw["dw"]), _ptr(out), *dims)
+    else:
+        rc = lib.probe_qkv_tma_composed(_ptr(x), _ptr(kw["w9"]), _ptr(out),
+                                        *dims)
+    _check(rc, lib, f"qkv_{form} (TMA route)")
+    return out
+
+
+def _validate_qkv(what: str, x, kw):
     _require_cuda(what, x, kw["dw"])
     if x.dim() != 4 or x.shape[-1] != kw["c"]:
         raise ValueError(f"{what}: x must be (B, H, W, {kw['c']}), got "
@@ -217,31 +268,49 @@ def _qkv_kernel(form: str, x, kw):
                          f"prepared for {kw['dtype']}")
     if not x.is_contiguous():
         raise ValueError(f"{what}: x must be contiguous (NHWC)")
+
+
+def _qkv_kernel(form: str, x, kw):
+    """One kernel of the form on x; returns (output, whether it ran on
+    csrc/probe_qkv_tma.cu)."""
+    from textualdegremoval_tpu_torch.ops._build import load_library
+    from textualdegremoval_tpu_torch.ops.pallas.tblock import _card
+
+    _validate_qkv(f"qkv_{form}", x, kw)
     lib = load_library()
+    stream, sms = _card(x.device)
+    if takes_tma(x, kw, form):
+        return _launch_qkv_tma(lib, form, x, kw,
+                               tma_ctas(lib, form, x.shape, kw["co"], sms),
+                               stream), True
     tile = pick_tile(lib, form, kw["c"], kw["co"], x.element_size())
-    return _launch_qkv(lib, form, x, kw, tile,
-                       torch.cuda.current_stream(x.device).cuda_stream)
+    return _launch_qkv(lib, form, x, kw, tile, stream), False
 
 
 def qkv_current(x: torch.Tensor, kw: dict) -> torch.Tensor:
-    """The current form (csrc/probe_qkv_form.cu): x (B, H, W, C) float32 or
-    bfloat16 on the card, kw from `prepare_qkv_weights` for x's dtype.
-    Returns (B, H, W, co) in x's dtype, as `qkv_current_ref` rounds it."""
-    out = _qkv_kernel("current", x, kw)
+    """The current form: x (B, H, W, C) float32 or bfloat16 on the card,
+    kw from `prepare_qkv_weights` for x's dtype; csrc/probe_qkv_tma.cu
+    where `takes_tma` (one kernel, lin kept in shared memory), else
+    csrc/probe_qkv_form.cu.  Returns (B, H, W, co) in x's dtype, as
+    `qkv_current_ref` rounds it."""
+    out, tma = _qkv_kernel("current", x, kw)
     qkv_current.launches += 1
+    qkv_current.tma_launches += tma
     return out
 
 
 def qkv_composed(x: torch.Tensor, kw: dict) -> torch.Tensor:
-    """The composed form (csrc/probe_qkv_form.cu): as `qkv_current`, one
-    K = 9C product; `qkv_composed_ref` rounds as it does."""
-    out = _qkv_kernel("composed", x, kw)
+    """The composed form, as `qkv_current` (on csrc/probe_qkv_tma.cu an
+    implicit GEMM over K = 9C): one K = 9C product; `qkv_composed_ref`
+    rounds as it does."""
+    out, tma = _qkv_kernel("composed", x, kw)
     qkv_composed.launches += 1
+    qkv_composed.tma_launches += tma
     return out
 
 
-qkv_current.launches = 0
-qkv_composed.launches = 0
+qkv_current.launches = qkv_current.tma_launches = 0
+qkv_composed.launches = qkv_composed.tma_launches = 0
 
 
 def _launch_stencil(lib, x, taps, variant: str, iters: int, stream):

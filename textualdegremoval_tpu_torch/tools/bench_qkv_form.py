@@ -59,15 +59,56 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def bound_ms(px: int, c: int, co: int, eb: int = 2, b: int = 1):
+def bound_ms(px: int, c: int, co: int, eb: int = 2, b: int = 1,
+             ops_per_px: int | None = None):
     """(ms, 'bytes' or 'operations') of one call of the stage: x read and
-    y written once, against the 1x1's 2 C co and the stencil's 18 co
-    operations a pixel at the tensor-core rate."""
+    y written once, against the operations a pixel at the tensor-core
+    rate: by default the function's, the 1x1's 2 C co and the stencil's
+    18 co; the composed form's own bound passes its K = 9C product's
+    2 * 9C co."""
     npix = b * px * px
-    t_ops = npix * (2 * c * co + 18 * co) / PEAK_BF16
+    if ops_per_px is None:
+        ops_per_px = 2 * c * co + 18 * co
+    t_ops = npix * ops_per_px / PEAK_BF16
     t_bytes = npix * (c + co) * eb / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+# the design model's rates beyond the data sheet's (assumed, not measured
+# here): L2 to the SMs, and the CUDA cores' lane operations (132 SMs x 128
+# lanes at 1.755 GHz)
+L2_BYTES = 5.5e12
+CORE_OPS = 132 * 128 * 1.755e9
+
+
+def reckon(c: int, co: int, px: int = PX) -> dict:
+    """The bf16 TMA route's design model of one call (csrc/probe_qkv_tma.cu;
+    no card needed), in ms per form: the largest of x read and y written
+    once at PEAK_BYTES; the bytes its TMA loads at L2_BYTES (composed: nine
+    shifted x windows per column block, and W9 per 128-pixel tile where it
+    is not resident; current: the 10 x 18 halo per 8 x 16 tile and
+    64-column slice); its tensor-core work with K and N padded to its boxes
+    at PEAK_BF16; and (current) the stencil's 9 FMAs and 9 conversions a
+    value at CORE_OPS.  Each part is assumed to hide the others."""
+    npix, tiles = px * px, -(-px // 8) * -(-px // 16)
+    nkb = -(-c // 64)
+    hbm = npix * (c + co) * 2 / PEAK_BYTES
+    bn = 64 if co <= 64 else 128 if co <= 128 else 192 if co <= 192 else 256
+    nnb = -(-co // bn)
+    resident = nkb == 1 and bn <= 128 and nnb == 1
+    w9_bytes = 9 * nkb * bn * 128 * (132 if resident else tiles * nnb)
+    composed = {"hbm": hbm, "l2": (9 * npix * c * 2 * nnb + w9_bytes)
+                / L2_BYTES,
+                "tensor": 2 * 9 * 64 * nkb * bn * nnb * npix / PEAK_BF16}
+    items = tiles * -(-co // 64)
+    current = {"hbm": hbm, "l2": items * 180 * c * 2 / L2_BYTES,
+               "tensor": 2 * 192 * 64 * nkb * 64 * items / PEAK_BF16,
+               "cuda_cores": items * 128 * 64 * 18 / CORE_OPS}
+    return {form: {"ms": max(parts.values()) * 1e3,
+                   "by": max(parts, key=parts.get)}
+            for form, parts in (("current", current),
+                                ("composed", composed))}
 
 
 def conv_weight(w9: torch.Tensor, c: int, dtype) -> torch.Tensor:
