@@ -160,12 +160,16 @@ Phases, each of which raises on failure:
    the same inputs beside; and its
    gradient (the kernel forward, the backward through `gdfn_ref`) at a
    384 px batch-8 shape against autograd through `gdfn_ref`;
-20. the MDTA statistics kernel `mdta_stats` against `mdta_stats_ref`, and
-   `mdta_attention` against the module path's `mdta_attention_nhwc`, at
-   every attention shape of that forward, PromptIR's noise blocks (176 /
-   80 / 40 channels per head) and a ragged shape, q and k strided chunks
-   of one qkv tensor, float32 and bfloat16: bounds, two calls bitwise
-   equal, times; and its refusal of a call that needs a gradient;
+20. the MDTA statistics kernels `mdta_stats` against `mdta_stats_ref`,
+   and `mdta_attention` against the module path's `mdta_attention_nhwc`,
+   at every attention shape of that forward, PromptIR's noise blocks (176
+   / 80 / 40 channels per head) and a ragged shape, q and k strided chunks
+   of one qkv tensor, float32 (csrc/mdta.cu) and bfloat16 (every call on
+   the gram route `mdta_gram`: csrc/wgrad.cu's gram with its square sums,
+   csrc/mdta_gram.cu's finish; csrc/mdta.cu timed and bounded beside it,
+   and one torch.matmul of the gram on the same operands, the yardstick):
+   bounds, two calls bitwise equal, the routes counted, times; and its
+   refusal of a call that needs a gradient;
 21. the module path as an evaluation route: the full-width
    restormer_deblur network with fused=False, gdfn_fused=True and
    mdta_pallas=True on the card against the CPU in float32, then
@@ -173,7 +177,8 @@ Phases, each of which raises on failure:
    warm-up, two timed; 52 launches of each kernel per forward, every GDFN
    through the pipeline, and none of the whole-block kernel), images/s,
    peak memory, a profiled forward,
-   and the module path without the two kernels;
+   and the module path without the two kernels (in bf16 every B7 call
+   through `mdta_gram`);
 22. the module path as a training route: the training CLI's step function
    with restormer_motion_deblur.yml's options, fused_kernels off and
    --gdfn_kernel, at 384 px in bf16 (batch 2: module blocks keep every
@@ -195,9 +200,10 @@ Phases, each of which raises on failure:
    design model (`bench_qkv_form.reckon`);
 24. the stencil probe kernel `stencil_loop` against `stencil_ref` for its
    four variants at the tool's shape (t = 8, W = 512, ch = 128, a bf16
-   slab as the tool's) after 1-4 iterations, and the time per step at the
-   tool's 3000 iterations, of the plain version and of one cuDNN depthwise
-   conv step; then both probe tools run
+   slab as the tool's) and a ragged one (W = 509: pixels past W in the
+   last lane) after 1-4 iterations, and the time per step at the tool's
+   shape and 3000 iterations, of the plain version and of one cuDNN
+   depthwise conv step; then both probe tools run
    once, as `python -m` runs them, with the launches counted (the probe
    path: the probes are on no path of the model).
 
@@ -236,13 +242,18 @@ in f32), chain_ln_mean_dropped (phase 17, the chain epilogue's LayerNorm
 without the row's mean subtracted, caught in bf16), gdfn_halo_kept (phase
 19, csrc/gdfn.cu's hidden not zeroed outside the image, run in f32),
 gdfn_gate_halves_swapped (phase 19, the bf16 pipeline's gate formed as
-gelu(d2) d1), mdta_k_unnormed (phase 20, k's norms dropped from the
-attention), x9_halo_kept (phase 23, the f32 composed form's X9 not
+gelu(d2) d1), mdta_k_unnormed (phase 20, csrc/mdta.cu's finish
+without k's norms, run in float32), mdta_gram_k_ssq_dropped (phase 20,
+bf16: the gram kernel's square sums of k's boxes not taken, so the finish
+divides by sqrt(1e-24)), x9_halo_kept (phase 23, the f32 composed form's X9 not
 zeroed outside the image, run in float32), qkv_tma_tap_flipped and
 qkv_tma_lin_ring_zeroed (phase 23, bf16: the composed form's x windows
 shifted the wrong way along x, the current form's lin zeroed on the
-tile's ring inside the image) and stencil_reads_past_row (phase 24, the
-stencil's right x-shift reading the next row's first pixel).
+tile's ring inside the image), stencil_reads_past_row (phase 24, the
+stencil's pixels past W loaded from the next row, so the right x-shift at
+a row's end reads them: caught at the ragged shape) and
+stencil_warp_edge_zeroed (phase 24, a warp's last lane taking zero for
+its right neighbour from the next warp).
 """
 
 from __future__ import annotations
@@ -754,9 +765,17 @@ FAULTS = {
     "gdfn_gate_halves_swapped": ("fwd_stencil.cu", "gelu_erf(d1) * d2",
                                  "gelu_erf(d2) * d1", 19),
     # k's square sums dropped from the finish: the attention logits lose
-    # their division by |k_d|
+    # their division by |k_d| (csrc/mdta.cu, which serves float32, so phase
+    # 20 runs it in float32)
     "mdta_k_unnormed": ("mdta.cu", "rk[d] = 1.f / sqrtf(fmaxf(s, 1e-24f));",
                         "rk[d] = 1.f;", 20),
+    # the bf16 gram route's square sums of k's boxes never taken: k's sums
+    # stay 0 and the finish divides its logits by sqrt(1e-24)
+    "mdta_gram_k_ssq_dropped": (
+        "wgrad.cu",
+        "          box_square_sums(st + L::kA + (wg + i * kWG) * kBox, warp, "
+        "lane,\n                          sb[i]);",
+        "          continue;", 20),
     # the composed form's X9 keeps x's clamped edge pixels outside the
     # image instead of zeros: the stencil's zero padding lost
     # (csrc/probe_qkv_form.cu, which serves float32, so phase 23 runs it in
@@ -776,11 +795,20 @@ FAULTS = {
         "                     ? bf16_pair(acc[m][4 * jn + 2 * h],\n"
         "                                 acc[m][4 * jn + 2 * h + 1])\n"
         "                     : 0u);", 23),
-    # the stencil slab's right zero column filled with the next row's first
-    # pixel: the right x-shift at the row's end reads past it
+    # the f32 variants' pixels past W loaded from the next row (its first
+    # pixels) in place of zeros: the right x-shift at the row's end reads
+    # past it (the ragged shape of phase 24, where the last lane holds
+    # pixels past W)
     "stencil_reads_past_row": (
-        "probe_stencil.cu", "xc >= 0 && xc < W",
-        "xc >= 0 && (size_t)r * W + xc < (size_t)rows * W", 24),
+        "probe_stencil.cu", "r < t + 2 && x0 + j < W\n",
+        "r < t + 2 && (size_t)r * W + x0 + j < (size_t)(t + 2) * W\n", 24),
+    # a warp's last lane takes zero for its right neighbour, the next
+    # warp's first pixel (f32 variants): the stencil loses it at every
+    # warp edge inside the row
+    "stencil_warp_edge_zeroed": (
+        "probe_stencil.cu",
+        "if (lane == 31) rr = eb[((warp + 2) * 2) * R + r];",
+        "if (lane == 31) rr = 0.f;", 24),
 }
 
 
@@ -2595,65 +2623,104 @@ def mdta_vs_plain(gen, shapes=MDTA_SHAPES,
     batch-2 shape, float32 and bfloat16.  q, k and v are the chunks of one
     qkv = x . W (W ~ N(0, 1/C), so channel correlations are O(C^-1/2)) with
     temperatures ~ sqrt(C), so each softmax row is far from uniform; q and
-    k go to the kernel as strided views.  Bounds MDTA_TOL / MDTA_OUT_TOL;
-    two calls bitwise equal; the median time of the kernels and of
-    `mdta_stats_ref`.  Returns the bf16 rows of the main path as (blocks
-    per forward, max_abs of attn, kernel ms, plain ms, shape)."""
+    k go to the kernels as strided views.  Bounds MDTA_TOL / MDTA_OUT_TOL;
+    two calls bitwise equal; three `mdta_stats` calls counted, and on the
+    gram route (`_takes_gram`: every bf16 shape here) three `mdta_gram`
+    calls, none in float32 (csrc/mdta.cu); the median time of the kernels
+    and of `mdta_stats_ref`, and in bf16 of csrc/mdta.cu on the same
+    inputs (held to the same bounds) and of one torch.matmul of the gram
+    q_h^T k_h on the same operands (the yardstick, never called by the
+    port).  Returns the bf16 rows of the main path as (blocks per forward,
+    max_abs of attn, kernel ms, plain ms, shape, mdta.cu ms, matmul ms)."""
     log("mdta_stats vs mdta_stats_ref (attn: |k-p| <= atol + rtol|p|, "
         "||k-p|| <= l2 ||p||) and attn.v vs mdta_attention_nhwc (|k-p| <= a "
         f"max|p| + r|p|, l2); f32 {MDTA_TOL[torch.float32]} / "
         f"{MDTA_OUT_TOL[torch.float32]}, bf16 {MDTA_TOL[torch.bfloat16]} / "
-        f"{MDTA_OUT_TOL[torch.bfloat16]}")
+        f"{MDTA_OUT_TOL[torch.bfloat16]}; bf16: csrc/mdta.cu on the same "
+        "inputs beside")
     lib = _build.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
     rows, failures = [], []
+
+    def attn_use(got, want, dtype):
+        atol, rtol, l2 = MDTA_TOL[dtype]
+        diff = (got - want).abs()
+        return (diff.max().item(),
+                (diff / (atol + rtol * want.abs())).max().item(),
+                (diff.norm() / want.norm()).item() / l2)
+
     for b, h, w, c, heads, n in shapes:
         x = torch.randn(b, h, w, c, generator=gen).cuda()
         wqkv = (torch.randn(c, 3 * c, generator=gen) * c ** -0.5).cuda()
         temp = (c ** 0.5 * (0.5 + torch.rand(heads, 1, 1,
                                               generator=gen))).cuda()
+        cph = c // heads
         for dtype in dtypes:
             with torch.inference_mode():
                 qkv = (x @ wqkv).to(dtype)
                 q, k, v = torch.chunk(qkv, 3, dim=-1)
-                before = md.mdta_stats.launches
+                gram = md._takes_gram(q, k, heads)
+                tl, nsplit = md.plan(lib, q, heads)
+
+                def mdta_cu():
+                    return md._launch(lib, q, k, temp, heads, tl, nsplit,
+                                      stream)
+
+                before = (md.mdta_stats.launches, md.mdta_gram.launches)
                 got = md.mdta_stats(q, k, temp, heads)
                 same = torch.equal(got, md.mdta_stats(q, k, temp, heads))
                 out = md.mdta_attention(q, k, v, temp, heads)
-                launched = md.mdta_stats.launches - before
+                launched = (md.mdta_stats.launches - before[0],
+                            md.mdta_gram.launches - before[1])
                 want = md.mdta_stats_ref(q, k, temp, heads)
                 want_out = mdta_attention_nhwc(q, k, v, temp, heads)
-                atol, rtol, l2 = MDTA_TOL[dtype]
-                diff = (got - want).abs()
-                max_abs = diff.max().item()
-                use = (diff / (atol + rtol * want.abs())).max().item()
-                l2_use = (diff.norm() / want.norm()).item() / l2
+                max_abs, use, l2_use = attn_use(got, want, dtype)
                 out_abs, out_use, out_l2 = _err_use(out, want_out,
                                                     *MDTA_OUT_TOL[dtype])
+                cu_use = cu_l2 = 0.0
+                if gram:
+                    _, cu_use, cu_l2 = attn_use(mdta_cu(), want, dtype)
                 finite = bool(torch.isfinite(got).all()
                               and torch.isfinite(out).all())
-                k_ms = p_ms = float("nan")
+                k_ms = p_ms = cu_ms = lib_ms = float("nan")
                 if timed:
                     k_ms = median_ms(lambda: md.mdta_stats(q, k, temp,
                                                            heads))
                     p_ms = median_ms(lambda: md.mdta_stats_ref(q, k, temp,
                                                                heads))
+                    if gram:
+                        cu_ms = median_ms(mdta_cu)
+                        qv, kv = (torch.as_strided(
+                            t, (b, heads, h * w, cph),
+                            (t.stride(0), cph, t.stride(2), 1),
+                            t.storage_offset()) for t in (q, k))
+                        lib_ms = median_ms(lambda: torch.matmul(
+                            qv.transpose(-1, -2), kv))
             name = str(dtype).split(".")[-1]
+            route = "mdta_gram" if gram else f"mdta.cu {tl}, {nsplit}"
             log(f"{b},{h},{w},{c},{heads} {name}: attn max_abs "
                 f"{max_abs:.3e} tol_use {use:.3f} l2_use {l2_use:.3f} "
                 f"(row max {want.max().item():.3f}); attn.v max_abs "
                 f"{out_abs:.3e} tol_use {out_use:.3f} l2_use {out_l2:.3f}; "
-                f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms; chunk, splits "
-                f"{md.plan(lib, q, heads)}"
-                f"{'' if same else '  NOT REPEATABLE'}")
-            if not finite or not same or launched != 3 \
-                    or max(use, l2_use, out_use, out_l2) > 1.0:
-                failures.append((b, h, w, c, heads, name))
+                f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms; route {route}"
+                + (f"; mdta.cu tol_use {cu_use:.3f} l2_use {cu_l2:.3f} "
+                   f"{cu_ms:.4f} ms; matmul {lib_ms:.4f} ms" if gram else "")
+                + ('' if same else '  NOT REPEATABLE'))
+            if not finite or not same or launched != (3, 3 * gram) \
+                    or gram != (dtype == torch.bfloat16) \
+                    or max(use, l2_use, out_use, out_l2, cu_use,
+                           cu_l2) > 1.0:
+                failures.append((b, h, w, c, heads, name, launched,
+                                 round(max(use, l2_use, out_use, out_l2), 3)))
             if dtype == torch.bfloat16 and n:
-                rows.append((n, max_abs, k_ms, p_ms, (b, h, w, c, heads)))
+                rows.append((n, max_abs, k_ms, p_ms, (b, h, w, c, heads),
+                             cu_ms, lib_ms))
             del qkv, q, k, v, got, want, out, want_out
     if failures:
-        raise RuntimeError(f"mdta_stats disagrees with mdta_stats_ref at "
-                           f"{failures}")
+        raise RuntimeError(f"mdta_stats disagrees with mdta_stats_ref or its "
+                           f"route at (B, H, W, C, heads, dtype, launches of "
+                           f"mdta_stats and mdta_gram, the error over its "
+                           f"bound) {failures}")
     return rows
 
 
@@ -2678,19 +2745,21 @@ def module_eval_path(seed: int):
     """Phase 21: the full-width restormer_deblur network on the module path
     with both kernels (MODULE_ROUTE) on the card against the CPU in f32,
     then the evaluation path at 512 px in bf16: 52 launches of each
-    kernel per forward (every bf16 GDFN through `gdfn_pipeline`, none in
-    f32) and none of the whole-block kernel; then the module path without
+    kernel per forward (every bf16 GDFN through `gdfn_pipeline` and every
+    B7 call through `mdta_gram`, none in f32) and none of the whole-block
+    kernel; then the module path without
     the two kernels.  Returns (with, without) as `main_path`
     returns them."""
     counted = ((gd.gdfn_fused, MODULE_BLOCKS), (md.mdta_stats,
                                                 MODULE_BLOCKS))
     network_vs_cpu(seed, TASK, tb.tblock_fused, ((0, None),), MODULE_ROUTE,
-                   counted + ((gd.gdfn_pipeline, 0),))
+                   counted + ((gd.gdfn_pipeline, 0), (md.mdta_gram, 0)))
     on = main_path(seed, TASK, tb.tblock_fused, 0, None, MODULE_ROUTE,
-                   counted + ((gd.gdfn_pipeline, MODULE_BLOCKS),))
+                   counted + ((gd.gdfn_pipeline, MODULE_BLOCKS),
+                              (md.mdta_gram, MODULE_BLOCKS)))
     off = main_path(seed, TASK, tb.tblock_fused, 0, None, {"fused": False},
                     ((gd.gdfn_fused, 0), (md.mdta_stats, 0),
-                     (gd.gdfn_pipeline, 0)))
+                     (gd.gdfn_pipeline, 0), (md.mdta_gram, 0)))
     log(f"{TASK} module path forward 512 px bf16: with both kernels "
         f"{on[1]:.2f} ms ({1e3 / on[1]:.3f} images/s), without "
         f"{off[1]:.2f} ms ({1e3 / off[1]:.3f} images/s)")
@@ -2794,6 +2863,8 @@ QKV_TOL = {form: {torch.float32: (2e-5, 1e-4, 1e-5),
            for form in ("current", "composed")}
 # the stencil probe at the tool's shape: t = 8 rows of W = 512, ch = 128
 STENCIL_SHAPE = (8, 512, 128)
+# phase 24's ragged shape: pixels past W = 509 in the last lane
+STENCIL_RAGGED = (8, 509, 16)
 STENCIL_ITERS = (1, 2, 3, 4)
 # stencil kernel vs `stencil_ref` on a bf16 slab after 1-4 iterations,
 # (a, r, l2) as above, for every variant.  concat and mulonly sum f32
@@ -2906,39 +2977,47 @@ def qkv_form_vs_plain(gen, cases=QKV_CASES, ragged=QKV_RAGGED,
 
 
 def stencil_vs_plain(gen, shape=STENCIL_SHAPE, iters_list=STENCIL_ITERS,
-                     timed=True):
+                     timed=True, ragged=STENCIL_RAGGED):
     """Phase 24: `stencil_loop` against `stencil_ref` for every variant on
-    a bf16 slab at the tool's shape after 1-4 iterations (the values grow
-    about 3x a step and overflow long before the tool's 3000), under
-    STENCIL_TOL; two calls bitwise equal, one launch per call.  The time
-    per stencil step of the kernel (at the tool's 3000 iterations in one
-    launch), the plain version (4 iterations) and one cuDNN depthwise conv
-    step.  Returns {variant: (max_abs, kernel ms, plain ms, cudnn ms)} per
-    step."""
+    a bf16 slab at the tool's shape and the ragged one after 1-4
+    iterations (the values grow about 3x a step and overflow long before
+    the tool's 3000), under STENCIL_TOL; two calls bitwise equal, one
+    launch per call.  The time per stencil step at the tool's shape of the
+    kernel (at the tool's 3000 iterations in one launch), the plain
+    version (4 iterations) and one cuDNN depthwise conv step.  Returns
+    {variant: (max_abs, kernel ms, plain ms, cudnn ms)} per step at the
+    tool's shape."""
     t, w, ch = shape
-    log(f"stencil probe kernel vs stencil_ref at t={t} W={w} ch={ch} "
-        f"bfloat16, iters {list(iters_list)}: (a, r, l2) {STENCIL_TOL}")
+    log(f"stencil probe kernel vs stencil_ref at t={t} W={w} ch={ch} and "
+        f"{ragged} bfloat16, iters {list(iters_list)}: (a, r, l2) "
+        f"{STENCIL_TOL}")
     x = torch.randn(t + 2, w, ch, generator=gen).to("cuda", torch.bfloat16)
     taps = torch.randn(9, ch, generator=gen).cuda()
+    xr = torch.randn(ragged[0] + 2, *ragged[1:], generator=gen).to(
+        "cuda", torch.bfloat16)
+    tr = torch.randn(9, ragged[2], generator=gen).cuda()
     rows, failures = {}, []
     for variant in pr.VARIANTS:
         max_abs = 0.0
         with torch.inference_mode():
-            for iters in iters_list:
+            for iters, (xs, ts) in ((i, s) for s in ((x, taps), (xr, tr))
+                                    for i in iters_list):
                 before = pr.stencil_loop.launches
-                got = pr.stencil_loop(x, taps, variant, iters)
-                same = torch.equal(got, pr.stencil_loop(x, taps, variant,
+                got = pr.stencil_loop(xs, ts, variant, iters)
+                same = torch.equal(got, pr.stencil_loop(xs, ts, variant,
                                                         iters))
                 launched = pr.stencil_loop.launches - before
-                want = pr.stencil_ref(x, taps, variant, iters)
+                want = pr.stencil_ref(xs, ts, variant, iters)
                 err, use, l2_use = _err_use(got, want, *STENCIL_TOL)
-                max_abs = max(max_abs, err)
-                log(f"{variant:12s} iters {iters}: max_abs {err:.3e} (max|p| "
-                    f"{want.abs().max().item():.1f}) tol_use {use:.4f} "
-                    f"l2_use {l2_use:.4f}{'' if same else '  NOT REPEATABLE'}")
+                if xs is x:
+                    max_abs = max(max_abs, err)
+                log(f"{variant:12s} W={xs.shape[1]} iters {iters}: max_abs "
+                    f"{err:.3e} (max|p| {want.abs().max().item():.1f}) "
+                    f"tol_use {use:.4f} l2_use {l2_use:.4f}"
+                    f"{'' if same else '  NOT REPEATABLE'}")
                 if not bool(torch.isfinite(got).all()) or not same \
                         or launched != 2 or max(use, l2_use) > 1.0:
-                    failures.append((variant, iters,
+                    failures.append((variant, xs.shape[1], iters,
                                      round(max(use, l2_use), 3)))
             if timed:
                 n = stencil_tool.parse_args([]).iters
@@ -2954,7 +3033,7 @@ def stencil_vs_plain(gen, shape=STENCIL_SHAPE, iters_list=STENCIL_ITERS,
                 rows[variant] = (max_abs, k_ms, p_ms, lib_ms)
     if failures:
         raise RuntimeError(f"stencil_loop disagrees with stencil_ref at "
-                           f"(variant, iters, the error over its bound) "
+                           f"(variant, W, iters, the error over its bound) "
                            f"{failures}")
     return rows
 
@@ -3107,7 +3186,9 @@ def main(argv=None) -> int:
                                       torch.bfloat16,), timed=False)
             elif FAULTS[args.plant][3] == 20:
                 mdta_vs_plain(gen, [MDTA_SHAPES[i] for i in (2, 6, 8)],
-                              dtypes=(torch.bfloat16,), timed=False)
+                              dtypes=(torch.float32 if FAULTS[args.plant][0]
+                                      == "mdta.cu" else torch.bfloat16,),
+                              timed=False)
             elif FAULTS[args.plant][3] == 23:
                 qkv_form_vs_plain(gen, dtypes=(torch.float32 if FAULTS[
                     args.plant][0] == "probe_qkv_form.cu" else
@@ -3223,8 +3304,9 @@ def main(argv=None) -> int:
     mod_on, mod_off = module_eval_path(args.seed)
     (mod_train_launches, mod_step_ms, mod_plain_step_ms, mod_peak,
      mod_plain_peak) = module_train_path(args.seed)
-    log(f"launches: module-path evaluation path gdfn_fused/mdta_stats/gdfn_pipeline "
-        f"{mod_on[3]}, tblock_fused {mod_on[0]}; training path (4 steps) "
+    log(f"launches: module-path evaluation path gdfn_fused/mdta_stats/"
+        f"gdfn_pipeline/mdta_gram {mod_on[3]}, tblock_fused {mod_on[0]}; "
+        f"training path (4 steps) "
         f"gdfn_fused/tblock_fused/gdfn_pipeline {mod_train_launches}")
     log_held("phases 19-22")
 
@@ -3447,15 +3529,25 @@ def main(argv=None) -> int:
          "gdfn_cu_ms": sum(r[0] * r[4] for r in gdfn_rows),
          "bound_ms": gdfn_bound, "bound_by": gdfn_by, "library_ms": None},
         # per 512 px restormer_deblur forward on the module path (52
-        # attentions, bf16 q and k, f32 attn); launches: phase 21's
-        {"name": "mdta_stats", "route": "cuda", "source": src + "mdta.cu",
+        # attentions, bf16 q and k, f32 attn: csrc/wgrad.cu's gram with its
+        # square sums, then csrc/mdta_gram.cu's finish; float32 and other
+        # widths run csrc/mdta.cu, timed beside as mdta_cu_ms); launches:
+        # phase 21's, gram_launches of them on the gram route; library: one
+        # torch.matmul of the gram on the same operands
+        {"name": "mdta_stats", "route": "cuda",
+         "source": src + "mdta_gram.cu",
+         "sources": [src + f for f in ("mdta_gram.cu", "wgrad.cu",
+                                       "tma_maps.cuh", "hopper.cuh",
+                                       "tblock_common.cuh", "mdta.cu")],
          "replaces": "textualdegremoval_tpu/ops/pallas/mdta.py:60 "
                      "(mdta_stats_pallas; _make_stats_kernel :24)",
-         "launches": mod_on[3][1],
+         "launches": mod_on[3][1], "gram_launches": mod_on[3][3],
          "max_abs_err": max(r[1] for r in mdta_rows),
          "ms": sum(r[0] * r[2] for r in mdta_rows),
          "plain_ms": sum(r[0] * r[3] for r in mdta_rows),
-         "bound_ms": mdta_bound, "bound_by": mdta_by, "library_ms": None},
+         "mdta_cu_ms": sum(r[0] * r[5] for r in mdta_rows),
+         "bound_ms": mdta_bound, "bound_by": mdta_by,
+         "library_ms": sum(r[0] * r[6] for r in mdta_rows)},
         # B9, on no path of the model: per qkv tool run (its four 512 px
         # cases, one call each, bf16: csrc/probe_qkv_tma.cu; float32 and
         # other widths run csrc/probe_qkv_form.cu); ms: phase 23's, tool_ms
@@ -3528,8 +3620,11 @@ def main(argv=None) -> int:
         f"{sum(r[0] * r[2] for r in gdfn_rows):.3f} ms (gdfn.cu "
         f"{sum(r[0] * r[4] for r in gdfn_rows):.3f}, plain "
         f"{sum(r[0] * r[3] for r in gdfn_rows):.3f}), mdta_stats "
-        f"{sum(r[0] * r[2] for r in mdta_rows):.3f} ms (plain "
-        f"{sum(r[0] * r[3] for r in mdta_rows):.3f}); train step 384 px "
+        f"{sum(r[0] * r[2] for r in mdta_rows):.3f} ms (mdta.cu "
+        f"{sum(r[0] * r[5] for r in mdta_rows):.3f}, plain "
+        f"{sum(r[0] * r[3] for r in mdta_rows):.3f}, the gram as "
+        f"torch.matmul {sum(r[0] * r[6] for r in mdta_rows):.3f}); train "
+        f"step 384 px "
         f"batch {MODULE_TRAIN_BATCH} bf16 {mod_step_ms:.2f} ms with "
         f"gdfn_fused vs {mod_plain_step_ms:.2f} ms without, peak "
         f"{mod_peak:.2f} vs {mod_plain_peak:.2f} GiB")

@@ -1,5 +1,7 @@
-"""On-card checks of the MDTA statistics kernels (csrc/mdta.cu; marked
-`cuda`, each skips without a CUDA device).  The file imports neither jax
+"""On-card checks of the MDTA statistics kernels (bf16 at C, cph % 8 == 0:
+csrc/wgrad.cu's gram with its square sums and csrc/mdta_gram.cu's finish;
+float32 and other widths: csrc/mdta.cu; marked `cuda`, each skips without
+a CUDA device).  The file imports neither jax
 nor the test helpers that do, so the card's machine runs it without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
@@ -48,13 +50,17 @@ def test_kernels_match_plain(c, heads, shape, dtype):
     _cuda()
     q, k, v, temp = _qkv(shape, c, heads, dtype, seed=c)
     assert not q.is_contiguous()
-    before = md.mdta_stats.launches
+    before = (md.mdta_stats.launches, md.mdta_gram.launches)
     with torch.inference_mode():
         got = md.mdta_stats(q, k, temp, heads)
         want = md.mdta_stats_ref(q, k, temp, heads)
         out = md.mdta_attention(q, k, v, temp, heads).float()
         want_out = mdta_attention_nhwc(q, k, v, temp, heads).float()
-    assert md.mdta_stats.launches == before + 2
+    # every bf16 shape here takes the gram route (C, cph % 8 == 0)
+    gram = dtype == torch.bfloat16
+    assert md._takes_gram(q, k, heads) == gram
+    assert (md.mdta_stats.launches, md.mdta_gram.launches) == (
+        before[0] + 2, before[1] + 2 * gram)
     atol, rtol, l2 = MDTA_TOL[dtype]
     diff = (got - want).abs()
     assert (diff <= atol + rtol * want.abs()).all(), diff.max().item()
@@ -67,12 +73,31 @@ def test_kernels_match_plain(c, heads, shape, dtype):
 
 
 @pytest.mark.cuda
-def test_kernels_are_bitwise_repeatable():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_are_bitwise_repeatable(dtype):
     _cuda()
-    q, k, _, temp = _qkv((1, 64, 64), 96, 2, torch.bfloat16, seed=1)
+    q, k, _, temp = _qkv((1, 64, 64), 96, 2, dtype, seed=1)
     with torch.inference_mode():
         assert torch.equal(md.mdta_stats(q, k, temp, 2),
                            md.mdta_stats(q, k, temp, 2))
+
+
+@pytest.mark.cuda
+def test_bf16_width_off_the_gram_route_runs_mdta_cu():
+    """bf16 at cph 12 (not a multiple of 8) runs csrc/mdta.cu, held to the
+    same bound."""
+    _cuda()
+    q, k, _, temp = _qkv((1, 20, 24), 48, 4, torch.bfloat16, seed=4)
+    before = (md.mdta_stats.launches, md.mdta_gram.launches)
+    with torch.inference_mode():
+        got = md.mdta_stats(q, k, temp, 4)
+        want = md.mdta_stats_ref(q, k, temp, 4)
+    assert (md.mdta_stats.launches, md.mdta_gram.launches) == (
+        before[0] + 1, before[1])
+    atol, rtol, l2 = MDTA_TOL[torch.bfloat16]
+    diff = (got - want).abs()
+    assert (diff <= atol + rtol * want.abs()).all(), diff.max().item()
+    assert diff.norm() <= l2 * want.norm()
 
 
 @pytest.mark.cuda

@@ -75,7 +75,8 @@ def test_qkv_kernel_matches_plain(form, dtype, c, co, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", pr.VARIANTS)
-@pytest.mark.parametrize("shape", [(10, 512, 128), (5, 37, 3)])
+@pytest.mark.parametrize("shape", [(10, 512, 128), (5, 37, 3),
+                                   (10, 2048, 2), (18, 1000, 4)])
 def test_stencil_kernel_matches_plain(variant, shape):
     _cuda()
     gen = torch.Generator().manual_seed(shape[1])
@@ -85,6 +86,7 @@ def test_stencil_kernel_matches_plain(variant, shape):
         for iters in (1, 2, 3, 4):
             got = pr.stencil_loop(x, taps, variant, iters)
             want = pr.stencil_ref(x, taps, variant, iters)
+            assert torch.equal(got, pr.stencil_loop(x, taps, variant, iters))
             _, use, l2_use = _err_use(got, want, *STENCIL_TOL)
             assert max(use, l2_use) <= 1.0, (iters, use, l2_use)
 
@@ -101,6 +103,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="bfloat16"):
         pr.stencil_loop(torch.zeros(4, 8, 2, device="cuda"),
                         torch.zeros(9, 2, device="cuda"), "bf16acc", 1)
+    # more rows, or wider ones, than the stencil kernel holds in registers
+    for rows, wd in ((19, 8), (10, 2049), (12, 1025)):
+        with pytest.raises(ValueError, match="registers"):
+            pr.stencil_loop(torch.zeros(rows, wd, 2, device="cuda",
+                                        dtype=torch.bfloat16),
+                            torch.zeros(9, 2, device="cuda"), "concat", 1)
 
 
 @pytest.mark.cuda

@@ -56,12 +56,6 @@ __host__ __device__ inline size_t stats_smem(int cph, int tl, int eb) {
          (size_t)eb * 2 * round_up(cph, kRowPad) * smem_ld(tl);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads) mdta_stats_kernel(
     const T* __restrict__ q, const T* __restrict__ k, long long sb,

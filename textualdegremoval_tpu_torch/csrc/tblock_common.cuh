@@ -70,6 +70,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
 __device__ __forceinline__ float gelu_erf(float v) {
   return v * 0.5f * (1.0f + erff(v * 0.70710678118654752f));
 }

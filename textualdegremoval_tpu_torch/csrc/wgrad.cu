@@ -18,7 +18,11 @@
 // z runs over (z1, z2) batches with element offsets z1 * sa1 + z2 * sa2
 // (images, and heads for the per-head dA and gram).  Each split writes its
 // own partial; the wrapper adds the partials in a fixed order with
-// torch.sum, so the result is bitwise repeatable (no float atomics).
+// torch.sum, so the result is bitwise repeatable (no float atomics).  In
+// bf16 the kernel's square-sum word (`tblock_wgrad_ssq`) also writes each
+// split's sums of squares of A's and B's columns, taken from the same
+// stages: the MDTA statistics' norms (csrc/mdta_gram.cu, whose finish adds
+// the partials).
 //
 // What bounds it: bytes.  K = pixels is in the millions and M, N are
 // 48-4096, so each operand read once is the whole cost: at the block's
@@ -192,13 +196,72 @@ struct alignas(16) F32x4 {
   float v[4];
 };
 
+// eight bf16 channels of one pixel: a 16-byte chunk of a box row
+struct alignas(16) Bf16x8 {
+  __nv_bfloat16 v[8];
+};
+
+// B's boxes whose square sums one consumer warpgroup takes (box x goes to
+// warpgroup x % kWG)
 template <int kWG, int BN>
-__global__ void __launch_bounds__(TcSmem<kWG, BN>::kThreadsCta,
-                                  TcSmem<kWG, BN>::kPerSm)
-    wgrad_tc_kernel(const __grid_constant__ CUtensorMap ta,
-                    const __grid_constant__ CUtensorMap tb,
-                    float* __restrict__ out, int M, int N, int nb2,
-                    int nbatch, int steps, int per_split) {
+constexpr int kBoxesPerWg = (BN / 64 + kWG - 1) / kWG;
+
+// Adds the squares of this warp's 16 channels of a 64-pixel x 64-channel
+// box (128-byte rows, 16-byte chunk c of row r at chunk c ^ (r % 8)) to
+// acc: warp w of the warpgroup takes chunks 2 w and 2 w + 1, each lane one
+// chunk of 4 rows 16 apart (rows 16 i + r0).  Within each quarter warp the
+// eight lanes read eight different chunk positions of the swizzle (one
+// wavefront).  The lanes of one chunk are those of equal lane & 1.
+__device__ __forceinline__ void box_square_sums(const unsigned char* box,
+                                                int warp, int lane,
+                                                float (&acc)[8]) {
+  const int j = lane & 7, p = lane >> 3;
+  const int c = 2 * warp + (j & 1);
+  const int r0 = 8 * (p >> 1) + 2 * (j >> 1) + (p & 1);
+  const unsigned char* src = box + r0 * 128 + ((c ^ (r0 & 7)) << 4);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const Bf16x8 w = *reinterpret_cast<const Bf16x8*>(src + i * 2048);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float v = to_f(w.v[e]);
+      acc[e] += v * v;
+    }
+  }
+}
+
+// The sums of acc over the 16 lanes of this lane's chunk, in a fixed order
+// (every lane takes part); lanes 0 and 1 then store channels
+// base + 16 warp + 8 lane, ..., + 7 where they lie below `lim`.
+__device__ __forceinline__ void store_square_sums(float (&acc)[8], int warp,
+                                                  int lane, float* dst,
+                                                  int base, int lim) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+#pragma unroll
+    for (int off = 2; off < 32; off <<= 1)
+      acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+  const int ch = base + 16 * warp + 8 * lane;
+  if (lane < 2 && ch < lim) {
+    *reinterpret_cast<F32x4*>(dst + ch) = F32x4{{acc[0], acc[1], acc[2],
+                                                 acc[3]}};
+    *reinterpret_cast<F32x4*>(dst + ch + 4) = F32x4{{acc[4], acc[5], acc[6],
+                                                     acc[7]}};
+  }
+}
+
+// The product's body.  kSsq: also the square sums of A's M and B's N
+// columns over the split's pixels (csrc/mdta_gram.cu's norms), taken from
+// the stages the products read while their wgmma run, so that each
+// operand still comes from device memory once.  Each column's sum is taken
+// once: A's boxes by their warpgroup in the CTAs of the first column tile,
+// B's boxes by warpgroup x % kWG in the CTAs of the first row tile; boxes
+// not loaded are skipped, and TMA's zeros past M, N and P add nothing.
+template <int kWG, int BN, bool kSsq>
+__device__ __forceinline__ void wgrad_tc_body(
+    const CUtensorMap* ta, const CUtensorMap* tb, float* __restrict__ out,
+    float* __restrict__ ssq_a, float* __restrict__ ssq_b, int M, int N,
+    int nb2, int nbatch, int steps, int per_split) {
   using L = TcSmem<kWG, BN>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = smem_raw + (1024 - smem_addr(smem_raw) % 1024) % 1024;
@@ -235,9 +298,9 @@ __global__ void __launch_bounds__(TcSmem<kWG, BN>::kThreadsCta,
         mbar_arrive_expect_tx(full + s, (na + nb) * kBox);
         const int p = 64 * (k0 + it);
         for (int x = 0; x < na; ++x)
-          tma_load(st + x * kBox, &ta, full + s, m0 + 64 * x, z2, p, z1);
+          tma_load(st + x * kBox, ta, full + s, m0 + 64 * x, z2, p, z1);
         for (int x = 0; x < nb; ++x)
-          tma_load(st + L::kA + x * kBox, &tb, full + s, n0 + 64 * x, z2, p,
+          tma_load(st + L::kA + x * kBox, tb, full + s, n0 + 64 * x, z2, p,
                    z1);
       }
     }
@@ -249,6 +312,24 @@ __global__ void __launch_bounds__(TcSmem<kWG, BN>::kThreadsCta,
   float acc[BN / 2];
 #pragma unroll
   for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+  // kSsq: the square sums of this warpgroup's box of A (in the first
+  // column tile, where loaded) and of its boxes of B (in the first row
+  // tile, where loaded)
+  constexpr int kBw = kSsq ? kBoxesPerWg<kWG, BN> : 1;
+  float sa[8], sb[kBw][8];
+  bool take_a = false, take_b[kBw];
+  if constexpr (kSsq) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sa[e] = 0.f;
+    take_a = blockIdx.x == 0 && m0 + wg * 64 < M;
+#pragma unroll
+    for (int i = 0; i < kBw; ++i) {
+      const int x = wg + i * kWG;
+      take_b[i] = blockIdx.y == 0 && x < BN / 64 && n0 + 64 * x < N;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sb[i][e] = 0.f;
+    }
+  }
   for (int it = 0; it < nk; ++it) {
     const int s = it % kTcStages;
     mbar_wait(full + s, (it / kTcStages) & 1);
@@ -262,10 +343,30 @@ __global__ void __launch_bounds__(TcSmem<kWG, BN>::kThreadsCta,
       wgmma_ss<BN, 1, 1>(acc, desc_sw128(at + kc * 2048, kBox, 1024),
                          desc_sw128(bt + kc * 2048, kBox, 1024), 1);
     wgmma_commit();
+    if constexpr (kSsq) {
+      const unsigned char* st = base + s * L::kStage;
+      if (take_a) box_square_sums(st + wg * kBox, warp, lane, sa);
+#pragma unroll
+      for (int i = 0; i < kBw; ++i)
+        if (take_b[i])
+          box_square_sums(st + L::kA + (wg + i * kWG) * kBox, warp, lane,
+                          sb[i]);
+    }
     wgmma_wait();
     fence_regs(acc);
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + s);  // this warp read the stage
+  }
+
+  if constexpr (kSsq) {
+    const size_t slot = (size_t)split * nbatch + z;
+    if (take_a)
+      store_square_sums(sa, warp, lane, ssq_a + slot * M, m0 + wg * 64, M);
+#pragma unroll
+    for (int i = 0; i < kBw; ++i)
+      if (take_b[i])
+        store_square_sums(sb[i], warp, lane, ssq_b + slot * N,
+                          n0 + 64 * (wg + i * kWG), N);
   }
 
   // entry 4 j + 2 h + c: row 16 warp + gq + 8 h, column 8 j + 2 tig + c.
@@ -296,38 +397,73 @@ __global__ void __launch_bounds__(TcSmem<kWG, BN>::kThreadsCta,
 }
 
 template <int kWG, int BN>
-int launch_tc(const CUtensorMap& ta, const CUtensorMap& tb, float* out, int M,
-              int N, int nb2, int nbatch, int nsplit, int steps,
-              cudaStream_t stream) {
+__global__ void __launch_bounds__(TcSmem<kWG, BN>::kThreadsCta,
+                                  TcSmem<kWG, BN>::kPerSm)
+    wgrad_tc_kernel(const __grid_constant__ CUtensorMap ta,
+                    const __grid_constant__ CUtensorMap tb,
+                    float* __restrict__ out, int M, int N, int nb2,
+                    int nbatch, int steps, int per_split) {
+  wgrad_tc_body<kWG, BN, false>(&ta, &tb, out, nullptr, nullptr, M, N, nb2,
+                                nbatch, steps, per_split);
+}
+
+// The product and the square sums of A's and B's columns (ssq_a:
+// (nsplit, nbatch, M), ssq_b: (nsplit, nbatch, N) f32 partials)
+template <int kWG, int BN>
+__global__ void __launch_bounds__(TcSmem<kWG, BN>::kThreadsCta,
+                                  TcSmem<kWG, BN>::kPerSm)
+    wgrad_ssq_kernel(const __grid_constant__ CUtensorMap ta,
+                     const __grid_constant__ CUtensorMap tb,
+                     float* __restrict__ out, float* __restrict__ ssq_a,
+                     float* __restrict__ ssq_b, int M, int N, int nb2,
+                     int nbatch, int steps, int per_split) {
+  wgrad_tc_body<kWG, BN, true>(&ta, &tb, out, ssq_a, ssq_b, M, N, nb2,
+                               nbatch, steps, per_split);
+}
+
+template <int kWG, int BN>
+int launch_tc(const CUtensorMap& ta, const CUtensorMap& tb, float* out,
+              float* ssq_a, float* ssq_b, int M, int N, int nb2, int nbatch,
+              int nsplit, int steps, cudaStream_t stream) {
   using L = TcSmem<kWG, BN>;
-  static const int attr = (int)cudaFuncSetAttribute(
-      wgrad_tc_kernel<kWG, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::kBytes);
-  if (attr != 0) return attr;
   const dim3 grid((N + BN - 1) / BN, (M + 64 * kWG - 1) / (64 * kWG),
                   nbatch * nsplit);
-  wgrad_tc_kernel<kWG, BN><<<grid, L::kThreadsCta, L::kBytes, stream>>>(
-      ta, tb, out, M, N, nb2, nbatch, steps, (steps + nsplit - 1) / nsplit);
+  const int per_split = (steps + nsplit - 1) / nsplit;
+  if (ssq_a == nullptr) {
+    static const int attr = (int)cudaFuncSetAttribute(
+        wgrad_tc_kernel<kWG, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L::kBytes);
+    if (attr != 0) return attr;
+    wgrad_tc_kernel<kWG, BN><<<grid, L::kThreadsCta, L::kBytes, stream>>>(
+        ta, tb, out, M, N, nb2, nbatch, steps, per_split);
+  } else {
+    static const int attr = (int)cudaFuncSetAttribute(
+        wgrad_ssq_kernel<kWG, BN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    if (attr != 0) return attr;
+    wgrad_ssq_kernel<kWG, BN><<<grid, L::kThreadsCta, L::kBytes, stream>>>(
+        ta, tb, out, ssq_a, ssq_b, M, N, nb2, nbatch, steps, per_split);
+  }
   return (int)cudaGetLastError();
 }
 
 template <int kWG>
 int launch_tc_bn(const CUtensorMap& ta, const CUtensorMap& tb, float* out,
-                 int M, int N, int nb2, int nbatch, int nsplit, int steps,
-                 cudaStream_t stream) {
+                 float* ssq_a, float* ssq_b, int M, int N, int nb2,
+                 int nbatch, int nsplit, int steps, cudaStream_t stream) {
   switch (tc_bn(N)) {
     case 64:
-      return launch_tc<kWG, 64>(ta, tb, out, M, N, nb2, nbatch, nsplit, steps,
-                                stream);
+      return launch_tc<kWG, 64>(ta, tb, out, ssq_a, ssq_b, M, N, nb2, nbatch,
+                                nsplit, steps, stream);
     case 128:
-      return launch_tc<kWG, 128>(ta, tb, out, M, N, nb2, nbatch, nsplit,
-                                 steps, stream);
+      return launch_tc<kWG, 128>(ta, tb, out, ssq_a, ssq_b, M, N, nb2,
+                                 nbatch, nsplit, steps, stream);
     case 192:
-      return launch_tc<kWG, 192>(ta, tb, out, M, N, nb2, nbatch, nsplit,
-                                 steps, stream);
+      return launch_tc<kWG, 192>(ta, tb, out, ssq_a, ssq_b, M, N, nb2,
+                                 nbatch, nsplit, steps, stream);
     default:
-      return launch_tc<kWG, 256>(ta, tb, out, M, N, nb2, nbatch, nsplit,
-                                 steps, stream);
+      return launch_tc<kWG, 256>(ta, tb, out, ssq_a, ssq_b, M, N, nb2,
+                                 nbatch, nsplit, steps, stream);
   }
 }
 
@@ -354,8 +490,9 @@ View4 pixel_view(const void* base, int ld, long long s1, long long s2, int P,
 
 int launch_wgrad_bf16(const void* A, int lda, long long sa1, long long sa2,
                       const void* B, int ldb, long long sb1, long long sb2,
-                      void* out, int P, int M, int N, int nb1, int nb2,
-                      int nsplit, cudaStream_t stream) {
+                      void* out, float* ssq_a, float* ssq_b, int P, int M,
+                      int N, int nb1, int nb2, int nsplit,
+                      cudaStream_t stream) {
   if (N % 4 || (long long)nb1 * nb2 * nsplit > 65535 ||
       (M + 127) / 128 > 65535)
     return (int)cudaErrorInvalidValue;
@@ -368,10 +505,10 @@ int launch_wgrad_bf16(const void* A, int lda, long long sa1, long long sa2,
     return err;
   const int steps = (P + 63) / 64;
   return tc_wg(M) == 1
-             ? launch_tc_bn<1>(ta, tb, (float*)out, M, N, nb2, nb1 * nb2,
-                               nsplit, steps, stream)
-             : launch_tc_bn<2>(ta, tb, (float*)out, M, N, nb2, nb1 * nb2,
-                               nsplit, steps, stream);
+             ? launch_tc_bn<1>(ta, tb, (float*)out, ssq_a, ssq_b, M, N, nb2,
+                               nb1 * nb2, nsplit, steps, stream)
+             : launch_tc_bn<2>(ta, tb, (float*)out, ssq_a, ssq_b, M, N, nb2,
+                               nb1 * nb2, nsplit, steps, stream);
 }
 
 }  // namespace
@@ -391,10 +528,26 @@ int tblock_wgrad(const void* A, int lda, long long sa1, long long sa2,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return launch_wgrad_bf16(A, lda, sa1, sa2, B, ldb, sb1, sb2, out, P, M, N,
-                             nb1, nb2, nsplit, s);
+    return launch_wgrad_bf16(A, lda, sa1, sa2, B, ldb, sb1, sb2, out, nullptr,
+                             nullptr, P, M, N, nb1, nb2, nsplit, s);
   return launch_wgrad_f32(A, lda, sa1, sa2, B, ldb, sb1, sb2, out, P, M, N,
                           nb1, nb2, nsplit, s);
+}
+
+// `tblock_wgrad` in bf16 with the square sums of A's and B's columns over
+// each split's pixels as well: ssq_a (nsplit, nb1, nb2, M) and ssq_b
+// (nsplit, nb1, nb2, N) f32 partials beside out's.  M and N multiples of 8.
+// Returns a cudaError_t.
+int tblock_wgrad_ssq(const void* A, int lda, long long sa1, long long sa2,
+                     const void* B, int ldb, long long sb1, long long sb2,
+                     void* out, void* ssq_a, void* ssq_b, int P, int M, int N,
+                     int nb1, int nb2, int nsplit, void* stream) {
+  if (P <= 0 || M <= 0 || N <= 0 || M % 8 || N % 8 || nb1 <= 0 ||
+      nb2 <= 0 || nsplit <= 0 || ssq_a == nullptr || ssq_b == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_wgrad_bf16(A, lda, sa1, sa2, B, ldb, sb1, sb2, out,
+                           (float*)ssq_a, (float*)ssq_b, P, M, N, nb1, nb2,
+                           nsplit, (cudaStream_t)stream);
 }
 
 // The bf16 kernel's output tiles of one batch of an M x N product, and

@@ -45,6 +45,8 @@ _SIGNATURES = {
     "tblock_attn_bwd_apply": ([_P] * 22 + [_I] * 9 + [_P], _I),
     "tblock_wgrad": ([_P, _I, _L, _L, _P, _I, _L, _L, _P] + [_I] * 7 + [_P],
                      _I),
+    "tblock_wgrad_ssq": ([_P, _I, _L, _L, _P, _I, _L, _L] + [_P] * 3
+                         + [_I] * 6 + [_P], _I),
     "tblock_wgrad_tiles": ([_I] * 2, _I),
     "tblock_wgrad_ctas_per_sm": ([_I] * 2, _I),
     "bwd_stencil_tile": ([_I], _I),
@@ -80,12 +82,15 @@ _SIGNATURES = {
     "mdta_stats_smem": ([_I] * 3, _L),
     "mdta_stats": ([_P] * 5 + [_I] * 5 + [_L] * 3 + [_I] * 3 + [_P], _I),
     "mdta_finish": ([_P] * 5 + [_I] * 4 + [_P], _I),
+    "mdta_gram_work": ([_I] * 4, _L),
+    "mdta_stats_gram": ([_P] * 5 + [_I] * 4 + [_L] * 2 + [_I, _P], _I),
     "probe_qkv_smem": ([_I] * 6, _L),
     "probe_qkv_current": ([_P] * 4 + [_I] * 8 + [_P], _I),
     "probe_qkv_composed": ([_P] * 3 + [_I] * 8 + [_P], _I),
     "probe_qkv_tma_ctas_per_sm": ([_I] * 3, _I),
     "probe_qkv_tma_current": ([_P] * 4 + [_I] * 6 + [_P], _I),
     "probe_qkv_tma_composed": ([_P] * 3 + [_I] * 6 + [_P], _I),
+    "probe_stencil_max_width": ([_I], _I),
     "probe_stencil": ([_P] * 3 + [_I] * 6 + [_P], _I),
     "flash_attn_error_string": ([_I], ctypes.c_char_p),
     "flash_attn_fwd": ([_P] * 5 + [_I] * 4 + [_L] * 9

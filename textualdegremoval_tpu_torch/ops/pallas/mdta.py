@@ -5,11 +5,15 @@ Counterpart of textualdegremoval_tpu/ops/pallas/mdta.py.
 per-head gram q^T k over all pixels, the q and k norms as
 rsqrt(max(sum of squares, 1e-24)), the temperature and the row softmax,
 all in f32 (the math of the kernel's last grid step, `_finish`).
-`mdta_stats` runs it as the hand-written Hopper kernels in csrc/mdta.cu,
-which replace the TPU kernel `_make_stats_kernel`: one streaming pass over
-q and k per head with per-CTA partial sums, then a finishing kernel that
-adds the partials in a fixed order (bitwise repeatable) and applies the
-norms, the temperature and the softmax.  `mdta_attention` is JAX
+`mdta_stats` runs it as hand-written Hopper kernels, which replace the
+TPU kernel `_make_stats_kernel`, by a rule of the shapes (`_takes_gram`):
+bf16 q and k whose widths and strides TMA takes run `mdta_gram`, the gram
+and the square sums on csrc/wgrad.cu's TMA + wgmma kernel, then the finish
+of csrc/mdta_gram.cu; every other call (float32 included) runs
+csrc/mdta.cu, one streaming pass over q and k per head with per-CTA
+partial sums and its own finish.  Each finish adds the partials in a fixed
+order (bitwise repeatable) and applies the norms, the temperature and the
+softmax.  `mdta_attention` is JAX
 `mdta_attention_pallas`: the statistics, then attn . v as a plain batched
 product in v's dtype, as JAX leaves it outside its kernel.  It is the MDTA
 core of TransformerBlock's module path when the block asks for it
@@ -19,9 +23,10 @@ q and k may be strided views (the chunks of one qkv tensor): the kernel
 takes their strides and copies nothing.  Forward only, as in JAX, whose
 kernel cannot be differentiated: a call that would need a gradient
 raises.  A CPU tensor takes the plain version; a CUDA tensor launches the
-kernels or raises.  `mdta_stats.launches` counts kernel calls (the
-statistics and finishing kernels, one pair per call), never plain calls.
-What bounds the kernels on the card is noted at the top of csrc/mdta.cu.
+kernels or raises.  `mdta_stats.launches` counts kernel calls on either
+route (one pair of launches per call) and `mdta_gram.launches` those on
+csrc/mdta_gram.cu's, never plain calls.  What bounds the kernels on the
+card is noted at the top of csrc/mdta.cu and csrc/mdta_gram.cu.
 """
 
 from __future__ import annotations
@@ -93,18 +98,67 @@ def _launch(lib, q, k, temperature, heads, tl, nsplit, stream):
     return attn
 
 
-def plan(lib, q: torch.Tensor, heads: int):
-    """(chunk length, CTAs per (head, image)) for q on the card: the first
-    chunk length of _CHUNKS that fits shared memory, and about two CTAs
-    per SM, at most one per chunk."""
-    from textualdegremoval_tpu_torch.ops.pallas.tblock import _first_fit
+def plan(lib, q: torch.Tensor, heads: int, sms: int | None = None):
+    """(chunk length, CTAs per (head, image)) of csrc/mdta.cu for q on a
+    card of `sms` SMs (default: q's): the first chunk length of _CHUNKS
+    that fits shared memory, and about two CTAs per SM, at most one per
+    chunk."""
+    from textualdegremoval_tpu_torch.ops.pallas.tblock import (
+        _card, _first_fit)
 
     b, c = q.shape[0], q.shape[-1]
     l = _pixel_strides(q)[0]
     tl = _first_fit(_CHUNKS, lambda t: lib.mdta_stats_smem(
         c // heads, t, q.element_size()), "mdta_stats")
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    sms = sms or _card(q.device)[1]
     return tl, max(1, min(-(-l // tl), -(-2 * sms // (b * heads))))
+
+
+def _takes_gram(q: torch.Tensor, k: torch.Tensor, heads: int) -> bool:
+    """Whether `mdta_stats` runs `mdta_gram` (the rule reads dtype, widths
+    and strides only): bf16 q and k, C and cph multiples of 8, one pixel
+    stride for the whole image (sh == W sw) and the image, pixel and base
+    offsets of both 16-byte aligned, as TMA takes them."""
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype:
+        return False
+    c = q.shape[-1]
+    if c % 8 or heads <= 0 or c % heads or (c // heads) % 8:
+        return False
+    l, w, sb, sh, sw = _pixel_strides(q)
+    if q.dim() == 4 and q.shape[1] > 1 and sh != w * sw:
+        return False
+    return (sb % 8 == 0 and sw % 8 == 0 and q.data_ptr() % 16 == 0
+            and k.data_ptr() % 16 == 0)
+
+
+def mdta_gram(lib, q, k, temperature, heads: int, sms: int, stream):
+    """The statistics as csrc/mdta_gram.cu's two launches, on validated
+    inputs that `_takes_gram` admits: the gram and the square sums on
+    csrc/wgrad.cu (split over the pixel axis as `_wgrad` splits the
+    block's gram), then the finish.  `sms` is the card's SM count,
+    `stream` a cudaStream_t as an int.  Returns (B, heads, cph, cph) f32.
+    `mdta_gram.launches` counts its calls."""
+    from textualdegremoval_tpu_torch.ops.pallas.tblock import _check, _ptr
+    from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import (
+        _wgrad_nsplit)
+
+    b, c = q.shape[0], q.shape[-1]
+    cph = c // heads
+    l, _, sb, _, sw = _pixel_strides(q)
+    nsplit = _wgrad_nsplit(lib, q.dtype, l, cph, cph, b * heads, sms)
+    f32 = torch.float32
+    work = torch.empty(lib.mdta_gram_work(b, c, heads, nsplit), dtype=f32,
+                       device=q.device)
+    attn = torch.empty((b, heads, cph, cph), dtype=f32, device=q.device)
+    temp = temperature.detach().to(f32).reshape(-1).contiguous()
+    _check(lib.mdta_stats_gram(
+        _ptr(q), _ptr(k), _ptr(temp), _ptr(work), _ptr(attn), b, l, c, heads,
+        sw, sb, nsplit, ctypes.c_void_p(stream)), lib, "mdta_stats_gram")
+    mdta_gram.launches += 1
+    return attn
+
+
+mdta_gram.launches = 0
 
 
 def _validate(q, k, heads):
@@ -153,10 +207,21 @@ def mdta_stats(q: torch.Tensor, k: torch.Tensor, temperature,
             "under torch.no_grad() or take the module path without it")
     if q.device.type == "cpu":
         return mdta_stats_ref(q, k, temperature, heads)
+    return _stats_kernel(q, k, temperature, heads)
+
+
+def _stats_kernel(q, k, temperature, heads):
+    """`mdta_stats` on the card: `mdta_gram` where `_takes_gram`, else
+    csrc/mdta.cu."""
+    from textualdegremoval_tpu_torch.ops.pallas.tblock import _card
+
     lib = _validate(q, k, heads)
-    tl, nsplit = plan(lib, q, heads)
-    attn = _launch(lib, q, k, temperature, heads, tl, nsplit,
-                   torch.cuda.current_stream(q.device).cuda_stream)
+    stream, sms = _card(q.device)
+    if _takes_gram(q, k, heads):
+        attn = mdta_gram(lib, q, k, temperature, heads, sms, stream)
+    else:
+        tl, nsplit = plan(lib, q, heads, sms)
+        attn = _launch(lib, q, k, temperature, heads, tl, nsplit, stream)
     mdta_stats.launches += 1
     return attn
 

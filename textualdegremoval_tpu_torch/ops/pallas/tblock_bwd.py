@@ -106,6 +106,17 @@ def _nsplit(b, ntiles, sms):
     return max(1, min(ntiles, -(-2 * sms // b)))
 
 
+def _wgrad_nsplit(lib, dtype, npix, m, n, batches, sms):
+    """Parts of the pixel axis of csrc/wgrad.cu's product (see `_wgrad`)."""
+    cap = max(1, _WGRAD_PARTIAL_BYTES // (4 * m * n * batches))
+    if dtype == torch.bfloat16:
+        tiles = lib.tblock_wgrad_tiles(m, n) * batches
+        slots = lib.tblock_wgrad_ctas_per_sm(m, n) * sms
+        return max(1, min(slots // tiles, -(-npix // 256), cap))
+    tiles = -(-m // 64) * -(-n // 64) * batches
+    return max(1, min(-(-4 * sms // tiles), -(-npix // 32), cap))
+
+
 def _wgrad(lib, a, lda, sa, b, ldb, sb, npix, m, n, nb, sms, stream):
     """sum over npix pixels of a[p][m] b[p][n] (csrc/wgrad.cu), batched over
     nb = (nb1, nb2) with element strides sa, sb.  Returns
@@ -114,15 +125,7 @@ def _wgrad(lib, a, lda, sa, b, ldb, sb, npix, m, n, nb, sms, stream):
     order: in bf16 (the TMA + wgmma kernel) as many as fill the card's CTA
     slots in one wave, each at least 4 steps of 64 pixels; in float32 about
     four CTAs an SM."""
-    batches = nb[0] * nb[1]
-    cap = max(1, _WGRAD_PARTIAL_BYTES // (4 * m * n * batches))
-    if a.dtype == torch.bfloat16:
-        tiles = lib.tblock_wgrad_tiles(m, n) * batches
-        slots = lib.tblock_wgrad_ctas_per_sm(m, n) * sms
-        nsplit = max(1, min(slots // tiles, -(-npix // 256), cap))
-    else:
-        tiles = -(-m // 64) * -(-n // 64) * batches
-        nsplit = max(1, min(-(-4 * sms // tiles), -(-npix // 32), cap))
+    nsplit = _wgrad_nsplit(lib, a.dtype, npix, m, n, nb[0] * nb[1], sms)
     out = torch.empty((nsplit, nb[0], nb[1], m, n), dtype=torch.float32,
                       device=a.device)
     _check(lib.tblock_wgrad(

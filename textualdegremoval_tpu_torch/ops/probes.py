@@ -330,8 +330,10 @@ def _launch_stencil(lib, x, taps, variant: str, iters: int, stream):
 def stencil_loop(x: torch.Tensor, taps: torch.Tensor, variant: str,
                  iters: int) -> torch.Tensor:
     """`stencil_ref` as one launch of csrc/probe_stencil.cu, one CTA per
-    channel.  x: (t + 2, W, ch) bfloat16 on the card, contiguous; taps:
-    (9, ch) f32 contiguous."""
+    channel, its rows in registers.  x: (t + 2, W, ch) bfloat16 on the
+    card, contiguous, t <= 16 and W within the kernel's
+    `probe_stencil_max_width(t)` (2048 pixels at t <= 8, 1024 above);
+    taps: (9, ch) f32 contiguous."""
     from textualdegremoval_tpu_torch.ops._build import load_library
 
     _require_cuda("stencil_loop", x, taps)
@@ -346,7 +348,14 @@ def stencil_loop(x: torch.Tensor, taps: torch.Tensor, variant: str,
         raise ValueError("stencil_loop: x and taps must be contiguous")
     if iters < 0:
         raise ValueError(f"stencil_loop: iters must be >= 0, got {iters}")
-    out = _launch_stencil(load_library(), x, taps, variant, iters,
+    lib = load_library()
+    t = x.shape[0] - 2
+    if x.shape[1] > lib.probe_stencil_max_width(t):
+        raise ValueError(f"stencil_loop: the kernel holds t <= 16 rows of "
+                         f"at most {lib.probe_stencil_max_width(min(t, 16))} "
+                         f"pixels (2048 at t <= 8) in registers, got t = {t}, "
+                         f"W = {x.shape[1]}")
+    out = _launch_stencil(lib, x, taps, variant, iters,
                           torch.cuda.current_stream(x.device).cuda_stream)
     stencil_loop.launches += 1
     return out

@@ -5,10 +5,12 @@ port, on the card; or, with --reckon, this design's reckoning of those
 shapes (no card).  With --chain, the cross-block chain
 (`tblock_chain_fused`) at every stage of a 512 px promptir_all_in_one
 forward instead; with --gdfn, the standalone GDFN (`gdfn_fused`) at every
-GDFN of a 512 px restormer_deblur forward on the module path.
+GDFN of a 512 px restormer_deblur forward on the module path; with
+--mdta, the MDTA statistics (`mdta_stats`) at every attention of that
+forward.
 
     python -m textualdegremoval_tpu_torch.tools.bench_block_fwd \\
-        [--other ROOT] [--reckon] [--split] [--chain | --gdfn]
+        [--other ROOT] [--reckon] [--split] [--chain | --gdfn | --mdta]
 
 --other ROOT is the root of another checkout of the repository (a `git
 archive` of the parent under build/, say).  Its csrc/ is built into a
@@ -16,7 +18,9 @@ library of its own, and its own ops/pallas/tblock.py drives that library
 (`_forward_kernel`, with its `_kernel_library` pointed at it), so each
 version runs its own launch code on the same inputs.  The tool prints, for
 each source of the other version, whether ptxas's report is the same as
-this version's (path hashes and compile times taken out), then per shape
+this version's (path hashes and compile times taken out; where a
+source's report differs, entry by entry: each kernel of the other version
+same or not, and the kernels only this version has), then per shape
 one JSON line for the plain version (`tblock_ref`) and one per version in
 turns other, this, this, other:
 
@@ -40,17 +44,21 @@ call kernel by kernel in launch order (`torch.profiler`, the mean of 3
 calls; torch's own kernels in a row, the glue and the sums of partials,
 as one entry).
 
---chain and --gdfn time one call per stage or GDFN shape the same way
-(plain: `tblock_chain_ref` / `gdfn_ref`; each version through its own
-route rule, so a parent without the bf16 pipeline runs
-csrc/tblock_chain.cu or csrc/gdfn.cu; --chain also times this version's
+--chain, --gdfn and --mdta time one call per stage, GDFN or attention
+shape the same way (plain: `tblock_chain_ref` / `gdfn_ref` /
+`mdta_stats_ref`; each version through its own route rule, so a parent
+without the bf16 pipeline runs csrc/tblock_chain.cu or csrc/gdfn.cu, and
+one without the gram route csrc/mdta.cu; --mdta takes q and k as strided
+chunks of one qkv = x . W, W ~ N(0, 1/C), temperatures ~ sqrt(C), as
+chip_smoke.py's phase 20, and its branch is the L2 error over ||plain||);
+--chain also times this version's
 blocks one by one through `tblock_fused`'s route, "blocks", twice after
 the turns), and add to each version's row
 device_ms, its device time by kernel group (`bench_block_bwd.py`
 `device_groups` with FWD_GROUPS, the mean of 3 calls); the sums are per
 PromptIR forward (the stages' calls times their count) or per
-module-path forward (52 GDFNs).  With --reckon they print this design's
-prediction for those sums.
+module-path forward (52 GDFNs or attentions).  With --reckon they
+print this design's prediction for those sums (--chain, --gdfn).
 """
 
 from __future__ import annotations
@@ -118,6 +126,8 @@ FWD_GROUPS = (
     ("tblock.cu", ("tblock_stats", "tblock_apply")),
     ("tblock_chain.cu", ("tblock_chain_kernel",)),
     ("gdfn.cu", ("gdfn_kernel",)),
+    ("mdta.cu", ("mdta_stats_kernel", "mdta_finish_kernel")),
+    ("mdta finish", ("mdta_gram_finish",)),
 )
 ITERS = 3
 REPEATS = 3
@@ -140,6 +150,9 @@ def parse_args(argv=None):
                       help="the cross-block chain at PromptIR's stages")
     what.add_argument("--gdfn", action="store_true",
                       help="the standalone GDFN at the module path's GDFNs")
+    what.add_argument("--mdta", action="store_true",
+                      help="the MDTA statistics at the module path's "
+                           "attentions")
     return ap.parse_args(argv)
 
 
@@ -297,6 +310,7 @@ class Version:
         mod._kernel_library = lambda cph, what: lib
         version = cls("other", mod)
         version.gd = _load(pkg / "ops" / "pallas" / "gdfn.py", "other_gdfn")
+        version.md = _load(pkg / "ops" / "pallas" / "mdta.py", "other_mdta")
         version.lib = lib
         return version, so
 
@@ -330,6 +344,17 @@ class Version:
             return lambda: mod.gdfn_pipeline(lib, x, kw, sms, stream)
         tile = mod.pick_tile(lib, x.shape[-1], x.element_size())
         return lambda: mod._launch(lib, x, kw, tile, stream)
+
+    def mdta_call(self, q, k, temp, heads):
+        """The version's route for q, k (its mdta.py's rule, its
+        library)."""
+        mod, lib = self.md, self.lib
+        stream, sms = tb._card(q.device)
+        if getattr(mod, "_takes_gram", lambda *_: False)(q, k, heads):
+            return lambda: mod.mdta_gram(lib, q, k, temp, heads, sms, stream)
+        tl, nsplit = mod.plan(lib, q, heads)
+        return lambda: mod._launch(lib, q, k, temp, heads, tl, nsplit,
+                                   stream)
 
 
 def _branch(got, want, x):
@@ -463,6 +488,47 @@ def gdfn_rows(versions, order, shape, dev):
     return out
 
 
+def mdta_rows(versions, order, shape, dev):
+    """Rows of one module-path attention shape: `mdta_stats_ref`, then each
+    version in turns."""
+    from textualdegremoval_tpu_torch.ops.pallas import mdta as md
+
+    b, h, w, c, heads, _ = shape
+    gen = torch.Generator().manual_seed(c + h)
+    x = torch.randn(b, h, w, c, generator=gen)
+    wqkv = torch.randn(c, 3 * c, generator=gen) * c ** -0.5
+    temp = (c ** 0.5 * (0.5 + torch.rand(heads, 1, 1, generator=gen))).cuda()
+    q, k, _ = torch.chunk((x @ wqkv).to("cuda", torch.bfloat16), 3, dim=-1)
+    del x
+    out = []
+    with torch.no_grad():
+        want = md.mdta_stats_ref(q, k, temp, heads)
+        row = {"version": "plain", "shape": list(shape[:5]),
+               "ms": median_ms(lambda: md.mdta_stats_ref(q, k, temp, heads),
+                               reps=3)}
+        print(json.dumps(row), flush=True)
+        out.append(row)
+        zero = torch.zeros_like(want)
+        for name in order:
+            out.append(_version_row(name, list(shape[:5]),
+                                    versions[name].mdta_call(q, k, temp,
+                                                             heads),
+                                    want, zero, dev))
+    del q, k, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def ptxas_entries(report: str) -> dict[str, str]:
+    """Kernel name -> its lines of one source's ptxas report
+    (`bench_flash.ptxas_reports`)."""
+    out = {}
+    for part in report.split("Compiling entry function '")[1:]:
+        name, _, text = part.partition("'")
+        out[name] = text.strip()
+    return out
+
+
 def split(shape, reps=3):
     """[(kernel, device ms)] of one block call of this version at a shape,
     in launch order (`_card.py` `device_split`)."""
@@ -479,6 +545,9 @@ def split(shape, reps=3):
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.reckon:
+        if args.mdta:
+            raise SystemExit("bench_block_fwd: --mdta has no reckoning; "
+                             "PERF.md states its prediction")
         if args.chain or args.gdfn:
             print_other_reckoning(args.chain)
         else:
@@ -503,7 +572,10 @@ def main(argv=None) -> int:
     from textualdegremoval_tpu_torch.ops.pallas import gdfn as gd
 
     versions = {"this": Version("this", tb)}
+    from textualdegremoval_tpu_torch.ops.pallas import mdta as md
+
     versions["this"].gd, versions["this"].lib = gd, _build.load_library()
+    versions["this"].md = md
     mine = ptxas_reports(so.with_suffix(".log").read_text())
     for name in ("fwd_stencil.cu", "bwd_gemm.cu"):
         print(f"ptxas {name}:\n{mine.get(name)}", flush=True)
@@ -516,10 +588,27 @@ def main(argv=None) -> int:
                      "only in this version" if name in mine else
                      "only in the other version")
             print(f"ptxas report of {name}: {state}", flush=True)
+            if state != "differs":
+                continue
+            ours = ptxas_entries(mine[name])
+            for kernel, text in ptxas_entries(theirs[name]).items():
+                if kernel not in ours:
+                    print(f"  {kernel}: only in the other version",
+                          flush=True)
+                elif ours[kernel] == text:
+                    print(f"  {kernel}: same", flush=True)
+                else:
+                    print(f"  {kernel}: differs\n    this: {ours[kernel]!r}"
+                          f"\n    other: {text!r}", flush=True)
+            for kernel in sorted(set(ours) - set(ptxas_entries(
+                    theirs[name]))):
+                print(f"  {kernel}: only in this version", flush=True)
     order = ["other", "this", "this", "other"] if "other" in versions \
         else ["this"]
-    if args.chain or args.gdfn:
-        return other_sums(args.chain, versions, order, dev)
+    if args.chain or args.gdfn or args.mdta:
+        return other_sums("chain" if args.chain else
+                          "mdta" if args.mdta else "gdfn", versions, order,
+                          dev)
     sums = {}
     for what, shapes in (("per_forward_ms", EVAL_SHAPES),
                          ("per_step_ms", TRAIN_SHAPES),
@@ -540,17 +629,19 @@ def main(argv=None) -> int:
     return 0
 
 
-def other_sums(chain, versions, order, dev) -> int:
-    """--chain or --gdfn: the rows of every shape, then per version the
-    sums over one forward (ms, enqueue_ms and device_ms by group, the
-    median of the version's turns at each shape times its count)."""
+def other_sums(kind, versions, order, dev) -> int:
+    """--chain, --gdfn or --mdta (`kind`): the rows of every shape, then per
+    version the sums over one forward (ms, enqueue_ms and device_ms by
+    group, the median of the version's turns at each shape times its
+    count)."""
+    chain = kind == "chain"
     what = ("per_promptir_forward" if chain else
             "per_module_path_forward")
     shapes = CHAIN_SHAPES if chain else EVAL_SHAPES
+    rows_of = {"chain": chain_rows, "gdfn": gdfn_rows, "mdta": mdta_rows}
     sums = {}
     for shape in shapes:
-        rows = (chain_rows if chain else gdfn_rows)(versions, order, shape,
-                                                    dev)
+        rows = rows_of[kind](versions, order, shape, dev)
         count = shape[6] if chain else shape[5]
         for name in ["plain", *versions, *(["blocks"] if chain else [])]:
             mine = [r for r in rows if r["version"] == name]
