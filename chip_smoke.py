@@ -32,9 +32,10 @@ Phases, each of which raises on failure:
    gradient product alone on csrc/wgrad.cu beside one torch.matmul(A^T,
    B) on the same operands (the yardstick) and its bound, and the time of
    the block's forward (the pipeline) and of its plain version at that
-   shape; the same in bf16 at PromptIR's noise width (C = 704, 176
-   channels per head, which float32 must refuse); and bwd_mode 'remat'
-   against 'save';
+   shape; the same in float32 and bf16 at PromptIR's noise widths (C =
+   704 / 320 / 160 with 4 heads: 176 / 80 / 40 channels a head; float32
+   on csrc/tblock_attn_bwd.cu's 4 x 4 tiles at 704, csrc/tblock_bwd.cu's
+   2 x 2 for B3); and bwd_mode 'remat' against 'save';
 7. the training main path: the training CLI's step function with the
    options of options/train_restoration/restormer_motion_deblur.yml
    (AdamW 2e-4 / ref 1e-4, wd 1e-4, clip 0.01, cosine restarts, L1) and
@@ -205,7 +206,26 @@ Phases, each of which raises on failure:
    shape and 3000 iterations, of the plain version and of one cuDNN
    depthwise conv step; then both probe tools run
    once, as `python -m` runs them, with the launches counted (the probe
-   path: the probes are on no path of the model).
+   path: the probes are on no path of the model);
+25. the network of options/train_restoration/promptir_all_in_one.yml at
+   full width through the training CLI's step function at 384 px: bf16
+   at batch 8 as phase 7 runs its step (55 blocks, every one through the
+   pipeline; three timed steps, no plain turns, peak memory, idle share),
+   float32 at
+   batch 2 (csrc/tblock.cu, csrc/tblock_bwd.cu and csrc/tblock_attn_bwd.cu,
+   176 channels a head in the noise block; two timed steps, peak memory),
+   and one float32 step at 128 px on the card against the CPU;
+26. restormer_gaussian_gray_denoise_blind.yml (bf16, batch 8) and
+   restormer_defocus_dual_pixel_16bit.yml (its float32, batch 2) through
+   cli/train_restoration.py's `main` on the card, full width, 384 px
+   crops, two iterations over numpy-written PNG folders (the gray
+   Gaussian-noise dataset, the 16-bit dual-pixel one), B1-B3 launches
+   counted, the logger's lq|gt|pred|ref strip written;
+27. the DINO reference-crop matcher at vit_base full width from a seeded
+   random state dict in the reference layout (`load_dino`, strict): 8
+   crops of 384 px against 480 x 480 refs (4 windows each) in float32,
+   card against CPU on 2 of them (tokens, scores, the top-1 where the
+   CPU's top-2 margin is clear), ms per step and peak memory.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is nvidia-smi's, and before that a JSON summary of each kernel.  Without
@@ -228,7 +248,10 @@ the image), dgrad_wt_as_w (phase 6, the input-gradient product reading
 W^T as W), wgrad_last_step_skipped, wgrad_a_kmajor and pass1_v_from_lin
 (phase 6: the weight-gradient products skipping each split's last
 64-pixel step, or reading A with its transpose bit off; pass 1's v taken
-from lin, its stencil skipped), sca_skipped and halo_kept (phase 8, the NAFBlock pair, run in
+from lin, its stencil skipped), attn_f32_last_chunk_skipped (phase 6 in
+float32: csrc/tblock_attn_bwd.cu's pass 1 skipping each third's last
+channel chunk, so pass 2 reads q | k | v and lin that were never
+written), sca_skipped and halo_kept (phase 8, the NAFBlock pair, run in
 float32), naf_sca_unapplied, naf_sums_past_edge, naf_gate_pair_shifted
 and naf_scale_dropped (phase 8, the bf16 NAFBlock pipeline: the gate
 written without the SCA scale, the sums taking a ragged tile's pixels
@@ -261,6 +284,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -626,9 +650,11 @@ def main_path(seed: int, task=TASK, kernel=tb.tblock_fused, blocks=52,
 # (B, H, W, C, heads, blocks of that shape in one 384 px batch-8 step of
 # restormer_motion_deblur), and a ragged shape with no block in the step
 TRAIN_SHAPES = block_bwd_tool.TRAIN_SHAPES
-# PromptIR's noise-block width in training (C = 704, 4 heads: 176 channels
-# a head), which only the bf16 attention backward takes
-NOISE_TRAIN_SHAPES = [(2, 64, 64, 704, 4, 0)]
+# PromptIR's noise-block widths in training (C = 704 / 320 / 160, 4 heads:
+# 176 / 80 / 40 channels a head), both types; float32 takes 704 on a 4 x 4
+# tile in both passes of csrc/tblock_attn_bwd.cu
+NOISE_TRAIN_SHAPES = [(2, 64, 64, 704, 4, 0), (2, 96, 96, 320, 4, 0),
+                      (2, 128, 128, 160, 4, 0)]
 # gradient, kernel vs plain autograd on the same inputs: pass when
 # ||k - p|| <= GRAD_L2 ||p|| and |k - p| <= a max|p| + r |p| elementwise.
 # f32: sum order only (measured at most 8.5e-6, temperatures 8.5e-5).
@@ -802,6 +828,11 @@ FAULTS = {
     "stencil_reads_past_row": (
         "probe_stencil.cu", "r < t + 2 && x0 + j < W\n",
         "r < t + 2 && (size_t)r * W + x0 + j < (size_t)(t + 2) * W\n", 24),
+    # float32 pass 1 skips each third's last channel chunk: the scratch
+    # q | k | v and lin that pass 2 reads there are never written
+    "attn_f32_last_chunk_skipped": (
+        "tblock_attn_bwd.cu", "for (int n0 = 0; n0 < C; n0 += kVC) {",
+        "for (int n0 = 0; n0 + kVC < C; n0 += kVC) {", 6),
     # a warp's last lane takes zero for its right neighbour, the next
     # warp's first pixel (f32 variants): the stencil loses it at every
     # warp edge inside the row
@@ -859,8 +890,14 @@ def split_by_group(fn, what: str, reps: int = 3,
         + f"; total {total:.3f} of {dev_ms:.3f} timed{note}")
 
 
-def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True):
-    """Phase 6.  Returns the bf16 WithBias rows at the training shapes as
+def _step_rows(dtype, ln_type, nblk):
+    return dtype == torch.bfloat16 and ln_type == "WithBias" and nblk > 0
+
+
+def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True,
+                      keep=_step_rows, split=True):
+    """Phase 6.  Returns the rows for which keep(dtype, ln_type, blocks)
+    holds (by default the bf16 WithBias rows at the training shapes) as
     (blocks per step, max L2, gdfn max_abs, attn max_abs, gdfn ms, attn ms,
     gdfn plain ms, attn plain ms, forward ms, forward plain ms, shape,
     gdfn wgrad ms, gdfn wgrad library ms, attn wgrad ms, attn wgrad
@@ -870,7 +907,8 @@ def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True):
     also splits each bf16 WithBias row's device time by kernel
     (`split_by_group`) and times each half's weight-gradient products
     alone on csrc/wgrad.cu and as one torch.matmul(A^T, B) each on the
-    same operands (the yardstick, never called by the port)."""
+    same operands (the yardstick, never called by the port); split=False
+    leaves both out."""
     dtypes = dtypes or (torch.float32, torch.bfloat16)
     log(f"backward kernels vs plain autograd: ||k-p|| <= l2 ||p|| and "
         f"|k-p| <= a max|p| + r |p|; f32 l2 {GRAD_L2[torch.float32]} a/r "
@@ -936,7 +974,7 @@ def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True):
                 if bad:
                     failures.append((b, h, w, c, heads, ln_type, name, bad))
                 wg = [float("nan")] * 4
-                if timed and dtype == torch.bfloat16 \
+                if timed and split and dtype == torch.bfloat16 \
                         and ln_type == "WithBias":
                     split_by_group(lambda: gb.gdfn_half_bwd(
                         x1, g, p, ln_type, kw), "gdfn_half_bwd")
@@ -963,8 +1001,7 @@ def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True):
                                 f"{r['bound_ms']:.4f}" for r in prods))
                         wg += [sum(r["ms"] for r in prods),
                                sum(r["library_ms"] for r in prods)]
-                if dtype == torch.bfloat16 and ln_type == "WithBias" \
-                        and nblk:
+                if keep(dtype, ln_type, nblk):
                     half = {k: k == "dx1" or k.startswith(("gd_", "norm2"))
                             for k in stats_row}
                     rows.append((nblk, worst, *(
@@ -977,28 +1014,6 @@ def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True):
         raise RuntimeError(f"backward kernels disagree with plain at "
                            f"{failures}")
     return rows
-
-
-def float32_refuses_wide_heads(gen):
-    """Phase 6: the float32 attention backward holds a head's channels in
-    shared memory (at most 96); at PromptIR's 176 it must refuse, not
-    run."""
-    b, h, w, c, heads, _ = NOISE_TRAIN_SHAPES[0]
-    blk = TransformerBlock(c, heads)
-    randomize_block(blk, gen)
-    p = {k: v.detach().cuda() for k, v in blk.block_params().items()}
-    x = torch.randn(1, 16, 16, c, generator=gen).cuda()
-    kw = tb.prepare_tblock_weights(p, torch.float32, "WithBias")
-    with torch.no_grad():
-        _, _, stats = tb._forward_kernel(x, kw, heads, "WithBias",
-                                         want_x1=True)
-    try:
-        ab.attn_half_bwd(x, x, p, heads, "WithBias", stats, kw)
-    except ValueError as e:
-        log(f"float32 attn_half_bwd at {c // heads} channels per head "
-            f"refused: {e}")
-        return
-    raise RuntimeError("float32 attn_half_bwd ran at 176 channels per head")
 
 
 def remat_vs_save(gen):
@@ -1112,12 +1127,15 @@ def _swap(route_name: str, plain_fn):
 
 
 def train_main_path(seed: int, opt=TRAIN_OPT, kernels=None, per_step=None,
-                    plain=None, batch_size=8, resolve_kw=None):
+                    plain=None, batch_size=8, resolve_kw=None,
+                    compare_plain=True):
     """Phases 7, 10 and 22, the training path of `opt` (resolve_network
     with `resolve_kw`) in bf16 at 384 px, batch `batch_size`: every step
     launches each of `kernels` per_step times; the comparison turns call
     plain(model, True) before a plain turn and plain(model, False) after
-    it (default: `_plain_blocks` for `tblock_fused`).  Default kernels:
+    it (default: `_plain_blocks` for `tblock_fused`); without
+    compare_plain, three kernel turns and no plain ones (plain ms and peak
+    nan).  Default kernels:
     `tblock_fused`, the two backward rows and `tblock_pipeline`'s block
     calls, 52 each (under 'remat' the forward counts double).  Returns
     (launches of each kernel over the counted steps, kernel step ms, plain
@@ -1222,8 +1240,9 @@ def train_main_path(seed: int, opt=TRAIN_OPT, kernels=None, per_step=None,
     # the step through the kernels vs through plain-autograd blocks, in
     # alternating turns; peak memory of each
     turns = {"kernel": [], "plain": []}
-    peak = {}
-    for route in ("kernel", "plain", "plain", "kernel", "kernel", "plain"):
+    peak = {"plain": float("nan")}
+    for route in (("kernel", "plain", "plain", "kernel", "kernel", "plain")
+                  if compare_plain else ("kernel",) * 3):
         if route == "plain":
             switch(model, True)
         torch.cuda.synchronize()
@@ -1236,13 +1255,14 @@ def train_main_path(seed: int, opt=TRAIN_OPT, kernels=None, per_step=None,
         peak[route] = torch.cuda.max_memory_allocated() / 2 ** 30
         switch(model, False)
     k_ms = statistics.median(turns["kernel"])
-    p_ms = statistics.median(turns["plain"])
+    p_ms = statistics.median(turns["plain"] or [float("nan")])
     profile_device(lambda: float(step_fn(state, batch)[1]["l_pix"]),
                    f"{name} step")
-    switch(model, True)
-    profile_device(lambda: float(step_fn(state, batch)[1]["l_pix"]),
-                   f"{name} step through the plain route")
-    switch(model, False)
+    if compare_plain:
+        switch(model, True)
+        profile_device(lambda: float(step_fn(state, batch)[1]["l_pix"]),
+                       f"{name} step through the plain route")
+        switch(model, False)
     log(f"{name} train step 384 px batch {batch_size} bf16, alternating "
         f"turns: kernel "
         f"{[round(v, 2) for v in turns['kernel']]} ms, plain blocks "
@@ -3059,6 +3079,291 @@ def probe_tool_runs():
 
 
 # ---------------------------------------------------------------------------
+# Phases 25-27: every Restormer / PromptIR YAML trains
+# ---------------------------------------------------------------------------
+
+# options/train_restoration/promptir_all_in_one.yml as a dict (no YAML on
+# the card's machine; tests/test_torch_cli_train.py holds it against the
+# file), param_fix_iterations cut to 2 as TRAIN_OPT's
+PROMPTIR_TRAIN_OPT = {
+    "network_g": {
+        "type": "PromptIRRefFusion", "inp_channels": 3, "out_channels": 3,
+        "dim": 48, "num_blocks": [4, 6, 6, 8], "num_refinement_blocks": 4,
+        "heads": [1, 2, 4, 8], "ffn_expansion_factor": 2.66, "bias": False,
+        "LayerNorm_type": "WithBias", "decoder": True, "nf": 48,
+        "ext_n_blocks": [4, 4, 4, 4], "reffusion_n_blocks": [2, 2, 2, 2],
+        "reffusion_n_blocks_middle": 1, "num_nbr": 1, "psize": 3,
+        "lr_block_size": 8, "ref_down_block_size": 1.5,
+        "dilations": [1, 2, 3]},
+    "train": TRAIN_OPT["train"],
+}
+PROMPTIR_TRAIN_BATCH = 8  # bf16; float32 takes batch 2
+PROMPTIR_F32_BATCH = 2
+BLOCK_KERNELS = (tb.tblock_fused, gb.gdfn_half_bwd, ab.attn_half_bwd,
+                 tb.tblock_pipeline)
+
+
+def f32_train_steps(seed: int, opt, per_step, batch_size: int):
+    """Phase 25: float32 steps of `opt` at 384 px on the card (the CLI's
+    step function, the masa group released): a warm-up, then two timed
+    steps, each launching BLOCK_KERNELS per_step times.  Returns (median
+    ms, peak GiB)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model, _, _ = resolve_network(opt)
+    model = gate_and_temperatures(model, seed).cuda()
+    rng = np.random.default_rng(seed + 6)
+    trip = [synthetic_triple(rng, 384) for _ in range(batch_size)]
+    batch = {k: torch.from_numpy(np.stack([t[i] for t in trip])).cuda()
+             for i, k in enumerate(("lq", "gt", "ref"))}
+    state, step_fn, _ = _trainer(model, dict(opt["train"],
+                                             param_fix_iterations=0))
+    state, _ = step_fn(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(2):
+        for k in BLOCK_KERNELS:
+            k.launches = 0
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        loss = float(m["l_pix"])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts = tuple(k.launches for k in BLOCK_KERNELS)
+        if counts != tuple(per_step) or not np.isfinite(loss):
+            raise RuntimeError(f"f32 step {i + 1}: launches {counts}, loss "
+                               f"{loss}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    name = opt["network_g"]["type"]
+    log(f"{name} f32 train step 384 px batch {batch_size}: "
+        f"{[round(v, 2) for v in times]} ms, l_pix {loss:.5f}, launches "
+        f"{'/'.join(k.__name__ for k in BLOCK_KERNELS)} {counts}, peak "
+        f"{peak:.2f} GiB")
+    del state, model, batch
+    torch.cuda.empty_cache()
+    return statistics.median(times), peak
+
+
+def promptir_train_path(seed: int):
+    """Phase 25: the network of promptir_all_in_one.yml at full width
+    through the CLI's step function at 384 px: bf16 at batch 8 as phase 7
+    runs it (55 blocks a step, all through the pipeline; three timed
+    steps, no plain turns, which phase 7 times for Restormer), float32 at
+    batch 2 (the f32 kernels: csrc/tblock.cu, csrc/tblock_bwd.cu,
+    csrc/tblock_attn_bwd.cu at 176 channels a head), and one float32 step
+    at 128 px on the card against the CPU.  Returns (bf16 launches, bf16
+    ms, bf16 peak, f32 ms, f32 peak)."""
+    n = PROMPTIR_BLOCKS
+    launches, ms, _, peak, _ = train_main_path(
+        seed, PROMPTIR_TRAIN_OPT, BLOCK_KERNELS, (n, n, n, n),
+        batch_size=PROMPTIR_TRAIN_BATCH, compare_plain=False)
+    f32_ms, f32_peak = f32_train_steps(seed, PROMPTIR_TRAIN_OPT,
+                                       (n, n, n, 0), PROMPTIR_F32_BATCH)
+    train_step_vs_cpu(seed, PROMPTIR_TRAIN_OPT,
+                      kernels=tuple((k, n) for k in BLOCK_KERNELS[:3]))
+    return launches, ms, peak, f32_ms, f32_peak
+
+
+# the networks of phase 26's YAMLs over TRAIN_OPT's (tests/
+# test_torch_cli_train.py holds them against the files)
+CLI_YAML_NETS = {
+    "restormer_gaussian_gray_denoise_blind": {
+        "inp_channels": 1, "out_channels": 1, "LayerNorm_type": "BiasFree"},
+    "restormer_defocus_dual_pixel_16bit": {
+        "inp_channels": 6, "dual_pixel_task": True},
+}
+
+
+def _yaml_opt(name, train_ds, val_ds, **train):
+    """A shipped restoration YAML's options as a dict (the card's machine
+    may lack PyYAML): TRAIN_OPT's network with CLI_YAML_NETS[name] over
+    it, the datasets, the logger's lq|gt|pred|ref strip at iteration 2."""
+    return {
+        "name": name, "scale": 1, "manual_seed": 100,
+        "datasets": {"train": {
+            "name": "Trainset", "geometric_augs": True,
+            "io_backend": {"type": "disk"}, "num_worker_per_gpu": 0,
+            "iters": [1000000], "gt_size": 384, "gt_sizes": [384],
+            **train_ds}, "val": {"name": "Valset", **val_ds}},
+        "network_g": dict(TRAIN_OPT["network_g"], **CLI_YAML_NETS[name]),
+        "path": {"pretrain_dino": None, "pretrain_network_g": None},
+        "train": dict(TRAIN_OPT["train"], **train),
+        "val": {"val_freq": 5000}, "logger": {
+            "print_freq": 1, "save_checkpoint_freq": 5000, "check_freq": 2}}
+
+
+def cli_yaml_runs(seed: int, iters: int = 2):
+    """Phase 26: restormer_gaussian_gray_denoise_blind.yml (1-channel
+    denoise, its Dataset_GaussianDenoisingWithRef at sigma 0-50, bf16,
+    batch 8) and restormer_defocus_dual_pixel_16bit.yml (6-channel dual
+    pixel from 16-bit PNGs, its own float32, batch 2) through
+    cli/train_restoration.py's `main` on the card, full width, 384 px
+    crops, `iters` iterations over synthesised folders (numpy-written PNGs
+    in a temporary directory): every block through the kernels (52 of each
+    a step), the strip of logger.check_freq written.  Returns {name:
+    (launches, s of the last iteration)}."""
+    from textualdegremoval_tpu_torch.cli import train_restoration as cli
+    from textualdegremoval_tpu_torch.data.png import write_png
+
+    root = Path(tempfile.mkdtemp(prefix="cli_yamls_"))
+    rng = np.random.default_rng(seed + 7)
+    for sub, n, top in (("hq", 8, 255), ("ref", 8, 255), ("dp_gt", 4, 65535),
+                        ("dp_lqL", 4, 65535), ("dp_lqR", 4, 65535),
+                        ("dp_ref", 4, 255), ("val_lq", 1, 255),
+                        ("val_hq", 1, 255), ("val_ref", 1, 255)):
+        (root / sub).mkdir()
+        for i in range(n):
+            img = rng.random((400, 440, 3)) * top
+            write_png(str(root / sub / f"{i:03d}.png"),
+                      img.astype(np.uint16 if top > 255 else np.uint8))
+    val = {"type": "Dataset_PairedImageWithRef",
+           **{f"{k}root": str(root / f"val_{k}") for k in ("lq", "hq",
+                                                           "ref")}}
+    runs = {
+        "restormer_gaussian_gray_denoise_blind": (_yaml_opt(
+            "restormer_gaussian_gray_denoise_blind",
+            {"type": "Dataset_GaussianDenoisingWithRef",
+             "hqroot": str(root / "hq"), "refroot": str(root / "ref"),
+             "batch_size_per_gpu": 8, "mini_batch_sizes": [8],
+             "sigma_type": "random", "sigma_range": [0, 50], "in_ch": 1},
+            {"type": "Dataset_GaussianDenoisingWithRef",
+             "hqroot": str(root / "val_hq"), "refroot": str(root / "val_ref"),
+             "sigma_test": 25, "in_ch": 1}), ["--mixed_precision", "bf16"]),
+        "restormer_defocus_dual_pixel_16bit": (_yaml_opt(
+            "restormer_defocus_dual_pixel_16bit",
+            {"type": "Dataset_PairedImageWithRef_DualPixel_16bit",
+             "hqroot": str(root / "dp_gt"), "lqlroot": str(root / "dp_lqL"),
+             "lqrroot": str(root / "dp_lqR"), "refroot": str(root / "dp_ref"),
+             "batch_size_per_gpu": 2, "mini_batch_sizes": [2]}, val), []),
+    }
+    out, cwd = {}, Path.cwd()
+    try:
+        for name, (opt, flags) in runs.items():
+            cfg = root / f"{name}.json"
+            cfg.write_text(json.dumps(opt))
+            os.chdir(root)
+            for k in BLOCK_KERNELS:
+                k.launches = 0
+            t0 = time.perf_counter()
+            state = cli.main(["--opt", str(cfg), "--max_iters", str(iters),
+                              "--device", "cuda", *flags])
+            secs = time.perf_counter() - t0
+            counts = tuple(k.launches for k in BLOCK_KERNELS)
+            exp = root / "experiments" / name
+            times = [float(line.split(" time ")[1].split("s")[0])
+                     for line in (exp / "train.log").read_text().splitlines()
+                     if " l_pix " in line]
+            # each step 52 of each; the strip's forward 52 more of the
+            # forward's
+            bf16 = "--mixed_precision" in flags
+            fwd = (tb.tblock_fused, tb.tblock_pipeline)
+            want = tuple(52 * (iters + (iters // 2 if k in fwd else 0))
+                         * (k is not tb.tblock_pipeline or bf16)
+                         for k in BLOCK_KERNELS)
+            strip = exp / "visualization" / "000002.png"
+            log(f"phase 26 {name}: {iters} iterations through the CLI in "
+                f"{secs:.1f} s, s per iteration {times}, launches "
+                f"{'/'.join(k.__name__ for k in BLOCK_KERNELS)} {counts}, "
+                f"strip {'written' if strip.exists() else 'MISSING'}")
+            if state.step != iters or counts != want or len(times) != iters \
+                    or not strip.exists():
+                raise RuntimeError(f"{name} through the CLI: step "
+                                   f"{state.step}, launches {counts} (want "
+                                   f"{want}), {len(times)} logged steps")
+            out[name] = (counts, times[-1])
+            del state
+            torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# matcher card vs CPU (float32, TF32 off): the tokens are LayerNorm
+# outputs of O(1); the card's sums in other orders move them by about
+# 1e-5, and the cosine of two 602,112-value token vectors by about 1e-6
+DINO_TOKEN_ATOL = 1e-3
+DINO_SCORE_ATOL = 1e-4
+DINO_BATCH, DINO_CPU_BATCH = 8, 2
+
+
+def dino_matcher(seed: int):
+    """Phase 27: the DINO matcher of training at vit_base full width
+    (img_size 518, embed 768, 12 blocks) from a seeded random state dict in
+    the reference layout (saved, then loaded by `load_dino` with
+    strict=True), float32: 8 lq crops of 384 px against 480 x 480 refs (4
+    windows each, 40 ViT forwards of 785 tokens a step).  Card against CPU
+    on the first 2 images: lq's tokens within DINO_TOKEN_ATOL, every score
+    within DINO_SCORE_ATOL, and the same top-1 wherever the CPU's top-2
+    margin exceeds it.  Returns (ms per step, peak GiB, windows per
+    image)."""
+    from textualdegremoval_tpu_torch.models import dino as dn
+
+    vit = dn.vit_base()
+    gen = torch.Generator().manual_seed(seed + 9)
+    with torch.no_grad():
+        for name, prm in vit.named_parameters():
+            if name.endswith("bias") or name == "mask_token":
+                prm.zero_()
+            elif "norm" in name or name.endswith("gamma"):
+                prm.fill_(1.0)
+            else:
+                prm.copy_(torch.randn(prm.shape, generator=gen) * 0.02)
+    tmp = Path(tempfile.mkdtemp(prefix="dino_"))
+    try:
+        torch.save(vit.state_dict(), tmp / "dinov2_vitb14.pth")
+        gpu = dn.load_dino(str(tmp / "dinov2_vitb14.pth"), device="cuda")
+        cpu = dn.load_dino(str(tmp / "dinov2_vitb14.pth"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if (gpu.embed_dim, len(gpu.blocks), gpu.img_size) != (768, 12, 518):
+        raise RuntimeError("load_dino did not build vit_base")
+    rng = np.random.default_rng(seed + 10)
+    refs, lqs = [], []
+    for i in range(DINO_BATCH):
+        _, hq, _ = synthetic_triple(rng, 480)
+        y, x = 96 * (i % 2), 96 * ((i // 2) % 2)
+        lqs.append(np.clip(hq[y:y + 384, x:x + 384] + rng.standard_normal(
+            (384, 384, 3)).astype(np.float32) * 15 / 255, 0, 1))
+        refs.append(hq)
+    lq = torch.from_numpy(np.stack(lqs).astype(np.float32))
+    ref = torch.from_numpy(np.stack(refs))
+    win_g, sc_g, tok_g = dn.ref_scores(gpu, lq.cuda(), ref.cuda())
+    _, sc_c, tok_c = dn.ref_scores(cpu, lq[:DINO_CPU_BATCH],
+                                   ref[:DINO_CPU_BATCH])
+    k = DINO_CPU_BATCH
+    tok_err = (tok_g[:k].cpu() - tok_c).abs().max().item()
+    sc_err = (sc_g[:k].cpu() - sc_c).abs().max().item()
+    top2 = sc_c.topk(2, -1)
+    margin = top2.values[:, 0] - top2.values[:, 1]
+    clear = margin > DINO_SCORE_ATOL
+    same = bool((sc_g[:k].argmax(-1).cpu() == top2.indices[:, 0])[clear]
+                .all())
+    crop = dn.select_ref_crop(gpu, lq.cuda(), ref.cuda())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = median_ms(lambda: dn.select_ref_crop(gpu, lq.cuda(), ref.cuda()),
+                   reps=3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    picked = sc_g.argmax(-1).tolist()
+    log(f"phase 27 DINO matcher (vit_base f32, {DINO_BATCH} crops of 384 "
+        f"px, {win_g.shape[1]} windows each): {ms:.2f} ms a step, peak "
+        f"{peak:.2f} GiB; card vs CPU on {k} images: tokens max abs "
+        f"{tok_err:.2e} (bound {DINO_TOKEN_ATOL}), scores {sc_err:.2e} "
+        f"(bound {DINO_SCORE_ATOL}), top-2 margins "
+        f"{[round(v, 6) for v in margin.tolist()]}, same top-1 where clear: "
+        f"{same}; picked windows {picked} (lq cut from "
+        f"{[(i % 2) * 2 + (i // 2) % 2 for i in range(DINO_BATCH)]})")
+    if not (tok_err <= DINO_TOKEN_ATOL and sc_err <= DINO_SCORE_ATOL
+            and same and crop.shape == (DINO_BATCH, 384, 384, 3)
+            and crop.is_cuda and torch.isfinite(sc_g).all()):
+        raise RuntimeError("the DINO matcher on the card disagrees with the "
+                           "CPU")
+    return ms, peak, win_g.shape[1]
+
+
+# ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for the same work
 # ---------------------------------------------------------------------------
 
@@ -3068,7 +3373,9 @@ PEAK_BYTES = 3.35e12  # HBM3 bytes/s, H100 SXM
 
 
 def bound_ms(kernel: str, b, h, w, c, heads, eb=2, n=1):
-    """(ms, 'bytes' or 'operations') for one call at a shape, in bf16.
+    """(ms, 'bytes' or 'operations') for one call at a shape, in bf16 (eb
+    2: the tensor cores' rate) or float32 (eb 4: the CUDA cores' rate, as
+    the f32 kernels run their products).
     Operations: the products of the block or its backward per pixel (the
     stencils, LayerNorms and softmax are below 3% and left out); bytes:
     each activation input read once, each output written once, the
@@ -3110,7 +3417,8 @@ def bound_ms(kernel: str, b, h, w, c, heads, eb=2, n=1):
     else:
         flops = npix * 12 * c * c
         nbytes = 2 * npix * c * eb + (7 * c * c + 33 * c) * 4
-    t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
+    t_ops = flops / (PEAK_BF16 if eb == 2 else PEAK_F32)
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -3167,6 +3475,11 @@ def main(argv=None) -> int:
             if FAULTS[args.plant][3] == 3:
                 kernel_vs_plain(gen, False, [SHAPES[i] for i in (2, 6, 8)]
                                 + NOISE_SHAPES[3:], (torch.bfloat16,))
+            elif FAULTS[args.plant][3] == 6 and FAULTS[args.plant][0] \
+                    == "tblock_attn_bwd.cu":
+                backward_vs_plain(gen, [TRAIN_SHAPES[i] for i in (4, 8)]
+                                  + NOISE_TRAIN_SHAPES[:1],
+                                  dtypes=(torch.float32,), timed=False)
             elif FAULTS[args.plant][3] == 6:
                 backward_vs_plain(gen, [TRAIN_SHAPES[i] for i in (0, 4, 7, 8)],
                                   dtypes=(torch.bfloat16,), timed=False)
@@ -3212,8 +3525,13 @@ def main(argv=None) -> int:
     eval_launches, _, _, (eval_pipeline,) = main_path(
         args.seed, more=((tb.tblock_pipeline, 52),))
     bwd_rows = backward_vs_plain(gen)
-    backward_vs_plain(gen, NOISE_TRAIN_SHAPES, dtypes=(torch.bfloat16,))
-    float32_refuses_wide_heads(gen)
+    # the kernel split and the products alone at C = 704 only
+    noise_bwd_rows = [
+        r for i, shapes in enumerate((NOISE_TRAIN_SHAPES[:1],
+                                      NOISE_TRAIN_SHAPES[1:]))
+        for r in backward_vs_plain(
+            gen, shapes, split=i == 0,
+            keep=lambda d, ln, _: d == torch.float32 and ln == "WithBias")]
     remat_vs_save(gen)
     launches, step_ms, plain_step_ms, peak, _ = train_main_path(args.seed)
     train_step_vs_cpu(args.seed)
@@ -3315,6 +3633,12 @@ def main(argv=None) -> int:
     tool_qkv, _, probe_launches = probe_tool_runs()
     log_held("phases 23-24")
 
+    (pir_step_launches, pir_step_ms, pir_peak, pir_f32_ms,
+     pir_f32_peak) = promptir_train_path(args.seed)
+    yaml_runs = cli_yaml_runs(args.seed)
+    dino_ms, dino_peak, dino_windows = dino_matcher(args.seed)
+    log_held("phases 25-27")
+
     # per-step kernel time: each training shape's median time times the
     # number of blocks of that shape in one step (bf16, WithBias); the
     # forward's from phase 3 at the evaluation shapes, per forward
@@ -3356,6 +3680,19 @@ def main(argv=None) -> int:
         / core_peak * 1e3
     src = "textualdegremoval_tpu_torch/csrc/"
     step_bound, step_by = bounds("tblock_fused", TRAIN_SHAPES)
+
+    def f32_wide(half, src_file, ms_i, plain_i, err_i):
+        """The float32 row at C = 704, 176 channels a head (phase 6):
+        (the half, its f32 source, row indices of ms, plain ms, max
+        abs)."""
+        r = next(r for r in noise_bwd_rows if r[10][3] == 704)
+        bound, by = bound_ms(half, *r[10], eb=4)
+        return {"route": "cuda", "source": src + src_file,
+                "shape": list(r[10]), "max_abs_err": r[err_i],
+                "ms": r[ms_i], "plain_ms": r[plain_i], "bound_ms": bound,
+                "bound_by": by,
+                "ms_by_width": {str(q[10][3]): q[ms_i]
+                                for q in noise_bwd_rows}}
     summary = {"kernels": [
         # per 512 px restormer_deblur forward (bf16: the pipeline of
         # fwd_stencil.cu, the products of bwd_gemm.cu, bwd_stencil.cu's LN
@@ -3387,7 +3724,8 @@ def main(argv=None) -> int:
          "step_plain_ms": sum(r[0] * r[9] for r in bwd_rows),
          "step_bound_ms": step_bound, "step_bound_by": step_by,
          "noise_ms_per_launch": [r[2] for r in noise_rows],
-         "noise_plain_ms_per_launch": [r[3] for r in noise_rows]},
+         "noise_plain_ms_per_launch": [r[3] for r in noise_rows],
+         "promptir_step_launches": pir_step_launches[0]},
         # per 384 px batch-8 step (bf16: the passes of bwd_stencil.cu and
         # fwd_stencil.cu, the products of bwd_gemm.cu, then wgrad.cu;
         # "sources" names every source the row runs; library_ms: one
@@ -3409,7 +3747,11 @@ def main(argv=None) -> int:
          "library_ms": sum(r[0] * r[12] for r in bwd_rows),
          "library_of": "its weight gradients dW1, dW2: torch.matmul(A^T, B) "
                        "on the same operands",
-         "wgrad_ms": sum(r[0] * r[11] for r in bwd_rows)},
+         "wgrad_ms": sum(r[0] * r[11] for r in bwd_rows),
+         "promptir_step_launches": pir_step_launches[1],
+         # float32 at PromptIR's C = 704 (csrc/tblock_bwd.cu, a 2 x 2
+         # tile), per call
+         "f32_wide": f32_wide("gdfn_half_bwd", "tblock_bwd.cu", 4, 6, 2)},
         {"name": "attn_half_bwd", "route": "cuda",
          "source": src + "bwd_stencil.cu",
          "sources": [src + f for f in ("bwd_stencil.cu", "fwd_stencil.cu",
@@ -3428,7 +3770,13 @@ def main(argv=None) -> int:
          "library_ms": sum(r[0] * r[14] for r in bwd_rows),
          "library_of": "its weight gradients dA, dWproj, dWqkv: "
                        "torch.matmul(A^T, B) on the same operands",
-         "wgrad_ms": sum(r[0] * r[13] for r in bwd_rows)},
+         "wgrad_ms": sum(r[0] * r[13] for r in bwd_rows),
+         "promptir_step_launches": pir_step_launches[2],
+         # the float32 wide-head route: both passes of
+         # csrc/tblock_attn_bwd.cu on 4 x 4 tiles at PromptIR's C = 704,
+         # 176 channels a head, per call
+         "f32_wide": f32_wide("attn_half_bwd", "tblock_attn_bwd.cu", 5, 7,
+                              3)},
         # per 512 px nafnet_deblur forward (bf16: the pipeline of
         # naf_stencil.cu, bwd_gemm.cu's NAFBlock epilogues and
         # bwd_stencil.cu's LN rows; float32 and other bf16 widths run
@@ -3648,6 +3996,17 @@ def main(argv=None) -> int:
             " of its peak)" for v, r in stencil_rows.items())
         + f"; plain concat {stencil_rows['concat'][2] * 1e3:.3f} us, cudnn "
         f"{stencil_rows['concat'][3] * 1e3:.3f} us")
+    log(f"promptir_all_in_one training (phase 25): step 384 px batch "
+        f"{PROMPTIR_TRAIN_BATCH} bf16 {pir_step_ms:.2f} ms through the "
+        f"kernels, peak {pir_peak:.2f} GiB; f32 batch {PROMPTIR_F32_BATCH} "
+        f"{pir_f32_ms:.2f} ms, peak {pir_f32_peak:.2f} GiB; launches (4 "
+        f"bf16 steps) {pir_step_launches}")
+    log("shipped YAMLs through the CLI (phase 26): " + "; ".join(
+        f"{k} {v[1]:.3f} s an iteration, launches {v[0]}"
+        for k, v in yaml_runs.items()))
+    log(f"DINO matcher (phase 27): {dino_ms:.2f} ms a step of "
+        f"{DINO_BATCH} crops x {dino_windows} windows (vit_base f32), peak "
+        f"{dino_peak:.2f} GiB")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s after "
         f"the build")
     log(json.dumps(summary))

@@ -1,7 +1,10 @@
 """The port's training CLI end to end on the CPU: a tiny debug YAML over
 synthesised PNG folders (as tests/test_cli_train.py does for the JAX CLI),
 a few iterations through the frozen and the released step, checkpoints in
-the reference format, then auto-resume.  Imports no JAX."""
+the reference format, then auto-resume; the DINO reference-crop matcher
+from a seeded small ViT in the reference layout; and every shipped
+Restormer, PromptIR and NAFNet training YAML over synthesised folders of
+its dataset type, its network cut to toy widths.  Imports no JAX."""
 
 import os
 
@@ -9,13 +12,20 @@ import numpy as np
 import pytest
 import torch
 
+import textualdegremoval_tpu_torch.cli.train_restoration as tr
 from textualdegremoval_tpu_torch.cli.train_restoration import main
 from textualdegremoval_tpu_torch.convert import load_reference_checkpoint
 from textualdegremoval_tpu_torch.models import define_network
+from textualdegremoval_tpu_torch.models.dino import DinoVisionTransformer
 
-from torch_port_util import torch_share_of_cores  # noqa: F401
+from textualdegremoval_tpu_torch.cli.evaluate import shrink_for_smoke
+
+from torch_port_util import randomize, torch_share_of_cores  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("torch_share_of_cores")
+
+OPTIONS = os.path.join(os.path.dirname(__file__), "..", "options",
+                       "train_restoration")
 
 NET = {
     "type": "RestormerRefFusion", "dim": 8, "num_blocks": [1, 1, 1, 1],
@@ -133,13 +143,34 @@ def test_validation_and_refusals(workspace, monkeypatch):
         resolve_network({**opt, "network_g": {**opt["network_g"],
                                               "fused": False,
                                               "mdta_pallas": True}})
-    dino = root / "dino.pth"
-    dino.write_bytes(b"")
-    opt["name"], opt["path"]["pretrain_dino"] = "dino_smoke", str(dino)
+    # a DINO file: the matcher picks each step's reference window
+    opt["name"], opt["path"]["pretrain_dino"] = "dino_smoke", tiny_dino(root)
     cfg3 = root / "opt_dino.yml"
     cfg3.write_text(yaml.dump(opt))
-    with pytest.raises(NotImplementedError, match="A6"):
-        main(["--opt", str(cfg3), "--max_iters", "1", "--device", "cpu"])
+    calls = []
+
+    def counted(dino, lq, ref, **kw):
+        calls.append((tuple(lq.shape), tuple(ref.shape)))
+        return real(dino, lq, ref, **kw)
+
+    real = tr.select_ref_crop
+    monkeypatch.setattr(tr, "select_ref_crop", counted)
+    state = main(["--opt", str(cfg3), "--max_iters", "1", "--device", "cpu"])
+    assert state.step == 1
+    assert calls == [((2, 32, 32, 3), (2, 40, 44, 3))]
+    log = (root / "experiments" / "dino_smoke" / "train.log").read_text()
+    assert "DINO matcher loaded" in log and log.count("l_pix") == 1
+
+
+def tiny_dino(root) -> str:
+    """A seeded DINO ViT of small width (64 channels, one block, a 2 x 2
+    position grid) saved as a reference-layout state dict; its path."""
+    path = root / "dino_tiny.pth"
+    if not path.exists():
+        vit = randomize(DinoVisionTransformer(img_size=28, embed_dim=64,
+                                              depth=1, num_heads=1), 3)
+        torch.save(vit.state_dict(), path)
+    return str(path)
 
 
 def test_nafnet_motion_deblur_yaml_trains(workspace, monkeypatch):
@@ -202,3 +233,126 @@ def test_loader_workers_draw_their_own_crops(tmp_path):
     assert len(batches) == 4
     assert all(b["lq"].shape == (1, 16, 16, 3) for b in batches)
     assert len({b["gt"].numpy().tobytes() for b in batches}) == 4
+
+
+@pytest.fixture(scope="module")
+def dataset_folders(tmp_path_factory):
+    """Synthesised folders for the denoise, dual-pixel (16-bit lqL, lqR and
+    gt, 8-bit ref) and all-in-one (denoise, derain, dehaze) datasets."""
+    import cv2
+
+    root = tmp_path_factory.mktemp("yaml_data")
+    rng = np.random.default_rng(1)
+    subs = {"denoise": ("hq", "ref"), "derain": ("lq", "hq", "ref"),
+            "dehaze": ("lq", "hq", "ref"), "val": ("lq", "hq", "ref"),
+            "dp": ("gt", "lqL", "lqR", "ref")}
+    for task, names in subs.items():
+        for sub in names:
+            (root / task / sub).mkdir(parents=True)
+            for i in range(2):
+                top = 65535 if task == "dp" and sub != "ref" else 255
+                img = (rng.random((40, 44, 3)) * top).astype(
+                    np.uint16 if top > 255 else np.uint8)
+                cv2.imwrite(str(root / task / sub / f"img_{i}.png"), img)
+    return root
+
+
+GAUSSIAN_YAMLS = [f"restormer_gaussian_{c}_denoise_{s}.yml"
+                  for c in ("color", "gray") for s in ("15", "25", "50",
+                                                       "blind")]
+
+
+def _point_at(ds: dict, root) -> dict:
+    """A YAML dataset section with its folders replaced by synthesised
+    ones of its type."""
+    ds = dict(ds)
+    kind = ds["type"]
+    if kind == "Dataset_GaussianDenoisingWithRef":
+        ds.update(hqroot=str(root / "denoise" / "hq"),
+                  refroot=str(root / "denoise" / "ref"))
+    elif kind == "Dataset_PairedImageWithRef_DualPixel_16bit":
+        ds.update({k: str(root / "dp" / s) for k, s in (
+            ("hqroot", "gt"), ("lqlroot", "lqL"), ("lqrroot", "lqR"),
+            ("refroot", "ref"))})
+    elif kind == "Dataset_PairedUnifiedWithRef":
+        for task in ("denoise", "derain", "dehaze"):
+            ds[task] = {f"{s}root": str(root / task / s)
+                        for s in ("lq", "hq", "ref")
+                        if (root / task / s).exists()}
+    else:
+        ds.update({f"{s}root": str(root / "val" / s)
+                   for s in ("lq", "hq", "ref")})
+    return ds
+
+
+@pytest.mark.parametrize("name", GAUSSIAN_YAMLS + [
+    "restormer_defocus_dual_pixel_16bit.yml", "promptir_all_in_one.yml"])
+def test_shipped_yaml_trains(workspace, dataset_folders, monkeypatch, name):
+    """Each shipped Restormer / PromptIR YAML as it is, its data pointed at
+    synthesised folders of its dataset types, its network cut to toy
+    widths, batch 2 of 32 px: two iterations through the CLI (a frozen and
+    a released step), the lq|gt|pred|ref strip of logger.check_freq.  With
+    a DINO file, the 3-channel networks pick their references with the
+    matcher and the 1- (gray) and 6-channel (dual-pixel) ones are refused
+    before the first step."""
+    import yaml
+
+    root, _ = workspace
+    monkeypatch.chdir(root)
+    opt = yaml.safe_load(open(os.path.join(OPTIONS, name)))
+    for phase in ("train", "val"):
+        opt["datasets"][phase] = _point_at(opt["datasets"][phase],
+                                           dataset_folders)
+    opt["datasets"]["train"].update(
+        num_worker_per_gpu=0, batch_size_per_gpu=2, mini_batch_sizes=[2],
+        gt_size=32, gt_sizes=[32])
+    opt["network_g"] = shrink_for_smoke(opt["network_g"])
+    opt["train"]["param_fix_iterations"] = 1
+    opt["logger"].update(print_freq=1, check_freq=2)
+    opt["path"]["pretrain_dino"] = tiny_dino(root)
+    cfg = root / f"opt_{name}"
+    cfg.write_text(yaml.dump(opt))
+    calls = []
+    real = tr.select_ref_crop
+    monkeypatch.setattr(tr, "select_ref_crop",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    in_ch = opt["network_g"]["inp_channels"]
+    if in_ch != 3:
+        with pytest.raises(ValueError, match=f"{in_ch}-channel"):
+            main(["--opt", str(cfg), "--max_iters", "2", "--device", "cpu"])
+        exp = root / "experiments" / opt["name"]
+        assert "l_pix" not in (exp / "train.log").read_text()
+        opt["path"]["pretrain_dino"] = None
+        cfg.write_text(yaml.dump(opt))
+    state = main(["--opt", str(cfg), "--max_iters", "2", "--device", "cpu"])
+    assert state.step == 2 and len(calls) == (2 if in_ch == 3 else 0)
+    exp = root / "experiments" / opt["name"]
+    assert (exp / "train.log").read_text().count("l_pix") == 2
+    assert type(state.model).__name__ == opt["network_g"]["type"]
+    import cv2
+
+    strip = cv2.imread(str(exp / "visualization" / "000002.png"),
+                       cv2.IMREAD_UNCHANGED)
+    assert strip.shape[:2] == (32, 4 * 32)
+
+
+def test_chip_smoke_options_are_the_shipped_yamls():
+    """chip_smoke.py carries its training options as dicts (the card's
+    machine may lack PyYAML): they are the shipped YAMLs' networks and
+    train sections, param_fix_iterations aside."""
+    import yaml
+
+    import chip_smoke
+
+    def load(name):
+        return yaml.safe_load(open(os.path.join(OPTIONS, f"{name}.yml")))
+
+    for name, opt in (("restormer_motion_deblur", chip_smoke.TRAIN_OPT),
+                      ("promptir_all_in_one", chip_smoke.PROMPTIR_TRAIN_OPT)):
+        y = load(name)
+        assert opt["network_g"] == y["network_g"], name
+        assert dict(opt["train"], param_fix_iterations=y["train"][
+            "param_fix_iterations"]) == y["train"], name
+    for name, over in chip_smoke.CLI_YAML_NETS.items():
+        assert dict(chip_smoke.TRAIN_OPT["network_g"], **over) == \
+            load(name)["network_g"], name

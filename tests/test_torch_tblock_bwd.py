@@ -208,6 +208,50 @@ def test_cuda_bwd_sources_on_host_match_ref(host_lib, shape, heads, tile,
             assert _rel_l2(got[k], want[k]) < BF16_REL_L2, k
 
 
+@pytest.mark.parametrize("shape,heads,tile,nsplit,ln_type", [
+    ((1, 5, 6, 176), 1, (4, 4), 2, "WithBias"),   # PromptIR's 176 a head
+    ((1, 6, 5, 352), 2, (4, 4), 3, "BiasFree"),   # two heads of 176
+    ((2, 7, 9, 96), 2, (4, 8), 2, "WithBias"),    # a Restormer width
+])
+def test_f32_attn_bwd_on_host_takes_wide_heads(host_lib, shape, heads, tile,
+                                               nsplit, ln_type):
+    """The float32 attention half (csrc/tblock_attn_bwd.cu) at up to 176
+    channels a head against plain autograd, as the Restormer widths are
+    held above."""
+    p, x, _ = _inputs(shape, heads, ln_type, torch.float32, seed=shape[3])
+    dx1 = t(randn(np.random.default_rng(shape[1]), *shape))
+    kw = tb.prepare_tblock_weights(p, torch.float32, ln_type)
+    fwd = [tb._first_fit(tiles, lambda tl: host_lib.tblock_smem_bytes(
+        i, shape[3], heads, tl[0], tl[1], 4), "tblock_fused")
+        for i, tiles in enumerate((tb._STATS_TILES, tb._APPLY_TILES))]
+    _, _, stats = tb._launch(host_lib, x, kw, heads, ln_type, *fwd, nsplit, 0,
+                             want_x1=True)
+    r = ab._launch_attn_bwd(host_lib, x, dx1, kw, heads, ln_type, stats,
+                            tile, tile, nsplit, 2, 0)
+    got = {"dx": r[0], **ab._natural_attn_grads(p, *r[1:], ln_type)}
+    want_dx, want = ab.attn_half_bwd_ref(x, dx1, p, heads, ln_type)
+    want = {"dx": want_dx, **want}
+    assert set(got) == set(want)
+    for k in want:
+        assert_close(got[k], want[k], rtol=2e-4, atol=2e-5)
+
+
+def test_f32_attn_bwd_tiles_fit_promptir_widths(host_lib):
+    """Both float32 passes fit a 4 x 4 tile at C = 704 with 176 channels a
+    head, and the Restormer and narrower PromptIR widths keep 4 x 8."""
+    def tile(pass_id, c, heads):
+        return tb._first_fit(gb._BWD_TILES, lambda tl: (
+            host_lib.tblock_attn_bwd_smem_bytes(pass_id, c, heads, tl[0],
+                                                tl[1], 4)), "attn_half_bwd")
+
+    assert host_lib.tblock_attn_bwd_max_cph() == 192
+    for pass_id in (0, 1):
+        assert tile(pass_id, 704, 4) == (4, 4)
+        for c, heads in ((48, 1), (96, 2), (192, 4), (384, 8), (320, 4),
+                         (160, 4)):
+            assert tile(pass_id, c, heads) == (4, 8), (pass_id, c)
+
+
 def test_wgrad_on_host_matches_matmul(host_lib):
     """The split-K product over pixels, batched per (image, head) with
     strided operands, f32 and bf16, partials summed in split order."""
@@ -493,8 +537,8 @@ def test_bf16_attn_bwd_on_host_takes_176_channels_per_head(host_lib,
                                                            monkeypatch):
     """PromptIR's noise blocks have 176 channels per head: the bf16 half
     (forward statistics from the pipeline) runs there and matches plain
-    autograd; float32, whose passes hold a head in shared memory, still
-    refuses it."""
+    autograd (float32 there: test_f32_attn_bwd_on_host_takes_wide_heads);
+    above the kernels' 192 channels per head float32 refuses."""
     shape, heads, ln_type = (1, 8, 8, 176), 1, "WithBias"
     p, x, g = _inputs(shape, heads, ln_type, BF, seed=9)
     kw = tb.prepare_tblock_weights(p, BF, ln_type)
@@ -510,12 +554,13 @@ def test_bf16_attn_bwd_on_host_takes_176_channels_per_head(host_lib,
         assert _rel_l2(got[k], want[k]) < BF16_REL_L2, k
 
     import textualdegremoval_tpu_torch.ops._build as build
-    x32 = x.float().to("meta")  # not a CPU tensor: the kernels' route
+    # not a CPU tensor: the kernels' route
+    x32 = torch.empty((1, 8, 8, 200), device="meta")
     kw32 = tb.prepare_tblock_weights(p, torch.float32, ln_type)
     monkeypatch.setattr(ab, "_validate", lambda *a: None)
     monkeypatch.setattr(ab, "_check_weights", lambda *a: None)
     monkeypatch.setattr(build, "load_library", lambda: host_lib)
-    with pytest.raises(ValueError, match="176 channels per head exceeds 96"):
+    with pytest.raises(ValueError, match="200 channels per head exceeds 192"):
         ab.attn_half_bwd(x32, x32, p, heads, ln_type, stats, kw32)
 
 

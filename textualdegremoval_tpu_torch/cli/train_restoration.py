@@ -10,8 +10,17 @@ The loop (reference :225-303): the progressive (gt_size, batch) schedule of
 the YAML `iters` / `gt_sizes` / `mini_batch_sizes`, a random sub-batch and
 sub-crop per step, the reference crop, optional mixup, one call of the
 step function (`train.trainer.make_train_step`; a structurally frozen step
-while the masa group is frozen), logging, checkpoints, validation and
-auto-resume from the latest state.
+while the masa group is frozen), logging, the lq|gt|pred|ref strip every
+`logger.check_freq` iterations, checkpoints, validation and auto-resume
+from the latest state.
+
+The reference crop: where `path.pretrain_dino` names a file, the DINOv2
+matcher (`models.dino.select_ref_crop` on the frozen float32 ViT of that
+file, loaded in the reference layout, on the training device) picks the
+reference
+window most like each lq crop; it embeds 3-channel crops, so a network of
+other input channels (the gray denoise and dual-pixel YAMLs) is refused
+before the first step.  Without the file, the centre crop, as in JAX.
 
 The device is CUDA unless `--device cpu` is asked for.  On CUDA every
 TransformerBlock runs as the hand-written whole-block kernels, forward and
@@ -25,10 +34,7 @@ for autograd with or without it, as every block without a kernel
 backward does.  `--mdta_kernel` is refused: the MDTA statistics kernel
 is forward only, as is JAX's.
 
-Not ported yet: the DINO reference-crop matcher (ROADMAP A6; a
-`path.pretrain_dino` naming an existing file raises, none takes the JAX
-CLI's centre-crop path), the LHER visual dumps of `logger.check_freq`, and
-multi-device / FSDP training.
+Not ported yet: multi-device / FSDP training.
 """
 
 from __future__ import annotations
@@ -50,6 +56,10 @@ from textualdegremoval_tpu_torch.metrics import calculate_psnr, calculate_ssim
 from textualdegremoval_tpu_torch.models import (
     TBLOCK_NETWORKS, define_network,
 )
+from textualdegremoval_tpu_torch.models.dino import (
+    load_dino, select_ref_crop,
+)
+from textualdegremoval_tpu_torch.ops.resize import bilinear_resize_torch
 from textualdegremoval_tpu_torch.train.checkpoint import CheckpointManager
 from textualdegremoval_tpu_torch.train.mixing import mixing_augment
 from textualdegremoval_tpu_torch.train.schedules import (
@@ -58,6 +68,7 @@ from textualdegremoval_tpu_torch.train.schedules import (
 from textualdegremoval_tpu_torch.train.trainer import (
     build_optimizer, create_train_state, make_eval_step, make_train_step,
 )
+from textualdegremoval_tpu_torch.utils.image import imwrite, tensor2img
 from textualdegremoval_tpu_torch.utils.options import parse
 
 
@@ -98,6 +109,46 @@ def center_crop_ref(ref, gt_size):
     rh, rw = ref.shape[1:3]
     top, left = max((rh - gt_size) // 2, 0), max((rw - gt_size) // 2, 0)
     return ref[:, top: top + gt_size, left: left + gt_size]
+
+
+def build_matcher(opt, device):
+    """The frozen float32 DINOv2 of `path.pretrain_dino` on `device` (the
+    ViT its shapes describe: vit_base for dinov2_vitb14.pth, as the JAX CLI
+    builds), or None where the option names no file (the centre crop).
+    Raises ValueError where the network's lq is not 3-channel: the matcher
+    embeds lq crops with DINO's 3-channel patch embedding."""
+    path = opt["path"].get("pretrain_dino")
+    if not path or not os.path.exists(str(path)):
+        return None
+    net = opt["network_g"]
+    in_ch = net.get("inp_channels", net.get("img_channel", 3))
+    if in_ch != 3:
+        raise ValueError(
+            f"path.pretrain_dino: the DINO matcher embeds 3-channel crops, "
+            f"and {net['type']} here takes {in_ch}-channel lq; unset "
+            "path.pretrain_dino to train with the centre crop")
+    return load_dino(str(path), device=device)
+
+
+def dump_lher(state, batch, opt, current_iter):
+    """The lq|gt|pred|ref strip of the step's first image (reference
+    image_restoration_ref_model.py:258-266, JAX `_dump_lher`) into
+    path.visualization/<iter>.png; a 6-channel dual-pixel lq shows its
+    left view, a reference of another height is resized to lq's."""
+    pred = make_eval_step(use_ema=False)(
+        state, {"lq": batch["lq"][:1], "ref": batch["ref"][:1]})
+    lq = batch["lq"][:1]
+    if lq.shape[-1] == 6:
+        lq = lq[..., :3]
+    ref = batch["ref"][:1].float()
+    h = lq.shape[1]
+    if ref.shape[1] != h:
+        ref = bilinear_resize_torch(ref, h, int(ref.shape[2] * h /
+                                                ref.shape[1]))
+    strip = np.concatenate([tensor2img(v) for v in (
+        lq, batch["gt"][:1], pred, ref)], axis=1)
+    imwrite(strip, os.path.join(opt["path"]["visualization"],
+                                f"{current_iter:06d}.png"))
 
 
 def resolve_network(opt, mixed_precision=None, remat=None, fused=None,
@@ -219,11 +270,9 @@ def main(argv=None):
         if ema_decay > 0:
             ck = torch.load(load_path, map_location="cpu", weights_only=True)
             ema_params = ck.get("params_ema") if isinstance(ck, dict) else None
-    dino_path = opt["path"].get("pretrain_dino")
-    if dino_path and os.path.exists(str(dino_path)):
-        raise NotImplementedError(
-            "the DINO reference-crop matcher is not ported yet (ROADMAP A6); "
-            "unset path.pretrain_dino to train with the centre crop")
+    dino = build_matcher(opt, device)
+    if dino is not None:
+        logger.info(f"DINO matcher loaded from {opt['path']['pretrain_dino']}")
     model.to(device)
 
     lr = topt["optim_g"]["lr"]
@@ -260,6 +309,7 @@ def main(argv=None):
     log_freq = int(opt.get("logger", {}).get("print_freq", 100))
     save_freq = int(opt.get("logger", {}).get("save_checkpoint_freq", 5000))
     val_freq = int(opt.get("val", {}).get("val_freq", 5000))
+    check_freq = int(opt.get("logger", {}).get("check_freq", 0) or 0)
 
     epoch = 0
     t_data = t_iter = time.time()
@@ -273,20 +323,25 @@ def main(argv=None):
                                         batches)
             batch = crop_batch(batch, gt_size, mini, rng)
             gt, lq = batch["gt"], batch["lq"]
+            if dino is not None:  # on the crop before mixup, as in JAX
+                ref = select_ref_crop(dino, lq.to(device, non_blocking=True),
+                                      batch["ref"].to(device,
+                                                      non_blocking=True))
+            else:
+                ref = center_crop_ref(batch["ref"], gt_size).to(
+                    device, non_blocking=True)
             if mixing_cfg.get("mixup"):
                 gt, lq = mixing_augment(mix_gen, gt, lq,
                                         mixing_cfg.get("mixup_beta", 1.2),
                                         mixing_cfg.get("use_identity", True))
-            step_batch = {
-                "lq": lq.to(device, non_blocking=True),
-                "gt": gt.to(device, non_blocking=True),
-                "ref": center_crop_ref(batch["ref"], gt_size).to(
-                    device, non_blocking=True),
-            }
+            step_batch = {"lq": lq.to(device, non_blocking=True),
+                          "gt": gt.to(device, non_blocking=True), "ref": ref}
             data_time = time.time() - t_data
             fn = (frozen_step_fn if frozen_step_fn is not None
                   and current_iter < fix_iters else step_fn)
             state, metrics = fn(state, step_batch)
+            if check_freq and current_iter % check_freq == 0:
+                dump_lher(state, step_batch, opt, current_iter)
             if current_iter % log_freq == 0:
                 lrs = opt_g.lrs(current_iter)
                 logger.info(

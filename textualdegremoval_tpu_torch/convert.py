@@ -75,12 +75,16 @@ def _load_tree(model: torch.nn.Module, params: Mapping[str, Any],
     """Load a JAX parameter tree into `model` with strict key matching,
     keeping the dtypes of `model`'s tensors.  locate(key, tensor) gives the
     JAX path of a state-dict entry and the function that turns its JAX
-    array into the port's layout.  Raises on a missing, surplus or
-    mis-shaped leaf."""
+    array into the port's layout (path None: JAX has no such leaf, the
+    port's tensor stays).  Raises on a missing, surplus or mis-shaped
+    leaf."""
     sd = {}
     used = set()
     for key, t in model.state_dict().items():
         path, to_port = locate(key, t)
+        if path is None:  # a port tensor that JAX does not declare
+            sd[key] = t
+            continue
         node = params
         for seg in path:
             if not isinstance(node, Mapping) or seg not in node:
@@ -117,6 +121,30 @@ def load_jax_params(model: torch.nn.Module,
         if t.ndim == 2:
             return path, lambda a: a.T  # Dense (in, out) -> Linear (out, in)
         return path, lambda a: a
+
+    return _load_tree(model, params, locate)
+
+
+def load_jax_dino_params(model: torch.nn.Module,
+                         params: Mapping[str, Any]) -> torch.nn.Module:
+    """Load the JAX DINO tree (tower_maps' `convert_dino` layout:
+    `patch_embed/kernel`, `blocks_i/ls1_gamma`, LayerNorm `scale`) into
+    the port's `models.dino.DinoVisionTransformer`; its unused mask_token,
+    which JAX does not declare, stays as it is."""
+
+    def locate(key, t):
+        if key == "mask_token":
+            return None, None
+        key = re.sub(r"^blocks\.(\d+)\.", r"blocks_\1.", key)
+        key = re.sub(r"\.(ls\d)\.gamma$", r".\1_gamma", key)
+        path = key.replace("patch_embed.proj.", "patch_embed.").split(".")
+        if path[-1] == "weight":
+            path[-1] = "kernel" if t.ndim >= 2 else "scale"
+        if t.ndim == 4:
+            return tuple(path), lambda a: a.transpose(3, 2, 0, 1)
+        if t.ndim == 2:
+            return tuple(path), lambda a: a.T
+        return tuple(path), lambda a: a
 
     return _load_tree(model, params, locate)
 

@@ -30,8 +30,7 @@ constexpr int kVC = 32;             // v output-channel chunk (pass B)
 constexpr int kHC = 32;             // GDFN hidden chunk; hpad % kHC == 0
 constexpr int kRP = 4;              // pixel rows per thread, FMA products
 constexpr int kRowPad = 16;         // smem GEMM operands hold rows to x16
-constexpr int kMaxCph = 192;        // channels per head, forward kernels
-constexpr int kMaxCphBwd = 96;      // channels per head, f32 attention bwd
+constexpr int kMaxCph = 192;        // channels per head
 constexpr int kAccPad = 4;          // f32 accumulator row padding
 // Restormer's LayerNorm epsilon, the default of the helpers below;
 // nafblock.cu passes NAFNet's 1e-6 to them, and bwd_stencil.cu's

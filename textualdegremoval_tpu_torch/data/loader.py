@@ -14,31 +14,47 @@ import torch
 from torch.utils.data import DataLoader
 
 from textualdegremoval_tpu_torch.data.datasets import (
-    PairedImageWithRefDataset,
+    GaussianDenoisingWithRefDataset, PairedDehazeWithRefDataset,
+    PairedImageDataset, PairedImageDPWithRefDataset,
+    PairedImageWithRefDataset, PairedUnifiedWithRefDataset,
 )
 from textualdegremoval_tpu_torch.data.sampler import EnlargedSampler
 
-# YAML dataset types ported so far; the JAX registry's others follow with
-# the slices that need them
-_DATASETS = {"Dataset_PairedImageWithRef": PairedImageWithRefDataset}
+# the YAML dataset types (the JAX registry's names)
+_DATASETS = {
+    "Dataset_PairedImage": PairedImageDataset,
+    "Dataset_PairedImageWithRef": PairedImageWithRefDataset,
+    "Dataset_GaussianDenoisingWithRef": GaussianDenoisingWithRefDataset,
+    "Dataset_PairedDehazeWithRef": PairedDehazeWithRefDataset,
+    "Dataset_PairedUnifiedWithRef": PairedUnifiedWithRefDataset,
+    "Dataset_PairedImageWithRef_DualPixel_16bit": PairedImageDPWithRefDataset,
+}
 
 
 def create_dataset(opt: dict):
     name = opt["type"]
     if name not in _DATASETS:
-        raise NotImplementedError(
-            f"dataset type {name!r} is not ported yet (ported: "
-            f"{sorted(_DATASETS)})")
+        raise ValueError(f"unknown dataset type {name!r} (known: "
+                         f"{sorted(_DATASETS)})")
     return _DATASETS[name](opt)
 
 
 def collate(samples: list[dict]) -> dict:
-    """Stack arrays into (B, H, W, C) tensors; keep metadata as lists."""
+    """Stack arrays into (B, H, W, C) tensors; keep metadata as lists.
+    Arrays of different shapes in one batch raise, as the JAX package's
+    np.stack does (the all-in-one dataset passes whole references, so its
+    folders must hold references of one size)."""
     out = {}
     for k in samples[0]:
         vals = [s[k] for s in samples]
-        out[k] = (torch.from_numpy(np.stack(vals))
-                  if isinstance(vals[0], np.ndarray) else vals)
+        if not isinstance(vals[0], np.ndarray):
+            out[k] = vals
+            continue
+        shapes = sorted({v.shape for v in vals})
+        if len(shapes) > 1:
+            raise ValueError(f"collate: {k!r} arrays of shapes {shapes} in "
+                             "one batch cannot be stacked")
+        out[k] = torch.from_numpy(np.stack(vals))
     return out
 
 

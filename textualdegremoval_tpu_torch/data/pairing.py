@@ -1,5 +1,6 @@
-"""Image listing and lq/gt/ref pairing (counterpart of `scan_images` and
-`tri_paths_from_folder` in textualdegremoval_tpu/data/pairing.py)."""
+"""Image listing and lq/gt(/ref) pairing (counterpart of `scan_images`,
+`paired_paths_from_folder`, `tri_paths_from_folder` and
+`paths_from_meta_info` in textualdegremoval_tpu/data/pairing.py)."""
 
 from __future__ import annotations
 
@@ -18,6 +19,48 @@ def scan_images(folder: str) -> list[str]:
             if f.endswith(IMG_EXTS):
                 out.append(osp.join(root, f))
     return sorted(out)
+
+
+def paired_paths_from_folder(folders, keys, filename_tmpl="{}"):
+    """[(lq, gt)] path dicts: each gt file with its lq namesake under
+    `filename_tmpl`; when none has one, by index of the sorted listings
+    (JAX `paired_paths_from_folder`)."""
+    in_folder, gt_folder = folders
+    in_key, gt_key = keys
+    gt_paths = scan_images(gt_folder)
+    paths = []
+    for gt_path in gt_paths:
+        base, ext = osp.splitext(osp.basename(gt_path))
+        in_path = osp.join(in_folder, filename_tmpl.format(base) + ext)
+        if osp.exists(in_path):
+            paths.append({f"{in_key}_path": in_path,
+                          f"{gt_key}_path": gt_path})
+    if paths:
+        return paths
+    in_paths = scan_images(in_folder)
+    if len(in_paths) != len(gt_paths):
+        raise ValueError(f"{in_key} and {gt_key} counts differ: "
+                         f"{len(in_paths)} vs {len(gt_paths)}")
+    return [{f"{in_key}_path": i, f"{gt_key}_path": g}
+            for i, g in zip(in_paths, gt_paths)]
+
+
+def paths_from_meta_info(meta_file: str, folders, keys):
+    """[(lq, gt, ref)] from a meta_info file of 'lq_name [gt_name]' lines;
+    the ref is the lq's namesake (JAX `paths_from_meta_info`)."""
+    lq_folder, gt_folder, ref_folder = folders
+    lq_key, gt_key, ref_key = keys
+    paths = []
+    with open(meta_file) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            gt_name = parts[1] if len(parts) > 1 else parts[0]
+            paths.append({f"{lq_key}_path": osp.join(lq_folder, parts[0]),
+                          f"{gt_key}_path": osp.join(gt_folder, gt_name),
+                          f"{ref_key}_path": osp.join(ref_folder, parts[0])})
+    return paths
 
 
 def tri_paths_from_folder(folders, keys, filename_tmpl="{}"):

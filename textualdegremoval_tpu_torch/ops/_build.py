@@ -41,8 +41,8 @@ _SIGNATURES = {
     "tblock_gdfn_bwd": ([_P] * 14 + [_I] * 9 + [_P], _I),
     "tblock_attn_bwd_max_cph": ([], _I),
     "tblock_attn_bwd_smem_bytes": ([_I] * 6, _L),
-    "tblock_attn_bwd_stats": ([_P] * 11 + [_I] * 8 + [_P], _I),
-    "tblock_attn_bwd_apply": ([_P] * 22 + [_I] * 9 + [_P], _I),
+    "tblock_attn_bwd_stats": ([_P] * 15 + [_I] * 8 + [_P], _I),
+    "tblock_attn_bwd_apply": ([_P] * 19 + [_I] * 9 + [_P], _I),
     "tblock_wgrad": ([_P, _I, _L, _L, _P, _I, _L, _L, _P] + [_I] * 7 + [_P],
                      _I),
     "tblock_wgrad_ssq": ([_P, _I, _L, _L, _P, _I, _L, _L] + [_P] * 3

@@ -17,7 +17,8 @@ passes of csrc/bwd_stencil.cu and csrc/fwd_stencil.cu and the products of
 csrc/bwd_gemm.cu (laid out at the top of csrc/bwd_stencil.cu; pass 1
 keeps y, lin and q | k | v for pass 2, which recomputes none of them, and
 takes any number of channels per head), in float32 the two passes of
-csrc/tblock_attn_bwd.cu (at most 96 channels per head); and the
+csrc/tblock_attn_bwd.cu (the same split between the passes; at most 192
+channels per head, C up to 704 on a 4 x 4 tile); and the
 weight-gradient products of csrc/wgrad.cu.  `attn_half_bwd.launches`
 counts calls that launch them.
 
@@ -156,17 +157,19 @@ def _launch_attn_bwd(lib, x, dx1, kw, heads, ln_type, stats, stats_tile,
     if is_bf16:
         ys, mu, inv, lins, qkv, os_, dos = _attn_pass1_bf16(
             lib, x, dx1, kw, ln_type, attn, heads, sms, stream)
-        vs, ldv = qkv[:, 2 * c:], 3 * c
     else:
-        vs, os_, dos = (torch.empty((npix, c), dtype=dt, device=dev)
+        ys, os_, dos = (torch.empty((npix, c), dtype=dt, device=dev)
                         for _ in range(3))
+        lins, qkv = (torch.empty((npix, 3 * c), dtype=dt, device=dev)
+                     for _ in range(2))
         _check(lib.tblock_attn_bwd_stats(
             _ptr(x), _ptr(dx1), _ptr(kw["ln1w"]), _ptr(kw["ln1b"]),
-            _ptr(kw["wv"]), _ptr(kw["dwv"]), _ptr(attn), _ptr(kw["wprojt"]),
-            _ptr(vs), _ptr(os_), _ptr(dos), b, hgt, wdt, c, heads,
-            bias_free, stats_tile[0], stats_tile[1], stream), lib,
+            _ptr(kw["wq"]), _ptr(kw["wk"]), _ptr(kw["wv"]),
+            _ptr(kw["dwall"]), _ptr(attn), _ptr(kw["wprojt"]), _ptr(ys),
+            _ptr(lins), _ptr(qkv), _ptr(os_), _ptr(dos), b, hgt, wdt, c,
+            heads, bias_free, stats_tile[0], stats_tile[1], stream), lib,
             "tblock_attn_bwd_stats")
-        ldv = c
+    vs, ldv = qkv[:, 2 * c:], 3 * c
     # dA per (image, head) = do_h^T v_h; dWproj = o^T dx1
     da = _wgrad(lib, dos, c, (hw * c, cph), vs, ldv, (hw * ldv, cph), hw,
                 cph, cph, (b, heads), sms, stream)
@@ -181,26 +184,22 @@ def _launch_attn_bwd(lib, x, dx1, kw, heads, ln_type, stats, stats_tile,
         dx, dln, dlins, dtap = _launch_attn_apply_bf16(
             lib, x, dx1, kw, heads, ln_type, mu, inv, lins, qkv, dos, attn, m,
             dqd, dkd, sms, stream)
-        del lins, qkv
     else:
         mt = m.transpose(-1, -2).contiguous()
         at = attn.transpose(-1, -2).contiguous()
         dx = torch.empty_like(x)
-        ys = torch.empty((npix, c), dtype=dt, device=dev)
         dlins = torch.empty((npix, 3 * c), dtype=dt, device=dev)
         dtap_part = torch.empty((b * nsplit, 27, c), dtype=f32, device=dev)
         dln_part = torch.empty((b * nsplit, 2, c), dtype=f32, device=dev)
         _check(lib.tblock_attn_bwd_apply(
-            _ptr(x), _ptr(dx1), _ptr(kw["ln1w"]), _ptr(kw["ln1b"]),
-            _ptr(kw["wq"]), _ptr(kw["wk"]), _ptr(kw["wv"]), _ptr(kw["wqt"]),
-            _ptr(kw["wkt"]), _ptr(kw["wvt"]), _ptr(kw["dwall"]),
-            _ptr(kw["wprojt"]), _ptr(m), _ptr(mt), _ptr(at),
-            _ptr(dqd), _ptr(dkd), _ptr(dx), _ptr(ys),
-            _ptr(dlins), _ptr(dtap_part), _ptr(dln_part), b, hgt, wdt, c,
-            heads, bias_free, apply_tile[0], apply_tile[1], nsplit, stream),
-            lib, "tblock_attn_bwd_apply")
+            _ptr(x), _ptr(dx1), _ptr(kw["ln1w"]), _ptr(qkv), _ptr(lins),
+            _ptr(dos), _ptr(kw["wqt"]), _ptr(kw["wkt"]), _ptr(kw["wvt"]),
+            _ptr(kw["dwall"]), _ptr(m), _ptr(mt), _ptr(at), _ptr(dqd),
+            _ptr(dkd), _ptr(dx), _ptr(dlins), _ptr(dtap_part),
+            _ptr(dln_part), b, hgt, wdt, c, heads, bias_free, apply_tile[0],
+            apply_tile[1], nsplit, stream), lib, "tblock_attn_bwd_apply")
         dtap, dln = dtap_part.sum(0), dln_part.sum(0)
-    del dos
+    del lins, qkv, dos
     dwqkv = _wgrad(lib, ys, c, (0, 0), dlins, 3 * c, (0, 0), npix, c, 3 * c,
                    (1, 1), sms, stream)[0, 0]
     return dx, dwqkv, dtap, dwproj, dln, dtemp
@@ -244,7 +243,6 @@ def attn_half_bwd(x, dx1, p, heads, ln_type, stats=None, kw=None):
 
     lib = load_library()
     b, hgt, wdt, c = x.shape
-    # the float32 passes hold a head's channels in shared memory
     if x.dtype == torch.float32 and c // heads > lib.tblock_attn_bwd_max_cph():
         raise ValueError(f"attn_half_bwd: {c // heads} channels per head "
                          f"exceeds {lib.tblock_attn_bwd_max_cph()} in float32")

@@ -46,3 +46,55 @@ def bilinear_resize_torch(x: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
     y = F.interpolate(x.permute(0, 3, 1, 2), size=(oh, ow), mode="bilinear",
                       align_corners=False, antialias=False)
     return y.permute(0, 2, 3, 1)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic kernel with a = -0.5 (torch's bicubic takes -0.75)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(1.0 - x.abs(), 0.0)
+
+
+_KERNELS = {"bilinear": _triangle, "linear": _triangle,
+            "bicubic": _keys_cubic, "cubic": _keys_cubic}
+
+
+def _resize_weights(n_in: int, n_out: int, kernel, device) -> torch.Tensor:
+    """(n_in, n_out) float32 weights of one axis, as jax.image.resize's
+    `compute_weight_mat` makes them: half-pixel centres, the kernel widened
+    by in/out on a downscale (antialiasing), each column renormalised over
+    the inputs that exist, zero where the sample lies outside the input."""
+    f32 = torch.float32
+    inv = torch.tensor(1.0 / (n_out / n_in), dtype=f32, device=device)
+    sample = (torch.arange(n_out, dtype=f32, device=device) + 0.5) * inv \
+        - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=f32, device=device)[
+        :, None]).abs() / torch.clamp_min(inv, 1.0)
+    w = kernel(x)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(f32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def image_resize(x: torch.Tensor, shape, method: str) -> torch.Tensor:
+    """jax.image.resize(x, shape, method) for method bilinear or bicubic
+    (JAX's antialiased scale-and-translate): each axis whose size changes
+    is one product with a weight matrix, the others are left alone.  Not
+    F.interpolate: that samples a = -0.75 bicubic and does not widen its
+    kernel on a downscale."""
+    kernel = _KERNELS[method]
+    if len(shape) != x.ndim:
+        raise ValueError(f"image_resize: shape {tuple(shape)} for a "
+                         f"{x.ndim}-d input")
+    for d, (n_in, n_out) in enumerate(zip(x.shape, shape)):
+        if n_in != n_out:
+            w = _resize_weights(n_in, n_out, kernel, x.device).to(x.dtype)
+            x = torch.movedim(torch.tensordot(x, w, dims=([d], [0])), -1, d)
+    return x

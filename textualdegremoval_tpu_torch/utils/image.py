@@ -2,7 +2,8 @@
 textualdegremoval_tpu/utils/image.py).
 
 `tensor2img` flips RGB to BGR with numpy, and `imwrite` imports cv2 when
-called, so that machines that only run the model need no cv2.
+called, so that machines that only run the model need no cv2; where cv2
+is missing, `imwrite` writes PNG files with numpy (data/png.py).
 """
 
 from __future__ import annotations
@@ -29,8 +30,19 @@ def tensor2img(t, rgb2bgr: bool = True, min_max=(0, 1)) -> np.ndarray:
 
 
 def imwrite(img: np.ndarray, path: str, auto_mkdir: bool = True) -> bool:
-    import cv2
-
+    """Write a BGR (or gray) uint8/uint16 image, as cv2.imwrite does."""
     if auto_mkdir:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    try:
+        import cv2
+    except ImportError:
+        from textualdegremoval_tpu_torch.data.png import write_png
+
+        if not path.lower().endswith(".png"):
+            raise NotImplementedError(f"{path}: without cv2 only PNG files "
+                                      "are written")
+        if img.ndim == 3 and img.shape[2] == 3:
+            img = img[..., ::-1]
+        write_png(path, img)
+        return True
     return cv2.imwrite(path, img)

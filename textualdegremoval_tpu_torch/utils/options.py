@@ -5,7 +5,8 @@ utils/utils_options.py:31-89): dataset phase tagging, the experiment
 directory layout derived from `name` (experiments/<name>/models,
 training_states, visualization, log), and any name containing 'debug'
 rewiring the val/log/save frequencies to 8 iterations.  PyYAML is imported
-inside `parse`: machines that only run the model may lack it.
+inside `parse`, and a `.json` file (JSON is YAML too) is read without it:
+machines that only run the model may lack it.
 """
 
 from __future__ import annotations
@@ -16,10 +17,15 @@ import os.path as osp
 
 def parse(opt_path: str, is_train: bool = True,
           root: str | None = None) -> dict:
-    import yaml
-
     with open(opt_path) as f:
-        opt = yaml.safe_load(f)
+        if opt_path.endswith(".json"):
+            import json
+
+            opt = json.load(f)
+        else:
+            import yaml
+
+            opt = yaml.safe_load(f)
     opt["is_train"] = is_train
 
     scale = opt.get("scale", 1)
