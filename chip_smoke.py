@@ -225,7 +225,33 @@ Phases, each of which raises on failure:
    random state dict in the reference layout (`load_dino`, strict): 8
    crops of 384 px against 480 x 480 refs (4 windows each) in float32,
    card against CPU on 2 of them (tokens, scores, the top-1 where the
-   CPU's top-2 margin is clear), ms per step and peak memory.
+   CPU's top-2 margin is clear), ms per step and peak memory;
+28. DRSformerRefFusion (the drsformer_derain task: dim 48, blocks 4/6/6/8,
+   heads 1/2/4/8, MEFC, nf 48; seeded random weights, non-zero fusion
+   gates) on the card against the CPU in float32 at 128 px, then
+   `restore_and_score` on synthetic 512 x 512 triples in bfloat16 and
+   float32 (one warm-up, two timed; the forward's median ms, peak memory,
+   in bf16 a profiled forward's device time and idle share), and one 512 px
+   bfloat16 forward of the 200L/SPA variant (drsformer_derain_200l_spa,
+   no MEFC);
+29. the training CLI's step function with the options of
+   drsformer_derain_rain200h.yml at 384 px, float32 (the YAML has no
+   mixed_precision) and bfloat16, each at the largest batch of 8, 4, 2, 1
+   whose step fits the card (two timed steps, peak memory; a profiled
+   float32 step);
+30. SFNetRefFusion (sfnet_dehaze_indoor: num_res 16, base 32, nf 32, TLC
+   pooling at base 246; random BN statistics) as phase 28, and one 512 px
+   bfloat16 forward of sfnet_dehaze_outdoor (TLC base 210); the finest of
+   the three outputs is scored;
+31. the step of sfnet_dehaze_indoor.yml's options as phase 29, in which
+   the BN running statistics move;
+32. one float32 step at 128 px on the card against the CPU for each
+   family (DRSformer at batch 1, SFNet at batch 2): the loss, every
+   gradient, the update and SFNet's BN statistics.
+   Phases 28-32 read every kernel counter of the port: none may move (no
+   Pallas kernel lies on these paths; every op is plain torch, the
+   convolutions cuDNN's), and the kernels line gives each kernel's count
+   there as drsformer_sfnet_launches.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is nvidia-smi's, and before that a JSON summary of each kernel.  Without
@@ -283,6 +309,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import os
 import shutil
@@ -1322,16 +1349,22 @@ def profile_device(fn, what: str):
 
 
 def train_step_vs_cpu(seed: int, opt=TRAIN_OPT, resolve_kw=None,
-                      kernels=()):
-    """Phases 7 and 22: one f32 step of `opt` (resolve_network with
-    `resolve_kw`) at 128 px, batch 1, on the card (kernels) against the
-    same step on the CPU (plain blocks); each (kernel, n) of `kernels` is
-    launched n times in the card's step.  Each parameter's
+                      kernels=(), batch_size=1, grad_floor=0.0,
+                      update_tol=1e-2):
+    """Phases 7, 22 and 32: one f32 step of `opt` (resolve_network with
+    `resolve_kw`) at 128 px, batch `batch_size`, on the card (kernels)
+    against the same step on the CPU (plain blocks); each (kernel, n) of
+    `kernels` is launched n times in the card's step.  Each parameter's
     gradient, as the step hands it to the optimizer, is held to
-    ||g_card - g_cpu|| <= 1e-3 ||g_cpu||, so that one small tensor with a
-    wrong gradient fails (the first Adam update, about lr * g / |g|, keeps
-    only the sign of each element); and every element of the update to
-    |d_card - d_cpu| <= 1e-2 lr."""
+    ||g_card - g_cpu|| <= 1e-3 ||g_cpu|| + grad_floor ||all of g_cpu||, so
+    that one small tensor with a wrong gradient fails (the first Adam
+    update, about lr * g / |g|, keeps only the sign of each element; the
+    floor is for gradients that vanish in exact arithmetic, as a bias
+    before a norm that subtracts it); and every element of the update, the
+    BN running statistics included, to |d_card - d_cpu| <= update_tol lr
+    (Adam's first step, lr g / (|g| + eps), turns a difference of 1e-9 in
+    a gradient element near eps into a tenth of lr: C3's 0.5 lr where a
+    network has such elements)."""
     topt = dict(opt["train"], param_fix_iterations=0)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
@@ -1340,9 +1373,9 @@ def train_step_vs_cpu(seed: int, opt=TRAIN_OPT, resolve_kw=None,
     model_gpu = copy.deepcopy(model_cpu).cuda()
     init = {k: v.clone() for k, v in model_cpu.state_dict().items()}
     rng = np.random.default_rng(seed + 5)
-    lq, gt, ref = synthetic_triple(rng, 128)
-    batch = {k: torch.from_numpy(v)[None] for k, v in
-             (("lq", lq), ("gt", gt), ("ref", ref))}
+    trip = [synthetic_triple(rng, 128) for _ in range(batch_size)]
+    batch = {k: torch.from_numpy(np.stack([tr[i] for tr in trip]))
+             for i, k in enumerate(("lq", "gt", "ref"))}
     losses, grads, after = [], [], []
     for k, _ in kernels:
         k.launches = 0
@@ -1363,21 +1396,33 @@ def train_step_vs_cpu(seed: int, opt=TRAIN_OPT, resolve_kw=None,
         after.append({k: v.detach().cpu() for k, v in
                       model.state_dict().items()})
     lr = opt["train"]["optim_g"]["lr"]
+    total = float(torch.linalg.vector_norm(torch.stack(
+        [g.norm() for g in grads[0].values()])))
     g_rel = sorted(
-        (((grads[1][k] - g).norm() / g.norm().clamp_min(1e-30)).item(), k)
+        (((grads[1][k] - g).norm() / g.norm().clamp_min(1e-30)).item(),
+         ((grads[1][k] - g).norm() / (1e-3 * g.norm() + grad_floor * total)
+          .clamp_min(1e-30)).item(), k)
         for k, g in grads[0].items())
-    worst = max(((after[1][k] - v) - (after[0][k] - v)).abs().max().item()
-                for k, v in init.items())
+    g_use = max(r[1] for r in g_rel)
+    worst = max(((after[1][k] - v) - (after[0][k] - v)).abs().float().max()
+                .item() for k, v in init.items())
+    bn_moved = sum(not torch.equal(after[0][k], v) for k, v in init.items()
+                   if k.endswith(("running_mean", "running_var")))
     rel = abs(losses[1] - losses[0]) / abs(losses[0])
-    log(f"f32 train step 128 px, card vs CPU: l_pix {losses[1]:.7f} vs "
+    log(f"{opt['network_g']['type']} f32 train step 128 px batch "
+        f"{batch_size}, card vs CPU: l_pix {losses[1]:.7f} vs "
         f"{losses[0]:.7f} (rel {rel:.2e}); gradient L2 error / norm over "
         f"{len(g_rel)} parameters: median {g_rel[len(g_rel) // 2][0]:.2e}, "
-        f"largest " + ", ".join(f"{k} {v:.2e}" for v, k in g_rel[-3:])
-        + f"; update difference max {worst:.3e} (lr {lr})" + "".join(
+        f"largest " + ", ".join(f"{k} {v:.2e}" for v, _, k in g_rel[-3:])
+        + f", bound use {g_use:.3f} (floor {grad_floor} of {total:.3e}); "
+        f"update difference max {worst:.3e} (lr {lr}, bound {update_tol} "
+        "lr)"
+        + (f", BN statistics moved {bn_moved}" if bn_moved else "") + "".join(
             f"; {k.__name__} launches {k.launches}" for k, _ in kernels))
-    if not rel <= 1e-4 or not g_rel[-1][0] <= 1e-3 or worst > 1e-2 * lr \
+    if not rel <= 1e-4 or not g_use <= 1.0 or worst > update_tol * lr \
             or any(k.launches != n for k, n in kernels):
         raise RuntimeError("the f32 step on the card disagrees with the CPU")
+    return bn_moved
 
 
 # ---------------------------------------------------------------------------
@@ -3364,6 +3409,323 @@ def dino_matcher(seed: int):
 
 
 # ---------------------------------------------------------------------------
+# Phases 28-32: DRSformer and SFNet, whose path reaches no kernel
+# ---------------------------------------------------------------------------
+
+# every launch counter of the port's kernels, as (function, attribute)
+KERNEL_COUNTERS = [
+    (tb.tblock_fused, "launches"), (tb.tblock_pipeline, "launches"),
+    (tb.tblock_chain_fused, "calls"), (tb.tblock_chain_fused, "launches"),
+    (tb.chain_pipeline, "launches"), (gb.gdfn_half_bwd, "launches"),
+    (ab.attn_half_bwd, "launches"), (nb.nafblock_fused, "launches"),
+    (nb.naf_pipeline, "launches"), (gd.gdfn_fused, "launches"),
+    (gd.gdfn_pipeline, "launches"), (md.mdta_stats, "launches"),
+    (md.mdta_gram, "launches"), (fa.flash_attention, "launches"),
+    (fa.flash_attention, "launches_bwd"), (pr.qkv_current, "launches"),
+    (pr.qkv_current, "tma_launches"), (pr.qkv_composed, "launches"),
+    (pr.qkv_composed, "tma_launches"), (pr.stencil_loop, "launches")]
+
+
+def _reset_all_counts():
+    for fn, attr in KERNEL_COUNTERS:
+        setattr(fn, attr, 0)
+
+
+def _all_counts() -> dict:
+    return {f"{fn.__name__}.{attr}": getattr(fn, attr)
+            for fn, attr in KERNEL_COUNTERS}
+
+
+def no_kernel_launched(what: str, seen: dict):
+    """Raise if any kernel counter moved since the last reset; add the
+    counts into `seen` (the summary's drsformer_sfnet_launches)."""
+    counts = _all_counts()
+    for k, v in counts.items():
+        seen[k] = seen.get(k, 0) + v
+    moved = {k: v for k, v in counts.items() if v}
+    if moved:
+        raise RuntimeError(f"{what}: kernels launched on a path that has "
+                           f"none: {moved}")
+
+
+DRS_TASK = "drsformer_derain"
+DRS_SPA_TASK = "drsformer_derain_200l_spa"
+SFNET_TASKS = ("sfnet_dehaze_indoor", "sfnet_dehaze_outdoor")
+# the networks and train sections of
+# options/train_restoration/drsformer_derain_rain200h.yml and
+# sfnet_dehaze_indoor.yml (tests/test_torch_cli_train.py holds them
+# against the files), param_fix_iterations aside
+DRS_TRAIN_OPT = {
+    "network_g": {
+        "type": "DRSformerRefFusion", "inp_channels": 3, "out_channels": 3,
+        "dim": 48, "num_blocks": [4, 6, 6, 8], "heads": [1, 2, 4, 8],
+        "ffn_expansion_factor": 2.66, "bias": False,
+        "LayerNorm_type": "WithBias", "use_mefc": True, "nf": 48,
+        "ext_n_blocks": [4, 4, 4, 4], "reffusion_n_blocks": [2, 2, 2, 2],
+        "reffusion_n_blocks_middle": 1, "num_nbr": 1, "psize": 3,
+        "lr_block_size": 8, "ref_down_block_size": 1.5,
+        "dilations": [1, 2, 3]},
+    "train": TRAIN_OPT["train"],
+}
+SFNET_TRAIN_OPT = {
+    "network_g": {
+        "type": "SFNetRefFusion", "num_res": 16, "base_channel": 32,
+        "nf": 32, "ext_n_blocks": [4, 4, 4], "reffusion_n_blocks": [1, 1, 1],
+        "reffusion_n_blocks_middle": 1, "num_nbr": 1, "psize": 3,
+        "lr_block_size": 8, "ref_down_block_size": 1.5,
+        "dilations": [1, 2, 3]},
+    "train": TRAIN_OPT["train"],
+}
+FAMILY_BATCHES = (8, 4, 2, 1)  # the largest that fits the card is taken
+# SFNet's BN statistics on the CPU side of phase 32 need batch 2: at
+# batch 1 the pooled input has no variance and BN returns its bias
+SFNET_CPU_BATCH = 2
+# phase 32's gradient floors, as fractions of the global gradient norm:
+# in SFNet the SCM's last bias (before its InstanceNorm) and, at the
+# default zero init of Gap's fscale and PatchAP's h and l, the biases
+# that feed only them have gradients that vanish in exact arithmetic, so
+# card and CPU differ there by rounding alone (0.92 of a 1e-6 floor used
+# on an H100); DRSformer's blend weights attn1..4 are scalars whose
+# gradients cancel, where card and CPU differ by 2e-2 of their norm
+SFNET_GRAD_FLOOR = 1e-5
+DRS_GRAD_FLOOR = 1e-5
+FAMILY_UPDATE_TOL = 0.5
+
+
+def bn_statistics(model, seed: int):
+    """Running means N(0, 0.1^2) and variances in [0.5, 1.5], drawn from
+    a seed, on every BatchNorm of `model` (SFNet's dynamic filters), so
+    that the evaluation's normalisation is not the identity."""
+    gen = torch.Generator().manual_seed(seed + 8)
+    with torch.no_grad():
+        for name, b in model.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(0.1 * torch.randn(b.shape, generator=gen))
+            elif name.endswith("running_var"):
+                b.copy_(0.5 + torch.rand(b.shape, generator=gen))
+    return model
+
+
+def _family_network(seed, task, dtype, device):
+    return bn_statistics(build_network(seed, dtype, "cpu", task), seed).to(
+        device)
+
+
+def _outputs(out):
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def family_vs_cpu(seed: int, task: str, seen: dict, size: int = 128):
+    """Phases 28 and 30: the task's network at full width (seeded random
+    weights, non-zero fusion gates, random BN statistics) on the card
+    against the same network on the CPU, float32, on a size x size input:
+    every output (SFNet's three scales) within NET_ATOL, no kernel
+    launched."""
+    model_cpu = _family_network(seed, task, torch.float32, "cpu")
+    model_gpu = copy.deepcopy(model_cpu).to("cuda")
+    rng = np.random.default_rng(seed + 2)
+    lq = torch.from_numpy(rng.random((1, size, size, 3), dtype=np.float32))
+    ref = torch.from_numpy(rng.random((1, size, size, 3), dtype=np.float32))
+    with torch.inference_mode():
+        want = _outputs(model_cpu(lq, ref))
+        _reset_all_counts()
+        got = [g.cpu() for g in _outputs(model_gpu(lq.cuda(), ref.cuda()))]
+    no_kernel_launched(f"{task} card vs CPU", seen)
+    errs = [(g - w).abs().max().item() for g, w in zip(got, want)]
+    log(f"{task} f32 {size}x{size}, card vs CPU: max_abs per output "
+        f"{[f'{e:.3e}' for e in errs]} (atol {NET_ATOL}), max|out| "
+        f"{max(w.abs().max().item() for w in want):.3f}, no kernel launched")
+    if len(got) != len(want) or any(
+            g.shape != w.shape or not torch.isfinite(g).all()
+            for g, w in zip(got, want)) or max(errs) > NET_ATOL:
+        raise RuntimeError(f"{task} on the card disagrees with the CPU: "
+                           f"{errs}")
+
+
+def family_eval_path(seed: int, task: str, dtype, seen: dict,
+                     profile: bool = True):
+    """Phases 28 and 30: the evaluation CLI's `restore_and_score` on
+    synthetic 512 x 512 triples, one warm-up and two timed, with the
+    network in `dtype` (f32 parameters); the finest output scored, finite
+    and of the image's shape; the forward's median ms, peak memory, the
+    median ms of its MASA encoder alone and, with `profile`, a profiled
+    forward (device time, idle share); no kernel launched.  Returns (forward ms, restore + score ms of the two
+    timed images, peak GiB)."""
+    model = _family_network(seed, task, dtype, "cuda")
+    rng = np.random.default_rng(seed + 3)
+    triples = [synthetic_triple(rng) for _ in range(2)]
+    name = str(dtype).split(".")[-1]
+    _reset_all_counts()
+    restore_and_score(model, *triples[0])
+    times = []
+    for i, (lq, hq, ref) in enumerate(triples):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred, psnr, ssim = restore_and_score(model, lq, hq, ref)
+        times.append((time.perf_counter() - t0) * 1e3)
+        if pred.shape != hq.shape or not np.isfinite(pred).all() \
+                or not np.isfinite(psnr) or not np.isfinite(ssim):
+            raise RuntimeError(f"{task} {name} image {i}: bad output "
+                               f"{pred.shape}")
+        log(f"{task} {name} image {i}: {times[-1]:.1f} ms (restore + "
+            f"score), psnr {psnr:.4f} ssim {ssim:.4f}")
+    args = [torch.from_numpy(a)[None].to("cuda", dtype)
+            for a in (triples[0][0], triples[0][2])]
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        fwd_ms = median_ms(lambda: model(*args), reps=3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        masa_ms = median_ms(lambda: layers.masa_encode_pair(
+            model.masa_enc, *(a.to(model.dtype) for a in args)), reps=3)
+        log(f"{task} forward 512x512 {name}: {fwd_ms:.2f} ms "
+            f"({1e3 / fwd_ms:.3f} images/s), peak memory {peak:.2f} GiB; "
+            f"its MASA encoder on lq and ref {masa_ms:.2f} ms")
+        if profile:
+            profile_device(lambda: model(*args), f"{task} {name} forward")
+    no_kernel_launched(f"{task} {name} evaluation", seen)
+    del model
+    torch.cuda.empty_cache()
+    return fwd_ms, times, peak
+
+
+def _bn_state(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def family_train_step(seed: int, opt, dtype, seen: dict,
+                      batches=FAMILY_BATCHES, size: int = 384,
+                      profile: bool = False):
+    """Phases 29 and 31: the training CLI's step function with `opt` (its
+    YAML's options, the masa group released) at size px in `dtype` (f32
+    parameters), at the largest batch of `batches` whose step fits the
+    card (a step that runs out of memory is dropped and the next batch
+    tried): a warm-up and two timed steps, finite losses, the peak memory,
+    the BN running statistics moved (where the network has them), no
+    kernel launched; with `profile` a profiled step.  Returns (batch,
+    median ms, peak GiB, the batches that did not fit)."""
+    name = f"{opt['network_g']['type']} {str(dtype).split('.')[-1]}"
+    mp = "bf16" if dtype == torch.bfloat16 else None
+    did_not_fit = []
+    for b in batches:
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            model, _, _ = resolve_network(opt, mixed_precision=mp)
+        model = bn_statistics(gate_and_temperatures(model, seed), seed)
+        model = model.cuda()
+        rng = np.random.default_rng(seed + 6)
+        trip = [synthetic_triple(rng, size) for _ in range(b)]
+        batch = {k: torch.from_numpy(np.stack([tr[i] for tr in trip]))
+                 .cuda() for i, k in enumerate(("lq", "gt", "ref"))}
+        state, step_fn, _ = _trainer(model, dict(opt["train"],
+                                                 param_fix_iterations=0))
+        before = _bn_state(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fits = True
+        try:
+            state, _ = step_fn(state, batch)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            fits = False
+        if not fits:
+            did_not_fit.append(b)
+            log(f"{name} step {size} px batch {b}: out of device memory")
+            del state, step_fn, model, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        _reset_all_counts()
+        times, losses = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            losses.append(float(m["l_pix"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if profile:
+            profile_device(lambda: float(step_fn(state, batch)[1]["l_pix"]),
+                           f"{name} step batch {b}")
+        no_kernel_launched(f"{name} step", seen)
+        after = _bn_state(model)
+        unmoved = [k for k, v in before.items() if torch.equal(v, after[k])]
+        log(f"{name} train step {size} px batch {b}: "
+            f"{[round(v, 2) for v in times]} ms, l_pix "
+            f"{[round(v, 5) for v in losses]}, peak {peak:.2f} GiB, BN "
+            f"statistics moved {len(before) - len(unmoved)} of "
+            f"{len(before)}; did not fit: {did_not_fit}")
+        if not np.isfinite(losses).all() or unmoved:
+            raise RuntimeError(f"{name} step: losses {losses}, BN "
+                               f"statistics unmoved {unmoved[:3]}")
+        del state, step_fn, model, batch
+        torch.cuda.empty_cache()
+        return b, statistics.median(times), peak, did_not_fit
+    raise RuntimeError(f"{name} step at {size} px: no batch of {batches} "
+                       "fits the card")
+
+
+def family_phases(seed: int) -> dict:
+    """Phases 28-32: DRSformer and SFNet, no kernel on their path; each
+    phase's seconds printed.  Returns the readings for the summary."""
+    out, seen = {}, {}
+    t0 = time.perf_counter()
+    family_vs_cpu(seed, DRS_TASK, seen)
+    # the float32 forward is not profiled: its 264192 FFT kernels (the
+    # MASA encoder's level-3 convs, tools/bench_family_ops.py) take the
+    # profiler over two minutes
+    out["drs_eval"] = {str(d).split(".")[-1]: family_eval_path(
+        seed, DRS_TASK, d, seen, profile=d == torch.bfloat16)
+        for d in (torch.bfloat16, torch.float32)}
+    out["drs_spa_ms"] = family_eval_path(seed, DRS_SPA_TASK, torch.bfloat16,
+                                         seen, profile=False)[0]
+    log(f"phase 28 (DRSformerRefFusion evaluation) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["drs_step"] = {
+        "float32": family_train_step(seed, DRS_TRAIN_OPT, torch.float32,
+                                     seen, profile=True),
+        "bfloat16": family_train_step(seed, DRS_TRAIN_OPT, torch.bfloat16,
+                                      seen)}
+    log(f"phase 29 (DRSformer training step) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    log_held("phases 28-29")
+    t0 = time.perf_counter()
+    family_vs_cpu(seed, SFNET_TASKS[0], seen)
+    out["sfnet_eval"] = {str(d).split(".")[-1]: family_eval_path(
+        seed, SFNET_TASKS[0], d, seen) for d in (torch.bfloat16,
+                                                  torch.float32)}
+    out["sfnet_outdoor_ms"] = family_eval_path(
+        seed, SFNET_TASKS[1], torch.bfloat16, seen, profile=False)[0]
+    log(f"phase 30 (SFNetRefFusion evaluation) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["sfnet_step"] = {
+        "float32": family_train_step(seed, SFNET_TRAIN_OPT, torch.float32,
+                                     seen, profile=True),
+        "bfloat16": family_train_step(seed, SFNET_TRAIN_OPT, torch.bfloat16,
+                                      seen)}
+    log(f"phase 31 (SFNet training step) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _reset_all_counts()
+    train_step_vs_cpu(seed, DRS_TRAIN_OPT, grad_floor=DRS_GRAD_FLOOR,
+                      update_tol=FAMILY_UPDATE_TOL)
+    moved = train_step_vs_cpu(seed, SFNET_TRAIN_OPT,
+                              batch_size=SFNET_CPU_BATCH,
+                              grad_floor=SFNET_GRAD_FLOOR,
+                              update_tol=FAMILY_UPDATE_TOL)
+    no_kernel_launched("the f32 steps, card vs CPU", seen)
+    if not moved:
+        raise RuntimeError("SFNet's step on the CPU moved no BN statistic")
+    log(f"phase 32 (training steps, card vs CPU) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    out["launches"] = seen
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for the same work
 # ---------------------------------------------------------------------------
 
@@ -3638,6 +4000,9 @@ def main(argv=None) -> int:
     yaml_runs = cli_yaml_runs(args.seed)
     dino_ms, dino_peak, dino_windows = dino_matcher(args.seed)
     log_held("phases 25-27")
+
+    fam = family_phases(args.seed)
+    log_held("phases 28-32")
 
     # per-step kernel time: each training shape's median time times the
     # number of blocks of that shape in one step (bf16, WithBias); the
@@ -4007,6 +4372,24 @@ def main(argv=None) -> int:
     log(f"DINO matcher (phase 27): {dino_ms:.2f} ms a step of "
         f"{DINO_BATCH} crops x {dino_windows} windows (vit_base f32), peak "
         f"{dino_peak:.2f} GiB")
+    for fam_name, key, spa_key, spa_task in (
+            ("drsformer_derain", "drs", "drs_spa_ms", DRS_SPA_TASK),
+            ("sfnet_dehaze_indoor", "sfnet", "sfnet_outdoor_ms",
+             SFNET_TASKS[1])):
+        ev, st = fam[f"{key}_eval"], fam[f"{key}_step"]
+        log(f"{fam_name} (phases 28-31, no kernel): forward 512 px "
+            + ", ".join(f"{d} {v[0]:.2f} ms ({1e3 / v[0]:.3f} images/s, "
+                        f"peak {v[2]:.2f} GiB)" for d, v in ev.items())
+            + f"; {spa_task} bf16 {fam[spa_key]:.2f} ms; train step 384 px "
+            + ", ".join(f"{d} batch {v[0]} {v[1]:.2f} ms (peak {v[2]:.2f} "
+                        f"GiB; did not fit {v[3]})" for d, v in st.items()))
+    # launches of each kernel on the DRSformer and SFNet paths (phases
+    # 28-32): 0 wherever the run got this far
+    for row in summary["kernels"]:
+        counter = ("flash_attention.launches_bwd"
+                   if row["name"] == "flash_attention_bwd"
+                   else f"{row['name']}.launches")
+        row["drsformer_sfnet_launches"] = fam["launches"][counter]
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s after "
         f"the build")
     log(json.dumps(summary))

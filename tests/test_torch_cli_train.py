@@ -3,8 +3,9 @@ synthesised PNG folders (as tests/test_cli_train.py does for the JAX CLI),
 a few iterations through the frozen and the released step, checkpoints in
 the reference format, then auto-resume; the DINO reference-crop matcher
 from a seeded small ViT in the reference layout; and every shipped
-Restormer, PromptIR and NAFNet training YAML over synthesised folders of
-its dataset type, its network cut to toy widths.  Imports no JAX."""
+Restormer, PromptIR, NAFNet, DRSformer and SFNet training YAML over
+synthesised folders of its dataset type, its network cut to toy widths.
+Imports no JAX."""
 
 import os
 
@@ -254,6 +255,9 @@ def dataset_folders(tmp_path_factory):
                 img = (rng.random((40, 44, 3)) * top).astype(
                     np.uint16 if top > 255 else np.uint8)
                 cv2.imwrite(str(root / task / sub / f"img_{i}.png"), img)
+    # the dehaze YAMLs' meta_info file: 'hazy_name gt_name' lines
+    (root / "dehaze" / "meta_info.txt").write_text(
+        "img_0.png img_1.png\nimg_1.png img_0.png\n")
     return root
 
 
@@ -274,6 +278,10 @@ def _point_at(ds: dict, root) -> dict:
         ds.update({k: str(root / "dp" / s) for k, s in (
             ("hqroot", "gt"), ("lqlroot", "lqL"), ("lqrroot", "lqR"),
             ("refroot", "ref"))})
+    elif kind == "Dataset_PairedDehazeWithRef":
+        ds.update({f"{s}root": str(root / "dehaze" / s)
+                   for s in ("lq", "hq", "ref")},
+                  meta_info_file=str(root / "dehaze" / "meta_info.txt"))
     elif kind == "Dataset_PairedUnifiedWithRef":
         for task in ("denoise", "derain", "dehaze"):
             ds[task] = {f"{s}root": str(root / task / s)
@@ -285,16 +293,25 @@ def _point_at(ds: dict, root) -> dict:
     return ds
 
 
+DRSFORMER_YAMLS = [f"drsformer_derain_{d}.yml"
+                   for d in ("rain200h", "rain200l", "did", "dnd", "spa")]
+SFNET_YAMLS = ["sfnet_dehaze_indoor.yml", "sfnet_dehaze_outdoor.yml"]
+
+
 @pytest.mark.parametrize("name", GAUSSIAN_YAMLS + [
-    "restormer_defocus_dual_pixel_16bit.yml", "promptir_all_in_one.yml"])
+    "restormer_defocus_dual_pixel_16bit.yml", "promptir_all_in_one.yml"]
+    + DRSFORMER_YAMLS + SFNET_YAMLS)
 def test_shipped_yaml_trains(workspace, dataset_folders, monkeypatch, name):
-    """Each shipped Restormer / PromptIR YAML as it is, its data pointed at
-    synthesised folders of its dataset types, its network cut to toy
+    """Each shipped Restormer / PromptIR / DRSformer / SFNet YAML as it is,
+    its data pointed at synthesised folders of its dataset types (the
+    dehaze ones through their meta_info file), its network cut to toy
     widths, batch 2 of 32 px: two iterations through the CLI (a frozen and
     a released step), the lq|gt|pred|ref strip of logger.check_freq.  With
     a DINO file, the 3-channel networks pick their references with the
     matcher and the 1- (gray) and 6-channel (dual-pixel) ones are refused
-    before the first step."""
+    before the first step.  The DRSformer and SFNet YAMLs validate at the
+    second iteration too (SFNet's finest scale scored, its BN statistics
+    in eval mode), and SFNet's steps move its BN running statistics."""
     import yaml
 
     root, _ = workspace
@@ -309,6 +326,9 @@ def test_shipped_yaml_trains(workspace, dataset_folders, monkeypatch, name):
     opt["network_g"] = shrink_for_smoke(opt["network_g"])
     opt["train"]["param_fix_iterations"] = 1
     opt["logger"].update(print_freq=1, check_freq=2)
+    new_family = name in DRSFORMER_YAMLS + SFNET_YAMLS
+    if new_family:
+        opt["val"].update(val_freq=2, max_minibatch=1)
     opt["path"]["pretrain_dino"] = tiny_dino(root)
     cfg = root / f"opt_{name}"
     cfg.write_text(yaml.dump(opt))
@@ -316,7 +336,7 @@ def test_shipped_yaml_trains(workspace, dataset_folders, monkeypatch, name):
     real = tr.select_ref_crop
     monkeypatch.setattr(tr, "select_ref_crop",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
-    in_ch = opt["network_g"]["inp_channels"]
+    in_ch = opt["network_g"].get("inp_channels", 3)
     if in_ch != 3:
         with pytest.raises(ValueError, match=f"{in_ch}-channel"):
             main(["--opt", str(cfg), "--max_iters", "2", "--device", "cpu"])
@@ -327,8 +347,15 @@ def test_shipped_yaml_trains(workspace, dataset_folders, monkeypatch, name):
     state = main(["--opt", str(cfg), "--max_iters", "2", "--device", "cpu"])
     assert state.step == 2 and len(calls) == (2 if in_ch == 3 else 0)
     exp = root / "experiments" / opt["name"]
-    assert (exp / "train.log").read_text().count("l_pix") == 2
+    log = (exp / "train.log").read_text()
+    assert log.count("l_pix") == 2
+    assert ("val @ 2: psnr" in log) == new_family
     assert type(state.model).__name__ == opt["network_g"]["type"]
+    if name in SFNET_YAMLS:
+        bn = state.model.Encoder[0].layers[0].dyna.bn
+        assert int(bn.num_batches_tracked) == 2
+        assert not torch.equal(bn.running_var, torch.ones_like(
+            bn.running_var))
     import cv2
 
     strip = cv2.imread(str(exp / "visualization" / "000002.png"),
@@ -348,7 +375,9 @@ def test_chip_smoke_options_are_the_shipped_yamls():
         return yaml.safe_load(open(os.path.join(OPTIONS, f"{name}.yml")))
 
     for name, opt in (("restormer_motion_deblur", chip_smoke.TRAIN_OPT),
-                      ("promptir_all_in_one", chip_smoke.PROMPTIR_TRAIN_OPT)):
+                      ("promptir_all_in_one", chip_smoke.PROMPTIR_TRAIN_OPT),
+                      ("drsformer_derain_rain200h", chip_smoke.DRS_TRAIN_OPT),
+                      ("sfnet_dehaze_indoor", chip_smoke.SFNET_TRAIN_OPT)):
         y = load(name)
         assert opt["network_g"] == y["network_g"], name
         assert dict(opt["train"], param_fix_iterations=y["train"][

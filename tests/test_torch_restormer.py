@@ -126,8 +126,8 @@ def test_define_network():
     # parameters stay f32 (JAX param_dtype); bf16 is the compute dtype
     assert m.dtype == torch.bfloat16
     assert {p.dtype for p in m.parameters()} == {torch.float32}
-    with pytest.raises(NotImplementedError, match="A6"):
-        define_network({"type": "DRSformerRefFusion", "dim": 8})
+    with pytest.raises(NotImplementedError, match="A6e"):
+        define_network({"type": "NAFNetLocalDynamic", "width": 8})
 
 
 @pytest.fixture(scope="module")

@@ -445,7 +445,12 @@ def test_gate_stencil_on_host_matches_gdfn_gate(host_lib, shape, hidden):
 
 def _host_route(monkeypatch, lib):
     """Run `_forward_kernel` and the bf16 backward on CPU tensors through
-    the host build: the device checks and the card query taken out."""
+    the host build: the device checks and the card query taken out.  The
+    launch counters get their values back after the test, so that the
+    host build's launches do not reach a later test's counts in the same
+    process."""
+    for fn in (tb.tblock_fused, tb.tblock_pipeline):
+        monkeypatch.setattr(fn, "launches", fn.launches)
     monkeypatch.setattr(tb, "_validate", lambda *a: None)
     monkeypatch.setattr(tb, "_kernel_library", lambda cph, what: lib)
     monkeypatch.setattr(tb, "_card", lambda device: (0, 2))

@@ -1,7 +1,7 @@
 """Evaluation CLI of the port: per-task network table and PSNR/SSIM loop.
 
 Counterpart of textualdegremoval_tpu/cli/evaluate.py for the Restormer,
-NAFNet and PromptIR families:
+NAFNet, PromptIR, DRSformer and SFNet families:
 
     python -m textualdegremoval_tpu_torch.cli.evaluate \\
         --task restormer_deblur --hqroot ... --refroot ... --lqroot ... \\
@@ -38,8 +38,7 @@ from textualdegremoval_tpu_torch.models import (
     TBLOCK_NETWORKS, define_network,
 )
 
-# The Restormer-, NAFNet- and PromptIR-family entries of the JAX CLI's
-# table (same hparams).
+# The JAX CLI's table (same hparams).
 TASK_TABLE = {
     # tiny config for CI smoke runs
     "tiny_smoke": {
@@ -78,6 +77,28 @@ TASK_TABLE = {
         "nf": 64, "ext_n_blocks": [4, 4, 4, 4],
         "reffusion_n_blocks": [2, 2, 2, 2], "lr_block_size": 8,
     },
+    "drsformer_derain": {
+        "type": "DRSformerRefFusion", "dim": 48, "num_blocks": [4, 6, 6, 8],
+        "heads": [1, 2, 4, 8], "nf": 48, "ext_n_blocks": [4, 4, 4, 4],
+        "reffusion_n_blocks": [2, 2, 2, 2], "lr_block_size": 8,
+        "use_mefc": True,
+    },
+    "drsformer_derain_200l_spa": {
+        "type": "DRSformer200L_SPA_RefFusion", "dim": 48,
+        "num_blocks": [4, 6, 6, 8], "heads": [1, 2, 4, 8], "nf": 48,
+        "ext_n_blocks": [4, 4, 4, 4], "reffusion_n_blocks": [2, 2, 2, 2],
+        "lr_block_size": 8, "use_mefc": False,
+    },
+    "sfnet_dehaze_indoor": {
+        "type": "SFNetRefFusion", "num_res": 16, "nf": 32,
+        "ext_n_blocks": [4, 4, 4], "reffusion_n_blocks": [1, 1, 1],
+        "lr_block_size": 8, "tlc_base": 246,
+    },
+    "sfnet_dehaze_outdoor": {
+        "type": "SFNetRefFusion", "num_res": 16, "nf": 32,
+        "ext_n_blocks": [4, 4, 4], "reffusion_n_blocks": [1, 1, 1],
+        "lr_block_size": 8, "tlc_base": 210,
+    },
     "promptir_all_in_one": {
         "type": "PromptIRRefFusion", "dim": 48, "num_blocks": [4, 6, 6, 8],
         "num_refinement_blocks": 4, "heads": [1, 2, 4, 8], "decoder": True,
@@ -95,9 +116,11 @@ TASK_TABLE = {
     },
 }
 
-# keys rewritten by --tiny_debug: same constructor path at toy widths
-_SHRINK_SCALARS = {"dim": 8, "nf": 8, "width": 8, "middle_blk_num": 1,
-                   "num_refinement_blocks": 1, "lr_block_size": 4}
+# keys rewritten by --tiny_debug: same constructor path (TLC bases, MEFC
+# flags, batch_stats) at toy widths
+_SHRINK_SCALARS = {"dim": 8, "nf": 8, "width": 8, "num_res": 1,
+                   "middle_blk_num": 1, "num_refinement_blocks": 1,
+                   "lr_block_size": 4}
 _SHRINK_LISTS = ("num_blocks", "enc_blk_nums", "dec_blk_nums",
                  "ext_n_blocks", "reffusion_n_blocks")
 
@@ -112,18 +135,27 @@ def shrink_for_smoke(opt: dict) -> dict:
             o[k] = [1] * len(o[k])
     if "heads" in o:
         o["heads"] = [1, 1, 2, 2][: len(o["heads"])]
+    if o["type"] == "SFNetRefFusion":
+        o["base_channel"] = 8
     return o
+
+
+def last_output(out):
+    """The finest output of a network of several (SFNet's list, coarse to
+    fine; JAX `_last`), or the output itself."""
+    return out[-1] if isinstance(out, (list, tuple)) else out
 
 
 def restore_and_score(model: torch.nn.Module, lq: np.ndarray, hq: np.ndarray,
                       ref: np.ndarray):
     """Restore one (lq, ref) pair of HWC float32 arrays in [0, 1] and score
-    it against hq.  Returns (prediction clipped to [0, 1], PSNR, SSIM)."""
+    it against hq (a network of several outputs: `last_output`).  Returns
+    (prediction clipped to [0, 1], PSNR, SSIM)."""
     dev = next(model.parameters()).device
     with torch.inference_mode():
         out = model(torch.from_numpy(lq)[None].to(dev),
                     torch.from_numpy(ref)[None].to(dev))
-    pred = np.clip(out[0].float().cpu().numpy(), 0, 1)
+    pred = np.clip(last_output(out)[0].float().cpu().numpy(), 0, 1)
     return (pred, calculate_psnr(pred * 255, hq * 255),
             calculate_ssim(pred * 255, hq * 255))
 

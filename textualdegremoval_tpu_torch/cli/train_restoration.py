@@ -47,6 +47,7 @@ import time
 import numpy as np
 import torch
 
+from textualdegremoval_tpu_torch.cli.evaluate import last_output
 from textualdegremoval_tpu_torch.convert import load_reference_checkpoint
 from textualdegremoval_tpu_torch.data.loader import (
     create_dataloader, create_dataset,
@@ -135,8 +136,8 @@ def dump_lher(state, batch, opt, current_iter):
     image_restoration_ref_model.py:258-266, JAX `_dump_lher`) into
     path.visualization/<iter>.png; a 6-channel dual-pixel lq shows its
     left view, a reference of another height is resized to lq's."""
-    pred = make_eval_step(use_ema=False)(
-        state, {"lq": batch["lq"][:1], "ref": batch["ref"][:1]})
+    pred = last_output(make_eval_step(use_ema=False)(
+        state, {"lq": batch["lq"][:1], "ref": batch["ref"][:1]}))
     lq = batch["lq"][:1]
     if lq.shape[-1] == 6:
         lq = lq[..., :3]
@@ -389,8 +390,9 @@ def validate(state, val_loader, opt, logger, current_iter, use_ema=False,
             if pad_h or pad_w:
                 lq = np.pad(lq, ((0, 0), (0, pad_h), (0, pad_w), (0, 0)),
                             "reflect")
-        out = eval_step(state, {"lq": torch.from_numpy(lq).to(device),
-                                "ref": batch["ref"].to(device)})
+        out = last_output(eval_step(state, {
+            "lq": torch.from_numpy(lq).to(device),
+            "ref": batch["ref"].to(device)}))
         out = out.float().cpu().numpy()
         out = out[:, : out.shape[1] - pad_h * scale,
                   : out.shape[2] - pad_w * scale]

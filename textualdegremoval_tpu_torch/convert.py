@@ -6,15 +6,19 @@ checkpoint (`{'params': state_dict}`) loads into a port model with
 `convert_state_dict` maps a port `state_dict()` onto a JAX parameter tree.
 
 `load_jax_params` goes the other way: it takes the JAX package's parameter
-tree as nested dicts of numpy arrays and loads it into a port model.  The
-key rewrite is textualdegremoval_tpu/convert/torch_to_jax.py's, restricted
-to the keys of the ported modules (`norm*.body.` flattening, the
-Down/Upsample `body.0` conv, NAFNet's `sca.1.` -> `sca.conv.` and
-`ups.N.0.` -> `ups_N`, the merge of sequential indices into the preceding
-name), 4-D conv weights move between HWIO and OIHW, 2-D Dense kernels
-between (in, out) and (out, in), NAFNet's beta and gamma between (1,1,1,C)
-and (1,C,1,1), and PromptIR's prompt_param between (1, L, S, S, D) and
-(1, L, D, S, S).
+tree (and, for SFNet, its `batch_stats`) as nested dicts of numpy arrays
+and loads it into a port model.  The key rewrite is
+textualdegremoval_tpu/convert/torch_to_jax.py's, restricted to the keys of
+the ported modules (DRSformer's MEFC `subnet` flattened to ca_fc1 / ca_fc2
+/ preprocess / ops_i, `norm*.body.` flattening, the Down/Upsample `body.0`
+conv, NAFNet's `sca.1.` -> `sca.conv.` and `ups.N.0.` -> `ups_N`, SFNet's
+`main.0` conv, `main.4` InstanceNorm and `merge.` wrapper, the merge of
+sequential indices into the preceding name), 4-D conv weights move between
+HWIO and OIHW (SFNet's transposed convs `feat_extract.3` / `.4` between
+JAX's spatially flipped HWIO and torch's IOHW), 2-D Dense kernels between
+(in, out) and (out, in), the 1-D weight of a `norm` or `bn` module is JAX's
+`scale`, NAFNet's beta and gamma move between (1,1,1,C) and (1,C,1,1), and
+PromptIR's prompt_param between (1, L, S, S, D) and (1, L, D, S, S).
 
 Pipeline A's towers (text, vision, UNet, VAE, both mappers) have their own
 key tables here (the JAX package's are in convert/tower_maps.py, which
@@ -36,13 +40,42 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+# DRSformer's MEFC (the reference's subnet / OALayer / GroupOLs /
+# OperationLayer) -> the JAX MEFC's names
+_MEFC_OPNAMES = ["sep_conv_1x1", "sep_conv_3x3", "sep_conv_5x5",
+                 "sep_conv_7x7", "dil_conv_3x3", "dil_conv_5x5",
+                 "dil_conv_7x7"]  # op 7 is the parameter-free average pool
+_MEFC_SEP_LEAF = {0: "dw1", 1: "pw1", 3: "dw2", 4: "pw2"}  # 2 is the ReLU
+_MEFC_DIL_LEAF = {0: "dw", 1: "pw"}
+
+
+def _mefc_op_sub(m: re.Match) -> str:
+    step, op_j, seq_k = m.group(1), int(m.group(2)), int(m.group(3))
+    leaf = (_MEFC_SEP_LEAF if op_j < 4 else _MEFC_DIL_LEAF)[seq_k]
+    return f".ops_{step}.{_MEFC_OPNAMES[op_j]}.{leaf}."
+
+
 _REWRITES = [
+    (re.compile(r"\.layers\.0\.ca_fc\.0\."), ".ca_fc1."),
+    (re.compile(r"\.layers\.0\.ca_fc\.2\."), ".ca_fc2."),
+    (re.compile(r"\.layers\.1\.preprocess\.op\.0\."), ".preprocess."),
+    (re.compile(r"\.layers\.1\._ops\.(\d+)\._ops\.(\d+)\.op\.(\d+)\."),
+     _mefc_op_sub),
+    (re.compile(r"\.layers\.1\._ops\.(\d+)\._out\.0\."), r".ops_\1.out."),
     (re.compile(r"^module\."), ""),
     (re.compile(r"\.body\.0\.(weight|bias)$"), r".conv.\1"),  # Down/Upsample
     (re.compile(r"(norm\d?)\.body\."), r"\1."),  # Restormer LN wrapper
     (re.compile(r"\.sca\.1\."), ".sca.conv."),  # NAFNet SCA sequential
     (re.compile(r"(^|\.)ups\.(\d+)\.0\."), r"\1ups.\2."),  # NAFNet up conv
+    # SFNet: the BasicConv Sequential (conv[, GELU]), the SCM's
+    # InstanceNorm, the FAM's merge
+    (re.compile(r"\.main\.4\.(weight|bias)$"), r".norm.\1"),
+    (re.compile(r"\.main\.0\.(weight|bias)$"), r".conv.\1"),
+    (re.compile(r"\.merge\."), "."),
 ]
+# SFNet's transposed convs, whose JAX kernel is torch's spatially flipped
+_CONV_TRANSPOSE = re.compile(r"^feat_extract_[34]$")
+_BATCH_STATS = {"running_mean": "mean", "running_var": "var"}
 
 
 def torch_key_to_jax_path(key: str, ndim: int) -> tuple[str, ...]:
@@ -57,6 +90,9 @@ def torch_key_to_jax_path(key: str, ndim: int) -> tuple[str, ...]:
             path.append(seg)
     if path[-1] == "weight" and ndim in (2, 4):  # conv and linear
         path[-1] = "kernel"
+    elif path[-1] == "weight" and len(path) > 1 and path[-2] in ("norm",
+                                                                  "bn"):
+        path[-1] = "scale"  # flax GroupNorm / BatchNorm
     return tuple(path)
 
 
@@ -105,24 +141,39 @@ def _load_tree(model: torch.nn.Module, params: Mapping[str, Any],
     return model
 
 
-def load_jax_params(model: torch.nn.Module,
-                    params: Mapping[str, Any]) -> torch.nn.Module:
+def load_jax_params(model: torch.nn.Module, params: Mapping[str, Any],
+                    batch_stats: Mapping[str, Any] | None = None
+                    ) -> torch.nn.Module:
     """Load a JAX parameter tree of a restoration network
-    (`jax.tree.map(np.asarray, variables['params'])`) into `model`."""
+    (`jax.tree.map(np.asarray, variables['params'])`) into `model`, and
+    with `batch_stats` (`variables['batch_stats']`, SFNet's BatchNorm
+    `mean` and `var`) its running statistics; `num_batches_tracked`, which
+    JAX does not keep, stays as it is."""
+    tree = {"params": params, "batch_stats": batch_stats or {}}
 
     def locate(key, t):
+        leaf = key.rsplit(".", 1)[-1]
+        if leaf == "num_batches_tracked":
+            return None, None
         path = torch_key_to_jax_path(key, t.ndim)
+        if leaf in _BATCH_STATS:
+            return (("batch_stats",) + path[:-1] + (_BATCH_STATS[leaf],),
+                    lambda a: a)
+        path = ("params",) + path
         if path[-1] in ("beta", "gamma") and t.ndim == 4:
             return path, lambda a: a.transpose(0, 3, 1, 2)  # (1,1,1,C)
         if path[-1] == "prompt_param":  # (1, L, S, S, D) -> (1, L, D, S, S)
             return path, lambda a: a.transpose(0, 1, 4, 2, 3)
+        if t.ndim == 4 and _CONV_TRANSPOSE.match(path[1]):
+            # flipped HWIO -> IOHW
+            return path, lambda a: a[::-1, ::-1].transpose(2, 3, 0, 1)
         if t.ndim == 4:
             return path, lambda a: a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         if t.ndim == 2:
             return path, lambda a: a.T  # Dense (in, out) -> Linear (out, in)
         return path, lambda a: a
 
-    return _load_tree(model, params, locate)
+    return _load_tree(model, tree, locate)
 
 
 def load_jax_dino_params(model: torch.nn.Module,
@@ -150,11 +201,13 @@ def load_jax_dino_params(model: torch.nn.Module,
 
 
 # Reference parameters that are built but never used in a forward pass
-# (PromptIR's chnl_reduce1-3 and reduce_noise_channel_1-3, the JAX
-# package's convert/torch_to_jax.py `_DEAD_KEYS`): dropped before the
-# strict load, as the port's networks declare only live parameters.
+# (PromptIR's chnl_reduce1-3 and reduce_noise_channel_1-3, SFNet's dynamic
+# filters' lamb_l and lamb_h, the JAX package's convert/torch_to_jax.py
+# `_DEAD_KEYS`): dropped before the strict load, as the port's networks
+# declare only live parameters.
 _DEAD_KEYS = (re.compile(r"\bchnl_reduce\d\."),
-              re.compile(r"\breduce_noise_channel_\d\."))
+              re.compile(r"\breduce_noise_channel_\d\."),
+              re.compile(r"\.lamb_[lh]$"))
 
 
 def load_reference_checkpoint(model: torch.nn.Module, path: str,

@@ -6,9 +6,9 @@ constructor arguments become its arguments, so the reference's network_g
 option dicts port as they are (with the routing keys of the Restormer and
 PromptIR trunks: `chain`, the cross-block chain; `fused`, false for the
 module path, as in JAX; and on that path `gdfn_fused` and `mdta_pallas`,
-its GDFN and MDTA kernels).  This port covers the Restormer, NAFNet
-and PromptIR families; the other families of the JAX registry come with
-later slices of the port.
+its GDFN and MDTA kernels).  This port covers the Restormer, NAFNet,
+PromptIR, DRSformer and SFNet families; NAFNetDynamicFusion comes with a
+later slice of the port.
 """
 
 from __future__ import annotations
@@ -17,6 +17,9 @@ import inspect
 
 import torch
 
+from textualdegremoval_tpu_torch.models.drsformer import (
+    DRSformer, DRSformerRefFusion,
+)
 from textualdegremoval_tpu_torch.models.nafnet import NAFNet, NAFNetRefFusion
 from textualdegremoval_tpu_torch.models.promptir import (
     PromptIR, PromptIRRefFusion,
@@ -24,20 +27,22 @@ from textualdegremoval_tpu_torch.models.promptir import (
 from textualdegremoval_tpu_torch.models.restormer import (
     Restormer, RestormerRefFusion,
 )
+from textualdegremoval_tpu_torch.models.sfnet import SFNet, SFNetRefFusion
 
 _REGISTRY = {"Restormer": Restormer, "RestormerRefFusion": RestormerRefFusion,
              "NAFNet": NAFNet, "NAFNetRefFusion": NAFNetRefFusion,
              "PromptIR": PromptIR, "PromptIRRefFusion": PromptIRRefFusion,
+             "DRSformer": DRSformer, "DRSformerRefFusion": DRSformerRefFusion,
+             # the reference's 200L/SPA file: DRSformer without the MEFCs
+             "DRSformer200L_SPA_RefFusion": DRSformerRefFusion,
+             "SFNet": SFNet, "SFNetRefFusion": SFNetRefFusion,
              # the reference's Local (TLC) variants: the same modules with
              # tlc_train_size taken from the option dict's train_size
              "NAFNetLocal": NAFNet, "NAFNetLocal_RefFusion": NAFNetRefFusion}
 
-# Families of the JAX registry that later slices of the port bring over, by
-# their item in ROADMAP.md queue A.
-_LATER = dict.fromkeys(
-    ("NAFNetDynamicFusion", "NAFNetLocalDynamic", "DRSformer",
-     "DRSformerRefFusion", "DRSformer200L_SPA_RefFusion", "SFNet",
-     "SFNetRefFusion"), "A6")
+# Families of the JAX registry that a later slice of the port brings over,
+# by their item in ROADMAP.md queue A.
+_LATER = dict.fromkeys(("NAFNetDynamicFusion", "NAFNetLocalDynamic"), "A6e")
 
 # The families whose blocks are TransformerBlocks, and so take the routing
 # keys `chain`, `fused`, `gdfn_fused` and `mdta_pallas`.

@@ -1,0 +1,432 @@
+"""DRSformer and DRSformerRefFusion as torch modules (NHWC in and out).
+
+Counterpart of textualdegremoval_tpu/models/drsformer.py, with the
+reference's module names (network_drsformer_guided_arch.py: TKSA Attention,
+MSFN, the MEFC `subnet` with its OALayer and GroupOLs), so a reference
+checkpoint loads with `strict=True` and the JAX package's
+`convert_state_dict` maps a state dict of this package onto the JAX tree.
+The 200L/SPA variant is `use_mefc=False`.  No kernel serves this family:
+every op is plain torch (`_conv`: 1x1 convs as cuBLAS GEMMs, the others
+cuDNN's or torch's depthwise kernels).  `dtype` is the compute
+dtype (the JAX modules' `dtype`): the input is cast to it and every weight
+at use, while the parameters stay float32.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from textualdegremoval_tpu_torch.models.layers import (
+    ChannelLayerNorm,
+    Downsample,
+    MASAEncoder,
+    OverlapPatchEmbed,
+    Upsample,
+    conv_nhwc,
+    masa_encode_pair,
+)
+from textualdegremoval_tpu_torch.ops import (
+    masa_match_and_warp, pad_to_multiple, tksa_attention,
+)
+
+
+def _nchw_first(dtype: torch.dtype, channels: int, k: int,
+                dilation: int) -> bool:
+    """Whether a depthwise conv runs on the NCHW-contiguous copy of its
+    input rather than the channels_last view: where cuDNN's channels_last
+    kernels ran 1.3-6.7x slower, forward and backward, on an H100
+    (`tools/bench_family_ops.py`): the dilated ones (MEFC's dil_conv),
+    and in float32 those of kernel 7 or of a width not a multiple of 8
+    (MSFN's 254-wide convs)."""
+    return dilation > 1 or (dtype == torch.float32
+                            and (k >= 7 or channels % 8 != 0))
+
+
+def _conv(conv: nn.Conv2d, x: torch.Tensor,
+          pair_weight: torch.Tensor | None = None) -> torch.Tensor:
+    """`conv` on NHWC x, NHWC out: a 1x1 conv as one GEMM on the NHWC
+    tensor (F.linear: in float32 1.9-2.6x faster than cuDNN's 1x1 conv at
+    a 512 px forward's widths), a depthwise one on the layout `_nchw_first`
+    picks, the rest through cuDNN on the channels_last view.
+    pair_weight: a depthwise weight over x's channels in place of conv's,
+    without its bias (`_pair_grouped_conv`)."""
+    if pair_weight is None and conv.kernel_size == (1, 1) \
+            and conv.groups == 1:
+        bias = None if conv.bias is None else conv.bias.to(x.dtype)
+        return F.linear(x, conv.weight.to(x.dtype).flatten(1), bias)
+    if pair_weight is None:
+        w, bias, groups = conv.weight, conv.bias, conv.groups
+    else:
+        w, bias, groups = pair_weight, None, x.shape[-1]
+    if groups == 1 or groups != x.shape[-1]:
+        return conv_nhwc(conv, x)
+    xc = x.permute(0, 3, 1, 2)
+    if _nchw_first(x.dtype, groups, conv.kernel_size[0], conv.dilation[0]):
+        xc = xc.contiguous()
+    y = F.conv2d(xc, w.to(x.dtype), None if bias is None else bias.to(
+        x.dtype), conv.stride, conv.padding, conv.dilation, groups)
+    return y.permute(0, 2, 3, 1)
+
+
+def _pair_grouped_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """`conv`, a grouped conv of two input channels a group (MSFN's
+    second stage), on NHWC x, as one depthwise conv over the input's
+    channels (output 2g + i: tap i of group g's weight on input 2g + i)
+    and the sum of each pair: the same sums, where cuDNN's kernel for
+    two channels a group ran 2.2-4.6x slower in bf16."""
+    w = conv.weight
+    y = _conv(conv, x, w.reshape(-1, 1, *w.shape[2:]))
+    y = y.unflatten(-1, (w.shape[0], 2)).sum(dim=-1)
+    return y if conv.bias is None else y + conv.bias.to(x.dtype)
+
+
+class TKSAAttention(nn.Module):
+    """Top-k sparse channel attention (reference Attention :260-330)."""
+
+    def __init__(self, dim: int, num_heads: int, bias: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
+        self.qkv = nn.Conv2d(dim, dim * 3, 1, bias=bias)
+        self.qkv_dwconv = nn.Conv2d(dim * 3, dim * 3, 3, padding=1,
+                                    groups=dim * 3, bias=bias)
+        self.project_out = nn.Conv2d(dim, dim, 1, bias=bias)
+        for i in range(1, 5):
+            setattr(self, f"attn{i}", nn.Parameter(torch.full((1,), 0.2)))
+
+    def forward(self, x):
+        b, h, w, c = x.shape
+        heads = self.num_heads
+        qkv = _conv(self.qkv_dwconv, _conv(self.qkv, x))
+
+        def to_heads(t):  # (B, H, W, C) -> (B, heads, c, L)
+            return t.reshape(b, h * w, heads, c // heads).permute(0, 2, 3, 1)
+
+        q, k, v = (to_heads(t) for t in torch.chunk(qkv, 3, dim=-1))
+        blend = torch.cat([self.attn1, self.attn2, self.attn3, self.attn4])
+        out = tksa_attention(q, k, v, self.temperature, blend)
+        out = out.permute(0, 3, 1, 2).reshape(b, h, w, c)
+        return _conv(self.project_out, out)
+
+
+class MSFN(nn.Module):
+    """Mixed-scale (3x3 and 5x5) gated FFN (reference :216-256)."""
+
+    def __init__(self, dim: int, ffn_expansion_factor: float = 2.66,
+                 bias: bool = False):
+        super().__init__()
+        hidden = int(dim * ffn_expansion_factor)
+        h2 = hidden * 2
+        self.project_in = nn.Conv2d(dim, h2, 1, bias=bias)
+        self.dwconv3x3 = nn.Conv2d(h2, h2, 3, padding=1, groups=h2,
+                                   bias=bias)
+        self.dwconv5x5 = nn.Conv2d(h2, h2, 5, padding=2, groups=h2,
+                                   bias=bias)
+        self.dwconv3x3_1 = nn.Conv2d(h2, hidden, 3, padding=1, groups=hidden,
+                                     bias=bias)
+        self.dwconv5x5_1 = nn.Conv2d(h2, hidden, 5, padding=2, groups=hidden,
+                                     bias=bias)
+        self.project_out = nn.Conv2d(h2, dim, 1, bias=bias)
+
+    def forward(self, x):
+        x = _conv(self.project_in, x)
+        x1_3, x2_3 = torch.chunk(F.relu(_conv(self.dwconv3x3, x)), 2, -1)
+        x1_5, x2_5 = torch.chunk(F.relu(_conv(self.dwconv5x5, x)), 2, -1)
+        x1 = F.relu(_pair_grouped_conv(self.dwconv3x3_1,
+                                       torch.cat([x1_3, x1_5], -1)))
+        x2 = F.relu(_pair_grouped_conv(self.dwconv5x5_1,
+                                       torch.cat([x2_3, x2_5], -1)))
+        return _conv(self.project_out, torch.cat([x1, x2], -1))
+
+
+class SparseTransformerBlock(nn.Module):
+    """x + TKSA(LN1(x)), then + MSFN(LN2(.)); with fusion (the RefFusion
+    blocks) out * alpha + x, alpha zero-initialised."""
+
+    def __init__(self, dim: int, num_heads: int,
+                 ffn_expansion_factor: float = 2.66, bias: bool = False,
+                 ln_type: str = "WithBias", fusion: bool = False):
+        super().__init__()
+        self.norm1 = ChannelLayerNorm(dim, ln_type)
+        self.attn = TKSAAttention(dim, num_heads, bias)
+        self.norm2 = ChannelLayerNorm(dim, ln_type)
+        self.ffn = MSFN(dim, ffn_expansion_factor, bias)
+        if fusion:
+            self.alpha = nn.Parameter(torch.zeros(1))
+
+    def forward(self, x):
+        shortcut = x
+        x = x + self.attn(self.norm1(x))
+        x = x + self.ffn(self.norm2(x))
+        if hasattr(self, "alpha"):
+            return x * self.alpha.to(x.dtype) + shortcut
+        return x
+
+
+# ---------------------------------------------------------------------------
+# MEFC: the DARTS-style mixture of 8 ops (reference :371-547)
+# ---------------------------------------------------------------------------
+
+
+class _AvgPool3x3(nn.Module):
+    """AvgPool2d(3, stride 1, pad 1, count_include_pad=False) on NHWC, run
+    on the NCHW-contiguous copy: on a channels_last input torch 2.11's CUDA
+    backward of this pool is wrong (gradients off by O(1) in float64 on an
+    H100, where the NCHW kernel and the CPU agree exactly)."""
+
+    def forward(self, x):
+        y = F.avg_pool2d(x.permute(0, 3, 1, 2).contiguous(), 3, 1, 1,
+                         count_include_pad=False)
+        return y.permute(0, 2, 3, 1)
+
+
+def _dw(dim: int, k: int, dilation: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(dim, dim, k, padding=(k - 1) * dilation // 2,
+                     dilation=dilation, groups=dim, bias=False)
+
+
+def _pw(dim_in: int, dim_out: int) -> nn.Conv2d:
+    return nn.Conv2d(dim_in, dim_out, 1, bias=False)
+
+
+class SepConvOp(nn.Module):
+    """op: dw k, pw, ReLU, dw k, pw (indices 0, 1, 3, 4)."""
+
+    def __init__(self, dim: int, k: int):
+        super().__init__()
+        self.op = nn.Sequential(_dw(dim, k), _pw(dim, dim), nn.ReLU(),
+                                _dw(dim, k), _pw(dim, dim))
+
+    def forward(self, x):
+        x = _conv(self.op[1], _conv(self.op[0], x))
+        return _conv(self.op[4], _conv(self.op[3], F.relu(x)))
+
+
+class DilConvOp(nn.Module):
+    """op: dw k at dilation 2, pw."""
+
+    def __init__(self, dim: int, k: int, dilation: int = 2):
+        super().__init__()
+        self.op = nn.Sequential(_dw(dim, k, dilation), _pw(dim, dim))
+
+    def forward(self, x):
+        return _conv(self.op[1], _conv(self.op[0], x))
+
+
+class OperationLayer(nn.Module):
+    """The 8 candidate ops (sep 1/3/5/7, dil 3/5/7, the 3x3 average pool),
+    each scaled by its weight, concatenated and mixed by a 1x1 and a
+    ReLU."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self._ops = nn.ModuleList(
+            [SepConvOp(dim, k) for k in (1, 3, 5, 7)]
+            + [DilConvOp(dim, k) for k in (3, 5, 7)] + [_AvgPool3x3()])
+        self._out = nn.Sequential(_pw(dim * len(self._ops), dim), nn.ReLU())
+
+    def forward(self, x, weights):
+        """weights: (B, 8)."""
+        out = torch.cat([op(x) * weights[:, i, None, None, None].to(x.dtype)
+                         for i, op in enumerate(self._ops)], dim=-1)
+        return F.relu(_conv(self._out[0], out))
+
+
+class _OALayer(nn.Module):
+    """The routing MLP: GAP -> Linear -> ReLU -> Linear."""
+
+    def __init__(self, dim: int, steps: int, num_ops: int):
+        super().__init__()
+        self.ca_fc = nn.Sequential(
+            nn.Linear(dim, steps * num_ops * 2), nn.ReLU(),
+            nn.Linear(steps * num_ops * 2, steps * num_ops))
+
+
+class _ReLUConv(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.op = nn.Sequential(_pw(dim, dim), nn.ReLU())
+
+
+class _GroupOLs(nn.Module):
+    def __init__(self, dim: int, steps: int):
+        super().__init__()
+        self.preprocess = _ReLUConv(dim)
+        self._ops = nn.ModuleList(OperationLayer(dim) for _ in range(steps))
+
+
+class MEFC(nn.Module):
+    """The reference's `subnet` with layer_num 1: layers.0 the OALayer
+    (per-step softmax weights over the ops from the pooled input), layers.1
+    the GroupOLs (a bias-free 1x1 and ReLU, then `steps` OperationLayers,
+    each with a residual ReLU)."""
+
+    def __init__(self, dim: int, steps: int = 4, num_ops: int = 8):
+        super().__init__()
+        self.steps, self.num_ops = steps, num_ops
+        self.layers = nn.ModuleList([_OALayer(dim, steps, num_ops),
+                                     _GroupOLs(dim, steps)])
+
+    def forward(self, x):
+        dt = x.dtype
+        fc1, fc2 = self.layers[0].ca_fc[0], self.layers[0].ca_fc[2]
+        y = F.relu(F.linear(x.mean(dim=(1, 2)), fc1.weight.to(dt),
+                            fc1.bias.to(dt)))
+        y = F.linear(y, fc2.weight.to(dt), fc2.bias.to(dt))
+        weights = torch.softmax(y.reshape(-1, self.steps, self.num_ops), -1)
+        group = self.layers[1]
+        x = F.relu(_conv(group.preprocess.op[0], x))
+        for i, layer in enumerate(group._ops):
+            x = F.relu(layer(x, weights[:, i]) + x)
+        return x
+
+
+def _stage(dim, heads, n, ffn_expansion_factor, bias, ln_type,
+           fusion=False) -> nn.Sequential:
+    return nn.Sequential(*[
+        SparseTransformerBlock(dim, heads, ffn_expansion_factor, bias,
+                               ln_type, fusion) for _ in range(n)])
+
+
+class _DRSformerTrunk(nn.Module):
+    """The encoder/decoder shared by DRSformer and DRSformerRefFusion."""
+
+    def __init__(self, inp_channels, out_channels, dim, num_blocks, heads,
+                 ffn_expansion_factor, bias, ln_type, use_mefc, dtype):
+        super().__init__()
+        d = dim
+        self.dtype = dtype
+        self.use_mefc = use_mefc
+
+        def stage(ch, h, n):
+            return _stage(ch, h, n, ffn_expansion_factor, bias, ln_type)
+
+        self.patch_embed = OverlapPatchEmbed(inp_channels, d, bias)
+        if use_mefc:
+            self.encoder_level0 = MEFC(d)
+        self.encoder_level1 = stage(d, heads[0], num_blocks[0])
+        self.down1_2 = Downsample(d)
+        self.encoder_level2 = stage(d * 2, heads[1], num_blocks[1])
+        self.down2_3 = Downsample(d * 2)
+        self.encoder_level3 = stage(d * 4, heads[2], num_blocks[2])
+        self.down3_4 = Downsample(d * 4)
+        self.latent = stage(d * 8, heads[3], num_blocks[3])
+        self.up4_3 = Upsample(d * 8)
+        self.reduce_chan_level3 = nn.Conv2d(d * 8, d * 4, 1, bias=bias)
+        self.decoder_level3 = stage(d * 4, heads[2], num_blocks[2])
+        self.up3_2 = Upsample(d * 4)
+        self.reduce_chan_level2 = nn.Conv2d(d * 4, d * 2, 1, bias=bias)
+        self.decoder_level2 = stage(d * 2, heads[1], num_blocks[1])
+        self.up2_1 = Upsample(d * 2)
+        self.decoder_level1 = stage(d * 2, heads[0], num_blocks[0])
+        if use_mefc:
+            self.refinement = MEFC(d * 2)
+        self.output = nn.Conv2d(d * 2, out_channels, 3, padding=1, bias=bias)
+
+    def _decode(self, latent, e1, e2, e3, x_in):
+        y = _conv(self.reduce_chan_level3,
+                      torch.cat([self.up4_3(latent), e3], dim=-1))
+        y = self.decoder_level3(y)
+        y = _conv(self.reduce_chan_level2,
+                      torch.cat([self.up3_2(y), e2], dim=-1))
+        y = self.decoder_level2(y)
+        y = self.decoder_level1(torch.cat([self.up2_1(y), e1], dim=-1))
+        if self.use_mefc:
+            y = self.refinement(y)
+        return _conv(self.output, y) + x_in
+
+
+class DRSformer(_DRSformerTrunk):
+    """4-level U-shaped transformer of sparse (TKSA + MSFN) blocks, with an
+    MEFC after the embedding and before the output unless use_mefc is
+    False."""
+
+    def __init__(self, inp_channels: int = 3, out_channels: int = 3,
+                 dim: int = 48, num_blocks: Sequence[int] = (4, 6, 6, 8),
+                 heads: Sequence[int] = (1, 2, 4, 8),
+                 ffn_expansion_factor: float = 2.66, bias: bool = False,
+                 ln_type: str = "WithBias", use_mefc: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(inp_channels, out_channels, dim, num_blocks, heads,
+                         ffn_expansion_factor, bias, ln_type, use_mefc, dtype)
+
+    def forward(self, inp_img):
+        """inp_img: (B, H, W, C_in).  Returns (B, H, W, C_out)."""
+        _, h0, w0, _ = inp_img.shape
+        x = pad_to_multiple(inp_img.to(self.dtype), 8)
+        e1 = self.patch_embed(x)
+        if self.use_mefc:
+            e1 = self.encoder_level0(e1)
+        e1 = self.encoder_level1(e1)
+        e2 = self.encoder_level2(self.down1_2(e1))
+        e3 = self.encoder_level3(self.down2_3(e2))
+        lat = self.latent(self.down3_4(e3))
+        return self._decode(lat, e1, e2, e3, x)[:, :h0, :w0]
+
+
+class DRSformerRefFusion(_DRSformerTrunk):
+    """DRSformer trunk with a 4-level MASA warp pyramid, fused in at every
+    encoder level by sparse blocks (fusion gates) on cat([x, warp]), at
+    twice the width with the same heads, whose output's first half goes
+    on."""
+
+    def __init__(self, inp_channels: int = 3, out_channels: int = 3,
+                 dim: int = 48, num_blocks: Sequence[int] = (4, 6, 6, 8),
+                 heads: Sequence[int] = (1, 2, 4, 8),
+                 ffn_expansion_factor: float = 2.66, bias: bool = False,
+                 ln_type: str = "WithBias", use_mefc: bool = True,
+                 nf: int = 48, ext_n_blocks: Sequence[int] = (4, 4, 4, 4),
+                 reffusion_n_blocks: Sequence[int] = (2, 2, 2, 2),
+                 reffusion_n_blocks_middle: int = 1, num_nbr: int = 1,
+                 psize: int = 3, lr_block_size: int = 8,
+                 ref_down_block_size: float = 1.5,
+                 dilations: Sequence[int] = (1, 2, 3),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(inp_channels, out_channels, dim, num_blocks, heads,
+                         ffn_expansion_factor, bias, ln_type, use_mefc, dtype)
+        self.lr_block_size = lr_block_size
+        self.ref_down_block_size = ref_down_block_size
+        self.psize = psize
+        self.dilations = tuple(dilations)
+        self.masa_enc = MASAEncoder(inp_channels, nf, ext_n_blocks, 4)
+        for level in range(4):
+            setattr(self, f"masa_blk_enc_level{level + 1}", _stage(
+                dim * 2 ** (level + 1), heads[level],
+                reffusion_n_blocks[level], ffn_expansion_factor, bias,
+                ln_type, fusion=True))
+
+    @staticmethod
+    def _fuse(x, warp_l, blocks):
+        cat = torch.cat([x, warp_l.to(x.dtype)], dim=-1)
+        return blocks(cat)[..., : cat.shape[-1] // 2]
+
+    def forward(self, inp_img, ref_img):
+        """inp_img: (B, H, W, C_in); ref_img: (B, Hr, Wr, C_in).  Returns
+        (B, H, W, C_out)."""
+        _, h0, w0, _ = inp_img.shape
+        dt = self.dtype
+        pad = 8 * self.lr_block_size
+        inp = pad_to_multiple(inp_img.to(dt), pad)
+        ref = pad_to_multiple(ref_img.to(dt), pad)
+        feat_lq, feat_ref = masa_encode_pair(self.masa_enc, inp, ref)
+        warp = masa_match_and_warp(
+            feat_lq[-1], feat_ref, lr_block_size=self.lr_block_size,
+            ref_down_block_size=self.ref_down_block_size, psize=self.psize,
+            dilations=self.dilations)
+
+        x = self._fuse(self.patch_embed(inp), warp[0],
+                       self.masa_blk_enc_level1)
+        if self.use_mefc:
+            x = self.encoder_level0(x)
+        e1 = self.encoder_level1(x)
+        x = self._fuse(self.down1_2(e1), warp[1], self.masa_blk_enc_level2)
+        e2 = self.encoder_level2(x)
+        x = self._fuse(self.down2_3(e2), warp[2], self.masa_blk_enc_level3)
+        e3 = self.encoder_level3(x)
+        x = self._fuse(self.down3_4(e3), warp[3], self.masa_blk_enc_level4)
+        lat = self.latent(x)
+        return self._decode(lat, e1, e2, e3, inp)[:, :h0, :w0]

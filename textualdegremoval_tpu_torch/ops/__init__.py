@@ -12,7 +12,10 @@ from textualdegremoval_tpu_torch.ops.resize import (
     pixel_unshuffle,
     pad_to_multiple,
 )
-from textualdegremoval_tpu_torch.ops.attention import mdta_attention_nhwc
+from textualdegremoval_tpu_torch.ops.attention import (
+    mdta_attention_nhwc,
+    tksa_attention,
+)
 from textualdegremoval_tpu_torch.ops.dwconv import dwconv
 from textualdegremoval_tpu_torch.ops.masa import (
     masa_coarse_search,
@@ -21,6 +24,7 @@ from textualdegremoval_tpu_torch.ops.masa import (
     masa_transfer,
     masa_window_corners,
     masa_match_and_warp,
+    unfold_nhwc,
 )
 
 __all__ = [
@@ -33,6 +37,7 @@ __all__ = [
     "pixel_unshuffle",
     "pad_to_multiple",
     "mdta_attention_nhwc",
+    "tksa_attention",
     "dwconv",
     "masa_coarse_search",
     "masa_fine_search",
@@ -40,4 +45,5 @@ __all__ = [
     "masa_transfer",
     "masa_window_corners",
     "masa_match_and_warp",
+    "unfold_nhwc",
 ]

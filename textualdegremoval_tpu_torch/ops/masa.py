@@ -18,6 +18,18 @@ import torch
 import torch.nn.functional as F
 
 
+def unfold_nhwc(x: torch.Tensor, ks: int) -> torch.Tensor:
+    """torch F.unfold-compatible patch extraction on NHWC, stride 1, no
+    padding (JAX `unfold_nhwc` at its defaults): (N, H, W, C) ->
+    (N, H - ks + 1, W - ks + 1, C * ks * ks), the last axis channel-major,
+    index c * ks * ks + ki * ks + kj."""
+    n, h, w, c = x.shape
+    oh, ow = h - ks + 1, w - ks + 1
+    taps = [x[:, i: i + oh, j: j + ow, :] for i in range(ks)
+            for j in range(ks)]
+    return torch.stack(taps, dim=-1).reshape(n, oh, ow, c * ks * ks)
+
+
 def masa_coarse_search(lq_blocks: torch.Tensor, ref_feat: torch.Tensor,
                        dilations=(1, 2, 3)) -> torch.Tensor:
     """Multi-dilation centre-patch correlation, top-1 over ref positions.

@@ -30,6 +30,15 @@ backward is the hand-written kernel pair on CUDA), the optimizer update
 with torch._foreach ops in place, the EMA.  Parameters are updated in
 place, which bumps their version counters, so every block rebuilds its
 cached kernel weights at the next forward.
+
+A network of several outputs (SFNet's three scales) is scored as the sum
+of the loss over them, gt resized to each output's size by
+`ops.resize.image_resize(..., 'bilinear')` (jax.image.resize's
+antialiased bilinear, as JAX's step).  The step runs the network in train
+mode, so SFNet's BatchNorm normalises by the batch and updates its running
+statistics, as JAX's step does with `model_state={'batch_stats': ...}`;
+the EMA covers the parameters only, and the eval step runs in eval mode
+(the running statistics).
 """
 
 from __future__ import annotations
@@ -38,6 +47,8 @@ from dataclasses import dataclass
 from typing import Callable
 
 import torch
+
+from textualdegremoval_tpu_torch.ops.resize import image_resize
 
 
 def _masa_mask(names) -> list[bool]:
@@ -206,10 +217,23 @@ def create_train_state(model, opt: AdamW, ema_decay: float = 0.0,
     return TrainState(0, model, opt, ema)
 
 
+def multiscale_loss(loss_fn: Callable, preds, gt: torch.Tensor):
+    """loss_fn over a prediction, or summed over a list of them with gt
+    resized to each one's size (JAX `make_train_step`'s compute_loss)."""
+    if not isinstance(preds, (list, tuple)):
+        return loss_fn(preds, gt)
+    total = 0.0
+    for p in preds:
+        g = gt if p.shape[1] == gt.shape[1] else image_resize(
+            gt, p.shape, "bilinear")
+        total = total + loss_fn(p, g)
+    return total
+
+
 def make_train_step(loss_fn: Callable, ema_decay: float = 0.0,
                     masa_frozen: bool = False):
     """Build (state, batch) -> (state, metrics); batch holds 'lq', 'gt' and
-    'ref' tensors on the model's device.
+    'ref' tensors on the model's device.  The loss is `multiscale_loss`.
 
     masa_frozen: the
     reference's freeze phase done structurally: the masa parameters get
@@ -223,7 +247,8 @@ def make_train_step(loss_fn: Callable, ema_decay: float = 0.0,
         for p, m in zip(opt.params, opt.masa):
             p.requires_grad_(not (masa_frozen and m))
         model.train()
-        loss = loss_fn(model(batch["lq"], batch["ref"]), batch["gt"])
+        loss = multiscale_loss(loss_fn, model(batch["lq"], batch["ref"]),
+                               batch["gt"])
         live = [i for i, p in enumerate(opt.params) if p.requires_grad]
         got = torch.autograd.grad(loss, [opt.params[i] for i in live])
         grads = [None] * len(opt.params)
@@ -245,8 +270,9 @@ def make_train_step(loss_fn: Callable, ema_decay: float = 0.0,
 
 
 def make_eval_step(use_ema: bool = True):
-    """(state, batch) -> prediction, with the EMA parameters when use_ema
-    and EMA is on (swapped in for the call, then swapped back)."""
+    """(state, batch) -> prediction (a list for a network of several
+    outputs), in eval mode, with the EMA parameters when use_ema and EMA
+    is on (swapped in for the call, then swapped back)."""
 
     @torch.no_grad()
     def step(state: TrainState, batch):
