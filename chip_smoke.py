@@ -251,7 +251,29 @@ Phases, each of which raises on failure:
    Phases 28-32 read every kernel counter of the port: none may move (no
    Pallas kernel lies on these paths; every op is plain torch, the
    convolutions cuDNN's), and the kernels line gives each kernel's count
-   there as drsformer_sfnet_launches.
+   there as drsformer_sfnet_launches;
+33. NAFNetDynamicFusion (DiffIR) at full width (width 64, enc 1/1/1/28,
+   10 words: 1.78 B parameters, 1.72 B in the affine heads; seeded,
+   float32, TF32 off): a 512 px forward with the embedding of seeded
+   full-width towers (CLIP ViT-H/14 at 224 px, I2TMapper at 10 words),
+   ms, peak memory, idle share, the embedding's ms an image, and the net
+   on the card against the CPU at 128 px;
+34. the DiffIR CLI (`train_diffir.main`) on the card over numpy-written
+   PNGs, options synthesized as a dict: the frozen towers and phase 33's
+   net at 256 px, the largest batch of 8, 4, 2, 1 that fits, three
+   iterations through the DevicePrefetcher with the embedding and the step
+   timed apart, peak memory, a profiled iteration (the checkpoint writes,
+   29 GB of state at this width, recorded rather than made); then one f32
+   step card vs CPU at the full widths, one block a level (C3's bounds);
+   phases 33-34 read every kernel counter: none may move
+   (diffir_launches in the kernels line);
+35. the keyed archives: an LMDB (tests/lmdb_spec_writer.py) and a packed
+   TFRecord of one seeded PNG folder, every Dataset_PairedImageWithRef
+   item through each equal bit for bit to the disk backend's, the decoder
+   that read the disk images named; then the training CLI's `main`, two
+   iterations on each archive at nafnet_motion_deblur.yml's network
+   (float32, 128 px crops, batch 8): 45 `nafblock_fused` launches a step
+   (archive_launches in its row).
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is nvidia-smi's, and before that a JSON summary of each kernel.  Without
@@ -1313,7 +1335,8 @@ def _union_ms(spans) -> float:
 
 def profile_device(fn, what: str):
     """Device time of one call of fn by kernel (torch.profiler), the share
-    of the port's kernels, and the device's idle share of its wall time.
+    of the port's kernels, and the device's idle share of its wall time
+    (returned; None where the profiler recorded no device time).
     Busy is the union of the device events' intervals, so events that
     overlap (another stream) are not counted twice; the per-kernel sums
     can exceed it."""
@@ -1339,22 +1362,28 @@ def profile_device(fn, what: str):
     ours = ("tblock_", "gdfn_bwd", "attn_bwd", "wgrad", "nafblock_", "naf_",
             "flash_", "gdfn_kernel", "mdta_", "bwd_gemm", "_stencil_kernel",
             "ln_rows_")
-    mine = sum(t for k, t, _ in kernels if any(o in k for o in ours))
+    # cuDNN's weight-gradient kernels are named sm80_xmma_wgrad_*
+    mine = sum(t for k, t, _ in kernels
+               if any(o in k for o in ours) and "xmma" not in k)
+    idle = 1 - busy / wall
     log(f"profiled {what}: wall {wall:.1f} ms, {len(spans)} device events, "
         f"device busy {busy:.1f} ms (summed {summed:.1f} ms), idle share "
-        f"{1 - busy / wall:.4f}; the port's kernels {mine:.1f} ms "
+        f"{idle:.4f}; the port's kernels {mine:.1f} ms "
         f"({mine / summed:.3f} of the summed device time)")
     for k, t, n in sorted(kernels, key=lambda r: -r[1])[:14]:
         log(f"    {t:9.2f} ms {n:6d}x  {k[:90]}")
+    return idle
 
 
 def train_step_vs_cpu(seed: int, opt=TRAIN_OPT, resolve_kw=None,
                       kernels=(), batch_size=1, grad_floor=0.0,
-                      update_tol=1e-2):
-    """Phases 7, 22 and 32: one f32 step of `opt` (resolve_network with
-    `resolve_kw`) at 128 px, batch `batch_size`, on the card (kernels)
+                      update_tol=1e-2, ref_fn=None):
+    """Phases 7, 22, 32 and 34: one f32 step of `opt` (resolve_network
+    with `resolve_kw`) at 128 px, batch `batch_size`, on the card (kernels)
     against the same step on the CPU (plain blocks); each (kernel, n) of
-    `kernels` is launched n times in the card's step.  Each parameter's
+    `kernels` is launched n times in the card's step.  ref_fn(rng, b): the
+    network's second input in place of the reference images (DiffIR's
+    embedding, which the step takes in the `ref` slot).  Each parameter's
     gradient, as the step hands it to the optimizer, is held to
     ||g_card - g_cpu|| <= 1e-3 ||g_cpu|| + grad_floor ||all of g_cpu||, so
     that one small tensor with a wrong gradient fails (the first Adam
@@ -1376,6 +1405,8 @@ def train_step_vs_cpu(seed: int, opt=TRAIN_OPT, resolve_kw=None,
     trip = [synthetic_triple(rng, 128) for _ in range(batch_size)]
     batch = {k: torch.from_numpy(np.stack([tr[i] for tr in trip]))
              for i, k in enumerate(("lq", "gt", "ref"))}
+    if ref_fn is not None:
+        batch["ref"] = torch.from_numpy(ref_fn(rng, batch_size))
     losses, grads, after = [], [], []
     for k, _ in kernels:
         k.launches = 0
@@ -3726,6 +3757,358 @@ def family_phases(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 33-35: the DiffIR path (no kernel) and the keyed archives
+# ---------------------------------------------------------------------------
+
+# NAFNetDynamicFusion's defaults (width 64, enc 1/1/1/28, middle 1, dec
+# 1/1/1/1) with the 10 words its shipped Linear(10 * 1024, ...) takes; the
+# towers are CLIPVisionEncoder's and I2TMapper's defaults (ViT-H/14 at 224
+# px, width 1280, 32 layers) at 10 words
+DIFFIR_NET = {"type": "NAFNetDynamicFusion", "img_channel": 3, "width": 64,
+              "middle_blk_num": 1, "enc_blk_nums": [1, 1, 1, 28],
+              "dec_blk_nums": [1, 1, 1, 1], "num_words": 10}
+DIFFIR_TRAIN = {**TRAIN_OPT["train"], "param_fix_iterations": 0,
+                "ema_decay": 0.999}
+DIFFIR_GT = 256
+# phase 34's step card vs CPU: the full widths, one block a level (the
+# 1.8 B-parameter net's f32 step would take some 50 GB of host memory)
+DIFFIR_CPU_NET = dict(DIFFIR_NET, enc_blk_nums=[1, 1, 1, 1])
+DIFFIR_GRAD_FLOOR = 1e-5  # of the global gradient norm, as phase 32's
+
+
+def diffir_forward(seed: int, seen: dict):
+    """Phase 33: NAFNetDynamicFusion at full width, float32 (TF32 off),
+    seeded weights (non-zero beta and gamma): its parameter count (all
+    and the affine heads'); a 512 px forward on the card with the
+    embedding of seeded full-width towers (the CLI's view and towers),
+    median ms of 3 after a warm-up, peak memory, a profiled forward's
+    idle share, the embedding's ms per image; the network on the card
+    against the CPU at 128 px within NET_ATOL; no kernel launched."""
+    from textualdegremoval_tpu_torch.cli import train_diffir as dcli
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model_cpu = gate_and_temperatures(define_network(DIFFIR_NET), seed)
+    n_all = sum(p.numel() for p in model_cpu.parameters())
+    n_heads = sum(p.numel() for n, p in model_cpu.named_parameters()
+                  if n.endswith("kernel.0.weight"))
+    opt = {"manual_seed": seed, "path": {},
+           "network_mapper": {"num_words": DIFFIR_NET["num_words"]}}
+    enc, mapper = dcli.build_towers(opt, "cuda")
+    embed = dcli.make_device_embed_fn(enc, mapper)
+    rng = np.random.default_rng(seed + 9)
+    lq = torch.from_numpy(synthetic_triple(rng)[0][None]).cuda()
+    _reset_all_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        emb_ms = median_ms(lambda: embed(lq), reps=3)
+        kv = embed(lq)
+    del enc, mapper, embed
+    model = copy.deepcopy(model_cpu).cuda()
+    with torch.inference_mode():
+        fwd_ms = median_ms(lambda: model(lq, kv), reps=3)
+        out = model(lq, kv)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        idle = profile_device(lambda: model(lq, kv),
+                              "NAFNetDynamicFusion f32 512 px forward")
+        x = torch.from_numpy(rng.random((1, 128, 128, 3), np.float32))
+        k = kv.cpu()
+        got = model(x.cuda(), kv).cpu()
+        want = model_cpu(x, k)
+    no_kernel_launched("NAFNetDynamicFusion forward", seen)
+    err = (got - want).abs().max().item()
+    log(f"NAFNetDynamicFusion: {n_all} parameters, {n_heads} in the affine "
+        f"heads; f32 512 px forward {fwd_ms:.2f} ms, peak {peak:.2f} GiB, "
+        f"idle share {idle}; the embedding (ViT-H/14 + I2T, 10 words) "
+        f"{emb_ms:.2f} ms an image; card vs CPU at 128 px max_abs "
+        f"{err:.3e} (atol {NET_ATOL}, max|out| {want.abs().max().item():.3f})"
+        f"; no kernel launched")
+    if out.shape != lq.shape or not torch.isfinite(out).all() \
+            or not torch.isfinite(got).all() or err > NET_ATOL:
+        raise RuntimeError(f"NAFNetDynamicFusion: output {tuple(out.shape)}"
+                           f", card vs CPU {err}")
+    del model, model_cpu, out, kv
+    torch.cuda.empty_cache()
+    return {"params": n_all, "head_params": n_heads, "fwd_ms": fwd_ms,
+            "peak_gib": peak, "idle": idle, "embed_ms": emb_ms,
+            "cpu_err": err}
+
+
+def _write_pngs(root: Path, subs, n: int, hw, seed: int):
+    from textualdegremoval_tpu_torch.data.png import write_png
+
+    rng = np.random.default_rng(seed)
+    for sub in subs:
+        (root / sub).mkdir(parents=True)
+        for i in range(n):
+            write_png(str(root / sub / f"{i:03d}.png"),
+                      (rng.random((*hw, 3)) * 255).astype(np.uint8))
+
+
+class _RecordedCheckpoints:
+    """The CLI's CheckpointManager with its writes recorded, not made (a
+    training state of the 1.8 B-parameter net is 29 GB); restore finds
+    none.  The CPU tests write and resume real checkpoints."""
+
+    def __init__(self, *dirs):
+        self.saved = []
+
+    def restore_state(self, state):
+        return None
+
+    def save_state(self, state, step):
+        self.saved.append(("state", step))
+
+    def save_network(self, state, step):
+        self.saved.append(("network", step))
+
+
+def diffir_cli(seed: int, seen: dict, iters: int = 3):
+    """Phase 34: the DiffIR CLI (`train_diffir.main`) on the card with a
+    synthesized options dict over numpy-written PNGs: the frozen
+    full-width towers and phase 33's net, float32, gt_size 256, at the
+    largest batch of FAMILY_BATCHES whose step fits (a run that runs out
+    of memory is dropped and the next batch tried), `iters` iterations
+    through the DevicePrefetcher, each iteration's embedding and step
+    timed apart (synchronised), the peak memory, a profiled iteration's
+    idle share, finite logged losses, the final checkpoint asked for; then
+    one f32 step card vs CPU (train_step_vs_cpu at DIFFIR_CPU_NET, C3's
+    bounds); no kernel launched."""
+    from textualdegremoval_tpu_torch.cli import train_diffir as dcli
+
+    root = Path(tempfile.mkdtemp(prefix="diffir_cli_"))
+    _write_pngs(root, ("lq", "hq"), 8, (272, 288), seed + 10)
+    out, cwd = {}, Path.cwd()
+    make_embed, make_step = dcli.make_device_embed_fn, \
+        dcli.make_diffir_train_step
+    manager = dcli.CheckpointManager
+    try:
+        os.chdir(root)
+        for b in FAMILY_BATCHES:
+            times = {"embed": [], "step": []}
+            last = {}
+
+            def timed(fn, key):
+                def run(*a):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    r = fn(*a)
+                    torch.cuda.synchronize()
+                    times[key].append((time.perf_counter() - t0) * 1e3)
+                    last[key] = (fn, a)
+                    return r
+                return run
+
+            dcli.make_device_embed_fn = lambda *a: timed(make_embed(*a),
+                                                         "embed")
+            dcli.make_diffir_train_step = lambda *a: timed(make_step(*a),
+                                                           "step")
+            ckpts = []
+            dcli.CheckpointManager = lambda *d: ckpts.append(
+                _RecordedCheckpoints(*d)) or ckpts[-1]
+            opt = {
+                "name": f"diffir_b{b}", "manual_seed": seed,
+                "datasets": {"train": {
+                    "name": "T", "type": "Dataset_PairedImage",
+                    "lqroot": str(root / "lq"), "hqroot": str(root / "hq"),
+                    "io_backend": {"type": "disk"}, "num_worker_per_gpu": 0,
+                    "batch_size_per_gpu": b, "gt_size": DIFFIR_GT,
+                    "geometric_augs": True}},
+                "network_g": DIFFIR_NET,
+                "network_mapper": {"num_words": DIFFIR_NET["num_words"]},
+                "path": {}, "train": DIFFIR_TRAIN,
+                "logger": {"print_freq": 1, "save_checkpoint_freq": 10 ** 6}}
+            cfg = root / f"diffir_b{b}.json"
+            cfg.write_text(json.dumps(opt))
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_all_counts()
+            t0 = time.perf_counter()
+            try:
+                state = dcli.main(["--opt", str(cfg), "--max_iters",
+                                   str(iters), "--device", "cuda"])
+            except torch.cuda.OutOfMemoryError:
+                log(f"DiffIR CLI batch {b} at {DIFFIR_GT} px: out of device "
+                    "memory")
+                last.clear()
+                continue
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            steps = state.step  # before the profiled iteration below
+            (efn, (lq,)), (sfn, (st, batch)) = last["embed"], last["step"]
+            idle = profile_device(lambda: sfn(st, {**batch, "embed": efn(
+                lq)}), f"DiffIR iteration batch {b}")
+            no_kernel_launched("the DiffIR CLI", seen)
+            scalars = [json.loads(line) for line in (
+                root / "experiments" / f"diffir_b{b}" / "scalars.jsonl"
+            ).read_text().splitlines()]
+            losses = [s["l_pix"] for s in scalars]
+            log(f"phase 34 DiffIR CLI: batch {b}, {DIFFIR_GT} px, {iters} "
+                f"iterations in {secs:.1f} s (the build included); embedding "
+                f"ms {[round(v, 2) for v in times['embed']]}, step ms "
+                f"{[round(v, 2) for v in times['step']]}, peak {peak:.2f} "
+                f"GiB, idle share {idle}, l_pix {losses}, checkpoints asked "
+                f"{ckpts[0].saved}")
+            if steps != iters or len(losses) != iters \
+                    or not np.isfinite(losses).all() \
+                    or ckpts[0].saved != [("state", iters),
+                                          ("network", iters)]:
+                raise RuntimeError(f"the DiffIR CLI: step {steps}, "
+                                   f"losses {losses}, {ckpts[0].saved}")
+            out = {"batch": b, "embed_ms": statistics.median(
+                times["embed"][1:]), "step_ms": statistics.median(
+                times["step"][1:]), "peak_gib": peak, "idle": idle}
+            break
+        else:
+            raise RuntimeError("the DiffIR CLI: no batch of "
+                               f"{FAMILY_BATCHES} fits the card")
+    finally:
+        dcli.make_device_embed_fn, dcli.make_diffir_train_step = \
+            make_embed, make_step
+        dcli.CheckpointManager = manager
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    del state, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reset_all_counts()
+    train_step_vs_cpu(seed, {"network_g": DIFFIR_CPU_NET,
+                             "train": DIFFIR_TRAIN},
+                      grad_floor=DIFFIR_GRAD_FLOOR,
+                      update_tol=FAMILY_UPDATE_TOL,
+                      ref_fn=lambda rng, b: rng.standard_normal(
+                          (b, DIFFIR_NET["num_words"], 1024)).astype(
+                          np.float32))
+    no_kernel_launched("the DiffIR step, card vs CPU", seen)
+    return out
+
+
+def _lmdb_writer():
+    """tests/lmdb_spec_writer.py's `write_lmdb` (LMDB's on-disk format
+    written from its specification, with BasicSR's meta_info.txt)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "lmdb_spec_writer", Path(__file__).resolve().parent / "tests"
+        / "lmdb_spec_writer.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.write_lmdb
+
+
+def keyed_archives(seed: int, iters: int = 2, gt_size: int = 128):
+    """Phase 35: an LMDB (the spec writer) and a packed TFRecord
+    (`pack_image_folder`) of one seeded folder of PNGs; every item of
+    Dataset_PairedImageWithRef through each archive equal, bit for bit, to
+    the disk backend's for the same index and seed; then
+    cli/train_restoration.py's `main` for `iters` iterations on each
+    archive at nafnet_motion_deblur.yml's network (its float32), gt_size
+    reduced to `gt_size`, batch 8: 45 `nafblock_fused` launches a step.
+    Returns the decoder that read the disk images and each run's
+    launches."""
+    from textualdegremoval_tpu_torch.cli import train_restoration as cli
+    from textualdegremoval_tpu_torch.data import datasets as dsets
+    from textualdegremoval_tpu_torch.data import native
+    from textualdegremoval_tpu_torch.data.loader import create_dataset
+    from textualdegremoval_tpu_torch.data.packed import pack_image_folder
+
+    decoder = ("native (native/tdr_decode.cc)" if native.decode_available()
+               else "cv2" if dsets._cv2() is not None else "data/png.py")
+    crc = ("native (native/tdr_dataio.cc)" if native.dataio_available()
+           else "Python")
+    root = Path(tempfile.mkdtemp(prefix="archives_"))
+    kinds = ("lq", "hq", "ref")
+    _write_pngs(root, kinds, 8, (272, 288), seed + 11)
+    write_lmdb = _lmdb_writer()
+    t0 = time.perf_counter()
+    for kind in kinds:
+        files = sorted((root / kind).iterdir())
+        write_lmdb(str(root / f"{kind}.lmdb"),
+                   {f.stem: f.read_bytes() for f in files})
+        pack_image_folder(str(root / kind), str(root / f"{kind}_packed"))
+    pack_s = time.perf_counter() - t0
+    suffix = {"disk": "", "lmdb": ".lmdb", "tfrecord": "_packed"}
+
+    def ds_opt(io):
+        return {"type": "Dataset_PairedImageWithRef", "phase": "train",
+                "gt_size": gt_size, "geometric_augs": True, "seed": seed,
+                "io_backend": {"type": io},
+                **{f"{k}root": str(root / f"{kind}{suffix[io]}")
+                   for k, kind in zip(("lq", "hq", "ref"), kinds)}}
+
+    out, cwd = {"decoder": decoder}, Path.cwd()
+    try:
+        items = {io: [create_dataset(ds_opt(io))[i] for i in range(8)]
+                 for io in suffix}
+        same = all(np.array_equal(a[k], d[k]) for io in ("lmdb", "tfrecord")
+                   for a, d in zip(items[io], items["disk"])
+                   for k in ("lq", "gt", "ref"))
+        log(f"phase 35: 8 items a backend, the lmdb and tfrecord items "
+            f"{'equal' if same else 'DIFFER from'} the disk backend's bit for "
+            f"bit; disk images decoded by {decoder}; archives built in "
+            f"{pack_s:.2f} s, crc32c {crc}")
+        if not same:
+            raise RuntimeError("an archive's items differ from the disk "
+                               "backend's")
+        os.chdir(root)
+        for io in ("lmdb", "tfrecord"):
+            opt = {"name": f"archive_{io}", "manual_seed": seed,
+                   "datasets": {"train": {
+                       **ds_opt(io), "num_worker_per_gpu": 0,
+                       "batch_size_per_gpu": 8, "mini_batch_sizes": [8],
+                       "iters": [10 ** 6], "gt_sizes": [gt_size]}},
+                   "network_g": NAF_TRAIN_OPT["network_g"],
+                   "path": {"pretrain_dino": None},
+                   "train": dict(NAF_TRAIN_OPT["train"],
+                                 param_fix_iterations=0),
+                   "logger": {"print_freq": 1,
+                              "save_checkpoint_freq": 10 ** 6}}
+            cfg = root / f"{io}.json"
+            cfg.write_text(json.dumps(opt))
+            nb.nafblock_fused.launches = 0
+            t0 = time.perf_counter()
+            state = cli.main(["--opt", str(cfg), "--max_iters", str(iters),
+                              "--device", "cuda"])
+            secs = time.perf_counter() - t0
+            n = nb.nafblock_fused.launches
+            log(f"phase 35 {io}: {iters} iterations of "
+                f"nafnet_motion_deblur.yml's network through the CLI in "
+                f"{secs:.1f} s, nafblock_fused launches {n}")
+            if state.step != iters or n != NAF_BLOCKS * iters:
+                raise RuntimeError(f"training on the {io} archive: step "
+                                   f"{state.step}, launches {n}")
+            out[io] = n
+            del state
+            torch.cuda.empty_cache()
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def diffir_phases(seed: int) -> dict:
+    """Phases 33-35, each one's seconds printed.  33 and 34 read every
+    kernel counter of the port: none may move (the DiffIR path reaches no
+    Pallas kernel); the kernels line gives each kernel's count there as
+    diffir_launches."""
+    out, seen = {}, {}
+    t0 = time.perf_counter()
+    out["forward"] = diffir_forward(seed, seen)
+    log(f"phase 33 (NAFNetDynamicFusion at full width) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["cli"] = diffir_cli(seed, seen)
+    log(f"phase 34 (the DiffIR CLI) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    out["archives"] = keyed_archives(seed)
+    log(f"phase 35 (the keyed archives) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    out["launches"] = seen
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for the same work
 # ---------------------------------------------------------------------------
 
@@ -4003,6 +4386,8 @@ def main(argv=None) -> int:
 
     fam = family_phases(args.seed)
     log_held("phases 28-32")
+    diffir = diffir_phases(args.seed)
+    log_held("phases 33-35")
 
     # per-step kernel time: each training shape's median time times the
     # number of blocks of that shape in one step (bf16, WithBias); the
@@ -4383,13 +4768,27 @@ def main(argv=None) -> int:
             + f"; {spa_task} bf16 {fam[spa_key]:.2f} ms; train step 384 px "
             + ", ".join(f"{d} batch {v[0]} {v[1]:.2f} ms (peak {v[2]:.2f} "
                         f"GiB; did not fit {v[3]})" for d, v in st.items()))
+    fwd, dcli = diffir["forward"], diffir["cli"]
+    log(f"NAFNetDynamicFusion (phases 33-35, no kernel): {fwd['params']} "
+        f"parameters ({fwd['head_params']} in the affine heads); forward 512 "
+        f"px f32 {fwd['fwd_ms']:.2f} ms (peak {fwd['peak_gib']:.2f} GiB, idle "
+        f"share {fwd['idle']}), the embedding {fwd['embed_ms']:.2f} ms an "
+        f"image; the DiffIR CLI at {DIFFIR_GT} px batch {dcli['batch']}: "
+        f"embedding {dcli['embed_ms']:.2f} ms + step {dcli['step_ms']:.2f} ms "
+        f"an iteration, peak {dcli['peak_gib']:.2f} GiB, idle share "
+        f"{dcli['idle']}; the keyed archives' decoder "
+        f"{diffir['archives']['decoder']}")
     # launches of each kernel on the DRSformer and SFNet paths (phases
-    # 28-32): 0 wherever the run got this far
+    # 28-32) and the DiffIR path (33-34): 0 wherever the run got this far
     for row in summary["kernels"]:
         counter = ("flash_attention.launches_bwd"
                    if row["name"] == "flash_attention_bwd"
                    else f"{row['name']}.launches")
         row["drsformer_sfnet_launches"] = fam["launches"][counter]
+        row["diffir_launches"] = diffir["launches"][counter]
+        if row["name"] == "nafblock_fused":
+            row["archive_launches"] = {
+                io: diffir["archives"][io] for io in ("lmdb", "tfrecord")}
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s after "
         f"the build")
     log(json.dumps(summary))

@@ -33,6 +33,9 @@ from textualdegremoval_tpu_torch.convert import (
 from textualdegremoval_tpu_torch.losses import build_loss
 from textualdegremoval_tpu_torch.models import define_network
 from textualdegremoval_tpu_torch.models.nafnet import NAFNet, NAFNetRefFusion
+from textualdegremoval_tpu_torch.models.nafnet_dynamic import (
+    NAFNetDynamicFusion,
+)
 from textualdegremoval_tpu_torch.ops.tlc import (
     local_avg_pool, tlc_kernel_size,
 )
@@ -233,8 +236,12 @@ def test_define_network_nafnet_family():
     assert isinstance(local, NAFNet) and local.tlc_train_size == (64, 48)
     local = define_network({**opt, "type": "NAFNetLocal_RefFusion"})
     assert local.tlc_train_size == (256, 256)
-    with pytest.raises(NotImplementedError, match="A6"):
-        define_network({"type": "NAFNetDynamicFusion"})
+    # the DiffIR net and its Local name build the ported class (no TLC)
+    for name in ("NAFNetDynamicFusion", "NAFNetLocalDynamic"):
+        dyn = define_network({"type": name, "width": 8, "enc_blk_nums": [1],
+                              "dec_blk_nums": [1], "num_words": 2,
+                              "train_size": [1, 3, 64, 48]})
+        assert isinstance(dyn, NAFNetDynamicFusion) and dyn.num_words == 2
 
 
 def _batch(seed, b=2, hw=64):

@@ -12,8 +12,10 @@ textualdegremoval_tpu/convert/torch_to_jax.py's, restricted to the keys of
 the ported modules (DRSformer's MEFC `subnet` flattened to ca_fc1 / ca_fc2
 / preprocess / ops_i, `norm*.body.` flattening, the Down/Upsample `body.0`
 conv, NAFNet's `sca.1.` -> `sca.conv.` and `ups.N.0.` -> `ups_N`, SFNet's
-`main.0` conv, `main.4` InstanceNorm and `merge.` wrapper, the merge of
-sequential indices into the preceding name), 4-D conv weights move between
+`main.0` conv, `main.4` InstanceNorm and `merge.` wrapper,
+NAFNetDynamicFusion's stage `layers.` level dropped and its affine heads
+`sgN.kernel.0` -> `sgN.kernel` and `kernel.0` -> `affine_in.kernel`, the
+merge of sequential indices into the preceding name), 4-D conv weights move between
 HWIO and OIHW (SFNet's transposed convs `feat_extract.3` / `.4` between
 JAX's spatially flipped HWIO and torch's IOHW), 2-D Dense kernels between
 (in, out) and (out, in), the 1-D weight of a `norm` or `bn` module is JAX's
@@ -72,6 +74,14 @@ _REWRITES = [
     (re.compile(r"\.main\.4\.(weight|bias)$"), r".norm.\1"),
     (re.compile(r"\.main\.0\.(weight|bias)$"), r".conv.\1"),
     (re.compile(r"\.merge\."), "."),
+    # NAFNetDynamicFusion: the DynamicBasicLayer's `layers.` level of a
+    # stage dropped (encoders / decoders / middle_blks only: SFNet's
+    # `layers` sequentials stay), the gates' Sequential(Linear) heads, then
+    # the block-entry `kernel.0` as affine_in
+    (re.compile(r"\b(encoders|decoders)\.(\d+)\.layers\."), r"\1.\2."),
+    (re.compile(r"\bmiddle_blks\.layers\."), "middle_blks."),
+    (re.compile(r"\.sg([12])\.kernel\.0\.weight$"), r".sg\1.kernel.weight"),
+    (re.compile(r"\.kernel\.0\.weight$"), r".affine_in.kernel.weight"),
 ]
 # SFNet's transposed convs, whose JAX kernel is torch's spatially flipped
 _CONV_TRANSPOSE = re.compile(r"^feat_extract_[34]$")

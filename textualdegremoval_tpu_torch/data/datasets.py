@@ -3,9 +3,12 @@
 textualdegremoval_tpu/data/datasets.py, reference
 data/restoration_dataset.py:45-793).
 
-Items are HWC float32 RGB in [0, 1].  The disk backend only: the lmdb and
-packed (tfrecord) archives and the native decoder of the JAX package are
-not ported yet (ROADMAP A8).  Crops and augmentations draw from each
+Items are HWC float32 RGB in [0, 1].  Images come from folders (io_backend
+disk) or, for the WithRef and dehaze datasets as in JAX, from keyed
+archives (io_backend lmdb: reference `*.lmdb` folders, data/lmdb_reader.py;
+tfrecord: packed archives, data/packed.py), whose items equal the folder's
+bit for bit.  8-bit PNG and JPEG files decode through the native decoder
+where it builds (data/native.py), else cv2, else data/png.py.  Crops and augmentations draw from each
 dataset's `rng` (a `random.Random` seeded from the options); the
 synthetic training noise of the denoising datasets from numpy's global
 generator, after the crop and the augmentation, as the JAX package draws
@@ -23,7 +26,8 @@ from textualdegremoval_tpu_torch.data.pairing import (
     paired_paths_from_folder, paths_from_meta_info, scan_images,
     tri_paths_from_folder,
 )
-from textualdegremoval_tpu_torch.data.png import read_png
+from textualdegremoval_tpu_torch.data import native
+from textualdegremoval_tpu_torch.data.png import PNG_SIGNATURE, decode_png
 from textualdegremoval_tpu_torch.data.transforms import (
     paired_random_crop, random_augmentation, reflect_pad_to,
 )
@@ -39,16 +43,25 @@ def _cv2():
     return cv2
 
 
-def imread_f32(path: str, bit16: bool = False) -> np.ndarray:
-    """Read an image as HWC RGB float32 in [0, 1].  16-bit files keep their
-    depth when `bit16` is set, else they are cut to 8 bits as cv2's
-    IMREAD_COLOR cuts them.  Without cv2, PNG files only (data/png.py)."""
+def _to_f32(img: np.ndarray) -> np.ndarray:
+    if img.dtype == np.uint16:
+        return img.astype(np.float32) / 65535.0
+    # x * (1/255) as a float32 product, as native/tdr_dataio.cc's u8_to_f32
+    return img.astype(np.float32) * np.float32(1.0 / 255.0)
+
+
+def imdecode_f32(data: bytes, bit16: bool = False,
+                 name: str = "image bytes") -> np.ndarray:
+    """Decode an encoded image to HWC RGB float32 in [0, 1] (JAX
+    packed.py's `imdecode_f32`): cv2, or without it PNG alone
+    (data/png.py).  16-bit images keep their depth when `bit16` is set,
+    else they are cut to 8 bits."""
     cv2 = _cv2()
     if cv2 is None:
-        if not path.lower().endswith(".png"):
-            raise NotImplementedError(f"{path}: without cv2 only PNG files "
+        if not data.startswith(PNG_SIGNATURE):
+            raise NotImplementedError(f"{name}: without cv2 only PNG files "
                                       "are read")
-        img = read_png(path)
+        img = decode_png(data, name)
         img = img[..., None] if img.ndim == 2 else img
         img = img[..., :1].repeat(3, axis=2) if img.shape[2] < 3 \
             else img[..., :3]
@@ -56,16 +69,27 @@ def imread_f32(path: str, bit16: bool = False) -> np.ndarray:
             img = (img >> 8).astype(np.uint8)
     else:
         flag = cv2.IMREAD_UNCHANGED if bit16 else cv2.IMREAD_COLOR
-        img = cv2.imread(path, flag)
+        img = cv2.imdecode(np.frombuffer(data, np.uint8), flag)
         if img is None:
-            raise FileNotFoundError(path)
+            raise IOError(f"cannot decode {name}")
         if img.ndim == 2:
             img = img[..., None].repeat(3, axis=2)
         img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
-    if img.dtype == np.uint16:
-        return img.astype(np.float32) / 65535.0
-    # x * (1/255) in f32, as the JAX package's native 8-bit decoder scales
-    return img.astype(np.float32) * np.float32(1.0 / 255.0)
+    return _to_f32(img)
+
+
+def imread_f32(path: str, bit16: bool = False) -> np.ndarray:
+    """Read an image file as HWC RGB float32 in [0, 1]: an 8-bit read of a
+    PNG or JPEG through the native decoder where it builds (as JAX's
+    `imread_f32`), the rest through `imdecode_f32`."""
+    if not bit16 and path.lower().endswith((".png", ".jpg", ".jpeg")) \
+            and native.decode_available():
+        try:
+            return _to_f32(native.decode_rgb(path))
+        except IOError:
+            pass  # the decoder could not read it: the other paths try
+    with open(path, "rb") as f:
+        return imdecode_f32(f.read(), bit16, path)
 
 
 def rgb2gray(img: np.ndarray) -> np.ndarray:
@@ -78,13 +102,52 @@ def rgb2gray(img: np.ndarray) -> np.ndarray:
     return (img @ w)[..., None].astype(np.float32)
 
 
+def _io_type(opt: dict) -> str:
+    return (opt.get("io_backend") or {"type": "disk"}).get("type", "disk")
+
+
 def _check_disk(opt: dict) -> None:
-    io = (opt.get("io_backend") or {"type": "disk"}).get("type", "disk")
+    """Datasets that read image folders only (as in JAX) refuse an
+    archive."""
+    io = _io_type(opt)
     if io != "disk":
         raise NotImplementedError(
-            f"io_backend {io!r} is not ported yet: the PyTorch port reads "
-            "image folders (io_backend disk); lmdb, packed archives and "
-            "the native decoder follow with item A8 of ROADMAP.md")
+            f"io_backend {io!r}: this dataset reads image folders (io_backend "
+            "disk); the keyed archives (lmdb, tfrecord) serve "
+            "Dataset_PairedImageWithRef and Dataset_PairedDehazeWithRef")
+
+
+def _open_archives(opt: dict):
+    """The lq / gt / ref archives of a WithRef dataset whose io_backend is
+    lmdb (reference `*.lmdb` folders) or tfrecord (packed archive
+    prefixes), and the path records of their common keys; None for the
+    disk backend.  Archives that disagree on their keys were built from
+    unmatched folders: that raises (JAX `_init_packed_io`)."""
+    io = _io_type(opt)
+    if io == "disk":
+        return None
+    if io == "lmdb":
+        from textualdegremoval_tpu_torch.data.lmdb_reader import (
+            LmdbKeyedReader as open_archive,
+        )
+    elif io == "tfrecord":
+        from textualdegremoval_tpu_torch.data.packed import (
+            open_packed as open_archive,
+        )
+    else:
+        raise ValueError(f"io_backend {io!r}: disk, lmdb or tfrecord")
+    readers = {k: open_archive(opt[root]) for k, root in
+               (("lq", "lqroot"), ("gt", "hqroot"), ("ref", "refroot"))}
+    sets = {k: set(r.keys()) for k, r in readers.items()}
+    common = sets["lq"] & sets["gt"] & sets["ref"]
+    dropped = {k: sorted(s - common) for k, s in sets.items() if s - common}
+    if dropped:
+        detail = "; ".join(f"{k}: {len(v)} unmatched (e.g. {v[:3]})"
+                           for k, v in dropped.items())
+        raise ValueError(f"packed archives disagree on keys — {detail}. "
+                         "Rebuild the archives from matched folders.")
+    return readers, [{"lq_path": k, "gt_path": k, "ref_path": k}
+                     for k in sorted(common)]
 
 
 def _crop_pair(opt, rng, lq, gt, augs_default: bool):
@@ -130,22 +193,35 @@ class PairedImageWithRefDataset:
     `Dataset_PairedImageWithRef`): the trainer picks the reference crop."""
 
     def __init__(self, opt: dict):
-        _check_disk(opt)
         self.opt = opt
-        self.paths = tri_paths_from_folder(
+        self._open(opt, lambda: tri_paths_from_folder(
             (opt["lqroot"], opt["hqroot"], opt["refroot"]),
-            ("lq", "gt", "ref"), opt.get("filename_tmpl", "{}"))
+            ("lq", "gt", "ref"), opt.get("filename_tmpl", "{}")))
         self.is_train = opt.get("phase", "train") == "train"
         self.rng = random.Random(opt.get("seed"))
+
+    def _open(self, opt, folder_paths):
+        """self.paths from the keyed archives (self.readers) where
+        io_backend names them, else from `folder_paths()`."""
+        archives = _open_archives(opt)
+        if archives is None:
+            self.readers, self.paths = None, folder_paths()
+        else:
+            self.readers, self.paths = archives
+
+    def _read(self, kind: str, rec_path: str) -> np.ndarray:
+        if self.readers is None:
+            return imread_f32(rec_path)
+        return imdecode_f32(self.readers[kind].get(rec_path), name=rec_path)
 
     def __len__(self):
         return len(self.paths)
 
     def __getitem__(self, idx):
         rec = self.paths[idx % len(self.paths)]
-        lq = imread_f32(rec["lq_path"])
-        gt = imread_f32(rec["gt_path"])
-        ref = imread_f32(rec["ref_path"])
+        lq = self._read("lq", rec["lq_path"])
+        gt = self._read("gt", rec["gt_path"])
+        ref = self._read("ref", rec["ref_path"])
         if self.is_train:
             lq, gt = _crop_pair(self.opt, self.rng, lq, gt, False)
         return {"lq": lq, "gt": gt, "ref": ref, **rec}
@@ -157,13 +233,12 @@ class PairedDehazeWithRefDataset(PairedImageWithRefDataset):
     :505-621, YAML type `Dataset_PairedDehazeWithRef`)."""
 
     def __init__(self, opt: dict):
-        _check_disk(opt)
         self.opt = opt
         folders = (opt["lqroot"], opt["hqroot"], opt["refroot"])
         meta = opt.get("meta_info_file")
-        self.paths = (paths_from_meta_info(meta, folders, ("lq", "gt", "ref"))
-                      if meta else
-                      tri_paths_from_folder(folders, ("lq", "gt", "ref")))
+        self._open(opt, lambda: (
+            paths_from_meta_info(meta, folders, ("lq", "gt", "ref")) if meta
+            else tri_paths_from_folder(folders, ("lq", "gt", "ref"))))
         self.is_train = opt.get("phase", "train") == "train"
         self.rng = random.Random(opt.get("seed"))
 

@@ -2,7 +2,8 @@
 create_dataloader in textualdegremoval_tpu/data/__init__.py), on
 torch.utils.data.DataLoader: worker processes decode and augment, batches
 come as CPU tensors, pinned when the training device is CUDA so that the
-copy to the card can overlap.  Workers are spawned, not forked (the
+copy to the card can overlap (`DevicePrefetcher`, the counterpart of JAX
+data/loader.py's).  Workers are spawned, not forked (the
 training process runs threads), live for the whole run, and each reseeds
 its copy of the dataset's augmentation RNG, so that workers do not repeat
 each other's crops."""
@@ -89,3 +90,54 @@ def create_dataloader(dataset, opt: dict, num_replicas: int = 1,
                       worker_init_fn=seed_worker,
                       multiprocessing_context="spawn" if workers else None,
                       persistent_workers=workers > 0)
+
+
+class DevicePrefetcher:
+    """Batches of `loader` on `device`, the next one's copy in flight while
+    the current one is used (JAX `DevicePrefetcher`, the reference's
+    CUDAPrefetcher).  On CUDA each batch's tensors are copied on a side
+    stream (from pinned memory the copy runs asynchronously); before a
+    batch is handed out the consumer's stream waits for that stream and
+    every tensor records the consumer's stream, so the allocator cannot
+    reuse its memory while queued work still reads it.  Elsewhere each
+    batch is moved as it comes.  Batches keep their order, none is
+    dropped; values that are not tensors pass as they are."""
+
+    def __init__(self, loader, device: str | torch.device):
+        self.loader = loader
+        self.device = torch.device(device)
+
+    def _move(self, batch: dict) -> dict:
+        return {k: v.to(self.device, non_blocking=True)
+                if isinstance(v, torch.Tensor) else v
+                for k, v in batch.items()}
+
+    def __iter__(self):
+        it = iter(self.loader)
+        if self.device.type != "cuda":
+            for batch in it:
+                yield self._move(batch)
+            return
+        side = torch.cuda.Stream(self.device)
+        consumer = torch.cuda.current_stream(self.device)
+
+        def put(batch):
+            with torch.cuda.stream(side):
+                return self._move(batch)
+
+        def ready(batch):
+            consumer.wait_stream(side)
+            for v in batch.values():
+                if isinstance(v, torch.Tensor):
+                    v.record_stream(consumer)
+            return batch
+
+        try:
+            nxt = put(next(it))
+        except StopIteration:
+            return
+        for batch in it:
+            cur = ready(nxt)
+            nxt = put(batch)
+            yield cur
+        yield ready(nxt)

@@ -1,6 +1,7 @@
 """Image listing and lq/gt(/ref) pairing (counterpart of `scan_images`,
-`paired_paths_from_folder`, `tri_paths_from_folder` and
-`paths_from_meta_info` in textualdegremoval_tpu/data/pairing.py)."""
+`paired_paths_from_folder`, `tri_paths_from_folder`,
+`paths_from_meta_info` and `paired_paths_from_lmdb` in
+textualdegremoval_tpu/data/pairing.py)."""
 
 from __future__ import annotations
 
@@ -85,3 +86,36 @@ def tri_paths_from_folder(folders, keys, filename_tmpl="{}"):
                          f"{len(ref_paths)}")
     return [{f"{lq_key}_path": l, f"{gt_key}_path": g, f"{ref_key}_path": r}
             for l, g, r in zip(lq_paths, gt_paths, ref_paths)]
+
+
+def _lmdb_keys(folder: str) -> list[str]:
+    """Keys of a BasicSR-style lmdb folder: from meta_info.txt lines
+    'name.ext (h,w,c) level', the name without its extension (reference
+    data/utils_data.py:116-156), else a B-tree scan (data/lmdb_reader.py)."""
+    meta = osp.join(folder, "meta_info.txt")
+    if osp.exists(meta):
+        with open(meta) as f:
+            return [line.split(".")[0] for line in f if line.strip()]
+    from textualdegremoval_tpu_torch.data.lmdb_reader import PurePythonLmdb
+
+    return PurePythonLmdb(folder).keys()
+
+
+def paired_paths_from_lmdb(folders, keys):
+    """[(lq, gt)] pairs of identical lmdb keys (reference
+    data/utils_data.py:94-160, JAX `paired_paths_from_lmdb`); the
+    '{key}_path' entries are lmdb keys, which the lmdb FileClient backend
+    resolves.  Both folders must be `.lmdb` and hold the same keys."""
+    in_folder, gt_folder = folders
+    in_key, gt_key = keys
+    if not (in_folder.endswith(".lmdb") and gt_folder.endswith(".lmdb")):
+        raise ValueError(
+            f"{in_key} and {gt_key} folders should both be .lmdb: "
+            f"{in_folder}, {gt_folder}")
+    in_keys, gt_keys = set(_lmdb_keys(in_folder)), set(_lmdb_keys(gt_folder))
+    if in_keys != gt_keys:
+        raise ValueError(
+            f"keys in {in_key} and {gt_key} lmdbs differ "
+            f"(e.g. {sorted(in_keys ^ gt_keys)[:3]})")
+    return [{f"{in_key}_path": k, f"{gt_key}_path": k}
+            for k in sorted(in_keys)]

@@ -14,12 +14,12 @@ import zlib
 
 import numpy as np
 
-_SIG = b"\x89PNG\r\n\x1a\n"
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples a pixel
 
 
 def _chunks(data: bytes):
-    pos = len(_SIG)
+    pos = len(PNG_SIGNATURE)
     while pos < len(data):
         n, kind = struct.unpack(">I4s", data[pos:pos + 8])
         yield kind, data[pos + 8:pos + 8 + n]
@@ -62,9 +62,13 @@ def _unfilter(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
 
 def read_png(path: str) -> np.ndarray:
     with open(path, "rb") as fh:
-        data = fh.read()
-    if not data.startswith(_SIG):
-        raise ValueError(f"{path}: not a PNG file")
+        return decode_png(fh.read(), path)
+
+
+def decode_png(data: bytes, name: str = "PNG bytes") -> np.ndarray:
+    """The image of a PNG file's bytes (`name` for the errors)."""
+    if not data.startswith(PNG_SIGNATURE):
+        raise ValueError(f"{name}: not a PNG file")
     idat, hdr = [], None
     for kind, body in _chunks(data):
         if kind == b"IHDR":
@@ -76,7 +80,7 @@ def read_png(path: str) -> np.ndarray:
     w, h, depth, ctype, _, _, interlace = hdr
     if ctype not in _CHANNELS or depth not in (8, 16) or interlace:
         raise NotImplementedError(
-            f"{path}: colour type {ctype}, depth {depth}, interlace "
+            f"{name}: colour type {ctype}, depth {depth}, interlace "
             f"{interlace}; without cv2 only non-interlaced 8/16-bit gray, "
             "RGB and their alpha forms are read")
     ch, nbytes = _CHANNELS[ctype], depth // 8
@@ -106,7 +110,7 @@ def write_png(path: str, img: np.ndarray) -> None:
                 + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
     with open(path, "wb") as fh:
-        fh.write(_SIG + chunk(b"IHDR", struct.pack(
+        fh.write(PNG_SIGNATURE + chunk(b"IHDR", struct.pack(
             ">IIBBBBB", w, h, depth, ctype, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
             + chunk(b"IEND", b""))

@@ -2,8 +2,9 @@
 
 Counterpart of textualdegremoval_tpu/data/transforms.py (reference
 data/transforms.py:5-275): reflect padding to the crop size, the paired
-random crop, hflip/vflip/rot90 and the 8 dihedral modes of
-random_augmentation.  `rng` is a `random.Random` (the module's when None).
+random crop, hflip/vflip/rot90, the 8 dihedral modes of
+random_augmentation, and the DUF protocol's blur and downsample.  `rng`
+is a `random.Random` (the module's when None).
 """
 
 from __future__ import annotations
@@ -86,3 +87,41 @@ def random_augmentation(*imgs, rng=None):
     rng = rng or random
     mode = rng.randint(0, 7)
     return [_aug_mode(img, mode) for img in imgs]
+
+
+def generate_gaussian_kernel(kernel_size: int = 13,
+                             sigma: float = 1.6) -> np.ndarray:
+    """2-D Gaussian kernel: a centred impulse through scipy's
+    gaussian_filter (reference data/utils_data.py:444-462)."""
+    from scipy.ndimage import gaussian_filter
+
+    kernel = np.zeros((kernel_size, kernel_size))
+    kernel[kernel_size // 2, kernel_size // 2] = 1
+    return gaussian_filter(kernel, sigma)
+
+
+def duf_downsample(x: np.ndarray, kernel_size: int = 13,
+                   scale: int = 4) -> np.ndarray:
+    """Gaussian blur and strided downsample of the DUF protocol (reference
+    data/utils_data.py:465-497, JAX `duf_downsample`): reflect padding of
+    k // 2 + 2 scale, the depthwise Gaussian (sigma 0.4 scale) at stride
+    `scale`, then 2 border pixels cropped.  x: (..., H, W, C); returns
+    (..., H // scale, W // scale, C)."""
+    from scipy.ndimage import convolve
+
+    if scale not in (2, 3, 4):
+        raise ValueError(f"scale {scale}: only 2, 3 and 4 are supported")
+    kernel = generate_gaussian_kernel(kernel_size, 0.4 * scale)
+    k2 = kernel_size // 2
+    pad = k2 + scale * 2
+    lead = x.shape[:-3]
+    h, w, c = x.shape[-3:]
+    outs = []
+    for img in x.reshape((-1, h, w, c)):
+        p = np.pad(img, ((pad, pad), (pad, pad), (0, 0)), mode="reflect")
+        blur = np.stack([convolve(p[:, :, ch], kernel, mode="constant")
+                         for ch in range(c)], axis=-1)
+        # the valid part of the padded image, sampled at stride `scale`
+        sub = blur[k2: p.shape[0] - k2, k2: p.shape[1] - k2][::scale, ::scale]
+        outs.append(sub[2: 2 + h // scale, 2: 2 + w // scale])
+    return np.stack(outs).reshape(lead + outs[0].shape)

@@ -7,8 +7,8 @@ option dicts port as they are (with the routing keys of the Restormer and
 PromptIR trunks: `chain`, the cross-block chain; `fused`, false for the
 module path, as in JAX; and on that path `gdfn_fused` and `mdta_pallas`,
 its GDFN and MDTA kernels).  This port covers the Restormer, NAFNet,
-PromptIR, DRSformer and SFNet families; NAFNetDynamicFusion comes with a
-later slice of the port.
+PromptIR, DRSformer and SFNet families and the DiffIR net
+NAFNetDynamicFusion.
 """
 
 from __future__ import annotations
@@ -21,6 +21,9 @@ from textualdegremoval_tpu_torch.models.drsformer import (
     DRSformer, DRSformerRefFusion,
 )
 from textualdegremoval_tpu_torch.models.nafnet import NAFNet, NAFNetRefFusion
+from textualdegremoval_tpu_torch.models.nafnet_dynamic import (
+    NAFNetDynamicFusion,
+)
 from textualdegremoval_tpu_torch.models.promptir import (
     PromptIR, PromptIRRefFusion,
 )
@@ -36,13 +39,13 @@ _REGISTRY = {"Restormer": Restormer, "RestormerRefFusion": RestormerRefFusion,
              # the reference's 200L/SPA file: DRSformer without the MEFCs
              "DRSformer200L_SPA_RefFusion": DRSformerRefFusion,
              "SFNet": SFNet, "SFNetRefFusion": SFNetRefFusion,
+             "NAFNetDynamicFusion": NAFNetDynamicFusion,
              # the reference's Local (TLC) variants: the same modules with
-             # tlc_train_size taken from the option dict's train_size
-             "NAFNetLocal": NAFNet, "NAFNetLocal_RefFusion": NAFNetRefFusion}
-
-# Families of the JAX registry that a later slice of the port brings over,
-# by their item in ROADMAP.md queue A.
-_LATER = dict.fromkeys(("NAFNetDynamicFusion", "NAFNetLocalDynamic"), "A6e")
+             # tlc_train_size taken from the option dict's train_size;
+             # NAFNetLocalDynamic is NAFNetDynamicFusion itself, which has
+             # no TLC pooling (as in JAX)
+             "NAFNetLocal": NAFNet, "NAFNetLocal_RefFusion": NAFNetRefFusion,
+             "NAFNetLocalDynamic": NAFNetDynamicFusion}
 
 # The families whose blocks are TransformerBlocks, and so take the routing
 # keys `chain`, `fused`, `gdfn_fused` and `mdta_pallas`.
@@ -61,14 +64,9 @@ def define_network(opt: dict,
     """Instantiate a network from a reference-style network_g dict, in eval
     mode, with float32 parameters and `dtype` as its compute dtype (JAX
     `define_network(opt, dtype)`); `bwd_mode` and the routing keys may come
-    with the dict."""
+    with the dict, and NAFNetDynamicFusion's `num_words`."""
     opt = dict(opt)
     name = opt.pop("type")
-    if name in _LATER:
-        raise NotImplementedError(
-            f"{name} is not ported yet: this slice of the PyTorch port covers "
-            f"{network_names()}; {name} follows with item {_LATER[name]} of "
-            f"ROADMAP.md queue A")
     if name not in _REGISTRY:
         raise KeyError(f"unknown network type {name!r}")
     cls = _REGISTRY[name]
@@ -79,7 +77,7 @@ def define_network(opt: dict,
         if k in params:
             kwargs[k] = tuple(v) if isinstance(v, list) else v
     kwargs["dtype"] = dtype
-    if name.startswith("NAFNetLocal"):
+    if name.startswith("NAFNetLocal") and "tlc_train_size" in params:
         ts = opt.get("train_size", (1, 3, 256, 256))
         kwargs.setdefault("tlc_train_size", (ts[-2], ts[-1]))
     return cls(**kwargs).eval()

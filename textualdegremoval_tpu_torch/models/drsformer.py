@@ -6,8 +6,8 @@ MSFN, the MEFC `subnet` with its OALayer and GroupOLs), so a reference
 checkpoint loads with `strict=True` and the JAX package's
 `convert_state_dict` maps a state dict of this package onto the JAX tree.
 The 200L/SPA variant is `use_mefc=False`.  No kernel serves this family:
-every op is plain torch (`_conv`: 1x1 convs as cuBLAS GEMMs, the others
-cuDNN's or torch's depthwise kernels).  `dtype` is the compute
+every op is plain torch (`layers.conv_form`: 1x1 convs as cuBLAS GEMMs,
+the others cuDNN's or torch's depthwise kernels).  `dtype` is the compute
 dtype (the JAX modules' `dtype`): the input is cast to it and every weight
 at use, while the parameters stay float32.
 """
@@ -26,50 +26,12 @@ from textualdegremoval_tpu_torch.models.layers import (
     MASAEncoder,
     OverlapPatchEmbed,
     Upsample,
-    conv_nhwc,
+    conv_form,
     masa_encode_pair,
 )
 from textualdegremoval_tpu_torch.ops import (
     masa_match_and_warp, pad_to_multiple, tksa_attention,
 )
-
-
-def _nchw_first(dtype: torch.dtype, channels: int, k: int,
-                dilation: int) -> bool:
-    """Whether a depthwise conv runs on the NCHW-contiguous copy of its
-    input rather than the channels_last view: where cuDNN's channels_last
-    kernels ran 1.3-6.7x slower, forward and backward, on an H100
-    (`tools/bench_family_ops.py`): the dilated ones (MEFC's dil_conv),
-    and in float32 those of kernel 7 or of a width not a multiple of 8
-    (MSFN's 254-wide convs)."""
-    return dilation > 1 or (dtype == torch.float32
-                            and (k >= 7 or channels % 8 != 0))
-
-
-def _conv(conv: nn.Conv2d, x: torch.Tensor,
-          pair_weight: torch.Tensor | None = None) -> torch.Tensor:
-    """`conv` on NHWC x, NHWC out: a 1x1 conv as one GEMM on the NHWC
-    tensor (F.linear: in float32 1.9-2.6x faster than cuDNN's 1x1 conv at
-    a 512 px forward's widths), a depthwise one on the layout `_nchw_first`
-    picks, the rest through cuDNN on the channels_last view.
-    pair_weight: a depthwise weight over x's channels in place of conv's,
-    without its bias (`_pair_grouped_conv`)."""
-    if pair_weight is None and conv.kernel_size == (1, 1) \
-            and conv.groups == 1:
-        bias = None if conv.bias is None else conv.bias.to(x.dtype)
-        return F.linear(x, conv.weight.to(x.dtype).flatten(1), bias)
-    if pair_weight is None:
-        w, bias, groups = conv.weight, conv.bias, conv.groups
-    else:
-        w, bias, groups = pair_weight, None, x.shape[-1]
-    if groups == 1 or groups != x.shape[-1]:
-        return conv_nhwc(conv, x)
-    xc = x.permute(0, 3, 1, 2)
-    if _nchw_first(x.dtype, groups, conv.kernel_size[0], conv.dilation[0]):
-        xc = xc.contiguous()
-    y = F.conv2d(xc, w.to(x.dtype), None if bias is None else bias.to(
-        x.dtype), conv.stride, conv.padding, conv.dilation, groups)
-    return y.permute(0, 2, 3, 1)
 
 
 def _pair_grouped_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -79,7 +41,7 @@ def _pair_grouped_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     and the sum of each pair: the same sums, where cuDNN's kernel for
     two channels a group ran 2.2-4.6x slower in bf16."""
     w = conv.weight
-    y = _conv(conv, x, w.reshape(-1, 1, *w.shape[2:]))
+    y = conv_form(conv, x, w.reshape(-1, 1, *w.shape[2:]))
     y = y.unflatten(-1, (w.shape[0], 2)).sum(dim=-1)
     return y if conv.bias is None else y + conv.bias.to(x.dtype)
 
@@ -101,7 +63,7 @@ class TKSAAttention(nn.Module):
     def forward(self, x):
         b, h, w, c = x.shape
         heads = self.num_heads
-        qkv = _conv(self.qkv_dwconv, _conv(self.qkv, x))
+        qkv = conv_form(self.qkv_dwconv, conv_form(self.qkv, x))
 
         def to_heads(t):  # (B, H, W, C) -> (B, heads, c, L)
             return t.reshape(b, h * w, heads, c // heads).permute(0, 2, 3, 1)
@@ -110,7 +72,7 @@ class TKSAAttention(nn.Module):
         blend = torch.cat([self.attn1, self.attn2, self.attn3, self.attn4])
         out = tksa_attention(q, k, v, self.temperature, blend)
         out = out.permute(0, 3, 1, 2).reshape(b, h, w, c)
-        return _conv(self.project_out, out)
+        return conv_form(self.project_out, out)
 
 
 class MSFN(nn.Module):
@@ -133,14 +95,14 @@ class MSFN(nn.Module):
         self.project_out = nn.Conv2d(h2, dim, 1, bias=bias)
 
     def forward(self, x):
-        x = _conv(self.project_in, x)
-        x1_3, x2_3 = torch.chunk(F.relu(_conv(self.dwconv3x3, x)), 2, -1)
-        x1_5, x2_5 = torch.chunk(F.relu(_conv(self.dwconv5x5, x)), 2, -1)
+        x = conv_form(self.project_in, x)
+        x1_3, x2_3 = torch.chunk(F.relu(conv_form(self.dwconv3x3, x)), 2, -1)
+        x1_5, x2_5 = torch.chunk(F.relu(conv_form(self.dwconv5x5, x)), 2, -1)
         x1 = F.relu(_pair_grouped_conv(self.dwconv3x3_1,
                                        torch.cat([x1_3, x1_5], -1)))
         x2 = F.relu(_pair_grouped_conv(self.dwconv5x5_1,
                                        torch.cat([x2_3, x2_5], -1)))
-        return _conv(self.project_out, torch.cat([x1, x2], -1))
+        return conv_form(self.project_out, torch.cat([x1, x2], -1))
 
 
 class SparseTransformerBlock(nn.Module):
@@ -202,8 +164,8 @@ class SepConvOp(nn.Module):
                                 _dw(dim, k), _pw(dim, dim))
 
     def forward(self, x):
-        x = _conv(self.op[1], _conv(self.op[0], x))
-        return _conv(self.op[4], _conv(self.op[3], F.relu(x)))
+        x = conv_form(self.op[1], conv_form(self.op[0], x))
+        return conv_form(self.op[4], conv_form(self.op[3], F.relu(x)))
 
 
 class DilConvOp(nn.Module):
@@ -214,7 +176,7 @@ class DilConvOp(nn.Module):
         self.op = nn.Sequential(_dw(dim, k, dilation), _pw(dim, dim))
 
     def forward(self, x):
-        return _conv(self.op[1], _conv(self.op[0], x))
+        return conv_form(self.op[1], conv_form(self.op[0], x))
 
 
 class OperationLayer(nn.Module):
@@ -233,7 +195,7 @@ class OperationLayer(nn.Module):
         """weights: (B, 8)."""
         out = torch.cat([op(x) * weights[:, i, None, None, None].to(x.dtype)
                          for i, op in enumerate(self._ops)], dim=-1)
-        return F.relu(_conv(self._out[0], out))
+        return F.relu(conv_form(self._out[0], out))
 
 
 class _OALayer(nn.Module):
@@ -279,7 +241,7 @@ class MEFC(nn.Module):
         y = F.linear(y, fc2.weight.to(dt), fc2.bias.to(dt))
         weights = torch.softmax(y.reshape(-1, self.steps, self.num_ops), -1)
         group = self.layers[1]
-        x = F.relu(_conv(group.preprocess.op[0], x))
+        x = F.relu(conv_form(group.preprocess.op[0], x))
         for i, layer in enumerate(group._ops):
             x = F.relu(layer(x, weights[:, i]) + x)
         return x
@@ -328,16 +290,16 @@ class _DRSformerTrunk(nn.Module):
         self.output = nn.Conv2d(d * 2, out_channels, 3, padding=1, bias=bias)
 
     def _decode(self, latent, e1, e2, e3, x_in):
-        y = _conv(self.reduce_chan_level3,
+        y = conv_form(self.reduce_chan_level3,
                       torch.cat([self.up4_3(latent), e3], dim=-1))
         y = self.decoder_level3(y)
-        y = _conv(self.reduce_chan_level2,
+        y = conv_form(self.reduce_chan_level2,
                       torch.cat([self.up3_2(y), e2], dim=-1))
         y = self.decoder_level2(y)
         y = self.decoder_level1(torch.cat([self.up2_1(y), e1], dim=-1))
         if self.use_mefc:
             y = self.refinement(y)
-        return _conv(self.output, y) + x_in
+        return conv_form(self.output, y) + x_in
 
 
 class DRSformer(_DRSformerTrunk):

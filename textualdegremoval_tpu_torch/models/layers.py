@@ -61,6 +61,48 @@ def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
+def nchw_first(dtype: torch.dtype, channels: int, k: int,
+                dilation: int) -> bool:
+    """Whether a depthwise conv runs on the NCHW-contiguous copy of its
+    input rather than the channels_last view: where cuDNN's channels_last
+    kernels ran 1.3-6.7x slower, forward and backward, on an H100
+    (`tools/bench_family_ops.py`): the dilated ones (MEFC's dil_conv),
+    and in float32 those of kernel 7 or of a width not a multiple of 8
+    (MSFN's 254-wide convs).  NAFNetDynamicFusion's float32 3x3 convs at
+    1024 and 2048 channels read faster alone on the NCHW copy (0.19
+    against 0.59 ms), but its 256 px batch-8 step ran 7.5% slower with
+    them there (the copy, and the strided view the ops after them read),
+    so they stay channels_last."""
+    return dilation > 1 or (dtype == torch.float32
+                            and (k >= 7 or channels % 8 != 0))
+
+
+def conv_form(conv: nn.Conv2d, x: torch.Tensor,
+              pair_weight: torch.Tensor | None = None) -> torch.Tensor:
+    """`conv` on NHWC x, NHWC out: a 1x1 conv as one GEMM on the NHWC
+    tensor (F.linear: in float32 1.9-2.6x faster than cuDNN's 1x1 conv at
+    a 512 px forward's widths), a depthwise one on the layout `nchw_first`
+    picks, the rest through cuDNN on the channels_last view.
+    pair_weight: a depthwise weight over x's channels in place of conv's,
+    without its bias (DRSformer's `_pair_grouped_conv`)."""
+    if pair_weight is None and conv.kernel_size == (1, 1) \
+            and conv.groups == 1:
+        bias = None if conv.bias is None else conv.bias.to(x.dtype)
+        return F.linear(x, conv.weight.to(x.dtype).flatten(1), bias)
+    if pair_weight is None:
+        w, bias, groups = conv.weight, conv.bias, conv.groups
+    else:
+        w, bias, groups = pair_weight, None, x.shape[-1]
+    if groups == 1 or groups != x.shape[-1]:
+        return conv_nhwc(conv, x)
+    xc = x.permute(0, 3, 1, 2)
+    if nchw_first(x.dtype, groups, conv.kernel_size[0], conv.dilation[0]):
+        xc = xc.contiguous()
+    y = F.conv2d(xc, w.to(x.dtype), None if bias is None else bias.to(
+        x.dtype), conv.stride, conv.padding, conv.dilation, groups)
+    return y.permute(0, 2, 3, 1)
+
+
 def _hwio(w: torch.Tensor) -> torch.Tensor:
     """torch OIHW conv weight -> the JAX package's HWIO layout (a view)."""
     return w.permute(2, 3, 1, 0)

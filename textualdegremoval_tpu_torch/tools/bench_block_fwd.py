@@ -50,7 +50,9 @@ shape the same way (plain: `tblock_chain_ref` / `gdfn_ref` /
 without the bf16 pipeline runs csrc/tblock_chain.cu or csrc/gdfn.cu, and
 one without the gram route csrc/mdta.cu; --mdta takes q and k as strided
 chunks of one qkv = x . W, W ~ N(0, 1/C), temperatures ~ sqrt(C), as
-chip_smoke.py's phase 20, and its branch is the L2 error over ||plain||);
+chip_smoke.py's phase 20, and its branch is the L2 error over ||plain||;
+--mdta also times the gram alone as one torch.matmul per shape, "matmul",
+the library yardstick on the same clock: device time, enqueue, device ms);
 --chain also times this version's
 blocks one by one through `tblock_fused`'s route, "blocks", twice after
 the turns), and add to each version's row
@@ -514,9 +516,36 @@ def mdta_rows(versions, order, shape, dev):
                                     versions[name].mdta_call(q, k, temp,
                                                              heads),
                                     want, zero, dev))
+        out.append(_matmul_row(q, k, heads, list(shape[:5]), dev))
     del q, k, want
     torch.cuda.empty_cache()
     return out
+
+
+def _matmul_row(q, k, heads, shape, dev):
+    """The gram q_h^T k_h per (image, head) as one torch.matmul on the same
+    strided operands (B7's library yardstick), timed as a version is:
+    device time behind a spin, enqueue, and device ms by group (cuBLAS's
+    kernels fall under "glue")."""
+    from textualdegremoval_tpu_torch.tools.bench_block_bwd import (
+        device_groups)
+
+    b, h, w, c = q.shape
+    cph = c // heads
+    qv, kv = (torch.as_strided(t, (b, heads, h * w, cph),
+                               (t.stride(0), cph, t.stride(2), 1),
+                               t.storage_offset()) for t in (q, k))
+
+    def gram():
+        return torch.matmul(qv.transpose(-1, -2), kv)
+
+    row = {"version": "matmul", "shape": shape,
+           "ms": time_ms(gram, dev, ITERS, REPEATS),
+           "enqueue_ms": enqueue_us(gram, 20) / 1e3,
+           "device_ms": {g: round(v, 4) for g, v in device_groups(
+               gram, kernel_groups=FWD_GROUPS).items() if v}}
+    print(json.dumps(row), flush=True)
+    return row
 
 
 def ptxas_entries(report: str) -> dict[str, str]:
@@ -643,7 +672,8 @@ def other_sums(kind, versions, order, dev) -> int:
     for shape in shapes:
         rows = rows_of[kind](versions, order, shape, dev)
         count = shape[6] if chain else shape[5]
-        for name in ["plain", *versions, *(["blocks"] if chain else [])]:
+        extra = ["blocks"] if chain else ["matmul"] if kind == "mdta" else []
+        for name in ["plain", *versions, *extra]:
             mine = [r for r in rows if r["version"] == name]
             s = sums.setdefault(name, {"ms": 0.0})
             s["ms"] += count * statistics.median(r["ms"] for r in mine)

@@ -1,10 +1,11 @@
-"""The DRSformer ops whose form the port picks, timed and checked on the
-card.
+"""The DRSformer and NAFNetDynamicFusion ops whose form the port picks,
+timed and checked on the card.
 
-No kernel of the port serves DRSformer: its convolutions run through
-PyTorch.  `models/drsformer.py` `_conv` picks each conv's form, and this
-tool gives the readings behind the picks, at the widths of a 512 px
-`drsformer_derain` forward and a 384 px training step:
+No kernel of the port serves DRSformer or NAFNetDynamicFusion: their
+convolutions run through PyTorch.  `models/layers.py` `conv_form` picks
+each conv's form, and this tool gives the readings behind the picks, at
+the widths of a 512 px `drsformer_derain` forward and a 384 px training
+step, and of NAFNetDynamicFusion's 256 px training step:
 
   grouped   MSFN's second-stage convs (two input channels a group, k 3
             and 5) as cuDNN's grouped conv against `_pair_grouped_conv`
@@ -13,8 +14,12 @@ tool gives the readings behind the picks, at the widths of a 512 px
             against the grouped conv in float32;
   dw        depthwise convs (k 3, 5, 7; the dilated k 3, 5, 7 of MEFC)
             forward + backward ms on the channels_last view against the
-            NCHW-contiguous copy, and the layout `_nchw_first` picks;
-  pw        1x1 convs at 512 px as cuDNN's conv against `_conv`'s
+            NCHW-contiguous copy, and the layout `layers.nchw_first` picks;
+  dyndw     NAFNetDynamicFusion's depthwise 3x3 in float32 (its training
+            dtype) at every level of a 256 px batch-8 step and of a
+            512 px batch-1 pass (C = 2 x width x 2^level, 128 to 2048),
+            forward + backward as `dw`;
+  pw        1x1 convs at 512 px as cuDNN's conv against `conv_form`'s
             F.linear, bf16 and float32, forward and backward ms and the
             largest error of each gradient against float64 (over the
             gradient's largest element);
@@ -31,7 +36,7 @@ Times are CUDA-event medians of single calls (`_card.median_ms`), TF32
 off.  Each line names its part; the card's name and power limit come
 first.
 
-    python -m textualdegremoval_tpu_torch.tools.bench_family_ops [--parts grouped,dw,pw,masa,pool]
+    python -m textualdegremoval_tpu_torch.tools.bench_family_ops [--parts grouped,dw,dyndw,pw,masa,pool]
 """
 
 from __future__ import annotations
@@ -43,7 +48,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from textualdegremoval_tpu_torch.models import drsformer as dm
-from textualdegremoval_tpu_torch.models.layers import conv_nhwc
+from textualdegremoval_tpu_torch.models.layers import (
+    conv_form, conv_nhwc, nchw_first,
+)
 from textualdegremoval_tpu_torch.tools._card import device_line, median_ms
 
 # (H = W, hidden) of MSFN's second stage in a 512 px forward: the trunk's
@@ -56,6 +63,10 @@ GROUPED = [(512, 127), (512, 255), (256, 255), (256, 510), (128, 510),
 DEPTHWISE = [(384, 144, 3, 1), (384, 254, 3, 1), (384, 254, 5, 1),
              (384, 48, 5, 1), (384, 48, 7, 1), (384, 48, 3, 2),
              (384, 48, 5, 2), (384, 48, 7, 2)]
+# (H = W, 2C, 3, 1) of NAFNetDynamicFusion's depthwise convs (width 64)
+# in a 256 px training step: levels 0-3 and the middle block
+DYNAMIC_DEPTHWISE = [(256, 128, 3, 1), (128, 256, 3, 1), (64, 512, 3, 1),
+                     (32, 1024, 3, 1), (16, 2048, 3, 1)]
 # (C_in, C_out) of 1x1 convs at 512 px: MSFN's project_in and
 # project_out, MEFC's out (8 ops' concatenation), SFNet's Convs
 POINTWISE = [(48, 254), (254, 48), (384, 48), (64, 32)]
@@ -83,12 +94,13 @@ def grouped(dev, gen):
                       f"{p_ms:.3f} ms{err}", flush=True)
 
 
-def depthwise(dev, gen):
-    for dtype in (torch.bfloat16, torch.float32):
-        for hw, c, k, d in DEPTHWISE:
+def depthwise(dev, gen, shapes=DEPTHWISE,
+              dtypes=(torch.bfloat16, torch.float32), batch=1):
+    for dtype in dtypes:
+        for hw, c, k, d in shapes:
             w = (0.1 * torch.randn(c, 1, k, k, generator=gen)).to(dev, dtype)
-            x0 = torch.randn(1, hw, hw, c, generator=gen).to(dev, dtype)
-            gy = torch.randn(1, c, hw, hw, generator=gen).to(dev, dtype)
+            x0 = torch.randn(batch, hw, hw, c, generator=gen).to(dev, dtype)
+            gy = torch.randn(batch, c, hw, hw, generator=gen).to(dev, dtype)
             ms = {}
             for name in ("channels_last", "nchw"):
                 x = x0.permute(0, 3, 1, 2)
@@ -102,12 +114,13 @@ def depthwise(dev, gen):
                                  dilation=d, groups=c)
                     torch.autograd.grad(y, [x, wr], gy)
                 ms[name] = median_ms(step)
-            pick = "NCHW" if dm._nchw_first(dtype, c, k, d) else \
+            pick = "NCHW" if nchw_first(dtype, c, k, d) else \
                 "channels_last"
-            print(f"dw {str(dtype)[6:]} k{k} dilation {d} {hw}x{hw} C {c}: "
+            print(f"dw {str(dtype)[6:]} k{k} dilation {d} batch {batch} "
+                  f"{hw}x{hw} C {c}: "
                   f"forward + backward channels_last "
                   f"{ms['channels_last']:.3f} ms, NCHW {ms['nchw']:.3f} ms; "
-                  f"_conv takes {pick}", flush=True)
+                  f"conv_form takes {pick}", flush=True)
 
 
 def pointwise(dev, gen):
@@ -124,7 +137,7 @@ def pointwise(dev, gen):
         conv = conv.to(dev)
         for dtype in (torch.bfloat16, torch.float32):
             for name, fn in (("cuDNN conv", conv_nhwc),
-                             ("F.linear", dm._conv)):
+                             ("F.linear", conv_form)):
                 x = x0.to(dev, dtype).requires_grad_()
                 g = gy.to(dev, dtype)
 
@@ -189,8 +202,14 @@ def masa(dev, gen):
                   flush=True)
 
 
-PARTS = {"grouped": grouped, "dw": depthwise, "pw": pointwise, "masa": masa,
-         "pool": pool}
+def dynamic_depthwise(dev, gen):
+    depthwise(dev, gen, DYNAMIC_DEPTHWISE, (torch.float32,), batch=8)
+    depthwise(dev, gen, [(2 * hw, c, k, d) for hw, c, k, d in
+                         DYNAMIC_DEPTHWISE], (torch.float32,), batch=1)
+
+
+PARTS = {"grouped": grouped, "dw": depthwise, "dyndw": dynamic_depthwise,
+         "pw": pointwise, "masa": masa, "pool": pool}
 
 
 def main(argv=None) -> int:
