@@ -273,7 +273,27 @@ Phases, each of which raises on failure:
    that read the disk images named; then the training CLI's `main`, two
    iterations on each archive at nafnet_motion_deblur.yml's network
    (float32, 128 px crops, batch 8): 45 `nafblock_fused` launches a step
-   (archive_launches in its row).
+   (archive_launches in its row);
+36. tiled restoration: `utils/tiled.py` `infer_tiled` of a seeded 1536 x
+   2048 image with a 512 px reference through the full-width
+   restormer_deblur network in bf16, tile 512, overlap 64: 20 tiles and
+   1040 B1 launches, all through the pipeline (tiled_launches in its
+   row); ms an image and a tile, peak memory beside one 512 px forward's;
+   the tiled image on the kernel route against the same tiling on plain
+   blocks (tblock_ref) on the card, the tiles within TILED_BF16_ATOL, the
+   image within TILED_BF16_L2 and the blend within the largest tile's
+   error; the C13 shape (480 x 1280: one row of 3 tiles), and the idle
+   share read on it; the identity through the 1536 x 2048 blend;
+   `measure_inference_speed` beside `time_ms`; `model_complexity` of the
+   network at 512 px from the plain route (fake CPU tensors); the C13
+   shape's tiled image under `trace`, whose file names B1's kernels;
+37. FID and the metrics: an InceptionV3 with `seeded_init` weights, two
+   seeded sets of 2080 images of 512 px made on the card batch by batch,
+   float32 features (TF32 off) at batch 32, the card's against the CPU's
+   on 4 images, extraction images/s, FID(a, a) about 0 with the host
+   seconds of one `frechet_distance`, `calculate_fid_from_images(a, b)`;
+   NIQE and the Y-channel PSNR / SSIM (crop_border 4) of phase 36's image
+   passed as a card tensor; no kernel launched (fid_launches).
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is nvidia-smi's, and before that a JSON summary of each kernel.  Without
@@ -4109,6 +4129,316 @@ def diffir_phases(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 36-37: tiled restoration and the metrics
+# ---------------------------------------------------------------------------
+
+TILED_HW = (1536, 2048)  # 4 x 5 tiles of 512 at overlap 64
+TILED_TILE, TILED_OVERLAP = 512, 64
+TILED_TILES = 20
+C13_HW = (480, 1280)  # one side within the tile: one row of 3 tiles
+# bf16 tiled image, kernel route vs the same tiling on plain blocks (both
+# on the card): the blend is a convex combination of the tiles, so its
+# error is at most the largest tile's (plus float32 rounding of the blend,
+# BLEND_ATOL); the tiles are held to TILED_BF16_ATOL and the image to
+# TILED_BF16_L2 of the plain image's norm.  Read on an H100: 1.5625e-2
+# (two bf16 ulps of outputs near 2; max|out| 1.97) and 4.0e-3 in L2;
+# the bounds are four and five times those.
+TILED_BF16_ATOL = 6.25e-2
+TILED_BF16_L2 = 2e-2
+BLEND_ATOL = 1e-6  # the identity through the blend: a few f32 ulps at 1
+# FID: N images a set, 2049 being the least N at which the 2048-d
+# covariance of N samples has full rank (its rank is at most N - 1);
+# 2080 = 65 batches of 32
+FID_N, FID_SIZE, FID_BATCH = 2080, 512, 32
+FID_CPU_REL = 1e-4  # card vs CPU features, of max|CPU| (the CPU tests')
+
+
+def synthetic_large(rng, h, w, ref_size=512):
+    """A smooth h x w image, its noisy version and a shifted 512 px
+    reference crop, HWC f32 (synthetic_triple's recipe)."""
+    low = rng.random((h // 16, w // 16, 3)).astype(np.float32)
+    hq = np.kron(low, np.ones((16, 16, 1), np.float32))
+    hq = np.clip(hq + 0.05 * rng.standard_normal(hq.shape), 0, 1).astype(
+        np.float32)
+    lq = np.clip(hq + rng.standard_normal(hq.shape) * 15 / 255, 0, 1).astype(
+        np.float32)
+    ref = np.ascontiguousarray(np.roll(hq, (7, -5), axis=(0, 1))[
+        :ref_size, :ref_size])
+    return lq, hq, ref
+
+
+def _plain_block_forward(x, p, heads, ln_type="WithBias", kw=None,
+                         bwd_mode="save"):
+    """The plain route of phase 36's comparison (never the main path)."""
+    return tb.tblock_ref(x, p, heads, ln_type)
+
+
+def tiled_restoration(seed: int) -> dict:
+    """Phase 36: `utils/tiled.py` `infer_tiled` of a seeded 1536 x 2048
+    image with a 512 px reference through the full-width restormer_deblur
+    network in bf16 (main_path's build), tile 512, overlap 64: 20 tiles,
+    52 B1 launches each, all through the pipeline; ms an image and a tile,
+    peak memory beside one 512 px forward's, the idle share (of the C13
+    shape's 3 tiles); the tiled
+    image against the same tiling on plain blocks (TILED_BF16_ATOL, and
+    the blend within the largest tile's error); the C13 shape; the
+    identity through the blend of 1536 x 2048; `measure_inference_speed`
+    beside `time_ms`; `model_complexity` from the plain route (fake CPU
+    tensors); a `trace` naming B1's kernels.  Returns the readings."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from textualdegremoval_tpu_torch.utils.profiling import (
+        measure_inference_speed, model_complexity, trace)
+    from textualdegremoval_tpu_torch.utils.tiled import infer_tiled
+
+    h, w = TILED_HW
+    model = build_network(seed, torch.bfloat16, "cuda")
+    lq_np, hq, ref_np = synthetic_large(np.random.default_rng(seed + 11),
+                                        h, w)
+    lq = torch.from_numpy(lq_np)[None].to("cuda", torch.bfloat16)
+    ref = torch.from_numpy(ref_np)[None].to("cuda", torch.bfloat16)
+    tile_lq = lq[:, :TILED_TILE, :TILED_TILE].contiguous()
+    tiles = []
+
+    def fwd(a, b):
+        return model(a, b)
+
+    def recording(a, b):
+        tiles.append(model(a, b))
+        return tiles[-1]
+
+    def tiled(fn=fwd, x=lq):
+        return infer_tiled(fn, x, ref, TILED_TILE, TILED_OVERLAP)
+
+    out = {}
+    with torch.inference_mode():
+        model(tile_lq, ref)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model(tile_lq, ref)
+        out["tile_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        tiled()  # warm-up at the tiled image's shapes
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        pred = tiled()
+        out["image_ms"] = (time.perf_counter() - t0) * 1e3
+        counts = _all_counts()
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["launches"] = counts["tblock_fused.launches"]
+        want = {"tblock_fused.launches": 52 * TILED_TILES,
+                "tblock_pipeline.launches": 52 * TILED_TILES}
+        moved = {k: v for k, v in counts.items() if v}
+        log(f"tiled {h}x{w} bf16 (tile {TILED_TILE}, overlap "
+            f"{TILED_OVERLAP}): {out['image_ms']:.1f} ms an image, "
+            f"{out['image_ms'] / TILED_TILES:.2f} ms a tile; peak "
+            f"{out['peak_gib']:.2f} GiB (one 512 px forward "
+            f"{out['tile_peak_gib']:.2f} GiB); launches {moved}")
+        if moved != want or pred.shape != (1, h, w, 3) \
+                or not np.isfinite(pred).all():
+            raise RuntimeError(f"tiled restoration: launches {moved} (want "
+                               f"{want}), output {pred.shape}")
+
+        got = tiled(recording)
+        kernel_tiles, tiles = tiles, []
+        switch = _swap("tblock_fused", _plain_block_forward)
+        switch(None, True)
+        try:
+            _reset_all_counts()
+            plain = tiled(recording)
+            plain_launches = _all_counts()["tblock_fused.launches"]
+        finally:
+            switch(None, False)
+        tile_err = max((k.float() - p.float()).abs().max().item()
+                       for k, p in zip(kernel_tiles, tiles))
+        del kernel_tiles, tiles
+        err = float(np.abs(got - plain).max())
+        rel_l2 = float(np.linalg.norm(got - plain) / np.linalg.norm(plain))
+        out.update(max_abs_err=err, tile_err=tile_err, rel_l2=rel_l2,
+                   repeat_equal=bool(np.array_equal(got, pred)))
+        log(f"tiled image, kernel route vs plain blocks (both bf16 on the "
+            f"card; {plain_launches} launches on the plain route): max_abs "
+            f"{err:.4e}, the largest tile's {tile_err:.4e} (bound "
+            f"{TILED_BF16_ATOL}: tiles; the blend <= the largest tile's + "
+            f"{BLEND_ATOL}), L2 {rel_l2:.4e} of the plain image (bound "
+            f"{TILED_BF16_L2}), max|plain| {np.abs(plain).max():.3f}; a "
+            f"second kernel-route image bitwise equal to the first: "
+            f"{out['repeat_equal']}")
+        if plain_launches or tile_err > TILED_BF16_ATOL \
+                or err > tile_err + BLEND_ATOL or rel_l2 > TILED_BF16_L2:
+            raise RuntimeError(f"tiled image vs plain blocks: {err}, tiles "
+                               f"{tile_err}, {plain_launches} launches")
+
+        _reset_all_counts()
+        log_dir = Path(tempfile.mkdtemp(prefix="tiled_trace_"))
+        try:
+            with trace(str(log_dir)):
+                c13 = tiled(x=lq[:, :C13_HW[0], :C13_HW[1]])
+            files = list(log_dir.glob("*.pt.trace.json"))
+            text = files[0].read_text() if len(files) == 1 else ""
+        finally:
+            shutil.rmtree(log_dir, ignore_errors=True)
+        c13_launches = _all_counts()["tblock_fused.launches"]
+        named = [k for k in ("qkv_stencil_kernel", "gate_stencil_kernel",
+                             "attn_glue_kernel") if k in text]
+        log(f"trace of the C13 shape's tiled image: {[f.name for f in files]}"
+            f", {len(text) / 2 ** 20:.1f} MiB, B1's kernels named: {named}")
+        if len(named) != 3:
+            raise RuntimeError(f"trace: {files}, B1 kernels {named}")
+
+        x32 = lq.float()
+        ident = infer_tiled(lambda a, b: a, x32, ref, TILED_TILE,
+                            TILED_OVERLAP)
+        ident_err = float(np.abs(ident - x32.cpu().numpy()).max())
+        log(f"C13 shape {C13_HW[0]}x{C13_HW[1]}: {c13.shape}, finite "
+            f"{bool(np.isfinite(c13).all())}, {c13_launches} launches (3 "
+            f"tiles); the identity through the {h}x{w} blend on the card: "
+            f"max_abs {ident_err:.3e} (bound {BLEND_ATOL})")
+        if c13.shape != (1, *C13_HW, 3) or not np.isfinite(c13).all() \
+                or c13_launches != 3 * 52 or ident_err > BLEND_ATOL:
+            raise RuntimeError(f"C13 shape / identity blend: {c13.shape}, "
+                               f"{c13_launches}, {ident_err}")
+        # the profiler's own processing grows with the events (37 000 for
+        # the whole image took some 40 s), so the idle share is read on
+        # the C13 shape's 3 tiles
+        out["idle"] = profile_device(
+            lambda: tiled(x=lq[:, :C13_HW[0], :C13_HW[1]]),
+            f"tiled {C13_HW[0]}x{C13_HW[1]} bf16 (3 tiles)")
+
+        out["rate"] = measure_inference_speed(fwd, (tile_lq, ref),
+                                              max_iter=50)
+        out["time_ms"] = time_ms(lambda: model(tile_lq, ref),
+                                 torch.device("cuda"), 10, 3)
+        log(f"measure_inference_speed (512 px, 50 iterations, a scalar "
+            f"fetched each): {out['rate']:.3f} images/s = "
+            f"{1e3 / out['rate']:.2f} ms an image; _card.time_ms "
+            f"{out['time_ms']:.2f} ms a forward")
+
+    model_cpu = build_network(seed, torch.float32, "cpu")
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        x = torch.zeros(1, TILED_TILE, TILED_TILE, 3)
+        cx = model_complexity(model_cpu, x, x)
+    out["complexity"] = cx
+    log(f"model_complexity of restormer_deblur at 512 px (the plain route, "
+        f"fake CPU tensors; ATen convolutions and products only): "
+        f"{cx['params']} parameters, {cx['flops'] / 1e12:.4f} TFLOP, "
+        f"{cx['macs'] / 1e12:.4f} TMAC")
+    out["pred"], out["hq"] = pred, hq
+    del model, model_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def fid_and_metrics(seed: int, pred: np.ndarray, hq: np.ndarray,
+                    seen: dict) -> dict:
+    """Phase 37: an InceptionV3 with `seeded_init` weights (O(1)
+    features); two seeded sets of FID_N 512 px images made on the card
+    batch by batch; float32 features (TF32 off) at batch 32, the card's
+    against the CPU's on 4 images; extraction images/s; FID(a, a) and the
+    host seconds of one `frechet_distance`; `calculate_fid_from_images(a,
+    b)`; NIQE, PSNR and SSIM (crop_border 4, test_y_channel) of phase 36's
+    image passed as a card tensor.  No kernel may launch."""
+    from textualdegremoval_tpu_torch.metrics import (
+        calculate_psnr, calculate_ssim)
+    from textualdegremoval_tpu_torch.metrics.fid import (
+        calculate_fid, calculate_fid_from_images)
+    from textualdegremoval_tpu_torch.metrics.inception import (
+        InceptionV3, extract_features, seeded_init)
+    from textualdegremoval_tpu_torch.metrics.niqe import calculate_niqe
+
+    _reset_all_counts()
+    model_cpu = seeded_init(InceptionV3(), seed)
+    model = copy.deepcopy(model_cpu).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    sets = []
+    for noise in (0.0, 0.1):
+        imgs = torch.empty(FID_N, FID_SIZE, FID_SIZE, 3, device="cuda")
+        for i in range(0, FID_N, FID_BATCH):
+            low = torch.rand(FID_BATCH, FID_SIZE // 16, FID_SIZE // 16, 3,
+                             generator=gen, device="cuda")
+            x = low.repeat_interleave(16, 1).repeat_interleave(16, 2)
+            x = x + noise * torch.randn(x.shape, generator=gen,
+                                        device="cuda")
+            imgs[i:i + FID_BATCH] = x.clamp(0, 1)
+        sets.append(imgs)
+    a, b = sets
+    torch.cuda.synchronize()
+    out = {"make_s": time.perf_counter() - t0}
+
+    got = extract_features(model, a[:4]).cpu()
+    want = extract_features(model_cpu, a[:4].cpu())
+    cpu_err = (got - want).abs().max().item() / want.abs().max().item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fa = extract_features(model, a, FID_BATCH).cpu().numpy()
+    out["extract_rate"] = FID_N / (time.perf_counter() - t0)
+    out["extract_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    fid_aa = calculate_fid(fa, fa)
+    out["frechet_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fid_ab = calculate_fid_from_images(a, b, model=model,
+                                       batch_size=FID_BATCH)
+    out["fid_ab_s"] = time.perf_counter() - t0
+    eig = np.linalg.eigvalsh(np.cov(fa, rowvar=False))
+    out.update(cpu_err=cpu_err, fid_aa=fid_aa, fid_ab=fid_ab)
+    log(f"FID: {FID_N} + {FID_N} images of {FID_SIZE} px made on the card "
+        f"in {out['make_s']:.1f} s; features card vs CPU (4 images) "
+        f"{cpu_err:.3e} of max|CPU| (bound {FID_CPU_REL}); extraction "
+        f"{out['extract_rate']:.1f} images/s (f32, TF32 off, batch "
+        f"{FID_BATCH}; peak {out['extract_peak_gib']:.2f} GiB with both "
+        f"sets held), features |mean| {np.abs(fa).mean():.4f}, covariance "
+        f"eigenvalues {eig.min():.3e} .. {eig.max():.3e}; FID(a, a) "
+        f"{fid_aa:.3e} (frechet_distance {out['frechet_s']:.2f} s on the "
+        f"host); FID(a, b) {fid_ab:.4f} (calculate_fid_from_images "
+        f"{out['fid_ab_s']:.2f} s)")
+    if not cpu_err <= FID_CPU_REL or not abs(fid_aa) <= 1e-3 \
+            or not np.isfinite(fid_ab) or not fid_ab > fid_aa:
+        raise RuntimeError(f"FID: card vs CPU {cpu_err}, FID(a, a) "
+                           f"{fid_aa}, FID(a, b) {fid_ab}")
+    del a, b, sets, model
+    torch.cuda.empty_cache()
+
+    # BGR at [0, 255], as the metrics' Y channel reads it
+    bgr = np.ascontiguousarray(pred[0, ..., ::-1].transpose(2, 0, 1))
+    card = torch.from_numpy(bgr)[None].cuda() * 255
+    gt = hq[..., ::-1] * 255
+    t0 = time.perf_counter()
+    out["niqe"] = calculate_niqe(card, crop_border=4)
+    out["niqe_s"] = time.perf_counter() - t0
+    out["psnr"] = calculate_psnr(card, gt, crop_border=4,
+                                 test_y_channel=True)
+    out["ssim"] = calculate_ssim(card, gt, crop_border=4,
+                                 test_y_channel=True)
+    log(f"phase 36's image as a card tensor: NIQE {out['niqe']:.4f} "
+        f"({out['niqe_s']:.1f} s on the host), Y-channel PSNR "
+        f"{out['psnr']:.4f} dB, SSIM {out['ssim']:.4f} (crop_border 4)")
+    if not all(np.isfinite(out[k]) for k in ("niqe", "psnr", "ssim")) \
+            or not 0 < out["ssim"] <= 1:
+        raise RuntimeError(f"metrics of the tiled image: {out}")
+    no_kernel_launched("FID and the metrics", seen)
+    return out
+
+
+def metric_phases(seed: int) -> dict:
+    """Phases 36-37, each one's seconds printed; the kernels line gives
+    each kernel's count in phase 37 as fid_launches."""
+    seen = {}
+    t0 = time.perf_counter()
+    tiled = tiled_restoration(seed)
+    log(f"phase 36 (tiled restoration) took {time.perf_counter() - t0:.1f} "
+        "s")
+    t0 = time.perf_counter()
+    metrics = fid_and_metrics(seed, tiled.pop("pred"), tiled.pop("hq"),
+                              seen)
+    log(f"phase 37 (FID and the metrics) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"tiled": tiled, "metrics": metrics, "launches": seen}
+
+# ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for the same work
 # ---------------------------------------------------------------------------
 
@@ -4388,6 +4718,8 @@ def main(argv=None) -> int:
     log_held("phases 28-32")
     diffir = diffir_phases(args.seed)
     log_held("phases 33-35")
+    mp = metric_phases(args.seed)
+    log_held("phases 36-37")
 
     # per-step kernel time: each training shape's median time times the
     # number of blocks of that shape in one step (bf16, WithBias); the
@@ -4786,9 +5118,24 @@ def main(argv=None) -> int:
                    else f"{row['name']}.launches")
         row["drsformer_sfnet_launches"] = fam["launches"][counter]
         row["diffir_launches"] = diffir["launches"][counter]
+        row["fid_launches"] = mp["launches"][counter]
+        if row["name"] == "tblock_fused":
+            row["tiled_launches"] = mp["tiled"]["launches"]
         if row["name"] == "nafblock_fused":
             row["archive_launches"] = {
                 io: diffir["archives"][io] for io in ("lmdb", "tfrecord")}
+    til, met = mp["tiled"], mp["metrics"]
+    log(f"tiled restoration (phase 36): {TILED_HW[0]}x{TILED_HW[1]} bf16 "
+        f"{til['image_ms']:.1f} ms an image ({TILED_TILES} tiles, "
+        f"{til['launches']} B1 launches), peak {til['peak_gib']:.2f} GiB "
+        f"(one 512 px forward {til['tile_peak_gib']:.2f}), idle share "
+        f"{til['idle']}, vs plain blocks {til['max_abs_err']:.4e}; "
+        f"model_complexity {til['complexity']['flops'] / 1e12:.4f} TFLOP a "
+        f"512 px forward; FID (phase 37): extraction "
+        f"{met['extract_rate']:.1f} images/s, frechet_distance "
+        f"{met['frechet_s']:.2f} s on the host, FID(a, b) "
+        f"{met['fid_ab']:.4f}, NIQE {met['niqe']:.4f}, Y PSNR "
+        f"{met['psnr']:.4f} dB, SSIM {met['ssim']:.4f}")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s after "
         f"the build")
     log(json.dumps(summary))

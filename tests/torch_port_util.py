@@ -8,6 +8,7 @@ with `model.init` (slow un-jitted on CPU).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import re
@@ -30,11 +31,21 @@ def torch_share_of_cores():
     many times over.  Never around JAX work: XLA's CPU convolutions share
     the OpenMP thread count, and at one thread they lost f32 accuracy
     (2e-4 relative on a tiny train step's loss)."""
+    with torch_share():
+        yield
+
+
+@contextlib.contextmanager
+def torch_share():
+    """`torch_share_of_cores` as a context manager, for the torch half of
+    a test whose other half runs JAX."""
     before = torch.get_num_threads()
     workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
-    yield
-    torch.set_num_threads(before)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
 
 
 def randn(rng, *shape, scale=1.0):

@@ -10,3 +10,7 @@ beside its plain PyTorch version (`ops/pallas/`, `ops/flash_attn.py`).
 
 Importing this package never imports jax or flax.
 """
+
+from textualdegremoval_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

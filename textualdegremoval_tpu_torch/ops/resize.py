@@ -83,18 +83,34 @@ def _resize_weights(n_in: int, n_out: int, kernel, device) -> torch.Tensor:
     return torch.where(inside[None, :], w, torch.zeros_like(w))
 
 
+def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
+    """jax.image.resize's nearest source of each output index, in float32
+    as JAX computes it: floor((i + 0.5) * n_in / n_out)."""
+    pos = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) \
+        * n_in / n_out
+    return torch.floor(pos).long()
+
+
 def image_resize(x: torch.Tensor, shape, method: str) -> torch.Tensor:
-    """jax.image.resize(x, shape, method) for method bilinear or bicubic
-    (JAX's antialiased scale-and-translate): each axis whose size changes
-    is one product with a weight matrix, the others are left alone.  Not
-    F.interpolate: that samples a = -0.75 bicubic and does not widen its
-    kernel on a downscale."""
-    kernel = _KERNELS[method]
+    """jax.image.resize(x, shape, method) for method nearest, bilinear or
+    bicubic (JAX's antialiased scale-and-translate): each axis whose size
+    changes is one product with a weight matrix (nearest: one gather), the
+    others are left alone.  Not F.interpolate: that samples a = -0.75
+    bicubic, does not widen its kernel on a downscale, and its nearest
+    takes floor(i * n_in / n_out)."""
+    if method != "nearest" and method not in _KERNELS:
+        raise ValueError(f"image_resize: unknown method {method!r}")
     if len(shape) != x.ndim:
         raise ValueError(f"image_resize: shape {tuple(shape)} for a "
                          f"{x.ndim}-d input")
     for d, (n_in, n_out) in enumerate(zip(x.shape, shape)):
-        if n_in != n_out:
-            w = _resize_weights(n_in, n_out, kernel, x.device).to(x.dtype)
-            x = torch.movedim(torch.tensordot(x, w, dims=([d], [0])), -1, d)
+        if n_in == n_out:
+            continue
+        if method == "nearest":
+            x = torch.index_select(x, d, _nearest_index(n_in, n_out,
+                                                        x.device))
+            continue
+        w = _resize_weights(n_in, n_out, _KERNELS[method], x.device).to(
+            x.dtype)
+        x = torch.movedim(torch.tensordot(x, w, dims=([d], [0])), -1, d)
     return x

@@ -46,3 +46,10 @@ def imwrite(img: np.ndarray, path: str, auto_mkdir: bool = True) -> bool:
         write_png(path, img)
         return True
     return cv2.imwrite(path, img)
+
+
+def crop_border(img: np.ndarray, border: int) -> np.ndarray:
+    """img without `border` pixels at each side of H and W."""
+    if border == 0:
+        return img
+    return img[border:-border, border:-border, ...]
