@@ -26,7 +26,9 @@ Phases, each of which raises on failure:
    every block shape of a 384 px, batch-8 training step plus the ragged
    shape, WithBias and BiasFree, float32 and bfloat16: dx and every
    parameter gradient, elementwise and in L2 against the plain gradient's
-   norm, with both times and, in bf16 WithBias, each row's device time
+   norm, with both times (bf16 WithBias at the step's shapes, and float32
+   WithBias at the noise widths: the rows the summary reads) and, in bf16
+   WithBias, each row's device time
    split by kernel (`torch.profiler`: the LN passes, the stencils, the
    GEMM, pass 1 by its profiler range, wgrad, the glue), each weight-
    gradient product alone on csrc/wgrad.cu beside one torch.matmul(A^T,
@@ -237,8 +239,9 @@ Phases, each of which raises on failure:
 29. the training CLI's step function with the options of
    drsformer_derain_rain200h.yml at 384 px, float32 (the YAML has no
    mixed_precision) and bfloat16, each at the largest batch of 8, 4, 2, 1
-   whose step fits the card (two timed steps, peak memory; a profiled
-   float32 step);
+   whose step fits the card (batch 1's peak predicts the others', and a
+   batch predicted past 1.25 times the card's memory is not tried; two
+   timed steps, peak memory; a profiled float32 step);
 30. SFNetRefFusion (sfnet_dehaze_indoor: num_res 16, base 32, nf 32, TLC
    pooling at base 246; random BN statistics) as phase 28, and one 512 px
    bfloat16 forward of sfnet_dehaze_outdoor (TLC base 210); the finest of
@@ -293,7 +296,31 @@ Phases, each of which raises on failure:
    on 4 images, extraction images/s, FID(a, a) about 0 with the host
    seconds of one `frechet_distance`, `calculate_fid_from_images(a, b)`;
    NIQE and the Y-channel PSNR / SSIM (crop_border 4) of phase 36's image
-   passed as a card tensor; no kernel launched (fid_launches).
+   passed as a card tensor; no kernel launched (fid_launches);
+38. the distributed path: two ranks spawned (torch.multiprocessing)
+   through the port's `init_distributed` on one card, so the backend rule
+   picks gloo; each rank loads phase 2's kernels.  (a) The training CLI's
+   step of restormer_motion_deblur.yml's network at full width, bf16, 384
+   px, 4 of 8 seeded images a rank with the gradients averaged, against
+   one process on all 8 (the loss, the norm, every parameter's gradient
+   and the update, DIST_* bounds), 52 launches of B1/B2/B3 a rank, the
+   step ms, the all-reduce's ms apart with its bytes, the peak a rank;
+   two planted reduces (no division by the world; a stale copy) must
+   fail the bounds.  (b) One FSDP step (the same step function on a
+   parallel/fsdp.py sharded state) at the same setting against (a) and
+   the single process, the bytes each rank holds
+   against the replicated state's, the gather and reduce-scatter ms.  (c)
+   FSDP of NAFNetDynamicFusion at DiffIR's full width (f32, 256 px, 2
+   images a rank, the embeddings of the frozen full-width towers computed
+   once in this process) against one process on all 4: the loss, the
+   norm, each rank's slices of the gradients and of the updated
+   parameters, DIST_* bounds; the peak a rank
+   and the collectives' seconds.  (d) cli/train_restoration.py's `main`
+   as two processes under the torch launcher's env on numpy-written
+   PNGs, 2 iterations: one train.log of rank 0's lines, one net_g_2.pth
+   (strict, equal to both ranks' parameters bit for bit), one strip, and
+   a third process, `python -m`, resuming from it.  A rank that raises
+   or does not finish in DIST_TIMEOUT fails the phase.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is nvidia-smi's, and before that a JSON summary of each kernel.  Without
@@ -441,11 +468,18 @@ def gpu_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+# the start of phase 3 (main sets it): log_held gives each phase group's
+# end in seconds from there
+T_START = time.perf_counter()
+
+
 def log_held(after: str):
     """The device memory still allocated after a phase (a tensor that
-    outlives its phase inflates every later phase's peak)."""
+    outlives its phase inflates every later phase's peak), and the
+    seconds since phase 3 began."""
     gib = torch.cuda.memory_allocated() / 2 ** 30
-    log(f"held after {after}: {gib:.2f} GiB")
+    log(f"held after {after}: {gib:.2f} GiB; "
+        f"{time.perf_counter() - T_START:.1f} s since phase 3 began")
 
 
 def randomize_block(blk: TransformerBlock, gen: torch.Generator):
@@ -973,7 +1007,7 @@ def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True,
     library ms), and raises after printing if any row fails.  The forward
     (x1 and the statistics the halves start from) is the kernels' own, the
     bf16 pipeline at these widths, and is timed beside them.  Timed, it
-    also splits each bf16 WithBias row's device time by kernel
+    times the rows it returns (every row is checked), and it also splits each bf16 WithBias row's device time by kernel
     (`split_by_group`) and times each half's weight-gradient products
     alone on csrc/wgrad.cu and as one torch.matmul(A^T, B) each on the
     same operands (the yardstick, never called by the port); split=False
@@ -1010,8 +1044,9 @@ def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True,
                 stats_row = {k: _grad_row(k, got[k], want[k], dtype)
                              for k in want}
                 del got, want, pdx1, pgg, pdx, pga
+                kept = keep(dtype, ln_type, nblk)
                 t = [float("nan")] * 6
-                if timed:
+                if timed and kept:
                     t = [median_ms(lambda: gb.gdfn_half_bwd(
                              x1, g, p, ln_type, kw), reps=3),
                          median_ms(lambda: ab.attn_half_bwd(
@@ -1070,7 +1105,7 @@ def backward_vs_plain(gen, shapes=TRAIN_SHAPES, dtypes=None, timed=True,
                                 f"{r['bound_ms']:.4f}" for r in prods))
                         wg += [sum(r["ms"] for r in prods),
                                sum(r["library_ms"] for r in prods)]
-                if keep(dtype, ln_type, nblk):
+                if kept:
                     half = {k: k == "dx1" or k.startswith(("gd_", "norm2"))
                             for k in stats_row}
                     rows.append((nblk, worst, *(
@@ -1369,12 +1404,18 @@ def profile_device(fn, what: str):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    # the profiler's raw events: building its FunctionEvent tree
+    # (`events()`, `key_averages()`) took 2-30 s a call on the card's host
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages() if e.device_type == cuda]
+    by_name, spans = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            start, ns = e.start_ns(), e.duration_ns()
+            spans.append((start / 1e3, (start + ns) / 1e3))
+            t, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (t + ns / 1e6, n + 1)
+    kernels = [(k, t, n) for k, (t, n) in by_name.items()]
     summed = sum(t for _, t, _ in kernels)
-    spans = [(e.time_range.start, e.time_range.end)
-             for e in prof.events() if e.device_type == cuda]
     busy = _union_ms(spans)
     if busy <= 0:
         log("profiler: no device time recorded")
@@ -3528,6 +3569,11 @@ SFNET_TRAIN_OPT = {
     "train": TRAIN_OPT["train"],
 }
 FAMILY_BATCHES = (8, 4, 2, 1)  # the largest that fits the card is taken
+# phase 29 and 31 try no batch whose peak, predicted from batch 1's,
+# passes this many times the card's memory (read on an H100: DRSformer
+# f32 batch 1 61.77 GiB and bf16 batch 2 66.09, SFNet batch 8 66.99 f32
+# and 34.63 bf16; activations grow about linearly with the batch)
+FAMILY_PREDICT_MARGIN = 1.25
 # SFNet's BN statistics on the CPU side of phase 32 need batch 2: at
 # batch 1 the pooled input has no variance and BN returns its bias
 SFNET_CPU_BATCH = 2
@@ -3598,14 +3644,17 @@ def family_eval_path(seed: int, task: str, dtype, seen: dict,
     """Phases 28 and 30: the evaluation CLI's `restore_and_score` on
     synthetic 512 x 512 triples, one warm-up and two timed, with the
     network in `dtype` (f32 parameters); the finest output scored, finite
-    and of the image's shape; the forward's median ms, peak memory, the
-    median ms of its MASA encoder alone and, with `profile`, a profiled
+    and of the image's shape; the forward's median ms (of 3 calls after a
+    warm-up; in float32 one), peak memory, the same of its MASA encoder
+    alone and, with `profile`, a profiled
     forward (device time, idle share); no kernel launched.  Returns (forward ms, restore + score ms of the two
     timed images, peak GiB)."""
     model = _family_network(seed, task, dtype, "cuda")
     rng = np.random.default_rng(seed + 3)
     triples = [synthetic_triple(rng) for _ in range(2)]
     name = str(dtype).split(".")[-1]
+    # float32 DRSformer takes 3.3 s a forward: a warm-up and one call
+    reps = 1 if dtype == torch.float32 else 3
     _reset_all_counts()
     restore_and_score(model, *triples[0])
     times = []
@@ -3624,10 +3673,10 @@ def family_eval_path(seed: int, task: str, dtype, seen: dict,
             for a in (triples[0][0], triples[0][2])]
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
-        fwd_ms = median_ms(lambda: model(*args), reps=3)
+        fwd_ms = median_ms(lambda: model(*args), reps=reps)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         masa_ms = median_ms(lambda: layers.masa_encode_pair(
-            model.masa_enc, *(a.to(model.dtype) for a in args)), reps=3)
+            model.masa_enc, *(a.to(model.dtype) for a in args)), reps=reps)
         log(f"{task} forward 512x512 {name}: {fwd_ms:.2f} ms "
             f"({1e3 / fwd_ms:.3f} images/s), peak memory {peak:.2f} GiB; "
             f"its MASA encoder on lq and ref {masa_ms:.2f} ms")
@@ -3650,15 +3699,22 @@ def family_train_step(seed: int, opt, dtype, seen: dict,
     """Phases 29 and 31: the training CLI's step function with `opt` (its
     YAML's options, the masa group released) at size px in `dtype` (f32
     parameters), at the largest batch of `batches` whose step fits the
-    card (a step that runs out of memory is dropped and the next batch
-    tried): a warm-up and two timed steps, finite losses, the peak memory,
-    the BN running statistics moved (where the network has them), no
-    kernel launched; with `profile` a profiled step.  Returns (batch,
-    median ms, peak GiB, the batches that did not fit)."""
+    card: batch 1's step first, whose peak predicts the others' (what the
+    state holds after the step, plus b times the rest); a batch predicted
+    past FAMILY_PREDICT_MARGIN times the card's memory is not tried (a
+    step that runs out of memory took 10-15 s), a step that runs out of
+    memory is dropped and the next batch tried: a warm-up and two timed
+    steps, finite losses, the peak memory, the BN running statistics moved
+    (where the network has them), no kernel launched; with `profile` a
+    profiled step.  Returns (batch, median ms, peak GiB, the batches that
+    did not fit or were predicted not to)."""
     name = f"{opt['network_g']['type']} {str(dtype).split('.')[-1]}"
     mp = "bf16" if dtype == torch.bfloat16 else None
-    did_not_fit = []
-    for b in batches:
+
+    def warmed(b):
+        """(state, step_fn, model, batch, BN statistics before, peak GiB,
+        GiB held after the step) after one step at batch b, or None where
+        the step runs out of memory."""
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             model, _, _ = resolve_network(opt, mixed_precision=mp)
@@ -3679,42 +3735,73 @@ def family_train_step(seed: int, opt, dtype, seen: dict,
             torch.cuda.synchronize()
         except torch.cuda.OutOfMemoryError:
             fits = False
-        if not fits:
-            did_not_fit.append(b)
+        if not fits:  # outside the handler: its traceback holds the step
             log(f"{name} step {size} px batch {b}: out of device memory")
             del state, step_fn, model, batch
             gc.collect()
             torch.cuda.empty_cache()
+            return None
+        return (state, step_fn, model, batch, before,
+                torch.cuda.max_memory_allocated() / 2 ** 30,
+                torch.cuda.memory_allocated() / 2 ** 30)
+
+    run = warmed(1)
+    if run is None:
+        raise RuntimeError(f"{name} step at {size} px: batch 1 does not fit "
+                           "the card")
+    peak1, held1 = run[5:]
+    card = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    did_not_fit = []
+    for b in sorted(batches, reverse=True):
+        if b == 1:
+            break
+        predicted = held1 + b * (peak1 - held1)
+        if predicted > FAMILY_PREDICT_MARGIN * card:
+            log(f"{name} step {size} px batch {b}: not tried, predicted "
+                f"peak {predicted:.1f} GiB from batch 1's {peak1:.2f}")
+            did_not_fit.append(b)
             continue
-        _reset_all_counts()
-        times, losses = [], []
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, m = step_fn(state, batch)
-            losses.append(float(m["l_pix"]))
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        if profile:
-            profile_device(lambda: float(step_fn(state, batch)[1]["l_pix"]),
-                           f"{name} step batch {b}")
-        no_kernel_launched(f"{name} step", seen)
-        after = _bn_state(model)
-        unmoved = [k for k, v in before.items() if torch.equal(v, after[k])]
-        log(f"{name} train step {size} px batch {b}: "
-            f"{[round(v, 2) for v in times]} ms, l_pix "
-            f"{[round(v, 5) for v in losses]}, peak {peak:.2f} GiB, BN "
-            f"statistics moved {len(before) - len(unmoved)} of "
-            f"{len(before)}; did not fit: {did_not_fit}")
-        if not np.isfinite(losses).all() or unmoved:
-            raise RuntimeError(f"{name} step: losses {losses}, BN "
-                               f"statistics unmoved {unmoved[:3]}")
-        del state, step_fn, model, batch
-        torch.cuda.empty_cache()
-        return b, statistics.median(times), peak, did_not_fit
-    raise RuntimeError(f"{name} step at {size} px: no batch of {batches} "
-                       "fits the card")
+        if run is not None and run[3]["lq"].shape[0] == 1:
+            del run  # batch 1's state off the card before a larger try
+            gc.collect()
+            torch.cuda.empty_cache()
+        run = warmed(b)
+        if run is not None:
+            break
+        did_not_fit.append(b)
+    if run is None:  # every larger batch ran out: batch 1 again
+        run = warmed(1)
+    state, step_fn, model, batch, before = run[:5]
+    b = batch["lq"].shape[0]
+    del run
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all_counts()
+    times, losses = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["l_pix"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if profile:
+        profile_device(lambda: float(step_fn(state, batch)[1]["l_pix"]),
+                       f"{name} step batch {b}")
+    no_kernel_launched(f"{name} step", seen)
+    after = _bn_state(model)
+    unmoved = [k for k, v in before.items() if torch.equal(v, after[k])]
+    log(f"{name} train step {size} px batch {b}: "
+        f"{[round(v, 2) for v in times]} ms, l_pix "
+        f"{[round(v, 5) for v in losses]}, peak {peak:.2f} GiB, BN "
+        f"statistics moved {len(before) - len(unmoved)} of "
+        f"{len(before)}; did not fit: {did_not_fit}")
+    if not np.isfinite(losses).all() or unmoved:
+        raise RuntimeError(f"{name} step: losses {losses}, BN "
+                           f"statistics unmoved {unmoved[:3]}")
+    del state, step_fn, model, batch
+    torch.cuda.empty_cache()
+    return b, statistics.median(times), peak, did_not_fit
 
 
 def family_phases(seed: int) -> dict:
@@ -4447,6 +4534,694 @@ PEAK_F32 = 67e12  # float32 FLOP/s outside the tensor cores, H100 SXM
 PEAK_BYTES = 3.35e12  # HBM3 bytes/s, H100 SXM
 
 
+# -- phase 38: the distributed path, two ranks sharing the card -------------
+#
+# NCCL refuses two ranks on one device, so the port's rule picks gloo here
+# (parallel/bootstrap.py `backend_for`): the ranks' collectives go through
+# the host.  That shows the port's collectives on CUDA tensors and the
+# step's result; it says nothing of NCCL or of several cards.
+DIST_WORLD = 2
+DIST_TIMEOUT = 600  # s for one spawn's ranks, build of the state included
+DIST_BATCH = 8  # (a), (b): the global batch, 4 images a rank
+DIST_TRAIN = dict(TRAIN_OPT["train"], param_fix_iterations=0)
+# (a) and (b) against the single process on the whole batch.  Each launch
+# of B1-B3 works on one image, so only the batch's sums (the loss, every
+# weight gradient over the pixels, the reduce) group differently, and
+# cuDNN may pick another algorithm for a batch of 4 than of 8 (bf16
+# activations could round differently there).  Bounds: the loss 1e-4
+# relative, the global norm 2e-3, each parameter's gradient within 1e-2 of
+# its norm in L2 plus 1e-5 of the global norm (phase 32's floor for
+# gradients that vanish in exact arithmetic).  The updated parameters:
+# Adam's first update is lr (g / (|g| + eps) + wd p), so an element whose
+# gradient is near 0 may take either sign (C3), and the bound is on the
+# update, not the gradient.  Where the single process's update is
+# saturated (|u| >= 0.9 of the element's lr: |g| >= 9 eps after the clip)
+# the two updates must agree within 2e-2 lr, plus one f32 rounding of
+# p + u on each side (2^-22 |p0|); and the share of elements whose updates
+# differ by more than 0.5 lr must stay under 1e-6.  Both are set from the
+# readings on an H100: the reduced step's saturated error 5.4e-3 lr (its
+# bf16 gradients: a 6% error on an element at 9 eps), its share 0 of
+# 60 096 138 elements; the stale plant 1.99 lr and 5.8e-5 / 6.2e-5; f32
+# DiffIR in (c) 2.6e-7 lr.  The sum without division moves no update
+# (Adam and the clip are scale-free); its loss, norm and gradients fail.
+# The reduced step read 6.4e-7, 2.0e-4 and 0.28 of the gradient bound
+# (the same cuDNN choices at batch 4 and 8); the stale plant 8.2e-4,
+# 8.0e-3 and 2.9 of it, the sum without division 1.0, 1.0 and 100.
+# Every check is written so that a NaN fails it.
+DIST_LOSS_REL, DIST_NORM_REL = 1e-4, 2e-3
+DIST_GRAD_REL, DIST_GRAD_FLOOR = 1e-2, 1e-5
+DIST_SATURATED, DIST_SATURATED_TOL = 0.9, 2e-2  # of the element's lr
+DIST_OVER_HALF = 1e-6  # share of elements whose updates differ > 0.5 lr
+# (c): NAFNetDynamicFusion at full width, f32 at 256 px, 2 images a rank
+DIFFIR_DIST_BATCH = 2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dist_restormer(seed: int):
+    """(a)'s network: restormer_motion_deblur.yml's at full width, bf16
+    compute with f32 parameters, seeded as phase 7's."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model, _, _ = resolve_network(TRAIN_OPT, mixed_precision="bf16")
+    return gate_and_temperatures(model, seed).cuda()
+
+
+def _dist_batch(seed: int, rank: int | None = None) -> dict:
+    """(a)'s global batch of DIST_BATCH seeded 384 px triples on the card,
+    or rank `rank`'s equal share of it."""
+    rng = np.random.default_rng(seed + 38)
+    trip = [synthetic_triple(rng, 384) for _ in range(DIST_BATCH)]
+    if rank is not None:
+        per = DIST_BATCH // DIST_WORLD
+        trip = trip[rank * per: (rank + 1) * per]
+    return {k: torch.from_numpy(np.stack([t[i] for t in trip])).cuda()
+            for i, k in enumerate(("lq", "gt", "ref"))}
+
+
+def _captured_step(step_fn, state, batch):
+    """(state, metrics, the gradients as the step hands them to the
+    optimizer) of one step."""
+    seen = []
+    update = state.opt.step
+
+    def capture(gs):
+        seen.extend(gs)
+        update(gs)
+
+    state.opt.step = capture
+    try:
+        state, m = step_fn(state, batch)
+    finally:
+        state.opt.__dict__.pop("step", None)  # no cycle through `capture`
+    return state, m, seen
+
+
+def _worst(a: float, b: float) -> float:
+    """The larger of a and b, NaN where either is NaN."""
+    return a if (a != a or a >= b) else b
+
+
+def _dist_errors(m, grads, params, init, lrs, want) -> dict:
+    """The step against the single process's (`want`: l_pix, grad_norm,
+    grads and params by name, each as `grads` and `params` hold it: whole
+    or this rank's FSDP slice): relative loss and norm errors, the largest
+    gradient error as a share of its bound, the largest error of a
+    saturated update in lr beyond the rounding, and the share of elements
+    whose updates differ by more than 0.5 lr.  init: the parameters before
+    the step, lrs: each parameter's lr, by name.  A NaN anywhere fails."""
+    total = want["grad_norm"]
+    g_use = sat_err = 0.0
+    over = n = 0
+    for name in want["params"]:
+        w = want["grads"][name].cuda()
+        bound = DIST_GRAD_REL * float(w.norm()) + DIST_GRAD_FLOOR * total
+        g_use = _worst(g_use, float((grads[name].float() - w).norm())
+                       / bound)
+        p0 = init[name].cuda().float()
+        wp = want["params"][name].cuda()
+        lr = lrs[name]
+        d = (params[name].detach().float() - wp).abs()
+        sat = (wp - p0).abs() >= DIST_SATURATED * lr
+        if sat.any():
+            rounding = 2.0 ** -22 * p0.abs()
+            sat_err = _worst(sat_err, float(
+                (d - rounding)[sat].max()) / lr)
+        over += int((~(d <= 0.5 * lr)).sum())
+        n += d.numel()
+    loss_rel = abs(float(m["l_pix"]) - want["l_pix"]) / abs(want["l_pix"])
+    norm_rel = abs(float(m["grad_norm"]) - total) / total
+    ok = (loss_rel <= DIST_LOSS_REL and norm_rel <= DIST_NORM_REL
+          and g_use <= 1.0 and sat_err <= DIST_SATURATED_TOL
+          and over / n <= DIST_OVER_HALF)
+    return {"loss_rel": loss_rel, "norm_rel": norm_rel, "grad_use": g_use,
+            "saturated_lr": sat_err, "over_half_lr": over / n, "ok": ok}
+
+
+def _fmt(e: dict) -> str:
+    return (f"l_pix rel {e['loss_rel']:.3e} (bound {DIST_LOSS_REL}), "
+            f"grad_norm rel {e['norm_rel']:.3e} ({DIST_NORM_REL}), gradient "
+            f"bound use {e['grad_use']:.3f}, saturated update error max "
+            f"{e['saturated_lr']:.3e} lr ({DIST_SATURATED_TOL}), share over "
+            f"0.5 lr {e['over_half_lr']:.2e} ({DIST_OVER_HALF})")
+
+
+def _lrs(opt) -> dict:
+    """Each parameter's lr at the first update, by name."""
+    by_group = opt.lrs(opt.count)
+    return {n: by_group[m] for n, m in zip(opt.names, opt.masa)}
+
+
+def _reduce_without_division(tensors):
+    """Planted fault: the sum over the ranks in place of the mean."""
+    out = [t.detach().clone() for t in tensors]
+    for t in out:
+        torch.distributed.all_reduce(t)
+    return out
+
+
+def _reduce_stale_copy(tensors):
+    """Planted fault: reduces a copy, hands back the rank's own values."""
+    from textualdegremoval_tpu_torch.parallel.mesh import all_reduce_mean
+
+    all_reduce_mean([t.detach().clone() for t in tensors])
+    return list(tensors)
+
+
+DIST_PLANTS = {"no_division": _reduce_without_division,
+               "stale_copy": _reduce_stale_copy}
+DIST_KERNELS = (tb.tblock_fused, gb.gdfn_half_bwd, ab.attn_half_bwd)
+
+
+def _synced_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _dist_dp_job(rank: int, world: int, work: Path, seed: int) -> dict:
+    """(a) and (b) on one rank: the reduced step of the training CLI's step
+    function from the seeded state on this rank's 4 images, against the
+    parent's single process on all 8; the planted reduces; the reduce
+    timed apart; then one FSDP step of the same step function from the
+    same state against it."""
+    from textualdegremoval_tpu_torch.parallel import all_reduce_mean
+    from textualdegremoval_tpu_torch.parallel import replicate
+    from textualdegremoval_tpu_torch.parallel.fsdp import shard_train_state
+    from textualdegremoval_tpu_torch.train import trainer
+
+    want = torch.load(work / "dp_expected.pt", weights_only=True)
+    batch = _dist_batch(seed, rank)
+    model = _dist_restormer(seed)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    names = [n for n, _ in model.named_parameters()]
+
+    def fresh():
+        model.load_state_dict(init)
+        state, step_fn, _ = _trainer(model, DIST_TRAIN)
+        return replicate(state), step_fn
+
+    state, step_fn = fresh()
+    step_fn(state, batch)  # warm-up: kernel weights, cuDNN's choices
+    state, step_fn = fresh()
+    lrs = _lrs(state.opt)
+    for k in DIST_KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    state, m, grads = _captured_step(step_fn, state, batch)
+    float(m["l_pix"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = [k.launches for k in DIST_KERNELS]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dp_params = {n: p.detach().clone() for n, p in zip(names,
+                                                       state.opt.params)}
+    dp_grads = dict(zip(names, grads))
+    err = _dist_errors(m, dp_grads, dp_params, init, lrs, want)
+    dp_m = {k: float(v) for k, v in m.items()}
+    log(f"phase 38 (a) rank {rank}: step {step_ms:.1f} ms, launches "
+        f"{'/'.join(k.__name__ for k in DIST_KERNELS)} {launches}, peak "
+        f"{peak:.2f} GiB; against one process on {DIST_BATCH} images: "
+        + _fmt(err))
+    if not err["ok"] or launches != [52, 52, 52]:
+        raise RuntimeError(f"phase 38 (a) rank {rank}: {err}, launches "
+                           f"{launches}")
+    # the reduce alone, on the step's gradients: its ms and bytes
+    nbytes = sum(g.numel() * g.element_size() for g in grads)
+    reduce_ms = statistics.median(
+        _synced_ms(lambda: all_reduce_mean(grads)) for _ in range(3))
+    planted = {}
+    honest = trainer.all_reduce_mean
+    for name, plant in DIST_PLANTS.items():
+        state, step_fn = fresh()
+        trainer.all_reduce_mean = plant
+        try:
+            state, pm, pg = _captured_step(step_fn, state, batch)
+        finally:
+            trainer.all_reduce_mean = honest
+        pe = _dist_errors(pm, dict(zip(names, pg)),
+                          dict(zip(names, state.opt.params)), init, lrs,
+                          want)
+        log(f"phase 38 (a) rank {rank} planted {name}: " + _fmt(pe))
+        if pe["ok"]:
+            raise RuntimeError(f"phase 38 (a): the planted {name} reduce "
+                               f"passed the bounds on rank {rank}")
+        planted[name] = pe
+    del grads, pg
+
+    # (b) FSDP from the same state through the same step function: the
+    # slices against (a)'s DP step
+    state, fstep = fresh()
+    replicated = sum(t.numel() * t.element_size() for t in (
+        *state.opt.params, *state.opt.mu, *state.opt.nu, *(state.ema or [])))
+    sstate = shard_train_state(state)
+    del state
+    for k in DIST_KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    sstate, fm, fgrads = _captured_step(fstep, sstate, batch)
+    float(fm["l_pix"])
+    torch.cuda.synchronize()
+    fsdp_ms = (time.perf_counter() - t0) * 1e3
+    fsdp_launches = [k.launches for k in DIST_KERNELS]
+    fsdp_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    dims = {lf.name: lf.dim for lf in sstate.leaves}
+
+    def cut(name, x):
+        d = dims[name]
+        if d is None:
+            return x
+        k = x.shape[d] // world
+        return x.narrow(d, rank * k, k)
+
+    step_seconds = dict(sstate.seconds)
+
+    def sliced(ref):
+        return {"l_pix": ref["l_pix"], "grad_norm": ref["grad_norm"],
+                **{k: {n: cut(n, t) for n, t in ref[k].items()}
+                   for k in ("grads", "params")}}
+
+    f_args = (fm, dict(zip(names, fgrads)),
+              dict(zip(names, sstate.opt.params)),
+              {n: cut(n, init[n]) for n in names}, lrs)
+    ferr = _dist_errors(*f_args, sliced(want))
+    vs_dp = _dist_errors(*f_args, sliced(
+        {"l_pix": dp_m["l_pix"], "grad_norm": dp_m["grad_norm"],
+         "grads": dp_grads, "params": dp_params}))
+    gather_ms = _synced_ms(sstate.gather)
+    sstate.release()
+    scatter_ms = _synced_ms(lambda: sstate.reduce_gradients(
+        [dp_grads[n].clone() for n in names], fm["l_pix"].clone()))
+    held = sstate.held_bytes()
+    log(f"phase 38 (b) rank {rank}: FSDP step {fsdp_ms:.1f} ms (gather "
+        f"{step_seconds['gather'] * 1e3:.1f} ms, reduce-scatter "
+        f"{step_seconds['reduce'] * 1e3:.1f} ms inside it; apart: gather "
+        f"{gather_ms:.1f} ms, reduce-scatter {scatter_ms:.1f} ms), launches "
+        f"{fsdp_launches}, peak {fsdp_peak:.2f} GiB; held {held} bytes "
+        f"against {replicated} replicated; "
+        f"{sum(d is not None for d in dims.values())} of {len(dims)} leaves "
+        f"sharded; against one process: {_fmt(ferr)}"
+        f"; against (a)'s DP step: {_fmt(vs_dp)}")
+    if not (ferr["ok"] and vs_dp["ok"]) or fsdp_launches != [52, 52, 52]:
+        raise RuntimeError(f"phase 38 (b) rank {rank}: {ferr}, {vs_dp}, "
+                           f"launches {fsdp_launches}")
+    return {"step_ms": step_ms, "launches": launches, "peak_gib": peak,
+            "errors": err, "planted": planted, "reduce_ms": reduce_ms,
+            "reduce_bytes": nbytes, "params": len(names),
+            "param_count": sum(p.numel() for p in dp_params.values()),
+            "fsdp": {"step_ms": fsdp_ms, "launches": fsdp_launches,
+                     "peak_gib": fsdp_peak, "errors": ferr, "vs_dp": vs_dp,
+                     "gather_ms": gather_ms, "scatter_ms": scatter_ms,
+                     "step_gather_ms": step_seconds["gather"] * 1e3,
+                     "step_scatter_ms": step_seconds["reduce"] * 1e3,
+                     "held_bytes": held, "replicated_bytes": replicated}}
+
+
+def _diffir_trainer(model):
+    """The DiffIR CLI's optimizer, state and loss for DIFFIR_TRAIN."""
+    topt = DIFFIR_TRAIN
+    lr = topt["optim_g"]["lr"]
+    opt = build_optimizer(
+        model, warmup_wrap(build_schedule(lr, topt["scheduler"]), -1, lr),
+        weight_decay=topt["optim_g"]["weight_decay"],
+        betas=tuple(topt["optim_g"]["betas"]), grad_clip=0.01)
+    return (create_train_state(model, opt, topt["ema_decay"]),
+            build_loss(topt["pixel_opt"]))
+
+
+def _diffir_model(seed: int):
+    """NAFNetDynamicFusion at DiffIR's full width, seeded, built on the
+    card (the same weights in every process: one seed, one device)."""
+    with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
+        torch.manual_seed(seed)
+        with torch.device("cuda"):
+            model = define_network(DIFFIR_NET)
+    return gate_and_temperatures(model, seed)
+
+
+def _dist_diffir_job(rank: int, world: int, work: Path, seed: int) -> dict:
+    """(c) on one rank: the full state built and sharded one rank after
+    the other (1.78 B parameters with both moments and the EMA are 28.6 GB
+    until sharded), then one FSDP step of `make_train_step` on this rank's
+    images with the parent's embeddings: the loss, the norm, the gradient
+    slices handed to the optimizer and the updated slices against the
+    parent's single process."""
+    from textualdegremoval_tpu_torch.parallel.fsdp import shard_train_state
+
+    inp = torch.load(work / "diffir_input.pt", weights_only=True)
+    per = DIFFIR_DIST_BATCH
+    batch = {k: v[rank * per: (rank + 1) * per].cuda()
+             for k, v in inp.items()}
+    sstate = loss_fn = None
+    torch.cuda.reset_peak_memory_stats()
+    for turn in range(world):
+        if turn == rank:
+            state, loss_fn = _diffir_trainer(_diffir_model(seed))
+            sstate = shard_train_state(state)
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    build_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    held = sstate.held_bytes()
+    names = sstate.opt.names
+    init = {n: p.detach().cpu() for n, p in zip(names, sstate.opt.params)}
+    lrs = _lrs(sstate.opt)
+    step = make_train_step(loss_fn, DIFFIR_TRAIN["ema_decay"])
+    _reset_all_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    sstate, m, grads = _captured_step(step, sstate, batch)
+    float(m["l_pix"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = _all_counts()
+    want = torch.load(work / f"diffir_expected_{rank}.pt", weights_only=True,
+                      mmap=True)
+    err = _dist_errors(m, dict(zip(names, grads)),
+                       dict(zip(names, sstate.opt.params)), init, lrs, want)
+    sharded = sum(lf.dim is not None for lf in sstate.leaves)
+    log(f"phase 38 (c) rank {rank}: FSDP step {step_ms:.1f} ms (gather "
+        f"{sstate.seconds['gather']:.2f} s, reduce-scatter "
+        f"{sstate.seconds['reduce']:.2f} s), peak {peak:.2f} GiB in the "
+        f"step, {build_peak:.2f} while building; held {held} bytes; "
+        f"{sharded} of {len(sstate.leaves)} leaves sharded; against one "
+        f"process: {_fmt(err)}")
+    if not err["ok"] or any(counts.values()):
+        raise RuntimeError(f"phase 38 (c) rank {rank}: {err}, counts "
+                           f"{counts}")
+    return {"step_ms": step_ms, "gather_s": sstate.seconds["gather"],
+            "scatter_s": sstate.seconds["reduce"], "peak_gib": peak,
+            "build_peak_gib": build_peak, "held_bytes": held,
+            "errors": err}
+
+
+DIST_JOBS = {"dp": _dist_dp_job, "diffir": _dist_diffir_job}
+
+
+def _dist_rank(rank: int, world: int, port: int, job: str, work: str,
+               seed: int) -> None:
+    """One spawned rank of phase 38: joins through the port's own
+    `init_distributed` (the torch launcher's env, a TCP rendezvous on
+    `port`), loads the kernels phase 2 built, runs DIST_JOBS[job] and
+    writes its readings to <work>/<job>_<rank>.pt."""
+    from textualdegremoval_tpu_torch.parallel import init_distributed
+    from textualdegremoval_tpu_torch.parallel.bootstrap import (
+        backend_for, local_world_size,
+    )
+
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
+                       "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    got = init_distributed("cuda")
+    backend = torch.distributed.get_backend()
+    want = backend_for("cuda", local_world_size(world),
+                       torch.cuda.device_count())
+    if got != (rank, world) or backend != want:
+        raise RuntimeError(f"rank {rank}: joined as {got} on {backend}, "
+                           f"the rule gives {want}")
+    _build.load_library()
+    out = DIST_JOBS[job](rank, world, Path(work), seed)
+    out["backend"] = backend
+    torch.save(out, Path(work) / f"{job}_{rank}.pt")
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def _spawn_ranks(job: str, work: Path, seed: int) -> list:
+    """DIST_WORLD ranks of `job` (torch.multiprocessing, spawn); a rank
+    that raises, or ranks that have not finished within DIST_TIMEOUT, fail
+    the phase.  Returns each rank's readings."""
+    ctx = torch.multiprocessing.spawn(
+        _dist_rank, args=(DIST_WORLD, _free_port(), job, str(work), seed),
+        nprocs=DIST_WORLD, join=False)
+    deadline = time.monotonic() + DIST_TIMEOUT
+    while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+        if time.monotonic() >= deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise RuntimeError(f"phase 38 {job}: the ranks did not finish "
+                               f"within {DIST_TIMEOUT} s")
+    return [torch.load(work / f"{job}_{r}.pt", weights_only=False)
+            for r in range(DIST_WORLD)]
+
+
+def _dist_reference(seed: int, work: Path) -> dict:
+    """(a)'s single process: one step of the training CLI's step function
+    on the whole global batch, after a warm-up from the same state; its
+    loss, norm, gradients and updated parameters to <work>/dp_expected.pt
+    for the ranks."""
+    model = _dist_restormer(seed)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    names = [n for n, _ in model.named_parameters()]
+    batch = _dist_batch(seed)
+    state, step_fn, _ = _trainer(model, DIST_TRAIN)
+    step_fn(state, batch)
+    model.load_state_dict(init)
+    state, step_fn, _ = _trainer(model, DIST_TRAIN)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m, grads = _captured_step(step_fn, state, batch)
+    float(m["l_pix"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"l_pix": float(m["l_pix"]), "grad_norm": float(m["grad_norm"]),
+            "grads": {n: g.float().cpu() for n, g in zip(names, grads)},
+            "params": {n: p.detach().cpu()
+                       for n, p in zip(names, state.opt.params)}}
+    torch.save(want, work / "dp_expected.pt")
+    n = sum(p.numel() for p in want["params"].values())
+    log(f"phase 38 (a) one process: step {ms:.1f} ms on {DIST_BATCH} images, "
+        f"peak {peak:.2f} GiB, l_pix {want['l_pix']:.6f}, grad_norm "
+        f"{want['grad_norm']:.6e}, {n} parameters")
+    del state, model, grads, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "peak_gib": peak, "params": n}
+
+
+def _diffir_reference(seed: int, work: Path) -> dict:
+    """(c)'s single process: the frozen full-width towers embed the 4
+    images once (then freed), one step of the DiffIR step on all 4, and
+    each rank's slices of the updated parameters and of the gradients
+    handed to the optimizer to <work>/diffir_expected_<rank>.pt."""
+    from textualdegremoval_tpu_torch.cli import train_diffir as dcli
+    from textualdegremoval_tpu_torch.parallel.fsdp import fsdp_spec
+
+    rng = np.random.default_rng(seed + 39)
+    trip = [synthetic_triple(rng, DIFFIR_GT)
+            for _ in range(DIST_WORLD * DIFFIR_DIST_BATCH)]
+    lq, gt = (torch.from_numpy(np.stack([t[i] for t in trip]))
+              for i in (0, 1))
+    opt = {"manual_seed": seed, "path": {},
+           "network_mapper": {"num_words": DIFFIR_NET["num_words"]}}
+    enc, mapper = dcli.build_towers(opt, "cuda")
+    with torch.inference_mode():
+        emb = dcli.make_device_embed_fn(enc, mapper)(lq.cuda()).cpu()
+    del enc, mapper
+    torch.cuda.empty_cache()
+    inp = {"lq": lq, "gt": gt, "ref": emb.clone()}
+    torch.save(inp, work / "diffir_input.pt")
+    state, loss_fn = _diffir_trainer(_diffir_model(seed))
+    step = make_train_step(loss_fn, DIFFIR_TRAIN["ema_decay"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m, grads = _captured_step(
+        step, state, {k: v.cuda() for k, v in inp.items()})
+    float(m["l_pix"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    names, params = state.opt.names, state.opt.params
+    count = sum(p.numel() for p in params)
+    metrics = {"l_pix": float(m["l_pix"]), "grad_norm": float(m["grad_norm"])}
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in range(DIST_WORLD):
+        mine = {"params": {}, "grads": {}}
+        for name, p, g in zip(names, params, grads):
+            d = fsdp_spec(tuple(p.shape), DIST_WORLD)
+            if d is not None:
+                k = p.shape[d] // DIST_WORLD
+                p, g = p.narrow(d, r * k, k), g.narrow(d, r * k, k)
+            mine["params"][name] = p.detach().cpu()
+            mine["grads"][name] = g.float().cpu()
+        torch.save({**metrics, **mine}, work / f"diffir_expected_{r}.pt")
+        del mine
+    log(f"phase 38 (c) one process: {count} parameters, step {ms:.1f} ms "
+        f"on {DIST_WORLD * DIFFIR_DIST_BATCH} images at {DIFFIR_GT} px, peak "
+        f"{peak:.2f} GiB, l_pix {metrics['l_pix']:.6f}")
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "peak_gib": peak, "params": count}
+
+
+def _dist_cli(seed: int, work: Path) -> dict:
+    """(d): cli/train_restoration.py's `main` as two processes under the
+    torch launcher's env (RANK, WORLD_SIZE=2, MASTER_ADDR, MASTER_PORT,
+    LOCAL_RANK) on numpy-written PNGs: restormer_motion_deblur.yml's
+    network at full width, bf16, 384 px crops, 4 images a rank, 2
+    iterations, a checkpoint and a strip at iteration 2.  Each rank runs
+    `main` as `python -m` does and writes the parameters it ends with
+    beside (the CLI writes nothing on rank 1); then a third process,
+    `python -m textualdegremoval_tpu_torch.cli.train_restoration`, resumes
+    from rank 0's checkpoint for a third iteration."""
+    from textualdegremoval_tpu_torch.data.png import write_png
+
+    root = work / "cli"
+    rng = np.random.default_rng(seed + 40)
+    for sub in ("lq", "hq", "ref"):
+        (root / sub).mkdir(parents=True)
+    for i in range(8):
+        for sub in ("lq", "hq", "ref"):
+            write_png(str(root / sub / f"{i:03d}.png"),
+                      (rng.random((400, 440, 3)) * 255).astype(np.uint8))
+    opt = {
+        "name": "dist_cli", "scale": 1, "manual_seed": 100,
+        "datasets": {"train": {
+            "name": "Trainset", "type": "Dataset_PairedImageWithRef",
+            **{f"{s}root": str(root / s) for s in ("lq", "hq", "ref")},
+            "geometric_augs": True, "io_backend": {"type": "disk"},
+            "num_worker_per_gpu": 0, "batch_size_per_gpu": 4,
+            "mini_batch_sizes": [4], "iters": [1000000], "gt_size": 384,
+            "gt_sizes": [384]}},
+        "network_g": TRAIN_OPT["network_g"],
+        "path": {"pretrain_dino": None, "pretrain_network_g": None},
+        "train": TRAIN_OPT["train"],
+        "logger": {"print_freq": 1, "save_checkpoint_freq": 2,
+                   "check_freq": 2}}
+    cfg = root / "opt.json"
+    cfg.write_text(json.dumps(opt))
+    argv = ["--opt", str(cfg), "--mixed_precision", "bf16"]
+    runner = ("import sys, torch; from textualdegremoval_tpu_torch.cli "
+              "import train_restoration as cli; s = cli.main(sys.argv[2:]); "
+              "torch.save({k: v.cpu() for k, v in "
+              "s.model.state_dict().items()}, sys.argv[1])")
+    port = _free_port()
+    procs = []
+    t0 = time.perf_counter()
+    path = os.pathsep.join(filter(None, [str(Path(__file__).resolve().parent),
+                                         os.environ.get("PYTHONPATH")]))
+    for r in range(DIST_WORLD):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DIST_WORLD),
+                   LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), PYTHONPATH=path)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", runner, str(root / f"rank{r}.pt"), *argv,
+             "--max_iters", "2"], env=env, cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=DIST_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise RuntimeError("phase 38 (d): the CLI's ranks did not "
+                               f"finish within {DIST_TIMEOUT} s")
+    secs = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        raise RuntimeError("phase 38 (d): a rank of the CLI failed:\n"
+                           + "\n---\n".join(o[-3000:] for o in outs))
+    exp = root / "experiments" / "dist_cli"
+    text = (exp / "train.log").read_text()
+    nets = sorted(p.name for p in (exp / "models").iterdir())
+    states = sorted(p.name for p in (exp / "training_states").iterdir())
+    strips = sorted(p.name for p in (exp / "visualization").iterdir())
+    net = torch.load(exp / "models" / "net_g_2.pth", weights_only=True)
+    define_network(TRAIN_OPT["network_g"]).load_state_dict(net["params"],
+                                                           strict=True)
+    ranks = [torch.load(root / f"rank{r}.pt", weights_only=True)
+             for r in range(DIST_WORLD)]
+    equal = all(torch.equal(net["params"][k], rk[k])
+                for rk in ranks for k in net["params"])
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    env["PYTHONPATH"] = path
+    res = subprocess.run(
+        [sys.executable, "-m",
+         "textualdegremoval_tpu_torch.cli.train_restoration", *argv,
+         "--max_iters", "3"], env=env, cwd=root, capture_output=True,
+        text=True, timeout=DIST_TIMEOUT)
+    resumed = "auto-resumed from iter 2" in (exp / "train.log").read_text()
+    ok = (text.count(" l_pix ") == 2 and "rank 0 of 2" in text
+          and "rank 1 of 2" not in text and nets == ["net_g_2.pth"]
+          and states == ["state_2.pth"] and strips == ["000002.png"]
+          and equal and res.returncode == 0 and resumed
+          and (exp / "models" / "net_g_3.pth").exists())
+    log(f"phase 38 (d): two CLI ranks, 2 iterations in {secs:.1f} s; "
+        f"train.log {text.count(' l_pix ')} step lines, rank 0's only "
+        f"{'rank 1 of 2' not in text}; models {nets}, states {states}, "
+        f"strips {strips}; net_g_2.pth loads strict and equals both ranks' "
+        f"parameters bit for bit: {equal}; a third process resumed from "
+        f"iter 2: {resumed} (rc {res.returncode})")
+    if not ok:
+        raise RuntimeError("phase 38 (d) failed:\n" + text[-3000:]
+                           + res.stdout[-2000:] + res.stderr[-3000:])
+    return {"seconds": secs, "equal": equal, "resumed": resumed}
+
+
+def distributed_phases(seed: int) -> dict:
+    """Phase 38: the port's multi-process training on the card, two ranks
+    sharing it over gloo (the backend rule's pick where ranks outnumber
+    cards): (a) the data-parallel step of the flagship at full width in
+    bf16, 4 of 8 images a rank, against one process on all 8, with two
+    planted reduce faults that must fail; (b) FSDP at the same setting
+    against (a); (c) FSDP of NAFNetDynamicFusion at DiffIR's full width,
+    2 images a rank, against one process on all 4; (d) the training CLI
+    as two launched processes, rank-0 I/O, a resume.  The single-process
+    references run first in this process and free the card before the
+    ranks start.  Returns the readings."""
+    work = Path(tempfile.mkdtemp(prefix="dist_"))
+    t0 = time.perf_counter()
+    parts = []
+
+    def timed(what, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts.append(f"{what} {time.perf_counter() - t:.1f}")
+        return out
+
+    try:
+        ref_a = timed("(a) one process", _dist_reference, seed, work)
+        dp = timed("(a)-(b) ranks", _spawn_ranks, "dp", work, seed)
+        log_held("phase 38 (a)-(b)")
+        ref_c = timed("(c) one process", _diffir_reference, seed, work)
+        diffir = timed("(c) ranks", _spawn_ranks, "diffir", work, seed)
+        log_held("phase 38 (c)")
+        cli = timed("(d)", _dist_cli, seed, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    log(f"phase 38: {secs:.1f} s ({', '.join(parts)} s); backend "
+        f"{dp[0]['backend']}; (a) "
+        f"{dp[0]['param_count']} parameters in {dp[0]['params']} tensors, "
+        f"the reduce {dp[0]['reduce_bytes']} bytes a step in "
+        f"{[round(r['reduce_ms'], 2) for r in dp]} ms (apart), step "
+        f"{[round(r['step_ms'], 1) for r in dp]} ms a rank against "
+        f"{ref_a['step_ms']:.1f} ms in one process")
+    return {"seconds": secs, "ref_a": ref_a, "dp": dp, "ref_c": ref_c,
+            "diffir": diffir, "cli": cli}
+
+
 def bound_ms(kernel: str, b, h, w, c, heads, eb=2, n=1):
     """(ms, 'bytes' or 'operations') for one call at a shape, in bf16 (eb
     2: the tensor cores' rate) or float32 (eb 4: the CUDA cores' rate, as
@@ -4594,7 +5369,8 @@ def main(argv=None) -> int:
         log(f"planted fault {args.plant} NOT caught")
         return 1
 
-    t_start = time.perf_counter()
+    global T_START
+    t_start = T_START = time.perf_counter()
     rows = kernel_vs_plain(gen)
     network_vs_cpu(args.seed, more=((tb.tblock_pipeline, 0),))
     eval_launches, _, _, (eval_pipeline,) = main_path(
@@ -4720,6 +5496,8 @@ def main(argv=None) -> int:
     log_held("phases 33-35")
     mp = metric_phases(args.seed)
     log_held("phases 36-37")
+    dist = distributed_phases(args.seed)
+    log_held("phase 38")
 
     # per-step kernel time: each training shape's median time times the
     # number of blocks of that shape in one step (bf16, WithBias); the
@@ -5124,6 +5902,13 @@ def main(argv=None) -> int:
         if row["name"] == "nafblock_fused":
             row["archive_launches"] = {
                 io: diffir["archives"][io] for io in ("lmdb", "tfrecord")}
+        # phase 38: each rank's launches in (a)'s reduced step and (b)'s
+        # FSDP step (two ranks sharing the card)
+        for i, k in enumerate(DIST_KERNELS):
+            if row["name"] == k.__name__:
+                row["dist_launches"] = [r["launches"][i] for r in dist["dp"]]
+                row["fsdp_launches"] = [r["fsdp"]["launches"][i]
+                                        for r in dist["dp"]]
     til, met = mp["tiled"], mp["metrics"]
     log(f"tiled restoration (phase 36): {TILED_HW[0]}x{TILED_HW[1]} bf16 "
         f"{til['image_ms']:.1f} ms an image ({TILED_TILES} tiles, "
@@ -5136,6 +5921,24 @@ def main(argv=None) -> int:
         f"{met['frechet_s']:.2f} s on the host, FID(a, b) "
         f"{met['fid_ab']:.4f}, NIQE {met['niqe']:.4f}, Y PSNR "
         f"{met['psnr']:.4f} dB, SSIM {met['ssim']:.4f}")
+    dp, dc = dist["dp"], dist["diffir"]
+    log(f"distributed (phase 38, {DIST_WORLD} ranks on one card over "
+        f"{dp[0]['backend']}): (a) flagship step 384 px bf16, "
+        f"{DIST_BATCH // DIST_WORLD} images a rank: "
+        f"{[round(r['step_ms'], 1) for r in dp]} ms a rank against "
+        f"{dist['ref_a']['step_ms']:.1f} ms in one process on "
+        f"{DIST_BATCH}; all-reduce of {dp[0]['reduce_bytes']} bytes "
+        f"{[round(r['reduce_ms'], 1) for r in dp]} ms; peak "
+        f"{[round(r['peak_gib'], 2) for r in dp]} GiB; (b) FSDP step "
+        f"{[round(r['fsdp']['step_ms'], 1) for r in dp]} ms, gather "
+        f"{[round(r['fsdp']['gather_ms'], 1) for r in dp]} ms, "
+        f"reduce-scatter {[round(r['fsdp']['scatter_ms'], 1) for r in dp]} "
+        f"ms; (c) DiffIR FSDP step "
+        f"{[round(r['step_ms'], 1) for r in dc]} ms, gather "
+        f"{[round(r['gather_s'], 2) for r in dc]} s, reduce-scatter "
+        f"{[round(r['scatter_s'], 2) for r in dc]} s, peak "
+        f"{[round(r['peak_gib'], 2) for r in dc]} GiB a rank; (d) the CLI "
+        f"{dist['cli']['seconds']:.1f} s; phase 38 {dist['seconds']:.1f} s")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s after "
         f"the build")
     log(json.dumps(summary))

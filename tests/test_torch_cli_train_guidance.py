@@ -176,4 +176,4 @@ def test_train_cli_refuses_to_run_without_weights(tmp_path, capsys):
     assert "--random_init" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         train_i2t.main(["--help"])
-    assert "one process on one device" in capsys.readouterr().out
+    assert "data-parallel ranks under torchrun" in capsys.readouterr().out

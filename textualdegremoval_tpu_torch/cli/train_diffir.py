@@ -6,7 +6,7 @@ PyTorch port.
 
 Counterpart of textualdegremoval_tpu/cli/train_diffir.py (reference
 DiffIRRefGuidedImageCleanModel, models/image_restoration_text_embed_diffir
-_model.py:105-533, through the standard train script), on one device.
+_model.py:105-533, through the standard train script).
 Each batch's lq, resized to the CLIP tower's 224 px view by JAX's
 antialiased bilinear (`jax.image.resize`, `ops.resize.image_resize`) and
 CLIP-normalised, goes through the frozen CLIP vision tower
@@ -27,6 +27,12 @@ scalars.jsonl line every `logger.print_freq` iterations, a checkpoint
 every `logger.save_checkpoint_freq`, and auto-resume from the latest
 training state.  The device is CUDA unless `--device cpu` is asked for.
 Float32 throughout, as in JAX.
+
+Under a multi-process launch (torchrun, slurm; parallel/bootstrap.py)
+the ranks train data-parallel as `train_restoration`'s do: each reads
+its shard of the sampler and embeds its own batch through the frozen
+towers, the step averages the gradients, the state starts as rank 0's,
+and rank 0 alone writes the log, the scalars and the checkpoints.
 """
 
 from __future__ import annotations
@@ -49,6 +55,8 @@ from textualdegremoval_tpu_torch.models import define_network
 from textualdegremoval_tpu_torch.models.clip import CLIPVisionEncoder
 from textualdegremoval_tpu_torch.models.mappers import I2TMapper
 from textualdegremoval_tpu_torch.ops.resize import image_resize
+from textualdegremoval_tpu_torch.parallel import init_distributed, replicate
+from textualdegremoval_tpu_torch.parallel.bootstrap import rank_device
 from textualdegremoval_tpu_torch.train.checkpoint import CheckpointManager
 from textualdegremoval_tpu_torch.train.diffir_trainer import (
     make_diffir_train_step, make_embed_fn,
@@ -129,15 +137,18 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and \
+            not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
+    rank, world = init_distributed(args.device)
+    device = rank_device(args.device, rank)
 
     opt = parse(args.opt, is_train=True)
     logger = get_root_logger(
         log_file=os.path.join(opt["path"]["log"], "train.log"))
     ds_opt = dict(opt["datasets"]["train"])
     train_loader = create_dataloader(create_dataset(ds_opt), ds_opt,
+                                     num_replicas=world, rank=rank,
                                      device=device)
 
     enc, mapper = build_towers(opt, device, logger)
@@ -166,6 +177,7 @@ def main(argv=None):
                              opt["path"]["models"])
     if ckpt.restore_state(state) is not None:
         logger.info(f"auto-resumed from iter {state.step}")
+    replicate(state)  # rank 0's state, built, loaded or resumed
     start_iter = current_iter = state.step
 
     total_iters = args.max_iters or int(topt["total_iter"])

@@ -11,9 +11,18 @@ accumulation (optax.MultiSteps' semantics), --scale_lr:
         (--pretrained_params <dir> | --random_init) \\
         [--mixed_precision bf16 --remat --num_words 20 --lr 1e-6 ...]
 
-One process on one device (--device, CUDA unless asked otherwise; no
-fallback to the CPU): the JAX CLI's multi-process rendezvous is not
-ported.  --pretrained_params names a directory of reference-format state
+The device is CUDA unless --device asks otherwise (no fallback to the
+CPU).  Under a multi-process launch (torchrun, slurm;
+parallel/bootstrap.py) the ranks train data-parallel as the JAX CLI's
+processes do: --scale_lr also multiplies by the world size, each rank's
+dataset is seeded seed + rank and reads its shard of the sampler, the
+trainables start as rank 0's, and the gradients are averaged over the
+ranks at each update (at the accumulation boundary), so the ranks' copies
+stay equal (JAX's guidance step has no collective and lets them drift
+apart: ROADMAP C14).  Rank 0 alone logs and writes the trained parts and
+the sample grids.
+
+--pretrained_params names a directory of reference-format state
 dicts (`convert.load_reference_towers`, as the generation CLI reads)
 instead of the JAX CLI's orbax directory; --random_init draws the
 generation CLI's seeded random towers.  --mixed_precision bf16 stores the
@@ -26,7 +35,6 @@ clean_mapper.pt for TR) under <output_dir>/<stage>_params_<step>/.
 from __future__ import annotations
 
 import argparse
-import logging
 import os
 
 import numpy as np
@@ -49,13 +57,18 @@ from textualdegremoval_tpu_torch.diffusion.pipeline import (
     make_guidance_train_step, partition,
 )
 from textualdegremoval_tpu_torch.diffusion.tokenizer import tokenize_template
+from textualdegremoval_tpu_torch.parallel import (
+    barrier, broadcast_, init_distributed, is_main_process, world,
+)
+from textualdegremoval_tpu_torch.parallel.bootstrap import rank_device
+from textualdegremoval_tpu_torch.utils.logger import get_root_logger
 
 
 def parse_args(stage: str, argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         prog=f"textualdegremoval_tpu_torch.cli.train_{stage}",
-        description=f"Pipeline A {stage.upper()} training, one process on "
-                    "one device.")
+        description=f"Pipeline A {stage.upper()} training: one process, "
+                    "or data-parallel ranks under torchrun or slurm.")
     ap.add_argument("--train_data_dir", required=True)
     ap.add_argument("--train_data_dir_hq", default=None,
                     help="TR stage: clean targets paired with degraded "
@@ -134,8 +147,9 @@ def build_step(args, mods: GuidanceModules, stage: str):
     """(optimizer, step function, lr): JAX make_guidance_optimizer under
     MultiSteps(gradient_accumulation_steps), the reference's scale_lr."""
     lr = args.learning_rate
-    if args.scale_lr:  # main_train_i2t_mapping.py:623-626, one process
-        lr *= args.gradient_accumulation_steps * args.train_batch_size
+    if args.scale_lr:  # main_train_i2t_mapping.py:623-626
+        lr *= args.gradient_accumulation_steps * args.train_batch_size \
+            * world()
     opt = make_guidance_optimizer(
         mods, stage, lr=lr,
         accumulation_steps=args.gradient_accumulation_steps)
@@ -157,7 +171,8 @@ def prompt_ids(args, mods: GuidanceModules):
     return ids, uids, inj
 
 
-def build_dataset(args, stage: str, inj_index: int, clip_size: int):
+def build_dataset(args, stage: str, inj_index: int, clip_size: int,
+                  seed: int):
     if stage == "tr":
         task_roots = ({"paired": (args.train_data_dir, args.train_data_dir_hq)}
                       if args.train_data_dir_hq
@@ -165,9 +180,9 @@ def build_dataset(args, stage: str, inj_index: int, clip_size: int):
         return PairedLQHQDataset(task_roots, size=args.resolution,
                                  placeholder_index=inj_index,
                                  sigma_range=tuple(args.sigma_range),
-                                 seed=args.seed, clip_size=clip_size)
+                                 seed=seed, clip_size=clip_size)
     return UnpairedLQHQDataset(args.train_data_dir, size=args.resolution,
-                               placeholder_index=inj_index, seed=args.seed,
+                               placeholder_index=inj_index, seed=seed,
                                clip_size=clip_size)
 
 
@@ -187,20 +202,26 @@ def device_batch(batch: dict, input_ids: np.ndarray, device) -> dict:
 def run(stage: str, argv=None) -> GuidanceModules:
     """Train `stage` ('i2t' or 'tr'); returns the trained towers."""
     args = parse_args(stage, argv)
-    logger = logging.getLogger("textualdegremoval_tpu_torch.train_guidance")
-    logging.basicConfig(level=logging.INFO)
+    if torch.device(args.device).type == "cuda" and \
+            not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available")
+    rank, n_ranks = init_distributed(args.device)
+    args.device = str(rank_device(args.device, rank))
+    logger = get_root_logger("textualdegremoval_tpu_torch.train_guidance")
     mods = build_towers(args, stage)
     device = mods.device
+    broadcast_(p for _, p in partition(mods, stage)[0])  # rank 0's
     _, step_fn, lr = build_step(args, mods, stage)
     n_train = sum(p.numel() for _, p in partition(mods, stage)[0])
     logger.info(f"[{stage}] lr {lr:g}, {n_train} trainable parameters")
 
     input_ids, uncond_ids, inj_index = prompt_ids(args, mods)
     clip_size = mods.image_encoder.image_size
-    dataset = build_dataset(args, stage, inj_index, clip_size)
+    dataset = build_dataset(args, stage, inj_index, clip_size,
+                            args.seed + rank)
     sampler = EnlargedSampler(
-        len(dataset), 1, 0,
-        max(1, -(-args.train_batch_size // max(len(dataset), 1))))
+        len(dataset), n_ranks, rank,
+        max(1, -(-args.train_batch_size * n_ranks // max(len(dataset), 1))))
     loader = DataLoader(
         dataset, args.train_batch_size, sampler=sampler,
         num_workers=args.num_workers, collate_fn=collate, drop_last=True,
@@ -222,11 +243,15 @@ def run(stage: str, argv=None) -> GuidanceModules:
                 logger.info(f"[{stage}] step {step} loss {float(loss):.5f}")
             step += 1
             if step % args.save_steps == 0:
-                out = os.path.join(args.output_dir, f"{stage}_params_{step}")
-                save_trained_towers(mods, stage, out)
-                if args.validation_samples:
-                    save_sample_grid(mods, batch, uncond_ids, args, stage,
-                                     step, gen)
+                barrier()
+                if is_main_process():
+                    out = os.path.join(args.output_dir,
+                                       f"{stage}_params_{step}")
+                    save_trained_towers(mods, stage, out)
+                    if args.validation_samples:
+                        save_sample_grid(mods, batch, uncond_ids, args,
+                                         stage, step, gen)
+                barrier()
         epoch += 1
     return mods
 

@@ -5,7 +5,7 @@
         [--fused auto|on|off [--gdfn_kernel]] [--device cuda|cpu]
 
 Counterpart of textualdegremoval_tpu/cli/train_restoration.py (reference
-scripts/train/main_train_restoration_with_ref_input.py), on one device.
+scripts/train/main_train_restoration_with_ref_input.py).
 The loop (reference :225-303): the progressive (gt_size, batch) schedule of
 the YAML `iters` / `gt_sizes` / `mini_batch_sizes`, a random sub-batch and
 sub-crop per step, the reference crop, optional mixup, one call of the
@@ -34,13 +34,20 @@ for autograd with or without it, as every block without a kernel
 backward does.  `--mdta_kernel` is refused: the MDTA statistics kernel
 is forward only, as is JAX's.
 
-Not ported yet: multi-device / FSDP training.
+Several processes train one model data-parallel where the environment
+describes a multi-process launch (`torchrun --nproc_per_node N -m
+textualdegremoval_tpu_torch.cli.train_restoration --opt ...`, or slurm;
+parallel/bootstrap.py): each rank reads its shard of the sampler, takes
+`batch_size_per_gpu` items a step, starts from rank 0's state
+(`parallel.mesh.replicate`) and averages its gradients with the others'
+in the step; the crop and mixup generators keep the same seeds on every
+rank, as in JAX.  Rank 0 alone writes train.log, the strips, the
+checkpoints (every rank takes part in the call) and runs validation.
 """
 
 from __future__ import annotations
 
 import argparse
-import logging
 import os
 import time
 
@@ -61,6 +68,10 @@ from textualdegremoval_tpu_torch.models.dino import (
     load_dino, select_ref_crop,
 )
 from textualdegremoval_tpu_torch.ops.resize import bilinear_resize_torch
+from textualdegremoval_tpu_torch.parallel import (
+    init_distributed, is_main_process, replicate,
+)
+from textualdegremoval_tpu_torch.parallel.bootstrap import rank_device
 from textualdegremoval_tpu_torch.train.checkpoint import CheckpointManager
 from textualdegremoval_tpu_torch.train.mixing import mixing_augment
 from textualdegremoval_tpu_torch.train.schedules import (
@@ -70,6 +81,7 @@ from textualdegremoval_tpu_torch.train.trainer import (
     build_optimizer, create_train_state, make_eval_step, make_train_step,
 )
 from textualdegremoval_tpu_torch.utils.image import imwrite, tensor2img
+from textualdegremoval_tpu_torch.utils.logger import get_root_logger
 from textualdegremoval_tpu_torch.utils.options import parse
 
 
@@ -215,38 +227,28 @@ def build_argparser() -> argparse.ArgumentParser:
     return ap
 
 
-def _logger(log_dir: str) -> logging.Logger:
-    os.makedirs(log_dir, exist_ok=True)
-    logger = logging.getLogger("textualdegremoval_tpu_torch.train")
-    logger.setLevel(logging.INFO)
-    for h in list(logger.handlers):
-        logger.removeHandler(h)
-        h.close()
-    fmt = logging.Formatter("%(asctime)s %(levelname)s: %(message)s")
-    for h in (logging.StreamHandler(),
-              logging.FileHandler(os.path.join(log_dir, "train.log"))):
-        h.setFormatter(fmt)
-        logger.addHandler(h)
-    return logger
-
-
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     if args.mdta_kernel:
         raise SystemExit("--mdta_kernel: the MDTA statistics kernel is "
                          "forward only (as is JAX's); it cannot train")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if torch.device(args.device).type == "cuda" and \
+            not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
+    rank, world = init_distributed(args.device)
+    device = rank_device(args.device, rank)
 
     opt = parse(args.opt, is_train=True)
-    logger = _logger(opt["path"]["log"])
+    logger = get_root_logger("textualdegremoval_tpu_torch.train",
+                             log_file=os.path.join(opt["path"]["log"],
+                                                   "train.log"))
     seed = opt.get("manual_seed", 0)
     ds_opt = dict(opt["datasets"]["train"])
     train_loader = create_dataloader(create_dataset(ds_opt), ds_opt,
+                                     num_replicas=world, rank=rank,
                                      device=device)
     val_loader = None
-    if "val" in opt.get("datasets", {}):
+    if "val" in opt.get("datasets", {}) and is_main_process():
         try:
             val_loader = create_dataloader(
                 create_dataset(opt["datasets"]["val"]), opt["datasets"]["val"],
@@ -259,7 +261,8 @@ def main(argv=None):
         model, remat, dtype = resolve_network(
             opt, args.mixed_precision, args.remat, args.fused,
             args.gdfn_kernel)
-    logger.info(f"device {device}, compute dtype {dtype}, remat {remat}")
+    logger.info(f"device {device}, compute dtype {dtype}, remat {remat}, "
+                f"rank {rank} of {world}")
 
     topt = opt["train"]
     ema_decay = float(topt.get("ema_decay", 0) or 0)
@@ -300,6 +303,7 @@ def main(argv=None):
                              opt["path"]["models"])
     if ckpt.restore_state(state) is not None:
         logger.info(f"auto-resumed from iter {state.step}")
+    replicate(state)  # rank 0's state, built, loaded or resumed
     start_iter = current_iter = state.step
 
     total_iters = args.max_iters or int(topt["total_iter"])
@@ -341,7 +345,8 @@ def main(argv=None):
             fn = (frozen_step_fn if frozen_step_fn is not None
                   and current_iter < fix_iters else step_fn)
             state, metrics = fn(state, step_batch)
-            if check_freq and current_iter % check_freq == 0:
+            if check_freq and current_iter % check_freq == 0 \
+                    and is_main_process():
                 dump_lher(state, step_batch, opt, current_iter)
             if current_iter % log_freq == 0:
                 lrs = opt_g.lrs(current_iter)

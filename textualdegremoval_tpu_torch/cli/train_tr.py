@@ -5,7 +5,7 @@ scripts/train/main_train_tr_mapping.py): frozen towers and the frozen I2T
 mapper, the CleanMapper stacked after it trains; the CLIP view is the
 degraded image, the SD target the clean one.  The reference's optimizer
 trains the frozen I2T mapper instead; here, as in the JAX package, the
-CleanMapper trains.  Flags as `train_i2t` (one process on one device):
+CleanMapper trains.  Flags and multi-process launches as `train_i2t`:
 
     python -m textualdegremoval_tpu_torch.cli.train_tr \\
         --train_data_dir <degraded or clean images> \\

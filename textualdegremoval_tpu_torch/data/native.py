@@ -16,7 +16,6 @@ cv2 or data/png.py, `packed.crc32c` runs its table in Python.
 from __future__ import annotations
 
 import ctypes
-import fcntl
 import functools
 import hashlib
 import os
@@ -24,6 +23,8 @@ import subprocess
 from pathlib import Path
 
 import numpy as np
+
+from textualdegremoval_tpu_torch.utils.filelock import build_lock
 
 _ROOT = Path(__file__).resolve().parents[2]
 _SOURCES = _ROOT / "native"
@@ -53,9 +54,7 @@ def _build(name: str) -> Path:
     so = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+    with build_lock(BUILD_DIR):
         if not so.exists():
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
             try:

@@ -42,6 +42,8 @@ from textualdegremoval_tpu_torch.models.unet import UNet2DCondition
 from textualdegremoval_tpu_torch.models.vae import (
     SCALING_FACTOR, AutoencoderKL,
 )
+from textualdegremoval_tpu_torch.parallel.bootstrap import world
+from textualdegremoval_tpu_torch.parallel.mesh import all_reduce_mean
 from textualdegremoval_tpu_torch.train.trainer import AdamW, MultiSteps
 
 TOWERS = ("text_encoder", "image_encoder", "unet", "vae", "mapper",
@@ -239,12 +241,18 @@ def make_guidance_train_step(mods: GuidanceModules, opt, stage: str,
                              remat: bool = False):
     """(batch, generator=None, **draws) -> loss: one micro-step, the
     gradients of the trainable parameters handed to `opt` (an AdamW, or a
-    MultiSteps that updates every k-th call)."""
+    MultiSteps that updates every k-th call).  Under several ranks the
+    gradients an update reads are averaged over them (a MultiSteps does so
+    at its boundary, on the accumulated mean), so that the ranks' copies
+    stay equal; the loss returned is this rank's."""
 
     def step(batch, generator=None, **draws):
         loss, grads = guidance_loss_and_grads(mods, batch, stage, generator,
                                               remat=remat, **draws)
-        opt.step([grads[n] for n in opt.names])
+        grads = [grads[n] for n in opt.names]
+        if world() > 1 and not isinstance(opt, MultiSteps):
+            grads = all_reduce_mean(grads)
+        opt.step(grads)
         return loss
 
     return step

@@ -30,6 +30,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_fn
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -54,23 +56,35 @@ def _pool(x: torch.Tensor, tlc_base: int | None) -> torch.Tensor:
                               x.shape[2] * tlc_base // TRAIN_SIZE))
 
 
-def _flax_norm(x, axes, mean, var, weight, bias, eps: float = 1e-5):
+def _flax_norm(x, axes, mean, var, weight, bias, eps: float = 1e-5,
+               across_ranks: bool = False):
     """flax's normalisation: (x - mean) * (rsqrt(var + eps) * weight) +
     bias in float32, then the input's dtype; with mean None, the batch
     statistics over `axes`, var = max(E[x^2] - E[x]^2, 0) (flax's fast
-    variance).  Returns (y, mean, var)."""
+    variance).  across_ranks: E[x] and E[x^2] averaged over the ranks of a
+    data-parallel run (equal shares of the global batch), through an
+    all-reduce that carries their gradient, as JAX's mean over a
+    dp-sharded batch is global.  Returns (y, mean, var)."""
     xf = x.float()
     if mean is None:
         mean = xf.mean(dim=axes, keepdim=True)
-        var = (xf.square().mean(dim=axes, keepdim=True)
-               - mean.square()).clamp_min(0.0)
+        sq = xf.square().mean(dim=axes, keepdim=True)
+        if across_ranks:
+            both = (dist_fn.all_reduce(torch.cat([mean, sq]))
+                    / dist.get_world_size())
+            mean, sq = both[:1], both[1:]
+        var = (sq - mean.square()).clamp_min(0.0)
     y = (xf - mean) * (torch.rsqrt(var + eps) * weight) + bias
     return y.to(x.dtype), mean, var
 
 
 class BatchNorm(nn.Module):
     """flax nn.BatchNorm (momentum 0.99, eps 1e-5) over the channels of an
-    NHWC tensor, with torch.nn.BatchNorm2d's parameter and buffer names."""
+    NHWC tensor, with torch.nn.BatchNorm2d's parameter and buffer names.
+    across_ranks: train mode takes the global batch's moments over the
+    ranks (set by parallel.mesh.global_batch_moments)."""
+
+    across_ranks = False
 
     def __init__(self, c: int, momentum: float = 0.99, eps: float = 1e-5):
         super().__init__()
@@ -89,7 +103,7 @@ class BatchNorm(nn.Module):
                                  self.eps)
             return y
         y, mean, var = _flax_norm(x, (0, 1, 2), None, None, self.weight,
-                                  self.bias, self.eps)
+                                  self.bias, self.eps, self.across_ranks)
         m = self.momentum
         with torch.no_grad():
             self.running_mean.copy_(m * self.running_mean

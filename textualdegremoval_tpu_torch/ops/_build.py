@@ -7,7 +7,10 @@ sources and flags, so an edited source is rebuilt and an unchanged one is
 loaded as it is.  The library has a plain C interface: pointers and the
 stream pass as `c_void_p`, ints as `c_int`, 64-bit strides as
 `c_longlong`.  ptxas's report (registers, shared memory, spills) is kept
-beside the library as `<name>.log`.
+beside the library as `<name>.log`.  The build runs under
+`utils.filelock.build_lock`, so ranks that start together on a fresh
+tree build once: the first compiles, the others wait and load its
+library.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+from textualdegremoval_tpu_torch.utils.filelock import build_lock
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -130,12 +135,21 @@ def build(csrc: Path | None = None,
     """Compile the sources of `csrc` (default: this package's) into
     `build_dir` (default: BUILD_DIR) unless a library of the same hash
     exists there: one nvcc per source, all at once, then one link.
-    Returns (library path, seconds spent compiling and linking)."""
+    Returns (library path, seconds spent compiling and linking: 0 where
+    the library was there, or another process built it meanwhile)."""
     csrc, build_dir = csrc or _CSRC, build_dir or BUILD_DIR
     so = library_path(csrc, build_dir)
     if so.exists():
         return so, 0.0
-    build_dir.mkdir(parents=True, exist_ok=True)
+    with build_lock(build_dir):
+        if so.exists():
+            return so, 0.0
+        return so, _compile(csrc, build_dir, so)
+
+
+def _compile(csrc: Path, build_dir: Path, so: Path) -> float:
+    """One nvcc per source of `csrc`, all at once, then the link into
+    `so`; the seconds it took."""
     nvcc = _nvcc()
     tag = f"{so.stem}.{os.getpid()}"
     t0 = time.perf_counter()
@@ -167,7 +181,7 @@ def build(csrc: Path | None = None,
         obj.unlink()
     so.with_suffix(".log").write_text("\n".join(log))
     os.replace(tmp, so)
-    return so, seconds
+    return seconds
 
 
 def open_library(so: Path) -> ctypes.CDLL:

@@ -11,6 +11,15 @@ of Orbax directories:
 * `state_<iter>.pth` under training_states/: step, parameters, optimizer
   state (count and both moments) and EMA;
 * auto-resume: the highest-numbered state.
+
+Under several ranks every rank calls `save_state` and `save_network`:
+the state's `host_state` makes the host copy on rank 0 only (a sharded
+state's ranks all join its gathers first), rank 0 writes and a barrier
+follows; `restore_state` waits at a barrier, then every rank reads the
+same latest file into the state's `load_host_state` (the caller then
+`parallel.mesh.replicate`s a replicated state).  A sharded state
+(parallel/fsdp.py) is written in the replicated layout, so a checkpoint
+does not depend on the world size.
 """
 
 from __future__ import annotations
@@ -21,7 +30,9 @@ import re
 
 import torch
 
-from textualdegremoval_tpu_torch.train.trainer import TrainState
+from textualdegremoval_tpu_torch.parallel.bootstrap import (
+    barrier, is_main_process,
+)
 
 
 def _save(obj, path: str) -> None:
@@ -32,10 +43,6 @@ def _save(obj, path: str) -> None:
     os.replace(tmp, path)
 
 
-def _cpu(sd: dict) -> dict:
-    return {k: v.detach().cpu() for k, v in sd.items()}
-
-
 class CheckpointManager:
     def __init__(self, states_dir: str, models_dir: str | None = None):
         self.directory = osp.abspath(states_dir)
@@ -43,17 +50,11 @@ class CheckpointManager:
         os.makedirs(self.directory, exist_ok=True)
         os.makedirs(self.models_dir, exist_ok=True)
 
-    def save_state(self, state: TrainState, step: int) -> str:
+    def save_state(self, state, step: int) -> str:
+        """state_<step>.pth of a TrainState or a ShardedTrainState; called
+        by every rank."""
         path = osp.join(self.directory, f"state_{step}.pth")
-        opt = state.opt.state_dict()
-        _save({
-            "step": state.step,
-            "params": _cpu(state.model.state_dict()),
-            "opt": {"count": opt["count"], "mu": _cpu(opt["mu"]),
-                    "nu": _cpu(opt["nu"])},
-            "ema": (None if state.ema is None else
-                    _cpu(dict(zip(state.opt.names, state.ema)))),
-        }, path)
+        _write(state.host_state(), path)
         return path
 
     def latest_step(self) -> int | None:
@@ -62,25 +63,35 @@ class CheckpointManager:
         return max(steps) if steps else None
 
     @torch.no_grad()
-    def restore_state(self, state: TrainState) -> TrainState | None:
+    def restore_state(self, state):
         """Load the latest state into `state` in place; None when there is
-        none."""
+        none.  Every rank reads the same file, after a barrier."""
+        barrier()
         step = self.latest_step()
         if step is None:
             return None
         ck = torch.load(osp.join(self.directory, f"state_{step}.pth"),
                         map_location="cpu", weights_only=True)
-        state.model.load_state_dict(ck["params"], strict=True)
-        state.opt.load_state_dict(ck["opt"])
-        if state.ema is not None and ck["ema"] is not None:
-            for e, n in zip(state.ema, state.opt.names):
-                e.copy_(ck["ema"][n])
-        state.step = int(ck["step"])
+        state.load_host_state(ck)
         return state
 
-    def save_network(self, state: TrainState, step: int) -> str:
-        """net_g_<iter>.pth: {'params': ..., 'params_ema': ...}."""
+    def save_network(self, state, step: int) -> str:
+        """net_g_<iter>.pth: {'params': ..., 'params_ema': ...}; called by
+        every rank."""
         path = osp.join(self.models_dir, f"net_g_{step}.pth")
-        _save({"params": _cpu(state.model.state_dict()),
-               "params_ema": _cpu(state.ema_state_dict())}, path)
+        host = state.host_state(moments=False)
+        if host is not None:
+            ema = host["ema"] or {}
+            host = {"params": host["params"],
+                    "params_ema": {k: ema.get(k, v)
+                                   for k, v in host["params"].items()}}
+        _write(host, path)
         return path
+
+
+def _write(obj, path: str) -> None:
+    """Rank 0 writes `obj` (None on the other ranks); every rank waits
+    for it."""
+    if is_main_process():
+        _save(obj, path)
+    barrier()

@@ -39,6 +39,16 @@ mode, so SFNet's BatchNorm normalises by the batch and updates its running
 statistics, as JAX's step does with `model_state={'batch_stats': ...}`;
 the EMA covers the parameters only, and the eval step runs in eval mode
 (the running statistics).
+
+Under several ranks (parallel/bootstrap.py) each rank steps on its own
+share of the global batch, and the step averages the gradients and the
+loss over the ranks (`TrainState.reduce_gradients`, through
+`parallel.mesh.all_reduce_mean`) after torch.autograd.grad and before the
+norm and the update: the global-mean loss of JAX's jitted step over a
+dp-sharded batch.  DistributedDataParallel cannot serve here, since it
+does not support torch.autograd.grad.  With one rank the step does no
+collective.  The same step runs a sharded state (parallel/fsdp.py)
+through the state's own hooks.
 """
 
 from __future__ import annotations
@@ -49,6 +59,10 @@ from typing import Callable
 import torch
 
 from textualdegremoval_tpu_torch.ops.resize import image_resize
+from textualdegremoval_tpu_torch.parallel.bootstrap import (
+    is_main_process, world,
+)
+from textualdegremoval_tpu_torch.parallel.mesh import all_reduce_mean
 
 
 def _masa_mask(names) -> list[bool]:
@@ -84,6 +98,9 @@ class AdamW:
         self.count = 0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+        # the clip's global norm of the (masked) gradients; a sharded
+        # state (parallel/fsdp.py) sums its slices across the ranks
+        self.norm_fn = global_norm
 
     def lrs(self, step: int) -> tuple[float, float]:
         """(trunk lr, masa lr) at `step`."""
@@ -100,7 +117,7 @@ class AdamW:
             grads = [torch.zeros_like(g) if m else g
                      for g, m in zip(grads, self.masa)]
         if self.grad_clip:
-            norm = global_norm(grads)
+            norm = self.norm_fn(grads)
             if float(norm) >= self.grad_clip:
                 grads = torch._foreach_div(grads, norm)
                 torch._foreach_mul_(grads, self.grad_clip)
@@ -144,7 +161,9 @@ class MultiSteps:
     """optax.MultiSteps(opt, k) (use_grad_mean): each call folds its
     gradients into a running mean, acc + (g - acc) / (n + 1), and every
     k-th call hands the mean to the inner optimizer and starts again, so
-    the parameters change only then."""
+    the parameters change only then.  Under several ranks the mean is
+    averaged over them at that boundary, once per update (as the
+    reference's accelerate syncs at the end of an accumulation)."""
 
     def __init__(self, opt: AdamW, k: int):
         self.opt = opt
@@ -161,7 +180,8 @@ class MultiSteps:
             a.add_((g.to(a.dtype) - a) / (self.mini_step + 1))
         emit = self.mini_step == self.k - 1
         if emit:
-            self.opt.step(self.acc)
+            self.opt.step(all_reduce_mean(self.acc) if world() > 1
+                          else self.acc)
             self.acc = [torch.zeros_like(a) for a in self.acc]
         self.mini_step = (self.mini_step + 1) % self.k
         return emit
@@ -187,11 +207,43 @@ def build_optimizer(model: torch.nn.Module, lr_schedule, ref_lr_schedule=None,
 class TrainState:
     """step: updates done; model: holds the f32 parameters; opt: the
     optimizer state; ema: the EMA parameters aligned with opt.params, or
-    None when EMA is off (the EMA then is the parameters)."""
+    None when EMA is off (the EMA then is the parameters).
+
+    The hooks that `make_train_step` calls (gather, release,
+    reduce_gradients, global_norm) and the checkpoint's (host_state,
+    load_host_state) are those of a replicated state; a sharded one
+    (parallel/fsdp.py) has its own."""
     step: int
     model: torch.nn.Module
     opt: AdamW
     ema: list[torch.Tensor] | None = None
+
+    @property
+    def module_params(self) -> list:
+        """The module's parameters, aligned with opt.params."""
+        return self.opt.params
+
+    def gather(self) -> None:
+        """Nothing to gather: the module holds its parameters."""
+
+    def release(self) -> None:
+        """Nothing to free."""
+
+    def reduce_gradients(self, grads: list, loss: torch.Tensor):
+        """(grads, loss) averaged over the ranks in one reduce (entries
+        None stay None); as given with one rank."""
+        if world() == 1:
+            return grads, loss
+        live = [i for i, g in enumerate(grads) if g is not None]
+        *got, loss = all_reduce_mean([*(grads[i] for i in live), loss])
+        grads = list(grads)
+        for i, g in zip(live, got):
+            grads[i] = g
+        return grads, loss
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """The global norm of `grads` (None: zeros)."""
+        return global_norm([g for g in grads if g is not None])
 
     def ema_state_dict(self) -> dict:
         """The EMA network as a state dict in the reference key format."""
@@ -200,6 +252,33 @@ class TrainState:
             return sd
         by_name = dict(zip(self.opt.names, self.ema))
         return {k: by_name.get(k, v) for k, v in sd.items()}
+
+    @torch.no_grad()
+    def host_state(self, moments: bool = True) -> dict | None:
+        """The state as a checkpoint holds it, on the host (without the
+        Adam moments unless `moments`), on rank 0; None on the others,
+        which write nothing."""
+        if not is_main_process():
+            return None
+        cpu = lambda sd: {k: v.detach().cpu()  # noqa: E731
+                          for k, v in sd.items()}
+        opt = self.opt.state_dict()
+        return {"step": self.step, "params": cpu(self.model.state_dict()),
+                "opt": {"count": opt["count"],
+                        **({"mu": cpu(opt["mu"]), "nu": cpu(opt["nu"])}
+                           if moments else {})},
+                "ema": (None if self.ema is None else
+                        cpu(dict(zip(self.opt.names, self.ema))))}
+
+    @torch.no_grad()
+    def load_host_state(self, ck: dict) -> None:
+        """Load a checkpoint (`host_state`'s layout) in place."""
+        self.model.load_state_dict(ck["params"], strict=True)
+        self.opt.load_state_dict(ck["opt"])
+        if self.ema is not None and ck["ema"] is not None:
+            for e, n in zip(self.ema, self.opt.names):
+                e.copy_(ck["ema"][n])
+        self.step = int(ck["step"])
 
 
 def create_train_state(model, opt: AdamW, ema_decay: float = 0.0,
@@ -234,6 +313,10 @@ def make_train_step(loss_fn: Callable, ema_decay: float = 0.0,
                     masa_frozen: bool = False):
     """Build (state, batch) -> (state, metrics); batch holds 'lq', 'gt' and
     'ref' tensors on the model's device.  The loss is `multiscale_loss`.
+    The state is a TrainState or a parallel.fsdp.ShardedTrainState: the
+    step calls its hooks to gather the parameters before the forward,
+    free them after the backward, average the gradients and the loss over
+    the ranks and take the norm of the whole gradient.
 
     masa_frozen: the
     reference's freeze phase done structurally: the masa parameters get
@@ -242,29 +325,34 @@ def make_train_step(loss_fn: Callable, ema_decay: float = 0.0,
     the masking step.  metrics: l_pix (the loss) and grad_norm (the global
     norm of the raw gradients, zeros for frozen parameters), as tensors."""
 
-    def step(state: TrainState, batch):
+    def step(state, batch):
         model, opt = state.model, state.opt
-        for p, m in zip(opt.params, opt.masa):
+        params = state.module_params
+        for p, m in zip(params, opt.masa):
             p.requires_grad_(not (masa_frozen and m))
+        state.gather()
         model.train()
         loss = multiscale_loss(loss_fn, model(batch["lq"], batch["ref"]),
                                batch["gt"])
-        live = [i for i, p in enumerate(opt.params) if p.requires_grad]
-        got = torch.autograd.grad(loss, [opt.params[i] for i in live])
-        grads = [None] * len(opt.params)
+        live = [i for i, p in enumerate(params) if p.requires_grad]
+        got = torch.autograd.grad(loss, [params[i] for i in live])
+        state.release()
+        grads = [None] * len(params)
         for i, g in zip(live, got):
             grads[i] = g
-        gnorm = global_norm([g for g in got])
+        del got
+        grads, loss = state.reduce_gradients(grads, loss.detach())
+        gnorm = state.global_norm(grads)
         opt.step(grads)
         if state.ema is not None:
             with torch.no_grad():
                 torch._foreach_mul_(state.ema, ema_decay)
                 torch._foreach_add_(state.ema, opt.params,
                                     alpha=1.0 - ema_decay)
-        for p in opt.params:
+        for p in params:
             p.requires_grad_(True)
         state.step += 1
-        return state, {"l_pix": loss.detach(), "grad_norm": gnorm}
+        return state, {"l_pix": loss, "grad_norm": gnorm}
 
     return step
 
