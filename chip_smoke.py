@@ -320,7 +320,25 @@ Phases, each of which raises on failure:
    PNGs, 2 iterations: one train.log of rank 0's lines, one net_g_2.pth
    (strict, equal to both ranks' parameters bit for bit), one strip, and
    a third process, `python -m`, resuming from it.  A rank that raises
-   or does not finish in DIST_TIMEOUT fails the phase.
+   or does not finish in DIST_TIMEOUT fails the phase;
+39. the whole-image forward split by rows over ranks (the evaluate CLI's
+   --spatial_shard, parallel/spatial.py), two ranks spawned as phase
+   38's on the one card over gloo: first B1's statistics row window
+   (float32 `tblock_stats_rows`, the bf16 pipeline's
+   `fwd_qkv_stencil_rows` and its gram on the view of the own rows)
+   against plain sums over the same rows at one block shape a level of
+   the sharded forward; (a) one process: the full-width restormer_deblur
+   forward in bf16 on phase 36's 1536 x 2048 image with its 512 px
+   reference (wall ms, device busy ms, peak, 52 B1 launches), the float32
+   forward at 512 px, and the evaluate CLI unsharded on two seeded 515 x
+   512 images; (b) each rank's 768 rows of (a)'s forward: 52 B1 launches
+   a rank through the pipeline, the number, bytes and ms of its halo
+   exchanges and statistic reductions (a traced forward), wall ms and
+   peak, the image gathered on rank 0 against (a) (SPATIAL_BF16_*); (c)
+   the float32 forward at 512 px sharded, against one process
+   (SPATIAL_F32_*, csrc/tblock.cu's window on the card); (d) the CLI's
+   `main` in the ranks with --spatial_shard 3 (refused: two ranks) and 2,
+   scored on rank 0 alone, against the unsharded CLI (SPATIAL_CLI_*).
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is nvidia-smi's, and before that a JSON summary of each kernel.  Without
@@ -371,13 +389,16 @@ tile's ring inside the image), stencil_reads_past_row (phase 24, the
 stencil's pixels past W loaded from the next row, so the right x-shift at
 a row's end reads them: caught at the ragged shape) and
 stencil_warp_edge_zeroed (phase 24, a warp's last lane taking zero for
-its right neighbour from the next warp).
+its right neighbour from the next warp), stats_window_ignored and
+ssq_window_ignored (phase 39's window check: float32 pass A, and the bf16
+pipeline's square sums, taking a sharded slab's halo rows too).
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import gc
 import json
 import os
@@ -943,6 +964,16 @@ FAULTS = {
         "probe_stencil.cu",
         "if (lane == 31) rr = eb[((warp + 2) * 2) * R + r];",
         "if (lane == 31) rr = 0.f;", 24),
+    # the statistics row window ignored: float32 pass A (csrc/tblock.cu,
+    # its body in tblock_fwd.cuh) and the bf16 pipeline's square sums
+    # (csrc/fwd_stencil.cu) take a sharded slab's halo rows too
+    "stats_window_ignored": (
+        "tblock_fwd.cuh",
+        "const bool in = oy + py >= lo && oy + py < hi && ox + px < W;",
+        "const bool in = oy + py < H && ox + px < W;", 39),
+    "ssq_window_ignored": (
+        "fwd_stencil.cu", "if (gy >= row_lo && gy < row_hi) sq += v * v;",
+        "sq += v * v;", 39),
 }
 
 
@@ -1433,6 +1464,7 @@ def profile_device(fn, what: str):
         f"({mine / summed:.3f} of the summed device time)")
     for k, t, n in sorted(kernels, key=lambda r: -r[1])[:14]:
         log(f"    {t:9.2f} ms {n:6d}x  {k[:90]}")
+    profile_device.busy_ms = busy
     return idle
 
 
@@ -4526,6 +4558,353 @@ def metric_phases(seed: int) -> dict:
     return {"tiled": tiled, "metrics": metrics, "launches": seen}
 
 # ---------------------------------------------------------------------------
+# Phase 39: the whole-image forward split by rows over ranks (--spatial_shard)
+# ---------------------------------------------------------------------------
+
+SPATIAL_WORLD = 2
+SPATIAL_HW = TILED_HW  # phase 36's image: 768 rows a rank
+SPATIAL_F32_HW = (512, 512)  # (c): 256 rows a rank
+SPATIAL_CLI_HW = (515, 512)  # (d): reflect-padded to 516, 9 units: 5 + 4
+SPATIAL_CLI_IMAGES = 2
+SPATIAL_B1 = 52  # B1 launches a rank a forward
+# the statistics window at one block shape a level of (b)'s forward: a
+# slab of own rows with both halos (a middle rank's), rows (own, W, C,
+# heads); the window takes the own rows only
+SPATIAL_WINDOW_SHAPES = ((768, 2048, 96, 1), (384, 1024, 192, 2),
+                         (192, 512, 384, 4), (96, 256, 768, 8))
+# the window's sums against the plain sums over the same rows: float32
+# pass A against torch's float32 q and k (TF32 off), the bf16 pipeline's
+# against torch's sums of its own q and k; both add the same products in
+# another order (about 1e-6 of the sum), while a window that takes the
+# halo's 4 rows moves the sums by 4 / (own + 4) of them, 5e-3 to 4e-2 here
+WINDOW_L2 = 1e-4
+# (b) the gathered bf16 image against one process: the same kernels on
+# the same pixels, but each rank's statistics are partial sums added
+# over the ranks and the stencils' and the gram's splits follow the slab's
+# height, so the float32 gram and square sums differ in the order of
+# their sums; where that flips a rounding of the bf16 attention, the flip
+# runs through the later blocks as one or two bf16 ulps of the output
+# (outputs near 2: 2^-7 an ulp).  Elementwise |d| <= a max|p| + r |p|
+# with a = 2^-5 (four ulps at the largest output), r = 2^-6, and in L2
+# within 1e-2 of ||p||, phase 36's TILED_BF16_L2 halved (one tiling)
+SPATIAL_BF16_A, SPATIAL_BF16_R, SPATIAL_BF16_L2 = 2 ** -5, 2 ** -6, 1e-2
+# (c) float32: JAX's own bound for its sharded forward, and in L2 1e-5
+SPATIAL_F32_ATOL, SPATIAL_F32_L2 = 1e-4, 1e-5
+# (d) the sharded CLI's mean PSNR / SSIM against the unsharded CLI's on
+# the same folder (bf16; (b)'s bound moves the PSNR of an image by less)
+SPATIAL_CLI_DB, SPATIAL_CLI_SSIM = 2e-2, 2e-4
+
+
+def _window_block(gen, c, heads, dtype):
+    blk = TransformerBlock(c, heads)
+    randomize_block(blk, gen)
+    p = {k: v.detach().cuda() for k, v in blk.block_params().items()}
+    return p, tb.prepare_tblock_weights(p, dtype, "WithBias")
+
+
+def _rel_l2(got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+def window_vs_plain(gen, shapes=SPATIAL_WINDOW_SHAPES,
+                    dtypes=(torch.float32, torch.bfloat16)):
+    """Phase 39's window check: the statistics of a slab with both halos
+    taken over its own rows only, float32 pass A (`tblock_stats_rows`,
+    csrc/tblock.cu) against torch's float32 sums over those rows of q and
+    k computed in torch, and the bf16 pipeline's (`_pipeline_attn`:
+    `fwd_qkv_stencil_rows`' square sums, csrc/wgrad.cu's gram on the view
+    of those rows, as the glue hands them back) against torch's sums over
+    those rows of the pipeline's own q and k; WINDOW_L2.  Returns rows
+    (dtype, shape, worst L2 error, ms of the windowed statistics)."""
+    from textualdegremoval_tpu_torch.ops.dwconv import dwconv
+    from textualdegremoval_tpu_torch.ops.pallas.mdta import mdta_sums_ref
+    from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import (
+        _EPS, _ln_rows)
+
+    lib = _build.load_library()
+    stream, sms = tb._card(torch.device("cuda"))
+    # the inputs drawn on the card (drawn on the host they took seconds)
+    card_gen = torch.Generator(device="cuda").manual_seed(
+        int(torch.randint(1 << 30, (1,), generator=gen)))
+    rows_out = []
+    for dtype in dtypes:
+        for own, w, c, heads in shapes:
+            p, kw = _window_block(gen, c, heads, dtype)
+            x = torch.randn(1, own + 4, w, c, generator=card_gen,
+                            device="cuda").to(dtype)
+            rows = (2, 2 + own)
+            with torch.no_grad():
+                if dtype == torch.float32:
+                    tiles = tb._block_tiles(lib, x, heads, sms)
+
+                    def stats():
+                        return tb._pass_a(lib, x, kw, heads, "WithBias",
+                                          tiles[0], tiles[2], stream, rows)
+                    got = stats()
+                    y = tb._ln(x, p["norm1_w"], p["norm1_b"], "WithBias")
+                    qkv = dwconv(y @ p["qkv"].reshape(c, 3 * c), p["qkv_dw"])
+                else:
+                    ys = _ln_rows(lib, x, kw["ln1w"], kw["ln1b"], 0, stream,
+                                  _EPS)[0]
+                    buf = {}
+
+                    def stats():
+                        return tb._pipeline_attn(lib, x, ys, kw, heads, sms,
+                                                 stream, buf, rows)[1]
+                    got = stats()
+                    qkv = buf["qkv"].reshape(x.shape[:3] + (3 * c,))
+                want = mdta_sums_ref(qkv[..., :c], qkv[..., c:2 * c], heads,
+                                     rows)
+                err = max(_rel_l2(g, wn) for g, wn in zip(got, want))
+                ms = median_ms(stats, reps=3)
+            name = "f32 tblock_stats_rows" if dtype == torch.float32 \
+                else "bf16 fwd_qkv_stencil_rows + wgrad view"
+            log(f"phase 39 window {name} at own rows {own} of {own + 4}, W "
+                f"{w}, C {c}, heads {heads}: L2 error {err:.3e} (bound "
+                f"{WINDOW_L2}), {ms:.3f} ms")
+            if not err <= WINDOW_L2:
+                raise RuntimeError(f"statistics window {name} at {own}x{w}x"
+                                   f"{c}: L2 error {err:.3e} > {WINDOW_L2}")
+            rows_out.append((str(dtype), (own, w, c, heads), err, ms))
+            del x, qkv, got, want
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def _spatial_inputs(seed, dtype, hw=SPATIAL_HW):
+    lq_np, _, ref_np = synthetic_large(np.random.default_rng(seed + 11),
+                                       *SPATIAL_HW)
+    lq = torch.from_numpy(lq_np[: hw[0], : hw[1]].copy())[None]
+    ref = torch.from_numpy(ref_np)[None]
+    return lq.to("cuda", dtype), ref.to("cuda", dtype)
+
+
+def _spatial_cli_argv(work: Path):
+    return ["--task", "restormer_deblur", "--dtype", "bfloat16",
+            "--hqroot", str(work / "hq"), "--refroot", str(work / "ref"),
+            "--device", "cuda"]
+
+
+def _spatial_reference(seed: int, work: Path) -> dict:
+    """(a) in this process: the bf16 forward of the whole image (a warm-up,
+    one timed with its B1 launches and peak, one profiled), the float32
+    forward at 512 px, and the unsharded CLI on (d)'s folder; the outputs
+    to <work>/spatial_expected.pt for the comparison after the ranks."""
+    from textualdegremoval_tpu_torch.cli import evaluate
+
+    out = {}
+    t0 = time.perf_counter()
+    model = build_network(seed, torch.bfloat16, "cuda")
+    lq, ref = _spatial_inputs(seed, torch.bfloat16)
+    out["build_s"] = time.perf_counter() - t0
+    with torch.inference_mode():
+        model(lq, ref)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        pred = model(lq, ref)
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+        out["launches"] = {k: v for k, v in _all_counts().items() if v}
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["idle"] = profile_device(lambda: model(lq, ref),
+                                     f"phase 39 (a) {SPATIAL_HW} bf16 forward")
+        out["device_ms"] = profile_device.busy_ms
+    expected = {"bf16": pred.float().cpu()}
+    del model, lq, pred
+    model = build_network(seed, torch.float32, "cuda")
+    lq, ref = _spatial_inputs(seed, torch.float32, SPATIAL_F32_HW)
+    with torch.inference_mode():
+        expected["f32"] = model(lq, ref).cpu()
+    del model, lq, ref
+    torch.cuda.empty_cache()
+    _write_pngs(work, ("hq", "ref"), SPATIAL_CLI_IMAGES, SPATIAL_CLI_HW,
+                seed + 39)
+    t0 = time.perf_counter()
+    out["cli"] = evaluate.main(_spatial_cli_argv(work))
+    out["cli_s"] = time.perf_counter() - t0
+    torch.save(expected, work / "spatial_expected.pt")
+    log(f"phase 39 (a) one process (build {out['build_s']:.1f} s): "
+        f"{SPATIAL_HW} bf16 forward "
+        f"{out['ms']:.1f} ms wall, {out['device_ms']:.1f} ms device busy "
+        f"(idle {out['idle']}), peak {out['peak_gib']:.2f} GiB, launches "
+        f"{out['launches']}; the unsharded CLI {out['cli']} in "
+        f"{out['cli_s']:.1f} s")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _spatial_job(rank: int, world: int, work: Path, seed: int) -> dict:
+    """One rank of phase 39 (b)-(d): its slab of the whole-image bf16
+    forward (a warm-up; one untraced, timed with its launches and peak;
+    one traced, with its exchanges and reductions counted and timed),
+    gathered on rank 0; the float32 forward at 512 px likewise; the
+    evaluate CLI with --spatial_shard 3 (refused) and 2."""
+    from textualdegremoval_tpu_torch.cli import evaluate
+    from textualdegremoval_tpu_torch.parallel import (
+        CollectiveTrace, RowShard, gather_rows)
+
+    out = {"start_s": time.time()}
+    model = build_network(seed, torch.bfloat16, "cuda")
+    lq, ref = _spatial_inputs(seed, torch.bfloat16)
+    shard = RowShard.split(lq.shape[1], model.row_unit, rank, world)
+    slab = shard.slab(lq)
+    del lq
+    with torch.inference_mode():
+        model(slab, ref, shard=shard)
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_all_counts()
+        t0 = time.perf_counter()
+        pred = model(slab, ref, shard=shard)
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+        out["launches"] = {k: v for k, v in _all_counts().items() if v}
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        trace = CollectiveTrace()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        model(slab, ref, shard=dataclasses.replace(shard, trace=trace))
+        torch.cuda.synchronize()
+        out["traced_ms"] = (time.perf_counter() - t0) * 1e3
+        out["trace"] = trace.as_dict()
+        out["rows"] = shard.rows
+        whole = gather_rows(pred, shard)
+    if whole is not None:
+        torch.save(whole.float().cpu(), work / "spatial_bf16.pt")
+    out["bf16_done_s"] = time.time()
+    del model, slab, pred, whole
+    model = build_network(seed, torch.float32, "cuda")
+    lq, ref = _spatial_inputs(seed, torch.float32, SPATIAL_F32_HW)
+    shard = RowShard.split(lq.shape[1], model.row_unit, rank, world)
+    with torch.inference_mode():
+        whole = gather_rows(model(shard.slab(lq), ref, shard=shard), shard)
+    if whole is not None:
+        torch.save(whole.cpu(), work / "spatial_f32.pt")
+    del model, lq, ref, whole
+    torch.cuda.empty_cache()
+    out["f32_done_s"] = time.time()
+    try:
+        evaluate.main(_spatial_cli_argv(work) + ["--spatial_shard", "3"])
+        out["refusal"] = None
+    except SystemExit as e:
+        out["refusal"] = str(e)
+    t0 = time.perf_counter()
+    out["cli"] = evaluate.main(_spatial_cli_argv(work)
+                               + ["--spatial_shard", "2"])
+    out["cli_s"] = time.perf_counter() - t0
+    out["end_s"] = time.time()
+    return out
+
+
+def _elementwise_use(got, want, a, r):
+    d = (got.float() - want.float()).abs()
+    w = want.float().abs()
+    return float((d / (a * w.max() + r * w).clamp_min(1e-30)).max())
+
+
+def spatial_phases(seed: int, gen=None) -> dict:
+    """Phase 39: the row-sharded whole-image forward (the evaluate CLI's
+    --spatial_shard) of the full-width restormer_deblur network, two ranks
+    sharing the card over gloo (the backend rule's pick where ranks
+    outnumber cards), each spawned as phase 38's are: the statistics
+    window of B1's kernels against plain sums (`window_vs_plain`); (a) one
+    process: the 1536 x 2048 bf16 forward with a 512 px reference (phase
+    36's image), the float32 forward at 512 px, and the unsharded CLI on
+    two 515 x 512 images; (b) each rank's 768 rows of (a)'s forward, 52
+    B1 launches a rank, its exchanges and reductions, wall ms and peak,
+    the gathered image against (a) (SPATIAL_BF16_*); (c) the float32
+    forward sharded against one process (SPATIAL_F32_*: csrc/tblock.cu's
+    window on the card); (d) the CLI with --spatial_shard 3 (refused) and
+    2 against the unsharded CLI (SPATIAL_CLI_*).  Returns the readings."""
+    gen = gen or torch.Generator().manual_seed(seed + 39)
+    work = Path(tempfile.mkdtemp(prefix="spatial_"))
+    t0 = time.perf_counter()
+    parts = []
+
+    def timed(what, fn, *args):
+        t = time.perf_counter()
+        res = fn(*args)
+        parts.append(f"{what} {time.perf_counter() - t:.1f}")
+        return res
+
+    try:
+        windows = timed("window", window_vs_plain, gen)
+        ref = timed("(a)", _spatial_reference, seed, work)
+        spawned = time.time()
+        ranks = timed("(b)-(d) ranks", _spawn_ranks, "spatial", work, seed,
+                      SPATIAL_WORLD)
+        # the ranks' parts: start-up, (b), (c), (d)
+        parts.append("in rank 0: start-up {:.1f}, (b) {:.1f}, (c) {:.1f}, "
+                     "(d) {:.1f}".format(
+                         ranks[0]["start_s"] - spawned,
+                         ranks[0]["bf16_done_s"] - ranks[0]["start_s"],
+                         ranks[0]["f32_done_s"] - ranks[0]["bf16_done_s"],
+                         ranks[0]["end_s"] - ranks[0]["f32_done_s"]))
+        expected = torch.load(work / "spatial_expected.pt")
+        got_bf16 = torch.load(work / "spatial_bf16.pt")
+        got_f32 = torch.load(work / "spatial_f32.pt")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    h, w = SPATIAL_HW
+    want = expected["bf16"]
+    err = {"bf16_use": _elementwise_use(got_bf16[:, :h], want,
+                                        SPATIAL_BF16_A, SPATIAL_BF16_R),
+           "bf16_l2": _rel_l2(got_bf16[:, :h], want),
+           "bf16_max_abs": float((got_bf16[:, :h] - want).abs().max()),
+           "f32_max_abs": float((got_f32[:, :SPATIAL_F32_HW[0]]
+                                 - expected["f32"]).abs().max()),
+           "f32_l2": _rel_l2(got_f32[:, :SPATIAL_F32_HW[0]],
+                             expected["f32"])}
+    cli = ranks[0]["cli"]
+    d_psnr, d_ssim = abs(cli[0] - ref["cli"][0]), abs(cli[1] - ref["cli"][1])
+    secs = time.perf_counter() - t0
+    for r, rk in enumerate(ranks):
+        tr = rk["trace"]
+        log(f"phase 39 (b) rank {r}: {rk['rows']} rows, forward "
+            f"{rk['ms']:.1f} ms wall ({rk['traced_ms']:.1f} traced), peak "
+            f"{rk['peak_gib']:.2f} GiB, launches {rk['launches']}; "
+            f"{tr['exchanges']} exchanges {tr['exchange_bytes']} bytes "
+            f"{tr['exchange_s'] * 1e3:.1f} ms, {tr['reduces']} reductions "
+            f"{tr['reduce_bytes']} bytes {tr['reduce_s'] * 1e3:.1f} ms; CLI "
+            f"{rk['cli']} in {rk['cli_s']:.1f} s; --spatial_shard 3: "
+            f"{rk['refusal']!r}")
+    log(f"phase 39: {secs:.1f} s ({', '.join(parts)} s); (b) gathered vs "
+        f"one process: max abs {err['bf16_max_abs']:.4e}, elementwise use "
+        f"{err['bf16_use']:.4f} of a={SPATIAL_BF16_A} max|p| + "
+        f"r={SPATIAL_BF16_R} |p|, L2 {err['bf16_l2']:.3e} (bound "
+        f"{SPATIAL_BF16_L2}); (c) f32 max abs {err['f32_max_abs']:.3e} "
+        f"(bound {SPATIAL_F32_ATOL}), L2 {err['f32_l2']:.3e} (bound "
+        f"{SPATIAL_F32_L2}); (d) CLI PSNR / SSIM {cli} against {ref['cli']}")
+    want_launches = {"tblock_fused.launches": SPATIAL_B1,
+                     "tblock_pipeline.launches": SPATIAL_B1}
+    bad = []
+    if ref["launches"] != want_launches:
+        bad.append(f"(a) launches {ref['launches']}")
+    for r, rk in enumerate(ranks):
+        if rk["launches"] != want_launches:
+            bad.append(f"rank {r} launches {rk['launches']}")
+        if rk["refusal"] != "--spatial_shard 3 needs 3 ranks, have 2":
+            bad.append(f"rank {r} --spatial_shard 3: {rk['refusal']!r}")
+    if ranks[1]["cli"] is not None:
+        bad.append(f"rank 1 scored {ranks[1]['cli']}")
+    if not (err["bf16_use"] <= 1 and err["bf16_l2"] <= SPATIAL_BF16_L2):
+        bad.append("(b) gathered image outside its bound")
+    if not (err["f32_max_abs"] <= SPATIAL_F32_ATOL
+            and err["f32_l2"] <= SPATIAL_F32_L2):
+        bad.append("(c) float32 outside its bound")
+    if not (d_psnr <= SPATIAL_CLI_DB and d_ssim <= SPATIAL_CLI_SSIM):
+        bad.append(f"(d) CLI off by {d_psnr:.4f} dB, {d_ssim:.5f} SSIM")
+    if bad:
+        raise RuntimeError("phase 39: " + "; ".join(bad))
+    return {"seconds": secs, "ref": ref, "ranks": ranks, "errors": err,
+            "windows": windows}
+
+
+# ---------------------------------------------------------------------------
 # Bounds: the least time the card could take for the same work
 # ---------------------------------------------------------------------------
 
@@ -4930,12 +5309,13 @@ def _dist_diffir_job(rank: int, world: int, work: Path, seed: int) -> dict:
             "errors": err}
 
 
-DIST_JOBS = {"dp": _dist_dp_job, "diffir": _dist_diffir_job}
+DIST_JOBS = {"dp": _dist_dp_job, "diffir": _dist_diffir_job,
+             "spatial": _spatial_job}
 
 
 def _dist_rank(rank: int, world: int, port: int, job: str, work: str,
                seed: int) -> None:
-    """One spawned rank of phase 38: joins through the port's own
+    """One spawned rank of phase 38 or 39: joins through the port's own
     `init_distributed` (the torch launcher's env, a TCP rendezvous on
     `port`), loads the kernels phase 2 built, runs DIST_JOBS[job] and
     writes its readings to <work>/<job>_<rank>.pt."""
@@ -4963,22 +5343,23 @@ def _dist_rank(rank: int, world: int, port: int, job: str, work: str,
     torch.distributed.destroy_process_group()
 
 
-def _spawn_ranks(job: str, work: Path, seed: int) -> list:
-    """DIST_WORLD ranks of `job` (torch.multiprocessing, spawn); a rank
-    that raises, or ranks that have not finished within DIST_TIMEOUT, fail
-    the phase.  Returns each rank's readings."""
+def _spawn_ranks(job: str, work: Path, seed: int,
+                 world: int = DIST_WORLD) -> list:
+    """`world` ranks of `job` (torch.multiprocessing, spawn); a rank that
+    raises, or ranks that have not finished within DIST_TIMEOUT, fail the
+    phase.  Returns each rank's readings."""
     ctx = torch.multiprocessing.spawn(
-        _dist_rank, args=(DIST_WORLD, _free_port(), job, str(work), seed),
-        nprocs=DIST_WORLD, join=False)
+        _dist_rank, args=(world, _free_port(), job, str(work), seed),
+        nprocs=world, join=False)
     deadline = time.monotonic() + DIST_TIMEOUT
     while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
         if time.monotonic() >= deadline:
             for p in ctx.processes:
                 p.kill()
-            raise RuntimeError(f"phase 38 {job}: the ranks did not finish "
-                               f"within {DIST_TIMEOUT} s")
+            raise RuntimeError(f"{job} ranks: not finished within "
+                               f"{DIST_TIMEOUT} s")
     return [torch.load(work / f"{job}_{r}.pt", weights_only=False)
-            for r in range(DIST_WORLD)]
+            for r in range(world)]
 
 
 def _dist_reference(seed: int, work: Path) -> dict:
@@ -5358,6 +5739,10 @@ def main(argv=None) -> int:
                     torch.bfloat16,), timed=False)
             elif FAULTS[args.plant][3] == 24:
                 stencil_vs_plain(gen, timed=False)
+            elif FAULTS[args.plant][3] == 39:
+                window_vs_plain(gen, dtypes=(
+                    torch.float32 if FAULTS[args.plant][0] == "tblock_fwd.cuh"
+                    else torch.bfloat16,))
             else:  # the pair's faults in float32, the pipeline's in bf16
                 nafblock_vs_plain(
                     gen, [NAF_SHAPES[i] for i in (7, 8, 10)],
@@ -5498,6 +5883,8 @@ def main(argv=None) -> int:
     log_held("phases 36-37")
     dist = distributed_phases(args.seed)
     log_held("phase 38")
+    spatial = spatial_phases(args.seed)
+    log_held("phase 39")
 
     # per-step kernel time: each training shape's median time times the
     # number of blocks of that shape in one step (bf16, WithBias); the
@@ -5902,6 +6289,12 @@ def main(argv=None) -> int:
         if row["name"] == "nafblock_fused":
             row["archive_launches"] = {
                 io: diffir["archives"][io] for io in ("lmdb", "tfrecord")}
+        # phase 39: each rank's launches in (b)'s sharded forward (two
+        # ranks sharing the card, 768 rows each)
+        if row["name"] == "tblock_fused":
+            row["spatial_launches"] = [
+                r["launches"].get("tblock_fused.launches", 0)
+                for r in spatial["ranks"]]
         # phase 38: each rank's launches in (a)'s reduced step and (b)'s
         # FSDP step (two ranks sharing the card)
         for i, k in enumerate(DIST_KERNELS):
@@ -5939,6 +6332,21 @@ def main(argv=None) -> int:
         f"{[round(r['scatter_s'], 2) for r in dc]} s, peak "
         f"{[round(r['peak_gib'], 2) for r in dc]} GiB a rank; (d) the CLI "
         f"{dist['cli']['seconds']:.1f} s; phase 38 {dist['seconds']:.1f} s")
+    sr, se, ranks = spatial["ref"], spatial["errors"], spatial["ranks"]
+
+    def per_rank(key, scale=1.0, nd=1):
+        return [round(r["trace"][key] * scale, nd) if key in r["trace"]
+                else round(r[key] * scale, nd) for r in ranks]
+    log(f"spatially sharded forward (phase 39, {SPATIAL_WORLD} ranks on one "
+        f"card over {ranks[0]['backend']}): {SPATIAL_HW} bf16 "
+        f"{per_rank('ms')} ms a rank against {sr['ms']:.1f} ms in one "
+        f"process (device busy {sr['device_ms']:.1f} ms); exchanges "
+        f"{per_rank('exchanges', nd=0)} of {per_rank('exchange_bytes', nd=0)}"
+        f" bytes in {per_rank('exchange_s', 1e3)} ms, reductions "
+        f"{per_rank('reduce_s', 1e3)} ms; peak {per_rank('peak_gib', nd=2)} "
+        f"GiB a rank against {sr['peak_gib']:.2f}; gathered vs one process "
+        f"L2 {se['bf16_l2']:.3e}, f32 max abs {se['f32_max_abs']:.3e}; "
+        f"phase 39 {spatial['seconds']:.1f} s")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s after "
         f"the build")
     log(json.dumps(summary))

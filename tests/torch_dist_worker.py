@@ -17,7 +17,13 @@ WORKDIR/out_<rank>.pt.  Cases:
   over the global batch);
 * guidance: micro-steps of make_guidance_train_step under MultiSteps on
   the tiny towers, each rank its own images;
-* cli_restoration, cli_diffir, cli_i2t: the CLI's main on argv.
+* cli_restoration, cli_diffir, cli_i2t: the CLI's main on argv;
+* spatial: the row-sharded forward (parallel/spatial.py): the layout, an
+  exchange, a reduction and a gather; one block (`tblock_ref` with a
+  shard); RestormerRefFusion on each input, and on the first with each
+  planted fault (a 1-row block halo, statistics not reduced);
+* cli_evaluate: the evaluate CLI's main on each argv in turn, a refusal
+  (SystemExit) recorded as its message.
 """
 
 from __future__ import annotations
@@ -289,6 +295,71 @@ def case_cli_i2t(inp, rank, world):
     mods = train_i2t.main(inp["argv"])
     return {"params": {n: p.detach().clone()
                        for n, p in partition(mods, "i2t")[0]}}
+
+
+def case_spatial(inp, rank, world):
+    from textualdegremoval_tpu_torch.models.restormer import (
+        RestormerRefFusion)
+    from textualdegremoval_tpu_torch.ops.pallas import tblock as tb
+    from textualdegremoval_tpu_torch.parallel.spatial import (
+        CollectiveTrace, RowShard, exchange_rows, gather_rows, reduce_stats)
+
+    out = {"layout": []}
+    for img in inp["layout_imgs"]:
+        trace = CollectiveTrace()
+        shard = RowShard.split(img.shape[1], inp["layout_unit"], rank,
+                               world, trace=trace)
+        slab = shard.slab(img)
+        stat = torch.full((3,), float(rank + 1))
+        out["layout"].append({
+            "rows_of": shard.rows_of, "start": shard.start,
+            "local": shard.local, "up": shard.up, "down": shard.down,
+            "ext": exchange_rows(slab, 2, shard),
+            "stat": reduce_stats(stat, shard=shard)[0],
+            "whole": gather_rows(slab, shard), "trace": trace.as_dict()})
+
+    x, blk = inp["block_x"], inp["block"]
+    shard = RowShard.split(x.shape[1], blk["unit"], rank, world)
+    with torch.no_grad():
+        y = tb.tblock_ref(shard.slab(x), blk["p"], blk["heads"],
+                          blk["ln_type"], shard)
+    out["block"] = gather_rows(y, shard)
+
+    def forward(case):
+        m = RestormerRefFusion(**case["kw"])
+        m.load_state_dict(case["state"])
+        m.eval()
+        shard = RowShard.split(case["lq"].shape[1], m.row_unit, rank, world)
+        with torch.no_grad():
+            y = m(shard.slab(case["lq"]), case["ref"], shard=shard)
+        return gather_rows(y, shard)
+
+    out["model"] = {name: forward(case)
+                    for name, case in inp["models"].items()}
+    first = inp["models"][next(iter(inp["models"]))]
+    plants = {"halo_1": ("BLOCK_HALO", 1),
+              "unreduced": ("reduce_stats", lambda *t, shard: t)}
+    out["planted"] = {}
+    for name, (attr, value) in plants.items():
+        kept = getattr(tb, attr)
+        setattr(tb, attr, value)
+        try:
+            out["planted"][name] = forward(first)
+        finally:
+            setattr(tb, attr, kept)
+    return out
+
+
+def case_cli_evaluate(inp, rank, world):
+    from textualdegremoval_tpu_torch.cli import evaluate
+
+    out = []
+    for argv in inp["argvs"]:
+        try:
+            out.append(evaluate.main(argv))
+        except SystemExit as e:
+            out.append(str(e))
+    return out
 
 
 CASES = {name[5:]: fn for name, fn in globals().items()

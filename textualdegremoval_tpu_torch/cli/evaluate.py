@@ -8,6 +8,21 @@ NAFNet, PromptIR, DRSformer and SFNet families:
         --checkpoint_path net_g.pth [--dtype bfloat16] [--device cuda] \\
         [--chain | --module_blocks [--gdfn_kernel] [--mdta_kernel]]
 
+    torchrun --nproc_per_node N -m textualdegremoval_tpu_torch.cli.evaluate \
+        --task restormer_deblur ... --spatial_shard N
+
+--spatial_shard N > 1 splits each image by rows over N torch.distributed
+ranks (the JAX CLI's N-device `sp` mesh; 0 and 1 run unsharded), for a
+whole image larger than one card holds: lq is reflect-padded on H to a
+multiple of N, as in JAX, then zero-padded to the network's row unit and
+cut into slabs of whole units, one a rank (`parallel.spatial.RowShard`);
+every rank reads the same images and holds the weights and the whole
+reference; the prediction is gathered on rank 0, cropped back to the
+image's height and scored there, and rank 0 alone prints.  Fewer or more
+ranks than N refuse.  It serves the RestormerRefFusion tasks on the
+whole-block route; the other families, --chain and --module_blocks
+refuse it.
+
 --chain runs every Restormer stage of two or more blocks as the
 cross-block chain kernel (the JAX CLI's TDR_FUSED_TBLOCK_CHAIN=1); it is
 off by default, as there.  --module_blocks runs every TransformerBlock on
@@ -37,6 +52,12 @@ from textualdegremoval_tpu_torch.metrics import calculate_psnr, calculate_ssim
 from textualdegremoval_tpu_torch.models import (
     TBLOCK_NETWORKS, define_network,
 )
+from textualdegremoval_tpu_torch.parallel import (
+    RowShard, gather_rows, init_distributed,
+)
+
+# the networks whose forward takes a row shard (--spatial_shard)
+SHARDED_NETWORKS = ("RestormerRefFusion",)
 
 # The JAX CLI's table (same hparams).
 TASK_TABLE = {
@@ -160,6 +181,50 @@ def restore_and_score(model: torch.nn.Module, lq: np.ndarray, hq: np.ndarray,
             calculate_ssim(pred * 255, hq * 255))
 
 
+def restore_sharded(model: torch.nn.Module, lq: np.ndarray, ref: np.ndarray,
+                    rank: int, world: int):
+    """The prediction of one (lq, ref) pair of HWC float32 arrays by a
+    forward split by rows over `world` ranks (this one `rank`): lq
+    reflect-padded on H to a multiple of world (JAX's --spatial_shard pad),
+    this rank's slab of it through the network, the rows gathered on rank
+    0 and cropped back to lq's height.  Rank 0: the float32 prediction
+    clipped to [0, 1]; the other ranks: None."""
+    dev = next(model.parameters()).device
+    orig_h = lq.shape[0]
+    pad_h = (-orig_h) % world
+    if pad_h:
+        lq = np.pad(lq, ((0, pad_h), (0, 0), (0, 0)), "reflect")
+    shard = RowShard.split(lq.shape[0], model.row_unit, rank, world)
+    with torch.inference_mode():
+        slab = shard.slab(torch.from_numpy(lq)[None].to(dev))
+        out = model(slab, torch.from_numpy(ref)[None].to(dev), shard=shard)
+        whole = gather_rows(out, shard)
+    if whole is None:
+        return None
+    return np.clip(whole[0, :orig_h].float().cpu().numpy(), 0, 1)
+
+
+def shard_ranks(network: str, args) -> tuple[int, int]:
+    """(rank, world) of a --spatial_shard N > 1 run, after joining the
+    process group; raises SystemExit where the network, a route option or
+    the number of ranks would not serve it (JAX's device check, devices
+    read as ranks)."""
+    n = args.spatial_shard
+    if network not in SHARDED_NETWORKS:
+        raise SystemExit(f"--spatial_shard {n}: {network} has no row-sharded "
+                         f"forward (served: {', '.join(SHARDED_NETWORKS)})")
+    asked = [f"--{k}" for k in ("chain", "module_blocks", "gdfn_kernel",
+                                "mdta_kernel") if getattr(args, k)]
+    if asked:
+        raise SystemExit(f"--spatial_shard {n} runs the whole-block route "
+                         f"block by block; it excludes {' '.join(asked)}")
+    rank, world = init_distributed(args.device)
+    if world != n:
+        raise SystemExit(f"--spatial_shard {n} needs {n} ranks, have "
+                         f"{world}")
+    return rank, world
+
+
 def route_options(network: str, args) -> dict:
     """The network_g routing keys that --chain, --module_blocks,
     --gdfn_kernel and --mdta_kernel ask for; raises SystemExit on a
@@ -217,11 +282,11 @@ def main(argv=None):
                     help="with --module_blocks: the MDTA statistics as "
                          "their kernel")
     ap.add_argument("--spatial_shard", type=int, default=0,
-                    help="not ported yet (comes with the sharding work)")
+                    help="split each image by rows over N torch.distributed "
+                         "ranks (a whole image larger than one card "
+                         "holds); 0 or 1 = off")
     args = ap.parse_args(argv)
 
-    if args.spatial_shard:
-        raise SystemExit("--spatial_shard is not ported yet")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
@@ -229,6 +294,11 @@ def main(argv=None):
     opt = dict(TASK_TABLE[args.task])
     if args.tiny_debug:
         opt = shrink_for_smoke(opt)
+    rank, world = 0, 1
+    if args.spatial_shard > 1:
+        rank, world = shard_ranks(opt["type"], args)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
     opt.update(route_options(opt["type"], args))
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
@@ -267,11 +337,20 @@ def main(argv=None):
                 args.sigma / 255.0)
         else:
             lq = imread_f32(lq_paths[i])
-        _, psnr, ssim = restore_and_score(model, lq, hq, ref)
+        if world == 1:
+            _, psnr, ssim = restore_and_score(model, lq, hq, ref)
+        else:
+            pred = restore_sharded(model, lq, ref, rank, world)
+            if pred is None:
+                continue
+            psnr = calculate_psnr(pred * 255, hq * 255)
+            ssim = calculate_ssim(pred * 255, hq * 255)
         psnrs.append(psnr)
         ssims.append(ssim)
         print(f"[{i + 1}/{len(hq_paths)}] psnr {psnr:.4f} ssim {ssim:.4f}")
 
+    if rank != 0:
+        return None
     print(f"mean PSNR: {np.mean(psnrs):.4f}  mean SSIM: {np.mean(ssims):.4f}")
     return float(np.mean(psnrs)), float(np.mean(ssims))
 

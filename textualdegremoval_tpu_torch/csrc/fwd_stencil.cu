@@ -14,7 +14,10 @@
 //   [bwd_ln_rows]        y = LN1(x) (bf16)
 //   [bwd_gemm]           lin = y . Wqkv (bf16), 3 C wide
 //   fwd_qkv_stencil      q | k | v = dw3x3(lin) (bf16), and per CTA the
-//                        square sums of the rounded q and k (f32)
+//                        square sums of the rounded q and k (f32), over a
+//                        window of rows where a row-sharded slab asks
+//                        (`fwd_qkv_stencil_rows`: its own rows, not its
+//                        halo; the gram then reads the view of those rows)
 //   [tblock_wgrad]       gram = q_h^T k_h per (image, head), partials (f32)
 //   (torch)              the partials of the gram and the square sums
 //                        summed in a fixed order
@@ -77,7 +80,7 @@ struct QkvSmem {
 __global__ void __launch_bounds__(kQkvThreads) qkv_stencil_kernel(
     const __grid_constant__ CUtensorMap tlin, const float* __restrict__ dwall,
     __nv_bfloat16* __restrict__ qkv, float* __restrict__ ssq_part, int H,
-    int W, int C) {
+    int W, int C, int row_lo, int row_hi) {
   using L = QkvSmem;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = align1k(smem_raw);
@@ -136,7 +139,8 @@ __global__ void __launch_bounds__(kQkvThreads) qkv_stencil_kernel(
               const float v = rnd<__nv_bfloat16>(a);
               qkv[(((size_t)b * H + gy) * W + ox + px) * 3 * C + col] =
                   from_f<__nv_bfloat16>(v);
-              sq += v * v;
+              // only the window's rows count toward the square sums
+              if (gy >= row_lo && gy < row_hi) sq += v * v;
             }
           }
         }
@@ -290,12 +294,15 @@ extern "C" {
 // lins (B H W, 3 C) bf16, the q | k | v 1x1 outputs; dwall (27, C) f32
 // taps.  Outputs: qkv (B H W, 3 C) bf16 after the stencils; ssq_part
 // (B nsplit, 2 C) f32, each CTA's square sums of q's and k's rounded
-// values over its pixels, or null for none (the backward's pass 1).
-// Returns a cudaError_t.
-int fwd_qkv_stencil(const void* lins, const float* dwall, void* qkv,
-                    float* ssq_part, int B, int H, int W, int C, int nsplit,
-                    void* stream) {
-  if (bad_grid(B, H, W, nsplit) || C <= 0) return (int)cudaErrorInvalidValue;
+// values over its pixels of image rows [row_lo, row_hi) (0 <= row_lo <=
+// row_hi <= H; a row-sharded slab's own rows, without its halo), or null
+// for none (the backward's pass 1).  Returns a cudaError_t.
+int fwd_qkv_stencil_rows(const void* lins, const float* dwall, void* qkv,
+                         float* ssq_part, int B, int H, int W, int C,
+                         int nsplit, int row_lo, int row_hi, void* stream) {
+  if (bad_grid(B, H, W, nsplit) || C <= 0 || row_lo < 0 ||
+      row_hi < row_lo || row_hi > H)
+    return (int)cudaErrorInvalidValue;
   CUtensorMap tl;
   int err;
   if ((err = view_map(&tl, nhwc_view(lins, B, H, W, 3 * C, 64, kW1, kH1),
@@ -305,8 +312,17 @@ int fwd_qkv_stencil(const void* lins, const float* dwall, void* qkv,
   if (attr != 0) return attr;
   qkv_stencil_kernel<<<dim3(nsplit, B), kQkvThreads, QkvSmem::kBytes,
                        (cudaStream_t)stream>>>(tl, dwall, (__nv_bfloat16*)qkv,
-                                               ssq_part, H, W, C);
+                                               ssq_part, H, W, C, row_lo,
+                                               row_hi);
   return (int)cudaGetLastError();
+}
+
+// fwd_qkv_stencil_rows with the square sums over every row.
+int fwd_qkv_stencil(const void* lins, const float* dwall, void* qkv,
+                    float* ssq_part, int B, int H, int W, int C, int nsplit,
+                    void* stream) {
+  return fwd_qkv_stencil_rows(lins, dwall, qkv, ssq_part, B, H, W, C, nsplit,
+                              0, H, stream);
 }
 
 // hids (B H W, 2 hpad) bf16 in W1's interleaved chunk order; dwg (18,

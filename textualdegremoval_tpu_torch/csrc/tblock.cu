@@ -16,7 +16,11 @@
 // square sums in f32.  Only the per-head diagonal blocks of the gram are
 // computed.  Each CTA writes its own partial sums; the wrapper adds the
 // partials over the split axis with torch.sum.  No float atomics: the result
-// is bitwise repeatable run to run.
+// is bitwise repeatable run to run.  Only pixels of a window of rows
+// [row_lo, row_hi) count (`tblock_stats_rows`; `tblock_stats` takes every
+// row): a slab of an image split by rows over ranks runs the block on its
+// rows and a halo of its neighbours', and its statistics, summed over the
+// ranks, take its own rows only.
 //
 // Pass B (tblock_apply_kernel): one CTA per output tile.  It recomputes LN1
 // and the v third on the tile plus a 2-pixel halo, masks values outside the
@@ -91,7 +95,7 @@ __global__ void __launch_bounds__(kThreads) tblock_stats_kernel(
     const T* __restrict__ wk, const float* __restrict__ dwqk,
     float* __restrict__ gram_part, float* __restrict__ qs_part,
     float* __restrict__ ks_part, int H, int W, int C, int heads,
-    int bias_free, int th, int tw) {
+    int bias_free, int th, int tw, int row_lo, int row_hi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int cph = C / heads;
   const int split = blockIdx.x, nsplit = gridDim.x;
@@ -126,8 +130,9 @@ __global__ void __launch_bounds__(kThreads) tblock_stats_kernel(
     ln_region(xb, H, W, C, oy - 1, ox - 1, th + 2, hw, lnw, lnb,
               bias_free != 0, ys, ldc);
     __syncthreads();
-    stats_head_tile(ys, ldc, oy, ox, th, tw, H, W, C, cph, hd, wq, wk, dwqk,
-                    lin, qT, kT, ldp, gacc, [&](int j, int, float v) {
+    stats_head_tile(ys, ldc, oy, ox, th, tw, H, W, C, cph, hd, row_lo, row_hi,
+                    wq, wk, dwqk, lin, qT, kT, ldp, gacc,
+                    [&](int j, int, float v) {
                       if (j == 0) ssq0 += v; else ssq1 += v;
                     });
   }
@@ -175,7 +180,7 @@ int launch_stats(const void* x, const void* lnw, const void* lnb,
                  const void* wq, const void* wk, const void* dwqk,
                  void* gram_part, void* qs_part, void* ks_part, int B, int H,
                  int W, int C, int heads, int bias_free, int th, int tw,
-                 int nsplit, cudaStream_t stream) {
+                 int nsplit, int row_lo, int row_hi, cudaStream_t stream) {
   const size_t smem = stats_smem_bytes(C, C / heads, th, tw, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
       tblock_stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -184,7 +189,7 @@ int launch_stats(const void* x, const void* lnw, const void* lnb,
   tblock_stats_kernel<T><<<dim3(nsplit, heads, B), kThreads, smem, stream>>>(
       (const T*)x, (const float*)lnw, (const float*)lnb, (const T*)wq,
       (const T*)wk, (const float*)dwqk, (float*)gram_part, (float*)qs_part,
-      (float*)ks_part, H, W, C, heads, bias_free, th, tw);
+      (float*)ks_part, H, W, C, heads, bias_free, th, tw, row_lo, row_hi);
   return (int)cudaGetLastError();
 }
 
@@ -241,22 +246,38 @@ const char* tblock_error_string(int err) {
 //
 // x: (B, H, W, C); wq, wk: (C, C); dwqk: (18, C) f32, q taps in rows 0-8,
 // k taps in rows 9-17; gram_part: (B, nsplit, heads, cph, cph)
-// f32; qs_part, ks_part: (B, nsplit, C) f32.  Returns a cudaError_t.
-int tblock_stats(const void* x, const void* lnw, const void* lnb,
-                 const void* wq, const void* wk, const void* dwqk,
-                 void* gram_part, void* qs_part, void* ks_part, int B, int H,
-                 int W, int C, int heads, int is_bf16, int bias_free, int th,
-                 int tw, int nsplit, void* stream) {
-  if (!shape_ok(C, heads, th, tw) || nsplit <= 0)
+// f32; qs_part, ks_part: (B, nsplit, C) f32, over the pixels of image rows
+// [row_lo, row_hi) (0 <= row_lo <= row_hi <= H; a row-sharded slab's own
+// rows, without its halo).  Returns a cudaError_t.
+int tblock_stats_rows(const void* x, const void* lnw, const void* lnb,
+                      const void* wq, const void* wk, const void* dwqk,
+                      void* gram_part, void* qs_part, void* ks_part, int B,
+                      int H, int W, int C, int heads, int is_bf16,
+                      int bias_free, int th, int tw, int nsplit, int row_lo,
+                      int row_hi, void* stream) {
+  if (!shape_ok(C, heads, th, tw) || nsplit <= 0 || row_lo < 0 ||
+      row_hi < row_lo || row_hi > H)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
     return launch_stats<__nv_bfloat16>(x, lnw, lnb, wq, wk, dwqk, gram_part,
                                        qs_part, ks_part, B, H, W, C, heads,
-                                       bias_free, th, tw, nsplit, s);
+                                       bias_free, th, tw, nsplit, row_lo,
+                                       row_hi, s);
   return launch_stats<float>(x, lnw, lnb, wq, wk, dwqk, gram_part, qs_part,
                              ks_part, B, H, W, C, heads, bias_free, th, tw,
-                             nsplit, s);
+                             nsplit, row_lo, row_hi, s);
+}
+
+// tblock_stats_rows over every row of x.
+int tblock_stats(const void* x, const void* lnw, const void* lnb,
+                 const void* wq, const void* wk, const void* dwqk,
+                 void* gram_part, void* qs_part, void* ks_part, int B, int H,
+                 int W, int C, int heads, int is_bf16, int bias_free, int th,
+                 int tw, int nsplit, void* stream) {
+  return tblock_stats_rows(x, lnw, lnb, wq, wk, dwqk, gram_part, qs_part,
+                           ks_part, B, H, W, C, heads, is_bf16, bias_free, th,
+                           tw, nsplit, 0, H, stream);
 }
 
 // attn: (B, heads, cph, cph) in x's dtype, [c][d] per head; wv, wproj:

@@ -151,8 +151,8 @@ __global__ void __launch_bounds__(kThreads) tblock_chain_kernel(
     }
     __syncthreads();
     for (int hd = 0; hd < heads; ++hd)
-      stats_head_tile(ys, ldc, oy, ox, th, tw, H, W, C, cph, hd, wq, wk, dwqk,
-                      lin, qT, kT, ldp, gacc + (size_t)hd * cph * cph,
+      stats_head_tile(ys, ldc, oy, ox, th, tw, H, W, C, cph, hd, 0, H, wq, wk,
+                      dwqk, lin, qT, kT, ldp, gacc + (size_t)hd * cph * cph,
                       [&](int, int i, float v) {
                         ss[(i < cph ? 0 : C) + hd * cph + i % cph] += v;
                       });

@@ -66,13 +66,15 @@ struct ApplySmem {
 // the same thread in every call.  lin ([p1][cph]), qT and kT ([cph
 // rows][ldp], channel-major so that the gram is a product with K =
 // pixels; the pixel columns [tp, round_up(tp, 16)) must hold zeros) are
-// scratch.  Ends with a barrier.
+// scratch.  Only pixels of image rows [lo, hi) count toward the gram and
+// the square sums (the whole image at lo = 0, hi = H; a row-sharded slab
+// passes its own rows, leaving its halo out).  Ends with a barrier.
 template <typename T, typename AddSsq>
 __device__ void stats_head_tile(const T* ys, int ldc, int oy, int ox, int th,
                                 int tw, int H, int W, int C, int cph, int hd,
-                                const T* wq, const T* wk, const float* dwqk,
-                                T* lin, T* qT, T* kT, int ldp, float* gacc,
-                                AddSsq add_ssq) {
+                                int lo, int hi, const T* wq, const T* wk,
+                                const float* dwqk, T* lin, T* qT, T* kT,
+                                int ldp, float* gacc, AddSsq add_ssq) {
   const int hw = tw + 2, p1 = (th + 2) * hw, tp = th * tw;
   for (int which = 0; which < 2; ++which) {
     gemm(ys, ldc, p1, C, weights(which == 0 ? wq : wk, C, C, hd * cph, 0),
@@ -89,8 +91,9 @@ __device__ void stats_head_tile(const T* ys, int ldc, int oy, int ox, int th,
       const int py = p / tw, px = p % tw;
       const float acc =
           stencil3x3(lin + n, hw, cph, py, px, taps + n, C, false);
-      // pixels of the tile outside the image add nothing to the sums
-      const bool in = oy + py < H && ox + px < W;
+      // pixels of the tile outside the image or the row window add
+      // nothing to the sums
+      const bool in = oy + py >= lo && oy + py < hi && ox + px < W;
       dst[n * ldp + p] = from_f<T>(in ? acc : 0.f);
     }
     __syncthreads();

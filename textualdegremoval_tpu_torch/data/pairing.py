@@ -119,3 +119,18 @@ def paired_paths_from_lmdb(folders, keys):
             f"(e.g. {sorted(in_keys ^ gt_keys)[:3]})")
     return [{f"{in_key}_path": k, f"{gt_key}_path": k}
             for k in sorted(in_keys)]
+
+
+def tri_paths_from_lmdb(folders, keys):
+    """[(lq, gt, ref)] triples of identical lmdb keys (JAX
+    `tri_paths_from_lmdb`, the WithRef extension of the reference's
+    paired_paths_from_lmdb); every folder must hold the same keys."""
+    sets = {key: set(_lmdb_keys(folder))
+            for folder, key in zip(folders, keys)}
+    base = sets[keys[0]]
+    for k, s in sets.items():
+        if s != base:
+            raise ValueError(
+                f"keys in {keys[0]} and {k} lmdbs differ "
+                f"(e.g. {sorted(base ^ s)[:3]})")
+    return [{f"{k}_path": key for k in keys} for key in sorted(base)]

@@ -3,7 +3,8 @@
 Counterpart of textualdegremoval_tpu/data/transforms.py (reference
 data/transforms.py:5-275): reflect padding to the crop size, the paired
 random crop, hflip/vflip/rot90, the 8 dihedral modes of
-random_augmentation, and the DUF protocol's blur and downsample.  `rng`
+random_augmentation, the DUF protocol's blur and downsample, and the
+affine rotation `img_rotate` (cv2, imported at the call).  `rng`
 is a `random.Random` (the module's when None).
 """
 
@@ -125,3 +126,18 @@ def duf_downsample(x: np.ndarray, kernel_size: int = 13,
         sub = blur[k2: p.shape[0] - k2, k2: p.shape[1] - k2][::scale, ::scale]
         outs.append(sub[2: 2 + h // scale, 2: 2 + w // scale])
     return np.stack(outs).reshape(lead + outs[0].shape)
+
+
+def img_rotate(img: np.ndarray, angle: float, center=None,
+               scale: float = 1.0) -> np.ndarray:
+    """Rotate by `angle` degrees (counter-clockwise) about `center`
+    (default the pixel (w // 2, h // 2)) with isotropic `scale` (JAX
+    `img_rotate`, reference data/transforms.py:203-221): cv2's rotation
+    matrix and bilinear warpAffine, zero outside."""
+    import cv2
+
+    h, w = img.shape[:2]
+    if center is None:
+        center = (w // 2, h // 2)
+    matrix = cv2.getRotationMatrix2D(center, angle, scale)
+    return cv2.warpAffine(img, matrix, (w, h))

@@ -55,6 +55,14 @@ TBLOCK_NETWORKS = ("Restormer", "RestormerRefFusion", "PromptIR",
 _KEY_ALIASES = {"LayerNorm_type": "ln_type"}
 
 
+def register_network(cls, name: str | None = None):
+    """Register a network class under `name` (default its class name) for
+    `define_network`'s `type`; returns the class, so it serves as a
+    decorator (JAX `register_network`)."""
+    _REGISTRY[name or cls.__name__] = cls
+    return cls
+
+
 def network_names() -> list[str]:
     return sorted(_REGISTRY)
 

@@ -9,8 +9,12 @@ checkpoint loads with `strict=True` and the JAX package's
 parameter tree.
 
 Modules take and return (B, H, W, C) tensors; convolutions run on the
-NCHW channels_last view of the same memory.  Parameters stay float32, as in
-the JAX package (`param_dtype=jnp.float32`); the compute dtype is that of
+NCHW channels_last view of the same memory.  The modules of
+RestormerRefFusion also take `shard`, a parallel.spatial.RowShard, where
+the tensor is one rank's slab of a row-sharded image: each 3x3 conv then
+reads one row of each neighbour (`conv_rows`), and each block its halo and
+the statistics summed over the ranks (`tblock_fused`).  Parameters stay
+float32, as in the JAX package (`param_dtype=jnp.float32`); the compute dtype is that of
 the activations, which the model casts its input to (`define_network(opt,
 dtype=...)`), and every weight is cast to it at use (convs, the block
 kernels' prepared weights, MASA).  LayerNorm affine, temperatures and the
@@ -50,6 +54,7 @@ from textualdegremoval_tpu_torch.ops.pallas.tblock import (
     tblock_fused,
 )
 from textualdegremoval_tpu_torch.ops.tlc import local_avg_pool
+from textualdegremoval_tpu_torch.parallel.spatial import exchange_rows
 
 
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -58,6 +63,27 @@ def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     bias = None if conv.bias is None else conv.bias.to(x.dtype)
     y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), bias,
                  conv.stride, conv.padding, conv.dilation, conv.groups)
+    return y.permute(0, 2, 3, 1)
+
+
+def conv_rows(conv: nn.Conv2d, x: torch.Tensor, shard=None) -> torch.Tensor:
+    """`conv_nhwc`, or on one rank's slab of a row-sharded image (shard, a
+    parallel.spatial.RowShard) the same 3x3 conv (padding 1, stride 1 or
+    2) on the slab with one row of each neighbour above and below (zero
+    rows past the image's true edges: the conv's own zero padding) and no
+    padding of its own along H.  At stride 2 the slab starts on an even
+    row and holds an even number, so its outputs are the image's output
+    rows start / 2 onwards, rows / 2 of them."""
+    if shard is None:
+        return conv_nhwc(conv, x)
+    if conv.kernel_size != (3, 3) or conv.padding != (1, 1) \
+            or conv.dilation != (1, 1):
+        raise ValueError(f"conv_rows: a row-sharded conv must be 3x3 with "
+                         f"padding 1, got {conv}")
+    ext = exchange_rows(x, 1, shard)
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    y = F.conv2d(ext.permute(0, 3, 1, 2), conv.weight.to(x.dtype), bias,
+                 conv.stride, (0, 1), 1, conv.groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -286,20 +312,28 @@ class TransformerBlock(nn.Module):
             self, p, x, lambda: prepare_tblock_weights(p, x.dtype,
                                                        self.ln_type))
 
-    def _block(self, x):
+    def _block(self, x, shard=None):
         """The block without a fusion gate, on the route its options
-        pick."""
+        pick; on a slab of a row-sharded image (shard) the whole-block
+        route's sharded forward."""
         if not self.fused:  # the module path without the fusion gate
+            if shard is not None:
+                raise ValueError(f"{type(self).__name__}: the module path "
+                                 "(fused=False) has no row-sharded forward")
             return TransformerBlock.module_forward(self, x)
         # the kernel takes dense NHWC; channel slices (fusion outputs) and
         # permuted conv outputs are copied here
         x = x.contiguous()
         p = self.block_params()
-        return tblock_fused(x, p, self.num_heads, self.ln_type,
-                            self._kernel_weights(p, x), self.bwd_mode)
+        kw = self._kernel_weights(p, x)
+        if shard is None:
+            return tblock_fused(x, p, self.num_heads, self.ln_type, kw,
+                                self.bwd_mode)
+        return tblock_fused(x, p, self.num_heads, self.ln_type, kw,
+                            self.bwd_mode, shard=shard)
 
-    def forward(self, x):
-        return self._block(x)
+    def forward(self, x, shard=None):
+        return self._block(x, shard)
 
     def module_forward(self, x):
         """The module path, whatever `fused` says (also the parity target
@@ -316,8 +350,8 @@ class TransformerResFusionBlock(TransformerBlock):
         super().__init__(*args, **kwargs)
         self.alpha = nn.Parameter(torch.zeros(1))
 
-    def forward(self, x):
-        y = self._block(x)
+    def forward(self, x, shard=None):
+        y = self._block(x, shard)
         return y * self.alpha.to(y.dtype) + x.to(y.dtype)
 
     def module_forward(self, x):
@@ -357,7 +391,18 @@ class TBlockStage(nn.Sequential):
             for _ in range(n)])
         self.num_heads, self.ln_type, self.chain = num_heads, ln_type, chain
 
-    def forward(self, x):
+    def forward(self, x, shard=None):
+        """The stage; on a slab of a row-sharded image (shard) block by
+        block, each block's statistics summed over the ranks before its
+        softmax, so the chain, whose walk takes block i+1's statistics in
+        block i's pass, refuses a shard."""
+        if shard is not None:
+            if self.chain and len(self) >= 2:
+                raise ValueError("TBlockStage: the chain has no row-sharded "
+                                 "forward; it needs chain=False")
+            for blk in self:
+                x = blk(x, shard)
+            return x
         if not self.chain or len(self) < 2:
             return super().forward(x)
         x = x.contiguous()
@@ -373,8 +418,8 @@ class OverlapPatchEmbed(nn.Module):
         super().__init__()
         self.proj = nn.Conv2d(in_c, embed_dim, 3, padding=1, bias=bias)
 
-    def forward(self, x):
-        return conv_nhwc(self.proj, x)
+    def forward(self, x, shard=None):
+        return conv_rows(self.proj, x, shard)
 
 
 class Downsample(nn.Module):
@@ -385,8 +430,8 @@ class Downsample(nn.Module):
         self.body = nn.Sequential(
             nn.Conv2d(n_feat, n_feat // 2, 3, padding=1, bias=False))
 
-    def forward(self, x):
-        return pixel_unshuffle(conv_nhwc(self.body[0], x), 2)
+    def forward(self, x, shard=None):
+        return pixel_unshuffle(conv_rows(self.body[0], x, shard), 2)
 
 
 class Upsample(nn.Module):
@@ -397,8 +442,8 @@ class Upsample(nn.Module):
         self.body = nn.Sequential(
             nn.Conv2d(n_feat, n_feat * 2, 3, padding=1, bias=False))
 
-    def forward(self, x):
-        return pixel_shuffle(conv_nhwc(self.body[0], x), 2)
+    def forward(self, x, shard=None):
+        return pixel_shuffle(conv_rows(self.body[0], x, shard), 2)
 
 
 def Conv3x3(in_c: int, out_c: int, stride: int = 1,
@@ -415,8 +460,9 @@ class ResidualBlock(nn.Module):
         self.conv1 = Conv3x3(nf, nf)
         self.conv2 = Conv3x3(nf, nf)
 
-    def forward(self, x):
-        out = conv_nhwc(self.conv2, F.relu(conv_nhwc(self.conv1, x)))
+    def forward(self, x, shard=None):
+        out = conv_rows(self.conv2, F.relu(conv_rows(self.conv1, x, shard)),
+                        shard)
         return out + x
 
 
@@ -437,24 +483,35 @@ class MASAEncoder(nn.Module):
             setattr(self, f"blk_L{level + 1}",
                     nn.Sequential(*[ResidualBlock(ch) for _ in range(nblk)]))
 
-    def forward(self, x):
+    def forward(self, x, shard=None):
+        """The pyramid; on a slab of a row-sharded image (shard) each
+        level on its slab, the layout halved after each stride-2 conv."""
         feats = []
         for level in range(self.num_levels):
-            x = F.relu(conv_nhwc(getattr(self, f"conv_L{level + 1}"), x))
-            x = getattr(self, f"blk_L{level + 1}")(x)
+            conv = getattr(self, f"conv_L{level + 1}")
+            x = F.relu(conv_rows(conv, x, shard))
+            if shard is not None and conv.stride[0] == 2:
+                shard = shard.scaled(2)
+            for blk in getattr(self, f"blk_L{level + 1}"):
+                x = blk(x, shard)
             feats.append(x)
         return feats
 
 
-def masa_encode_pair(enc: MASAEncoder, inp: torch.Tensor, ref: torch.Tensor):
+def masa_encode_pair(enc: MASAEncoder, inp: torch.Tensor, ref: torch.Tensor,
+                     shard=None):
     """Run the shared MASA encoder over lq and ref.
 
     Same-shape inputs run as one batched pass; different shapes (whole-image
     eval with a full-size reference) run two passes sharing the weights.  A
     3-channel reference meeting a 6-channel dual-pixel input is viewed as
-    identical left/right views.  Returns (lq pyramid, ref pyramid)."""
+    identical left/right views.  Where inp is one rank's slab of a
+    row-sharded image (shard), lq runs sharded and ref whole, in two
+    passes.  Returns (lq pyramid, ref pyramid)."""
     if ref.shape[-1] * 2 == inp.shape[-1]:
         ref = torch.cat([ref, ref], dim=-1)
+    if shard is not None:
+        return enc(inp, shard), enc(ref)
     if inp.shape == ref.shape:
         feats = enc(torch.cat([inp, ref], dim=0))
         b = inp.shape[0]

@@ -11,6 +11,13 @@ or more blocks as the cross-block chain (JAX `chain`, see TBlockStage).
 `fused=False` (JAX `fused`) runs every block on the module path instead,
 with `gdfn_fused` and `mdta_pallas` picking its GDFN and MDTA kernels
 (see TransformerBlock).
+
+RestormerRefFusion's forward also runs on one rank's slab of an image
+split by rows over torch.distributed ranks (`shard`, a
+parallel.spatial.RowShard; the evaluate CLI's --spatial_shard): every
+conv, block, downsampling, upsampling and MASA's search on the slab, with
+the neighbours' rows and the blocks' statistics exchanged as each needs
+them.  It needs the whole-block route (fused=True, chain=False).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from textualdegremoval_tpu_torch.models.layers import (
     conv_nhwc,
     masa_encode_pair,
     TBlockStage,
+    conv_rows,
 )
 from textualdegremoval_tpu_torch.ops import masa_match_and_warp, pad_to_multiple
 
@@ -69,18 +77,22 @@ class _RestormerTrunk(nn.Module):
             self.skip_conv = nn.Conv2d(d, d * 2, 1, bias=bias)
         self.output = nn.Conv2d(d * 2, out_channels, 3, padding=1, bias=bias)
 
-    def _decode(self, latent, out_enc1, out_enc2, out_enc3, inp_enc1):
-        x = conv_nhwc(self.reduce_chan_level3,
-                      torch.cat([self.up4_3(latent), out_enc3], dim=-1))
-        x = self.decoder_level3(x)
-        x = conv_nhwc(self.reduce_chan_level2,
-                      torch.cat([self.up3_2(x), out_enc2], dim=-1))
-        x = self.decoder_level2(x)
-        x = torch.cat([self.up2_1(x), out_enc1], dim=-1)
-        x = self.refinement(self.decoder_level1(x))
+    def _decode(self, latent, out_enc1, out_enc2, out_enc3, inp_enc1,
+                shards=(None,) * 4):
+        """The decoder; shards: the row layout at each level (full
+        resolution first) on a slab of a row-sharded image, else None."""
+        s0, s1, s2, s3 = shards
+        x = conv_nhwc(self.reduce_chan_level3, torch.cat(
+            [self.up4_3(latent, s3), out_enc3], dim=-1))
+        x = self.decoder_level3(x, s2)
+        x = conv_nhwc(self.reduce_chan_level2, torch.cat(
+            [self.up3_2(x, s2), out_enc2], dim=-1))
+        x = self.decoder_level2(x, s1)
+        x = torch.cat([self.up2_1(x, s1), out_enc1], dim=-1)
+        x = self.refinement(self.decoder_level1(x, s0), s0)
         if self.dual_pixel_task:
             x = x + conv_nhwc(self.skip_conv, inp_enc1)
-        return conv_nhwc(self.output, x)
+        return conv_rows(self.output, x, s0)
 
 
 class Restormer(_RestormerTrunk):
@@ -154,40 +166,61 @@ class RestormerRefFusion(_RestormerTrunk):
                                           bwd_mode, **route)
                 for _ in range(reffusion_n_blocks[level])]))
 
-    @staticmethod
-    def _fuse(x, warp_l, blocks):
-        cat = torch.cat([x, warp_l.to(x.dtype)], dim=-1)
-        return blocks(cat)[..., : cat.shape[-1] // 2]
+    @property
+    def row_unit(self) -> int:
+        """The rows of one unit of a row-sharded image: the network's
+        padding multiple, 8 lr_block_size (one block row of MASA's grid
+        at the deepest level, which all three 2x downsamplings divide)."""
+        return 8 * self.lr_block_size
 
-    def forward(self, inp_img, ref_img):
+    @staticmethod
+    def _fuse(x, warp_l, blocks, shard=None):
+        y = torch.cat([x, warp_l.to(x.dtype)], dim=-1)
+        for blk in blocks:
+            y = blk(y, shard)
+        return y[..., : y.shape[-1] // 2]
+
+    def forward(self, inp_img, ref_img, shard=None):
         """inp_img: (B, H, W, C_in); ref_img: (B, Hr, Wr, 3 or C_in).
-        Returns (B, H, W, C_out)."""
+        Returns (B, H, W, C_out).
+
+        shard: a parallel.spatial.RowShard of unit `row_unit` where inp_img
+        is one rank's slab (`shard.slab`) of an image zero-padded at the
+        bottom to shard.height rows; every rank passes the whole reference.
+        Returns the slab's rows of the output (B, shard.local, W, C_out),
+        which `parallel.spatial.gather_rows` puts together."""
         _, h0, w0, _ = inp_img.shape
         dt = self.dtype
-        pad = 8 * self.lr_block_size
+        pad = self.row_unit
+        if shard is not None and (shard.unit != pad or h0 != shard.local):
+            raise ValueError(f"RestormerRefFusion: a slab of {h0} rows in "
+                             f"units of {shard.unit}; the layout needs "
+                             f"{shard.local} in units of {pad}")
+        s = [None] * 4 if shard is None else [shard.scaled(2 ** i)
+                                              for i in range(4)]
         inp = pad_to_multiple(inp_img.to(dt), pad)
         ref = pad_to_multiple(ref_img.to(dt), pad)
 
-        feat_lq, feat_ref = masa_encode_pair(self.masa_enc, inp, ref)
+        feat_lq, feat_ref = masa_encode_pair(self.masa_enc, inp, ref, s[0])
         warp = masa_match_and_warp(
             feat_lq[-1], feat_ref, lr_block_size=self.lr_block_size,
             ref_down_block_size=self.ref_down_block_size, psize=self.psize,
-            dilations=self.dilations)
+            dilations=self.dilations, shard=s[3])
 
-        x = self._fuse(self.patch_embed(inp), warp[0],
-                       self.masa_blk_enc_level1)
+        x = self._fuse(self.patch_embed(inp, s[0]), warp[0],
+                       self.masa_blk_enc_level1, s[0])
         inp_enc1 = x
-        out_enc1 = self.encoder_level1(x)
-        x = self._fuse(self.down1_2(out_enc1), warp[1],
-                       self.masa_blk_enc_level2)
-        out_enc2 = self.encoder_level2(x)
-        x = self._fuse(self.down2_3(out_enc2), warp[2],
-                       self.masa_blk_enc_level3)
-        out_enc3 = self.encoder_level3(x)
-        x = self._fuse(self.down3_4(out_enc3), warp[3],
-                       self.masa_blk_enc_level4)
-        latent = self.latent(x)
-        out = self._decode(latent, out_enc1, out_enc2, out_enc3, inp_enc1)
+        out_enc1 = self.encoder_level1(x, s[0])
+        x = self._fuse(self.down1_2(out_enc1, s[0]), warp[1],
+                       self.masa_blk_enc_level2, s[1])
+        out_enc2 = self.encoder_level2(x, s[1])
+        x = self._fuse(self.down2_3(out_enc2, s[1]), warp[2],
+                       self.masa_blk_enc_level3, s[2])
+        out_enc3 = self.encoder_level3(x, s[2])
+        x = self._fuse(self.down3_4(out_enc3, s[2]), warp[3],
+                       self.masa_blk_enc_level4, s[3])
+        latent = self.latent(x, s[3])
+        out = self._decode(latent, out_enc1, out_enc2, out_enc3, inp_enc1, s)
         if not self.dual_pixel_task:
             out = out + inp
         return out[:, :h0, :w0]

@@ -38,6 +38,7 @@ _SIGNATURES = {
     "tblock_max_cph": ([], _I),
     "tblock_error_string": ([_I], ctypes.c_char_p),
     "tblock_stats": ([_P] * 9 + [_I] * 10 + [_P], _I),
+    "tblock_stats_rows": ([_P] * 9 + [_I] * 12 + [_P], _I),
     "tblock_apply": ([_P] * 14 + [_I] * 10 + [_P], _I),
     "tblock_chain_smem_bytes": ([_I] * 6, _L),
     "tblock_chain_ctas_per_sm": ([_I] * 6, _I),
@@ -64,6 +65,7 @@ _SIGNATURES = {
     "bwd_dgrad": ([_P] * 3 + [_I] * 3 + [_P], _I),
     "bwd_head_products": ([_P] * 7 + [_I] * 4 + [_P], _I),
     "fwd_qkv_stencil": ([_P] * 4 + [_I] * 5 + [_P], _I),
+    "fwd_qkv_stencil_rows": ([_P] * 4 + [_I] * 7 + [_P], _I),
     "fwd_gate_stencil": ([_P] * 3 + [_I] * 5 + [_P], _I),
     "fwd_gemm_residual": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "fwd_gemm_residual_ln": ([_P] * 5 + [_I, ctypes.c_float] + [_P] * 2

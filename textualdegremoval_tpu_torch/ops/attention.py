@@ -14,14 +14,25 @@ import torch
 import torch.nn.functional as F
 
 from textualdegremoval_tpu_torch.ops.pallas.mdta import (
-    apply_attention, mdta_stats_ref,
+    apply_attention, mdta_finish_ref, mdta_stats_ref, mdta_sums_ref,
 )
 
 
 def mdta_attention_nhwc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        temperature: torch.Tensor, heads: int) -> torch.Tensor:
-    """q, k, v: (B, H, W, C); temperature: (heads, 1, 1).  Returns (B, H, W, C)."""
-    return apply_attention(mdta_stats_ref(q, k, temperature, heads), v)
+                        temperature: torch.Tensor, heads: int, rows=None,
+                        reduce=None) -> torch.Tensor:
+    """q, k, v: (B, H, W, C); temperature: (heads, 1, 1).  Returns (B, H, W, C).
+
+    A slab of a row-sharded image passes rows = (lo, hi), its own rows
+    (the statistics leave its halo out), and reduce(gram, qssq, kssq),
+    which sums the statistics over the ranks in place before the finish
+    (parallel.spatial.reduce_stats)."""
+    if rows is None and reduce is None:
+        return apply_attention(mdta_stats_ref(q, k, temperature, heads), v)
+    sums = mdta_sums_ref(q, k, heads, rows)
+    if reduce is not None:
+        reduce(*sums)
+    return apply_attention(mdta_finish_ref(*sums, temperature, heads), v)
 
 
 def tksa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from textualdegremoval_tpu_torch.parallel.spatial import exchange_rows
+
 
 def unfold_nhwc(x: torch.Tensor, ks: int) -> torch.Tensor:
     """torch F.unfold-compatible patch extraction on NHWC, stride 1, no
@@ -207,29 +209,51 @@ def _blocks_to_image(x: torch.Tensor, n: int, py: int, px: int):
 def masa_match_and_warp(feat_lq_deep: torch.Tensor,
                         feat_ref_pyramid: list[torch.Tensor],
                         lr_block_size: int, ref_down_block_size: float = 1.5,
-                        psize: int = 3, dilations=(1, 2, 3)):
+                        psize: int = 3, dilations=(1, 2, 3), shard=None):
     """Full MASA: coarse search on the deepest level, window gather at every
     level, fine search, transfer.
 
     feat_lq_deep: (N, H, W, C) deepest LQ feature; feat_ref_pyramid: S ref
     features shallow -> deep.  Returns the warped pyramid shallow -> deep,
-    aligned to the LQ frame."""
+    aligned to the LQ frame.
+
+    shard: a parallel.spatial.RowShard at the deepest level where
+    feat_lq_deep is one rank's slab of a row-sharded image, whose rows are
+    whole block rows.  The block grid and the window diameters come from
+    the image's height (shard.height), the blocks' 1-row halo from the
+    neighbours at the slab's edges (replicated only at the image's), and
+    each rank searches and warps its own block rows against the whole
+    reference: the warped pyramid of its slab."""
     n, h, w, c = feat_lq_deep.shape
     deep_ref = feat_ref_pyramid[-1]
     _, hr, wr, _ = deep_ref.shape
     nscales = len(feat_ref_pyramid)
+    hg = h if shard is None else shard.height
 
     px = max(w // lr_block_size, 1)
-    py = max(h // lr_block_size, 1)
+    py = max(hg // lr_block_size, 1)
     kx = w // px
-    ky = h // py
+    ky = hg // py
     diameter_x = min(2 * int(wr / (2 * px) * ref_down_block_size) + 1, wr - 2)
     diameter_y = min(2 * int(hr / (2 * py) * ref_down_block_size) + 1, hr - 2)
     d2y, d2x = diameter_y + 2, diameter_x + 2
 
     # haloed (ky+2, kx+2) LQ blocks at stride (ky, kx), replicate border
-    lq_pad = F.pad(feat_lq_deep.permute(0, 3, 1, 2), (1, 1, 1, 1),
-                   mode="replicate")
+    if shard is None:
+        lq_pad = F.pad(feat_lq_deep.permute(0, 3, 1, 2), (1, 1, 1, 1),
+                       mode="replicate")
+    else:
+        if h % ky:
+            raise ValueError(f"masa_match_and_warp: a slab of {h} rows is not "
+                             f"whole block rows of {ky}")
+        py = h // ky
+        ext = exchange_rows(feat_lq_deep, 1, shard)
+        if shard.up is None:
+            ext[:, :1] = feat_lq_deep[:, :1]
+        if shard.down is None:
+            ext[:, -1:] = feat_lq_deep[:, -1:]
+        lq_pad = F.pad(ext.permute(0, 3, 1, 2), (1, 1, 0, 0),
+                       mode="replicate")
     bl = lq_pad.unfold(2, ky + 2, ky).unfold(3, kx + 2, kx)[:, :, :py, :px]
     lq_blocks = bl.permute(0, 2, 3, 4, 5, 1).reshape(n, py * px, ky + 2,
                                                      kx + 2, c)

@@ -4,7 +4,10 @@ Counterpart of textualdegremoval_tpu/ops/pallas/mdta.py.
 `mdta_stats_ref` is the plain version of JAX `mdta_stats_pallas`: the
 per-head gram q^T k over all pixels, the q and k norms as
 rsqrt(max(sum of squares, 1e-24)), the temperature and the row softmax,
-all in f32 (the math of the kernel's last grid step, `_finish`).
+all in f32 (the math of the kernel's last grid step, `_finish`), as two
+steps, the sums (`mdta_sums_ref`, over a window of rows where asked) and
+the finish (`mdta_finish_ref`), between which a row-sharded forward sums
+the sums over its ranks.
 `mdta_stats` runs it as hand-written Hopper kernels, which replace the
 TPU kernel `_make_stats_kernel`, by a rule of the shapes (`_takes_gram`):
 bf16 q and k whose widths and strides TMA takes run `mdta_gram`, the gram
@@ -45,21 +48,41 @@ def _flat(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(t.shape[0], -1, t.shape[-1])
 
 
-def mdta_stats_ref(q, k, temperature, heads: int) -> torch.Tensor:
-    """q, k: (B, L, C) with heads along C (or (B, H, W, C)); temperature:
-    heads values in any shape.  Returns the softmaxed attention
-    (B, heads, cph, cph) in float32."""
+def mdta_sums_ref(q, k, heads: int, rows=None):
+    """The sums the statistics start from, float32: the per-head gram
+    q_h^T k_h (B, heads, cph, cph) and the square sums of q and k (B, C).
+    q, k: (B, L, C) or (B, H, W, C); rows: (lo, hi), the rows of a
+    (B, H, W, C) q and k whose pixels count (all where None: a sharded
+    block counts its own rows, not its halo)."""
+    if rows is not None:
+        q, k = q[:, rows[0]: rows[1]], k[:, rows[0]: rows[1]]
     q, k = _flat(q), _flat(k)
     b, l, c = q.shape
     cph = c // heads
     qf = q.float().reshape(b, l, heads, cph)
     kf = k.float().reshape(b, l, heads, cph)
-    rq = torch.rsqrt(torch.clamp_min((qf * qf).sum(1), 1e-24))
-    rk = torch.rsqrt(torch.clamp_min((kf * kf).sum(1), 1e-24))
     gram = torch.einsum("blhc,blhd->bhcd", qf, kf)
+    return gram, (qf * qf).sum(1).reshape(b, c), (kf * kf).sum(1).reshape(b, c)
+
+
+def mdta_finish_ref(gram, qssq, kssq, temperature, heads: int):
+    """The softmaxed attention (B, heads, cph, cph), float32, from
+    `mdta_sums_ref`'s sums (summed over the ranks where the image is
+    sharded): the norms as rsqrt(max(sum of squares, 1e-24)), the
+    temperature and the row softmax."""
+    b, _, cph, _ = gram.shape
+    rq = torch.rsqrt(torch.clamp_min(qssq.reshape(b, heads, cph), 1e-24))
+    rk = torch.rsqrt(torch.clamp_min(kssq.reshape(b, heads, cph), 1e-24))
     a = gram * (rq[..., :, None] * rk[..., None, :])
     a = a * temperature.float().reshape(1, heads, 1, 1)
     return torch.softmax(a, dim=-1)
+
+
+def mdta_stats_ref(q, k, temperature, heads: int) -> torch.Tensor:
+    """q, k: (B, L, C) with heads along C (or (B, H, W, C)); temperature:
+    heads values in any shape.  Returns the softmaxed attention
+    (B, heads, cph, cph) in float32."""
+    return mdta_finish_ref(*mdta_sums_ref(q, k, heads), temperature, heads)
 
 
 def _pixel_strides(t: torch.Tensor):

@@ -57,6 +57,17 @@ under 'remat' included), never plain-version calls;
   the last block.
 `tblock_chain_ref` is its plain version; its backward recomputes through
 that plain chain, as JAX's does.
+
+A block on one rank's slab of an image split by rows over
+torch.distributed ranks (`shard`, the evaluate CLI's --spatial_shard)
+runs on the slab and BLOCK_HALO rows of each neighbour's (`_sharded`): its
+attention statistics take the slab's own rows only (the kernels' row
+window: csrc/tblock.cu's `tblock_stats_rows`, the pipeline's
+`fwd_qkv_stencil_rows` and its gram on the view of those rows; the plain
+version's `mdta_sums_ref` over them), are summed over the ranks before the
+softmax, and the halo rows are cropped from the output.  Without a shard
+every kernel's window is the whole tensor, as before.  The chain takes no
+shard: its walk makes block i+1's statistics before they could be summed.
 """
 
 from __future__ import annotations
@@ -72,6 +83,9 @@ from textualdegremoval_tpu_torch.ops.norm import (
 )
 from textualdegremoval_tpu_torch.ops.pallas.gdfn import (  # noqa: F401
     HIDDEN_CHUNK, gdfn_ref, kernel_matrix, pad_gdfn_weights,
+)
+from textualdegremoval_tpu_torch.parallel.spatial import (
+    halo_rows, reduce_stats,
 )
 
 # Tiles (rows, cols) in order of preference; the first whose shared memory
@@ -94,13 +108,13 @@ def _ln(x, w, b, ln_type):
     return with_bias_layer_norm(x, w, b)
 
 
-def _tblock_attn_part(x, p, heads, ln_type):
+def _tblock_attn_part(x, p, heads, ln_type, rows=None, reduce=None):
     c = x.shape[-1]
     y = _ln(x, p["norm1_w"], p.get("norm1_b"), ln_type)
     qkv = y @ p["qkv"].reshape(c, 3 * c).to(y.dtype)
     qkv = dwconv(qkv, p["qkv_dw"])
     q, k, v = torch.split(qkv, c, dim=-1)
-    o = mdta_attention_nhwc(q, k, v, p["temperature"], heads)
+    o = mdta_attention_nhwc(q, k, v, p["temperature"], heads, rows, reduce)
     o = o @ p["proj"].reshape(c, c).to(o.dtype)
     return x + o
 
@@ -115,13 +129,39 @@ def _tblock_gdfn_part(x, p, ln_type):
     return x + g
 
 
-def tblock_ref(x, p, heads: int, ln_type: str = "WithBias"):
+def tblock_ref(x, p, heads: int, ln_type: str = "WithBias", shard=None):
     """Whole TransformerBlock, plain torch.  x: (B, H, W, C).  p keys (JAX
     natural shapes): norm1_w (C,), norm1_b (C,), qkv (1,1,C,3C),
     qkv_dw (3,3,1,3C), temperature (heads,1,1), proj (1,1,C,C), norm2_w,
-    norm2_b, gd_in (1,1,C,2h), gd_dw (3,3,1,2h), gd_out (1,1,h,C)."""
+    norm2_b, gd_in (1,1,C,2h), gd_dw (3,3,1,2h), gd_out (1,1,h,C).
+
+    shard: a parallel.spatial.RowShard where x is one rank's slab of a
+    row-sharded image (`_sharded`)."""
+    if shard is not None:
+        return _sharded(x, shard, lambda ext, rows, reduce: _tblock_gdfn_part(
+            _tblock_attn_part(ext, p, heads, ln_type, rows, reduce), p,
+            ln_type))
     x = _tblock_attn_part(x, p, heads, ln_type)
     return _tblock_gdfn_part(x, p, ln_type)
+
+
+# rows of the neighbours a sharded block reads: one for the q | k | v
+# stencil, one more for the GDFN stencil on x1
+BLOCK_HALO = 2
+
+
+def _sharded(x, shard, block):
+    """The block on one rank's slab x of a row-sharded image: block(ext,
+    rows, reduce) on the slab with BLOCK_HALO rows of each neighbour
+    (none past the image's true edges, where the block's own zero padding
+    of q | k | v and the GDFN hidden applies), its attention statistics
+    over rows = the slab's own rows of ext only, summed over the ranks by
+    reduce before the softmax; the halo rows are cropped from the
+    output."""
+    ext, top = halo_rows(x, BLOCK_HALO, shard)
+    out = block(ext.contiguous(), (top, top + shard.rows),
+                lambda *t: reduce_stats(*t, shard=shard))
+    return out[:, top: top + shard.local]
 
 
 # ---------------------------------------------------------------------------
@@ -207,24 +247,27 @@ def _ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _pass_a(lib, x, kw, heads, ln_type, stats_tile, nsplit, stream):
+def _pass_a(lib, x, kw, heads, ln_type, stats_tile, nsplit, stream,
+            rows=None):
     """Pass A (tblock_stats) of the block whose weights are kw on x, summed
     over its partials: (gram (B, heads, cph, cph), qssq (B, C), kssq
-    (B, C)), f32.  `stream` is a cudaStream_t as an int (0 for the default
+    (B, C)), f32, over the pixels of rows [lo, hi) = rows (all where
+    None).  `stream` is a cudaStream_t as an int (0 for the default
     stream)."""
     b, hgt, wdt, c = x.shape
+    lo, hi = (0, hgt) if rows is None else rows
     cph = c // heads
     f32 = torch.float32
     gram_part = torch.empty((b, nsplit, heads, cph, cph), dtype=f32,
                             device=x.device)
     qs_part = torch.empty((b, nsplit, c), dtype=f32, device=x.device)
     ks_part = torch.empty((b, nsplit, c), dtype=f32, device=x.device)
-    _check(lib.tblock_stats(
+    _check(lib.tblock_stats_rows(
         _ptr(x), _ptr(kw["ln1w"]), _ptr(kw["ln1b"]), _ptr(kw["wq"]),
         _ptr(kw["wk"]), _ptr(kw["dwqk"]), _ptr(gram_part), _ptr(qs_part),
         _ptr(ks_part), b, hgt, wdt, c, heads, int(x.dtype == torch.bfloat16),
         int(ln_type == "BiasFree"), stats_tile[0], stats_tile[1], nsplit,
-        ctypes.c_void_p(stream)), lib, "tblock_stats")
+        lo, hi, ctypes.c_void_p(stream)), lib, "tblock_stats")
     return gram_part.sum(1), qs_part.sum(1), ks_part.sum(1)
 
 
@@ -247,14 +290,18 @@ def _pass_b(lib, x, kw, attn, heads, ln_type, apply_tile, stream,
 
 
 def _launch(lib, x, kw, heads, ln_type, stats_tile, apply_tile, nsplit,
-            stream, want_x1: bool = False):
+            stream, want_x1: bool = False, rows=None, reduce=None):
     """csrc/tblock.cu: pass A, the glue and pass B on already validated
     inputs.  Outputs and partials are allocated on x's device.  Returns
     out, or with `want_x1` (out, x1, (gram, qssq, kssq)): the
     attention-residual boundary and the pass-A statistics (per-head gram
     (B, heads, cph, cph), square sums (B, C), f32) that the backward
-    starts from."""
-    stats = _pass_a(lib, x, kw, heads, ln_type, stats_tile, nsplit, stream)
+    starts from.  rows, reduce: a sharded slab's statistics window and
+    their sum over the ranks (`_sharded`)."""
+    stats = _pass_a(lib, x, kw, heads, ln_type, stats_tile, nsplit, stream,
+                    rows)
+    if reduce is not None:
+        reduce(*stats)
     attn = _attn_matrix(*stats, kw["temperature"], heads, x.dtype)
     out, x1 = _pass_b(lib, x, kw, attn, heads, ln_type, apply_tile, stream,
                       want_x1)
@@ -285,11 +332,15 @@ def _gate_stencil(lib, hids, dwg, b, hgt, wdt, hpad, sms, stream, gates):
     return gates
 
 
-def _pipeline_attn(lib, x, ys, kw, heads, sms, stream, buf=None):
+def _pipeline_attn(lib, x, ys, kw, heads, sms, stream, buf=None, rows=None,
+                   reduce=None):
     """The attention half of the pipeline from LN1's rows ys (npix, C):
     lin = y . Wqkv, the q | k | v stencil with its square sums, the gram
     (csrc/wgrad.cu), the glue and fwd_attn_out.  Returns (x1, stats);
-    scratch as `_scratch` gives it from buf."""
+    scratch as `_scratch` gives it from buf.  rows = (lo, hi): the rows
+    whose pixels the square sums and the gram take (all where None; the
+    gram reads the view of those rows); reduce(gram, ssq) sums both over
+    the ranks of a sharded image before the glue."""
     from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import (
         _gemm, _stencil_nsplit, _wgrad,
     )
@@ -297,6 +348,7 @@ def _pipeline_attn(lib, x, ys, kw, heads, sms, stream, buf=None):
     b, hgt, wdt, c = x.shape
     cph, hw = c // heads, hgt * wdt
     npix = b * hw
+    lo, hi = (0, hgt) if rows is None else rows
     dev, bf, f32 = x.device, torch.bfloat16, torch.float32
     lins = _gemm(lib, ys, kw["wqkv"], bf, stream,
                  _scratch(buf, "lins", (npix, 3 * c), bf, dev))
@@ -304,15 +356,24 @@ def _pipeline_attn(lib, x, ys, kw, heads, sms, stream, buf=None):
     nsplit = _stencil_nsplit(lib, b, hgt, wdt, -(-3 * c // 64), 4, sms)
     qkv = _scratch(buf, "qkv", (npix, 3 * c), bf, dev)
     ssq_part = torch.empty((b, nsplit, 2 * c), dtype=f32, device=dev)
-    _check(lib.fwd_qkv_stencil(_ptr(lins), _ptr(kw["dwall"]), _ptr(qkv),
-                               _ptr(ssq_part), b, hgt, wdt, c, nsplit,
-                               stream), lib, "fwd_qkv_stencil")
+    _check(lib.fwd_qkv_stencil_rows(_ptr(lins), _ptr(kw["dwall"]), _ptr(qkv),
+                                    _ptr(ssq_part), b, hgt, wdt, c, nsplit,
+                                    lo, hi, stream), lib, "fwd_qkv_stencil")
     del lins
-    # gram = q_h^T k_h per (image, head), partials over pixel splits summed
-    # in a fixed order; the glue kernel makes the attention
-    gram = _wgrad(lib, qkv, 3 * c, (hw * 3 * c, cph), qkv[:, c:], 3 * c,
-                  (hw * 3 * c, cph), hw, cph, cph, (b, heads), sms, stream)
+    # gram = q_h^T k_h per (image, head) over rows [lo, hi): the view from
+    # row lo, (hi - lo) W pixels an image at the same image stride;
+    # partials over pixel splits summed in a fixed order; the glue kernel
+    # makes the attention
+    if hi > lo:
+        own = qkv[lo * wdt:]
+        gram = _wgrad(lib, own, 3 * c, (hw * 3 * c, cph), own[:, c:], 3 * c,
+                      (hw * 3 * c, cph), (hi - lo) * wdt, cph, cph,
+                      (b, heads), sms, stream)
+    else:
+        gram = torch.zeros((b, heads, cph, cph), dtype=f32, device=dev)
     ssq = ssq_part.sum(1)
+    if reduce is not None:
+        reduce(gram, ssq)
     stats = (gram, torch.empty((b, c), dtype=f32, device=dev),
              torch.empty((b, c), dtype=f32, device=dev))
     attn = torch.empty((b, heads, cph, cph), dtype=bf, device=dev)
@@ -349,20 +410,22 @@ def _pipeline_gates(lib, x1, kw, ln_type, sms, stream, buf=None):
 
 
 def tblock_pipeline(lib, x, kw, heads, ln_type, sms, stream,
-                    want_x1: bool = False):
+                    want_x1: bool = False, rows=None, reduce=None):
     """The bf16 block forward as the Hopper pipeline laid out at the top of
     csrc/fwd_stencil.cu, on validated inputs that `_takes_pipeline`
     admits.  `sms` (the card's SMs) sets the stencils' and the gram's
     splits; `stream` is a cudaStream_t as an int.  Scratch is allocated on
     x's device and dropped as the block goes.  Returns what `_launch`
-    returns.  `tblock_pipeline.launches` counts its block calls."""
+    returns; rows and reduce as `_launch` takes them.
+    `tblock_pipeline.launches` counts its block calls."""
     from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import (
         _EPS, _ln_rows)
 
     npix, c = x.numel() // x.shape[-1], x.shape[-1]
     ys = _ln_rows(lib, x, kw["ln1w"], kw["ln1b"], int(ln_type == "BiasFree"),
                   stream, _EPS)[0]
-    x1, stats = _pipeline_attn(lib, x, ys, kw, heads, sms, stream)
+    x1, stats = _pipeline_attn(lib, x, ys, kw, heads, sms, stream, None,
+                               rows, reduce)
     del ys
     gates = _pipeline_gates(lib, x1, kw, ln_type, sms, stream)
     out = torch.empty_like(x)
@@ -412,21 +475,23 @@ def _check_weights(kw, x: torch.Tensor, what: str):
         raise ValueError(f"{what}: prepared weights do not match x")
 
 
-def _forward_kernel(x, kw, heads, ln_type, want_x1=False):
+def _forward_kernel(x, kw, heads, ln_type, want_x1=False, rows=None,
+                    reduce=None):
     """Validated launch of the forward kernels on a CUDA tensor: the
-    pipeline or the pair, as `_takes_pipeline` rules."""
+    pipeline or the pair, as `_takes_pipeline` rules; rows and reduce as
+    `_launch` takes them."""
     _validate(x, heads, ln_type, "tblock_fused")
     _check_weights(kw, x, "tblock_fused")
     stream, sms = _card(x.device)
     if _takes_pipeline(x, heads):
         res = tblock_pipeline(_kernel_library(x.shape[-1] // heads,
                                               "tblock_fused"), x, kw, heads,
-                              ln_type, sms, stream, want_x1)
+                              ln_type, sms, stream, want_x1, rows, reduce)
     else:
         lib = _kernel_library(x.shape[-1] // heads, "tblock_fused")
         stats_tile, apply_tile, nsplit = _block_tiles(lib, x, heads, sms)
         res = _launch(lib, x, kw, heads, ln_type, stats_tile, apply_tile,
-                      nsplit, stream, want_x1)
+                      nsplit, stream, want_x1, rows, reduce)
     tblock_fused.launches += 1
     return res
 
@@ -515,23 +580,35 @@ class _TBlockFunction(torch.autograd.Function):
 
 
 def tblock_fused(x: torch.Tensor, p, heads: int, ln_type: str = "WithBias",
-                 kw: dict | None = None, bwd_mode: str = "save"):
+                 kw: dict | None = None, bwd_mode: str = "save", shard=None):
     """Whole TransformerBlock.  x: (B, H, W, C) float32 or bfloat16; p: the
     natural-shape parameter dict of `tblock_ref`; kw: its
     `prepare_tblock_weights` output, built once by the caller and required
     on CUDA (TransformerBlock caches it per module).  bwd_mode: 'save' or
-    'remat' (see the module docstring).
+    'remat' (see the module docstring).  shard: a parallel.spatial.RowShard
+    where x is one rank's slab of a row-sharded image (`_sharded`: the
+    kernels run on the slab and its halo, with their statistics window on
+    the slab's own rows); a forward only, so a call that needs a gradient
+    raises.
 
     CPU tensors take `tblock_ref`.  CUDA tensors launch the kernels (the
     bf16 pipeline or csrc/tblock.cu's pair, as `_takes_pipeline` rules);
     any input they cannot take raises, and so does a gradient that the
     kernels cannot give: no gradient is ever silently dropped."""
+    needs_grad = torch.is_grad_enabled() and (
+        x.requires_grad or any(v.requires_grad for v in p.values()))
+    if shard is not None:
+        if needs_grad:
+            raise ValueError("tblock_fused: a row-sharded block is a forward "
+                             "only; it has no gradient")
+        if x.device.type == "cpu":
+            return tblock_ref(x, p, heads, ln_type, shard)
+        return _sharded(x, shard, lambda ext, rows, reduce: _forward_kernel(
+            ext, kw, heads, ln_type, rows=rows, reduce=reduce))
     if x.device.type == "cpu":
         return tblock_ref(x, p, heads, ln_type)
     if bwd_mode not in ("save", "remat"):
         raise ValueError(f"tblock_fused: unknown bwd_mode {bwd_mode!r}")
-    needs_grad = torch.is_grad_enabled() and (
-        x.requires_grad or any(v.requires_grad for v in p.values()))
     if not needs_grad:
         return _forward_kernel(x, kw, heads, ln_type)
     keys = tuple(p)

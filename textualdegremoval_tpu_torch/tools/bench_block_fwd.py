@@ -29,6 +29,8 @@ turns other, this, this, other:
     stream;
   - branch: ||version - plain|| over ||plain - x||, the bound of
     chip_smoke.py phase 3;
+  - bitwise_as_first: whether the output equals, bit for bit, that of the
+    first version in the turns (the other) on the same inputs;
   - enqueue_ms: the host's time to enqueue one call (`bench_flash.py`
     `enqueue_us`, the median of single calls, the card synchronised
     between them): where it exceeds ms, the device waits for the host;
@@ -385,10 +387,14 @@ def shape_rows(versions, order, shape, dev):
                                                      "WithBias"), reps=3)}
         print(json.dumps(row), flush=True)
         out.append(row)
+        first = None
         for name in order:
             fn = versions[name].call(p, x, heads)
+            got = fn()
+            first = got if first is None else first
             row = {"version": name, "shape": list(shape[:5]),
-                   "branch": _branch(fn(), want, x),
+                   "branch": _branch(got, want, x),
+                   "bitwise_as_first": bool(torch.equal(got, first)),
                    "ms": time_ms(fn, dev, ITERS, REPEATS),
                    "enqueue_ms": enqueue_us(fn, 20) / 1e3}
             print(json.dumps(row), flush=True)

@@ -5,8 +5,8 @@ Runs `chip_smoke.main` from the checkout's root with the functions named
 in PHASES wrapped, each call printing `TIME <function> <s> (at <s>)`,
 the seconds since this tool started, beside the script's own output.
 Nested calls print too (a phase's `profile_device` inside its
-`train_main_path`).  Phase 38's spawned ranks run chip_smoke's own,
-unwrapped functions.
+`train_main_path`).  The spawned ranks of phases 38 and 39 run
+chip_smoke's own, unwrapped functions.
 
     python -m textualdegremoval_tpu_torch.tools.smoke_times [--seed 0]
 """
@@ -28,7 +28,8 @@ stencil_vs_plain probe_tool_runs promptir_train_path f32_train_steps
 cli_yaml_runs dino_matcher family_vs_cpu family_eval_path
 family_train_step diffir_forward diffir_cli keyed_archives
 tiled_restoration fid_and_metrics _dist_reference _spawn_ranks
-_diffir_reference _dist_cli profile_device""".split()
+_diffir_reference _dist_cli window_vs_plain _spatial_reference
+spatial_phases profile_device""".split()
 
 
 def main(argv=None) -> int:

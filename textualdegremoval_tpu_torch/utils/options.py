@@ -59,3 +59,15 @@ def parse(opt_path: str, is_train: bool = True,
             "visualization": osp.join(results_root, "visualization"),
         })
     return opt
+
+
+def dict2str(opt: dict, indent: int = 1) -> str:
+    """The options as indented `key: value` lines, nested dicts two spaces
+    deeper (JAX `dict2str`, the training log's header)."""
+    msg = ""
+    for k, v in opt.items():
+        if isinstance(v, dict):
+            msg += " " * (indent * 2) + f"{k}:\n" + dict2str(v, indent + 1)
+        else:
+            msg += " " * (indent * 2) + f"{k}: {v}\n"
+    return msg
