@@ -310,8 +310,8 @@ Phases, each of which raises on failure:
    parallel/fsdp.py sharded state) at the same setting against (a) and
    the single process, the bytes each rank holds
    against the replicated state's, the gather and reduce-scatter ms.  (c)
-   FSDP of NAFNetDynamicFusion at DiffIR's full width (f32, 256 px, 2
-   images a rank, the embeddings of the frozen full-width towers computed
+   FSDP of NAFNetDynamicFusion at DiffIR's full width, its deepest
+   encoder cut to 4 blocks of 28 (f32, 256 px, 2 images a rank, the embeddings of the frozen full-width towers computed
    once in this process) against one process on all 4: the loss, the
    norm, each rank's slices of the gradients and of the updated
    parameters, DIST_* bounds; the peak a rank
@@ -338,7 +338,22 @@ Phases, each of which raises on failure:
    the float32 forward at 512 px sharded, against one process
    (SPATIAL_F32_*, csrc/tblock.cu's window on the card); (d) the CLI's
    `main` in the ranks with --spatial_shard 3 (refused: two ranks) and 2,
-   scored on rank 0 alone, against the unsharded CLI (SPATIAL_CLI_*).
+   scored on rank 0 alone, against the unsharded CLI (SPATIAL_CLI_*);
+40. the same for nafnet_deblur and promptir_all_in_one, run by phase 39's
+   function in the same two ranks: (e) first B5's SCA sums' row window
+   (float32 `nafblock_sum_rows`, the bf16 pipeline's
+   `naf_gate_stencil_rows`) against plain sums over the same rows, and
+   B1's statistics window at PromptIR's noise widths (C = 704, 320, 160,
+   4 heads) on the route `tblock_fused` takes there; (a) one process:
+   each network's full-width bf16 forward of phase 39's image (wall ms,
+   device busy ms, idle share, peak, 45 B5 launches through the pipeline
+   or 55 B1), its float32 forward at 512 px and the unsharded CLI on
+   phase 39's images; (b) each rank's 768 rows: the launches a rank (45
+   B5, 55 B1, all through the pipelines), the exchanges and reductions
+   with their bytes and ms, wall ms and peak, the gathered image against
+   (a) under phase 39's bounds; (c) float32 at 512 px sharded
+   (csrc/nafblock.cu's and csrc/tblock.cu's windows) against one process;
+   (d) the CLI with --spatial_shard 2 against the unsharded CLI.
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is nvidia-smi's, and before that a JSON summary of each kernel.  Without
@@ -391,7 +406,10 @@ a row's end reads them: caught at the ragged shape) and
 stencil_warp_edge_zeroed (phase 24, a warp's last lane taking zero for
 its right neighbour from the next warp), stats_window_ignored and
 ssq_window_ignored (phase 39's window check: float32 pass A, and the bf16
-pipeline's square sums, taking a sharded slab's halo rows too).
+pipeline's square sums, taking a sharded slab's halo rows too),
+sum_window_ignored and gate_window_ignored (phase 40's window check: the
+NAFBlock pair's pass A in float32, and the bf16 pipeline's SUM pass,
+taking a sharded slab's halo rows into the SCA sums).
 """
 
 from __future__ import annotations
@@ -858,7 +876,8 @@ FAULTS = {
     # the SUM pass adds the gate of a ragged tile's body pixels past H and
     # W (zeros of h there, so g = rnd(dwb_a) rnd(dwb_b)) into the sums
     "naf_sums_past_edge": ("naf_stencil.cu",
-                           "} else if (in) {\n            sum += g;",
+                           "} else if (in && counted) {\n"
+                           "            sum += g;",
                            "} else {\n            sum += g;", 8),
     # the gate epilogue pairs a chunk's first half with the next chunk's
     # second half (64 product columns on, in the 128-column tile)
@@ -974,6 +993,17 @@ FAULTS = {
     "ssq_window_ignored": (
         "fwd_stencil.cu", "if (gy >= row_lo && gy < row_hi) sq += v * v;",
         "sq += v * v;", 39),
+    # the SCA sums' row window ignored: the pair's pass A (csrc/nafblock.cu,
+    # float32) and the bf16 pipeline's SUM pass (csrc/naf_stencil.cu) take
+    # a sharded slab's halo rows too
+    "sum_window_ignored": (
+        "nafblock.cu",
+        "const bool in = oy + py >= row_lo && oy + py < row_hi && ox + px "
+        "< W;",
+        "const bool in = oy + py < H && ox + px < W;", 40),
+    "gate_window_ignored": (
+        "naf_stencil.cu", "const bool counted = gy >= row_lo && gy < row_hi;",
+        "const bool counted = true;", 40),
 }
 
 
@@ -1713,11 +1743,11 @@ NAF_TRAIN_OPT = {
 }
 
 
-def _plain_nafblocks(x, p, kw=None):
+def _plain_nafblocks(x, p, kw=None, shard=None):
     """The plain-autograd route of phase 10's comparison turns (never the
     main path): nafblock_ref, with autograd keeping its intermediates (45
     plain blocks at 384 px batch 8 fit the card)."""
-    return nb.nafblock_ref(x, p)
+    return nb.nafblock_ref(x, p, shard)
 
 
 # ---------------------------------------------------------------------------
@@ -4608,15 +4638,17 @@ def _rel_l2(got, want):
 
 
 def window_vs_plain(gen, shapes=SPATIAL_WINDOW_SHAPES,
-                    dtypes=(torch.float32, torch.bfloat16)):
+                    dtypes=(torch.float32, torch.bfloat16), phase="39"):
     """Phase 39's window check: the statistics of a slab with both halos
     taken over its own rows only, float32 pass A (`tblock_stats_rows`,
     csrc/tblock.cu) against torch's float32 sums over those rows of q and
     k computed in torch, and the bf16 pipeline's (`_pipeline_attn`:
     `fwd_qkv_stencil_rows`' square sums, csrc/wgrad.cu's gram on the view
     of those rows, as the glue hands them back) against torch's sums over
-    those rows of the pipeline's own q and k; WINDOW_L2.  Returns rows
-    (dtype, shape, worst L2 error, ms of the windowed statistics)."""
+    those rows of the pipeline's own q and k; WINDOW_L2.  Each row must be
+    the route `tblock_fused` takes at its shape and dtype (phase 40 runs
+    it at PromptIR's noise widths).  Returns rows (dtype, shape, worst L2
+    error, ms of the windowed statistics)."""
     from textualdegremoval_tpu_torch.ops.dwconv import dwconv
     from textualdegremoval_tpu_torch.ops.pallas.mdta import mdta_sums_ref
     from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import (
@@ -4634,6 +4666,10 @@ def window_vs_plain(gen, shapes=SPATIAL_WINDOW_SHAPES,
             x = torch.randn(1, own + 4, w, c, generator=card_gen,
                             device="cuda").to(dtype)
             rows = (2, 2 + own)
+            if tb._takes_pipeline(x, heads) != (dtype == torch.bfloat16):
+                raise RuntimeError(f"window check at {own}x{w}x{c}, heads "
+                                   f"{heads}, {dtype}: not the route "
+                                   "tblock_fused takes")
             with torch.no_grad():
                 if dtype == torch.float32:
                     tiles = tb._block_tiles(lib, x, heads, sms)
@@ -4660,9 +4696,9 @@ def window_vs_plain(gen, shapes=SPATIAL_WINDOW_SHAPES,
                 ms = median_ms(stats, reps=3)
             name = "f32 tblock_stats_rows" if dtype == torch.float32 \
                 else "bf16 fwd_qkv_stencil_rows + wgrad view"
-            log(f"phase 39 window {name} at own rows {own} of {own + 4}, W "
-                f"{w}, C {c}, heads {heads}: L2 error {err:.3e} (bound "
-                f"{WINDOW_L2}), {ms:.3f} ms")
+            log(f"phase {phase} window {name} at own rows {own} of "
+                f"{own + 4}, W {w}, C {c}, heads {heads}: L2 error "
+                f"{err:.3e} (bound {WINDOW_L2}), {ms:.3f} ms")
             if not err <= WINDOW_L2:
                 raise RuntimeError(f"statistics window {name} at {own}x{w}x"
                                    f"{c}: L2 error {err:.3e} > {WINDOW_L2}")
@@ -4680,8 +4716,8 @@ def _spatial_inputs(seed, dtype, hw=SPATIAL_HW):
     return lq.to("cuda", dtype), ref.to("cuda", dtype)
 
 
-def _spatial_cli_argv(work: Path):
-    return ["--task", "restormer_deblur", "--dtype", "bfloat16",
+def _spatial_cli_argv(work: Path, task=TASK):
+    return ["--task", task, "--dtype", "bfloat16",
             "--hqroot", str(work / "hq"), "--refroot", str(work / "ref"),
             "--device", "cuda"]
 
@@ -4741,7 +4777,8 @@ def _spatial_job(rank: int, world: int, work: Path, seed: int) -> dict:
     forward (a warm-up; one untraced, timed with its launches and peak;
     one traced, with its exchanges and reductions counted and timed),
     gathered on rank 0; the float32 forward at 512 px likewise; the
-    evaluate CLI with --spatial_shard 3 (refused) and 2."""
+    evaluate CLI with --spatial_shard 3 (refused) and 2.  Then phase 40's
+    (b)-(d) in the same ranks (`_family_spatial_job`)."""
     from textualdegremoval_tpu_torch.cli import evaluate
     from textualdegremoval_tpu_torch.parallel import (
         CollectiveTrace, RowShard, gather_rows)
@@ -4797,6 +4834,8 @@ def _spatial_job(rank: int, world: int, work: Path, seed: int) -> dict:
                                + ["--spatial_shard", "2"])
     out["cli_s"] = time.perf_counter() - t0
     out["end_s"] = time.time()
+    torch.cuda.empty_cache()
+    out["families"] = _family_spatial_job(rank, world, work, seed)
     return out
 
 
@@ -4819,7 +4858,12 @@ def spatial_phases(seed: int, gen=None) -> dict:
     the gathered image against (a) (SPATIAL_BF16_*); (c) the float32
     forward sharded against one process (SPATIAL_F32_*: csrc/tblock.cu's
     window on the card); (d) the CLI with --spatial_shard 3 (refused) and
-    2 against the unsharded CLI (SPATIAL_CLI_*).  Returns the readings."""
+    2 against the unsharded CLI (SPATIAL_CLI_*).  Then phase 40, the same
+    for nafnet_deblur and promptir_all_in_one in the same spawn: B5's SCA
+    window (`naf_window_vs_plain`) and B1's at PromptIR's noise widths
+    (`window_vs_plain`), (a) `_family_spatial_reference`, (b)-(d)
+    `_family_spatial_job` in the ranks, `family_spatial_check`.  Returns
+    the readings."""
     gen = gen or torch.Generator().manual_seed(seed + 39)
     work = Path(tempfile.mkdtemp(prefix="spatial_"))
     t0 = time.perf_counter()
@@ -4834,6 +4878,11 @@ def spatial_phases(seed: int, gen=None) -> dict:
     try:
         windows = timed("window", window_vs_plain, gen)
         ref = timed("(a)", _spatial_reference, seed, work)
+        fam_windows = timed("40 (e) window", naf_window_vs_plain, gen)
+        noise_windows = timed("40 noise window", window_vs_plain, gen,
+                              NOISE_WINDOW_SHAPES,
+                              (torch.float32, torch.bfloat16), "40")
+        fam_ref = timed("40 (a)", _family_spatial_reference, seed, work)
         spawned = time.time()
         ranks = timed("(b)-(d) ranks", _spawn_ranks, "spatial", work, seed,
                       SPATIAL_WORLD)
@@ -4844,9 +4893,13 @@ def spatial_phases(seed: int, gen=None) -> dict:
                          ranks[0]["bf16_done_s"] - ranks[0]["start_s"],
                          ranks[0]["f32_done_s"] - ranks[0]["bf16_done_s"],
                          ranks[0]["end_s"] - ranks[0]["f32_done_s"]))
+        fam_rank_s = (ranks[0]["families"][FAMILY_SPATIAL_TASKS[-1]]
+                      ["end_s"] - ranks[0]["end_s"])
+        parts.append(f"in rank 0: phase 40 {fam_rank_s:.1f}")
         expected = torch.load(work / "spatial_expected.pt")
         got_bf16 = torch.load(work / "spatial_bf16.pt")
         got_f32 = torch.load(work / "spatial_f32.pt")
+        fam_errors = family_spatial_check(fam_ref, ranks, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     h, w = SPATIAL_HW
@@ -4862,6 +4915,10 @@ def spatial_phases(seed: int, gen=None) -> dict:
     cli = ranks[0]["cli"]
     d_psnr, d_ssim = abs(cli[0] - ref["cli"][0]), abs(cli[1] - ref["cli"][1])
     secs = time.perf_counter() - t0
+    # phase 40's share: its checks and (a) here, its part of the ranks
+    fam_secs = fam_rank_s + sum(
+        float(p.split()[-1]) for p in parts if p.startswith("40 "))
+    log(f"phase 40: {fam_secs:.1f} s of the {secs:.1f} s of phases 39-40")
     for r, rk in enumerate(ranks):
         tr = rk["trace"]
         log(f"phase 39 (b) rank {r}: {rk['rows']} rows, forward "
@@ -4900,8 +4957,313 @@ def spatial_phases(seed: int, gen=None) -> dict:
         bad.append(f"(d) CLI off by {d_psnr:.4f} dB, {d_ssim:.5f} SSIM")
     if bad:
         raise RuntimeError("phase 39: " + "; ".join(bad))
-    return {"seconds": secs, "ref": ref, "ranks": ranks, "errors": err,
-            "windows": windows}
+    return {"seconds": secs, "fam_seconds": fam_secs, "ref": ref,
+            "ranks": ranks, "errors": err, "windows": windows,
+            "fam_ref": fam_ref, "fam_errors": fam_errors,
+            "fam_windows": fam_windows, "noise_windows": noise_windows}
+
+
+# ---------------------------------------------------------------------------
+# Phase 40: NAFNet and PromptIR split by rows over ranks (--spatial_shard)
+# ---------------------------------------------------------------------------
+
+FAMILY_SPATIAL_TASKS = (NAF_TASK, PROMPTIR_TASK)
+# the kernel launches of a forward, in one process and a rank: every
+# NAFBlock through B5's pipeline, every PromptIR TransformerBlock through
+# B1's
+FAMILY_SPATIAL_LAUNCHES = {
+    NAF_TASK: {"nafblock_fused.launches": NAF_BLOCKS,
+               "naf_pipeline.launches": NAF_BLOCKS},
+    PROMPTIR_TASK: {"tblock_fused.launches": 55,
+                    "tblock_pipeline.launches": 55}}
+# B5's SCA sums' window at block shapes of the sharded forwards: a slab of
+# own rows with its 1-row halos (a middle rank's), rows (own, W, C): bf16
+# at (b)'s levels 0, 2 and 4 (the fusion blocks' widths), float32 at
+# (c)'s (512 px, 256 rows a rank); the window takes the own rows only
+NAF_WINDOW_SHAPES = {torch.bfloat16: ((768, 2048, 128), (192, 512, 512),
+                                      (48, 128, 2048)),
+                     torch.float32: ((256, 512, 64), (64, 128, 512),
+                                     (16, 32, 2048))}
+# B1's statistics window at PromptIR's noise blocks in (b) (C = 704, 320,
+# 160 with 4 heads: 176, 80, 40 channels a head), (own, W, C, heads)
+NOISE_WINDOW_SHAPES = ((96, 256, 704, 4), (192, 512, 320, 4),
+                       (384, 1024, 160, 4))
+
+
+def naf_window_vs_plain(gen, shapes=NAF_WINDOW_SHAPES,
+                        dtypes=(torch.float32, torch.bfloat16)):
+    """Phase 40 (e): the SCA sums of a slab with both 1-row halos taken
+    over its own rows only: float32 pass A of the pair
+    (`nafblock_sum_rows`, csrc/nafblock.cu) against torch's float32 sums
+    over those rows of the gate computed in torch (TF32 off), and the bf16
+    pipeline's SUM pass (`naf_gate_stencil_rows`, csrc/naf_stencil.cu)
+    against torch's float32 sums over those rows of the same rounded gate,
+    which its APPLY pass writes with a scale of 1; WINDOW_L2.  Returns
+    rows (dtype, shape, L2 error, ms of the windowed sums)."""
+    from textualdegremoval_tpu_torch.ops.dwconv import dwconv
+    from textualdegremoval_tpu_torch.ops.norm import layer_norm_2d
+    from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import _ln_rows
+
+    lib = _build.load_library()
+    stream, sms = tb._card(torch.device("cuda"))
+    card_gen = torch.Generator(device="cuda").manual_seed(
+        int(torch.randint(1 << 30, (1,), generator=gen)))
+    rows_out = []
+    for dtype in dtypes:
+        for own, w, c in shapes[dtype]:
+            p = naf_tool.block_params(c, gen)
+            kw = nb.prepare_nafblock_weights(p, dtype)
+            cpad = kw["cpad"]
+            x = torch.randn(1, own + 2, w, c, generator=card_gen,
+                            device="cuda").to(dtype)
+            hgt, lo, hi = own + 2, 1, 1 + own
+            with torch.no_grad():
+                if dtype == torch.float32:
+                    sum_tile, _ = nb.pick_tiles(lib, c, 4)
+                    nsplit = max(1, min(-(-hgt // sum_tile[0])
+                                        * -(-w // sum_tile[1]), 2 * sms))
+                    part = torch.empty(1, nsplit, cpad, device="cuda")
+
+                    def sums():
+                        tb._check(lib.nafblock_sum_rows(
+                            tb._ptr(x), tb._ptr(kw["ln1w"]),
+                            tb._ptr(kw["ln1b"]), tb._ptr(kw["w1"]),
+                            tb._ptr(kw["b1"]), tb._ptr(kw["taps"]),
+                            tb._ptr(kw["dwb"]), tb._ptr(part), 1, hgt, w, c,
+                            cpad, 0, *sum_tile, nsplit, lo, hi, stream),
+                            lib, "nafblock_sum_rows")
+                        return part.sum(1)[:, :c]
+                    y = layer_norm_2d(x, p["norm1_w"], p["norm1_b"])
+                    h = y @ p["w1"].reshape(c, 2 * c) + p["b1"]
+                    h = dwconv(h, p["dw"]) + p["dwb"]
+                    want = (h[..., :c] * h[..., c:])[:, lo:hi].sum((1, 2))
+                    del y, h
+                    name = "f32 nafblock_sum_rows"
+                else:
+                    npix = hgt * w
+                    ys = _ln_rows(lib, x, kw["ln1w"], kw["ln1b"], 0, stream,
+                                  nb._EPS)[0]
+                    hids = torch.empty(npix, 2 * cpad, dtype=torch.bfloat16,
+                                       device="cuda")
+                    tb._check(lib.naf_gemm_bias(
+                        tb._ptr(ys), tb._ptr(kw["w1"]), tb._ptr(kw["b1i"]),
+                        None, None, tb._ptr(hids), npix, 2 * cpad, c,
+                        stream), lib, "naf_gemm_bias")
+                    del ys
+                    nsplit = nb._naf_nsplit(lib, 1, hgt, w, cpad // 32, sms)
+                    part = torch.empty(1, nsplit, cpad, device="cuda")
+
+                    def stencil(apply, s=None, gs=None, out=None):
+                        tb._check(lib.naf_gate_stencil_rows(
+                            tb._ptr(hids), tb._ptr(kw["taps"]),
+                            tb._ptr(kw["dwb"]), fa._ptr(s), fa._ptr(gs),
+                            fa._ptr(out), 1, hgt, w, cpad, nsplit, apply, lo,
+                            hi, stream), lib, "naf_gate_stencil_rows")
+
+                    def sums():
+                        stencil(0, out=part)
+                        return part.sum(1)[:, :c]
+                    gs = torch.empty(npix, cpad, dtype=torch.bfloat16,
+                                     device="cuda")
+                    stencil(1, s=torch.ones(1, cpad, device="cuda"), gs=gs)
+                    want = gs.float().reshape(1, hgt, w, cpad)[
+                        :, lo:hi, :, :c].sum((1, 2))
+                    del gs
+                    name = "bf16 naf_gate_stencil_rows"
+                got = sums()
+                err = _rel_l2(got, want)
+                ms = median_ms(sums, reps=3)
+            log(f"phase 40 (e) window {name} at own rows {own} of {hgt}, W "
+                f"{w}, C {c}: L2 error {err:.3e} (bound {WINDOW_L2}), "
+                f"{ms:.3f} ms")
+            if not err <= WINDOW_L2:
+                raise RuntimeError(f"SCA sums' window {name} at {own}x{w}x"
+                                   f"{c}: L2 error {err:.3e} > {WINDOW_L2}")
+            rows_out.append((str(dtype), (own, w, c), err, ms))
+            del x, got, want, part
+    torch.cuda.empty_cache()
+    return rows_out
+
+
+def _family_spatial_reference(seed: int, work: Path) -> dict:
+    """Phase 40 (a) in this process, for each task of
+    FAMILY_SPATIAL_TASKS: the bf16 forward of phase 39's whole image (a
+    warm-up, one timed with its launches and peak, one profiled), the
+    float32 forward at 512 px, and the unsharded CLI on phase 39's
+    folder; the outputs to <work>/family_expected.pt."""
+    from textualdegremoval_tpu_torch.cli import evaluate
+
+    out, expected = {}, {}
+    for task in FAMILY_SPATIAL_TASKS:
+        r = {}
+        t0 = time.perf_counter()
+        model = build_network(seed, torch.bfloat16, "cuda", task)
+        lq, ref = _spatial_inputs(seed, torch.bfloat16)
+        with torch.inference_mode():
+            model(lq, ref)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_all_counts()
+            t1 = time.perf_counter()
+            pred = model(lq, ref)
+            torch.cuda.synchronize()
+            r["ms"] = (time.perf_counter() - t1) * 1e3
+            r["launches"] = {k: v for k, v in _all_counts().items() if v}
+            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            r["idle"] = profile_device(
+                lambda: model(lq, ref),
+                f"phase 40 (a) {task} {SPATIAL_HW} bf16 forward")
+            r["device_ms"] = profile_device.busy_ms
+        expected[task] = {"bf16": pred.float().cpu()}
+        del model, lq, pred
+        model = build_network(seed, torch.float32, "cuda", task)
+        lq, ref = _spatial_inputs(seed, torch.float32, SPATIAL_F32_HW)
+        with torch.inference_mode():
+            expected[task]["f32"] = model(lq, ref).cpu()
+        del model, lq, ref
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        r["cli"] = evaluate.main(_spatial_cli_argv(work, task))
+        r["cli_s"] = time.perf_counter() - t1
+        r["seconds"] = time.perf_counter() - t0
+        log(f"phase 40 (a) {task} one process: {SPATIAL_HW} bf16 forward "
+            f"{r['ms']:.1f} ms wall, {r['device_ms']:.1f} ms device busy "
+            f"(idle {r['idle']}), peak {r['peak_gib']:.2f} GiB, launches "
+            f"{r['launches']}; the unsharded CLI {r['cli']} in "
+            f"{r['cli_s']:.1f} s; {r['seconds']:.1f} s")
+        out[task] = r
+        torch.cuda.empty_cache()
+    torch.save(expected, work / "family_expected.pt")
+    return out
+
+
+def _family_spatial_job(rank: int, world: int, work: Path, seed: int):
+    """Phase 40 (b)-(d) in one rank of phase 39's spawn, for each task of
+    FAMILY_SPATIAL_TASKS: its slab of the whole-image bf16 forward (a
+    warm-up; one untraced, timed with its launches and peak; one traced),
+    gathered on rank 0; the float32 forward at 512 px likewise; the
+    evaluate CLI with --spatial_shard 2."""
+    from textualdegremoval_tpu_torch.cli import evaluate
+    from textualdegremoval_tpu_torch.parallel import (
+        CollectiveTrace, RowShard, gather_rows)
+
+    out = {}
+    for task in FAMILY_SPATIAL_TASKS:
+        r = {"start_s": time.time()}
+        model = build_network(seed, torch.bfloat16, "cuda", task)
+        lq, ref = _spatial_inputs(seed, torch.bfloat16)
+        shard = RowShard.split(lq.shape[1], model.row_unit, rank, world)
+        slab = shard.slab(lq)
+        del lq
+        with torch.inference_mode():
+            model(slab, ref, shard=shard)
+            torch.cuda.synchronize()
+            torch.distributed.barrier()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_all_counts()
+            t0 = time.perf_counter()
+            pred = model(slab, ref, shard=shard)
+            torch.cuda.synchronize()
+            r["ms"] = (time.perf_counter() - t0) * 1e3
+            r["launches"] = {k: v for k, v in _all_counts().items() if v}
+            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            trace = CollectiveTrace()
+            torch.distributed.barrier()
+            t0 = time.perf_counter()
+            model(slab, ref, shard=dataclasses.replace(shard, trace=trace))
+            torch.cuda.synchronize()
+            r["traced_ms"] = (time.perf_counter() - t0) * 1e3
+            r["trace"] = trace.as_dict()
+            r["rows"] = shard.rows
+            whole = gather_rows(pred, shard)
+        if whole is not None:
+            torch.save(whole.float().cpu(), work / f"family_{task}_bf16.pt")
+        r["bf16_done_s"] = time.time()
+        del model, slab, pred, whole
+        model = build_network(seed, torch.float32, "cuda", task)
+        lq, ref = _spatial_inputs(seed, torch.float32, SPATIAL_F32_HW)
+        shard = RowShard.split(lq.shape[1], model.row_unit, rank, world)
+        with torch.inference_mode():
+            whole = gather_rows(model(shard.slab(lq), ref, shard=shard),
+                                shard)
+        if whole is not None:
+            torch.save(whole.cpu(), work / f"family_{task}_f32.pt")
+        del model, lq, ref, whole
+        torch.cuda.empty_cache()
+        r["f32_done_s"] = time.time()
+        t0 = time.perf_counter()
+        r["cli"] = evaluate.main(_spatial_cli_argv(work, task)
+                                 + ["--spatial_shard", "2"])
+        r["cli_s"] = time.perf_counter() - t0
+        r["end_s"] = time.time()
+        out[task] = r
+    return out
+
+
+def family_spatial_check(ref: dict, ranks: list, work: Path) -> dict:
+    """Phase 40 (b)-(d) against (a), under phase 39's bounds, for each
+    task: the gathered bf16 image (SPATIAL_BF16_*), the float32 one
+    (SPATIAL_F32_*), the CLI's PSNR and SSIM (SPATIAL_CLI_*), and each
+    rank's launches (FAMILY_SPATIAL_LAUNCHES).  Returns the errors by
+    task; raises on any miss after printing every reading."""
+    expected = torch.load(work / "family_expected.pt")
+    h = SPATIAL_HW[0]
+    errors, bad = {}, []
+    for task in FAMILY_SPATIAL_TASKS:
+        want = expected[task]["bf16"]
+        got = torch.load(work / f"family_{task}_bf16.pt")[:, :h]
+        got32 = torch.load(work / f"family_{task}_f32.pt")[
+            :, : SPATIAL_F32_HW[0]]
+        e = {"bf16_use": _elementwise_use(got, want, SPATIAL_BF16_A,
+                                          SPATIAL_BF16_R),
+             "bf16_l2": _rel_l2(got, want),
+             "bf16_max_abs": float((got - want).abs().max()),
+             "f32_max_abs": float((got32 - expected[task]["f32"])
+                                  .abs().max()),
+             "f32_l2": _rel_l2(got32, expected[task]["f32"])}
+        errors[task] = e
+        cli, cli_ref = ranks[0]["families"][task]["cli"], ref[task]["cli"]
+        d_psnr, d_ssim = abs(cli[0] - cli_ref[0]), abs(cli[1] - cli_ref[1])
+        for r, rk in enumerate(ranks):
+            fr = rk["families"][task]
+            tr = fr["trace"]
+            log(f"phase 40 (b) {task} rank {r}: {fr['rows']} rows, forward "
+                f"{fr['ms']:.1f} ms wall ({fr['traced_ms']:.1f} traced), "
+                f"peak {fr['peak_gib']:.2f} GiB, launches {fr['launches']}; "
+                f"{tr['exchanges']} exchanges {tr['exchange_bytes']} bytes "
+                f"{tr['exchange_s'] * 1e3:.1f} ms, {tr['reduces']} "
+                f"reductions {tr['reduce_bytes']} bytes "
+                f"{tr['reduce_s'] * 1e3:.1f} ms; CLI {fr['cli']} in "
+                f"{fr['cli_s']:.1f} s")
+            if fr["launches"] != FAMILY_SPATIAL_LAUNCHES[task]:
+                bad.append(f"{task} rank {r} launches {fr['launches']}")
+        f0 = ranks[0]["families"][task]
+        log(f"phase 40 {task}: rank 0's (b) "
+            f"{f0['bf16_done_s'] - f0['start_s']:.1f} s, (c) "
+            f"{f0['f32_done_s'] - f0['bf16_done_s']:.1f} s, (d) "
+            f"{f0['end_s'] - f0['f32_done_s']:.1f} s; (b) gathered vs one "
+            f"process: max abs {e['bf16_max_abs']:.4e}, elementwise use "
+            f"{e['bf16_use']:.4f} of a={SPATIAL_BF16_A} max|p| + "
+            f"r={SPATIAL_BF16_R} |p|, L2 {e['bf16_l2']:.3e} (bound "
+            f"{SPATIAL_BF16_L2}); (c) f32 max abs {e['f32_max_abs']:.3e} "
+            f"(bound {SPATIAL_F32_ATOL}), L2 {e['f32_l2']:.3e} (bound "
+            f"{SPATIAL_F32_L2}); (d) CLI PSNR / SSIM {cli} against "
+            f"{cli_ref}")
+        if ref[task]["launches"] != FAMILY_SPATIAL_LAUNCHES[task]:
+            bad.append(f"{task} (a) launches {ref[task]['launches']}")
+        if ranks[1]["families"][task]["cli"] is not None:
+            bad.append(f"{task} rank 1 scored")
+        if not (e["bf16_use"] <= 1 and e["bf16_l2"] <= SPATIAL_BF16_L2):
+            bad.append(f"{task} (b) gathered image outside its bound")
+        if not (e["f32_max_abs"] <= SPATIAL_F32_ATOL
+                and e["f32_l2"] <= SPATIAL_F32_L2):
+            bad.append(f"{task} (c) float32 outside its bound")
+        if not (d_psnr <= SPATIAL_CLI_DB and d_ssim <= SPATIAL_CLI_SSIM):
+            bad.append(f"{task} (d) CLI off by {d_psnr:.4f} dB, "
+                       f"{d_ssim:.5f} SSIM")
+    if bad:
+        raise RuntimeError("phase 40: " + "; ".join(bad))
+    return errors
 
 
 # ---------------------------------------------------------------------------
@@ -4951,8 +5313,13 @@ DIST_LOSS_REL, DIST_NORM_REL = 1e-4, 2e-3
 DIST_GRAD_REL, DIST_GRAD_FLOOR = 1e-2, 1e-5
 DIST_SATURATED, DIST_SATURATED_TOL = 0.9, 2e-2  # of the element's lr
 DIST_OVER_HALF = 1e-6  # share of elements whose updates differ > 0.5 lr
-# (c): NAFNetDynamicFusion at full width, f32 at 256 px, 2 images a rank
+# (c): NAFNetDynamicFusion at full width, f32 at 256 px, 2 images a rank;
+# its depth cut to 4 blocks in the deepest encoder level (of 28): 482 M
+# parameters, 459 M of them in the affine heads, in 268 tensors (the
+# whole net's 1.78 B in 772 took 63 s of the script's 1200 with the
+# collectives through the host)
 DIFFIR_DIST_BATCH = 2
+DIFFIR_DIST_NET = dict(DIFFIR_NET, enc_blk_nums=[1, 1, 1, 4])
 
 
 def _free_port() -> int:
@@ -5241,18 +5608,19 @@ def _diffir_trainer(model):
 
 
 def _diffir_model(seed: int):
-    """NAFNetDynamicFusion at DiffIR's full width, seeded, built on the
-    card (the same weights in every process: one seed, one device)."""
+    """NAFNetDynamicFusion at DiffIR's full width (DIFFIR_DIST_NET's
+    depth), seeded, built on the card (the same weights in every process:
+    one seed, one device)."""
     with torch.random.fork_rng(devices=[torch.cuda.current_device()]):
         torch.manual_seed(seed)
         with torch.device("cuda"):
-            model = define_network(DIFFIR_NET)
+            model = define_network(DIFFIR_DIST_NET)
     return gate_and_temperatures(model, seed)
 
 
 def _dist_diffir_job(rank: int, world: int, work: Path, seed: int) -> dict:
     """(c) on one rank: the full state built and sharded one rank after
-    the other (1.78 B parameters with both moments and the EMA are 28.6 GB
+    the other (482 M parameters with both moments and the EMA are 7.7 GB
     until sharded), then one FSDP step of `make_train_step` on this rank's
     images with the parent's embeddings: the loss, the norm, the gradient
     slices handed to the optimizer and the updated slices against the
@@ -5566,8 +5934,8 @@ def distributed_phases(seed: int) -> dict:
     cards): (a) the data-parallel step of the flagship at full width in
     bf16, 4 of 8 images a rank, against one process on all 8, with two
     planted reduce faults that must fail; (b) FSDP at the same setting
-    against (a); (c) FSDP of NAFNetDynamicFusion at DiffIR's full width,
-    2 images a rank, against one process on all 4; (d) the training CLI
+    against (a); (c) FSDP of NAFNetDynamicFusion at DiffIR's full width
+    (DIFFIR_DIST_NET's depth), 2 images a rank, against one process on all 4; (d) the training CLI
     as two launched processes, rank-0 I/O, a resume.  The single-process
     references run first in this process and free the card before the
     ranks start.  Returns the readings."""
@@ -5743,6 +6111,10 @@ def main(argv=None) -> int:
                 window_vs_plain(gen, dtypes=(
                     torch.float32 if FAULTS[args.plant][0] == "tblock_fwd.cuh"
                     else torch.bfloat16,))
+            elif FAULTS[args.plant][3] == 40:
+                naf_window_vs_plain(gen, dtypes=(
+                    torch.float32 if FAULTS[args.plant][0] == "nafblock.cu"
+                    else torch.bfloat16,))
             else:  # the pair's faults in float32, the pipeline's in bf16
                 nafblock_vs_plain(
                     gen, [NAF_SHAPES[i] for i in (7, 8, 10)],
@@ -5884,7 +6256,7 @@ def main(argv=None) -> int:
     dist = distributed_phases(args.seed)
     log_held("phase 38")
     spatial = spatial_phases(args.seed)
-    log_held("phase 39")
+    log_held("phases 39-40")
 
     # per-step kernel time: each training shape's median time times the
     # number of blocks of that shape in one step (bf16, WithBias); the
@@ -6289,12 +6661,23 @@ def main(argv=None) -> int:
         if row["name"] == "nafblock_fused":
             row["archive_launches"] = {
                 io: diffir["archives"][io] for io in ("lmdb", "tfrecord")}
-        # phase 39: each rank's launches in (b)'s sharded forward (two
-        # ranks sharing the card, 768 rows each)
+        # phases 39 and 40: each rank's launches in (b)'s sharded forwards
+        # (two ranks sharing the card, 768 rows each): restormer_deblur's
+        # and promptir_all_in_one's B1, nafnet_deblur's B5
         if row["name"] == "tblock_fused":
             row["spatial_launches"] = [
                 r["launches"].get("tblock_fused.launches", 0)
                 for r in spatial["ranks"]]
+            row["promptir_spatial_launches"] = [
+                r["families"][PROMPTIR_TASK]["launches"].get(
+                    "tblock_fused.launches", 0) for r in spatial["ranks"]]
+        if row["name"] == "nafblock_fused":
+            row["spatial_launches"] = [
+                r["families"][NAF_TASK]["launches"].get(
+                    "nafblock_fused.launches", 0) for r in spatial["ranks"]]
+            row["spatial_pipeline_launches"] = [
+                r["families"][NAF_TASK]["launches"].get(
+                    "naf_pipeline.launches", 0) for r in spatial["ranks"]]
         # phase 38: each rank's launches in (a)'s reduced step and (b)'s
         # FSDP step (two ranks sharing the card)
         for i, k in enumerate(DIST_KERNELS):
@@ -6347,6 +6730,23 @@ def main(argv=None) -> int:
         f"GiB a rank against {sr['peak_gib']:.2f}; gathered vs one process "
         f"L2 {se['bf16_l2']:.3e}, f32 max abs {se['f32_max_abs']:.3e}; "
         f"phase 39 {spatial['seconds']:.1f} s")
+    for task in FAMILY_SPATIAL_TASKS:
+        fr, fe = spatial["fam_ref"][task], spatial["fam_errors"][task]
+        rk = [r["families"][task] for r in ranks]
+        log(f"{task} sharded (phase 40, {SPATIAL_WORLD} ranks on one card): "
+            f"{SPATIAL_HW} bf16 {[round(r['ms'], 1) for r in rk]} ms a rank "
+            f"against {fr['ms']:.1f} ms in one process (device busy "
+            f"{fr['device_ms']:.1f} ms, idle {fr['idle']}); exchanges "
+            f"{[r['trace']['exchanges'] for r in rk]} of "
+            f"{[r['trace']['exchange_bytes'] for r in rk]} bytes in "
+            f"{[round(r['trace']['exchange_s'] * 1e3, 1) for r in rk]} ms, "
+            f"reductions {[r['trace']['reduces'] for r in rk]} of "
+            f"{[r['trace']['reduce_bytes'] for r in rk]} bytes in "
+            f"{[round(r['trace']['reduce_s'] * 1e3, 1) for r in rk]} ms; peak "
+            f"{[round(r['peak_gib'], 2) for r in rk]} GiB a rank against "
+            f"{fr['peak_gib']:.2f}; gathered vs one process L2 "
+            f"{fe['bf16_l2']:.3e}, f32 max abs {fe['f32_max_abs']:.3e}")
+    log(f"phase 40 {spatial['fam_seconds']:.1f} s")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s after "
         f"the build")
     log(json.dumps(summary))

@@ -22,12 +22,17 @@ WORKDIR/out_<rank>.pt.  Cases:
   exchange, a reduction and a gather; one block (`tblock_ref` with a
   shard); RestormerRefFusion on each input, and on the first with each
   planted fault (a 1-row block halo, statistics not reduced);
+* spatial_family: the row-sharded NAFNetRefFusion or PromptIRRefFusion:
+  one block (`nafblock_ref` with a shard, or a PromptGenBlock); the
+  network on each input, and on one input with each planted fault of its
+  pools (FAMILY_PLANTS); then the evaluate CLI's main on each argv;
 * cli_evaluate: the evaluate CLI's main on each argv in turn, a refusal
   (SystemExit) recorded as its message.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import socket
 import subprocess
@@ -347,6 +352,91 @@ def case_spatial(inp, rank, world):
             out["planted"][name] = forward(first)
         finally:
             setattr(tb, attr, kept)
+    return out
+
+
+def family_plants():
+    """The planted faults of the sharded NAFBlock's SCA pool and the
+    sharded PromptGenBlock (chip_smoke.py plants the SCA window's in the
+    kernels): name -> (module, attribute, replacement)."""
+    import torch.nn.functional as F
+
+    from textualdegremoval_tpu_torch.models import promptir
+    from textualdegremoval_tpu_torch.ops import bilinear_resize_torch
+    from textualdegremoval_tpu_torch.ops.pallas import nafblock as nb
+
+    pool = nb.sca_pool
+
+    def halo_counted(g, rows=None, reduce=None, pixels=None):
+        """The SCA sums over the slab's halo rows too."""
+        return pool(g, None if rows is None else (0, g.shape[1]), reduce,
+                    pixels)
+
+    def slab_divisor(g, rows=None, reduce=None, pixels=None):
+        """The summed sums over the slab's H x W, not the image's."""
+        return pool(g, rows, reduce,
+                    None if pixels is None else g.shape[1] * g.shape[2])
+
+    def slab_height(prompt, shard, w):
+        """The prompt resized to the slab's height, not the image's."""
+        return F.pad(bilinear_resize_torch(prompt, shard.local, w),
+                     (0, 0, 0, 0, 1, 1))
+
+    return {"halo_counted": (nb, "sca_pool", halo_counted),
+            "slab_divisor": (nb, "sca_pool", slab_divisor),
+            "prompt_slab_height": (promptir, "prompt_rows", slab_height),
+            "prompt_unreduced": (promptir, "reduce_stats",
+                                 lambda *t, shard: t)}
+
+
+def case_spatial_family(inp, rank, world):
+    from textualdegremoval_tpu_torch.cli import evaluate
+    from textualdegremoval_tpu_torch.models import define_network
+    from textualdegremoval_tpu_torch.models.promptir import PromptGenBlock
+    from textualdegremoval_tpu_torch.ops.pallas import nafblock as nb
+    from textualdegremoval_tpu_torch.parallel.spatial import (
+        RowShard, gather_rows)
+
+    out = {}
+    blk = inp["block"]
+    shard = RowShard.split(blk["x"].shape[1], blk["unit"], rank, world)
+    if "p" in blk:  # a NAFBlock's parameters
+        def run(x):
+            return nb.nafblock_ref(x, blk["p"], shard)
+    else:
+        run = PromptGenBlock(*blk["args"])
+        run.load_state_dict(blk["state"])
+        run = functools.partial(run, shard=shard)
+    with torch.no_grad():
+        out["block"] = gather_rows(run(shard.slab(blk["x"])), shard)
+
+    def forward(case):
+        m = define_network(dict(case["opt"]))
+        m.load_state_dict(case["state"])
+        m.eval()
+        shard = RowShard.split(case["lq"].shape[1], m.row_unit, rank, world)
+        with torch.no_grad():
+            y = m(shard.slab(case["lq"]), case["ref"], shard=shard)
+        return gather_rows(y, shard)
+
+    out["model"] = {name: forward(case)
+                    for name, case in inp["models"].items()}
+    out["planted"] = {}
+    plants = family_plants()
+    for plant, name in inp["plants"]:
+        module, attr, value = plants[plant]
+        kept = getattr(module, attr)
+        setattr(module, attr, value)
+        try:
+            out["planted"][plant] = forward(inp["models"][name])
+        finally:
+            setattr(module, attr, kept)
+    out["cli"] = []
+    for argv in inp.get("argvs", ()):
+        try:
+            out["cli"].append(evaluate.main(argv))
+        except SystemExit as e:
+            out["cli"].append(str(e))
     return out
 
 

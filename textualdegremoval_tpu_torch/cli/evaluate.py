@@ -8,8 +8,9 @@ NAFNet, PromptIR, DRSformer and SFNet families:
         --checkpoint_path net_g.pth [--dtype bfloat16] [--device cuda] \\
         [--chain | --module_blocks [--gdfn_kernel] [--mdta_kernel]]
 
-    torchrun --nproc_per_node N -m textualdegremoval_tpu_torch.cli.evaluate \
-        --task restormer_deblur ... --spatial_shard N
+    torchrun --nproc_per_node N -m textualdegremoval_tpu_torch.cli.evaluate \\
+        --task restormer_deblur|nafnet_deblur|promptir_all_in_one ... \\
+        --spatial_shard N
 
 --spatial_shard N > 1 splits each image by rows over N torch.distributed
 ranks (the JAX CLI's N-device `sp` mesh; 0 and 1 run unsharded), for a
@@ -19,9 +20,10 @@ cut into slabs of whole units, one a rank (`parallel.spatial.RowShard`);
 every rank reads the same images and holds the weights and the whole
 reference; the prediction is gathered on rank 0, cropped back to the
 image's height and scored there, and rank 0 alone prints.  Fewer or more
-ranks than N refuse.  It serves the RestormerRefFusion tasks on the
-whole-block route; the other families, --chain and --module_blocks
-refuse it.
+ranks than N refuse.  It serves the RestormerRefFusion, NAFNetRefFusion
+and PromptIRRefFusion tasks on the whole-block route (B1 and B5 with their
+statistics summed over the ranks); DRSformer, SFNet, --chain and
+--module_blocks refuse it.
 
 --chain runs every Restormer stage of two or more blocks as the
 cross-block chain kernel (the JAX CLI's TDR_FUSED_TBLOCK_CHAIN=1); it is
@@ -57,7 +59,8 @@ from textualdegremoval_tpu_torch.parallel import (
 )
 
 # the networks whose forward takes a row shard (--spatial_shard)
-SHARDED_NETWORKS = ("RestormerRefFusion",)
+SHARDED_NETWORKS = ("RestormerRefFusion", "NAFNetRefFusion",
+                    "PromptIRRefFusion")
 
 # The JAX CLI's table (same hparams).
 TASK_TABLE = {

@@ -15,10 +15,15 @@
 //                            in W1's 32-channel chunks (a chunk's first
 //                            half, then its second)
 //   naf_gate_stencil, SUM    per CTA the sums of the gate g over its image
-//                            pixels (f32); g is not written
+//                            pixels (f32), over a window of rows where a
+//                            row-sharded slab asks (`naf_gate_stencil_rows`:
+//                            its own rows, not its 1-row halo); g is not
+//                            written
+//   (torch, sharded only)    the partials summed, then summed over the
+//                            ranks; the glue takes them as one partial
 //   naf_sca_glue             s = rnd(rnd(rnd(sum / HW) . Wsca) + bsca) per
 //                            (image, channel), the partials summed in a
-//                            fixed order
+//                            fixed order; HW the whole image's pixels
 //   naf_gate_stencil, APPLY  gs = rnd(g s[image]) (bf16), cpad wide
 //   [naf_gemm_bias]          y1 = rnd(x + rnd(rnd(rnd(gs . W3) + b3) beta))
 //   [bwd_ln_rows, eps 1e-6]  z = LN2(y1) (bf16)
@@ -69,14 +74,15 @@ struct NafSmem {
 
 // CTA (split, chunk) of image blockIdx.y, blockIdx.x = chunk nsplit +
 // split: gate channels [32 chunk, 32 chunk + 32), the tiles split, split +
-// nsplit, ...  SUM (kApply 0) writes sum_part[image][split][channel];
-// APPLY writes gs = rnd(g s[image][channel]).
+// nsplit, ...  SUM (kApply 0) writes sum_part[image][split][channel], the
+// sums over image rows [row_lo, row_hi); APPLY writes gs = rnd(g
+// s[image][channel]) on every row.
 template <int kApply>
 __global__ void __launch_bounds__(kNafThreads) naf_gate_kernel(
     const __grid_constant__ CUtensorMap th, const float* __restrict__ taps,
     const float* __restrict__ dwb, const float* __restrict__ s,
     __nv_bfloat16* __restrict__ gs, float* __restrict__ sum_part, int H,
-    int W, int cpad, int nsplit) {
+    int W, int cpad, int nsplit, int row_lo, int row_hi) {
   using L = NafSmem;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base = align1k(smem_raw);
@@ -137,13 +143,15 @@ __global__ void __launch_bounds__(kNafThreads) naf_gate_kernel(
               db += wb[r][c] * tb[r * 3 + c];
             }
           }
-          // body pixels past H or W (a ragged tile's) are not the image's
+          // body pixels past H or W (a ragged tile's) are not the image's;
+          // only the window's rows count toward the sums
           const bool in = gy < H && ox + px < W;
+          const bool counted = gy >= row_lo && gy < row_hi;
           const float g = rnd<__nv_bfloat16>(rnd<__nv_bfloat16>(da + ba) *
                                              rnd<__nv_bfloat16>(db + bb));
           if (kApply) {
             if (in) row[(size_t)px * cpad] = from_f<__nv_bfloat16>(g * sv);
-          } else if (in) {
+          } else if (in && counted) {
             sum += g;
           }
         }
@@ -266,15 +274,20 @@ int naf_gate_chunk() { return kHC; }
 // hids (B H W, 2 cpad) bf16, conv1's output with its bias in W1's
 // interleaved 32-channel chunks; taps (18, cpad) f32, the first half's in
 // rows 0-8; dwb (2, cpad) f32.  apply 0 (SUM): sum_part (B, nsplit, cpad)
-// f32, each CTA's sums of the rounded gate over its image pixels.  apply 1
-// (APPLY): s (B, cpad) f32, the SCA scale; gs (B H W, cpad) bf16 =
-// rnd(g s).  A CTA per (split, chunk, image): nsplit splits of the
-// image's 8 x 16 tiles.  Returns a cudaError_t.
-int naf_gate_stencil(const void* hids, const float* taps, const float* dwb,
-                     const float* s, void* gs, float* sum_part, int B, int H,
-                     int W, int cpad, int nsplit, int apply, void* stream) {
+// f32, each CTA's sums of the rounded gate over its image pixels of rows
+// [row_lo, row_hi) (0 <= row_lo <= row_hi <= H; a row-sharded slab's own
+// rows, without its halo).  apply 1 (APPLY): s (B, cpad) f32, the SCA
+// scale; gs (B H W, cpad) bf16 = rnd(g s), every row.  A CTA per (split,
+// chunk, image): nsplit splits of the image's 8 x 16 tiles.  Returns a
+// cudaError_t.
+int naf_gate_stencil_rows(const void* hids, const float* taps,
+                          const float* dwb, const float* s, void* gs,
+                          float* sum_part, int B, int H, int W, int cpad,
+                          int nsplit, int apply, int row_lo, int row_hi,
+                          void* stream) {
   if (bad_grid(B, H, W, nsplit) || cpad <= 0 || cpad % kHC ||
-      (apply ? !s || !gs : !sum_part))
+      (apply ? !s || !gs : !sum_part) || row_lo < 0 || row_hi < row_lo ||
+      row_hi > H)
     return (int)cudaErrorInvalidValue;
   CUtensorMap th;
   int err;
@@ -287,18 +300,30 @@ int naf_gate_stencil(const void* hids, const float* taps, const float* dwb,
     static const int attr = prepare(naf_gate_kernel<1>, NafSmem::kBytes);
     if (attr != 0) return attr;
     naf_gate_kernel<1><<<grid, kNafThreads, NafSmem::kBytes, st>>>(
-        th, taps, dwb, s, (__nv_bfloat16*)gs, nullptr, H, W, cpad, nsplit);
+        th, taps, dwb, s, (__nv_bfloat16*)gs, nullptr, H, W, cpad, nsplit,
+        row_lo, row_hi);
   } else {
     static const int attr = prepare(naf_gate_kernel<0>, NafSmem::kBytes);
     if (attr != 0) return attr;
     naf_gate_kernel<0><<<grid, kNafThreads, NafSmem::kBytes, st>>>(
-        th, taps, dwb, nullptr, nullptr, sum_part, H, W, cpad, nsplit);
+        th, taps, dwb, nullptr, nullptr, sum_part, H, W, cpad, nsplit,
+        row_lo, row_hi);
   }
   return (int)cudaGetLastError();
 }
 
-// sum_part (B, nsplit, cpad) f32 from the SUM pass; wsca (C, C) bf16 (the
-// SCA 1x1, inputs by outputs); bsca (C) bf16.  Output s (B, cpad) f32
+// naf_gate_stencil_rows with the sums over every row.
+int naf_gate_stencil(const void* hids, const float* taps, const float* dwb,
+                     const float* s, void* gs, float* sum_part, int B, int H,
+                     int W, int cpad, int nsplit, int apply, void* stream) {
+  return naf_gate_stencil_rows(hids, taps, dwb, s, gs, sum_part, B, H, W,
+                               cpad, nsplit, apply, 0, H, stream);
+}
+
+// sum_part (B, nsplit, cpad) f32 from the SUM pass (a row-sharded slab
+// passes its partials summed, then summed over the ranks, as nsplit 1);
+// HW the pixels the mean divides by (the whole image's); wsca (C, C) bf16
+// (the SCA 1x1, inputs by outputs); bsca (C) bf16.  Output s (B, cpad) f32
 // holding bf16 values, 0 past C.  Returns a cudaError_t.
 int naf_sca_glue(const float* sum_part, const void* wsca, const void* bsca,
                  float* s, int B, int HW, int C, int cpad, int nsplit,

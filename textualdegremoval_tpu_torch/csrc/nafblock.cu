@@ -24,7 +24,11 @@
 // gate's pixel sum over the tile to a per-channel f32 sum.  Each CTA writes
 // its own partial sums; the wrapper adds them over the split axis with
 // torch.sum in a fixed order.  No float atomics: a repeated call is bitwise
-// equal.
+// equal.  Only pixels of a window of rows [row_lo, row_hi) count
+// (`nafblock_sum_rows`; `nafblock_sum` takes every row): a slab of an image
+// split by rows over ranks runs the block on its rows and a 1-row halo of
+// its neighbours', and its sums, added over the ranks, take its own rows
+// only.
 //
 // Pass B (nafblock_apply_kernel): one CTA per output tile.  It recomputes
 // the gate chunk by chunk as pass A does, scales it by s and accumulates
@@ -129,7 +133,7 @@ __global__ void __launch_bounds__(kThreads) nafblock_sum_kernel(
     const float* __restrict__ lnb, const T* __restrict__ w1,
     const float* __restrict__ b1, const float* __restrict__ taps,
     const float* __restrict__ dwb, float* __restrict__ sum_part, int H, int W,
-    int C, int cpad, int th, int tw) {
+    int C, int cpad, int th, int tw, int row_lo, int row_hi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int split = blockIdx.x, nsplit = gridDim.x, b = blockIdx.y;
   const int rw = tw + 2, p1 = (th + 2) * rw, tp = th * tw;
@@ -160,8 +164,9 @@ __global__ void __launch_bounds__(kThreads) nafblock_sum_kernel(
       for (int idx = threadIdx.x; idx < tp * kGC; idx += blockDim.x) {
         const int p = idx / kGC, j = idx % kGC;
         const int py = p / tw, px = p % tw;
-        // pixels of the tile outside the image add nothing to the sums
-        const bool in = oy + py < H && ox + px < W;
+        // pixels of the tile outside the image or the row window add
+        // nothing to the sums
+        const bool in = oy + py >= row_lo && oy + py < row_hi && ox + px < W;
         gbuf[p * ldg + j] = from_f<T>(
             in ? gate_at<T>(hab, rw, py, px, j, j0, taps, dwb, cpad) : 0.f);
       }
@@ -298,7 +303,8 @@ template <typename T>
 int launch_sum(const void* x, const void* lnw, const void* lnb,
                const void* w1, const void* b1, const void* taps,
                const void* dwb, void* sum_part, int B, int H, int W, int C,
-               int cpad, int th, int tw, int nsplit, cudaStream_t stream) {
+               int cpad, int th, int tw, int nsplit, int row_lo, int row_hi,
+               cudaStream_t stream) {
   const size_t smem = sum_smem_bytes(C, cpad, th, tw, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
       nafblock_sum_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -307,7 +313,7 @@ int launch_sum(const void* x, const void* lnw, const void* lnb,
   nafblock_sum_kernel<T><<<dim3(nsplit, B), kThreads, smem, stream>>>(
       (const T*)x, (const float*)lnw, (const float*)lnb, (const T*)w1,
       (const float*)b1, (const float*)taps, (const float*)dwb,
-      (float*)sum_part, H, W, C, cpad, th, tw);
+      (float*)sum_part, H, W, C, cpad, th, tw, row_lo, row_hi);
   return (int)cudaGetLastError();
 }
 
@@ -392,21 +398,34 @@ int nafblock_ctas_per_sm(int pass, int C, int th, int tw, int is_bf16) {
 // x: (B, H, W, C); lnw, lnb: (C,) f32; w1: (2 cpad, C), per gate chunk of
 // kGC its first-half rows, then its second-half rows; b1, dwb: (2, cpad)
 // f32; taps: (18, cpad) f32, the first half's taps in rows 0-8; sum_part:
-// (B, nsplit, cpad) f32.  Returns a cudaError_t.
-int nafblock_sum(const void* x, const void* lnw, const void* lnb,
-                 const void* w1, const void* b1, const void* taps,
-                 const void* dwb, void* sum_part, int B, int H, int W, int C,
-                 int cpad, int is_bf16, int th, int tw, int nsplit,
-                 void* stream) {
-  if (!shape_ok(B, H, W, C, cpad, th, tw) || nsplit <= 0)
+// (B, nsplit, cpad) f32, the gate's sums over the pixels of image rows
+// [row_lo, row_hi) (0 <= row_lo <= row_hi <= H; a row-sharded slab's own
+// rows, without its halo).  Returns a cudaError_t.
+int nafblock_sum_rows(const void* x, const void* lnw, const void* lnb,
+                      const void* w1, const void* b1, const void* taps,
+                      const void* dwb, void* sum_part, int B, int H, int W,
+                      int C, int cpad, int is_bf16, int th, int tw,
+                      int nsplit, int row_lo, int row_hi, void* stream) {
+  if (!shape_ok(B, H, W, C, cpad, th, tw) || nsplit <= 0 || row_lo < 0 ||
+      row_hi < row_lo || row_hi > H)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16)
     return launch_sum<__nv_bfloat16>(x, lnw, lnb, w1, b1, taps, dwb,
                                      sum_part, B, H, W, C, cpad, th, tw,
-                                     nsplit, st);
+                                     nsplit, row_lo, row_hi, st);
   return launch_sum<float>(x, lnw, lnb, w1, b1, taps, dwb, sum_part, B, H, W,
-                           C, cpad, th, tw, nsplit, st);
+                           C, cpad, th, tw, nsplit, row_lo, row_hi, st);
+}
+
+// nafblock_sum_rows over every row of x.
+int nafblock_sum(const void* x, const void* lnw, const void* lnb,
+                 const void* w1, const void* b1, const void* taps,
+                 const void* dwb, void* sum_part, int B, int H, int W, int C,
+                 int cpad, int is_bf16, int th, int tw, int nsplit,
+                 void* stream) {
+  return nafblock_sum_rows(x, lnw, lnb, w1, b1, taps, dwb, sum_part, B, H, W,
+                           C, cpad, is_bf16, th, tw, nsplit, 0, H, stream);
 }
 
 // s: (B, C) in x's dtype, the SCA scale; w3, w5: (C, cpad); w4 and b4 as w1

@@ -10,10 +10,11 @@ parameter tree.
 
 Modules take and return (B, H, W, C) tensors; convolutions run on the
 NCHW channels_last view of the same memory.  The modules of
-RestormerRefFusion also take `shard`, a parallel.spatial.RowShard, where
-the tensor is one rank's slab of a row-sharded image: each 3x3 conv then
-reads one row of each neighbour (`conv_rows`), and each block its halo and
-the statistics summed over the ranks (`tblock_fused`).  Parameters stay
+RestormerRefFusion, NAFNetRefFusion and PromptIRRefFusion also take
+`shard`, a parallel.spatial.RowShard, where the tensor is one rank's slab
+of a row-sharded image: each 3x3 conv then reads one row of each
+neighbour (`conv_rows`), and each block its halo and the statistics summed
+over the ranks (`tblock_fused`, `nafblock_fused`).  Parameters stay
 float32, as in the JAX package (`param_dtype=jnp.float32`); the compute dtype is that of
 the activations, which the model casts its input to (`define_network(opt,
 dtype=...)`), and every weight is cast to it at use (convs, the block
@@ -567,7 +568,9 @@ class NAFBlock(nn.Module):
     plain `nafblock_ref` for CPU tensors), in the dtype of its input.  A
     TLC local pool or another expansion runs `module_forward`, op by op.
     The TLC kernel is the constructor's, or the call's: the Local networks
-    derive it from the input's size at each call."""
+    derive it from the input's size at each call.  On one rank's slab of a
+    row-sharded image (`shard`) the whole-block route runs its sharded
+    forward; the module path has none and refuses a shard."""
 
     def __init__(self, c: int, dw_expand: int = 2, ffn_expand: int = 2,
                  tlc_kernel: tuple[int, int] | None = None):
@@ -602,15 +605,20 @@ class NAFBlock(nn.Module):
             w5=_hwio(self.conv5.weight), b5=self.conv5.bias,
             gamma=self.gamma.permute(0, 2, 3, 1))
 
-    def forward(self, x, tlc_kernel=None):
+    def forward(self, x, tlc_kernel=None, shard=None):
         tk = self.tlc_kernel if tlc_kernel is None else tlc_kernel
         if tk is not None or self.dw_expand != 2 or self.ffn_expand != 2:
+            if shard is not None:
+                raise ValueError(f"{type(self).__name__}: the module path (a "
+                                 "TLC local pool or expansions other than "
+                                 "2) has no row-sharded forward")
             return self.module_forward(x, tk)
         # the kernel takes dense NHWC; the fusion blocks' cat is dense
         x = x.contiguous()
         p = self.block_params()
         return nafblock_fused(x, p, _cached_kernel_weights(
-            self, p, x, lambda: prepare_nafblock_weights(p, x.dtype)))
+            self, p, x, lambda: prepare_nafblock_weights(p, x.dtype)),
+            shard=shard)
 
     def module_forward(self, inp, tlc_kernel=None):
         x = conv_nhwc(self.conv1, self.norm1(inp))

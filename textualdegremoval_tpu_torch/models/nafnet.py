@@ -8,6 +8,15 @@ SCA global pool becomes a box-filtered local pool whose kernel is 1.5 times
 the train size, scaled by the test/train ratio.  `dtype` is the compute
 dtype (the JAX modules' `dtype`): the input is cast to it and every weight
 at use, while the parameters stay float32.
+
+NAFNetRefFusion's forward also runs on one rank's slab of an image split
+by rows over torch.distributed ranks (`shard`, a parallel.spatial.RowShard;
+the evaluate CLI's --spatial_shard): the 3x3 convs and MASA's encoder and
+search on the slab with their neighbours' rows, every NAFBlock on a 1-row
+halo with its SCA mean summed over the ranks (`nafblock_fused`), and the
+2x2 stride-2 downsamplings and the 1x1 + pixel-shuffle upsamplings on the
+slab alone, whose rows are whole units of every level.  It needs the
+whole-block route (no TLC local pool, expansions 2).
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from textualdegremoval_tpu_torch.models.layers import (
     MASAEncoder,
     NAFBlock,
     conv_nhwc,
+    conv_rows,
     masa_encode_pair,
 )
 from textualdegremoval_tpu_torch.ops import (
@@ -73,18 +83,24 @@ class NAFNet(nn.Module):
             chan //= 2
             self.decoders.append(_blocks(chan, n))
 
-    def _stage(self, blocks, x, scale):
-        """The blocks of a level, with its TLC kernel from x's size."""
+    def _stage(self, blocks, x, scale, shard=None):
+        """The blocks of a level, with its TLC kernel from x's size; on a
+        slab of a row-sharded image, shard: the layout at that level."""
         tk = _tlc_kernel(self.tlc_train_size, scale, x.shape)
         for blk in blocks:
-            x = blk(x, tk)
+            x = blk(x, tk, shard)
         return x
 
-    def _decode(self, x, encs, scale):
+    def _decode(self, x, encs, scale, shards=None):
+        """The decoder; shards: the row layout at each level (full
+        resolution first) on a slab of a row-sharded image, else None."""
+        level = len(encs)
         for up, dec, skip in zip(self.ups, self.decoders, encs[::-1]):
             x = pixel_shuffle(conv_nhwc(up[0], x), 2) + skip
             scale //= 2
-            x = self._stage(dec, x, scale)
+            level -= 1
+            x = self._stage(dec, x, scale,
+                            None if shards is None else shards[level])
         return x
 
     def forward(self, inp):
@@ -139,33 +155,55 @@ class NAFNetRefFusion(NAFNet):
         self.masa_blk_middle = nn.ModuleList([
             _blocks(width * 2 ** (n_levels + 1), reffusion_n_blocks_middle)])
 
-    def _fuse(self, x, warp_l, blocks, scale):
-        cat = torch.cat([x, warp_l.to(x.dtype)], dim=-1)
-        return self._stage(blocks, cat, scale)[..., : cat.shape[-1] // 2]
+    @property
+    def row_unit(self) -> int:
+        """The rows of one unit of a row-sharded image: the network's
+        padding multiple, 2^levels lr_block_size (one block row of MASA's
+        grid at the deepest level, which every 2x downsampling divides)."""
+        return 2 ** len(self.encoders) * self.lr_block_size
 
-    def forward(self, inp, ref):
-        """inp: (B, H, W, C); ref: (B, Hr, Wr, C).  Returns (B, H, W, C)."""
+    def _fuse(self, x, warp_l, blocks, scale, shard=None):
+        cat = torch.cat([x, warp_l.to(x.dtype)], dim=-1)
+        return self._stage(blocks, cat, scale, shard)[
+            ..., : cat.shape[-1] // 2]
+
+    def forward(self, inp, ref, shard=None):
+        """inp: (B, H, W, C); ref: (B, Hr, Wr, C).  Returns (B, H, W, C).
+
+        shard: a parallel.spatial.RowShard of unit `row_unit` where inp is
+        one rank's slab (`shard.slab`) of an image zero-padded at the
+        bottom to shard.height rows; every rank passes the whole reference.
+        Returns the slab's rows of the output (B, shard.local, W, C), which
+        `parallel.spatial.gather_rows` puts together."""
         _, h0, w0, _ = inp.shape
-        pad = 2 ** len(self.encoders) * self.lr_block_size
+        pad = self.row_unit
+        n_levels = len(self.encoders)
+        if shard is not None and (shard.unit != pad or h0 != shard.local):
+            raise ValueError(f"{type(self).__name__}: a slab of {h0} rows in "
+                             f"units of {shard.unit}; the layout needs "
+                             f"{shard.local} in units of {pad}")
+        s = ([None] * (n_levels + 1) if shard is None
+             else [shard.scaled(2 ** i) for i in range(n_levels + 1)])
         x_in = pad_to_multiple(inp.to(self.dtype), pad)
         ref_in = pad_to_multiple(ref.to(self.dtype), pad)
 
-        feat_lq, feat_ref = masa_encode_pair(self.masa_enc, x_in, ref_in)
+        feat_lq, feat_ref = masa_encode_pair(self.masa_enc, x_in, ref_in,
+                                             s[0])
         warp = masa_match_and_warp(
             feat_lq[-1], feat_ref, lr_block_size=self.lr_block_size,
             ref_down_block_size=self.ref_down_block_size, psize=self.psize,
-            dilations=self.dilations)
+            dilations=self.dilations, shard=s[-1])
 
-        x = conv_nhwc(self.intro, x_in)
+        x = conv_rows(self.intro, x_in, s[0])
         encs, scale = [], 1
         for li, (enc, down) in enumerate(zip(self.encoders, self.downs)):
-            x = self._fuse(x, warp[li], self.masa_blk_enc[li], scale)
-            x = self._stage(enc, x, scale)
+            x = self._fuse(x, warp[li], self.masa_blk_enc[li], scale, s[li])
+            x = self._stage(enc, x, scale, s[li])
             encs.append(x)
-            x = conv_nhwc(down, x)
+            x = conv_nhwc(down, x)  # 2x2 stride 2: within a slab's rows
             scale *= 2
-        x = self._fuse(x, warp[-1], self.masa_blk_middle[0], scale)
-        x = self._stage(self.middle_blks, x, scale)
-        x = self._decode(x, encs, scale)
-        x = conv_nhwc(self.ending, x) + x_in
+        x = self._fuse(x, warp[-1], self.masa_blk_middle[0], scale, s[-1])
+        x = self._stage(self.middle_blks, x, scale, s[-1])
+        x = self._decode(x, encs, scale, None if shard is None else s)
+        x = conv_rows(self.ending, x, s[0]) + x_in
         return x[:, :h0, :w0]

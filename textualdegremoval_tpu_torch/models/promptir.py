@@ -13,6 +13,14 @@ parameter names are the reference's torch names (tests/torch_oracles.py
 OPromptGen, OPromptIR).  `dtype` is the compute dtype, and `fused`,
 `gdfn_fused` and `mdta_pallas` pick every block's route, as in
 models/restormer.py.
+
+PromptIRRefFusion's forward also runs on one rank's slab of an image split
+by rows over torch.distributed ranks (`shard`, a parallel.spatial.RowShard;
+the evaluate CLI's --spatial_shard), as RestormerRefFusion's does; each
+PromptGenBlock's mean is then its slab's float32 sums summed over the
+ranks over the whole image's pixels, and its prompt is resized to the
+whole image's height before the slab's rows are cut from it.  It needs the
+whole-block route (fused=True, chain=False).
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from textualdegremoval_tpu_torch.models.layers import (
     TransformerResFusionBlock,
     Upsample,
     conv_nhwc,
+    conv_rows,
     masa_encode_pair,
 )
 from textualdegremoval_tpu_torch.ops import (
@@ -39,6 +48,21 @@ from textualdegremoval_tpu_torch.ops import (
     masa_match_and_warp,
     pad_to_multiple,
 )
+from textualdegremoval_tpu_torch.parallel.spatial import reduce_stats
+
+
+def prompt_rows(prompt, shard, w: int) -> torch.Tensor:
+    """The slab's rows of a (B, S, S, D) prompt bank resized bilinearly to
+    the whole image (shard.height rows, w columns), with one row of each
+    neighbour's above and below and zero rows past the image's true edges
+    (the 3x3 conv's zero padding): (B, shard.local + 2, w, D).  A rank
+    without rows gets zeros, which nobody reads."""
+    if not shard.rows:
+        return prompt.new_zeros((prompt.shape[0], shard.local + 2, w,
+                                 prompt.shape[-1]))
+    full = F.pad(bilinear_resize_torch(prompt, shard.height, w),
+                 (0, 0, 0, 0, 1, 1))
+    return full[:, shard.start: shard.start + shard.rows + 2]
 
 
 class PromptGenBlock(nn.Module):
@@ -56,16 +80,32 @@ class PromptGenBlock(nn.Module):
         self.conv3x3 = nn.Conv2d(prompt_dim, prompt_dim, 3, padding=1,
                                  bias=False)
 
-    def forward(self, x):
-        """x: (B, H, W, lin_dim).  Returns (B, H, W, prompt_dim)."""
+    def forward(self, x, shard=None):
+        """x: (B, H, W, lin_dim).  Returns (B, H, W, prompt_dim).
+
+        shard: a parallel.spatial.RowShard where x is one rank's slab of a
+        row-sharded image: the mean is the float32 sums of its own rows,
+        summed over the ranks, over the whole image's pixels, and the
+        prompt is resized to the whole image before the conv reads the
+        slab's rows of it (`prompt_rows`)."""
         _, h, w, _ = x.shape
         lin = self.linear_layer
-        weights = torch.softmax(F.linear(x.mean(dim=(1, 2)),
-                                         lin.weight.to(x.dtype),
+        if shard is None:
+            mean = x.mean(dim=(1, 2))
+        else:
+            sums = x[:, : shard.rows].float().sum((1, 2))
+            reduce_stats(sums, shard=shard)
+            mean = (sums / (shard.height * w)).to(x.dtype)
+        weights = torch.softmax(F.linear(mean, lin.weight.to(x.dtype),
                                          lin.bias.to(x.dtype)), dim=1)
         bank = self.prompt_param.permute(0, 1, 3, 4, 2).to(x.dtype)
         prompt = (weights[:, :, None, None, None] * bank).sum(dim=1)
-        return conv_nhwc(self.conv3x3, bilinear_resize_torch(prompt, h, w))
+        if shard is None:
+            return conv_nhwc(self.conv3x3,
+                             bilinear_resize_torch(prompt, h, w))
+        y = F.conv2d(prompt_rows(prompt, shard, w).permute(0, 3, 1, 2),
+                     self.conv3x3.weight.to(x.dtype), None, 1, (0, 1))
+        return y.permute(0, 2, 3, 1)
 
 
 class _PromptIRTrunk(nn.Module):
@@ -126,38 +166,44 @@ class _PromptIRTrunk(nn.Module):
                             TransformerResFusionBlock(ch, heads[level], **blk)
                             for _ in range(reffusion_n_blocks[level])]))
 
-    def _prompt(self, x, level):
-        """The decoder prompt stage of `level` (3, 2, 1)."""
+    def _prompt(self, x, level, shard=None):
+        """The decoder prompt stage of `level` (3, 2, 1); shard: the row
+        layout at its resolution on a slab of a row-sharded image."""
         if not self.decoder:
             return x
-        x = torch.cat([x, getattr(self, f"prompt{level}")(x)], dim=-1)
-        x = getattr(self, f"noise_level{level}")(x)
+        x = torch.cat([x, getattr(self, f"prompt{level}")(x, shard)], dim=-1)
+        x = getattr(self, f"noise_level{level}")(x, shard)
         return conv_nhwc(getattr(self, f"reduce_noise_level{level}"), x)
 
-    def trunk(self, inp, warp=None):
+    def trunk(self, inp, warp=None, shards=(None,) * 4):
         """inp: (B, H, W, C_in) in the compute dtype, padded; warp: the
-        MASA warp pyramid, fused in at every encoder level when given."""
+        MASA warp pyramid, fused in at every encoder level when given;
+        shards: the row layout at each level (full resolution first) on a
+        slab of a row-sharded image, else None."""
+        s0, s1, s2, s3 = shards
 
-        def fuse(x, level):
+        def fuse(x, level, shard):
             if warp is None:
                 return x
-            cat = torch.cat([x, warp[level - 1].to(x.dtype)], dim=-1)
-            blocks = getattr(self, f"masa_blk_enc_level{level}")
-            return blocks(cat)[..., : cat.shape[-1] // 2]
+            y = torch.cat([x, warp[level - 1].to(x.dtype)], dim=-1)
+            for blk in getattr(self, f"masa_blk_enc_level{level}"):
+                y = blk(y, shard)
+            return y[..., : y.shape[-1] // 2]
 
-        e1 = self.encoder_level1(fuse(self.patch_embed(inp), 1))
-        e2 = self.encoder_level2(fuse(self.down1_2(e1), 2))
-        e3 = self.encoder_level3(fuse(self.down2_3(e2), 3))
-        latent = self._prompt(self.latent(fuse(self.down3_4(e3), 4)), 3)
+        e1 = self.encoder_level1(fuse(self.patch_embed(inp, s0), 1, s0), s0)
+        e2 = self.encoder_level2(fuse(self.down1_2(e1, s0), 2, s1), s1)
+        e3 = self.encoder_level3(fuse(self.down2_3(e2, s1), 3, s2), s2)
+        latent = self._prompt(self.latent(fuse(self.down3_4(e3, s2), 4, s3),
+                                          s3), 3, s3)
         y = conv_nhwc(self.reduce_chan_level3,
-                      torch.cat([self.up4_3(latent), e3], dim=-1))
-        y = self._prompt(self.decoder_level3(y), 2)
+                      torch.cat([self.up4_3(latent, s3), e3], dim=-1))
+        y = self._prompt(self.decoder_level3(y, s2), 2, s2)
         y = conv_nhwc(self.reduce_chan_level2,
-                      torch.cat([self.up3_2(y), e2], dim=-1))
-        y = self._prompt(self.decoder_level2(y), 1)
-        y = torch.cat([self.up2_1(y), e1], dim=-1)
-        y = self.refinement(self.decoder_level1(y))
-        return conv_nhwc(self.output, y) + inp
+                      torch.cat([self.up3_2(y, s2), e2], dim=-1))
+        y = self._prompt(self.decoder_level2(y, s1), 1, s1)
+        y = torch.cat([self.up2_1(y, s1), e1], dim=-1)
+        y = self.refinement(self.decoder_level1(y, s0), s0)
+        return conv_rows(self.output, y, s0) + inp
 
 
 class PromptIR(_PromptIRTrunk):
@@ -215,16 +261,35 @@ class PromptIRRefFusion(_PromptIRTrunk):
         self.dilations = tuple(dilations)
         self.masa_enc = MASAEncoder(inp_channels, nf, ext_n_blocks, 4)
 
-    def forward(self, inp_img, ref_img):
+    @property
+    def row_unit(self) -> int:
+        """The rows of one unit of a row-sharded image: the network's
+        padding multiple, 8 lr_block_size (one block row of MASA's grid at
+        the deepest level, which all three 2x downsamplings divide)."""
+        return 8 * self.lr_block_size
+
+    def forward(self, inp_img, ref_img, shard=None):
         """inp_img: (B, H, W, C_in); ref_img: (B, Hr, Wr, 3 or C_in).
-        Returns (B, H, W, C_out)."""
+        Returns (B, H, W, C_out).
+
+        shard: a parallel.spatial.RowShard of unit `row_unit` where inp_img
+        is one rank's slab (`shard.slab`) of an image zero-padded at the
+        bottom to shard.height rows; every rank passes the whole reference.
+        Returns the slab's rows of the output (B, shard.local, W, C_out),
+        which `parallel.spatial.gather_rows` puts together."""
         _, h0, w0, _ = inp_img.shape
-        pad = 8 * self.lr_block_size
+        pad = self.row_unit
+        if shard is not None and (shard.unit != pad or h0 != shard.local):
+            raise ValueError(f"PromptIRRefFusion: a slab of {h0} rows in "
+                             f"units of {shard.unit}; the layout needs "
+                             f"{shard.local} in units of {pad}")
+        s = ([None] * 4 if shard is None
+             else [shard.scaled(2 ** i) for i in range(4)])
         inp = pad_to_multiple(inp_img.to(self.dtype), pad)
         ref = pad_to_multiple(ref_img.to(self.dtype), pad)
-        feat_lq, feat_ref = masa_encode_pair(self.masa_enc, inp, ref)
+        feat_lq, feat_ref = masa_encode_pair(self.masa_enc, inp, ref, s[0])
         warp = masa_match_and_warp(
             feat_lq[-1], feat_ref, lr_block_size=self.lr_block_size,
             ref_down_block_size=self.ref_down_block_size, psize=self.psize,
-            dilations=self.dilations)
-        return self.trunk(inp, warp)[:, :h0, :w0]
+            dilations=self.dilations, shard=s[3])
+        return self.trunk(inp, warp, s)[:, :h0, :w0]

@@ -77,11 +77,13 @@ _SIGNATURES = {
     "naf_gemm_gate": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "naf_gate_chunk": ([], _I),
     "naf_gate_stencil": ([_P] * 6 + [_I] * 6 + [_P], _I),
+    "naf_gate_stencil_rows": ([_P] * 6 + [_I] * 8 + [_P], _I),
     "naf_sca_glue": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "nafblock_smem_bytes": ([_I] * 5, _L),
     "nafblock_gate_chunk": ([], _I),
     "nafblock_ctas_per_sm": ([_I] * 5, _I),
     "nafblock_sum": ([_P] * 8 + [_I] * 9 + [_P], _I),
+    "nafblock_sum_rows": ([_P] * 8 + [_I] * 11 + [_P], _I),
     "nafblock_apply": ([_P] * 16 + [_I] * 8 + [_P], _I),
     "gdfn_smem": ([_I] * 4, _L),
     "gdfn_fwd": ([_P] * 5 + [_I] * 8 + [_P], _I),

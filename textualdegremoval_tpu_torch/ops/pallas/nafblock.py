@@ -34,6 +34,17 @@ whose backward recomputes through `nafblock_ref` one half at a time, as the
 JAX `_nafblock_ref_remat` does: the JAX kernel has no backward kernel.
 Nothing but the inputs is kept from the forward.
 
+A block on one rank's slab of an image split by rows over
+torch.distributed ranks (`shard`, the evaluate CLI's --spatial_shard) runs
+on the slab and NAF_HALO row of each neighbour's (tblock.py `_sharded`):
+the SCA's pixel sums take the slab's own rows only (the kernels' row
+window: csrc/nafblock.cu's `nafblock_sum_rows`, the pipeline's
+`naf_gate_stencil_rows`; the plain version's `sca_pool` over them), are
+summed in float32 over the ranks and divided by the whole image's pixel
+count, and the halo rows are cropped from the output.  Without a shard
+every kernel's window is the whole tensor, as before.  A sharded block is
+a forward only.
+
 A CPU tensor goes through `nafblock_ref` (plain autograd); a CUDA tensor
 launches the kernels or raises.  `nafblock_fused.launches` counts block
 calls on the card (either route), never plain-version calls;
@@ -47,7 +58,7 @@ import torch
 from textualdegremoval_tpu_torch.ops.dwconv import dwconv
 from textualdegremoval_tpu_torch.ops.norm import layer_norm_2d
 from textualdegremoval_tpu_torch.ops.pallas.tblock import (
-    _card, _check, _first_fit, _ptr,
+    _card, _check, _first_fit, _ptr, _sharded,
 )
 
 # NAFNet's LayerNorm2d epsilon (ops/norm.py layer_norm_2d)
@@ -61,6 +72,11 @@ GATE_CHUNK = 32
 # fits one block is taken.  Both passes hold LN1 of the tile and its 1-pixel
 # halo at full width, so wide blocks get small tiles.
 _TILES = ((4, 8), (4, 4), (2, 4), (2, 2), (1, 2), (1, 1))
+
+# rows of the neighbours a sharded block reads: the depthwise 3x3 conv's,
+# on conv1's output (which the block zero-pads, not x: so the halo holds
+# only what the neighbours have, `halo_rows`)
+NAF_HALO = 1
 
 # the parameters of each half (the backward differentiates one at a time)
 _CONV_KEYS = ("norm1_w", "norm1_b", "w1", "b1", "dw", "dwb", "sca_w", "sca_b",
@@ -77,14 +93,26 @@ def _lin(v, w, b, cin, cout):
     return v @ w.reshape(cin, cout).to(v.dtype) + b.to(v.dtype)
 
 
-def _nafblock_conv_part(x, p):
+def sca_pool(g, rows=None, reduce=None, pixels=None):
+    """The SCA's global mean of the gate g (B, H, W, C), (B, 1, 1, C) in
+    g's dtype.  On a slab of a row-sharded image: float32 sums over g's
+    rows [lo, hi) = rows (its own, not its halo), summed over the ranks by
+    reduce (in place), divided by `pixels`, the whole image's count."""
+    if reduce is None:
+        return g.mean(dim=(1, 2), keepdim=True)
+    sums = g[:, rows[0]: rows[1]].float().sum((1, 2))
+    reduce(sums)
+    return (sums / pixels).to(g.dtype)[:, None, None]
+
+
+def _nafblock_conv_part(x, p, rows=None, reduce=None, pixels=None):
     c = x.shape[-1]
     dt = x.dtype
     y = layer_norm_2d(x, p["norm1_w"], p["norm1_b"])
     h = _lin(y, p["w1"], p["b1"], c, 2 * c)
     h = dwconv(h, p["dw"]) + p["dwb"].to(dt)
     g = h[..., :c] * h[..., c:]
-    pooled = g.mean(dim=(1, 2), keepdim=True)
+    pooled = sca_pool(g, rows, reduce, pixels)
     s = _lin(pooled, p["sca_w"], p["sca_b"], c, c)
     o = _lin(g * s, p["w3"], p["b3"], c, c)
     return x + o * p["beta"].reshape(1, 1, 1, c).to(dt)
@@ -98,12 +126,20 @@ def _nafblock_ffn_part(y1, p):
     return y1 + o2 * p["gamma"].reshape(1, 1, 1, c).to(y1.dtype)
 
 
-def nafblock_ref(x, p):
+def nafblock_ref(x, p, shard=None):
     """Whole NAFBlock, plain torch.  x: (B, H, W, C).  p keys (JAX natural
     shapes): norm1_w/b (C,), w1 (1,1,C,2C), b1 (2C,), dw (3,3,1,2C),
     dwb (2C,), sca_w (1,1,C,C), sca_b (C,), w3 (1,1,C,C), b3 (C,),
     beta (1,1,1,C), norm2_w/b, w4 (1,1,C,2C), b4 (2C,), w5 (1,1,C,C),
-    b5 (C,), gamma (1,1,1,C)."""
+    b5 (C,), gamma (1,1,1,C).
+
+    shard: a parallel.spatial.RowShard where x is one rank's slab of a
+    row-sharded image (tblock.py `_sharded`, NAF_HALO rows)."""
+    if shard is not None:
+        pixels = shard.height * x.shape[2]
+        return _sharded(x, shard, NAF_HALO, lambda ext, rows, reduce:
+                        _nafblock_ffn_part(_nafblock_conv_part(
+                            ext, p, rows, reduce, pixels), p))
     return _nafblock_ffn_part(_nafblock_conv_part(x, p), p)
 
 
@@ -183,23 +219,31 @@ def prepare_nafblock_weights(p, dtype: torch.dtype) -> dict:
         cpad=cpad, dtype=dtype)
 
 
-def _launch(lib, x, kw, sum_tile, apply_tile, nsplit, stream):
+def _launch(lib, x, kw, sum_tile, apply_tile, nsplit, stream, rows=None,
+            reduce=None, pixels=None):
     """Pass A, the SCA glue and pass B on already validated inputs.  Outputs
     and partials are allocated on x's device; `stream` is a cudaStream_t as
-    an int (0 for the default stream)."""
+    an int (0 for the default stream).  rows, reduce, pixels: a sharded
+    slab's window of rows for the sums, their sum over the ranks and the
+    whole image's pixel count (`sca_pool`)."""
     b, hgt, wdt, c = x.shape
+    lo, hi = (0, hgt) if rows is None else rows
     cpad = kw["cpad"]
     is_bf16 = int(x.dtype == torch.bfloat16)
     part = torch.empty((b, nsplit, cpad), dtype=torch.float32,
                        device=x.device)
-    _check(lib.nafblock_sum(
+    _check(lib.nafblock_sum_rows(
         _ptr(x), _ptr(kw["ln1w"]), _ptr(kw["ln1b"]), _ptr(kw["w1"]),
         _ptr(kw["b1"]), _ptr(kw["taps"]), _ptr(kw["dwb"]), _ptr(part), b, hgt,
-        wdt, c, cpad, is_bf16, sum_tile[0], sum_tile[1], nsplit, stream),
-        lib, "nafblock_sum")
+        wdt, c, cpad, is_bf16, sum_tile[0], sum_tile[1], nsplit, lo, hi,
+        stream), lib, "nafblock_sum")
 
     # SCA glue: global mean -> 1x1 (JAX :315-319)
-    pooled = (part.sum(1)[:, :c] / (hgt * wdt)).to(x.dtype)
+    sums = part.sum(1)
+    if reduce is not None:
+        reduce(sums)
+    pooled = (sums[:, :c] / (hgt * wdt if pixels is None else pixels)).to(
+        x.dtype)
     s = (pooled @ kw["sca_w"] + kw["sca_b"]).contiguous()
 
     out = torch.empty_like(x)
@@ -231,13 +275,17 @@ def _naf_nsplit(lib, b, hgt, wdt, nchunk, sms):
     return max(1, min(tiles, 2 * 4 * sms // (b * nchunk)))
 
 
-def naf_pipeline(lib, x, kw, sms, stream):
+def naf_pipeline(lib, x, kw, sms, stream, rows=None, reduce=None,
+                 pixels=None):
     """The bf16 block forward as the Hopper pipeline laid out at the top of
     csrc/naf_stencil.cu, on validated inputs that `_takes_naf_pipeline`
     admits.  `sms` (the card's SMs) sets the stencil's splits; `stream` is
     a cudaStream_t as an int.  Scratch is allocated on x's device and
-    dropped as the block goes.  `naf_pipeline.launches` counts its block
-    calls."""
+    dropped as the block goes.  rows, reduce, pixels as `_launch` takes
+    them: a sharded slab's SUM pass takes its window, its partials are
+    summed here and over the ranks, and the glue takes them as one
+    partial over the whole image's pixels.  `naf_pipeline.launches`
+    counts its block calls."""
     from textualdegremoval_tpu_torch.ops.pallas.tblock_bwd import _ln_rows
 
     b, hgt, wdt, c = x.shape
@@ -251,13 +299,20 @@ def naf_pipeline(lib, x, kw, sms, stream):
            lib, "naf_gemm_bias")
     del ys
     nsplit = _naf_nsplit(lib, b, hgt, wdt, cpad // GATE_CHUNK, sms)
+    lo, hi = (0, hgt) if rows is None else rows
     part = torch.empty((b, nsplit, cpad), dtype=f32, device=dev)
-    _check(lib.naf_gate_stencil(_ptr(hids), _ptr(kw["taps"]), _ptr(kw["dwb"]),
-                                None, None, _ptr(part), b, hgt, wdt, cpad,
-                                nsplit, 0, stream), lib, "naf_gate_stencil")
+    _check(lib.naf_gate_stencil_rows(
+        _ptr(hids), _ptr(kw["taps"]), _ptr(kw["dwb"]), None, None, _ptr(part),
+        b, hgt, wdt, cpad, nsplit, 0, lo, hi, stream), lib,
+        "naf_gate_stencil")
+    count, nparts = hgt * wdt, nsplit
+    if reduce is not None:  # one partial: the sums over every rank's rows
+        part = part.sum(1, keepdim=True)
+        reduce(part)
+        count, nparts = pixels, 1
     s = torch.empty((b, cpad), dtype=f32, device=dev)
     _check(lib.naf_sca_glue(_ptr(part), _ptr(kw["sca_w"]), _ptr(kw["sca_b"]),
-                            _ptr(s), b, hgt * wdt, c, cpad, nsplit, stream),
+                            _ptr(s), b, count, c, cpad, nparts, stream),
            lib, "naf_sca_glue")
     del part
     gs = torch.empty((npix, cpad), dtype=bf, device=dev)
@@ -327,20 +382,22 @@ def _validate(x, kw):
         raise ValueError("nafblock_fused: prepared weights do not match x")
 
 
-def _forward_kernel(x, kw):
+def _forward_kernel(x, kw, rows=None, reduce=None, pixels=None):
     """Validated launch of the forward kernels on a CUDA tensor: the
-    pipeline or the pair, as `_takes_naf_pipeline` rules."""
+    pipeline or the pair, as `_takes_naf_pipeline` rules; rows, reduce and
+    pixels as `_launch` takes them."""
     _validate(x, kw)
     lib = _kernel_library()
     stream, sms = _card(x.device)
     if _takes_naf_pipeline(x):
-        out = naf_pipeline(lib, x, kw, sms, stream)
+        out = naf_pipeline(lib, x, kw, sms, stream, rows, reduce, pixels)
     else:
         b, hgt, wdt, c = x.shape
         sum_tile, apply_tile = pick_tiles(lib, c, x.element_size())
         ntiles = (-(-hgt // sum_tile[0])) * (-(-wdt // sum_tile[1]))
         nsplit = max(1, min(ntiles, -(-2 * sms // b)))
-        out = _launch(lib, x, kw, sum_tile, apply_tile, nsplit, stream)
+        out = _launch(lib, x, kw, sum_tile, apply_tile, nsplit, stream, rows,
+                      reduce, pixels)
     nafblock_fused.launches += 1
     return out
 
@@ -382,19 +439,32 @@ class _NAFBlockFunction(torch.autograd.Function):
         return (dx, None, None, *(grads[k] for k in ctx.keys))
 
 
-def nafblock_fused(x: torch.Tensor, p, kw: dict | None = None):
+def nafblock_fused(x: torch.Tensor, p, kw: dict | None = None, shard=None):
     """Whole NAFBlock.  x: (B, H, W, C) float32 or bfloat16; p: the
     natural-shape parameter dict of `nafblock_ref`; kw: its
     `prepare_nafblock_weights` output, built once by the caller and
-    required on CUDA (NAFBlock caches it per module).
+    required on CUDA (NAFBlock caches it per module).  shard: a
+    parallel.spatial.RowShard where x is one rank's slab of a row-sharded
+    image (the kernels run on the slab and its halo, their sums' window
+    on the slab's own rows); a forward only, so a call that needs a
+    gradient raises.
 
     CPU tensors take `nafblock_ref`.  CUDA tensors launch the kernels at
     every shape (the bf16 pipeline or csrc/nafblock.cu's pair, as
     `_takes_naf_pipeline` rules); any input they cannot take raises."""
-    if x.device.type == "cpu":
-        return nafblock_ref(x, p)
     needs_grad = torch.is_grad_enabled() and (
         x.requires_grad or any(v.requires_grad for v in p.values()))
+    if shard is not None:
+        if needs_grad:
+            raise ValueError("nafblock_fused: a row-sharded block is a "
+                             "forward only; it has no gradient")
+        if x.device.type == "cpu":
+            return nafblock_ref(x, p, shard)
+        pixels = shard.height * x.shape[2]
+        return _sharded(x, shard, NAF_HALO, lambda ext, rows, reduce:
+                        _forward_kernel(ext, kw, rows, reduce, pixels))
+    if x.device.type == "cpu":
+        return nafblock_ref(x, p)
     if not needs_grad:
         return _forward_kernel(x, kw)
     keys = tuple(p)

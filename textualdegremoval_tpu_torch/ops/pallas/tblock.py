@@ -138,9 +138,10 @@ def tblock_ref(x, p, heads: int, ln_type: str = "WithBias", shard=None):
     shard: a parallel.spatial.RowShard where x is one rank's slab of a
     row-sharded image (`_sharded`)."""
     if shard is not None:
-        return _sharded(x, shard, lambda ext, rows, reduce: _tblock_gdfn_part(
-            _tblock_attn_part(ext, p, heads, ln_type, rows, reduce), p,
-            ln_type))
+        return _sharded(x, shard, BLOCK_HALO,
+                        lambda ext, rows, reduce: _tblock_gdfn_part(
+                            _tblock_attn_part(ext, p, heads, ln_type, rows,
+                                              reduce), p, ln_type))
     x = _tblock_attn_part(x, p, heads, ln_type)
     return _tblock_gdfn_part(x, p, ln_type)
 
@@ -150,15 +151,16 @@ def tblock_ref(x, p, heads: int, ln_type: str = "WithBias", shard=None):
 BLOCK_HALO = 2
 
 
-def _sharded(x, shard, block):
-    """The block on one rank's slab x of a row-sharded image: block(ext,
-    rows, reduce) on the slab with BLOCK_HALO rows of each neighbour
-    (none past the image's true edges, where the block's own zero padding
-    of q | k | v and the GDFN hidden applies), its attention statistics
-    over rows = the slab's own rows of ext only, summed over the ranks by
-    reduce before the softmax; the halo rows are cropped from the
-    output."""
-    ext, top = halo_rows(x, BLOCK_HALO, shard)
+def _sharded(x, shard, halo, block):
+    """A block on one rank's slab x of a row-sharded image: block(ext,
+    rows, reduce) on the slab with `halo` rows of each neighbour (none
+    past the image's true edges, where the block's own zero padding of
+    its stencils' inputs applies: q | k | v and the GDFN hidden here
+    with BLOCK_HALO, conv1's output in a NAFBlock), its statistics over
+    rows = the slab's own rows of ext only, summed over the ranks by
+    reduce (in place) before they are used; the halo rows are cropped
+    from the output."""
+    ext, top = halo_rows(x, halo, shard)
     out = block(ext.contiguous(), (top, top + shard.rows),
                 lambda *t: reduce_stats(*t, shard=shard))
     return out[:, top: top + shard.local]
@@ -603,8 +605,10 @@ def tblock_fused(x: torch.Tensor, p, heads: int, ln_type: str = "WithBias",
                              "only; it has no gradient")
         if x.device.type == "cpu":
             return tblock_ref(x, p, heads, ln_type, shard)
-        return _sharded(x, shard, lambda ext, rows, reduce: _forward_kernel(
-            ext, kw, heads, ln_type, rows=rows, reduce=reduce))
+        return _sharded(x, shard, BLOCK_HALO,
+                        lambda ext, rows, reduce: _forward_kernel(
+                            ext, kw, heads, ln_type, rows=rows,
+                            reduce=reduce))
     if x.device.type == "cpu":
         return tblock_ref(x, p, heads, ln_type)
     if bwd_mode not in ("save", "remat"):

@@ -7,7 +7,9 @@ weights and the reference are replicated, and GSPMD inserts the halo
 exchanges of the convolutions and the reductions of the attention
 statistics.  Here each rank is one process that holds one slab of rows,
 and the network asks for each exchange and reduction itself (the layout
-is passed down as an argument, `model(lq_slab, ref, shard=...)`):
+is passed down as an argument, `model(lq_slab, ref, shard=...)`; the
+networks that take it are RestormerRefFusion, NAFNetRefFusion and
+PromptIRRefFusion on their whole-block routes):
 
 * `RowShard` is the layout: the padded image's height, every rank's own
   rows in whole units (the network's padding multiple, so that its 2x
@@ -19,9 +21,12 @@ is passed down as an argument, `model(lq_slab, ref, shard=...)`):
 * `exchange_rows(x, r, shard)`: x with r rows of each neighbour above and
   below, zero rows at the image's true top and bottom (the zero padding
   the unsharded convolutions see); `halo_rows` keeps only what the
-  neighbours sent, for stencils that pad a tensor of their own;
+  neighbours sent, for stencils that pad a tensor of their own (a
+  TransformerBlock's 2 rows, a NAFBlock's 1);
 * `reduce_stats(*tensors, shard=...)`: an in-place float32 sum over the
-  ranks;
+  ranks: a TransformerBlock's gram and square sums before its softmax, a
+  NAFBlock's SCA pixel sums and a PromptGenBlock's feature sums before
+  each is divided by the whole image's pixel count;
 * `gather_rows(x, shard)`: rank 0 gets the whole image.
 
 Every collective runs on the default process group in the same order on

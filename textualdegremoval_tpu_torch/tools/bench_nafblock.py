@@ -22,11 +22,16 @@ one per version in turns other, this, this, other:
     stream;
   - branch: ||version - plain|| over ||plain - x||, the bound of
     chip_smoke.py phase 8;
+  - bitwise_as_first: whether the output equals, bit for bit, that of the
+    first version in the turns (the other) on the same inputs;
   - enqueue_ms: the host's time to enqueue one call (`bench_flash.py`
     `enqueue_us`, the median of single calls, the card synchronised
     between them): where it exceeds ms, the device waits for the host;
 
-and last, per version, the sums over one forward's and one step's blocks
+then per version one row of the same call in float32 (csrc/nafblock.cu's
+pair, the route float32 and bf16 widths the pipeline does not take run):
+its branch and bitwise_as_first, untimed; and last, per version, the
+sums over one forward's and one step's blocks
 (the median of the version's turns at each shape, times the blocks of
 that shape), device ms and enqueue ms.  --reckon prints, per shape and
 per kernel of this design, the model that PERF.md's reckoning uses: CTAs,
@@ -265,15 +270,29 @@ def shape_rows(versions, order, shape, dev):
                              REPEATS)}
         print(json.dumps(row), flush=True)
         out.append(row)
+        first = None
         for name in order:
             fn = versions[name].call(p, x)
+            got = fn()
+            first = got if first is None else first
             row = {"version": name, "shape": list(shape[:4]),
-                   "branch": _branch(fn(), want, x),
+                   "branch": _branch(got, want, x),
+                   "bitwise_as_first": bool(torch.equal(got, first)),
                    "ms": time_ms(fn, dev, ITERS, REPEATS),
                    "enqueue_ms": enqueue_us(fn, 20) / 1e3}
             print(json.dumps(row), flush=True)
             out.append(row)
-    del x, want, p
+        x32, first = x.float(), None
+        want = nb.nafblock_ref(x32, p)
+        for name in order:
+            got = versions[name].call(p, x32)()
+            first = got if first is None else first
+            print(json.dumps({
+                "version": name, "shape": list(shape[:4]),
+                "dtype": "float32", "branch": _branch(got, want, x32),
+                "bitwise_as_first": bool(torch.equal(got, first))}),
+                flush=True)
+    del x, x32, want, p
     torch.cuda.empty_cache()
     return out
 
