@@ -353,7 +353,27 @@ Phases, each of which raises on failure:
    with their bytes and ms, wall ms and peak, the gathered image against
    (a) under phase 39's bounds; (c) float32 at 512 px sharded
    (csrc/nafblock.cu's and csrc/tblock.cu's windows) against one process;
-   (d) the CLI with --spatial_shard 2 against the unsharded CLI.
+   (d) the CLI with --spatial_shard 2 against the unsharded CLI;
+41. the same for DRSformer and SFNet, no kernel on their path, run by
+   phase 39's function in the same two ranks, DRSformer at a trained
+   scale (`trained_scale`), SFNet at PyTorch's init with its gates
+   drawn: (a) one process: the full-width bf16 forwards of
+   drsformer_derain and sfnet_dehaze_indoor on phase 39's image (wall
+   ms, device busy ms, idle share, peak, no launch) and how far each
+   moves under roundings alone (`_pool_noise`), and the float32 forwards
+   at 512 px of both DRSformer tasks and sfnet_dehaze_indoor; (b) each
+   rank's 768 rows: 0 launches of the port's kernels, the exchanges and
+   reductions with their bytes and ms, wall ms and peak, every scale of
+   the gathered output against (a) under phase 39's elementwise bound
+   and in L2 within the larger of phase 39's bound and (a)'s own spread
+   at batch 2 (the note above POOL_CLI_RUNS), DRSformer's masks against
+   (a)'s (the flips counted and bounded) and its output with (a)'s masks
+   replayed, read beside; (c) float32 at 512 px sharded against one
+   process with (a)'s masks replayed, the free-running forward and its
+   flips read beside (the note above POOL_FLIP_FRACTION); (d) the CLI with --spatial_shard 2 for all
+   four tasks against one process on the same reflect-padded images
+   (`reflect_padded_scores`; DRSformer's held in float32 and read in
+   bf16, each with its flips).
 
 The last line of stdout is {"ok": true, "device": {...}}; the line before
 it is nvidia-smi's, and before that a JSON summary of each kernel.  Without
@@ -4836,6 +4856,8 @@ def _spatial_job(rank: int, world: int, work: Path, seed: int) -> dict:
     out["end_s"] = time.time()
     torch.cuda.empty_cache()
     out["families"] = _family_spatial_job(rank, world, work, seed)
+    torch.cuda.empty_cache()
+    out["pools"] = _pool_spatial_job(rank, world, work, seed)
     return out
 
 
@@ -4862,8 +4884,10 @@ def spatial_phases(seed: int, gen=None) -> dict:
     for nafnet_deblur and promptir_all_in_one in the same spawn: B5's SCA
     window (`naf_window_vs_plain`) and B1's at PromptIR's noise widths
     (`window_vs_plain`), (a) `_family_spatial_reference`, (b)-(d)
-    `_family_spatial_job` in the ranks, `family_spatial_check`.  Returns
-    the readings."""
+    `_family_spatial_job` in the ranks, `family_spatial_check`; and phase
+    41 for DRSformer and SFNet: (a) `_pool_spatial_reference`, (b)-(d)
+    `_pool_spatial_job` in the ranks, `pool_spatial_check`.  Returns the
+    readings."""
     gen = gen or torch.Generator().manual_seed(seed + 39)
     work = Path(tempfile.mkdtemp(prefix="spatial_"))
     t0 = time.perf_counter()
@@ -4883,6 +4907,7 @@ def spatial_phases(seed: int, gen=None) -> dict:
                               NOISE_WINDOW_SHAPES,
                               (torch.float32, torch.bfloat16), "40")
         fam_ref = timed("40 (a)", _family_spatial_reference, seed, work)
+        pool_ref = timed("41 (a)", _pool_spatial_reference, seed, work)
         spawned = time.time()
         ranks = timed("(b)-(d) ranks", _spawn_ranks, "spatial", work, seed,
                       SPATIAL_WORLD)
@@ -4896,10 +4921,15 @@ def spatial_phases(seed: int, gen=None) -> dict:
         fam_rank_s = (ranks[0]["families"][FAMILY_SPATIAL_TASKS[-1]]
                       ["end_s"] - ranks[0]["end_s"])
         parts.append(f"in rank 0: phase 40 {fam_rank_s:.1f}")
+        pool_rank_s = (ranks[0]["pools"]["end_s"] - ranks[0]["families"][
+            FAMILY_SPATIAL_TASKS[-1]]["end_s"])
+        parts.append(f"in rank 0: phase 41 {pool_rank_s:.1f}")
         expected = torch.load(work / "spatial_expected.pt")
         got_bf16 = torch.load(work / "spatial_bf16.pt")
         got_f32 = torch.load(work / "spatial_f32.pt")
         fam_errors = family_spatial_check(fam_ref, ranks, work)
+        pool_errors = timed("41 check", pool_spatial_check, pool_ref, ranks,
+                            work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     h, w = SPATIAL_HW
@@ -4918,7 +4948,10 @@ def spatial_phases(seed: int, gen=None) -> dict:
     # phase 40's share: its checks and (a) here, its part of the ranks
     fam_secs = fam_rank_s + sum(
         float(p.split()[-1]) for p in parts if p.startswith("40 "))
-    log(f"phase 40: {fam_secs:.1f} s of the {secs:.1f} s of phases 39-40")
+    pool_secs = pool_rank_s + sum(
+        float(p.split()[-1]) for p in parts if p.startswith("41 "))
+    log(f"phase 40: {fam_secs:.1f} s, phase 41: {pool_secs:.1f} s of the "
+        f"{secs:.1f} s of phases 39-41")
     for r, rk in enumerate(ranks):
         tr = rk["trace"]
         log(f"phase 39 (b) rank {r}: {rk['rows']} rows, forward "
@@ -4960,7 +4993,9 @@ def spatial_phases(seed: int, gen=None) -> dict:
     return {"seconds": secs, "fam_seconds": fam_secs, "ref": ref,
             "ranks": ranks, "errors": err, "windows": windows,
             "fam_ref": fam_ref, "fam_errors": fam_errors,
-            "fam_windows": fam_windows, "noise_windows": noise_windows}
+            "fam_windows": fam_windows, "noise_windows": noise_windows,
+            "pool_seconds": pool_secs, "pool_ref": pool_ref,
+            "pool_errors": pool_errors}
 
 
 # ---------------------------------------------------------------------------
@@ -5263,6 +5298,579 @@ def family_spatial_check(ref: dict, ranks: list, work: Path) -> dict:
                        f"{d_ssim:.5f} SSIM")
     if bad:
         raise RuntimeError("phase 40: " + "; ".join(bad))
+    return errors
+
+
+# ---------------------------------------------------------------------------
+# Phase 41: DRSformer and SFNet split by rows over ranks (--spatial_shard)
+# ---------------------------------------------------------------------------
+
+POOL_SPATIAL_TASKS = (DRS_TASK, SFNET_TASKS[0])  # the full-width forwards
+POOL_F32_TASKS = (DRS_TASK, DRS_SPA_TASK, SFNET_TASKS[0])  # (c) at 512 px
+# (b), (c): a free-running sharded DRSformer takes other top-k masks than
+# one process where the ranks' roundings reorder near-ties; at most this
+# fraction of its mask entries (the upper end of what was predicted
+# before the first run on the card: 1e-5 to 1e-3).  A flip moves the
+# output by far more than a rounding: at a trained scale in float32, 56
+# of 2 543 616 entries moved the 512 px output by up to 1.653e-3, past
+# JAX's 1e-4, on an H100.  So (c) holds the sharded float32 forward with
+# one process's masks replayed to SPATIAL_F32_*, and reads the
+# free-running one beside it with how near their thresholds the flipped
+# entries lay (`_flip_margin`)
+POOL_FLIP_FRACTION = 1e-3
+# (b) in L2: phase 39's SPATIAL_BF16_L2 assumes that one process's bf16
+# forward reproduces itself far inside it.  DRSformer at a trained scale
+# does not: the image twice in a batch of 2 (other kernels for its grams
+# and convs, so other orders of summation) moves one process's output
+# by more than 1e-2 in L2 on an H100, and the sharded forward's
+# roundings move it as far with one process's top-k masks replayed as
+# without them (PERF.md, section 6).  So the gathered image is held in
+# L2 to the larger of SPATIAL_BF16_L2 and that spread, `_pool_noise`'s
+# 'batch2', measured in the same run; the elementwise bound stays phase
+# 39's
+# (d): the sharded CLI's runs, as (task, dtype, images, held to
+# SPATIAL_CLI_*).  On phase 39's odd height the sharded CLI reflect-pads a
+# row that the unsharded CLI does not see (JAX's semantics), and
+# DRSformer's top-k masks spread that row over the image, so each run is
+# held to one process's forward on the same reflect-padded images
+# (`reflect_padded_scores`, as the CPU tests hold it to JAX's).
+# DRSformer's float32 runs are held; its bf16 runs, which move by the
+# network's amplified roundings ((b)'s note), are read beside them with
+# their top-k flips
+POOL_CLI_RUNS = (
+    (DRS_TASK, "float32", 1, True), (DRS_TASK, "bfloat16", 1, False),
+    (DRS_SPA_TASK, "float32", 1, True), (DRS_SPA_TASK, "bfloat16", 1, False),
+    (SFNET_TASKS[0], "bfloat16", SPATIAL_CLI_IMAGES, True),
+    (SFNET_TASKS[1], "bfloat16", SPATIAL_CLI_IMAGES, True))
+
+
+def _pool_cli_argv(work: Path, task: str, dtype: str, images: int) -> list:
+    return _spatial_cli_argv(work, task) + [
+        "--dtype", dtype, "--max_images", str(images)]
+
+
+def reflect_padded_scores(work: Path, task: str, dtype: str, images: int,
+                          world=SPATIAL_WORLD):
+    """What the sharded CLI (`_pool_cli_argv`) computes, in one process:
+    each image of the folder read and degraded as the CLI does (sigma 15,
+    RandomState(0)), lq reflect-padded on H to a multiple of `world`, the
+    CLI's network (seed 0's init, in `dtype`) on it whole, cropped back
+    and scored.  Returns (mean PSNR, mean SSIM)."""
+    from textualdegremoval_tpu_torch.cli import evaluate
+    from textualdegremoval_tpu_torch.data import imread_f32, scan_images
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = define_network(dict(evaluate.TASK_TABLE[task]),
+                               dtype=getattr(torch, dtype)).to("cuda")
+    refs = scan_images(str(work / "ref"))
+    psnrs, ssims = [], []
+    for i, path in enumerate(scan_images(str(work / "hq"))[:images]):
+        hq = imread_f32(path)
+        ref = imread_f32(refs[min(i, len(refs) - 1)])
+        rng = np.random.RandomState(0)
+        lq = hq + rng.randn(*hq.shape).astype(np.float32) * (15 / 255.0)
+        lq = np.pad(lq, ((0, (-lq.shape[0]) % world), (0, 0), (0, 0)),
+                    "reflect")
+        with torch.inference_mode():
+            out = model(torch.from_numpy(lq)[None].cuda(),
+                        torch.from_numpy(ref)[None].cuda())
+        pred = np.clip(evaluate.last_output(out)[0, : hq.shape[0]].float()
+                       .cpu().numpy(), 0, 1)
+        psnrs.append(evaluate.calculate_psnr(pred * 255, hq * 255))
+        ssims.append(evaluate.calculate_ssim(pred * 255, hq * 255))
+    del model
+    torch.cuda.empty_cache()
+    return float(np.mean(psnrs)), float(np.mean(ssims))
+
+
+def trained_scale(model, seed: int):
+    """Seeded weights at a trained network's scale, drawn as the CPU tests
+    draw them (tests/test_torch_spatial.py `trained_scale`, numpy's
+    generator of `seed`): matrices and conv kernels N(0, 1/fan_in),
+    LayerNorm weights 1 + N(0, 0.1^2), fusion gates in [0.25, 0.75],
+    temperatures in [0.5, 1.5], the rest N(0, 0.1^2)."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("temperature"):
+                v = 0.5 + rng.random(p.shape, np.float32)
+            elif p.dim() > 1:
+                v = (rng.standard_normal(p.shape)
+                     * p[0].numel() ** -0.5).astype(np.float32)
+            elif name.endswith("alpha"):
+                v = 0.25 + 0.5 * rng.random(p.shape, np.float32)
+            else:
+                v = (rng.standard_normal(p.shape) * 0.1).astype(np.float32)
+                if name.endswith("weight"):
+                    v = v + 1.0
+            p.copy_(torch.from_numpy(np.ascontiguousarray(v)))
+    return model
+
+
+def _pool_network(seed, task, dtype):
+    """A DRSformer or SFNet task's network at full width on the card.
+    DRSformer's at a trained scale (`trained_scale`).  SFNet's at
+    PyTorch's init with `_family_network`'s gates and BatchNorm statistics
+    and its zero-initialised Gap scales and PatchAP h and l drawn in
+    [0.25, 0.75], so that every pool reaches the output: at the trained
+    scale the full-width SFNet's 99 residual blocks, which no norm
+    follows, grow its outputs past 7e5 on phase 39's image."""
+    model = _family_network(seed, task, dtype, "cpu")
+    if task not in SFNET_TASKS:
+        return trained_scale(model, seed).to("cuda")
+    gen = torch.Generator().manual_seed(seed + 41)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1] in ("fscale_d", "fscale_h", "h", "l"):
+                p.copy_(0.25 + 0.5 * torch.rand(p.shape, generator=gen))
+    return model.to("cuda")
+
+
+class recorded_masks:
+    """While entered, every call of ops/attention.py `tksa_masks` (a TKSA
+    gram's four top-k masks) appends its masks, stacked, to `into` on the
+    host, and its gram to `grams` where given."""
+
+    def __init__(self, into: list, grams: list | None = None):
+        self.into, self.grams = into, grams
+
+    def __enter__(self):
+        from textualdegremoval_tpu_torch.ops import attention
+
+        self.kept = attention.tksa_masks
+
+        def record(attn):
+            masks = self.kept(attn)
+            self.into.append(torch.stack(masks).cpu())
+            if self.grams is not None:
+                self.grams.append(attn.float().cpu())
+            return masks
+        attention.tksa_masks = record
+        return self
+
+    def __exit__(self, *exc):
+        from textualdegremoval_tpu_torch.ops import attention
+
+        attention.tksa_masks = self.kept
+
+
+class replayed_masks:
+    """While entered, the n-th call of ops/attention.py `tksa_masks` returns
+    the n-th of `masks` (another run's `recorded_masks`) in place of the
+    masks of its own gram; on leaving, every one of them must have been
+    taken."""
+
+    def __init__(self, masks: list):
+        self.masks = masks
+
+    def __enter__(self):
+        from textualdegremoval_tpu_torch.ops import attention
+
+        self.kept, self.taken = attention.tksa_masks, 0
+
+        def replay(attn):
+            masks = self.masks[self.taken].to(attn.device)
+            self.taken += 1
+            if masks.shape[1:] != attn.shape:
+                raise RuntimeError(f"TKSA call {self.taken}: masks of "
+                                   f"{tuple(masks.shape[1:])}, a gram of "
+                                   f"{tuple(attn.shape)}")
+            return list(masks.unbind(0))
+        attention.tksa_masks = replay
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        from textualdegremoval_tpu_torch.ops import attention
+
+        attention.tksa_masks = self.kept
+        if exc_type is None and self.taken != len(self.masks):
+            raise RuntimeError(f"TKSA masks: {self.taken} calls replayed "
+                               f"{len(self.masks)}")
+
+
+def _flips(got: list, want: list) -> tuple[int, int]:
+    """(entries whose top-k membership differs, entries) over the masks of
+    two runs of one network, call by call."""
+    if len(got) != len(want):
+        raise RuntimeError(f"TKSA masks: {len(got)} calls against "
+                           f"{len(want)}")
+    return (sum(int((g != w).sum()) for g, w in zip(got, want)),
+            sum(w.numel() for w in want))
+
+
+def _flip_margin(got: list, want: list, grams: list) -> float:
+    """How near its threshold the furthest flipped entry lay: over every
+    entry whose top-k membership differs between two runs (`_flips`), the
+    largest distance of its one-process gram value (`grams`, the run of
+    `want`) from its row's k-th largest at the level that flipped, over
+    the row's range.  Near 0 where only near-ties flip."""
+    worst = 0.0
+    for g, w, a in zip(got, want, grams):
+        differ = g != w
+        if not differ.any():
+            continue
+        c = a.shape[-1]
+        ks = [int(c / 2), int(c * 2 / 3), int(c * 3 / 4), int(c * 4 / 5)]
+        top = torch.topk(a, max(ks), dim=-1).values
+        span = (a.amax(-1, keepdim=True) - a.amin(-1, keepdim=True))
+        for i, kk in enumerate(ks):
+            m = ((a - top[..., kk - 1: kk]).abs()
+                 / span.clamp_min(1e-30))[differ[i]]
+            if m.numel():
+                worst = max(worst, float(m.max()))
+    return worst
+
+
+def _scale_layouts(shard, n: int) -> list:
+    """The layouts of a network's n outputs, coarse to fine (SFNet's
+    three scales; one for the others)."""
+    return [shard.scaled(2 ** (n - 1 - i)) for i in range(n)]
+
+
+def _scale_errors(got: list, want: list) -> dict:
+    """Every output scale of got (its rows cropped to want's) against
+    want's: the largest elementwise use of SPATIAL_BF16_A / _R, relative
+    L2 and max abs."""
+    e = {"use": 0.0, "l2": 0.0, "max_abs": 0.0}
+    for g, w in zip(got, want):
+        g = g[:, : w.shape[1]]
+        e["use"] = max(e["use"], _elementwise_use(g, w, SPATIAL_BF16_A,
+                                                  SPATIAL_BF16_R))
+        e["l2"] = max(e["l2"], _rel_l2(g, w))
+        e["max_abs"] = max(e["max_abs"], float((g.float() - w.float())
+                                               .abs().max()))
+    return e
+
+
+def _f32_errors(got: list, want: list) -> dict:
+    """Every output scale of got (its rows cropped to want's) against
+    want's: the largest max abs and relative L2."""
+    e = {"max_abs": 0.0, "l2": 0.0}
+    for g, w in zip(got, want):
+        g = g[:, : w.shape[1]]
+        e["max_abs"] = max(e["max_abs"], float((g - w).abs().max()))
+        e["l2"] = max(e["l2"], _rel_l2(g, w))
+    return e
+
+
+def _describe(e: dict) -> str:
+    return (f"max abs {e['max_abs']:.4e}, elementwise use {e['use']:.4f}, "
+            f"L2 {e['l2']:.3e}")
+
+
+def _pool_noise(model, lq, ref, want: list, want_masks: list,
+                seed: int) -> dict:
+    """How far one process's bf16 forward moves under roundings alone,
+    against its own output `want` and masks: 'batch2', the image twice in
+    a batch of 2 (other GEMM and conv shapes, so other kernels and orders
+    of summation); 'ulp', the bf16 input one ulp up at a seeded half of
+    its entries.  Each: `_scale_errors` and top-k flips."""
+    gen = torch.Generator().manual_seed(seed + 41)
+    pick = (torch.rand(lq.shape, generator=gen) < 0.5).to(lq.device)
+    bumped = (lq.view(torch.int16) + pick.to(torch.int16)).view(lq.dtype)
+    out = {}
+    for name, fn in (
+            ("batch2", lambda: [o[:1] for o in _outputs(
+                model(torch.cat([lq, lq]), torch.cat([ref, ref])))]),
+            ("ulp", lambda: _outputs(model(bumped, ref)))):
+        masks = []
+        with torch.inference_mode(), recorded_masks(masks):
+            got = [o.float().cpu() for o in fn()]
+        out[name] = dict(_scale_errors(got, want),
+                         flips=_flips(masks, want_masks))
+        del got
+        torch.cuda.empty_cache()
+    return out
+
+
+def _pool_spatial_reference(seed: int, work: Path) -> dict:
+    """Phase 41 (a) in this process: for each task of POOL_SPATIAL_TASKS
+    the bf16 forward of phase 39's whole image (a warm-up recording TKSA's
+    masks, one timed with its launches and peak, one profiled) and its
+    moves under roundings alone (`_pool_noise`); for each of
+    POOL_F32_TASKS the float32 forward at 512 px (its masks recorded); for
+    each run of POOL_CLI_RUNS `reflect_padded_scores` ((d)'s reference,
+    its masks recorded).  The outputs, masks and TKSA grams to
+    <work>/pool_expected.pt, the masks also to <work>/pool_masks.pt for
+    the ranks."""
+    out, expected = {"padded": {}, "padded_masks": {}}, {}
+    for task in POOL_SPATIAL_TASKS:
+        r, e = {}, {"bf16_masks": [], "bf16_grams": []}
+        t0 = time.perf_counter()
+        model = _pool_network(seed, task, torch.bfloat16)
+        lq, ref = _spatial_inputs(seed, torch.bfloat16)
+        with torch.inference_mode():
+            with recorded_masks(e["bf16_masks"], e["bf16_grams"]):
+                model(lq, ref)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_all_counts()
+            t1 = time.perf_counter()
+            pred = model(lq, ref)
+            torch.cuda.synchronize()
+            r["ms"] = (time.perf_counter() - t1) * 1e3
+            r["launches"] = {k: v for k, v in _all_counts().items() if v}
+            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            r["idle"] = profile_device(
+                lambda: model(lq, ref),
+                f"phase 41 (a) {task} {SPATIAL_HW} bf16 forward")
+            r["device_ms"] = profile_device.busy_ms
+        e["bf16"] = [o.float().cpu() for o in _outputs(pred)]
+        del pred
+        torch.cuda.empty_cache()
+        r["noise"] = _pool_noise(model, lq, ref, e["bf16"], e["bf16_masks"],
+                                 seed)
+        del model, lq, ref
+        torch.cuda.empty_cache()
+        r["seconds"] = time.perf_counter() - t0
+        log(f"phase 41 (a) {task} one process: {SPATIAL_HW} bf16 forward "
+            f"{r['ms']:.1f} ms wall, {r['device_ms']:.1f} ms device busy "
+            f"(idle {r['idle']}), peak {r['peak_gib']:.2f} GiB, launches "
+            f"{r['launches']}, {len(e['bf16_masks'])} TKSA calls; under "
+            "roundings alone: " + "; ".join(
+                f"{k} {_describe(v)}, top-k flips {v['flips']}"
+                for k, v in r["noise"].items())
+            + f"; {r['seconds']:.1f} s")
+        out[task], expected[task] = r, e
+    for task in POOL_F32_TASKS:
+        t0 = time.perf_counter()
+        e = expected.setdefault(task, {})
+        e["f32_masks"], e["f32_grams"] = [], []
+        model = _pool_network(seed, task, torch.float32)
+        lq, ref = _spatial_inputs(seed, torch.float32, SPATIAL_F32_HW)
+        with torch.inference_mode(), recorded_masks(e["f32_masks"],
+                                                    e["f32_grams"]):
+            e["f32"] = [o.cpu() for o in _outputs(model(lq, ref))]
+        del model, lq, ref
+        torch.cuda.empty_cache()
+        out.setdefault(task, {})["f32_s"] = time.perf_counter() - t0
+    for task, dtype, images, _ in POOL_CLI_RUNS:
+        masks = []
+        with recorded_masks(masks):
+            out["padded"][task, dtype] = reflect_padded_scores(
+                work, task, dtype, images)
+        out["padded_masks"][task, dtype] = masks
+    log("phase 41 (a) one process on the reflect-padded images: "
+        + "; ".join(f"{t} {d} {v}" for (t, d), v in out["padded"].items()))
+    torch.save(expected, work / "pool_expected.pt")
+    torch.save({(t, d): expected[t][f"{d}_masks"] for t in expected
+                for d in ("bf16", "f32") if f"{d}_masks" in expected[t]},
+               work / "pool_masks.pt")
+    return out
+
+
+def _pool_spatial_job(rank: int, world: int, work: Path, seed: int):
+    """Phase 41 (b)-(d) in one rank of phase 39's spawn: for each task of
+    POOL_SPATIAL_TASKS its slab of the whole-image bf16 forward (a warm-up
+    recording TKSA's masks; one untraced, timed with its launches and
+    peak; one traced; where TKSA runs, one with (a)'s masks replayed),
+    every output gathered on rank 0 at its layout; for each of
+    POOL_F32_TASKS the float32 forward at 512 px likewise (masks
+    recorded; where TKSA runs, one more with (a)'s masks replayed); then
+    the evaluate CLI with --spatial_shard 2 for each run
+    of POOL_CLI_RUNS (masks recorded)."""
+    from textualdegremoval_tpu_torch.cli import evaluate
+    from textualdegremoval_tpu_torch.parallel import (
+        CollectiveTrace, RowShard, gather_rows)
+
+    out = {"cli": {}, "cli_s": {}, "cli_masks": {}}
+    one_process_masks = torch.load(work / "pool_masks.pt")
+
+    def gathered(pred, shard):
+        whole = [gather_rows(o, s) for o, s in
+                 zip(pred, _scale_layouts(shard, len(pred)))]
+        return [w.float().cpu() for w in whole if w is not None]
+
+    for task in POOL_SPATIAL_TASKS:
+        r = {"start_s": time.time()}
+        got = {"bf16_masks": []}
+        model = _pool_network(seed, task, torch.bfloat16)
+        lq, ref = _spatial_inputs(seed, torch.bfloat16)
+        shard = RowShard.split(lq.shape[1], model.row_unit, rank, world)
+        slab = shard.slab(lq)
+        del lq
+        with torch.inference_mode():
+            with recorded_masks(got["bf16_masks"]):
+                model(slab, ref, shard=shard)
+            torch.cuda.synchronize()
+            torch.distributed.barrier()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_all_counts()
+            t0 = time.perf_counter()
+            pred = _outputs(model(slab, ref, shard=shard))
+            torch.cuda.synchronize()
+            r["ms"] = (time.perf_counter() - t0) * 1e3
+            r["launches"] = {k: v for k, v in _all_counts().items() if v}
+            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            trace = CollectiveTrace()
+            torch.distributed.barrier()
+            t0 = time.perf_counter()
+            model(slab, ref, shard=dataclasses.replace(shard, trace=trace))
+            torch.cuda.synchronize()
+            r["traced_ms"] = (time.perf_counter() - t0) * 1e3
+            r["trace"] = trace.as_dict()
+            r["rows"] = shard.rows
+            got["bf16"] = gathered(pred, shard)
+            del pred
+            if one_process_masks[task, "bf16"]:
+                with replayed_masks(one_process_masks[task, "bf16"]):
+                    got["replay"] = gathered(
+                        _outputs(model(slab, ref, shard=shard)), shard)
+        if rank == 0:
+            torch.save(got, work / f"pool_{task}.pt")
+        del model, slab, got
+        torch.cuda.empty_cache()
+        r["end_s"] = time.time()
+        out[task] = r
+    for task in POOL_F32_TASKS:
+        t0 = time.perf_counter()
+        got = {"f32_masks": []}
+        model = _pool_network(seed, task, torch.float32)
+        lq, ref = _spatial_inputs(seed, torch.float32, SPATIAL_F32_HW)
+        shard = RowShard.split(lq.shape[1], model.row_unit, rank, world)
+        slab = shard.slab(lq)
+        with torch.inference_mode():
+            with recorded_masks(got["f32_masks"]):
+                got["f32"] = gathered(
+                    _outputs(model(slab, ref, shard=shard)), shard)
+            if one_process_masks[task, "f32"]:
+                with replayed_masks(one_process_masks[task, "f32"]):
+                    got["replay"] = gathered(
+                        _outputs(model(slab, ref, shard=shard)), shard)
+        if rank == 0:
+            torch.save(got, work / f"pool_f32_{task}.pt")
+        del model, lq, ref, slab, got
+        torch.cuda.empty_cache()
+        out.setdefault(task, {})["f32_s"] = time.perf_counter() - t0
+    for task, dtype, images, _ in POOL_CLI_RUNS:
+        t0 = time.perf_counter()
+        masks = []
+        with recorded_masks(masks):
+            out["cli"][task, dtype] = evaluate.main(
+                _pool_cli_argv(work, task, dtype, images)
+                + ["--spatial_shard", "2"])
+        out["cli_s"][task, dtype] = time.perf_counter() - t0
+        out["cli_masks"][task, dtype] = masks if rank == 0 else None
+    out["end_s"] = time.time()
+    return out
+
+
+def pool_spatial_check(ref: dict, ranks: list, work: Path) -> dict:
+    """Phase 41 (b)-(d) against (a).  (b): no launch in (a) or a rank;
+    every scale of the gathered bf16 output under phase 39's elementwise
+    bound and in L2 within the larger of SPATIAL_BF16_L2 and (a)'s own
+    batch-2 spread; DRSformer's top-k flips at most POOL_FLIP_FRACTION of
+    the entries, its output with (a)'s masks replayed read beside;
+    (c): every scale of the float32 output (SPATIAL_F32_*), DRSformer's
+    with (a)'s masks replayed, its flips bounded as in (b) and its
+    free-running output read beside; (d): each held run of
+    POOL_CLI_RUNS within SPATIAL_CLI_* of one process on the same
+    reflect-padded images, the others read, each with its flips; rank 1
+    scoring nothing.  Returns the errors by task; raises on any miss after
+    printing every reading."""
+    expected = torch.load(work / "pool_expected.pt")
+    errors, bad = {}, []
+    for task in POOL_SPATIAL_TASKS:
+        want, got = expected[task], torch.load(work / f"pool_{task}.pt")
+        e = {"free": _scale_errors(got["bf16"], want["bf16"]),
+             "flips": _flips(got["bf16_masks"], want["bf16_masks"]),
+             "margin": _flip_margin(got["bf16_masks"], want["bf16_masks"],
+                                    want["bf16_grams"]),
+             "noise": ref[task]["noise"]}
+        if "replay" in got:
+            e["replay"] = _scale_errors(got["replay"], want["bf16"])
+        errors[task] = e
+        for r, rk in enumerate(ranks):
+            fr = rk["pools"][task]
+            tr = fr["trace"]
+            log(f"phase 41 (b) {task} rank {r}: {fr['rows']} rows, forward "
+                f"{fr['ms']:.1f} ms wall ({fr['traced_ms']:.1f} traced), "
+                f"peak {fr['peak_gib']:.2f} GiB, launches {fr['launches']}; "
+                f"{tr['exchanges']} exchanges {tr['exchange_bytes']} bytes "
+                f"{tr['exchange_s'] * 1e3:.1f} ms, {tr['reduces']} "
+                f"reductions {tr['reduce_bytes']} bytes "
+                f"{tr['reduce_s'] * 1e3:.1f} ms, {tr['gathers']} gathers")
+            if fr["launches"]:
+                bad.append(f"{task} rank {r} launched {fr['launches']}")
+        f0 = ranks[0]["pools"][task]
+        n_flip, n_mask = e["flips"]
+        log(f"phase 41 (b) {task}: rank 0's {f0['end_s'] - f0['start_s']:.1f}"
+            f" s; gathered vs one process over {len(want['bf16'])} "
+            f"scale(s) (bounds: elementwise use 1 of a={SPATIAL_BF16_A} "
+            f"max|p| + r={SPATIAL_BF16_R} |p|, L2 the larger of "
+            f"{SPATIAL_BF16_L2} and batch2's): {_describe(e['free'])}"
+            + (f", top-k flips {n_flip} of {n_mask} mask entries "
+               f"({n_flip / n_mask:.3e}, bound {POOL_FLIP_FRACTION}; "
+               f"{len(want['bf16_masks'])} TKSA calls; the furthest "
+               f"{e['margin']:.3e} of its row's range from its threshold); "
+               f"with one process's "
+               f"masks replayed {_describe(e['replay'])}"
+               if "replay" in e else "")
+            + "; one process under roundings alone: " + "; ".join(
+                f"{k} {_describe(v)}, top-k flips {v['flips']}"
+                for k, v in e["noise"].items()))
+        if ref[task]["launches"]:
+            bad.append(f"{task} (a) launched {ref[task]['launches']}")
+        l2_bound = max(SPATIAL_BF16_L2, e["noise"]["batch2"]["l2"])
+        e["l2_bound"] = l2_bound
+        if e["free"]["l2"] > SPATIAL_BF16_L2:
+            log(f"phase 41 (b) {task}: free-running L2 "
+                f"{e['free']['l2']:.3e} over phase 39's {SPATIAL_BF16_L2}, "
+                f"inside one process's own batch-2 spread {l2_bound:.3e}")
+        if not (e["free"]["use"] <= 1 and e["free"]["l2"] <= l2_bound):
+            bad.append(f"{task} (b) gathered output outside its bound")
+        if n_flip > POOL_FLIP_FRACTION * n_mask:
+            bad.append(f"{task} (b) {n_flip} top-k flips of {n_mask}")
+    for task in POOL_F32_TASKS:
+        want = expected[task]
+        got = torch.load(work / f"pool_f32_{task}.pt")
+        e = {"free": _f32_errors(got["f32"], want["f32"]),
+             "flips": _flips(got["f32_masks"], want["f32_masks"]),
+             "margin": _flip_margin(got["f32_masks"], want["f32_masks"],
+                                    want["f32_grams"])}
+        if "replay" in got:
+            e["replay"] = _f32_errors(got["replay"], want["f32"])
+        errors.setdefault(task, {})["f32"] = e
+        n_flip, n_mask = e["flips"]
+        log(f"phase 41 (c) {task}: {SPATIAL_F32_HW} float32 sharded vs one "
+            f"process over {len(want['f32'])} scale(s) (bounds: max abs "
+            f"{SPATIAL_F32_ATOL}, L2 {SPATIAL_F32_L2}): "
+            + (f"with one process's masks replayed max abs "
+               f"{e['replay']['max_abs']:.3e}, L2 {e['replay']['l2']:.3e} "
+               "(held); free-running " if "replay" in e else "")
+            + f"max abs {e['free']['max_abs']:.3e}, L2 {e['free']['l2']:.3e}"
+            f", top-k flips {n_flip} of {n_mask} (bound "
+            f"{POOL_FLIP_FRACTION} of them; the furthest {e['margin']:.3e} "
+            f"of its row's range from its threshold); rank 0's "
+            f"{ranks[0]['pools'][task]['f32_s']:.1f} s")
+        held = e.get("replay", e["free"])
+        if not (held["max_abs"] <= SPATIAL_F32_ATOL
+                and held["l2"] <= SPATIAL_F32_L2):
+            bad.append(f"{task} (c) float32 outside its bound")
+        if n_flip > POOL_FLIP_FRACTION * n_mask:
+            bad.append(f"{task} (c) {n_flip} top-k flips of {n_mask}")
+    pools = ranks[0]["pools"]
+    for task, dtype, _, held in POOL_CLI_RUNS:
+        key = task, dtype
+        cli, cli_ref = pools["cli"][key], ref["padded"][key]
+        d_psnr, d_ssim = abs(cli[0] - cli_ref[0]), abs(cli[1] - cli_ref[1])
+        flips = _flips(pools["cli_masks"][key], ref["padded_masks"][key])
+        errors.setdefault(task, {})[f"cli {dtype}"] = (d_psnr, d_ssim, flips)
+        log(f"phase 41 (d) {task} {dtype}: --spatial_shard 2 {cli} in "
+            f"{pools['cli_s'][key]:.1f} s against one process on the "
+            f"reflect-padded images {cli_ref}: {d_psnr:.3e} dB, "
+            f"{d_ssim:.3e} SSIM ("
+            + (f"bounds {SPATIAL_CLI_DB}, {SPATIAL_CLI_SSIM}" if held
+               else "read") + f"), top-k flips {flips[0]} of {flips[1]}")
+        if ranks[1]["pools"]["cli"][key] is not None:
+            bad.append(f"{task} {dtype} rank 1 scored")
+        if held and not (d_psnr <= SPATIAL_CLI_DB
+                         and d_ssim <= SPATIAL_CLI_SSIM):
+            bad.append(f"{task} {dtype} (d) CLI off by {d_psnr:.4f} dB, "
+                       f"{d_ssim:.5f} SSIM")
+    if bad:
+        raise RuntimeError("phase 41: " + "; ".join(bad))
     return errors
 
 
@@ -6256,7 +6864,7 @@ def main(argv=None) -> int:
     dist = distributed_phases(args.seed)
     log_held("phase 38")
     spatial = spatial_phases(args.seed)
-    log_held("phases 39-40")
+    log_held("phases 39-41")
 
     # per-step kernel time: each training shape's median time times the
     # number of blocks of that shape in one step (bf16, WithBias); the
@@ -6747,6 +7355,35 @@ def main(argv=None) -> int:
             f"{fr['peak_gib']:.2f}; gathered vs one process L2 "
             f"{fe['bf16_l2']:.3e}, f32 max abs {fe['f32_max_abs']:.3e}")
     log(f"phase 40 {spatial['fam_seconds']:.1f} s")
+    for task in POOL_SPATIAL_TASKS:
+        pool_r = spatial["pool_ref"][task]
+        pool_e = spatial["pool_errors"][task]
+        rk = [r["pools"][task] for r in ranks]
+        log(f"{task} sharded (phase 41, {SPATIAL_WORLD} ranks on one card, "
+            f"no kernel): {SPATIAL_HW} bf16 "
+            f"{[round(r['ms'], 1) for r in rk]} ms a rank against "
+            f"{pool_r['ms']:.1f} ms in one process (device busy "
+            f"{pool_r['device_ms']:.1f} ms, idle {pool_r['idle']}); "
+            f"exchanges "
+            f"{[r['trace']['exchanges'] for r in rk]} of "
+            f"{[r['trace']['exchange_bytes'] for r in rk]} bytes in "
+            f"{[round(r['trace']['exchange_s'] * 1e3, 1) for r in rk]} ms, "
+            f"reductions {[r['trace']['reduces'] for r in rk]} of "
+            f"{[r['trace']['reduce_bytes'] for r in rk]} bytes in "
+            f"{[round(r['trace']['reduce_s'] * 1e3, 1) for r in rk]} ms; peak "
+            f"{[round(r['peak_gib'], 2) for r in rk]} GiB a rank against "
+            f"{pool_r['peak_gib']:.2f}; gathered vs one process "
+            + (f"with its masks L2 {pool_e['replay']['l2']:.3e}, "
+               if "replay" in pool_e else "")
+            + f"free-running L2 {pool_e['free']['l2']:.3e} (one process "
+            f"under roundings alone {pool_e['noise']['batch2']['l2']:.3e}, "
+            f"{pool_e['noise']['ulp']['l2']:.3e}), f32 max abs "
+            f"{pool_e['f32']['free']['max_abs']:.3e}"
+            + (f" ({pool_e['f32']['replay']['max_abs']:.3e} with its "
+               "masks)" if "replay" in pool_e["f32"] else "")
+            + f"; top-k flips bf16 {pool_e['flips']}, f32 "
+            f"{pool_e['f32']['flips']}")
+    log(f"phase 41 {spatial['pool_seconds']:.1f} s")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s after "
         f"the build")
     log(json.dumps(summary))

@@ -8,11 +8,12 @@ equal to it), and against JAX's CLI --spatial_shard 2 on eight host
 devices in a process of its own (about 14 s alone: its compile stays far
 from the 30 s that would put it under `slow`).  The refusals: three
 shards on two ranks (JAX's device check, devices read as ranks), the
-families and routes the sharded forward does not serve; --spatial_shard 1
-is the unsharded run.  `jax_reflect_padded_scores` and the JAX CLI's
-process (`start_jax_sharded_cli`) serve the NAFNet and PromptIR tasks'
-files too (tests/test_torch_spatial_naf.py,
-tests/test_torch_spatial_promptir.py)."""
+routes the sharded forward does not serve, each refusal naming the
+network; --spatial_shard 1 is the unsharded run.
+`jax_reflect_padded_scores` and the JAX CLI's process
+(`start_jax_sharded_cli`) serve the other families' files too
+(tests/test_torch_spatial_naf.py, tests/test_torch_spatial_promptir.py,
+tests/test_torch_spatial_drsformer.py, tests/test_torch_spatial_sfnet.py)."""
 
 import functools
 import os
@@ -81,8 +82,8 @@ def jax_apply(task):
 def jax_reflect_padded_scores(root, task, ckpt, shards=2, images=IMAGES):
     """JAX's sharded CLI computes `model.apply` on lq reflect-padded to a
     multiple of the shards, cropped back: that, image by image, from JAX's
-    CLI's own pieces (its reader, noise protocol, network table and
-    metrics).  Returns (mean PSNR, mean SSIM)."""
+    CLI's own pieces (its reader, noise protocol, network table, last
+    output and metrics).  Returns (mean PSNR, mean SSIM)."""
     from textualdegremoval_tpu.cli import evaluate as jcli
     from textualdegremoval_tpu.convert.torch_to_jax import split_batch_stats
 
@@ -97,7 +98,8 @@ def jax_reflect_padded_scores(root, task, ckpt, shards=2, images=IMAGES):
         lq = hq + rng.randn(*hq.shape).astype(np.float32) * 15 / 255.0
         lq = np.pad(lq, ((0, (-lq.shape[0]) % shards), (0, 0), (0, 0)),
                     "reflect")
-        pred = np.clip(np.asarray(fwd(variables, lq[None], ref[None]))[0],
+        pred = np.clip(np.asarray(jcli._last(fwd(variables, lq[None],
+                                                 ref[None])))[0],
                        0, 1)[: hq.shape[0]]
         psnrs.append(jcli.calculate_psnr(pred * 255, hq * 255, crop_border=0))
         ssims.append(jcli.calculate_ssim(pred * 255, hq * 255, crop_border=0))
@@ -167,8 +169,8 @@ def test_one_shard_is_the_unsharded_run(eval_dirs):
 
 @pytest.mark.parametrize("task,extra,named", [
     ("promptir_all_in_one", ("--chain",), "--chain"),
-    ("drsformer_derain", (), "DRSformerRefFusion"),
-    ("sfnet_dehaze_indoor", (), "SFNetRefFusion"),
+    ("drsformer_derain", ("--chain",), "DRSformerRefFusion"),
+    ("sfnet_dehaze_indoor", ("--module_blocks",), "SFNetRefFusion"),
     ("tiny_smoke", ("--chain",), "--chain"),
     ("tiny_smoke", ("--module_blocks",), "--module_blocks"),
     ("tiny_smoke", ("--module_blocks", "--gdfn_kernel"), "--gdfn_kernel"),

@@ -26,6 +26,13 @@ WORKDIR/out_<rank>.pt.  Cases:
   one block (`nafblock_ref` with a shard, or a PromptGenBlock); the
   network on each input, and on one input with each planted fault of its
   pools (FAMILY_PLANTS); then the evaluate CLI's main on each argv;
+* spatial_pools: the row-sharded DRSformerRefFusion or SFNetRefFusion:
+  the sharded box mean and the reflect halo (parallel/spatial.py) on
+  small images; single modules (a sparse block, MEFC, an SFResBlock with
+  its dynamic filters, an SCM, a PatchAP) on a slab; the network on each
+  input (SFNet's three scales each gathered at its layout), and with each
+  planted fault (`pool_plants`) on the input it names for the world; then
+  the evaluate CLI's main on each argv;
 * cli_evaluate: the evaluate CLI's main on each argv in turn, a refusal
   (SystemExit) recorded as its message.
 """
@@ -433,6 +440,121 @@ def case_spatial_family(inp, rank, world):
             setattr(module, attr, kept)
     out["cli"] = []
     for argv in inp.get("argvs", ()):
+        try:
+            out["cli"].append(evaluate.main(argv))
+        except SystemExit as e:
+            out["cli"].append(str(e))
+    return out
+
+
+def pool_plants():
+    """The planted faults of the sharded DRSformer and SFNet: name ->
+    [(owner, attribute, replacement)]."""
+    from textualdegremoval_tpu_torch.models import drsformer, sfnet
+    from textualdegremoval_tpu_torch.ops import attention as att
+    from textualdegremoval_tpu_torch.parallel.spatial import RowShard
+
+    def masked_before_reduce(q, k, v, temperature, blend, own=None,
+                             reduce=None):
+        """TKSA's masks from the rank's own gram, before the reduce."""
+        sums = att.tksa_sums(*own)
+        masks = att.tksa_masks(att.tksa_finish(*sums, temperature))
+        reduce(*sums)
+        attn = att.tksa_finish(*sums, temperature)
+        return torch.matmul(att.tksa_blend(attn, blend, masks).to(v.dtype),
+                            v)
+
+    pool = sfnet._pool
+
+    def slab_kernel(x, tlc_base, shard=None):
+        """The TLC pool of the slab alone, its kernel from the slab's
+        height."""
+        return pool(x, tlc_base)
+
+    def slab_unshuffle(x, p, tlc_base, shard):
+        """PatchAP's view taken of the slab, not of the image."""
+        b, n, ww, c = x.shape
+        px = x.reshape(b, p, n // p, p, ww // p, c).permute(0, 2, 4, 5, 1, 3)
+        px = px.reshape(b, n // p, ww // p, c * p * p)
+        low = pool(px, tlc_base).expand_as(px)
+        low = low.reshape(b, n // p, ww // p, c, p, p)
+        return low.permute(0, 4, 1, 5, 2, 3).reshape(b, n, ww, c)
+
+    return {
+        "tksa_before_reduce": [(drsformer, "tksa_attention",
+                                masked_before_reduce)],
+        "mefc_halo_3": [(drsformer, "MEFC_HALO", 3)],
+        "tlc_slab_height": [(sfnet, "_pool", slab_kernel)],
+        "patch_slab_unshuffle": [(sfnet, "patch_pool", slab_unshuffle)],
+        "empty_counted": [(RowShard, "own",
+                           lambda self, x: x[:, : self.local])]}
+
+
+def _gathered(y, shard):
+    """gather_rows of a network's output, or of each of SFNet's scales,
+    coarse to fine, at its layout."""
+    from textualdegremoval_tpu_torch.parallel.spatial import gather_rows
+
+    if isinstance(y, list):
+        n = len(y)
+        return [gather_rows(t, shard.scaled(2 ** (n - 1 - i)))
+                for i, t in enumerate(y)]
+    return gather_rows(y, shard)
+
+
+def case_spatial_pools(inp, rank, world):
+    from textualdegremoval_tpu_torch.cli import evaluate
+    from textualdegremoval_tpu_torch.models import (
+        define_network, drsformer, sfnet)
+    from textualdegremoval_tpu_torch.parallel.spatial import (
+        RowShard, box_mean_rows, gather_rows, reflect_rows)
+
+    out = {"box": [], "reflect": [], "blocks": []}
+    for img, kernel, unit in inp.get("box", ()):
+        shard = RowShard.split(img.shape[1], unit, rank, world)
+        slab = shard.slab(img)
+        out["box"].append(gather_rows(
+            box_mean_rows(slab, kernel, shard).expand_as(slab), shard))
+    for img, r, unit in inp.get("reflect", ()):
+        shard = RowShard.split(img.shape[1], unit, rank, world)
+        out["reflect"].append((shard.start, shard.rows, reflect_rows(
+            shard.slab(img), r, shard)))
+    for blk in inp.get("blocks", ()):
+        cls = getattr(drsformer, blk["module"], None) or getattr(
+            sfnet, blk["module"])
+        m = cls(*blk["args"], **blk.get("kwargs", {}))
+        m.load_state_dict(blk["state"])
+        m.eval()
+        shard = RowShard.split(blk["x"].shape[1], blk["unit"], rank, world)
+        with torch.no_grad():
+            out["blocks"].append(gather_rows(m(shard.slab(blk["x"]), shard),
+                                             shard))
+
+    def forward(case):
+        m = define_network(dict(case["opt"]))
+        m.load_state_dict(case["state"])
+        m.eval()
+        shard = RowShard.split(case["lq"].shape[1], m.row_unit, rank, world)
+        with torch.no_grad():
+            y = m(shard.slab(case["lq"]), case["ref"], shard=shard)
+        return _gathered(y, shard)
+
+    out["model"] = {name: forward(case)
+                    for name, case in inp["models"].items()}
+    out["planted"] = {}
+    plants = pool_plants()
+    for plant, name in inp["plants"].get(world, ()):
+        kept = [(owner, attr, getattr(owner, attr))
+                for owner, attr, _ in plants[plant]]
+        for owner, attr, value in plants[plant]:
+            setattr(owner, attr, value)
+        try:
+            out["planted"][plant] = forward(inp["models"][name])
+        finally:
+            for owner, attr, value in kept:
+                setattr(owner, attr, value)
+    out["cli"] = []
+    for argv in inp.get("argvs", {}).get(world, ()):
         try:
             out["cli"].append(evaluate.main(argv))
         except SystemExit as e:

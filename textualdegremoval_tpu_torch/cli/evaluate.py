@@ -9,7 +9,7 @@ NAFNet, PromptIR, DRSformer and SFNet families:
         [--chain | --module_blocks [--gdfn_kernel] [--mdta_kernel]]
 
     torchrun --nproc_per_node N -m textualdegremoval_tpu_torch.cli.evaluate \\
-        --task restormer_deblur|nafnet_deblur|promptir_all_in_one ... \\
+        --task restormer_deblur|nafnet_deblur|drsformer_derain|... ... \\
         --spatial_shard N
 
 --spatial_shard N > 1 splits each image by rows over N torch.distributed
@@ -19,10 +19,13 @@ multiple of N, as in JAX, then zero-padded to the network's row unit and
 cut into slabs of whole units, one a rank (`parallel.spatial.RowShard`);
 every rank reads the same images and holds the weights and the whole
 reference; the prediction is gathered on rank 0, cropped back to the
-image's height and scored there, and rank 0 alone prints.  Fewer or more
-ranks than N refuse.  It serves the RestormerRefFusion, NAFNetRefFusion
-and PromptIRRefFusion tasks on the whole-block route (B1 and B5 with their
-statistics summed over the ranks); DRSformer, SFNet, --chain and
+image's height and scored there (SFNet's finest scale), and rank 0 alone
+prints.  Fewer or more ranks than N refuse.  It serves every network of
+the table: the RestormerRefFusion, NAFNetRefFusion and PromptIRRefFusion
+tasks on the whole-block route (B1 and B5 with their statistics summed
+over the ranks), DRSformerRefFusion (TKSA's gram summed before its top-k
+masks) and SFNetRefFusion (its TLC box pools, PatchAP and InstanceNorm
+over the whole image, BatchNorm on its loaded buffers); --chain and
 --module_blocks refuse it.
 
 --chain runs every Restormer stage of two or more blocks as the
@@ -60,7 +63,8 @@ from textualdegremoval_tpu_torch.parallel import (
 
 # the networks whose forward takes a row shard (--spatial_shard)
 SHARDED_NETWORKS = ("RestormerRefFusion", "NAFNetRefFusion",
-                    "PromptIRRefFusion")
+                    "PromptIRRefFusion", "DRSformerRefFusion",
+                    "DRSformer200L_SPA_RefFusion", "SFNetRefFusion")
 
 # The JAX CLI's table (same hparams).
 TASK_TABLE = {
@@ -190,8 +194,9 @@ def restore_sharded(model: torch.nn.Module, lq: np.ndarray, ref: np.ndarray,
     forward split by rows over `world` ranks (this one `rank`): lq
     reflect-padded on H to a multiple of world (JAX's --spatial_shard pad),
     this rank's slab of it through the network, the rows gathered on rank
-    0 and cropped back to lq's height.  Rank 0: the float32 prediction
-    clipped to [0, 1]; the other ranks: None."""
+    0 (a network of several outputs: `last_output`) and cropped back to
+    lq's height.  Rank 0: the float32 prediction clipped to [0, 1]; the
+    other ranks: None."""
     dev = next(model.parameters()).device
     orig_h = lq.shape[0]
     pad_h = (-orig_h) % world
@@ -201,7 +206,7 @@ def restore_sharded(model: torch.nn.Module, lq: np.ndarray, ref: np.ndarray,
     with torch.inference_mode():
         slab = shard.slab(torch.from_numpy(lq)[None].to(dev))
         out = model(slab, torch.from_numpy(ref)[None].to(dev), shard=shard)
-        whole = gather_rows(out, shard)
+        whole = gather_rows(last_output(out), shard)
     if whole is None:
         return None
     return np.clip(whole[0, :orig_h].float().cpu().numpy(), 0, 1)
@@ -219,8 +224,9 @@ def shard_ranks(network: str, args) -> tuple[int, int]:
     asked = [f"--{k}" for k in ("chain", "module_blocks", "gdfn_kernel",
                                 "mdta_kernel") if getattr(args, k)]
     if asked:
-        raise SystemExit(f"--spatial_shard {n} runs the whole-block route "
-                         f"block by block; it excludes {' '.join(asked)}")
+        raise SystemExit(f"--spatial_shard {n}: {network} runs its whole-"
+                         f"block route block by block; it excludes "
+                         f"{' '.join(asked)}")
     rank, world = init_distributed(args.device)
     if world != n:
         raise SystemExit(f"--spatial_shard {n} needs {n} ranks, have "

@@ -10,6 +10,17 @@ every op is plain torch (`layers.conv_form`: 1x1 convs as cuBLAS GEMMs,
 the others cuDNN's or torch's depthwise kernels).  `dtype` is the compute
 dtype (the JAX modules' `dtype`): the input is cast to it and every weight
 at use, while the parameters stay float32.
+
+DRSformerRefFusion's forward also runs on one rank's slab of an image
+split by rows over torch.distributed ranks (`shard`, a
+parallel.spatial.RowShard; the evaluate CLI's --spatial_shard).  Each
+stencil chain reads its neighbours' rows once (`halo_rows`, none past the
+image's true edges, so that each conv zero-pads as it does unsharded) and
+crops its reach off: TKSA's 3x3 on a 1-row halo, MSFN's two 5x5 stages on
+MSFN_HALO rows of the block's input, each MEFC step on MEFC_HALO rows
+(its 7x7 separable and dilated convs).  TKSA's raw gram and square sums
+and MEFC's pooled sums take the slab's own rows, summed over the ranks,
+and the top-k masks run on the summed gram, the same on every rank.
 """
 
 from __future__ import annotations
@@ -27,11 +38,22 @@ from textualdegremoval_tpu_torch.models.layers import (
     OverlapPatchEmbed,
     Upsample,
     conv_form,
+    conv_rows,
     masa_encode_pair,
+    run_blocks,
 )
 from textualdegremoval_tpu_torch.ops import (
     masa_match_and_warp, pad_to_multiple, tksa_attention,
 )
+from textualdegremoval_tpu_torch.parallel.spatial import (
+    check_halo, halo_rows, image_mean, reduce_stats,
+)
+
+# the rows a sharded stencil chain reads of each neighbour: MSFN's 5x5
+# then its grouped 5x5 (2 + 2); an MEFC step's 7x7 separable conv (3 + 3)
+# and its 7x7 conv at dilation 2 (6)
+MSFN_HALO = 4
+MEFC_HALO = 6
 
 
 def _pair_grouped_conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -60,18 +82,30 @@ class TKSAAttention(nn.Module):
         for i in range(1, 5):
             setattr(self, f"attn{i}", nn.Parameter(torch.full((1,), 0.2)))
 
-    def forward(self, x):
-        b, h, w, c = x.shape
+    def forward(self, x, shard=None, top=0):
+        """x: (B, H, W, C).  On a slab of a row-sharded image (shard), x is
+        the normed slab with `top` rows of the neighbour above and those
+        of the one below (`halo_rows`, 1 row); the gram's statistics take
+        its own rows, summed over the ranks.  Returns the slab's rows."""
         heads = self.num_heads
         qkv = conv_form(self.qkv_dwconv, conv_form(self.qkv, x))
+        if shard is not None:
+            qkv = qkv[:, top: top + shard.local]
+        b, h, w, c3 = qkv.shape
 
         def to_heads(t):  # (B, H, W, C) -> (B, heads, c, L)
-            return t.reshape(b, h * w, heads, c // heads).permute(0, 2, 3, 1)
+            return t.reshape(b, -1, heads, c3 // 3 // heads).permute(
+                0, 2, 3, 1)
 
         q, k, v = (to_heads(t) for t in torch.chunk(qkv, 3, dim=-1))
         blend = torch.cat([self.attn1, self.attn2, self.attn3, self.attn4])
-        out = tksa_attention(q, k, v, self.temperature, blend)
-        out = out.permute(0, 3, 1, 2).reshape(b, h, w, c)
+        if shard is None:
+            out = tksa_attention(q, k, v, self.temperature, blend)
+        else:
+            own = [to_heads(t) for t in torch.chunk(shard.own(qkv), 3, -1)]
+            out = tksa_attention(q, k, v, self.temperature, blend, own[:2],
+                                 lambda *t: reduce_stats(*t, shard=shard))
+        out = out.permute(0, 3, 1, 2).reshape(b, h, w, c3 // 3)
         return conv_form(self.project_out, out)
 
 
@@ -120,10 +154,20 @@ class SparseTransformerBlock(nn.Module):
         if fusion:
             self.alpha = nn.Parameter(torch.zeros(1))
 
-    def forward(self, x):
+    def forward(self, x, shard=None):
+        """On a slab of a row-sharded image (shard): the attention on a
+        1-row halo of x, MSFN on MSFN_HALO rows of the attention's
+        output, each cropped back to the slab."""
         shortcut = x
-        x = x + self.attn(self.norm1(x))
-        x = x + self.ffn(self.norm2(x))
+        if shard is None:
+            x = x + self.attn(self.norm1(x))
+            x = x + self.ffn(self.norm2(x))
+        else:
+            check_halo(MSFN_HALO, shard, "SparseTransformerBlock's MSFN")
+            ext, top = halo_rows(x, 1, shard)
+            x = x + self.attn(self.norm1(ext), shard, top)
+            ext, top = halo_rows(x, MSFN_HALO, shard)
+            x = x + self.ffn(self.norm2(ext))[:, top: top + shard.local]
         if hasattr(self, "alpha"):
             return x * self.alpha.to(x.dtype) + shortcut
         return x
@@ -233,17 +277,27 @@ class MEFC(nn.Module):
         self.layers = nn.ModuleList([_OALayer(dim, steps, num_ops),
                                      _GroupOLs(dim, steps)])
 
-    def forward(self, x):
+    def forward(self, x, shard=None):
+        """On a slab of a row-sharded image (shard): the routing mean over
+        the whole image (`image_mean`), each step on MEFC_HALO rows of its
+        input cropped back to the slab."""
         dt = x.dtype
         fc1, fc2 = self.layers[0].ca_fc[0], self.layers[0].ca_fc[2]
-        y = F.relu(F.linear(x.mean(dim=(1, 2)), fc1.weight.to(dt),
-                            fc1.bias.to(dt)))
+        y = F.relu(F.linear(image_mean(x, shard)[:, 0, 0],
+                            fc1.weight.to(dt), fc1.bias.to(dt)))
         y = F.linear(y, fc2.weight.to(dt), fc2.bias.to(dt))
         weights = torch.softmax(y.reshape(-1, self.steps, self.num_ops), -1)
         group = self.layers[1]
         x = F.relu(conv_form(group.preprocess.op[0], x))
+        if shard is not None:
+            check_halo(MEFC_HALO, shard, "MEFC")
         for i, layer in enumerate(group._ops):
-            x = F.relu(layer(x, weights[:, i]) + x)
+            if shard is None:
+                y = layer(x, weights[:, i])
+            else:
+                ext, top = halo_rows(x, MEFC_HALO, shard)
+                y = layer(ext, weights[:, i])[:, top: top + shard.local]
+            x = F.relu(y + x)
         return x
 
 
@@ -289,17 +343,21 @@ class _DRSformerTrunk(nn.Module):
             self.refinement = MEFC(d * 2)
         self.output = nn.Conv2d(d * 2, out_channels, 3, padding=1, bias=bias)
 
-    def _decode(self, latent, e1, e2, e3, x_in):
+    def _decode(self, latent, e1, e2, e3, x_in, shards=(None,) * 4):
+        """The decoder; shards: the row layout at each level (full
+        resolution first) on a slab of a row-sharded image, else None."""
+        s0, s1, s2, s3 = shards
         y = conv_form(self.reduce_chan_level3,
-                      torch.cat([self.up4_3(latent), e3], dim=-1))
-        y = self.decoder_level3(y)
+                      torch.cat([self.up4_3(latent, s3), e3], dim=-1))
+        y = run_blocks(self.decoder_level3, y, s2)
         y = conv_form(self.reduce_chan_level2,
-                      torch.cat([self.up3_2(y), e2], dim=-1))
-        y = self.decoder_level2(y)
-        y = self.decoder_level1(torch.cat([self.up2_1(y), e1], dim=-1))
+                      torch.cat([self.up3_2(y, s2), e2], dim=-1))
+        y = run_blocks(self.decoder_level2, y, s1)
+        y = run_blocks(self.decoder_level1,
+                 torch.cat([self.up2_1(y, s1), e1], dim=-1), s0)
         if self.use_mefc:
-            y = self.refinement(y)
-        return conv_form(self.output, y) + x_in
+            y = self.refinement(y, s0)
+        return conv_rows(self.output, y, s0) + x_in
 
 
 class DRSformer(_DRSformerTrunk):
@@ -361,34 +419,56 @@ class DRSformerRefFusion(_DRSformerTrunk):
                 reffusion_n_blocks[level], ffn_expansion_factor, bias,
                 ln_type, fusion=True))
 
-    @staticmethod
-    def _fuse(x, warp_l, blocks):
-        cat = torch.cat([x, warp_l.to(x.dtype)], dim=-1)
-        return blocks(cat)[..., : cat.shape[-1] // 2]
+    @property
+    def row_unit(self) -> int:
+        """The rows of one unit of a row-sharded image: the network's
+        padding multiple, 8 lr_block_size (one block row of MASA's grid
+        at the deepest level, which all three 2x downsamplings divide)."""
+        return 8 * self.lr_block_size
 
-    def forward(self, inp_img, ref_img):
+    @staticmethod
+    def _fuse(x, warp_l, blocks, shard=None):
+        cat = torch.cat([x, warp_l.to(x.dtype)], dim=-1)
+        return run_blocks(blocks, cat, shard)[..., : cat.shape[-1] // 2]
+
+    def forward(self, inp_img, ref_img, shard=None):
         """inp_img: (B, H, W, C_in); ref_img: (B, Hr, Wr, C_in).  Returns
-        (B, H, W, C_out)."""
+        (B, H, W, C_out).
+
+        shard: a parallel.spatial.RowShard of unit `row_unit` where inp_img
+        is one rank's slab (`shard.slab`) of an image zero-padded at the
+        bottom to shard.height rows; every rank passes the whole reference.
+        Returns the slab's rows of the output (B, shard.local, W, C_out),
+        which `parallel.spatial.gather_rows` puts together."""
         _, h0, w0, _ = inp_img.shape
         dt = self.dtype
-        pad = 8 * self.lr_block_size
+        pad = self.row_unit
+        if shard is not None and (shard.unit != pad or h0 != shard.local):
+            raise ValueError(f"{type(self).__name__}: a slab of {h0} rows "
+                             f"in units of {shard.unit}; the layout needs "
+                             f"{shard.local} in units of {pad}")
+        s = [None] * 4 if shard is None else [shard.scaled(2 ** i)
+                                              for i in range(4)]
         inp = pad_to_multiple(inp_img.to(dt), pad)
         ref = pad_to_multiple(ref_img.to(dt), pad)
-        feat_lq, feat_ref = masa_encode_pair(self.masa_enc, inp, ref)
+        feat_lq, feat_ref = masa_encode_pair(self.masa_enc, inp, ref, s[0])
         warp = masa_match_and_warp(
             feat_lq[-1], feat_ref, lr_block_size=self.lr_block_size,
             ref_down_block_size=self.ref_down_block_size, psize=self.psize,
-            dilations=self.dilations)
+            dilations=self.dilations, shard=s[3])
 
-        x = self._fuse(self.patch_embed(inp), warp[0],
-                       self.masa_blk_enc_level1)
+        x = self._fuse(self.patch_embed(inp, s[0]), warp[0],
+                       self.masa_blk_enc_level1, s[0])
         if self.use_mefc:
-            x = self.encoder_level0(x)
-        e1 = self.encoder_level1(x)
-        x = self._fuse(self.down1_2(e1), warp[1], self.masa_blk_enc_level2)
-        e2 = self.encoder_level2(x)
-        x = self._fuse(self.down2_3(e2), warp[2], self.masa_blk_enc_level3)
-        e3 = self.encoder_level3(x)
-        x = self._fuse(self.down3_4(e3), warp[3], self.masa_blk_enc_level4)
-        lat = self.latent(x)
-        return self._decode(lat, e1, e2, e3, inp)[:, :h0, :w0]
+            x = self.encoder_level0(x, s[0])
+        e1 = run_blocks(self.encoder_level1, x, s[0])
+        x = self._fuse(self.down1_2(e1, s[0]), warp[1],
+                       self.masa_blk_enc_level2, s[1])
+        e2 = run_blocks(self.encoder_level2, x, s[1])
+        x = self._fuse(self.down2_3(e2, s[1]), warp[2],
+                       self.masa_blk_enc_level3, s[2])
+        e3 = run_blocks(self.encoder_level3, x, s[2])
+        x = self._fuse(self.down3_4(e3, s[2]), warp[3],
+                       self.masa_blk_enc_level4, s[3])
+        lat = run_blocks(self.latent, x, s[3])
+        return self._decode(lat, e1, e2, e3, inp, s)[:, :h0, :w0]

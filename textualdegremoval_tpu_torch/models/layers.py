@@ -67,6 +67,13 @@ def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
+def run_blocks(blocks, x: torch.Tensor, shard=None) -> torch.Tensor:
+    """Modules in turn, each given the row layout (None unsharded)."""
+    for blk in blocks:
+        x = blk(x, shard)
+    return x
+
+
 def conv_rows(conv: nn.Conv2d, x: torch.Tensor, shard=None) -> torch.Tensor:
     """`conv_nhwc`, or on one rank's slab of a row-sharded image (shard, a
     parallel.spatial.RowShard) the same 3x3 conv (padding 1, stride 1 or

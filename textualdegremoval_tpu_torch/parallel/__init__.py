@@ -11,13 +11,14 @@ from textualdegremoval_tpu_torch.parallel.mesh import (
     all_reduce_mean, broadcast_, replicate,
 )
 from textualdegremoval_tpu_torch.parallel.spatial import (
-    CollectiveTrace, RowShard, exchange_rows, gather_rows, halo_rows,
-    reduce_stats,
+    CollectiveTrace, RowShard, box_mean_rows, exchange_rows, gather_rows,
+    halo_rows, reduce_stats, reflect_rows,
 )
 
 __all__ = [
     "barrier", "init_distributed", "is_main_process", "rank",
     "resolve_rendezvous", "world", "all_reduce_mean", "broadcast_",
-    "replicate", "CollectiveTrace", "RowShard", "exchange_rows",
-    "gather_rows", "halo_rows", "reduce_stats",
+    "replicate", "CollectiveTrace", "RowShard", "box_mean_rows",
+    "exchange_rows", "gather_rows", "halo_rows", "reduce_stats",
+    "reflect_rows",
 ]

@@ -9,7 +9,8 @@ statistics.  Here each rank is one process that holds one slab of rows,
 and the network asks for each exchange and reduction itself (the layout
 is passed down as an argument, `model(lq_slab, ref, shard=...)`; the
 networks that take it are RestormerRefFusion, NAFNetRefFusion and
-PromptIRRefFusion on their whole-block routes):
+PromptIRRefFusion on their whole-block routes, DRSformerRefFusion and
+SFNetRefFusion):
 
 * `RowShard` is the layout: the padded image's height, every rank's own
   rows in whole units (the network's padding multiple, so that its 2x
@@ -23,10 +24,22 @@ PromptIRRefFusion on their whole-block routes):
   the unsharded convolutions see); `halo_rows` keeps only what the
   neighbours sent, for stencils that pad a tensor of their own (a
   TransformerBlock's 2 rows, a NAFBlock's 1);
+* `reflect_rows(x, r, shard)`: the same, reflected within the rank's own
+  rows at the image's true top and bottom (F.pad's "reflect": SFNet's
+  dynamic filters); `check_halo` refuses a halo wider than one unit at
+  its level, the most one neighbour is sure to hold;
 * `reduce_stats(*tensors, shard=...)`: an in-place float32 sum over the
   ranks: a TransformerBlock's gram and square sums before its softmax, a
   NAFBlock's SCA pixel sums and a PromptGenBlock's feature sums before
-  each is divided by the whole image's pixel count;
+  each is divided by the whole image's pixel count, a TKSA gram before
+  its top-k masks, the pooled means of MEFC and SFNet's dynamic filters
+  and SFNet's InstanceNorm moments (in float64); each sums the rank's own
+  rows (`RowShard.own`), never its halo or a rank's unit of zeros;
+* `box_mean_rows(x, kernel_size, shard)`: ops/tlc.py's `local_avg_pool`
+  of the whole image at the slab's rows: each rank's partial box sums of
+  every output row of the valid window, summed over the ranks
+  (`box_partial`, `box_finish` for several regions in one reduction:
+  SFNet's PatchAP pools each quadrant of the image on its own);
 * `gather_rows(x, shard)`: rank 0 gets the whole image.
 
 Every collective runs on the default process group in the same order on
@@ -143,6 +156,12 @@ class RowShard:
             rows_of=tuple(r // factor for r in self.rows_of),
             unit=self.unit // factor)
 
+    def own(self, x: torch.Tensor) -> torch.Tensor:
+        """The rows of a slab whose sums count: this rank's own (none on a
+        rank without a share, whose unit of zeros its convolutions' biases
+        make non-zero)."""
+        return x[:, : self.rows]
+
     def slab(self, img: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a (B, H, W, C) image zero-padded at the
         bottom to `height` rows (one unit of zeros without a share)."""
@@ -214,16 +233,120 @@ def halo_rows(x: torch.Tensor, r: int, shard: RowShard):
     return ext[:, r - top: ext.shape[1] - r + bottom], top
 
 
+def check_halo(r: int, shard: RowShard, where: str) -> None:
+    """Refuses a halo of r rows at a level whose units are shorter: a
+    neighbour holds whole units, so only r <= unit rows are sure to be
+    one neighbour's."""
+    if r > shard.unit:
+        raise ValueError(f"{where}: a halo of {r} rows exceeds the "
+                         f"{shard.unit}-row unit of a level of "
+                         f"{shard.height} rows")
+
+
+def reflect_rows(x: torch.Tensor, r: int, shard: RowShard) -> torch.Tensor:
+    """x (B, local, W, C) with r rows of each neighbour above and below,
+    and at the image's true top and bottom (the padded image's first and
+    last row) r rows reflected within x's own rows, as F.pad(mode=
+    "reflect") pads the whole image: (B, local + 2 r, W, C)."""
+    ext, top = halo_rows(x, r, shard)
+    n = shard.local
+    if n <= r:
+        raise ValueError(f"reflect_rows: {r} rows reflected in a slab of {n}")
+    if shard.up is None:
+        ext = torch.cat([x[:, 1: r + 1].flip(1), ext], dim=1)
+    if shard.down is None:
+        ext = torch.cat([ext, x[:, n - 1 - r: n - 1].flip(1)], dim=1)
+    return ext
+
+
+def box_kernel(kernel_size, height: int, width: int) -> tuple[int, int]:
+    """`local_avg_pool`'s kernel on an image of height x width: each side
+    at most the image's."""
+    return min(height, int(kernel_size[0])), min(width, int(kernel_size[1]))
+
+
+def box_partial(x: torch.Tensor, kernel, height: int, first: int,
+                own: int) -> torch.Tensor:
+    """This rank's share of the box sums of an image of `height` rows and
+    x's width, of which x (B, n, W, C) holds rows first, first + 1, ...
+    and the first `own` of them are this rank's: for every output row o
+    of the valid window, the float32 sum over its own rows in [o, o + k1)
+    of their box sums over W.  (B, height - k1 + 1, W - k2 + 1, C); where
+    the kernel covers the image, the sums of its own rows (B, 1, 1, C)."""
+    k1, k2 = kernel
+    w = x.shape[2]
+    xo = x[:, :own].float()
+    if k1 >= height and k2 >= w:
+        return xo.sum(dim=(1, 2), keepdim=True)
+    cw = F.pad(xo.cumsum(2), (0, 0, 1, 0))
+    pre = F.pad((cw[:, :, k2:] - cw[:, :, : w + 1 - k2]).cumsum(1),
+                (0, 0, 0, 0, 1, 0))
+    o = torch.arange(height - k1 + 1, device=x.device)
+    lo = (o - first).clamp(0, own)
+    hi = (o + k1 - first).clamp(0, own)
+    return pre[:, hi] - pre[:, lo]
+
+
+def box_finish(sums: torch.Tensor, kernel, height: int, width: int,
+               first: int, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """The box means of the image's rows first .. first + n - 1 from the
+    box sums summed over the ranks (`box_partial`), replicate-padded back
+    to the image's size about the centre as `local_avg_pool`'s auto_pad:
+    (B, n, W, C), or the image's mean (B, 1, 1, C) where the kernel
+    covers it."""
+    k1, k2 = kernel
+    if k1 >= height and k2 >= width:
+        return (sums / float(height * width)).to(dtype)
+    out = sums / float(k1 * k2)
+    oh, ow = out.shape[1], out.shape[2]
+    rows = (torch.arange(first, first + n, device=sums.device)
+            - (height - oh) // 2).clamp(0, oh - 1)
+    cols = (torch.arange(width, device=sums.device)
+            - (width - ow) // 2).clamp(0, ow - 1)
+    return out[:, rows][:, :, cols].to(dtype)
+
+
+def box_mean_rows(x: torch.Tensor, kernel_size,
+                  shard: RowShard) -> torch.Tensor:
+    """ops/tlc.py `local_avg_pool(image, kernel_size)` at the slab's rows:
+    x (B, local, W, C) one rank's slab of an image of shard.height rows.
+    One reduction of every rank's partial sums (the valid window's rows,
+    a few where the kernel is most of the image).  Returns (B, local, W,
+    C), or the image's mean (B, 1, 1, C) where the kernel covers the
+    image, as `local_avg_pool`."""
+    height = shard.height
+    kernel = box_kernel(kernel_size, height, x.shape[2])
+    sums, = reduce_stats(box_partial(x, kernel, height, shard.start,
+                                     shard.rows), shard=shard)
+    return box_finish(sums, kernel, height, x.shape[2], shard.start,
+                      x.shape[1], x.dtype)
+
+
+def image_mean(x: torch.Tensor, shard: RowShard | None = None):
+    """x's mean over H and W, (B, 1, 1, C); on a slab of a row-sharded
+    image (shard), the float32 sums of its own rows summed over the ranks,
+    over the whole image's pixels."""
+    if shard is None:
+        return x.mean(dim=(1, 2), keepdim=True)
+    sums = shard.own(x).float().sum(dim=(1, 2), keepdim=True)
+    reduce_stats(sums, shard=shard)
+    return (sums / float(shard.height * x.shape[2])).to(x.dtype)
+
+
 def reduce_stats(*tensors: torch.Tensor, shard: RowShard):
     """Sum each float32 tensor over the ranks, in place (one all-reduce of
-    their concatenation).  Returns the tensors."""
+    their concatenation); float64 tensors, all of them, where a sum feeds
+    a cancellation (SFNet's InstanceNorm moments).  Returns the
+    tensors."""
     if shard.world == 1:
         return tensors
+    dtype = tensors[0].dtype
     for t in tensors:
-        if t.dtype != torch.float32:
+        if t.dtype != dtype or dtype not in (torch.float32, torch.float64):
             raise ValueError(f"reduce_stats: {t.dtype} statistics")
     flat = _stage(torch.cat([t.reshape(-1) for t in tensors]))
-    with _timed(shard, "reduce", flat.numel() * 4, tensors[0].device):
+    with _timed(shard, "reduce", flat.numel() * flat.element_size(),
+                tensors[0].device):
         dist.all_reduce(flat)
     flat = flat.to(tensors[0].device)
     off = 0

@@ -5,7 +5,7 @@ Runs `chip_smoke.main` from the checkout's root with the functions named
 in PHASES wrapped, each call printing `TIME <function> <s> (at <s>)`,
 the seconds since this tool started, beside the script's own output.
 Nested calls print too (a phase's `profile_device` inside its
-`train_main_path`).  The spawned ranks of phases 38-40 run
+`train_main_path`).  The spawned ranks of phases 38-41 run
 chip_smoke's own, unwrapped functions.
 
     python -m textualdegremoval_tpu_torch.tools.smoke_times [--seed 0]
@@ -30,6 +30,7 @@ family_train_step diffir_forward diffir_cli keyed_archives
 tiled_restoration fid_and_metrics _dist_reference _spawn_ranks
 _diffir_reference _dist_cli window_vs_plain _spatial_reference
 naf_window_vs_plain _family_spatial_reference family_spatial_check
+_pool_spatial_reference pool_spatial_check
 spatial_phases profile_device""".split()
 
 
